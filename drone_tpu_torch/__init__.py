@@ -1,0 +1,23 @@
+"""drone_tpu_torch — the PyTorch and CUDA port of drone_tpu.
+
+The JAX package `drone_tpu` stays the reference; this package imports
+neither it nor JAX. Plain tensor code is PyTorch; every Pallas kernel of
+the reference becomes a hand-written CUDA kernel under `csrc/`, built with
+nvcc at first use and bound with ctypes (`ops/cuda_build.py`). Each kernel
+wrapper keeps a plain PyTorch version beside it, which runs for CPU
+tensors; on a CUDA tensor the wrapper launches the kernel or raises.
+
+Module map (same names as `drone_tpu`):
+  types, prng, mixing, dynamics, tasks, randomize, env   the env, bitwise
+                                                          to the C oracle
+  rollout                 batched Python-loop rollouts
+  ops.cuda_rollout        env megakernel (K1) + its plain version
+  ops.cuda_acting         MLP acting megakernel (K5) + its plain version
+  models.mlp              ActorCritic and the flax weight converters
+  utils.config, utils.checkpoint, train (evaluate), cli (eval)
+"""
+
+__version__ = "0.1.0"
+
+from drone_tpu_torch.types import EnvParams, EnvState, EnvStatics, StepOut  # noqa: F401
+from drone_tpu_torch.env import DroneEnv  # noqa: F401

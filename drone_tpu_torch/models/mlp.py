@@ -1,0 +1,116 @@
+"""Default MLP actor-critic (Gaussian policy head + value head).
+
+Counterpart of `drone_tpu/models/mlp.py`: separate actor and critic tanh
+towers (`actor_h{i}`, `critic_h{i}`), a linear action-mean head
+(`actor_mean`), a value head (`critic_value`) and a state-independent
+`log_std`. Initialisation draws from the same distributions as flax's:
+lecun-normal hidden kernels, orthogonal(0.01) mean head, orthogonal(1.0)
+value head, zero biases (the bits differ from JAX's).
+
+`params_from_flax` / `params_to_flax` convert between a flax variable tree
+and this module's state dict. A flax `Dense.kernel` is (in, out); an
+`nn.Linear.weight` is (out, in).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from drone_tpu_torch.types import ACT_DIM, OBS_DIM
+
+# flax's lecun_normal is a normal truncated at 2 standard deviations, scaled
+# so the truncated distribution has variance 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(weight: torch.Tensor, generator=None):
+    std = math.sqrt(1.0 / weight.shape[1]) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+class ActorCritic(nn.Module):
+    """obs (N, 13) -> (action mean (N, 4), log_std (N, 4), value (N,))."""
+
+    def __init__(self, hidden: Sequence[int] = (64, 64), dtype=torch.float32,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.hidden = tuple(int(h) for h in hidden)
+        self.dtype = dtype
+        for tower in ("actor", "critic"):
+            fan_in = OBS_DIM
+            for i, h in enumerate(self.hidden):
+                lin = nn.Linear(fan_in, h, device=device)
+                _lecun_normal_(lin.weight, generator)
+                nn.init.zeros_(lin.bias)
+                self.add_module(f"{tower}_h{i}", lin)
+                fan_in = h
+        self.actor_mean = nn.Linear(fan_in, ACT_DIM, device=device)
+        nn.init.orthogonal_(self.actor_mean.weight, 0.01, generator=generator)
+        nn.init.zeros_(self.actor_mean.bias)
+        self.critic_value = nn.Linear(fan_in, 1, device=device)
+        nn.init.orthogonal_(self.critic_value.weight, 1.0, generator=generator)
+        nn.init.zeros_(self.critic_value.bias)
+        self.log_std = nn.Parameter(torch.zeros(ACT_DIM, device=device))
+
+    def hidden_layers(self, tower: str) -> list[nn.Linear]:
+        return [getattr(self, f"{tower}_h{i}") for i in range(len(self.hidden))]
+
+    def _dense(self, lin: nn.Linear, x):
+        if self.dtype == torch.float32:
+            return F.linear(x, lin.weight, lin.bias)
+        return F.linear(x, lin.weight.to(self.dtype), lin.bias.to(self.dtype))
+
+    def _tower(self, tower: str, head: nn.Linear, obs):
+        x = obs.to(self.dtype)
+        for lin in self.hidden_layers(tower):
+            x = torch.tanh(self._dense(lin, x))
+        return self._dense(head, x).to(torch.float32)
+
+    def actor(self, obs):
+        """The action mean alone (what acting needs)."""
+        return self._tower("actor", self.actor_mean, obs)
+
+    def forward(self, obs):
+        mean = self.actor(obs)
+        value = self._tower("critic", self.critic_value, obs)
+        return mean, self.log_std.expand_as(mean), value[..., 0]
+
+
+def params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax ActorCritic variables ({"params": {...}} or the inner dict, numpy
+    or jax arrays) -> an ActorCritic state dict (CPU float32 tensors)."""
+    p = tree["params"] if "params" in tree else tree
+    sd = {}
+    for name, leaf in p.items():
+        if name == "log_std":
+            sd["log_std"] = torch.from_numpy(np.array(leaf, np.float32))
+            continue
+        sd[f"{name}.weight"] = torch.from_numpy(
+            np.array(leaf["kernel"], np.float32).T.copy())
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(leaf["bias"], np.float32))
+    return sd
+
+
+def params_to_flax(module: ActorCritic) -> dict:
+    """ActorCritic -> flax variable tree {"params": {...}} of numpy arrays."""
+    p = {}
+    for name, t in module.state_dict().items():
+        a = t.detach().cpu().numpy().astype(np.float32)
+        if name == "log_std":
+            p["log_std"] = a
+            continue
+        layer, kind = name.rsplit(".", 1)
+        leaf = p.setdefault(layer, {})
+        if kind == "weight":
+            leaf["kernel"] = a.T.copy()
+        else:
+            leaf["bias"] = a
+    return {"params": p}
+

@@ -1,0 +1,5 @@
+"""Hand-written CUDA kernels for the hot paths, each beside its plain
+PyTorch version (counterpart of `drone_tpu.ops`)."""
+
+from drone_tpu_torch.ops.cuda_rollout import rollout_cuda  # noqa: F401
+from drone_tpu_torch.ops.cuda_acting import act_rollout_cuda  # noqa: F401
