@@ -30,6 +30,33 @@ Phases:
   5. evaluate() on the card against evaluate() on the CPU (plain versions)
      at 512 episodes: episode counts within 1%, mean return within 1%.
   6. Times by CUDA events after a warm-up, at the paths' shapes.
+  7. K2 (csrc/acting_traj.cu) against its plain version on the card: hover,
+     [64, 64], 65,536 lanes, T = 3 (all 21 planes and the final state within
+     rtol 2e-5 / atol 2e-6, episodes equal), both action modes, and T = 64
+     stochastic (episodes within 2%, mean reward within 0.01).
+  8. K3 (csrc/update.cu) against its plain version on hover.toml's
+     minibatch (8 row blocks of 1,024 lanes x 64 steps, planes from K2):
+     each gradient tensor, and the stat sums, within 1e-4 x its max
+     |value|. Twice: at the weights that wrote the planes (ratio 1, the
+     first minibatch of an update), and at weights moved off them, where
+     at least 0.1% of the samples take each branch of the head's
+     subgradients (ratio clipped with and without gradient, value clipped
+     with and without gradient) and each of the policy-loss, value-loss,
+     approx-KL and clip-fraction sums is held on its own. K4 against its
+     plain version: rtol 1e-5 / atol 1e-8.
+  9. The training path: `train.train` on hover.toml with 3 updates (K2 = 3,
+     K3 = 96, K4 = 96 launches, finite metrics with the reference's keys);
+     `cli train configs/hover.toml` for 2 updates, then `evaluate` of the
+     checkpoint it wrote (through K5).
+ 10. The learning gate on the card (8,192 envs, horizon 32, [32, 32], lr
+     3e-3, no entropy bonus): mean reward of 5 updates above 0.3 within
+     120; and resume: train(4) == train(2) + resume(2) bitwise.
+ 11. Times of K2, K3, K4 (CUDA events) beside their plain versions and
+     bounds. One full-width update, queued with torch's host-sync check on
+     (it must not sync), split into rollout, GAE, update and metrics by
+     CUDA events at make_train_step's phase marks and by the host clock;
+     one more update traced with torch.profiler for the device's busy time
+     and idle share.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
@@ -37,6 +64,7 @@ The second-to-last line is the kernels JSON, the last the device JSON.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -67,11 +95,42 @@ OPS_RANDOM_ACTIONS = 2 + 2 * _TF + 4 * (_UNI + 2)
 OPS_OBS = 3
 
 
-def tower_ops(hidden) -> int:
-    """Multiply-adds x2 + bias adds + one per tanh of an actor tower."""
-    dims = [13, *hidden, 4]
+# K2's exploration noise and log-prob per lane-step: 2 threefry blocks, 4
+# uniforms, 2 logs, 2 sqrts, 4 sines/cosines and their 6 products, then
+# 4 x (mul, add, sub, div, mul, mul, sub, sub) and 3 adds
+OPS_NOISE_LOGP = 2 * _TF + 4 * _UNI + 14 + 35
+# K3's PPO head per sample (_head_grads: z, logp, ratio, the clipped
+# surrogate and value loss, their subgradients, dm, g_v and 8 stats)
+OPS_PPO_HEAD = 110
+
+
+def tower_ops(hidden, n_head: int = 4) -> int:
+    """Multiply-adds x2 + bias adds + one per tanh of a tower."""
+    dims = [13, *hidden, n_head]
     macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     return 2 * macs + sum(dims[1:]) + sum(hidden)
+
+
+def update_ops(hidden) -> int:
+    """Operations of one sample through K3: both towers forward, the head,
+    and backward: dW and db of every layer, and for every layer but the
+    first the input gradient and the tanh derivative (3 ops a unit)."""
+    ops = tower_ops(hidden, 4) + tower_ops(hidden, 1) + OPS_PPO_HEAD
+    for n_head in (4, 1):
+        dims = [13, *hidden, n_head]
+        for layer, (nin, nout) in enumerate(zip(dims[:-1], dims[1:])):
+            ops += 2 * nin * nout + nout
+            if layer > 0:
+                ops += 2 * nin * nout + 3 * nin
+    return ops
+
+
+def bound(ops, nbytes):
+    """(the least time in ms the card could take, what sets it): the larger
+    of the operations over the fp32 rate and the bytes over the HBM rate."""
+    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def device_line() -> str:
@@ -230,17 +289,509 @@ def phase_k5() -> float:
     return max_err
 
 
-def zero_counts():
-    from drone_tpu_torch.ops import act_rollout_cuda, rollout_cuda
+def _wrappers() -> dict:
+    from drone_tpu_torch import ops
 
-    rollout_cuda.launches = 0
-    act_rollout_cuda.launches = 0
+    return {"K1": ops.rollout_cuda, "K2": ops.traj_rollout_cuda,
+            "K3": ops.ppo_update_cuda, "K4": ops.fused_adam_cuda,
+            "K5": ops.act_rollout_cuda}
+
+
+def zero_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def counts() -> dict:
-    from drone_tpu_torch.ops import act_rollout_cuda, rollout_cuda
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
-    return {"K1": rollout_cuda.launches, "K5": act_rollout_cuda.launches}
+
+def flat_policy(hidden=(64, 64), seed=1, log_std=-0.5):
+    """A seeded ActorCritic on the card, flattened as the trainer keeps it,
+    with actions of order 1 and a given log_std."""
+    import torch
+
+    m = seeded_policy(hidden, seed=seed, head_gain=1.0)
+    with torch.no_grad():
+        m.log_std.fill_(log_std)
+    m = m.cuda()
+    m.flatten_()
+    return m
+
+
+def phase_k2() -> float:
+    """K2 against its plain version on the card; returns the max abs error
+    of the T = 3 planes."""
+    import torch
+
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.ops import cuda_acting_traj as K2
+    from drone_tpu_torch.types import default_params
+
+    n = 65536
+    model = flat_policy()
+    max_err = 0.0
+    for T, horizon, modes in ((3, 2, (False, True)), (64, 40, (True,))):
+        env = DroneEnv("hover", "euler", default_params("hover",
+                                                         horizon=horizon),
+                       device="cuda")
+        state = env.init_batch(5, n)
+        for sto in modes:
+            kf, kp, ks = K2.traj_rollout_kernel(state, model.flat, model.hidden,
+                                                env.params, env.statics, T, sto)
+            pf, pp, ps = K2.traj_rollout_plain(state, model.flat, model.hidden,
+                                               env.params, env.statics, T, sto)
+            torch.cuda.synchronize()
+            k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
+            k_r, p_r = float(ks[0].sum()) / (n * T), float(ps[0].sum()) / (n * T)
+            err = float((kp - pp).abs().max())
+            print(f"K2 hover [64, 64] n={n} T={T} stochastic={sto}: max|plane "
+                  f"err|={err:.3g} episodes {k_ep:.0f} vs {p_ep:.0f}, mean "
+                  f"reward {k_r:.6f} vs {p_r:.6f}", flush=True)
+            if T == 3:
+                max_err = max(max_err, err)
+                torch.testing.assert_close(kp, pp, rtol=2e-5, atol=2e-6)
+                torch.testing.assert_close(kf.fstate(), pf.fstate(),
+                                           rtol=2e-5, atol=2e-6)
+                if k_ep != p_ep or k_ep < n:
+                    raise AssertionError("K2 episode counts differ at T=3")
+            elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
+                raise AssertionError("K2 episode statistics disagree")
+    return max_err
+
+
+def hover_minibatch(cfg, model, env):
+    """hover.toml's update inputs on the card: K2's planes at full width,
+    their normalized advantages, a minibatch's row blocks."""
+    import torch
+
+    from drone_tpu_torch import ppo_cuda
+    from drone_tpu_torch.env import observe
+    from drone_tpu_torch.ops import cuda_acting_traj as K2
+
+    tc = cfg.train
+    _, _, rbu, n_rb, mb_rb, co = ppo_cuda.plan_minibatch_geometry(
+        tc, tc.num_envs)
+    state = env.init_batch(7, tc.num_envs)
+    final, planes, _ = K2.traj_rollout_kernel(state, model.flat, model.hidden,
+                                              env.params, env.statics,
+                                              tc.horizon)
+    _, critic, _ = K2.tower_weights(model.flat, model.hidden)
+    with torch.no_grad():
+        last_value = K2.tower_forward(observe(final), critic)[:, 0]
+    advret = ppo_cuda.normalized_advret(planes, last_value, tc)
+    perm = torch.randperm(n_rb, generator=torch.Generator().manual_seed(3))
+    perm_mb = perm[:mb_rb].to(device="cuda", dtype=torch.int32)
+    return planes, advret, perm_mb, co, rbu * 128
+
+
+def off_policy(model, seed=5):
+    """A copy of the model's flat parameters moved away from the weights that
+    wrote the planes: noise on the actor's and the critic's heads, log_std up
+    by 0.1. On part of the samples the ratio then leaves 1 +- clip_eps and v
+    leaves v_old +- vf_clip, as on every minibatch of an update after its
+    first."""
+    import torch
+
+    from drone_tpu_torch.models import kernel_offsets, kernel_order
+
+    offs, _ = kernel_offsets(model.hidden)
+    shapes = dict(kernel_order(model.hidden))
+    theta = model.flat.clone()
+    g = torch.Generator().manual_seed(seed)
+    for name, scale in (("actor_mean.weight", 0.02), ("actor_mean.bias", 0.02),
+                        ("critic_value.weight", 2.0),
+                        ("critic_value.bias", 2.0)):
+        n = math.prod(shapes[name])
+        theta[offs[name]:offs[name] + n] += (
+            scale * torch.randn(n, generator=g)).to(theta.device)
+    theta[offs["log_std"]:offs["log_std"] + 4] += 0.1
+    return theta
+
+
+def check_k3(planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef,
+             each_stat: bool) -> float:
+    """K3 against its plain version on one minibatch: each gradient tensor
+    within 1e-4 x its max |value|. The stat sums likewise: with each_stat,
+    the policy-loss, value-loss, approx-KL and clip-fraction sums each
+    against its own value and the log_std terms as a group; otherwise all 8
+    as one tensor. Returns (the largest absolute difference, the plain
+    version's stat sums)."""
+    import torch
+
+    from drone_tpu_torch.models import kernel_order
+    from drone_tpu_torch.ops import cuda_update as K3
+
+    args = (planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef)
+    kg, ks = K3.ppo_update_kernel(*args)
+    pg, ps = K3.ppo_update_plain(*args)
+    torch.cuda.synchronize()
+    groups, off = [], 0
+    for name, shape in kernel_order(hidden):
+        n = math.prod(shape)
+        groups.append((name, kg[off:off + n], pg[off:off + n]))
+        off += n
+    if each_stat:
+        groups += [(f"stat {i}", ks[i:i + 1], ps[i:i + 1]) for i in range(4)]
+        groups.append(("stats 4-7", ks[4:], ps[4:]))
+    else:
+        groups.append(("stats", ks, ps))
+    max_err = max_rel = 0.0
+    for name, a, b in groups:
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        rel = err / scale if scale > 0 else err
+        max_err, max_rel = max(max_err, err), max(max_rel, rel)
+        if rel > 1e-4:
+            raise AssertionError(f"K3 {name}: max|err| {err:.3g} is "
+                                 f"{rel:.3g} of max|value| {scale:.3g}")
+    print(f"K3 hover.toml minibatch ({perm_mb.numel()} row blocks of {rbl} "
+          f"lanes x {planes.shape[0]} steps): max|err| {max_err:.3g}, at most "
+          f"{max_rel:.3g} of a tensor's max|value|; stats kernel {ks.tolist()} "
+          f"plain {ps.tolist()}", flush=True)
+    return max_err, ps
+
+
+def phase_k3_k4(cfg, env):
+    """K3 and K4 against their plain versions at hover.toml's shapes;
+    returns (K3 max abs error, K4 max abs error, inputs for timing)."""
+    import torch
+
+    from drone_tpu_torch import ppo_cuda
+    from drone_tpu_torch.ops import cuda_update as K3
+
+    model = flat_policy()
+    planes, advret, perm_mb, co, rbl = hover_minibatch(cfg, model, env)
+    ent = cfg.train.ent_coef
+    # the first minibatch of an update: the weights that wrote the planes,
+    # ratio 1 and v == v_old on every sample
+    k3_err, _ = check_k3(planes, advret, perm_mb, model.flat, model.hidden,
+                         co, rbl, ent, each_stat=False)
+    # a later minibatch: every branch of the head's subgradients taken
+    theta = off_policy(model)
+    n = K3.head_branch_counts(planes, advret, perm_mb, theta, model.hidden,
+                              co, rbl)
+    print(f"K3 off-policy branches: {n}", flush=True)
+    least = 0.001 * n["samples"]
+    if not (n["ratio_out"] - n["policy_grad_zero"] > least
+            and n["policy_grad_zero"] > least
+            and n["value_out"] - n["value_grad_zero"] > least
+            and n["value_grad_zero"] > least):
+        raise AssertionError("the off-policy K3 check misses a branch")
+    err, ps = check_k3(planes, advret, perm_mb, theta, model.hidden, co, rbl,
+                       ent, each_stat=True)
+    if float(ps[K3.ST_KL]) == 0.0 or float(ps[K3.ST_CF]) == 0.0:
+        raise AssertionError("the off-policy approx-KL or clip-fraction sum "
+                             "is 0")
+    k3_err = max(k3_err, err)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    P = model.flat.numel()
+    grads = 0.05 * torch.randn(P, device="cuda", generator=g)
+    mu0 = 0.01 * torch.randn(P, device="cuda", generator=g)
+    nu0 = 0.001 * torch.rand(P, device="cuda", generator=g)
+    sched = ppo_cuda.make_fused_lr(cfg.train)
+    ac = K3.AdamConsts(clip_norm=cfg.train.max_grad_norm)
+    outs = []
+    for run in (K3.fused_adam_kernel, K3.fused_adam_plain):
+        theta, mu, nu = model.flat.clone(), mu0.clone(), nu0.clone()
+        count = torch.tensor(5.0, device="cuda")
+        run(theta, grads, mu, nu, count, ac, sched, model.hidden)
+        outs.append((theta, mu, nu, count))
+    torch.cuda.synchronize()
+    k4_err = 0.0
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-8)
+        k4_err = max(k4_err, float((a - b).abs().max()))
+    print(f"K4 {P} parameters, count 5, clip active (|g| = "
+          f"{float(grads.norm()):.3g}): max|err| {k4_err:.3g}", flush=True)
+    return k3_err, k4_err, (model, planes, advret, perm_mb, co, rbl, grads,
+                            mu0, nu0, sched, ac)
+
+
+def path_training(cfg_path, tmp):
+    """train() on hover.toml for 3 updates, then cli train for 2 and
+    evaluate of its checkpoint. Returns the launch counts of train()."""
+    import torch
+
+    from drone_tpu_torch import cli, ppo_cuda
+    from drone_tpu_torch.train import evaluate, train
+    from drone_tpu_torch.utils.config import Config
+
+    cfg = Config.from_toml(cfg_path).with_overrides([
+        "run.total_updates=3", f"run.checkpoint_dir={tmp}",
+        "run.run_name=smoke"])
+    zero_counts()
+    t0 = time.time()
+    _, last = train(cfg)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    train_counts = counts()
+    print(f"training path: train(hover.toml, 3 updates) in {t_train:.2f} s; "
+          f"launches {train_counts}; last {last}", flush=True)
+    want = {"K2": 3, "K3": 96, "K4": 96}
+    if any(train_counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"the training path launched {train_counts}, "
+                             f"expected {want}")
+    if not set(ppo_cuda.METRIC_KEYS) <= set(last):
+        raise AssertionError(f"metric keys {sorted(last)}")
+    if not all(v == v and abs(v) != float("inf") for k, v in last.items()
+               if k in ppo_cuda.METRIC_KEYS):
+        raise AssertionError("non-finite training metrics")
+
+    zero_counts()
+    rc = cli.main(["train", str(cfg_path), "run.total_updates=2",
+                   f"run.checkpoint_dir={tmp}", "run.run_name=cli"])
+    res = evaluate(Config.from_toml(cfg_path).with_overrides(
+        [f"run.resume_from={tmp}/cli/checkpoints"]), episodes=4096)
+    torch.cuda.synchronize()
+    cli_counts = counts()
+    print(f"cli train (2 updates) rc={rc}, then evaluate of its checkpoint "
+          f"{res}; launches {cli_counts}", flush=True)
+    if rc != 0 or cli_counts["K2"] != 2 or cli_counts["K3"] != 64 \
+            or cli_counts["K5"] != 1 or res["episodes"] < 4096:
+        raise AssertionError("cli train + evaluate did not run as expected")
+    return train_counts
+
+
+def phase_learning_and_resume(tmp):
+    """The learning gate and bitwise resume on the card."""
+    import torch
+
+    from drone_tpu_torch import ppo_cuda
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.models import ActorCritic
+    from drone_tpu_torch.ppo import PPOConfig, init_runner
+    from drone_tpu_torch.train import train
+    from drone_tpu_torch.utils.config import Config
+
+    env = DroneEnv(device="cuda")
+    cfg = PPOConfig(horizon=32, num_envs=8192, epochs=4, num_minibatches=4,
+                    lr=3e-3, ent_coef=0.0)
+    model = ActorCritic((32, 32), generator=torch.Generator().manual_seed(0))
+    runner = init_runner(model, env, cfg, seed=0)
+    step = ppo_cuda.make_train_step(env, cfg)
+    rewards, t0 = [], time.time()
+    for u in range(120):
+        runner, m = step(runner)
+        rewards.append(float(m["reward_mean"]))
+        if u >= 4 and sum(rewards[-5:]) / 5 > 0.3:
+            break
+    mean5 = sum(rewards[-5:]) / 5
+    print(f"learning gate: mean reward of the last 5 updates {mean5:.4f} "
+          f"after {len(rewards)} updates ({time.time() - t0:.1f} s); first 5 "
+          f"{sum(rewards[:5]) / 5:.4f}", flush=True)
+    if mean5 <= 0.3:
+        raise AssertionError("the learning gate failed on the card")
+
+    def cfg_for(name, total, extra=()):
+        return Config.default().with_overrides([
+            "train.num_envs=4096", "train.horizon=16", "train.epochs=2",
+            "train.num_minibatches=2", "run.hidden=32,32",
+            "run.log_interval=2", f"run.total_updates={total}",
+            f"run.run_name={name}", f"run.checkpoint_dir={tmp}", *extra])
+
+    full, _ = train(cfg_for("full", 4))
+    train(cfg_for("half", 2))
+    resumed, _ = train(cfg_for("resumed", 4, [
+        f"run.resume_from={tmp}/half/checkpoints"]))
+    torch.cuda.synchronize()
+
+    def tensors(r):
+        return [*r.params.state_dict().values(), *r.opt_state,
+                r.env_state.fstate(), r.env_state.step]
+
+    ok = all(bitwise_equal(a, b) for a, b in zip(tensors(full),
+                                                 tensors(resumed)))
+    print(f"resume on the card: train(4) == train(2) + resume(2) bitwise: "
+          f"{ok}", flush=True)
+    if not ok:
+        raise AssertionError("resume is not bitwise on the card")
+
+
+def time_training(cfg, env, inputs):
+    """Times of K2, K3 and K4 (CUDA events) beside their plain versions,
+    bounds and K4's library pair, and one full-width update split into its
+    phases. Returns {name: (ms, plain_ms, bound_ms, bound_by, library_ms)}
+    (the breakdown is printed)."""
+    import torch
+
+    from drone_tpu_torch.models import kernel_order
+    from drone_tpu_torch.ops import cuda_acting_traj as K2
+    from drone_tpu_torch.ops import cuda_update as K3
+
+    model, planes, advret, perm_mb, co, rbl, grads, mu0, nu0, sched, ac = inputs
+    tc = cfg.train
+    n, T, hidden = tc.num_envs, tc.horizon, model.hidden
+    P = model.flat.numel()
+    state = env.init_batch(9, n)
+
+    out = {}
+    _, _, lane = K2.traj_rollout_kernel(state, model.flat, hidden, env.params,
+                                        env.statics, T)
+    episodes = float(lane[1].sum())
+    k2_ms = cuda_ms(lambda: K2.traj_rollout_kernel(
+        state, model.flat, hidden, env.params, env.statics, T), reps=5)
+    t0 = time.time()
+    K2.traj_rollout_plain(state, model.flat, hidden, env.params, env.statics, T)
+    torch.cuda.synchronize()
+    k2_plain = (time.time() - t0) * 1e3
+    k2_ops = (n * T * (OPS_STEP + OPS_OBS + tower_ops(hidden, 4)
+                       + tower_ops(hidden, 1) + OPS_NOISE_LOGP)
+              + episodes * OPS_RESET)
+    k2_bytes = n * (2 * 25 * 4 + 5 * 4) + T * 21 * n * 4 + P * 4
+    out["K2"] = (k2_ms, k2_plain, *bound(k2_ops, k2_bytes), None)
+
+    args = (planes, advret, perm_mb, model.flat, hidden, co, rbl, tc.ent_coef)
+    samples = perm_mb.numel() * rbl * T
+    k3_ms = cuda_ms(lambda: K3.ppo_update_kernel(*args), reps=10)
+    k3_plain = cuda_ms(lambda: K3.ppo_update_plain(*args), reps=2)
+    k3_ops = samples * update_ops(hidden)
+    k3_bytes = samples * 21 * 4 + P * 4 + (P + 8) * 4
+    out["K3"] = (k3_ms, k3_plain, *bound(k3_ops, k3_bytes), None)
+
+    theta, mu, nu = model.flat.clone(), mu0.clone(), nu0.clone()
+    count = torch.tensor(5.0, device="cuda")
+    k4_ms = cuda_ms(lambda: K3.fused_adam_kernel(
+        theta, grads, mu, nu, count, ac, sched, hidden), reps=100)
+    k4_plain = cuda_ms(lambda: K3.fused_adam_plain(
+        theta, grads, mu, nu, count, ac, sched, hidden), reps=20)
+    # the nearest library pair (two calls): clip_grad_norm_ + fused Adam
+    shapes = [sh for _, sh in kernel_order(hidden)]
+    numels = [math.prod(sh) for sh in shapes]
+    params = [torch.nn.Parameter(t.clone().reshape(sh)) for t, sh in
+              zip(torch.split(model.flat, numels), shapes)]
+    for prm, g in zip(params, torch.split(grads, numels)):
+        prm.grad = g.clone().reshape(prm.shape)
+    opt = torch.optim.Adam(params, lr=tc.lr, eps=1e-5, fused=True)
+
+    def library_step():
+        torch.nn.utils.clip_grad_norm_(params, tc.max_grad_norm, foreach=True)
+        opt.step()
+
+    k4_lib = cuda_ms(library_step, reps=100)
+    # squares and sum (2), then per element: scale, 2 moments (7), the
+    # update (8) and the add (1); read params, grads, mu, nu, write 3
+    out["K4"] = (k4_ms, k4_plain, *bound(P * 18, P * 4 * 7 + 8), k4_lib)
+
+    for name, (ms, plain, bms, by, lib) in out.items():
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain:.2f} ms, bound "
+              f"{bms:.4f} ms ({by}), library {lib}", flush=True)
+    split_update(cfg)
+    return out
+
+
+def split_update(cfg):
+    """One warm full-width update of train.build's runner, split into its
+    phases by CUDA events recorded at the phase marks of make_train_step
+    (device time between marks, so a gap the host leaves is counted in
+    the phase it delays) and by the host clock (time to queue each phase).
+    The update must queue without a host sync: torch's sync check is on
+    while it does. A torch.profiler trace of one more update gives the
+    device's busy time and idle share, and the time of each kernel class."""
+    import warnings
+
+    import torch
+
+    from drone_tpu_torch import ppo_cuda
+    from drone_tpu_torch.train import build
+
+    env, _, runner, _, bcfg = build(cfg)
+    tc = bcfg.train
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev, time.perf_counter()))
+
+    step = ppo_cuda.make_train_step(env, tc, on_phase=mark)
+    runner, m = step(runner)  # warm-up
+    float(m["loss"])
+    marks.clear()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            runner, m = step(runner)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t_queued = time.perf_counter()
+    float(m["loss"])
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    if syncs:
+        raise AssertionError(f"the update synced with the host: {syncs}")
+    split = {"wall_ms": wall_ms,
+             "samples_per_s": tc.num_envs * tc.horizon / wall_ms * 1e3,
+             "host_queue_ms": (t_queued - t0) * 1e3}
+    for (name, e0, h0), (_, e1, h1) in zip(marks, marks[1:]):
+        split[f"{name}_device_ms"] = e0.elapsed_time(e1)
+        split[f"{name}_host_ms"] = (h1 - h0) * 1e3
+    print(f"one update at hover.toml (no host sync inside): {split}",
+          flush=True)
+    print(f"the same update traced: {trace_update(step, runner)}", flush=True)
+    return split
+
+
+def trace_update(step, runner) -> dict:
+    """Device busy time, idle share and the time of each kernel class over
+    one update (torch.profiler, from its host-side range to the read of the
+    loss). Returns {"not measured": reason} when the trace holds no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function("one_update"):
+                    _, m = step(runner)
+                    float(m["loss"])
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+        except RuntimeError as e:  # no CUPTI: the trace is what is missing
+            return {"not measured": f"torch.profiler failed: {e}"}
+        events = json.loads(path.read_text())["traceEvents"]
+    span = [e for e in events if e.get("name") == "one_update"
+            and e.get("cat") == "user_annotation"]
+    device = [e for e in events if e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not span or not device:
+        return {"not measured": "no device activity in the trace"}
+    t0 = float(span[0]["ts"])
+    t1 = t0 + float(span[0]["dur"])
+    busy, end = 0.0, t0
+    for e in sorted(device, key=lambda e: float(e["ts"])):
+        a = max(float(e["ts"]), end)
+        b = min(float(e["ts"]) + float(e["dur"]), t1)
+        if b > a:
+            busy += b - a
+        end = max(end, b)
+    # the port's kernels live in namespace drone (torch has reduce_kernels
+    # of its own)
+    classes = {"K2": ("drone::traj_kernel",),
+               "K3": ("drone::update_kernel", "drone::reduce_kernel"),
+               "K4": ("drone::adam_kernel",)}
+    by_class = {k: 0.0 for k in (*classes, "other")}
+    counts = {k: 0 for k in by_class}
+    other = {}
+    for e in device:
+        k = next((c for c, keys in classes.items()
+                  if any(key in e["name"] for key in keys)), "other")
+        by_class[k] += float(e["dur"]) / 1e3
+        counts[k] += 1
+        if k == "other":
+            name = e["name"][:60]
+            other[name] = other.get(name, 0.0) + float(e["dur"]) / 1e3
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:3]
+    return {"span_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (t1 - t0),
+            "device_ms": by_class, "device_ops": counts,
+            "largest_other_ms": dict(top)}
 
 
 def main() -> int:
@@ -364,32 +915,46 @@ def main() -> int:
     k5_bytes = n * (2 * 25 * 4 + 5 * 4) + 4 * (13 * 64 + 64 * 64 + 64 * 4
                                              + 64 + 64 + 4)
 
-    def bound(ops, nbytes):
-        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        return (max(t_ops, t_bytes) * 1e3,
-                "operations" if t_ops >= t_bytes else "bytes")
-
     k1_bound, k1_by = bound(k1_ops, k1_bytes)
     k5_bound, k5_by = bound(k5_ops, k5_bytes)
     print(f"K1 {n} x {horizon}: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.1f} "
           f"ms, bound {k1_bound:.4f} ms ({k1_ops:.4g} ops)", flush=True)
     print(f"K5 {n} x {horizon}: kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.1f} "
           f"ms, bound {k5_bound:.4f} ms ({k5_ops:.4g} ops)", flush=True)
+    # -- the training slice: K2, K3, K4 and the training path ----------------
+    k2_err = phase_k2()
+    k3_err, k4_err, inputs = phase_k3_k4(cfg, env)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts = path_training(cfg_path, tmp)
+        phase_learning_and_resume(tmp)
+    times = time_training(cfg, env, inputs)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
+    def entry(name, source, replaces, launches, err, ms, plain_ms,
+              bound_ms, bound_by, library_ms):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
     kernels = [
-        {"name": "K1 env rollout", "route": "cuda",
-         "source": "drone_tpu_torch/csrc/rollout.cu",
-         "replaces": "drone_tpu/ops/pallas_rollout.py:460",
-         "launches": engine_counts["K1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
-        {"name": "K5 MLP acting", "route": "cuda",
-         "source": "drone_tpu_torch/csrc/acting.cu",
-         "replaces": "drone_tpu/ops/pallas_acting.py:109",
-         "launches": serve_counts["K5"], "max_abs_err": k5_err,
-         "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
-         "bound_by": k5_by, "library_ms": None},
+        entry("K1 env rollout", "drone_tpu_torch/csrc/rollout.cu",
+              "drone_tpu/ops/pallas_rollout.py:460", engine_counts["K1"],
+              k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, None),
+        entry("K2 trajectory rollout",
+              "drone_tpu_torch/csrc/acting_traj.cu",
+              "drone_tpu/ops/pallas_acting_traj.py:120", train_counts["K2"],
+              k2_err, *times["K2"]),
+        entry("K3 PPO update", "drone_tpu_torch/csrc/update.cu",
+              "drone_tpu/ops/pallas_update.py:206", train_counts["K3"],
+              k3_err, *times["K3"]),
+        entry("K4 fused clip+adam", "drone_tpu_torch/csrc/update.cu",
+              "drone_tpu/ops/pallas_update.py:456", train_counts["K4"],
+              k4_err, *times["K4"]),
+        entry("K5 MLP acting", "drone_tpu_torch/csrc/acting.cu",
+              "drone_tpu/ops/pallas_acting.py:109", serve_counts["K5"],
+              k5_err, k5_ms, k5_plain_ms, k5_bound, k5_by, None),
     ]
     print(dev, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,8 +13,13 @@ Module map (same names as `drone_tpu`):
   rollout                 batched Python-loop rollouts
   ops.cuda_rollout        env megakernel (K1) + its plain version
   ops.cuda_acting         MLP acting megakernel (K5) + its plain version
-  models.mlp              ActorCritic and the flax weight converters
-  utils.config, utils.checkpoint, train (evaluate), cli (eval)
+  ops.cuda_acting_traj    trajectory rollout kernel (K2) + its plain version
+  ops.cuda_update         PPO update (K3) and fused clip+adam (K4) + theirs
+  models.mlp              ActorCritic (flat parameter buffer) and the flax
+                          weight and optimizer-state converters
+  ppo, ppo_cuda           GAE, RunnerState; the megakernel PPO trainer
+  utils.config, utils.checkpoint, utils.metrics, train (train, evaluate),
+  cli (train, eval)
 """
 
 __version__ = "0.1.0"

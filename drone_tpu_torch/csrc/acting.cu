@@ -11,6 +11,9 @@
 // mean; stochastic mode adds exp(log_std) * z with z from Box-Muller over
 // the lane's threefry stream at NOISE_BLOCK0 + 2*step (_gauss4_planes).
 //
+// The tower and the Box-Muller draw are policy.cuh's (shared with K2,
+// acting_traj.cu).
+//
 // What bounds it on an H100: the tower's multiply-adds on the fp32 cores
 // (5,184 per lane-step for [64, 64], 13*64 + 64*64 + 64*4), plus one tanhf
 // per hidden unit. The design:
@@ -22,10 +25,7 @@
 //     reading the input activations from the thread's own column of shared
 //     memory ([unit][thread], conflict-free);
 //   - the last hidden layer is folded into the 4 head accumulators chunk by
-//     chunk, so its activations are never stored;
-//   - the tower uses explicit fmaf: the env math is built with
-//     --fmad=false for its bitwise contract, the tower is held to a
-//     tolerance instead (its summation order differs from a matmul anyway).
+//     chunk, so its activations are never stored.
 // Tensor-core (wgmma) towers are work for a later change.
 
 #include <cuda_runtime.h>
@@ -33,113 +33,11 @@
 #include <cstdint>
 
 #include "env.cuh"
+#include "policy.cuh"
 
 namespace drone {
 
 constexpr int ACT_THREADS = 128;
-constexpr int MAX_HIDDEN = 8;
-constexpr int MAX_WIDTH = 256;
-constexpr int CHUNK = 16;
-// float32(2*pi), as drone_tpu's jnp.float32(_TWO_PI) rounds it (0x40C90FDB).
-constexpr float TWO_PI = 6.28318548202514648438f;
-
-// Weight layout in the packed buffer (ops/cuda_acting.py pack_tower):
-// hidden layer l at off[l]: W^T (nin, pad16(width[l])) then its bias
-// (pad16(width[l])), with nin = 13 for l = 0 and width[l-1] after; the head
-// at head_off: W^T (nin, 4) then its bias (4). Padding is zero.
-struct Tower {
-  int n_hidden, head_off, n_weights, maxw_p;
-  int width[MAX_HIDDEN];
-  int off[MAX_HIDDEN];
-  float std[4];
-};
-
-__device__ __forceinline__ int pad16(int w) { return (w + CHUNK - 1) & ~(CHUNK - 1); }
-
-// _tower: obs column -> 4 action means. `col_obs`, `col_a`, `col_b` are
-// this thread's columns (stride B) of the block's activation buffers.
-__device__ __forceinline__ void tower(const float* sw, const Tower& tw,
-                                      const float* col_obs, float* col_a,
-                                      float* col_b, int B, float a[4]) {
-  const float4* wh4 = reinterpret_cast<const float4*>(sw + tw.head_off);
-  float head[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  const float* in = col_obs;
-  int nin = OBS_DIM;
-  for (int l = 0; l < tw.n_hidden; ++l) {
-    const int nout = tw.width[l];
-    const int np = pad16(nout);
-    const float* W = sw + tw.off[l];
-    const float* bias = W + nin * np;
-    const bool last = l == tw.n_hidden - 1;
-    float* out = (l & 1) ? col_b : col_a;
-    for (int j0 = 0; j0 < np; j0 += CHUNK) {
-      float acc[CHUNK];
-#pragma unroll
-      for (int c = 0; c < CHUNK; ++c) acc[c] = 0.0f;
-      for (int k = 0; k < nin; ++k) {
-        const float x = in[k * B];
-        const float4* w4 = reinterpret_cast<const float4*>(W + k * np + j0);
-#pragma unroll
-        for (int q = 0; q < CHUNK / 4; ++q) {
-          const float4 w = w4[q];
-          acc[4 * q + 0] = __fmaf_rn(w.x, x, acc[4 * q + 0]);
-          acc[4 * q + 1] = __fmaf_rn(w.y, x, acc[4 * q + 1]);
-          acc[4 * q + 2] = __fmaf_rn(w.z, x, acc[4 * q + 2]);
-          acc[4 * q + 3] = __fmaf_rn(w.w, x, acc[4 * q + 3]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        const float u = tanhf(acc[c] + bias[j0 + c]);
-        if (!last) {
-          out[(j0 + c) * B] = u;
-        } else if (j0 + c < nout) {
-          const float4 w = wh4[j0 + c];
-          head[0] = __fmaf_rn(w.x, u, head[0]);
-          head[1] = __fmaf_rn(w.y, u, head[1]);
-          head[2] = __fmaf_rn(w.z, u, head[2]);
-          head[3] = __fmaf_rn(w.w, u, head[3]);
-        }
-      }
-    }
-    in = out;
-    nin = nout;
-  }
-  if (tw.n_hidden == 0) {  // linear policy: the head reads the obs
-    for (int k = 0; k < OBS_DIM; ++k) {
-      const float x = col_obs[k * B];
-      const float4 w = wh4[k];
-      head[0] = __fmaf_rn(w.x, x, head[0]);
-      head[1] = __fmaf_rn(w.y, x, head[1]);
-      head[2] = __fmaf_rn(w.z, x, head[2]);
-      head[3] = __fmaf_rn(w.w, x, head[3]);
-    }
-  }
-  const int head_rows = tw.n_hidden ? tw.width[tw.n_hidden - 1] : OBS_DIM;
-  const float* hb = sw + tw.head_off + 4 * head_rows;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) a[k] = head[k] + hb[k];
-}
-
-// _gauss4_planes: 4 standard normals at blocks NOISE_BLOCK0 + 2*step (+1).
-__device__ __forceinline__ void gauss4(uint32_t k0, uint32_t k1, uint32_t e,
-                                       int stp, float z[4]) {
-  const uint32_t jb = NOISE_BLOCK0 + 2u * (uint32_t)stp;
-  uint32_t b0, b1, b2, b3;
-  threefry2x32(k0, k1, e, jb, b0, b1);
-  threefry2x32(k0, k1, e, jb + 1u, b2, b3);
-  const float u1 = uniform01(b0), u2 = uniform01(b1);
-  const float u3 = uniform01(b2), u4 = uniform01(b3);
-  // 1-u in (0, 1]: log never sees 0
-  const float r1 = sqrtf(-2.0f * logf(1.0f - u1));
-  const float r2 = sqrtf(-2.0f * logf(1.0f - u3));
-  const float a1 = TWO_PI * u2;
-  const float a2 = TWO_PI * u4;
-  z[0] = r1 * cosf(a1);
-  z[1] = r1 * sinf(a1);
-  z[2] = r2 * cosf(a2);
-  z[3] = r2 * sinf(a2);
-}
 
 template <int TASK, int INTEG, bool STOCH>
 __global__ void __launch_bounds__(ACT_THREADS)
@@ -167,7 +65,7 @@ act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
 #pragma unroll
     for (int k = 0; k < OBS_DIM; ++k) col_obs[k * B] = o[k];
     float a[4];
-    tower(sw, tw, col_obs, col_a, col_b, B, a);
+    tower<4>(sw, tw, col_obs, col_a, col_b, B, a);
     if (STOCH) {
       float z[4];
       gauss4(c.k0, c.k1, c.rc, c.stp, z);
@@ -184,12 +82,10 @@ act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
   write_back(pl, i, c, acc);
 }
 
-// Shared memory of one block: the weights, the obs column block and up to
-// two hidden-activation column blocks (ping-pong for depth >= 3).
+// Shared memory of one block: the weights and the activation columns.
 inline size_t smem_bytes(const Tower& tw) {
-  const int nbuf = tw.n_hidden >= 3 ? 2 : (tw.n_hidden == 2 ? 1 : 0);
   return sizeof(float) *
-         ((size_t)tw.n_weights + (size_t)(CHUNK + nbuf * tw.maxw_p) * ACT_THREADS);
+         ((size_t)tw.n_weights + (size_t)activation_floats(tw, ACT_THREADS));
 }
 
 template <int TASK, int INTEG, bool STOCH>
@@ -232,17 +128,7 @@ extern "C" int drone_act_rollout(const float* pf, const int* pi,
   using namespace drone;
   if (n <= 0 || T < 0) return (int)cudaErrorInvalidValue;
   Tower tw;
-  tw.n_hidden = layout[0];
-  tw.head_off = layout[1];
-  tw.n_weights = layout[2];
-  tw.maxw_p = layout[3];
-  if (tw.n_hidden < 0 || tw.n_hidden > MAX_HIDDEN || tw.n_weights % 4 != 0 ||
-      tw.maxw_p > MAX_WIDTH)
-    return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < MAX_HIDDEN; ++l) {
-    tw.width[l] = layout[4 + l];
-    tw.off[l] = layout[4 + MAX_HIDDEN + l];
-  }
+  if (!read_tower(layout, tw)) return (int)cudaErrorInvalidValue;
   for (int k = 0; k < 4; ++k) tw.std[k] = stdv[k];
   const Planes pl{fs, us, st, ofs, ous, ost, stats, n};
   const float4* w = reinterpret_cast<const float4*>(weights);

@@ -10,6 +10,14 @@ value head, zero biases (the bits differ from JAX's).
 `params_from_flax` / `params_to_flax` convert between a flax variable tree
 and this module's state dict. A flax `Dense.kernel` is (in, out); an
 `nn.Linear.weight` is (out, in).
+
+The megakernel trainer keeps every parameter in one flat float32 buffer
+(`ActorCritic.flatten_`) in the reference's `_kernel_tensors` order: per
+layer W (out, in) then b, the actor tower and head, the critic tower and
+head, then log_std. The parameters stay views of that buffer, so the module
+and the kernels see the same numbers. `fused_opt_state_from_flax` /
+`fused_opt_state_to_flax` convert the reference's fused optimizer state
+(count, mu list, nu list) to the port's (count, flat mu, flat nu) and back.
 """
 
 from __future__ import annotations
@@ -59,6 +67,23 @@ class ActorCritic(nn.Module):
         nn.init.zeros_(self.critic_value.bias)
         self.log_std = nn.Parameter(torch.zeros(ACT_DIM, device=device))
 
+    def flatten_(self) -> torch.Tensor:
+        """Move every parameter into one flat float32 buffer in kernel order
+        (`kernel_order`) and make the parameters views of it. Returns the
+        buffer, also kept as `self.flat`. Call it after any `.to(device)`,
+        which would give the parameters storage of their own again."""
+        sd = dict(self.named_parameters())
+        with torch.no_grad():
+            flat = torch.cat([sd[name].detach().reshape(-1).to(torch.float32)
+                              for name, _ in kernel_order(self.hidden)])
+            off = 0
+            for name, shape in kernel_order(self.hidden):
+                n = math.prod(shape)
+                sd[name].data = flat[off:off + n].view(shape)
+                off += n
+        self.flat = flat
+        return flat
+
     def hidden_layers(self, tower: str) -> list[nn.Linear]:
         return [getattr(self, f"{tower}_h{i}") for i in range(len(self.hidden))]
 
@@ -81,6 +106,68 @@ class ActorCritic(nn.Module):
         mean = self.actor(obs)
         value = self._tower("critic", self.critic_value, obs)
         return mean, self.log_std.expand_as(mean), value[..., 0]
+
+
+def kernel_order(hidden: Sequence[int]) -> list[tuple[str, tuple]]:
+    """(state-dict name, shape) of every parameter, in the order of the
+    reference's `ppo_pallas._kernel_tensors` (its b (out, 1) and log_std
+    (1, 4) hold the same numbers as b (out,) and (4,) here)."""
+    order = []
+    for tower, head, n_head in (("actor", "actor_mean", ACT_DIM),
+                                ("critic", "critic_value", 1)):
+        fan_in = OBS_DIM
+        for i, h in enumerate(hidden):
+            order += [(f"{tower}_h{i}.weight", (h, fan_in)),
+                      (f"{tower}_h{i}.bias", (h,))]
+            fan_in = h
+        order += [(f"{head}.weight", (n_head, fan_in)),
+                  (f"{head}.bias", (n_head,))]
+    order.append(("log_std", (ACT_DIM,)))
+    return order
+
+
+def kernel_offsets(hidden: Sequence[int]) -> tuple[dict[str, int], int]:
+    """({state-dict name: offset in the flat buffer}, buffer length)."""
+    offs, off = {}, 0
+    for name, shape in kernel_order(hidden):
+        offs[name] = off
+        off += math.prod(shape)
+    return offs, off
+
+
+def fused_opt_state_from_flax(fused, device="cpu"):
+    """The reference's fused optimizer state (count, [mu tensors], [nu
+    tensors]), each list in `_kernel_tensors` order -> the port's (count
+    0-d float32 tensor, flat mu, flat nu)."""
+    count, mu, nu = fused
+
+    def flat(ts):
+        return torch.from_numpy(np.concatenate(
+            [np.asarray(t, np.float32).reshape(-1) for t in ts])).to(device)
+
+    return (torch.tensor(float(np.asarray(count)), dtype=torch.float32,
+                         device=device), flat(mu), flat(nu))
+
+
+def fused_opt_state_to_flax(opt_state, hidden: Sequence[int]):
+    """Inverse of fused_opt_state_from_flax: (count, flat mu, flat nu) ->
+    (numpy float32 count, [mu arrays], [nu arrays]) in the reference's
+    kernel-tensor shapes (b as (out, 1), log_std as (1, 4))."""
+    count, mu, nu = opt_state
+    order = kernel_order(hidden)
+
+    def split(v):
+        v = v.detach().cpu().numpy().astype(np.float32)
+        out, off = [], 0
+        for name, shape in order:
+            n = math.prod(shape)
+            ref_shape = ((1, ACT_DIM) if name == "log_std"
+                         else (shape[0], 1) if len(shape) == 1 else shape)
+            out.append(v[off:off + n].reshape(ref_shape))
+            off += n
+        return out
+
+    return (np.float32(float(count)), split(mu), split(nu))
 
 
 def params_from_flax(tree) -> dict[str, torch.Tensor]:

@@ -3,3 +3,8 @@ PyTorch version (counterpart of `drone_tpu.ops`)."""
 
 from drone_tpu_torch.ops.cuda_rollout import rollout_cuda  # noqa: F401
 from drone_tpu_torch.ops.cuda_acting import act_rollout_cuda  # noqa: F401
+from drone_tpu_torch.ops.cuda_acting_traj import traj_rollout_cuda  # noqa: F401
+from drone_tpu_torch.ops.cuda_update import (  # noqa: F401
+    fused_adam_cuda,
+    ppo_update_cuda,
+)

@@ -94,44 +94,66 @@ def act_rollout_plain(state: EnvState, policy: ActorCritic,
     return state, acc
 
 
-def pack_tower(policy: ActorCritic, device):
-    """The actor tower in the kernel's shared-memory layout (acting.cu
-    Tower): each hidden layer as W^T (in, out padded to 16) then its padded
-    bias, then the head as W^T (in, 4) and its bias, zero-padded, in one
-    float32 buffer. Returns (buffer, layout int32 array, std float32 array)."""
-    hidden = policy.hidden_layers("actor")
-    widths = [lin.out_features for lin in hidden]
+def tower_layout(widths, n_head: int = 4):
+    """policy.cuh's shared-memory layout of one tower: each hidden layer as
+    W^T (in, out padded to 16) then its padded bias, then the head as W^T
+    (in, n_head) and its bias. Returns (the Tower ints [n_hidden, head_off,
+    n_weights, maxw_p, width[MAX_HIDDEN], off[MAX_HIDDEN]] as int32, the
+    per-layer offsets). n_weights is rounded up to a multiple of 4 floats.
+    Raises for a tower the kernels cannot take."""
+    widths = [int(w) for w in widths]
     if len(widths) > MAX_HIDDEN or any(w > MAX_WIDTH for w in widths):
-        raise ValueError(f"the acting kernel takes at most {MAX_HIDDEN} "
+        raise ValueError(f"the acting kernels take at most {MAX_HIDDEN} "
                          f"hidden layers of width <= {MAX_WIDTH}, got {widths}")
-    pad = lambda w: -(-w // _CHUNK) * _CHUNK  # noqa: E731
-    parts, offs, off, nin = [], [], 0, OBS_DIM
+    offs, off, nin = [], 0, OBS_DIM
+    for w in widths:
+        offs.append(off)
+        off += (nin + 1) * _pad16(w)
+        nin = w
+    head_off = off
+    off += (nin + 1) * n_head
+    ints = np.zeros(4 + 2 * MAX_HIDDEN, np.int32)
+    ints[:4] = (len(widths), head_off, -(-off // 4) * 4,
+                max((_pad16(w) for w in widths), default=0))
+    ints[4:4 + len(widths)] = widths
+    ints[4 + MAX_HIDDEN:4 + MAX_HIDDEN + len(widths)] = offs
+    return ints, offs
+
+
+def check_smem(n_weights: int, widths) -> None:
+    """Raise when the weights and the activation columns of one block do
+    not fit its shared memory."""
+    maxw = max((_pad16(w) for w in widths), default=0)
+    n_buf = 2 if len(widths) >= 3 else (1 if len(widths) == 2 else 0)
+    smem = 4 * (n_weights + (_CHUNK + n_buf * maxw) * _THREADS)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"towers {list(widths)} need {smem} bytes of shared "
+                         f"memory per block; the kernels have {_MAX_SMEM}")
+
+
+def _pad16(w: int) -> int:
+    return -(-w // _CHUNK) * _CHUNK
+
+
+def pack_tower(policy: ActorCritic, device):
+    """The actor tower in the kernel's shared-memory layout (`tower_layout`)
+    in one float32 buffer. Returns (buffer, layout int32 array, std float32
+    array)."""
+    widths = [lin.out_features for lin in policy.hidden_layers("actor")]
+    layout, offs = tower_layout(widths)
+    parts, nin = [], OBS_DIM
     with torch.no_grad():
-        for lin in hidden:
-            nout, npad = lin.out_features, pad(lin.out_features)
-            wt = torch.zeros(nin, npad, device=device)
-            wt[:, :nout] = lin.weight.t()
-            b = torch.zeros(npad, device=device)
-            b[:nout] = lin.bias
-            offs.append(off)
-            parts += [wt.reshape(-1), b]
-            off += nin * npad + npad
-            nin = nout
-        head_off = off
+        for lin in policy.hidden_layers("actor"):
+            blk = torch.zeros(nin + 1, _pad16(lin.out_features), device=device)
+            blk[:nin, :lin.out_features] = lin.weight.t()
+            blk[nin, :lin.out_features] = lin.bias
+            parts.append(blk.reshape(-1))
+            nin = lin.out_features
         parts += [policy.actor_mean.weight.t().reshape(-1).to(device),
                   policy.actor_mean.bias.to(device)]
-        off += nin * 4 + 4
         weights = torch.cat(parts).to(torch.float32).contiguous()
-    maxw = max((pad(w) for w in widths), default=0)
-    n_buf = 2 if len(widths) >= 3 else (1 if len(widths) == 2 else 0)
-    smem = 4 * (off + (_CHUNK + n_buf * maxw) * _THREADS)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"actor tower {widths} needs {smem} bytes of shared "
-                         f"memory per block; the kernel has {_MAX_SMEM}")
-    layout = np.zeros(4 + 2 * MAX_HIDDEN, np.int32)
-    layout[:4] = (len(widths), head_off, off, maxw)
-    layout[4:4 + len(widths)] = widths
-    layout[4 + MAX_HIDDEN:4 + MAX_HIDDEN + len(widths)] = offs
+    assert weights.numel() == layout[2]
+    check_smem(int(layout[2]), widths)
     std = np.ascontiguousarray(
         torch.exp(policy.log_std.detach()).cpu().numpy(), np.float32)
     return weights, layout, std

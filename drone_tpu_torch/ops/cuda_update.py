@@ -1,0 +1,377 @@
+"""PPO update kernels: K3, one minibatch of clipped-PPO forward+backward,
+and K4, clip_by_global_norm + adam in one launch.
+
+Counterpart of `drone_tpu/ops/pallas_update.py`. The kernels are in
+`csrc/update.cu`. Their plain PyTorch versions sit beside them:
+`ppo_update_plain` is the hand-written backprop of `_block_grads` in
+vectorized torch over the gathered minibatch, `fused_adam_plain` is
+`_adam_math`. `ppo_update_cuda` and `fused_adam_cuda` take the plain
+version for CPU tensors only; on a CUDA tensor they launch the kernel.
+
+The parameters, their gradients and the adam moments are flat float32
+buffers in the reference's `_kernel_tensors` order (`models.mlp.
+kernel_order`). K4 updates the parameters, the moments and the step count
+in place (the module's parameters are views of the buffer, so they follow),
+and takes the learning rate's linear anneal (`LrSchedule`) from the count
+on the device.
+
+Gradient conventions (CleanRL/PuffeRL clipped PPO, as the reference):
+  total = mean(pg) + vf_coef * 0.5 * mean(vl) - ent_coef * ent
+  pg    = max(-adv*ratio, -adv*clip(ratio, 1 +- clip_eps))
+  vl    = max((v-ret)^2, (v_old+clip(v-v_old, +-vf_clip)-ret)^2)
+max/clip subgradients: the first branch wins ties; clip passes gradient
+inside the closed interval.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from drone_tpu_torch.dynamics import sqrt_rn
+from drone_tpu_torch.models.mlp import kernel_offsets, kernel_order
+from drone_tpu_torch.ops import cuda_build
+from drone_tpu_torch.ops.cuda_acting_traj import (
+    HALF_LOG_2PI,
+    N_TRAJ,
+    TP_ACT0,
+    TP_LOGP,
+    TP_OBS0,
+    TP_VAL,
+    tower_weights,
+)
+from drone_tpu_torch.types import OBS_DIM
+
+# update-stat sums: policy loss, value loss terms, approx-KL, clip fraction,
+# then the 4 per-dim log_std gradient contributions
+ST_PG, ST_VL, ST_KL, ST_CF = 0, 1, 2, 3
+ST_DLS0 = 4
+N_UPSTATS = 8
+
+# kernel limits (csrc/update.cu)
+UPD_HIDDEN = 8
+TILE = 64
+MAX_BLOCKS = 396
+_SP = TILE + 1
+_MAX_SMEM = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateConsts:
+    """PPO constants of the update (pallas_update.UpdateConsts)."""
+
+    clip_eps: float
+    vf_clip: float
+    vf_coef: float
+    inv_m: float     # 1 / (samples per minibatch)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamConsts:
+    """Optimizer constants (ppo.make_optimizer's chain)."""
+
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-5
+    clip_norm: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class LrSchedule:
+    """lr, or its linear anneal to 0 over total_steps optimizer steps
+    (ppo_pallas.make_fused_lr), as a function of the step count."""
+
+    lr: float
+    total_steps: int
+    anneal: bool
+
+    def __call__(self, count: torch.Tensor) -> torch.Tensor:
+        lr = torch.tensor(self.lr, dtype=torch.float32, device=count.device)
+        if not self.anneal:
+            return lr
+        total = torch.tensor(float(self.total_steps), dtype=torch.float32,
+                             device=count.device)
+        return lr * (1.0 - torch.clamp_max(count / total, 1.0))
+
+
+def minibatch_lanes(perm_mb: torch.Tensor, rbl: int) -> torch.Tensor:
+    """Lane indices of the row blocks perm_mb (rbl lanes each), in order."""
+    offs = torch.arange(rbl, device=perm_mb.device)
+    return (perm_mb.to(torch.int64)[:, None] * rbl + offs).reshape(-1)
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def head_grads(m, v, a, logp_old, v_old, adv, ret, ls, co: UpdateConsts):
+    """_head_grads over a batch of samples: m (S, 4), v (S,), a (S, 4), the
+    rest (S,), ls (4,). Returns (dm (S, 4), g_v (S,), stats (S, 8))."""
+    inv_m = _f32(co.inv_m)
+    lo, hi = _f32(1.0 - co.clip_eps), _f32(1.0 + co.clip_eps)
+    std = torch.exp(ls)
+    z = (a - m) / std
+    terms = -0.5 * (z * z) - ls - HALF_LOG_2PI
+    lp = ((terms[:, 0] + terms[:, 1]) + terms[:, 2]) + terms[:, 3]
+    ratio = torch.exp(lp - logp_old)
+    pg1 = -adv * ratio
+    pg2 = -adv * torch.clamp(ratio, lo, hi)
+    pg = torch.maximum(pg1, pg2)
+    inclip = (ratio >= lo) & (ratio <= hi)
+    dpg = torch.where((pg1 >= pg2) | inclip, -adv, 0.0)
+    g_logp = inv_m * dpg * ratio
+
+    dv_raw = v - ret
+    vdiff = torch.clamp(v - v_old, -co.vf_clip, co.vf_clip)
+    dv_c = (v_old + vdiff) - ret
+    vl = torch.maximum(dv_raw * dv_raw, dv_c * dv_c)
+    use_raw = (dv_raw * dv_raw) >= (dv_c * dv_c)
+    in_vclip = (v - v_old >= -co.vf_clip) & (v - v_old <= co.vf_clip)
+    dvl = torch.where(use_raw, 2.0 * dv_raw,
+                      torch.where(in_vclip, 2.0 * dv_c, 0.0))
+    g_v = _f32(0.5 * co.vf_coef) * inv_m * dvl
+
+    dm = g_logp[:, None] * (z / torch.exp(ls))
+    stats = torch.stack([pg, vl, logp_old - lp,
+                         (torch.abs(ratio - 1.0) > co.clip_eps).to(torch.float32),
+                         *(g_logp * (z[:, k] * z[:, k] - 1.0) for k in range(4))],
+                        1)
+    return dm, g_v, stats
+
+
+def _tower_fwd(x, weights):
+    acts = [x]
+    for li, (w, b) in enumerate(weights):
+        x = x @ w.t() + b
+        if li < len(weights) - 1:
+            x = torch.tanh(x)
+        acts.append(x)
+    return x, acts
+
+
+def _tower_bwd(weights, acts, dy):
+    """dy (S, out) of the head -> [(dW (out, in), db (out,)), ...]."""
+    grads = [None] * len(weights)
+    for li in range(len(weights) - 1, -1, -1):
+        w, _ = weights[li]
+        grads[li] = (dy.t() @ acts[li], dy.sum(0))
+        if li > 0:
+            y = acts[li]
+            dy = (dy @ w) * (1.0 - y * y)
+    return grads
+
+
+def gather_minibatch(planes, advret, perm_mb, rbl):
+    """The minibatch's samples, sample-major: (X (S, 13), a (S, 4),
+    logp_old, v_old, adv, ret (S,)), S = T * n_sel * rbl (time-major)."""
+    lanes = minibatch_lanes(perm_mb, rbl)
+    blk = planes[:, :, lanes]                    # (T, 21, M)
+    ar = advret[:, :, lanes]                     # (2, T, M)
+    flat = blk.permute(1, 0, 2).reshape(N_TRAJ, -1)
+    X = flat[TP_OBS0:TP_OBS0 + OBS_DIM].t()
+    a = flat[TP_ACT0:TP_ACT0 + 4].t()
+    return X, a, flat[TP_LOGP], flat[TP_VAL], ar[0].reshape(-1), ar[1].reshape(-1)
+
+
+def ppo_update_plain(planes, advret, perm_mb, theta, hidden,
+                     co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
+    """Plain PyTorch version of K3 (_block_grads over the whole minibatch).
+    Returns (grads (P,) in kernel order, stat sums (N_UPSTATS,)). Gradients
+    are sums scaled by inv_m; log_std's is its stat sums minus ent_coef."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    actor, critic, ls = tower_weights(theta, hidden)
+    X, a, logp_old, v_old, adv, ret = gather_minibatch(planes, advret,
+                                                       perm_mb, rbl)
+    with torch.no_grad():
+        m, acts_a = _tower_fwd(X, actor)
+        vx, acts_c = _tower_fwd(X, critic)
+        dm, g_v, stats = head_grads(m, vx[:, 0], a, logp_old, v_old, adv, ret,
+                                    ls, co)
+        ga = _tower_bwd(actor, acts_a, dm)
+        gc = _tower_bwd(critic, acts_c, g_v[:, None])
+        st = stats.sum(0)
+        offs, total = kernel_offsets(hidden)
+        grads = torch.empty(total, device=theta.device)
+        names = [name for name, _ in kernel_order(hidden)]
+        for name, g in zip(names, [t for wb in (*ga, *gc) for t in wb]):
+            grads[offs[name]:offs[name] + g.numel()] = g.reshape(-1)
+        grads[offs["log_std"]:offs["log_std"] + 4] = st[ST_DLS0:] - ent_coef
+    return grads, st
+
+
+@torch.no_grad()
+def head_branch_counts(planes, advret, perm_mb, theta, hidden,
+                       co: UpdateConsts, rbl: int) -> dict:
+    """How many samples of a minibatch take each branch of the head's
+    subgradients at theta: the ratio outside 1 +- clip_eps, of which the
+    clipped surrogate wins (policy gradient 0), and v - v_old outside
+    +-vf_clip, of which the clipped value loss wins (value gradient 0).
+    A check of K3 that holds it to its plain version needs every branch."""
+    actor, critic, ls = tower_weights(theta, hidden)
+    X, a, logp_old, v_old, adv, ret = gather_minibatch(planes, advret,
+                                                       perm_mb, rbl)
+    m, _ = _tower_fwd(X, actor)
+    v = _tower_fwd(X, critic)[0][:, 0]
+    dm, g_v, stats = head_grads(m, v, a, logp_old, v_old, adv, ret, ls, co)
+    value_out = torch.abs(v - v_old) > co.vf_clip
+    return {"samples": X.shape[0],
+            "ratio_out": int(stats[:, ST_CF].sum()),
+            "policy_grad_zero": int((dm == 0).all(1).sum()),
+            "value_out": int(value_out.sum()),
+            "value_grad_zero": int((value_out & (g_v == 0)).sum())}
+
+
+def update_layout(hidden) -> np.ndarray:
+    """The host ints of drone_ppo_update: [n_hidden, widths, actor W
+    offsets, critic W offsets, P, ls_off]. Raises for a tower the kernel
+    cannot take."""
+    hidden = tuple(int(h) for h in hidden)
+    rows = OBS_DIM + 2 * sum(hidden) + 5 + 8
+    if len(hidden) > UPD_HIDDEN or 4 * rows * _SP > _MAX_SMEM:
+        raise ValueError(f"the update kernel takes at most {UPD_HIDDEN} hidden "
+                         f"layers and {_MAX_SMEM} bytes of activations per "
+                         f"tile; towers {list(hidden)} need "
+                         f"{4 * rows * _SP}")
+    offs, total = kernel_offsets(hidden)
+    ints = np.zeros(5 + 3 * UPD_HIDDEN, np.int32)
+    ints[0] = len(hidden)
+    ints[1:1 + len(hidden)] = hidden
+    for t, (tower, head) in enumerate((("actor", "actor_mean"),
+                                       ("critic", "critic_value"))):
+        names = [f"{tower}_h{i}" for i in range(len(hidden))] + [head]
+        base = 1 + UPD_HIDDEN + t * (UPD_HIDDEN + 1)
+        ints[base:base + len(names)] = [offs[f"{n}.weight"] for n in names]
+    ints[3 + 3 * UPD_HIDDEN] = total
+    ints[4 + 3 * UPD_HIDDEN] = offs["log_std"]
+    return ints
+
+
+def _check_cuda(name, t, dtype, shape=None):
+    if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor, "
+                         f"got {t.dtype} on {t.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+
+
+def ppo_update_kernel(planes, advret, perm_mb, theta, hidden,
+                      co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
+    """Launch K3 (csrc/update.cu). Same contract as ppo_update_plain."""
+    T, _, n = planes.shape
+    layout = update_layout(hidden)
+    P = int(layout[3 + 3 * UPD_HIDDEN])
+    _check_cuda("planes", planes, torch.float32, (T, N_TRAJ, n))
+    _check_cuda("advret", advret, torch.float32, (2, T, n))
+    _check_cuda("perm_mb", perm_mb, torch.int32)
+    _check_cuda("theta", theta, torch.float32, (P,))
+    if rbl % TILE or n % rbl:
+        raise ValueError(f"row blocks of {rbl} lanes: the kernel needs a "
+                         f"multiple of {TILE} that divides {n}")
+    n_tiles = perm_mb.numel() * (rbl // TILE) * T
+    G = min(n_tiles, MAX_BLOCKS)
+    dev = planes.device
+    partial = torch.empty(G, P + N_UPSTATS, device=dev)
+    grads = torch.empty(P, device=dev)
+    stats = torch.empty(N_UPSTATS, device=dev)
+    consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
+                       co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
+                      np.float32)
+    fn = cuda_build.load("update").drone_ppo_update
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(planes.data_ptr(), advret.data_ptr(), perm_mb.data_ptr(),
+                 theta.data_ptr(), partial.data_ptr(), grads.data_ptr(),
+                 stats.data_ptr(), layout.ctypes.data, consts.ctypes.data, n,
+                 T, rbl, perm_mb.numel(), G,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "drone_ppo_update")
+    ppo_update_cuda.launches += 1
+    return grads, stats
+
+
+def ppo_update_cuda(planes, advret, perm_mb, theta, hidden,
+                    co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
+    """One PPO minibatch gradient pass over the trajectory planes: the
+    kernel on CUDA tensors, the plain version on CPU tensors.
+
+    planes: (T, N_TRAJ, N) from the trajectory rollout; advret: (2, T, N)
+    (normalized advantage, return); perm_mb: (n_sel,) int32 row-block
+    indices, block i covering lanes [i*rbl, (i+1)*rbl); theta: the flat
+    parameters of towers `hidden`. Returns (grads (P,), stat sums (8,))."""
+    run = ppo_update_plain if planes.device.type == "cpu" else ppo_update_kernel
+    return run(planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef)
+
+
+ppo_update_cuda.launches = 0
+
+
+@torch.no_grad()
+def fused_adam_plain(theta, grads, mu, nu, count, ac: AdamConsts,
+                     sched: LrSchedule, hidden):
+    """Plain PyTorch version of K4 (_adam_math): updates theta, mu, nu and
+    count in place. The squared norm sums each tensor, then adds the sums
+    in kernel order, as the reference does."""
+    ss = None
+    offs, _ = kernel_offsets(hidden)
+    for name, shape in kernel_order(hidden):
+        g = grads[offs[name]:offs[name] + math.prod(shape)]
+        s = torch.sum(g * g)
+        ss = s if ss is None else ss + s
+    gn = sqrt_rn(ss)
+    clip = torch.tensor(ac.clip_norm, dtype=torch.float32, device=gn.device)
+    scale = torch.where(gn > clip, clip / gn, 1.0)
+    lr = sched(count)
+    c = count + 1.0
+    bc1 = 1.0 - torch.exp(c * _f32(math.log(ac.b1)))
+    bc2 = 1.0 - torch.exp(c * _f32(math.log(ac.b2)))
+    b1, b2 = np.float32(ac.b1), np.float32(ac.b2)
+    gc = grads * scale
+    mu2 = float(b1) * mu + float(np.float32(1.0) - b1) * gc
+    nu2 = float(b2) * nu + float(np.float32(1.0) - b2) * (gc * gc)
+    upd = -lr * (mu2 / bc1) / (sqrt_rn(nu2 / bc2) + _f32(ac.eps))
+    theta.add_(upd)
+    mu.copy_(mu2)
+    nu.copy_(nu2)
+    count.copy_(c)
+
+
+def fused_adam_kernel(theta, grads, mu, nu, count, ac: AdamConsts,
+                      sched: LrSchedule, hidden):
+    """Launch K4 (csrc/update.cu). Same contract as fused_adam_plain."""
+    P = theta.numel()
+    for name, t in (("theta", theta), ("grads", grads), ("mu", mu),
+                    ("nu", nu)):
+        _check_cuda(name, t, torch.float32, (P,))
+    _check_cuda("count", count, torch.float32, ())
+    consts = np.array([sched.lr, sched.total_steps, ac.b1, ac.b2, ac.eps,
+                       ac.clip_norm, math.log(ac.b1), math.log(ac.b2)],
+                      np.float32)
+    fn = cuda_build.load("update").drone_fused_adam
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(theta.device):
+        err = fn(theta.data_ptr(), grads.data_ptr(), mu.data_ptr(),
+                 nu.data_ptr(), count.data_ptr(), P, consts.ctypes.data,
+                 int(sched.anneal),
+                 torch.cuda.current_stream(theta.device).cuda_stream)
+    cuda_build.check(err, "drone_fused_adam")
+    fused_adam_cuda.launches += 1
+
+
+def fused_adam_cuda(theta, grads, mu, nu, count, ac: AdamConsts,
+                    sched: LrSchedule, hidden):
+    """clip_by_global_norm + adam over the flat buffers, in place: the
+    kernel on CUDA tensors, the plain version on CPU tensors. count is a
+    0-d float32 tensor (the adam step count), incremented by one."""
+    run = fused_adam_plain if theta.device.type == "cpu" else fused_adam_kernel
+    run(theta, grads, mu, nu, count, ac, sched, hidden)
+
+
+fused_adam_cuda.launches = 0

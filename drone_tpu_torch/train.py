@@ -1,24 +1,36 @@
-"""Evaluation driver: restore a policy and roll it out in the env.
+"""Training and evaluation entry points (counterpart of `drone_tpu/train.py`).
 
-Counterpart of `drone_tpu/train.py` for the serving path (`evaluate`,
-`build_env_and_model`, `restore_dir`). Training is still to port
-(ROADMAP.md, "the training slice").
+`train` is the outer loop around the megakernel train step
+(`ppo_cuda.make_train_step`): config -> env -> policy -> loop { rollout +
+update on the device } with metrics, periodic checkpoints and exact resume.
+The host reads scalar metrics back only every log_interval updates.
+`evaluate` restores a policy and rolls it out through the acting kernel.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+import time
 from pathlib import Path
 
 import torch
 from torch import nn
 
+from drone_tpu_torch import ppo_cuda
 from drone_tpu_torch.env import DroneEnv
 from drone_tpu_torch.models import ActorCritic
 from drone_tpu_torch.ops import act_rollout_cuda
+from drone_tpu_torch.ppo import init_runner
 from drone_tpu_torch.rollout import rollout_policy
 from drone_tpu_torch.types import resolve_device
 from drone_tpu_torch.utils.checkpoint import Checkpointer
 from drone_tpu_torch.utils.config import Config
+from drone_tpu_torch.utils.metrics import (
+    MetricsLogger,
+    RichDashboard,
+    dashboard_line,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _UNPORTED_POLICIES = {
@@ -42,9 +54,12 @@ def build_env_and_model(cfg: Config, device="cuda"):
     if cfg.run.policy != "mlp":
         raise ValueError(f"run.policy must be 'mlp', 'cnn', 'cnn_overlap', "
                          f"'lstm' or 'cnn_lstm', got {cfg.run.policy!r}")
+    # initialised on the CPU from the run's seed (the card and the CPU start
+    # from the same weights), then moved
     model = ActorCritic(hidden=tuple(cfg.run.hidden),
-                        dtype=_DTYPES[cfg.run.compute_dtype], device=device)
-    return env, model
+                        dtype=_DTYPES[cfg.run.compute_dtype],
+                        generator=torch.Generator().manual_seed(cfg.run.seed))
+    return env, model.to(device)
 
 
 def restore_dir(cfg: Config) -> Path:
@@ -53,6 +68,115 @@ def restore_dir(cfg: Config) -> Path:
     if cfg.run.resume_from:
         return Path(cfg.run.resume_from)
     return Path(cfg.run.checkpoint_dir) / cfg.run.run_name / "checkpoints"
+
+
+def build(cfg: Config, device="cuda"):
+    """Config -> (env, model, runner, step_fn, cfg with train.total_updates
+    synced from run.total_updates). The megakernel trainer takes
+    run.rollout 'auto' and 'pallas'; the scan trainer, bfloat16 training
+    and run.profile_dir are still to port and raise NotImplementedError."""
+    # run.total_updates is the run's length; the lr anneal spans it
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, total_updates=cfg.run.total_updates))
+    env, model = build_env_and_model(cfg, device)
+    eligible = cfg.train.num_envs % (128 * cfg.train.num_minibatches) == 0
+    if cfg.run.rollout == "scan" or (cfg.run.rollout == "auto"
+                                     and not eligible):
+        raise NotImplementedError(
+            "the scan trainer (autograd, optax-shaped state) is not ported "
+            "yet (ROADMAP.md, module queue: the scan trainer); the megakernel "
+            "trainer needs num_envs divisible by 128 * num_minibatches")
+    if cfg.run.rollout == "pallas" and not eligible:
+        raise ValueError(
+            f"run.rollout='pallas' needs num_envs divisible by "
+            f"128*num_minibatches, got num_envs={cfg.train.num_envs}, "
+            f"num_minibatches={cfg.train.num_minibatches}")
+    if cfg.run.rollout not in ("auto", "pallas"):
+        raise ValueError(f"run.rollout must be 'scan', 'pallas' or 'auto', "
+                         f"got {cfg.run.rollout!r}")
+    if cfg.run.compute_dtype != "float32":
+        raise NotImplementedError(
+            "bfloat16 training is not ported yet (ROADMAP.md, module queue: "
+            "bf16 training)")
+    if cfg.run.profile_dir:
+        raise NotImplementedError(
+            "run.profile_dir is not ported yet (ROADMAP.md, module queue: "
+            "run.profile_dir through torch.profiler)")
+    runner = init_runner(model, env, cfg.train, seed=cfg.run.seed)
+    step = ppo_cuda.make_train_step(env, cfg.train)
+    return env, runner.params, runner, step, cfg
+
+
+def train(cfg: Config, on_update=None, device="cuda"):
+    """Run cfg.run.total_updates updates on `device`. Returns (runner, the
+    last logged metrics record)."""
+    env, model, runner, step, cfg = build(cfg, device)
+
+    run_dir = Path(cfg.run.checkpoint_dir) / cfg.run.run_name
+    ckpt = Checkpointer(run_dir / "checkpoints")
+    # a fresh run must not write into a directory holding another run's
+    # checkpoints (eval would serve a mix); resuming this run's own
+    # directory is the one legitimate overlap
+    resume_self = (bool(cfg.run.resume_from)
+                   and Path(cfg.run.resume_from).resolve() == ckpt.dir)
+    if not resume_self and ckpt.dir.is_dir() and any(ckpt.dir.iterdir()):
+        raise RuntimeError(
+            f"checkpoint directory {ckpt.dir} already contains a previous "
+            f"run's checkpoints. Pick a fresh run.run_name, remove the "
+            f"directory, or continue that run with "
+            f"run.resume_from={ckpt.dir}")
+    start_update = 0
+    if cfg.run.resume_from:
+        runner, start_update = Checkpointer(cfg.run.resume_from).restore(
+            runner)
+        print(f"resumed from {cfg.run.resume_from} at update {start_update}")
+
+    metrics_path = cfg.run.metrics_path or (run_dir / "metrics.jsonl")
+    logger = MetricsLogger(metrics_path,
+                           tb_dir=(run_dir / "tb") if cfg.run.tensorboard else None)
+    rich_dash = (RichDashboard(cfg.run.total_updates)
+                 if cfg.run.dashboard == "rich" else None)
+
+    steps_per_update = cfg.train.horizon * cfg.train.num_envs
+    last = None
+    t_last = time.time()
+    u_last = start_update
+    try:
+        for u in range(start_update, cfg.run.total_updates):
+            runner, m = step(runner)
+            if ((u + 1) % cfg.run.log_interval == 0
+                    or u == cfg.run.total_updates - 1):
+                # reading the loss waits for the device, so the clock below
+                # covers the work of the updates since the last log
+                loss_val = float(m["loss"])
+                if math.isnan(loss_val):
+                    raise RuntimeError(
+                        f"training diverged: loss is NaN at update {u + 1} "
+                        f"(last checkpoint in {run_dir}/checkpoints; resume "
+                        f"with a lower train.lr or tighter "
+                        f"train.max_grad_norm)")
+                now = time.time()
+                sps = steps_per_update * (u + 1 - u_last) / (now - t_last)
+                t_last = now
+                u_last = u + 1
+                rec = logger.log((u + 1) * steps_per_update, m, sps=sps)
+                if rich_dash is not None:
+                    rich_dash.update(u + 1, rec)
+                else:
+                    print(dashboard_line(u + 1, cfg.run.total_updates, rec),
+                          flush=True)
+                last = rec
+                if on_update is not None:
+                    on_update(u + 1, rec)
+            if (u + 1) % cfg.run.checkpoint_interval == 0:
+                ckpt.save(u + 1, runner)
+        if cfg.run.save_final:
+            ckpt.save(cfg.run.total_updates, runner)
+    finally:
+        logger.close()
+        if rich_dash is not None:
+            rich_dash.close()
+    return runner, last
 
 
 def _episode_stats(stats) -> dict:

@@ -1,50 +1,82 @@
-"""Policy checkpoints in the port's own format: `torch.save` of
-{"params": state_dict} at `<dir>/<step>/params.pt`.
+"""Checkpoints in the port's own format: `torch.save` of a dict at
+`<dir>/<step>/params.pt`.
 
-Counterpart of `drone_tpu/utils/checkpoint.py` for what evaluation needs
-(the policy parameters). The training slice extends it with optimizer and
-runner state.
+Counterpart of `drone_tpu/utils/checkpoint.py`. A policy checkpoint holds
+{"params": state_dict}; a training checkpoint holds the whole runner for an
+exact resume: params, the fused optimizer state (count, mu, nu), the env
+state, the permutation generator's state and update_idx. Either kind
+serves `restore_raw()["params"]`, which is all evaluation needs. The
+newest `max_to_keep` steps are kept.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import shutil
 from pathlib import Path
 
 import torch
 from torch import nn
 
+from drone_tpu_torch import env as env_mod
+from drone_tpu_torch.ppo import RunnerState
+from drone_tpu_torch.types import EnvState
+
 _FILE = "params.pt"
+
+
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
 
 
 class Checkpointer:
     """Restore paths create nothing: a caller with a wrong directory gets
     FileNotFoundError, not an empty run directory on disk."""
 
-    def __init__(self, directory: str | Path):
+    def __init__(self, directory: str | Path, max_to_keep: int = 3):
         self.dir = Path(directory).resolve()
+        self.max_to_keep = max_to_keep
 
-    def save(self, step: int, params) -> Path:
-        """Save an nn.Module's or a state dict's tensors as step `step`."""
-        if isinstance(params, nn.Module):
-            params = params.state_dict()
+    def save(self, step: int, obj) -> Path:
+        """Save a RunnerState (the whole runner), or an nn.Module's or a
+        state dict's tensors (the policy alone), as step `step`."""
+        if isinstance(obj, RunnerState):
+            count, mu, nu = obj.opt_state
+            data = {
+                "params": {k: _cpu(v)
+                           for k, v in obj.params.state_dict().items()},
+                "opt_state": {"count": _cpu(count), "mu": _cpu(mu),
+                              "nu": _cpu(nu)},
+                "env_state": {f.name: _cpu(getattr(obj.env_state, f.name))
+                              for f in dataclasses.fields(EnvState)},
+                "generator": obj.generator.get_state(),
+                "update_idx": int(obj.update_idx),
+            }
+        else:
+            params = obj.state_dict() if isinstance(obj, nn.Module) else obj
+            data = {"params": {k: _cpu(v) for k, v in params.items()}}
         path = self.dir / str(int(step)) / _FILE
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(".tmp")
-        torch.save({"params": {k: v.detach().cpu() for k, v in params.items()}},
-                   tmp)
+        torch.save(data, tmp)
         tmp.replace(path)
+        for old in self.steps()[:-self.max_to_keep]:
+            shutil.rmtree(self.dir / str(old))
         return path
 
-    def latest_step(self) -> int | None:
+    def steps(self) -> list[int]:
         if not self.dir.is_dir():
-            return None
-        steps = [int(d.name) for d in self.dir.iterdir()
-                 if d.name.isdigit() and (d / _FILE).is_file()]
-        return max(steps) if steps else None
+            return []
+        return sorted(int(d.name) for d in self.dir.iterdir()
+                      if d.name.isdigit() and (d / _FILE).is_file())
+
+    def latest_step(self) -> int | None:
+        steps = self.steps()
+        return steps[-1] if steps else None
 
     def restore_raw(self, step: int | None = None):
-        """({"params": state_dict of CPU tensors}, step) of `step` or the
-        latest one."""
+        """(the saved dict of CPU tensors, step) of `step` or the latest
+        one; `["params"]` is the policy's state dict."""
         if not self.dir.is_dir():
             raise FileNotFoundError(f"no checkpoint directory {self.dir}")
         step = self.latest_step() if step is None else step
@@ -53,3 +85,36 @@ class Checkpointer:
         raw = torch.load(self.dir / str(int(step)) / _FILE, map_location="cpu",
                          weights_only=True)
         return raw, step
+
+    def restore(self, template: RunnerState, step: int | None = None):
+        """Restore a training checkpoint into the buffers of `template`
+        (same model widths and lane count), in place. Returns (runner,
+        step)."""
+        raw, step = self.restore_raw(step)
+        if "opt_state" not in raw:
+            raise RuntimeError(f"checkpoint {self.dir}/{step} holds a policy "
+                               f"only, not a training run")
+        params = template.params
+        try:
+            params.load_state_dict(raw["params"])
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"checkpoint at {self.dir} does not fit this run's model "
+                f"(different policy or hidden sizes?)") from e
+        count, mu, nu = template.opt_state
+        saved_env = raw["env_state"]
+        if saved_env["pos"].shape != template.env_state.pos.shape:
+            raise RuntimeError(
+                f"checkpoint at {self.dir} holds {saved_env['pos'].shape[0]} "
+                f"lanes, this run {template.env_state.n}")
+        for dst, key in ((count, "count"), (mu, "mu"), (nu, "nu")):
+            dst.copy_(raw["opt_state"][key])
+        dev = template.env_state.pos.device
+        env_state = EnvState(**{k: v.to(dev) for k, v in saved_env.items()})
+        gen = torch.Generator()
+        gen.set_state(raw["generator"])
+        runner = RunnerState(params=params, opt_state=(count, mu, nu),
+                             env_state=env_state,
+                             last_obs=env_mod.observe(env_state),
+                             generator=gen, update_idx=int(raw["update_idx"]))
+        return runner, step
