@@ -11,8 +11,8 @@ Phases:
   1. K1 (csrc/rollout.cu) against its plain version run on the CPU, bitwise
      on every state plane and per-lane statistic: all 6 task x integrator
      pairs, hover/euler at 65,536 lanes (configs/hover.toml's num_envs) and
-     the others at 8,192, T = 64, with a provided action stream and with
-     the in-kernel one. The plain version on the card must equal the CPU's
+     the others at 2,048, T = 32 over episodes of 20 steps, with a provided
+     action stream and with the in-kernel one. The plain version on the card must equal the CPU's
      bitwise too: env params are CUDA tensors there (a CPU scalar divisor
      would become a reciprocal multiply).
   2. K5 (csrc/acting.cu) against its plain version on the card,
@@ -57,6 +57,38 @@ Phases:
      CUDA events at make_train_step's phase marks and by the host clock;
      one more update traced with torch.profiler for the device's busy time
      and idle share.
+ 12. K8 (csrc/acting_lstm.cu, serving) against its plain version: hover,
+     H 128 / encoder (64,), 65,536 lanes from a random carry, T = 3 within
+     rtol 2e-5 / atol 2e-6 on the final carry and the per-lane statistics
+     with episode counts equal, and T = 64 statistically (episodes within
+     2%, mean reward within 0.01); then H 32 / encoder (16, 24) on
+     waypoint/rk4 with a ragged last lane tile (8,256 lanes), T = 3.
+ 13. K6 (the same kernel, training) against its plain version at 65,536
+     lanes: T = 3 with bptt 1 (3 anchors), both action modes, planes,
+     anchors and the final carry within rtol 2e-5 / atol 2e-6; T = 128,
+     bptt 16, stochastic, statistically.
+ 14. K7 (csrc/update_lstm.cu) against its plain version on the full-width
+     minibatch of the reference's recurrent geometry (16 row blocks of
+     1,024 lanes x 128 steps, bptt 16, planes and anchors from K6, at
+     least 0.1% of its samples ending an episode inside a segment): each
+     gradient tensor and the stat sums within 1e-4 x its max |value|, at
+     the planes' own weights and at weights moved off them (every branch of
+     the head's subgradients taken, each stat sum held on its own, KL and
+     clip fraction nonzero); two launches bitwise equal. K4 over the LSTM's
+     19 tensors against its plain version, rtol 1e-5.
+ 15. The LSTM serving path: `evaluate(episodes=65536)` and `cli eval` on
+     hover.toml with run.policy=lstm (K8 twice); evaluate(512) on the card
+     against the CPU.
+ 16. The LSTM training path: `train` at the reference's recurrent geometry
+     (hover.toml + run.policy=lstm train.horizon=128 train.bptt_horizon=16
+     train.num_minibatches=4) for 3 updates (K6 = 3, K7 = K4 = 48), then
+     `cli train` for 2 and `cli eval` of its checkpoint.
+ 17. The LSTM learning gate (H 32, encoder (32,), 256 envs, horizon 32, bptt
+     16, lr 5e-3, no entropy bonus: the mean reward of the last 5 of 100
+     updates beats the first 5 by 0.15) and train(4) == train(2) +
+     resume(2) bitwise, carry included.
+ 18. Times of K8, K6 and K7 beside their plain versions and bounds, and one
+     full-width LSTM update split and traced as in 11.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
@@ -180,13 +212,16 @@ def phase_k1():
     from drone_tpu_torch.ops import cuda_rollout
     from drone_tpu_torch.types import default_params
 
-    T = 64
+    # the plain version on the CPU is the slow part: the main path's width
+    # for hover/euler, a smaller one for the other pairs, and every lane
+    # through one reset and into its next episode
+    T = 32
     for task in ("hover", "waypoint", "racing"):
         for integ in ("euler", "rk4"):
-            n = 65536 if (task, integ) == ("hover", "euler") else 8192
+            n = 65536 if (task, integ) == ("hover", "euler") else 2048
             # short horizon and a wide reach radius so auto-resets and
             # waypoint/gate progression fire; domain randomization on
-            over = dict(horizon=40, dr_mass_lo=0.8, dr_mass_hi=1.2,
+            over = dict(horizon=20, dr_mass_lo=0.8, dr_mass_hi=1.2,
                         dr_thrust_lo=0.9, dr_thrust_hi=1.1)
             if task != "hover":
                 over["reach_tol2"] = 4.0
@@ -294,7 +329,8 @@ def _wrappers() -> dict:
 
     return {"K1": ops.rollout_cuda, "K2": ops.traj_rollout_cuda,
             "K3": ops.ppo_update_cuda, "K4": ops.fused_adam_cuda,
-            "K5": ops.act_rollout_cuda}
+            "K5": ops.act_rollout_cuda, "K6": ops.traj_lstm_rollout_cuda,
+            "K7": ops.lstm_update_cuda, "K8": ops.lstm_act_rollout_cuda}
 
 
 def zero_counts():
@@ -385,19 +421,19 @@ def hover_minibatch(cfg, model, env):
     return planes, advret, perm_mb, co, rbu * 128
 
 
-def off_policy(model, seed=5):
-    """A copy of the model's flat parameters moved away from the weights that
-    wrote the planes: noise on the actor's and the critic's heads, log_std up
-    by 0.1. On part of the samples the ratio then leaves 1 +- clip_eps and v
-    leaves v_old +- vf_clip, as on every minibatch of an update after its
-    first."""
+def off_policy(flat, order, seed=5):
+    """A copy of a flat parameter buffer (kernel order `order`) moved away
+    from the weights that wrote the planes: noise on the actor's and the
+    critic's heads, log_std up by 0.1. On part of the samples the ratio then
+    leaves 1 +- clip_eps and v leaves v_old +- vf_clip, as on every
+    minibatch of an update after its first."""
     import torch
 
-    from drone_tpu_torch.models import kernel_offsets, kernel_order
+    from drone_tpu_torch.models import order_offsets
 
-    offs, _ = kernel_offsets(model.hidden)
-    shapes = dict(kernel_order(model.hidden))
-    theta = model.flat.clone()
+    offs, _ = order_offsets(order)
+    shapes = dict(order)
+    theta = flat.clone()
     g = torch.Generator().manual_seed(seed)
     for name, scale in (("actor_mean.weight", 0.02), ("actor_mean.bias", 0.02),
                         ("critic_value.weight", 2.0),
@@ -407,6 +443,18 @@ def off_policy(model, seed=5):
             scale * torch.randn(n, generator=g)).to(theta.device)
     theta[offs["log_std"]:offs["log_std"] + 4] += 0.1
     return theta
+
+
+def check_branches(name, n):
+    """Fail unless at least 0.1% of the samples take each branch of the
+    head's subgradients (cuda_update.branch_counts)."""
+    print(f"{name} off-policy branches: {n}", flush=True)
+    least = 0.001 * n["samples"]
+    if not (n["ratio_out"] - n["policy_grad_zero"] > least
+            and n["policy_grad_zero"] > least
+            and n["value_out"] - n["value_grad_zero"] > least
+            and n["value_grad_zero"] > least):
+        raise AssertionError(f"the off-policy {name} check misses a branch")
 
 
 def check_k3(planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef,
@@ -426,8 +474,21 @@ def check_k3(planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef,
     kg, ks = K3.ppo_update_kernel(*args)
     pg, ps = K3.ppo_update_plain(*args)
     torch.cuda.synchronize()
+    max_err = compare_grads(
+        f"K3 hover.toml minibatch ({perm_mb.numel()} row blocks of {rbl} "
+        f"lanes x {planes.shape[0]} steps)", kg, ks, pg, ps,
+        kernel_order(hidden), each_stat)
+    return max_err, ps
+
+
+def compare_grads(what, kg, ks, pg, ps, order, each_stat: bool) -> float:
+    """An update kernel's gradients and stat sums against its plain
+    version's: each tensor of `order` within 1e-4 x its max |value|; the
+    stat sums likewise, with each_stat each of the first 4 on its own and
+    the log_std terms as a group, else all 8 as one. Returns the largest
+    absolute difference."""
     groups, off = [], 0
-    for name, shape in kernel_order(hidden):
+    for name, shape in order:
         n = math.prod(shape)
         groups.append((name, kg[off:off + n], pg[off:off + n]))
         off += n
@@ -443,13 +504,12 @@ def check_k3(planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef,
         rel = err / scale if scale > 0 else err
         max_err, max_rel = max(max_err, err), max(max_rel, rel)
         if rel > 1e-4:
-            raise AssertionError(f"K3 {name}: max|err| {err:.3g} is "
+            raise AssertionError(f"{what} {name}: max|err| {err:.3g} is "
                                  f"{rel:.3g} of max|value| {scale:.3g}")
-    print(f"K3 hover.toml minibatch ({perm_mb.numel()} row blocks of {rbl} "
-          f"lanes x {planes.shape[0]} steps): max|err| {max_err:.3g}, at most "
-          f"{max_rel:.3g} of a tensor's max|value|; stats kernel {ks.tolist()} "
-          f"plain {ps.tolist()}", flush=True)
-    return max_err, ps
+    print(f"{what}: max|err| {max_err:.3g}, at most {max_rel:.3g} of a "
+          f"tensor's max|value|; stats kernel {ks.tolist()} plain "
+          f"{ps.tolist()}", flush=True)
+    return max_err
 
 
 def phase_k3_k4(cfg, env):
@@ -458,6 +518,7 @@ def phase_k3_k4(cfg, env):
     import torch
 
     from drone_tpu_torch import ppo_cuda
+    from drone_tpu_torch.models import kernel_order, tensor_sizes
     from drone_tpu_torch.ops import cuda_update as K3
 
     model = flat_policy()
@@ -468,16 +529,10 @@ def phase_k3_k4(cfg, env):
     k3_err, _ = check_k3(planes, advret, perm_mb, model.flat, model.hidden,
                          co, rbl, ent, each_stat=False)
     # a later minibatch: every branch of the head's subgradients taken
-    theta = off_policy(model)
+    theta = off_policy(model.flat, kernel_order(model.hidden))
     n = K3.head_branch_counts(planes, advret, perm_mb, theta, model.hidden,
                               co, rbl)
-    print(f"K3 off-policy branches: {n}", flush=True)
-    least = 0.001 * n["samples"]
-    if not (n["ratio_out"] - n["policy_grad_zero"] > least
-            and n["policy_grad_zero"] > least
-            and n["value_out"] - n["value_grad_zero"] > least
-            and n["value_grad_zero"] > least):
-        raise AssertionError("the off-policy K3 check misses a branch")
+    check_branches("K3", n)
     err, ps = check_k3(planes, advret, perm_mb, theta, model.hidden, co, rbl,
                        ent, each_stat=True)
     if float(ps[K3.ST_KL]) == 0.0 or float(ps[K3.ST_CF]) == 0.0:
@@ -496,7 +551,8 @@ def phase_k3_k4(cfg, env):
     for run in (K3.fused_adam_kernel, K3.fused_adam_plain):
         theta, mu, nu = model.flat.clone(), mu0.clone(), nu0.clone()
         count = torch.tensor(5.0, device="cuda")
-        run(theta, grads, mu, nu, count, ac, sched, model.hidden)
+        run(theta, grads, mu, nu, count, ac, sched,
+            tensor_sizes(kernel_order(model.hidden)))
         outs.append((theta, mu, nu, count))
     torch.cuda.synchronize()
     k4_err = 0.0
@@ -616,7 +672,7 @@ def time_training(cfg, env, inputs):
     (the breakdown is printed)."""
     import torch
 
-    from drone_tpu_torch.models import kernel_order
+    from drone_tpu_torch.models import kernel_order, tensor_sizes
     from drone_tpu_torch.ops import cuda_acting_traj as K2
     from drone_tpu_torch.ops import cuda_update as K3
 
@@ -652,10 +708,11 @@ def time_training(cfg, env, inputs):
 
     theta, mu, nu = model.flat.clone(), mu0.clone(), nu0.clone()
     count = torch.tensor(5.0, device="cuda")
+    sizes = tensor_sizes(kernel_order(hidden))
     k4_ms = cuda_ms(lambda: K3.fused_adam_kernel(
-        theta, grads, mu, nu, count, ac, sched, hidden), reps=100)
+        theta, grads, mu, nu, count, ac, sched, sizes), reps=100)
     k4_plain = cuda_ms(lambda: K3.fused_adam_plain(
-        theta, grads, mu, nu, count, ac, sched, hidden), reps=20)
+        theta, grads, mu, nu, count, ac, sched, sizes), reps=20)
     # the nearest library pair (two calls): clip_grad_norm_ + fused Adam
     shapes = [sh for _, sh in kernel_order(hidden)]
     numels = [math.prod(sh) for sh in shapes]
@@ -693,19 +750,21 @@ def split_update(cfg):
 
     import torch
 
-    from drone_tpu_torch import ppo_cuda
+    from drone_tpu_torch import ppo_cuda, ppo_rnn_cuda
     from drone_tpu_torch.train import build
 
     env, _, runner, _, bcfg = build(cfg)
     tc = bcfg.train
     marks = []
+    maker = (ppo_rnn_cuda.make_rnn_train_step if cfg.run.policy == "lstm"
+             else ppo_cuda.make_train_step)
 
     def mark(name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         marks.append((name, ev, time.perf_counter()))
 
-    step = ppo_cuda.make_train_step(env, tc, on_phase=mark)
+    step = maker(env, tc, on_phase=mark)
     runner, m = step(runner)  # warm-up
     float(m["loss"])
     marks.clear()
@@ -731,8 +790,8 @@ def split_update(cfg):
     for (name, e0, h0), (_, e1, h1) in zip(marks, marks[1:]):
         split[f"{name}_device_ms"] = e0.elapsed_time(e1)
         split[f"{name}_host_ms"] = (h1 - h0) * 1e3
-    print(f"one update at hover.toml (no host sync inside): {split}",
-          flush=True)
+    print(f"one {cfg.run.policy} update at hover.toml's shape (no host sync "
+          f"inside): {split}", flush=True)
     print(f"the same update traced: {trace_update(step, runner)}", flush=True)
     return split
 
@@ -775,10 +834,13 @@ def trace_update(step, runner) -> dict:
     # of its own)
     classes = {"K2": ("drone::traj_kernel",),
                "K3": ("drone::update_kernel", "drone::reduce_kernel"),
-               "K4": ("drone::adam_kernel",)}
+               "K4": ("drone::adam_kernel",),
+               "K6": ("drone::lstm_act_kernel",),
+               "K7": ("drone::bptt_kernel", "drone::grad_gemm_kernel",
+                      "drone::lstm_reduce_kernel")}
     by_class = {k: 0.0 for k in (*classes, "other")}
     counts = {k: 0 for k in by_class}
-    other = {}
+    other, by_kernel = {}, {}
     for e in device:
         k = next((c for c, keys in classes.items()
                   if any(key in e["name"] for key in keys)), "other")
@@ -787,11 +849,530 @@ def trace_update(step, runner) -> dict:
         if k == "other":
             name = e["name"][:60]
             other[name] = other.get(name, 0.0) + float(e["dur"]) / 1e3
+        else:  # each kernel of a class (K3's and K7's have several)
+            name = next(key for key in classes[k] if key in e["name"])
+            by_kernel[name] = by_kernel.get(name, 0.0) + float(e["dur"]) / 1e3
     top = sorted(other.items(), key=lambda kv: -kv[1])[:3]
     return {"span_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / (t1 - t0),
             "device_ms": by_class, "device_ops": counts,
+            "device_ms_by_kernel": by_kernel,
             "largest_other_ms": dict(top)}
+
+# ---------------------------------------------------------------------------
+# The LSTM slice: K8 (serving), K6 (training rollout), K7 (BPTT update)
+# ---------------------------------------------------------------------------
+
+LSTM_OVERRIDES = ("run.policy=lstm", "train.horizon=128",
+                  "train.bptt_horizon=16", "train.num_minibatches=4")
+
+
+def lstm_ops(hidden, encoder, value: bool) -> int:
+    """Operations of one LSTM lane-step: the encoder (multiply-adds x2, bias,
+    tanh), the gate block (4H (E + H) multiply-adds x2, 4 bias adds and 4
+    activations a unit, then c' (3), tanh(c') and h'), the action head, the
+    value head when asked, and the carry mask (2 a unit)."""
+    dims = [13, *encoder]
+    ops = sum(2 * a * b + 2 * b for a, b in zip(dims[:-1], dims[1:]))
+    E, H = dims[-1], hidden
+    ops += 2 * 4 * H * (E + H) + 13 * H + 2 * 4 * H + 4 + 2 * H
+    return ops + (2 * H + 1 if value else 0)
+
+
+def bptt_ops(hidden, encoder) -> int:
+    """Operations of one sample through K7: the forward step with both heads,
+    the PPO head, dh' (10 a unit), the cell backward (20 a unit), [dx; dh]
+    (4H (E + H) multiply-adds), the encoder backward (3 a unit, and the
+    input gradient below the last layer), and the weight-gradient products
+    with their bias sums."""
+    dims = [13, *encoder]
+    E, H = dims[-1], hidden
+    ops = lstm_ops(H, encoder, True) + OPS_PPO_HEAD + 30 * H
+    ops += 2 * 4 * H * (E + H) + 2 * 4 * H * (E + H + 1) + 2 * 5 * (H + 1)
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        ops += 3 * b + 2 * b * (a + 1) + (2 * a * b if i > 0 else 0)
+    return ops
+
+
+def lstm_policy(hidden=128, encoder=(64,), seed=1, log_std=-0.5):
+    """A seeded LSTMActorCritic on the card, flattened as the trainer keeps
+    it, with actions of order 1 and a given log_std."""
+    import torch
+    from torch import nn
+
+    from drone_tpu_torch.models import LSTMActorCritic
+
+    g = torch.Generator().manual_seed(seed)
+    m = LSTMActorCritic(hidden, encoder, generator=g)
+    with torch.no_grad():
+        nn.init.orthogonal_(m.actor_mean.weight, 1.0, generator=g)
+        m.log_std.fill_(log_std)
+    m = m.cuda()
+    m.flatten_()
+    return m
+
+
+def random_carry(n, hidden, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(0.5 * torch.randn(n, hidden, device="cuda", generator=g)
+                 for _ in range(2))
+
+
+def phase_k8() -> float:
+    """K8 against its plain version on the card; returns the max abs error
+    of the T = 3 carries and statistics."""
+    import torch
+
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.ops import cuda_acting_lstm as K8
+    from drone_tpu_torch.types import default_params
+
+    # the main path's policy at its width, then a smaller two-layer encoder
+    # on waypoint/rk4 with a ragged last lane tile
+    cases = [("hover", "euler", 128, (64,), 65536, ((3, 2), (64, 40))),
+             ("waypoint", "rk4", 32, (16, 24), 8192 + 64, ((3, 2),))]
+    max_err = 0.0
+    for task, integ, hidden, encoder, n, runs in cases:
+        model = lstm_policy(hidden, encoder)
+        arch = (hidden, encoder)
+        carry = random_carry(n, hidden, 3)
+        for T, horizon in runs:
+            env = DroneEnv(task, integ, default_params(task, horizon=horizon),
+                           device="cuda")
+            state = env.init_batch(2, n)
+            kf, kc, ks = K8.lstm_act_rollout_kernel(
+                state, model.flat, arch, carry, env.params, env.statics, T)
+            pf, pc, ps = K8.lstm_act_rollout_plain(
+                state, model.flat, arch, carry, env.params, env.statics, T)
+            torch.cuda.synchronize()
+            k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
+            k_r, p_r = float(ks[0].sum()) / (n * T), float(ps[0].sum()) / (n * T)
+            err = max(float((a - b).abs().max())
+                      for a, b in zip((*kc, ks), (*pc, ps)))
+            serr = float((kf.fstate() - pf.fstate()).abs().max())
+            print(f"K8 {task}/{integ} H={hidden} enc={list(encoder)} n={n} "
+                  f"T={T}: max|carry, stats err|={err:.3g} (state "
+                  f"{serr:.3g}) episodes {k_ep:.0f} vs {p_ep:.0f}, mean "
+                  f"reward {k_r:.6f} vs {p_r:.6f}", flush=True)
+            if T == 3:
+                max_err = max(max_err, err)
+                for a, b in zip((*kc, ks), (*pc, ps)):
+                    torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
+                if k_ep != p_ep or k_ep < n:
+                    raise AssertionError("K8 episode counts differ at T=3")
+            elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
+                raise AssertionError("K8 episode statistics disagree")
+    return max_err
+
+
+def phase_k6() -> float:
+    """K6 against its plain version on the card; returns the max abs error
+    of the T = 3 planes and anchors."""
+    import torch
+
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.ops import cuda_acting_lstm as K6
+    from drone_tpu_torch.types import default_params
+
+    n = 65536
+    model = lstm_policy()
+    arch = (model.hidden, model.encoder)
+    carry = random_carry(n, model.hidden, 4)
+    max_err = 0.0
+    for T, bptt, horizon, modes in ((3, 1, 2, (False, True)),
+                                    (128, 16, 40, (True,))):
+        env = DroneEnv("hover", "euler", default_params("hover",
+                                                         horizon=horizon),
+                       device="cuda")
+        state = env.init_batch(5, n)
+        for sto in modes:
+            kf, kc, kp, ka, ks = K6.traj_lstm_rollout_kernel(
+                state, model.flat, arch, carry, env.params, env.statics, T,
+                bptt, sto)
+            pf, pc, pp, pa, ps = K6.traj_lstm_rollout_plain(
+                state, model.flat, arch, carry, env.params, env.statics, T,
+                bptt, sto)
+            torch.cuda.synchronize()
+            k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
+            k_r, p_r = float(ks[0].sum()) / (n * T), float(ps[0].sum()) / (n * T)
+            err = max(float((kp - pp).abs().max()), float((ka - pa).abs().max()))
+            print(f"K6 hover H=128 enc=[64] n={n} T={T} bptt={bptt} "
+                  f"stochastic={sto}: max|plane, anchor err|={err:.3g} "
+                  f"episodes {k_ep:.0f} vs {p_ep:.0f}, mean reward {k_r:.6f} "
+                  f"vs {p_r:.6f}", flush=True)
+            if T == 3:
+                max_err = max(max_err, err)
+                for a, b in zip((kp, ka, *kc), (pp, pa, *pc)):
+                    torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
+                if k_ep != p_ep or k_ep < n:
+                    raise AssertionError("K6 episode counts differ at T=3")
+            elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
+                raise AssertionError("K6 episode statistics disagree")
+    return max_err
+
+
+def lstm_minibatch(cfg, model, env):
+    """The LSTM update's inputs at full width on the card: K6's planes and
+    anchors, their normalized advantages, a minibatch's row blocks."""
+    import torch
+
+    from drone_tpu_torch import ppo_cuda, ppo_rnn_cuda
+    from drone_tpu_torch.env import observe
+    from drone_tpu_torch.models.lstm import lstm_value
+    from drone_tpu_torch.ops import cuda_acting_lstm as K6
+
+    tc = cfg.train
+    bptt = ppo_rnn_cuda.bptt_of(tc)
+    _, _, rbu, n_rb, mb_rb, co = ppo_cuda.plan_minibatch_geometry(
+        tc, tc.num_envs)
+    arch = (model.hidden, model.encoder)
+    state = env.init_batch(7, tc.num_envs)
+    final, carry, planes, snap, _ = K6.traj_lstm_rollout_kernel(
+        state, model.flat, arch, model.initial_carry(tc.num_envs, "cuda"),
+        env.params, env.statics, tc.horizon, bptt)
+    with torch.no_grad():
+        last_value = lstm_value(observe(final), carry, model.flat, *arch)
+    advret = ppo_cuda.normalized_advret(planes, last_value, tc)
+    perm = torch.randperm(n_rb, generator=torch.Generator().manual_seed(3))
+    perm_mb = perm[:mb_rb].to(device="cuda", dtype=torch.int32)
+    return planes, advret, snap, perm_mb, co, rbu * 128, bptt
+
+
+def check_segment_resets(planes, perm_mb, rbl, bptt):
+    """Fail unless at least 0.1% of the minibatch's samples end an episode
+    at a step that is not the last of its bptt segment, so that the masks
+    (the keep mask on the through-time gradient, dgf from the masked c_in)
+    are exercised by the K7 comparison."""
+    import torch
+
+    from drone_tpu_torch.ops.cuda_acting_traj import TP_DONE
+
+    lanes = (perm_mb.long()[:, None] * rbl
+             + torch.arange(rbl, device=perm_mb.device)).reshape(-1)
+    done = planes[:, TP_DONE, :].index_select(1, lanes)  # (T, lanes)
+    inner = torch.arange(planes.shape[0], device=done.device) % bptt < bptt - 1
+    resets = int((done[inner] > 0).sum())
+    samples = done.numel()
+    print(f"K7 minibatch: {resets} episode ends inside bptt segments "
+          f"({resets / samples:.3%} of {samples} samples)", flush=True)
+    if resets < 0.001 * samples:
+        raise AssertionError("the K7 check has too few resets inside bptt "
+                             "segments to exercise the masks")
+
+
+def check_k7(args, order, each_stat: bool):
+    """K7 against its plain version on one minibatch (compare_grads), and
+    two launches of the kernel on the same inputs bitwise equal."""
+    import torch
+
+    from drone_tpu_torch.ops import cuda_update_lstm as K7
+
+    kg, ks = K7.lstm_update_kernel(*args)
+    kg2, ks2 = K7.lstm_update_kernel(*args)
+    pg, ps = K7.lstm_update_plain(*args)
+    torch.cuda.synchronize()
+    if not (bitwise_equal(kg, kg2) and bitwise_equal(ks, ks2)):
+        raise AssertionError("two K7 launches on the same inputs differ")
+    planes, perm_mb, rbl, bptt = args[0], args[3], args[7], args[8]
+    err = compare_grads(
+        f"K7 minibatch ({perm_mb.numel()} row blocks of {rbl} lanes x "
+        f"{planes.shape[0]} steps, bptt {bptt}; two launches bitwise equal)",
+        kg, ks, pg, ps, order, each_stat)
+    return err, ps
+
+
+def phase_k7_k4(cfg, env):
+    """K7 against its plain version at the full-width minibatch, on the
+    planes' own weights and off them, and K4 over the LSTM layout. Returns
+    (K7 max abs error, inputs for timing)."""
+    import torch
+
+    from drone_tpu_torch import ppo_cuda
+    from drone_tpu_torch.models import tensor_sizes
+    from drone_tpu_torch.ops import cuda_update as K4
+    from drone_tpu_torch.ops import cuda_update_lstm as K7
+
+    model = lstm_policy()
+    arch = (model.hidden, model.encoder)
+    order = model.kernel_order()
+    planes, advret, snap, perm_mb, co, rbl, bptt = lstm_minibatch(cfg, model,
+                                                                  env)
+    check_segment_resets(planes, perm_mb, rbl, bptt)
+    ent = cfg.train.ent_coef
+    args = (planes, advret, snap, perm_mb, model.flat, arch, co, rbl, bptt,
+            ent)
+    k7_err, _ = check_k7(args, order, each_stat=False)
+    theta = off_policy(model.flat, order)
+    check_branches("K7", K7.lstm_head_branch_counts(
+        planes, advret, snap, perm_mb, theta, arch, co, rbl, bptt))
+    err, ps = check_k7((*args[:4], theta, *args[5:]), order, each_stat=True)
+    if float(ps[K4.ST_KL]) == 0.0 or float(ps[K4.ST_CF]) == 0.0:
+        raise AssertionError("the off-policy approx-KL or clip-fraction sum "
+                             "is 0")
+    k7_err = max(k7_err, err)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    P = model.flat.numel()
+    grads = 0.05 * torch.randn(P, device="cuda", generator=g)
+    mu0 = 0.01 * torch.randn(P, device="cuda", generator=g)
+    nu0 = 0.001 * torch.rand(P, device="cuda", generator=g)
+    sched = ppo_cuda.make_fused_lr(cfg.train)
+    ac = K4.AdamConsts(clip_norm=cfg.train.max_grad_norm)
+    outs = []
+    for run in (K4.fused_adam_kernel, K4.fused_adam_plain):
+        th, mu, nu = model.flat.clone(), mu0.clone(), nu0.clone()
+        count = torch.tensor(5.0, device="cuda")
+        run(th, grads, mu, nu, count, ac, sched, tensor_sizes(order))
+        outs.append((th, mu, nu, count))
+    torch.cuda.synchronize()
+    k4_err = 0.0
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-8)
+        k4_err = max(k4_err, float((a - b).abs().max()))
+    print(f"K4 over the LSTM layout ({P} parameters, {len(order)} tensors): "
+          f"max|err| {k4_err:.3g}", flush=True)
+    return k7_err, args
+
+
+def path_lstm_serving(cfg, cfg_path):
+    """evaluate() and cli eval of a seeded LSTM policy on hover.toml with
+    run.policy=lstm; the card's evaluate(512) against the CPU's. Returns the
+    launch counts of the path."""
+    import torch
+
+    from drone_tpu_torch import cli
+    from drone_tpu_torch.train import evaluate
+    from drone_tpu_torch.utils.checkpoint import Checkpointer
+
+    n = cfg.train.num_envs
+    with tempfile.TemporaryDirectory() as tmp:
+        Checkpointer(tmp).save(0, lstm_policy(seed=2, log_std=0.0))
+        cfg_eval = cfg.with_overrides([f"run.resume_from={tmp}"])
+        zero_counts()
+        t0 = time.time()
+        res = evaluate(cfg_eval, episodes=n)
+        torch.cuda.synchronize()
+        t_eval = time.time() - t0
+        rc = cli.main(["eval", str(cfg_path), "run.policy=lstm",
+                       f"run.resume_from={tmp}"])
+        torch.cuda.synchronize()
+        serve_counts = counts()
+        print(f"LSTM serving path: evaluate({n} episodes) {res} in "
+              f"{t_eval:.3f} s; cli eval rc={rc}; launches {serve_counts}",
+              flush=True)
+        if serve_counts["K8"] < 2 or rc != 0:
+            raise AssertionError("the LSTM serving path did not launch K8 "
+                                 "twice")
+        if not all(v == v and abs(v) != float("inf") for v in res.values()):
+            raise AssertionError("evaluate returned non-finite stats")
+        horizon = int(cfg.env.build()[1].horizon) + 1
+        if res["episodes"] < n or not 1.0 <= res["ep_length_mean"] <= horizon:
+            raise AssertionError(f"implausible evaluate stats {res}")
+        small_gpu = evaluate(cfg_eval, episodes=512, device="cuda")
+        small_cpu = evaluate(cfg_eval, episodes=512, device="cpu")
+        print(f"LSTM evaluate(512) card {small_gpu} cpu {small_cpu}",
+              flush=True)
+        if (abs(small_gpu["episodes"] - small_cpu["episodes"])
+                > 0.01 * small_cpu["episodes"]
+                or abs(small_gpu["ep_return_mean"] - small_cpu["ep_return_mean"])
+                > 0.01 * abs(small_cpu["ep_return_mean"])):
+            raise AssertionError("LSTM evaluate on the card disagrees with "
+                                 "the CPU")
+    return serve_counts
+
+
+def path_lstm_training(cfg_path, tmp):
+    """train() at full width with run.policy=lstm for 3 updates, then cli
+    train for 2 and cli eval of its checkpoint. Returns the launch counts
+    of train()."""
+    import torch
+
+    from drone_tpu_torch import cli, ppo_cuda
+    from drone_tpu_torch.train import train
+    from drone_tpu_torch.utils.config import Config
+
+    over = [*LSTM_OVERRIDES, f"run.checkpoint_dir={tmp}"]
+    cfg = Config.from_toml(cfg_path).with_overrides(
+        [*over, "run.total_updates=3", "run.run_name=lstm"])
+    n_mb = cfg.train.epochs * cfg.train.num_minibatches
+    zero_counts()
+    t0 = time.time()
+    _, last = train(cfg)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    train_counts = counts()
+    print(f"LSTM training path: train(hover.toml + {list(LSTM_OVERRIDES)}, 3 "
+          f"updates) in {t_train:.2f} s; launches {train_counts}; last {last}",
+          flush=True)
+    want = {"K6": 3, "K7": 3 * n_mb, "K4": 3 * n_mb}
+    if any(train_counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"the LSTM training path launched "
+                             f"{train_counts}, expected {want}")
+    if not set(ppo_cuda.METRIC_KEYS) <= set(last):
+        raise AssertionError(f"metric keys {sorted(last)}")
+    if not all(v == v and abs(v) != float("inf") for k, v in last.items()
+               if k in ppo_cuda.METRIC_KEYS):
+        raise AssertionError("non-finite LSTM training metrics")
+
+    zero_counts()
+    rc = cli.main(["train", str(cfg_path), *over, "run.total_updates=2",
+                   "run.run_name=lstm_cli"])
+    rc2 = cli.main(["eval", str(cfg_path), "run.policy=lstm",
+                    f"run.resume_from={tmp}/lstm_cli/checkpoints"])
+    torch.cuda.synchronize()
+    cli_counts = counts()
+    print(f"LSTM cli train (2 updates) rc={rc}, then cli eval of its "
+          f"checkpoint rc={rc2}; launches {cli_counts}", flush=True)
+    if (rc, rc2) != (0, 0) or cli_counts["K6"] != 2 \
+            or cli_counts["K7"] != 2 * n_mb or cli_counts["K8"] != 1:
+        raise AssertionError("LSTM cli train + cli eval did not run as "
+                             "expected")
+    return train_counts, cfg
+
+
+def phase_lstm_learning_and_resume(tmp):
+    """The LSTM learning gate and bitwise resume on the card, at the shape
+    of the reference's tests/test_pallas_update_lstm.py learning test."""
+    import torch
+
+    from drone_tpu_torch import ppo_rnn_cuda
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.models import LSTMActorCritic
+    from drone_tpu_torch.ppo import PPOConfig
+    from drone_tpu_torch.ppo_rnn import init_recurrent_runner
+    from drone_tpu_torch.train import train
+    from drone_tpu_torch.utils.config import Config
+
+    env = DroneEnv(device="cuda")
+    cfg = PPOConfig(horizon=32, num_envs=256, epochs=4, num_minibatches=2,
+                    lr=5e-3, ent_coef=0.0, bptt_horizon=16)
+    model = LSTMActorCritic(32, (32,), generator=torch.Generator().manual_seed(0))
+    runner = init_recurrent_runner(model, env, cfg, seed=0)
+    step = ppo_rnn_cuda.make_rnn_train_step(env, cfg)
+    rewards, t0 = [], time.time()
+    for _ in range(100):
+        runner, m = step(runner)
+        rewards.append(float(m["reward_mean"]))
+    first, last5 = sum(rewards[:5]) / 5, sum(rewards[-5:]) / 5
+    print(f"LSTM learning gate: mean reward of the first 5 of 100 updates "
+          f"{first:.4f}, of the last 5 {last5:.4f} ({time.time() - t0:.1f} s)",
+          flush=True)
+    if not last5 > first + 0.15:
+        raise AssertionError("the LSTM learning gate failed on the card")
+
+    def cfg_for(name, total, extra=()):
+        return Config.default().with_overrides([
+            "run.policy=lstm", "run.lstm_hidden=32", "run.hidden=32,32",
+            "train.num_envs=1024", "train.horizon=16",
+            "train.bptt_horizon=8", "train.epochs=2",
+            "train.num_minibatches=2", "run.log_interval=2",
+            f"run.total_updates={total}", f"run.run_name={name}",
+            f"run.checkpoint_dir={tmp}", *extra])
+
+    full, _ = train(cfg_for("lstm_full", 4))
+    train(cfg_for("lstm_half", 2))
+    resumed, _ = train(cfg_for("lstm_resumed", 4, [
+        f"run.resume_from={tmp}/lstm_half/checkpoints"]))
+    torch.cuda.synchronize()
+
+    def tensors(r):
+        return [*r.params.state_dict().values(), *r.opt_state,
+                r.env_state.fstate(), r.env_state.step, *r.carry]
+
+    ok = all(bitwise_equal(a, b) for a, b in zip(tensors(full),
+                                                 tensors(resumed)))
+    print(f"LSTM resume on the card: train(4) == train(2) + resume(2) "
+          f"bitwise: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("LSTM resume is not bitwise on the card")
+
+
+def time_lstm(cfg, env, k7_args):
+    """Times of K8 (65,536 x 1,001), K6 (65,536 x 128) and K7 (one
+    full-width minibatch) by CUDA events beside their plain versions and
+    bounds, and one full-width LSTM update split into its phases. Returns
+    {name: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    import torch
+
+    from drone_tpu_torch import ppo_rnn_cuda
+    from drone_tpu_torch.ops import cuda_acting_lstm as K6
+    from drone_tpu_torch.ops import cuda_update_lstm as K7
+
+    tc = cfg.train
+    model = lstm_policy(seed=2, log_std=0.0)
+    arch = (model.hidden, model.encoder)
+    H, enc = arch
+    P = model.flat.numel()
+    n = tc.num_envs
+    horizon = int(env.params.horizon) + 1
+    out = {}
+    state = env.init_batch(cfg.run.seed + 1, n)
+    carry = model.initial_carry(n, "cuda")
+    carry_bytes = 2 * 2 * H * n * 4
+    state_bytes = n * (2 * 25 * 4 + 5 * 4)
+    _, _, lane = K6.lstm_act_rollout_kernel(state, model.flat, arch, carry,
+                                            env.params, env.statics, horizon)
+    episodes = float(lane[1].sum())
+    ms = cuda_ms(lambda: K6.lstm_act_rollout_kernel(
+        state, model.flat, arch, carry, env.params, env.statics, horizon),
+        reps=2)
+    t0 = time.time()
+    K6.lstm_act_rollout_plain(state, model.flat, arch, carry, env.params,
+                              env.statics, horizon)
+    torch.cuda.synchronize()
+    plain = (time.time() - t0) * 1e3
+    ops = (n * horizon * (OPS_STEP + OPS_OBS + lstm_ops(H, enc, False))
+           + episodes * OPS_RESET)
+    out["K8"] = (ms, plain, *bound(ops, state_bytes + carry_bytes + P * 4),
+                 None)
+
+    T, bptt = tc.horizon, ppo_rnn_cuda.bptt_of(tc)
+    state = env.init_batch(9, n)
+    _, _, _, _, lane = K6.traj_lstm_rollout_kernel(
+        state, model.flat, arch, carry, env.params, env.statics, T, bptt)
+    episodes = float(lane[1].sum())
+    ms = cuda_ms(lambda: K6.traj_lstm_rollout_kernel(
+        state, model.flat, arch, carry, env.params, env.statics, T, bptt),
+        reps=3)
+    t0 = time.time()
+    K6.traj_lstm_rollout_plain(state, model.flat, arch, carry, env.params,
+                               env.statics, T, bptt)
+    torch.cuda.synchronize()
+    plain = (time.time() - t0) * 1e3
+    ops = (n * T * (OPS_STEP + OPS_OBS + lstm_ops(H, enc, True)
+                    + OPS_NOISE_LOGP) + episodes * OPS_RESET)
+    nbytes = (state_bytes + carry_bytes + P * 4 + T * 21 * n * 4
+              + (T // bptt) * 2 * H * n * 4)
+    out["K6"] = (ms, plain, *bound(ops, nbytes), None)
+
+    planes, perm_mb, rbl = k7_args[0], k7_args[3], k7_args[7]
+    samples = perm_mb.numel() * rbl * T
+    ms = cuda_ms(lambda: K7.lstm_update_kernel(*k7_args), reps=3)
+    plain = cuda_ms(lambda: K7.lstm_update_plain(*k7_args), reps=1)
+    nbytes = (samples * 23 * 4 + (T // bptt) * 2 * H * perm_mb.numel() * rbl
+              * 4 + P * 4 + (P + 8) * 4)
+    out["K7"] = (ms, plain, *bound(samples * bptt_ops(H, enc), nbytes), None)
+    for name, (ms, plain, bms, by, lib) in out.items():
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain:.2f} ms, bound "
+              f"{bms:.4f} ms ({by}), library {lib}", flush=True)
+    split_update(cfg)
+    return out
+
+
+class Laps:
+    """Host-clock seconds of each phase of the script: lap(name) closes the
+    phase that ends there."""
+
+    def __init__(self):
+        self.t = time.time()
+        self.seconds = {}
+
+    def __call__(self, name):
+        now = time.time()
+        self.seconds[name] = round(now - self.t, 1)
+        self.t = now
 
 
 def main() -> int:
@@ -810,6 +1391,7 @@ def main() -> int:
     from drone_tpu_torch.utils.config import Config
 
     t_start = time.time()
+    lap = Laps()
     dev = device_line()
     print(dev, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -825,9 +1407,12 @@ def main() -> int:
                   and " 0 bytes spill stores" not in line]
         print(f"  {name}: registers per kernel {regs}; spilling kernels: "
               f"{len(spills)} {spills}", flush=True)
+    lap("build")
 
     k1_err = phase_k1()
+    lap("K1 check")
     k5_err = phase_k5()
+    lap("K5 check")
 
     cfg_path = ROOT / "configs" / "hover.toml"
     cfg = Config.from_toml(cfg_path)
@@ -852,6 +1437,7 @@ def main() -> int:
             and all(torch.isfinite(v) for v in stats.values())):
         raise AssertionError("env-engine path produced non-finite values")
 
+    lap("env engine path")
     # -- path 2: serving (evaluate + cli eval) --------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         Checkpointer(tmp).save(0, seeded_policy(seed=1))
@@ -886,6 +1472,7 @@ def main() -> int:
                 > 0.01 * abs(small_cpu["ep_return_mean"])):
             raise AssertionError("evaluate on the card disagrees with the CPU")
 
+    lap("MLP serving path")
     # -- times at the paths' shapes --------------------------------------------
     lane_steps = n * horizon
     k1_ms = cuda_ms(lambda: cuda_rollout.rollout_kernel(
@@ -921,13 +1508,38 @@ def main() -> int:
           f"ms, bound {k1_bound:.4f} ms ({k1_ops:.4g} ops)", flush=True)
     print(f"K5 {n} x {horizon}: kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.1f} "
           f"ms, bound {k5_bound:.4f} ms ({k5_ops:.4g} ops)", flush=True)
+    lap("K1, K5 times")
     # -- the training slice: K2, K3, K4 and the training path ----------------
     k2_err = phase_k2()
+    lap("K2 check")
     k3_err, k4_err, inputs = phase_k3_k4(cfg, env)
+    lap("K3, K4 checks")
     with tempfile.TemporaryDirectory() as tmp:
         train_counts = path_training(cfg_path, tmp)
+        lap("MLP training path")
         phase_learning_and_resume(tmp)
+        lap("MLP learning gate, resume")
     times = time_training(cfg, env, inputs)
+    lap("K2-K4 times, MLP update")
+    # -- the LSTM slice: K8, K6, K7 and the LSTM paths -----------------------
+    k8_err = phase_k8()
+    lap("K8 check")
+    k6_err = phase_k6()
+    lap("K6 check")
+    cfg_lstm = cfg.with_overrides(list(LSTM_OVERRIDES))
+    k7_err, k7_args = phase_k7_k4(cfg_lstm, env)
+    lap("K7, K4 checks")
+    lstm_serve_counts = path_lstm_serving(
+        cfg.with_overrides(["run.policy=lstm"]), cfg_path)
+    lap("LSTM serving path")
+    with tempfile.TemporaryDirectory() as tmp:
+        lstm_train_counts, _ = path_lstm_training(cfg_path, tmp)
+        lap("LSTM training path")
+        phase_lstm_learning_and_resume(tmp)
+        lap("LSTM learning gate, resume")
+    lstm_times = time_lstm(cfg_lstm, env, k7_args)
+    lap("K8, K6, K7 times, LSTM update")
+    print(f"phase seconds: {lap.seconds}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms,
@@ -955,6 +1567,17 @@ def main() -> int:
         entry("K5 MLP acting", "drone_tpu_torch/csrc/acting.cu",
               "drone_tpu/ops/pallas_acting.py:109", serve_counts["K5"],
               k5_err, k5_ms, k5_plain_ms, k5_bound, k5_by, None),
+        entry("K6 LSTM trajectory rollout",
+              "drone_tpu_torch/csrc/acting_lstm.cu",
+              "drone_tpu/ops/pallas_acting_lstm.py:335",
+              lstm_train_counts["K6"], k6_err, *lstm_times["K6"]),
+        entry("K7 LSTM truncated-BPTT update",
+              "drone_tpu_torch/csrc/update_lstm.cu",
+              "drone_tpu/ops/pallas_update_lstm.py:270",
+              lstm_train_counts["K7"], k7_err, *lstm_times["K7"]),
+        entry("K8 LSTM acting", "drone_tpu_torch/csrc/acting_lstm.cu",
+              "drone_tpu/ops/pallas_acting_lstm.py:186",
+              lstm_serve_counts["K8"], k8_err, *lstm_times["K8"]),
     ]
     print(dev, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,9 +15,13 @@ Module map (same names as `drone_tpu`):
   ops.cuda_acting         MLP acting megakernel (K5) + its plain version
   ops.cuda_acting_traj    trajectory rollout kernel (K2) + its plain version
   ops.cuda_update         PPO update (K3) and fused clip+adam (K4) + theirs
-  models.mlp              ActorCritic (flat parameter buffer) and the flax
-                          weight and optimizer-state converters
-  ppo, ppo_cuda           GAE, RunnerState; the megakernel PPO trainer
+  ops.cuda_acting_lstm    LSTM acting (K8) and trajectory rollout (K6)
+  ops.cuda_update_lstm    truncated-BPTT PPO update (K7)
+  models.mlp, models.lstm ActorCritic, LSTMActorCritic (flat parameter
+                          buffers) and the flax weight and optimizer-state
+                          converters
+  ppo, ppo_cuda           GAE, RunnerState; the MLP megakernel PPO trainer
+  ppo_rnn, ppo_rnn_cuda   RecurrentRunnerState; the LSTM megakernel trainer
   utils.config, utils.checkpoint, utils.metrics, train (train, evaluate),
   cli (train, eval)
 """

@@ -1,0 +1,234 @@
+// acting_lstm.cu — the recurrent acting kernels: LSTM policy + env for T
+// steps per lane. One kernel serves both:
+//   K8 (serving): deterministic actions (the policy mean), episode stats and
+//     the final carry. Replaces drone_tpu/ops/pallas_acting_lstm.py `_kernel`
+//     (driven by `lstm_act_rollout_pallas`).
+//   K6 (training rollout): exploration noise, the critic head, the 21
+//     trajectory planes of K2 and the (c, h) anchor entering the first step
+//     of every bptt segment. Replaces `_lstm_traj_kernel` (driven by
+//     `traj_lstm_rollout_pallas`).
+// Wrappers and plain versions: ops/cuda_acting_lstm.py.
+//
+// Design: a block of 256 threads owns a tile of 128 lanes (lstm.cuh): the
+// encoder, the gate block and c live in shared memory as [row][lane]; the
+// first 128 threads also own one lane each for the env (env.cuh's Carry in
+// registers for the whole loop, as in K5 and K2), the heads, the noise and
+// the plane stores. Per step: observe -> encoder -> gates -> heads -> (noise,
+// log-prob, planes) -> env step -> zero the carry of lanes that ended an
+// episode (ppo_rnn._mask_carry: c' * keep, h' * keep). The anchors are the
+// carry after the previous step's mask. The carry comes in and goes out as
+// (n, H) row-major tensors, the module's layout; the anchors are (S, 2, H,
+// n) planes, what K7 reads.
+//
+// What bounds it on an H100: the gate block's multiply-adds, 4H (E + H) per
+// lane-step (98,304 at H 128 / E 64), on the fp32 cores; the env, the
+// encoder and the heads are a few percent beside them, the planes 84 bytes
+// a lane-step. The gate weights stream from L2 (lstm.cuh). Tensor cores
+// wait: TF32 would break the tolerance, and 3xTF32 or wgmma is later work.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "env.cuh"
+#include "lstm.cuh"
+
+namespace drone {
+
+constexpr int ACT_LANES = 128;
+// gate passes: (LSTM_MAX_H / 4) * (ACT_LANES / 4) tiles over LSTM_THREADS
+constexpr int ACT_PASSES = (LSTM_MAX_H / 4) * (ACT_LANES / 4) / LSTM_THREADS;
+// 2 input rows of gate weights in flight (at 4 the registers spill)
+constexpr int ACT_UNROLL = 2;
+
+struct LstmIO {
+  const float* theta;  // flat parameters
+  const float4* WP;    // packed gate weights (E + H, H, 4)
+  const float4* BP;    // packed gate biases (H, 4)
+  const float* c_in;   // (n, H)
+  const float* h_in;
+  float* c_out;
+  float* h_out;
+  float* traj;         // (T, 21, n), or null when serving
+  float* snap;         // (T / bptt, 2, H, n), or null when serving
+  int T, bptt, stochastic;
+};
+
+inline size_t act_smem_bytes(const LstmNet& net) {
+  int maxw, nbuf;
+  enc_buffers(net, maxw, nbuf);
+  return sizeof(float) * (size_t)ACT_LANES *
+         (OBS_DIM + nbuf * maxw + net.E + 2 * net.H);
+}
+
+template <int TASK, int INTEG>
+__global__ void __launch_bounds__(LSTM_THREADS, 1)
+lstm_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
+                Planes pl, LstmNet net, LstmIO io) {
+  constexpr int L = ACT_LANES;
+  extern __shared__ float4 smem4[];
+  __shared__ EnvP P;
+  const int H = net.H, E = net.E;
+  int maxw, nbuf;
+  enc_buffers(net, maxw, nbuf);
+  float* obs = reinterpret_cast<float*>(smem4);
+  float* buf0 = obs + OBS_DIM * L;
+  float* buf1 = buf0 + maxw * L;
+  float* xh = buf0 + nbuf * maxw * L;
+  float* h = xh + E * L;
+  float* c = xh + (E + H) * L;
+  const int n = pl.n;
+  const int lane0 = blockIdx.x * L;
+  const int tid = threadIdx.x;
+
+  // the last tile may be ragged: its lanes past n compute on zeros and
+  // store nothing
+  for (int e = tid; e < H * L; e += blockDim.x) {
+    const int l = e / H, u = e % H;
+    const size_t g = (size_t)(lane0 + l) * H + u;
+    const bool valid = lane0 + l < n;
+    c[u * L + l] = valid ? io.c_in[g] : 0.0f;
+    h[u * L + l] = valid ? io.h_in[g] : 0.0f;
+  }
+  load_params(pf, pi, P);  // ends with the barrier the copies need
+
+  const bool lane_thread = tid < L && lane0 + tid < n;
+  const int i = lane0 + tid;
+  Carry cr;
+  if (lane_thread) cr = read_carry(pl, i);
+  float acc[N_STATS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float ls[4], stdv[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    ls[k] = io.theta[net.ls_off + k];
+    stdv[k] = expf(ls[k]);
+  }
+  // with no encoder the obs are the LSTM's input rows
+  float* obs_rows = net.n_enc ? obs : xh;
+
+  for (int t = 0; t < io.T; ++t) {
+    float* out = io.traj ? io.traj + (size_t)t * N_TRAJ * n + i : nullptr;
+    if (io.snap && t % io.bptt == 0) {
+      // the anchor: the carry entering this step, after the last mask
+      float* s = io.snap + (size_t)(t / io.bptt) * 2 * H * n + lane0;
+      for (int e = tid; e < H * L; e += blockDim.x) {
+        const int u = e / L, l = e % L;
+        if (lane0 + l >= n) continue;
+        s[(size_t)u * n + l] = c[u * L + l];
+        s[(size_t)(H + u) * n + l] = h[u * L + l];
+      }
+    }
+    if (lane_thread) {
+      float o[OBS_DIM];
+      observe(cr, o);
+#pragma unroll
+      for (int k = 0; k < OBS_DIM; ++k) {
+        obs_rows[k * L + tid] = o[k];
+        if (out) out[(size_t)k * n] = o[k];
+      }
+    } else if (tid < L) {
+#pragma unroll
+      for (int k = 0; k < OBS_DIM; ++k) obs_rows[k * L + tid] = 0.0f;
+    }
+    __syncthreads();
+    lstm_encoder<L>(obs, buf0, buf1, xh, io.theta, net, NoLayerOut{});
+    lstm_gates<L, ACT_PASSES, ACT_UNROLL>(xh, c, E, H, io.WP, io.BP,
+                                          NoGateOut{});
+    __syncthreads();
+    if (lane_thread) {
+      float m[4], v, a[4];
+      lstm_heads(h, L, tid, io.theta, net, m, v);
+      if (out) {
+        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (io.stochastic) gauss4(cr.k0, cr.k1, cr.rc, cr.stp, z);
+        float logp;
+        sample_logp(m, z, ls, stdv, io.stochastic != 0, a, logp);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) out[(size_t)(TP_ACT0 + k) * n] = a[k];
+        out[(size_t)TP_LOGP * n] = logp;
+        out[(size_t)TP_VAL * n] = v;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) a[k] = m[k];
+      }
+      float r, epret2;
+      bool done;
+      int step2;
+      env_step<TASK, INTEG>(cr, a[0], a[1], a[2], a[3], P, r, done, epret2,
+                            step2);
+      if (out) {
+        out[(size_t)TP_REW * n] = r;
+        out[(size_t)TP_DONE * n] = done ? 1.0f : 0.0f;
+      }
+      accumulate(acc, r, done, epret2, step2);
+      // _mask_carry: this lane's column of c and h, owned by this thread
+      const float keep = 1.0f - (done ? 1.0f : 0.0f);
+      for (int u = 0; u < H; ++u) {
+        c[u * L + tid] = c[u * L + tid] * keep;
+        h[u * L + tid] = h[u * L + tid] * keep;
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int e = tid; e < H * L; e += blockDim.x) {
+    const int l = e / H, u = e % H;
+    if (lane0 + l >= n) continue;
+    const size_t g = (size_t)(lane0 + l) * H + u;
+    io.c_out[g] = c[u * L + l];
+    io.h_out[g] = h[u * L + l];
+  }
+  if (lane_thread) write_back(pl, i, cr, acc);
+}
+
+template <int TASK, int INTEG>
+cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
+                   const LstmNet& net, const LstmIO& io, cudaStream_t stream) {
+  const size_t smem = act_smem_bytes(net);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_act_kernel<TASK, INTEG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  lstm_act_kernel<TASK, INTEG>
+      <<<(pl.n + ACT_LANES - 1) / ACT_LANES, LSTM_THREADS, smem, stream>>>(
+          pf, pi, pl, net, io);
+  return cudaGetLastError();
+}
+
+}  // namespace drone
+
+// C interface (ctypes). pf/pi: device env params; fs..stats: the state and
+// statistic planes of rollout.cu; theta: the flat parameters; wp/bp: the
+// packed gate weights (E + H, H, 4) and biases (H, 4); c_in/h_in and
+// c_out/h_out: the carry, (n, H) each; traj/snap: the trajectory planes
+// and the anchors, both null to serve (K8) or both set to train (K6).
+// layout: host ints (lstm.cuh NET_INTS).
+extern "C" int drone_lstm_act_rollout(
+    const float* pf, const int* pi, const float* fs, const uint32_t* us,
+    const int* st, float* ofs, uint32_t* ous, int* ost, float* stats,
+    const float* theta, const float* wp, const float* bp, const float* c_in,
+    const float* h_in, float* c_out, float* h_out, float* traj, float* snap,
+    const int* layout, int stochastic, int bptt, int n, int T, int task,
+    int integrator, void* stream) {
+  using namespace drone;
+  LstmNet net;
+  if (!read_net(layout, net) || n <= 0 || T < 0 ||
+      (traj == nullptr) != (snap == nullptr) ||
+      (snap != nullptr && (bptt <= 0 || T % bptt != 0)))
+    return (int)cudaErrorInvalidValue;
+  const LstmIO io{theta, reinterpret_cast<const float4*>(wp),
+                  reinterpret_cast<const float4*>(bp), c_in, h_in, c_out,
+                  h_out, traj, snap, T, bptt > 0 ? bptt : 1, stochastic};
+  const Planes pl{fs, us, st, ofs, ous, ost, stats, n};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DRONE_LSTM_CASE(TK, IG) \
+  if (task == TK && integrator == IG) return (int)launch<TK, IG>(pf, pi, pl, net, io, s);
+  DRONE_LSTM_CASE(TASK_HOVER, INTEG_EULER)
+  DRONE_LSTM_CASE(TASK_HOVER, INTEG_RK4)
+  DRONE_LSTM_CASE(TASK_WAYPOINT, INTEG_EULER)
+  DRONE_LSTM_CASE(TASK_WAYPOINT, INTEG_RK4)
+  DRONE_LSTM_CASE(TASK_RACING, INTEG_EULER)
+  DRONE_LSTM_CASE(TASK_RACING, INTEG_RK4)
+#undef DRONE_LSTM_CASE
+  return (int)cudaErrorInvalidValue;
+}

@@ -116,15 +116,11 @@ traj_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
     float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (STOCH) gauss4(c.k0, c.k1, c.rc, c.stp, z);
     // _sample_logp: the log-prob of the stored action
-    float a[4], lp[4];
+    float a[4], logp;
+    sample_logp(m, z, ls, stdv, STOCH, a, logp);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      a[k] = STOCH ? m[k] + stdv[k] * z[k] : m[k];
-      const float zr = (a[k] - m[k]) / stdv[k];
-      lp[k] = -0.5f * (zr * zr) - ls[k] - HALF_LOG_2PI;
-      out[(size_t)(TP_ACT0 + k) * n] = a[k];
-    }
-    out[(size_t)TP_LOGP * n] = ((lp[0] + lp[1]) + lp[2]) + lp[3];
+    for (int k = 0; k < 4; ++k) out[(size_t)(TP_ACT0 + k) * n] = a[k];
+    out[(size_t)TP_LOGP * n] = logp;
     out[(size_t)TP_VAL * n] = v[0];
     float r, epret2;
     bool done;

@@ -1,5 +1,7 @@
 // policy.cuh — the MLP policy as CUDA device functions, shared by the
-// acting kernels (acting.cu: K5, acting_traj.cu: K2).
+// acting kernels (acting.cu: K5, acting_traj.cu: K2), and the pieces of a
+// Gaussian policy every family shares: the action's log-prob (K2, K6) and
+// the PPO head's gradients (K3, K7).
 //
 // Ports drone_tpu/ops/pallas_acting.py `_tower` (a tanh tower with a linear
 // head, evaluated per lane) and `_gauss4_planes` (Box-Muller over the lane's
@@ -31,6 +33,7 @@ constexpr float HALF_LOG_2PI = 0.91893851757049560547f;
 // (pallas_acting_traj.py): obs(13) act(4) logp value reward done.
 // ops/cuda_acting_traj.py holds the same layout for the host.
 constexpr int N_TRAJ = OBS_DIM + 8;  // 21
+constexpr int TP_OBS0 = 0;
 constexpr int TP_ACT0 = OBS_DIM;
 constexpr int TP_LOGP = OBS_DIM + 4;
 constexpr int TP_VAL = OBS_DIM + 5;
@@ -142,6 +145,75 @@ __device__ __forceinline__ void gauss4(uint32_t k0, uint32_t k1, uint32_t e,
   z[1] = r1 * sinf(a1);
   z[2] = r2 * cosf(a2);
   z[3] = r2 * sinf(a2);
+}
+
+// _sample_logp: the action (the mean, plus std * z when stochastic) and the
+// log-prob rebuilt from the stored action. Shared by K2 and K6.
+__device__ __forceinline__ void sample_logp(const float m[4], const float z[4],
+                                            const float ls[4],
+                                            const float stdv[4],
+                                            bool stochastic, float a[4],
+                                            float& logp) {
+  float lp[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a[k] = stochastic ? m[k] + stdv[k] * z[k] : m[k];
+    const float zr = (a[k] - m[k]) / stdv[k];
+    lp[k] = -0.5f * (zr * zr) - ls[k] - HALF_LOG_2PI;
+  }
+  logp = ((lp[0] + lp[1]) + lp[2]) + lp[3];
+}
+
+// PPO constants of an update (pallas_update.UpdateConsts, expanded).
+struct UConsts {
+  float inv_m, clip_lo, clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef;
+};
+
+// _head_grads for one sample: the clipped-PPO surrogate and value loss at
+// the means m and value v. Outputs the gradients of the mean-loss w.r.t. m
+// (dm) and v (g_v), and the 8 stat terms (policy loss, value loss,
+// approx-KL, clip fraction, the 4 log_std gradient terms). max/clip
+// subgradients: the first branch wins ties; clip passes gradient inside the
+// closed interval. Shared by K3 (update.cu) and K7 (update_lstm.cu).
+__device__ __forceinline__ void head_grads(const float m[4], float v,
+                                           const float a[4], float logp_old,
+                                           float v_old, float adv, float ret,
+                                           const float ls[4],
+                                           const float stdv[4],
+                                           const UConsts& co, float dm[4],
+                                           float& g_v, float st[8]) {
+  float z[4], lp = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    z[k] = (a[k] - m[k]) / stdv[k];
+    const float term = -0.5f * (z[k] * z[k]) - ls[k] - HALF_LOG_2PI;
+    lp = k == 0 ? term : lp + term;
+  }
+  const float ratio = expf(lp - logp_old);
+  const float pg1 = -adv * ratio;
+  const float rclip = fminf(fmaxf(ratio, co.clip_lo), co.clip_hi);
+  const float pg2 = -adv * rclip;
+  const float pg = fmaxf(pg1, pg2);
+  const bool use1 = pg1 >= pg2;
+  const bool inclip = (ratio >= co.clip_lo) & (ratio <= co.clip_hi);
+  const float dpg = (use1 | inclip) ? -adv : 0.0f;
+  const float g_logp = co.inv_m * dpg * ratio;
+  const float dv_raw = v - ret;
+  const float vdiff = fminf(fmaxf(v - v_old, -co.vf_clip), co.vf_clip);
+  const float dv_c = (v_old + vdiff) - ret;
+  const float vl = fmaxf(dv_raw * dv_raw, dv_c * dv_c);
+  const bool use_raw = (dv_raw * dv_raw) >= (dv_c * dv_c);
+  const bool in_vclip = (v - v_old >= -co.vf_clip) & (v - v_old <= co.vf_clip);
+  const float dvl = use_raw ? 2.0f * dv_raw : (in_vclip ? 2.0f * dv_c : 0.0f);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) dm[k] = g_logp * (z[k] / expf(ls[k]));
+  g_v = co.half_vf_coef * co.inv_m * dvl;
+  st[0] = pg;
+  st[1] = vl;
+  st[2] = logp_old - lp;
+  st[3] = fabsf(ratio - 1.0f) > co.clip_eps ? 1.0f : 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) st[4 + k] = g_logp * (z[k] * z[k] - 1.0f);
 }
 
 // Shared memory of a tower's activation columns: the obs column block and

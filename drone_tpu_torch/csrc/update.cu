@@ -67,10 +67,6 @@ struct UTower {
                               // its bias follows W
 };
 
-struct UConsts {
-  float inv_m, clip_lo, clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef;
-};
-
 struct UArgs {
   const float* planes;   // (T, 21, n)
   const float* advret;   // (2, T, n)
@@ -278,44 +274,20 @@ update_kernel(UArgs A, UTower ta, UTower tc, UConsts co) {
     // _head_grads, one thread per sample
     if (threadIdx.x < TILE) {
       const int s = threadIdx.x;
-      float z[4], lp = 0.0f;
+      float m[4], a[4], dm[4], g_v, st[N_UPSTATS];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float a = sm[(IN + k) * SP + s];
-        z[k] = (a - sm[(HM + k) * SP + s]) / stdv[k];
-        const float term = -0.5f * (z[k] * z[k]) - ls[k] - HALF_LOG_2PI;
-        lp = k == 0 ? term : lp + term;
+        m[k] = sm[(HM + k) * SP + s];
+        a[k] = sm[(IN + k) * SP + s];
       }
-      const float logp_old = sm[(IN + 4) * SP + s];
-      const float v_old = sm[(IN + 5) * SP + s];
-      const float adv = sm[(IN + 6) * SP + s];
-      const float ret = sm[(IN + 7) * SP + s];
-      const float v = sm[HV * SP + s];
-      const float ratio = expf(lp - logp_old);
-      const float pg1 = -adv * ratio;
-      const float rclip = fminf(fmaxf(ratio, co.clip_lo), co.clip_hi);
-      const float pg2 = -adv * rclip;
-      const float pg = fmaxf(pg1, pg2);
-      const bool use1 = pg1 >= pg2;
-      const bool inclip = (ratio >= co.clip_lo) & (ratio <= co.clip_hi);
-      const float dpg = (use1 | inclip) ? -adv : 0.0f;
-      const float g_logp = co.inv_m * dpg * ratio;
-      const float dv_raw = v - ret;
-      const float vdiff = fminf(fmaxf(v - v_old, -co.vf_clip), co.vf_clip);
-      const float dv_c = (v_old + vdiff) - ret;
-      const float vl = fmaxf(dv_raw * dv_raw, dv_c * dv_c);
-      const bool use_raw = (dv_raw * dv_raw) >= (dv_c * dv_c);
-      const bool in_vclip = (v - v_old >= -co.vf_clip) & (v - v_old <= co.vf_clip);
-      const float dvl = use_raw ? 2.0f * dv_raw : (in_vclip ? 2.0f * dv_c : 0.0f);
+      head_grads(m, sm[HV * SP + s], a, sm[(IN + 4) * SP + s],
+                 sm[(IN + 5) * SP + s], sm[(IN + 6) * SP + s],
+                 sm[(IN + 7) * SP + s], ls, stdv, co, dm, g_v, st);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) sm[(HM + k) * SP + s] = g_logp * (z[k] / expf(ls[k]));
-      sm[HV * SP + s] = co.half_vf_coef * co.inv_m * dvl;
-      sm[(IN + 0) * SP + s] = pg;
-      sm[(IN + 1) * SP + s] = vl;
-      sm[(IN + 2) * SP + s] = logp_old - lp;
-      sm[(IN + 3) * SP + s] = fabsf(ratio - 1.0f) > co.clip_eps ? 1.0f : 0.0f;
+      for (int k = 0; k < 4; ++k) sm[(HM + k) * SP + s] = dm[k];
+      sm[HV * SP + s] = g_v;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) sm[(IN + 4 + k) * SP + s] = g_logp * (z[k] * z[k] - 1.0f);
+      for (int k = 0; k < N_UPSTATS; ++k) sm[(IN + k) * SP + s] = st[k];
     }
     __syncthreads();
     if (threadIdx.x < N_UPSTATS) {

@@ -1,4 +1,5 @@
-"""Policies: counterpart of `drone_tpu.models` (the MLP family so far)."""
+"""Policies: counterpart of `drone_tpu.models` (the MLP and LSTM families
+so far)."""
 
 from drone_tpu_torch.models.mlp import (  # noqa: F401
     ActorCritic,
@@ -6,6 +7,13 @@ from drone_tpu_torch.models.mlp import (  # noqa: F401
     fused_opt_state_to_flax,
     kernel_offsets,
     kernel_order,
+    order_offsets,
     params_from_flax,
     params_to_flax,
+    tensor_sizes,
+)
+from drone_tpu_torch.models.lstm import (  # noqa: F401
+    LSTMActorCritic,
+    lstm_kernel_offsets,
+    lstm_kernel_order,
 )

@@ -1,0 +1,269 @@
+"""LSTM actor-critic (counterpart of `drone_tpu/models/lstm.py`).
+
+A tanh dense encoder (`enc_h{i}`), one LSTM cell with flax's
+`OptimizedLSTMCell` semantics, a Gaussian action head (`actor_mean`, a
+state-independent `log_std`) and a value head (`critic_value`):
+
+    x = tanh(... tanh(obs W0^T + b0) ...)
+    i = sig(x Wii^T + h Whi^T + bhi)     f = sig(x Wif^T + h Whf^T + bhf)
+    g = tanh(x Wig^T + h Whg^T + bhg)    o = sig(x Wio^T + h Who^T + bho)
+    c' = f * c + i * g                   h' = o * tanh(c')
+
+The input-gate kernels `lstm.i{i,f,g,o}` have no bias; the recurrent ones
+`lstm.h{i,f,g,o}` carry one. The carry is the flax tuple (c, h), cell state
+first, each (N, hidden). Initialisation draws from flax's distributions
+(lecun-normal encoder and input kernels, orthogonal recurrent kernels,
+orthogonal(0.01) mean head, orthogonal(1.0) value head, zero biases); the
+bits differ from JAX's.
+
+The recurrent trainer keeps every parameter in one flat float32 buffer
+(`LSTMActorCritic.flatten_`) in the reference's `lstm_kernel_tensors`
+order (`drone_tpu/ppo_rnn_pallas.py`): per encoder layer W (out, in) then
+b; the 4 input-gate kernels (H, E), the 4 recurrent kernels (H, H), the 4
+recurrent biases; the action head W (4, H), b; the value head W (1, H), b;
+log_std. The parameters are views of that buffer, as in `models.mlp`.
+`params_from_flax` / `params_to_flax` carry weights across, and
+`fused_opt_state_to_flax` the reference's fused optimizer state (count, mu
+list, nu list); `models.mlp.fused_opt_state_from_flax`, a concatenation,
+serves both families.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from drone_tpu_torch.models.mlp import (
+    _lecun_normal_,
+    order_offsets,
+    split_to_flax,
+)
+from drone_tpu_torch.types import ACT_DIM, OBS_DIM
+
+GATES = ("i", "f", "g", "o")
+
+
+def lstm_kernel_order(hidden: int, encoder: Sequence[int]):
+    """(state-dict name, shape) of every parameter in the reference's
+    `lstm_kernel_tensors` order (its (out, 1) biases and (1, 4) log_std
+    hold the same numbers as (out,) and (4,) here)."""
+    order, fan_in = [], OBS_DIM
+    for i, e in enumerate(encoder):
+        order += [(f"enc_h{i}.weight", (e, fan_in)), (f"enc_h{i}.bias", (e,))]
+        fan_in = e
+    order += [(f"lstm.i{g}.weight", (hidden, fan_in)) for g in GATES]
+    order += [(f"lstm.h{g}.weight", (hidden, hidden)) for g in GATES]
+    order += [(f"lstm.h{g}.bias", (hidden,)) for g in GATES]
+    order += [("actor_mean.weight", (ACT_DIM, hidden)),
+              ("actor_mean.bias", (ACT_DIM,)),
+              ("critic_value.weight", (1, hidden)),
+              ("critic_value.bias", (1,)),
+              ("log_std", (ACT_DIM,))]
+    return order
+
+
+def lstm_kernel_offsets(hidden: int, encoder: Sequence[int]):
+    """({state-dict name: offset in the flat buffer}, buffer length)."""
+    return order_offsets(lstm_kernel_order(hidden, encoder))
+
+
+def lstm_weights(theta: torch.Tensor, hidden: int, encoder: Sequence[int]):
+    """Views of the flat buffer: (enc [(W, b), ...], wi [4 x (H, E)], wh [4 x
+    (H, H)], bh [4 x (H,)], head (W (4, H), b (4,)), vhead (W (1, H), b (1,)),
+    log_std (4,))."""
+    order = lstm_kernel_order(hidden, encoder)
+    offs, total = lstm_kernel_offsets(hidden, encoder)
+    if theta.shape != (total,):
+        raise ValueError(f"flat LSTM parameters (hidden {hidden}, encoder "
+                         f"{list(encoder)}) have {total} floats, got shape "
+                         f"{tuple(theta.shape)}")
+    v = {name: theta[offs[name]:offs[name] + math.prod(shape)].view(shape)
+         for name, shape in order}
+    enc = [(v[f"enc_h{i}.weight"], v[f"enc_h{i}.bias"])
+           for i in range(len(encoder))]
+    wi = [v[f"lstm.i{g}.weight"] for g in GATES]
+    wh = [v[f"lstm.h{g}.weight"] for g in GATES]
+    bh = [v[f"lstm.h{g}.bias"] for g in GATES]
+    return (enc, wi, wh, bh, (v["actor_mean.weight"], v["actor_mean.bias"]),
+            (v["critic_value.weight"], v["critic_value.bias"]), v["log_std"])
+
+
+def lstm_step(obs, c, h, weights):
+    """One encoder + LSTM step, batch-major: obs (N, 13), c/h (N, H) ->
+    (encoder activations [obs, enc_1, ..., x], gates (i, f, g, o), c', tanh(c'),
+    h'). The gate pre-activation is (x Wi^T + h Wh^T) + b, the reference's
+    dot(wi, x) + dot(wh, h) + bh."""
+    enc, wi, wh, bh = weights[:4]
+    acts = [obs]
+    for w, b in enc:
+        acts.append(torch.tanh(F.linear(acts[-1], w, b)))
+    x = acts[-1]
+    pre = [F.linear(x, wi[k]) + F.linear(h, wh[k]) + bh[k] for k in range(4)]
+    gi, gf, go = (torch.sigmoid(pre[k]) for k in (0, 1, 3))
+    gg = torch.tanh(pre[2])
+    c2 = gf * c + gi * gg
+    th = torch.tanh(c2)
+    return acts, (gi, gf, gg, go), c2, th, go * th
+
+
+def lstm_value(obs, carry, theta, hidden, encoder):
+    """The critic's value at obs (N, 13) given the carry (c, h) entering the
+    step (ppo_rnn_pallas._lstm_value): (N,)."""
+    weights = lstm_weights(theta, hidden, encoder)
+    *_, h2 = lstm_step(obs, carry[0], carry[1], weights)
+    vw, vb = weights[5]
+    return F.linear(h2, vw, vb)[:, 0]
+
+
+class LSTMActorCritic(nn.Module):
+    """obs (N, 13), carry (c, h) -> (mean (N, 4), log_std (N, 4), value (N,),
+    carry')."""
+
+    def __init__(self, hidden: int = 128, encoder: Sequence[int] = (64,),
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.hidden = int(hidden)
+        self.encoder = tuple(int(e) for e in encoder)
+        fan_in = OBS_DIM
+        for i, e in enumerate(self.encoder):
+            lin = nn.Linear(fan_in, e, device=device)
+            _lecun_normal_(lin.weight, generator)
+            nn.init.zeros_(lin.bias)
+            self.add_module(f"enc_h{i}", lin)
+            fan_in = e
+        self.lstm = nn.ModuleDict()
+        for g in GATES:
+            lin = nn.Linear(fan_in, self.hidden, bias=False, device=device)
+            _lecun_normal_(lin.weight, generator)
+            self.lstm[f"i{g}"] = lin
+        for g in GATES:
+            lin = nn.Linear(self.hidden, self.hidden, device=device)
+            nn.init.orthogonal_(lin.weight, 1.0, generator=generator)
+            nn.init.zeros_(lin.bias)
+            self.lstm[f"h{g}"] = lin
+        self.actor_mean = nn.Linear(self.hidden, ACT_DIM, device=device)
+        nn.init.orthogonal_(self.actor_mean.weight, 0.01, generator=generator)
+        nn.init.zeros_(self.actor_mean.bias)
+        self.critic_value = nn.Linear(self.hidden, 1, device=device)
+        nn.init.orthogonal_(self.critic_value.weight, 1.0, generator=generator)
+        nn.init.zeros_(self.critic_value.bias)
+        self.log_std = nn.Parameter(torch.zeros(ACT_DIM, device=device))
+
+    def kernel_order(self):
+        return lstm_kernel_order(self.hidden, self.encoder)
+
+    def _concat(self) -> torch.Tensor:
+        sd = dict(self.named_parameters())
+        return torch.cat([sd[name].detach().reshape(-1).to(torch.float32)
+                          for name, _ in self.kernel_order()])
+
+    def flat_params(self) -> torch.Tensor:
+        """The parameters in kernel order as one float32 buffer: `self.flat`
+        once flattened, else a fresh concatenation."""
+        flat = getattr(self, "flat", None)
+        return flat if flat is not None else self._concat()
+
+    def flatten_(self) -> torch.Tensor:
+        """Move every parameter into one flat float32 buffer in kernel order
+        and make the parameters views of it (ActorCritic.flatten_). Call it
+        after any `.to(device)`."""
+        sd = dict(self.named_parameters())
+        with torch.no_grad():
+            flat = self._concat()
+            off = 0
+            for name, shape in self.kernel_order():
+                n = math.prod(shape)
+                sd[name].data = flat[off:off + n].view(shape)
+                off += n
+        self.flat = flat
+        return flat
+
+    def initial_carry(self, n: int, device=None):
+        zeros = torch.zeros(n, self.hidden, device=device)
+        return (zeros, zeros.clone())
+
+    def weights(self):
+        """lstm_weights of the module's own parameters."""
+        enc = [(getattr(self, f"enc_h{i}").weight, getattr(self, f"enc_h{i}").bias)
+               for i in range(len(self.encoder))]
+        return (enc, [self.lstm[f"i{g}"].weight for g in GATES],
+                [self.lstm[f"h{g}"].weight for g in GATES],
+                [self.lstm[f"h{g}"].bias for g in GATES],
+                (self.actor_mean.weight, self.actor_mean.bias),
+                (self.critic_value.weight, self.critic_value.bias),
+                self.log_std)
+
+    def forward(self, obs, carry):
+        c, h = carry
+        *_, c2, _, h2 = lstm_step(obs, c, h, self.weights())
+        mean = self.actor_mean(h2)
+        value = self.critic_value(h2)[:, 0]
+        return mean, self.log_std.expand_as(mean), value, (c2, h2)
+
+
+def params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax LSTMActorCritic variables ({"params": {...}} or the inner dict) ->
+    an LSTMActorCritic state dict (CPU float32 tensors)."""
+    p = tree["params"] if "params" in tree else tree
+    if "conv0" in p:
+        raise NotImplementedError(
+            "the pixel-recurrent (cnn_lstm) family is not ported yet "
+            "(ROADMAP.md, module queue: the pixel families)")
+    # a tree with conv1 or trunk but no conv0 is neither encoder (the
+    # reference's lstm_encoder_kind lets it through as an empty dense one)
+    unknown = sorted(k for k in p if k not in ("lstm", "actor_mean",
+                                               "critic_value", "log_std")
+                     and not k.startswith("enc_h"))
+    if unknown:
+        raise ValueError(f"unrecognized LSTM encoder params {unknown}: the "
+                         f"port takes the dense enc_h* tower")
+
+    def t(a, transpose=False):
+        a = np.array(a, np.float32)
+        return torch.from_numpy(a.T.copy() if transpose else a)
+
+    sd = {}
+    for name, leaf in p.items():
+        if name == "log_std":
+            sd["log_std"] = t(leaf)
+        elif name == "lstm":
+            for gate, d in leaf.items():
+                sd[f"lstm.{gate}.weight"] = t(d["kernel"], True)
+                if "bias" in d:
+                    sd[f"lstm.{gate}.bias"] = t(d["bias"])
+        else:
+            sd[f"{name}.weight"] = t(leaf["kernel"], True)
+            sd[f"{name}.bias"] = t(leaf["bias"])
+    return sd
+
+
+def params_to_flax(module: LSTMActorCritic) -> dict:
+    """LSTMActorCritic -> flax variable tree {"params": {...}} of numpy
+    arrays."""
+    p = {}
+    for name, t in module.state_dict().items():
+        a = t.detach().cpu().numpy().astype(np.float32)
+        if name == "log_std":
+            p["log_std"] = a
+            continue
+        *path, kind = name.split(".")
+        leaf = p
+        for key in path:
+            leaf = leaf.setdefault(key, {})
+        if kind == "weight":
+            leaf["kernel"] = a.T.copy()
+        else:
+            leaf["bias"] = a
+    return {"params": p}
+
+
+def fused_opt_state_to_flax(opt_state, hidden: int, encoder: Sequence[int]):
+    """(count, flat mu, flat nu) -> the reference's recurrent fused state
+    (numpy float32 count, [mu arrays], [nu arrays]) in its kernel-tensor
+    shapes (biases (out, 1), log_std (1, 4))."""
+    return split_to_flax(opt_state, lstm_kernel_order(hidden, encoder))

@@ -126,13 +126,25 @@ def kernel_order(hidden: Sequence[int]) -> list[tuple[str, tuple]]:
     return order
 
 
-def kernel_offsets(hidden: Sequence[int]) -> tuple[dict[str, int], int]:
-    """({state-dict name: offset in the flat buffer}, buffer length)."""
+def tensor_sizes(order) -> list[int]:
+    """The element counts of a kernel order [(name, shape), ...]: the
+    tensors the fused optimizer sums the gradient norm over."""
+    return [math.prod(shape) for _, shape in order]
+
+
+def order_offsets(order) -> tuple[dict[str, int], int]:
+    """({name: offset in the flat buffer}, buffer length) of a kernel order
+    [(name, shape), ...]."""
     offs, off = {}, 0
-    for name, shape in kernel_order(hidden):
+    for name, shape in order:
         offs[name] = off
         off += math.prod(shape)
     return offs, off
+
+
+def kernel_offsets(hidden: Sequence[int]) -> tuple[dict[str, int], int]:
+    """({state-dict name: offset in the flat buffer}, buffer length)."""
+    return order_offsets(kernel_order(hidden))
 
 
 def fused_opt_state_from_flax(fused, device="cpu"):
@@ -153,8 +165,14 @@ def fused_opt_state_to_flax(opt_state, hidden: Sequence[int]):
     """Inverse of fused_opt_state_from_flax: (count, flat mu, flat nu) ->
     (numpy float32 count, [mu arrays], [nu arrays]) in the reference's
     kernel-tensor shapes (b as (out, 1), log_std as (1, 4))."""
+    return split_to_flax(opt_state, kernel_order(hidden))
+
+
+def split_to_flax(opt_state, order):
+    """(count, flat mu, flat nu) -> (numpy float32 count, [mu arrays], [nu
+    arrays]) split by `order` [(name, shape)], 1-D tensors as (n, 1)
+    columns and log_std as (1, 4), the reference's kernel-tensor shapes."""
     count, mu, nu = opt_state
-    order = kernel_order(hidden)
 
     def split(v):
         v = v.detach().cpu().numpy().astype(np.float32)

@@ -8,3 +8,8 @@ from drone_tpu_torch.ops.cuda_update import (  # noqa: F401
     fused_adam_cuda,
     ppo_update_cuda,
 )
+from drone_tpu_torch.ops.cuda_acting_lstm import (  # noqa: F401
+    lstm_act_rollout_cuda,
+    traj_lstm_rollout_cuda,
+)
+from drone_tpu_torch.ops.cuda_update_lstm import lstm_update_cuda  # noqa: F401

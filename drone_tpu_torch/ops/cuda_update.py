@@ -216,9 +216,16 @@ def head_branch_counts(planes, advret, perm_mb, theta, hidden,
                                                        perm_mb, rbl)
     m, _ = _tower_fwd(X, actor)
     v = _tower_fwd(X, critic)[0][:, 0]
+    return branch_counts(m, v, a, logp_old, v_old, adv, ret, ls, co)
+
+
+def branch_counts(m, v, a, logp_old, v_old, adv, ret, ls,
+                  co: UpdateConsts) -> dict:
+    """head_branch_counts from the head's inputs over a batch of samples
+    (head_grads' arguments); any policy family."""
     dm, g_v, stats = head_grads(m, v, a, logp_old, v_old, adv, ret, ls, co)
     value_out = torch.abs(v - v_old) > co.vf_clip
-    return {"samples": X.shape[0],
+    return {"samples": m.shape[0],
             "ratio_out": int(stats[:, ST_CF].sum()),
             "policy_grad_zero": int((dm == 0).all(1).sum()),
             "value_out": int(value_out.sum()),
@@ -250,7 +257,7 @@ def update_layout(hidden) -> np.ndarray:
     return ints
 
 
-def _check_cuda(name, t, dtype, shape=None):
+def check_cuda_tensor(name, t, dtype, shape=None):
     if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor, "
                          f"got {t.dtype} on {t.device}")
@@ -265,10 +272,10 @@ def ppo_update_kernel(planes, advret, perm_mb, theta, hidden,
     T, _, n = planes.shape
     layout = update_layout(hidden)
     P = int(layout[3 + 3 * UPD_HIDDEN])
-    _check_cuda("planes", planes, torch.float32, (T, N_TRAJ, n))
-    _check_cuda("advret", advret, torch.float32, (2, T, n))
-    _check_cuda("perm_mb", perm_mb, torch.int32)
-    _check_cuda("theta", theta, torch.float32, (P,))
+    check_cuda_tensor("planes", planes, torch.float32, (T, N_TRAJ, n))
+    check_cuda_tensor("advret", advret, torch.float32, (2, T, n))
+    check_cuda_tensor("perm_mb", perm_mb, torch.int32)
+    check_cuda_tensor("theta", theta, torch.float32, (P,))
     if rbl % TILE or n % rbl:
         raise ValueError(f"row blocks of {rbl} lanes: the kernel needs a "
                          f"multiple of {TILE} that divides {n}")
@@ -313,14 +320,17 @@ ppo_update_cuda.launches = 0
 
 @torch.no_grad()
 def fused_adam_plain(theta, grads, mu, nu, count, ac: AdamConsts,
-                     sched: LrSchedule, hidden):
+                     sched: LrSchedule, sizes):
     """Plain PyTorch version of K4 (_adam_math): updates theta, mu, nu and
-    count in place. The squared norm sums each tensor, then adds the sums
-    in kernel order, as the reference does."""
+    count in place. `sizes` are the element counts of the flat buffer's
+    tensors in kernel order (`models.tensor_sizes`, any policy family): the
+    squared norm sums each tensor, then adds the sums in that order, as the
+    reference does."""
+    if sum(sizes) != theta.numel():
+        raise ValueError(f"tensor sizes sum to {sum(sizes)}, the buffer has "
+                         f"{theta.numel()} floats")
     ss = None
-    offs, _ = kernel_offsets(hidden)
-    for name, shape in kernel_order(hidden):
-        g = grads[offs[name]:offs[name] + math.prod(shape)]
+    for g in torch.split(grads, list(sizes)):
         s = torch.sum(g * g)
         ss = s if ss is None else ss + s
     gn = sqrt_rn(ss)
@@ -342,13 +352,16 @@ def fused_adam_plain(theta, grads, mu, nu, count, ac: AdamConsts,
 
 
 def fused_adam_kernel(theta, grads, mu, nu, count, ac: AdamConsts,
-                      sched: LrSchedule, hidden):
+                      sched: LrSchedule, sizes):
     """Launch K4 (csrc/update.cu). Same contract as fused_adam_plain."""
     P = theta.numel()
+    if sum(sizes) != P:
+        raise ValueError(f"tensor sizes sum to {sum(sizes)}, the buffer has "
+                         f"{P} floats")
     for name, t in (("theta", theta), ("grads", grads), ("mu", mu),
                     ("nu", nu)):
-        _check_cuda(name, t, torch.float32, (P,))
-    _check_cuda("count", count, torch.float32, ())
+        check_cuda_tensor(name, t, torch.float32, (P,))
+    check_cuda_tensor("count", count, torch.float32, ())
     consts = np.array([sched.lr, sched.total_steps, ac.b1, ac.b2, ac.eps,
                        ac.clip_norm, math.log(ac.b1), math.log(ac.b2)],
                       np.float32)
@@ -366,12 +379,14 @@ def fused_adam_kernel(theta, grads, mu, nu, count, ac: AdamConsts,
 
 
 def fused_adam_cuda(theta, grads, mu, nu, count, ac: AdamConsts,
-                    sched: LrSchedule, hidden):
+                    sched: LrSchedule, sizes):
     """clip_by_global_norm + adam over the flat buffers, in place: the
     kernel on CUDA tensors, the plain version on CPU tensors. count is a
-    0-d float32 tensor (the adam step count), incremented by one."""
+    0-d float32 tensor (the adam step count), incremented by one; sizes the
+    element counts of the buffer's tensors in kernel order (the kernel
+    sums the whole buffer at once and needs them only for its check)."""
     run = fused_adam_plain if theta.device.type == "cpu" else fused_adam_kernel
-    run(theta, grads, mu, nu, count, ac, sched, hidden)
+    run(theta, grads, mu, nu, count, ac, sched, sizes)
 
 
 fused_adam_cuda.launches = 0

@@ -1,0 +1,369 @@
+"""Truncated-BPTT PPO update kernel (K7): one minibatch of the recurrent
+policy's forward and hand-written backward through time.
+
+Counterpart of `drone_tpu/ops/pallas_update_lstm.py`. The kernels are in
+`csrc/update_lstm.cu`; `lstm_update_plain` is the plain PyTorch version,
+a mirror of the reference's `_segment_grads`: from each segment's (c, h)
+anchor, bptt forward steps, then the gates walked backward step by step
+(hand-written, not autograd), with every segment of the minibatch folded
+into the batch. `lstm_update_cuda` takes the plain version for CPU
+tensors only; on a CUDA tensor it launches the kernels.
+
+Semantics kept from the reference: a minibatch is row blocks of whole
+lanes (sequences stay whole); the gradient entering step t through time is
+masked by step t's own keep = 1 - done (the carry leaving step t was masked
+before it entered step t + 1); dgf uses the masked c_in; the gradient stops
+at the segment anchor, which is stored data; the anchors are the carries
+after the previous step's reset mask (K6 writes them so).
+
+The reference re-runs the forward from chunk-boundary carries (`pick_sc`)
+because a segment's activations overflow a TPU core's VMEM; its gradients
+do not depend on the chunking. On the card one segment's activations for
+the whole minibatch fit in device memory (about 1.2 GB at 16,384 lanes x
+16 steps, H 128, encoder (64,)), so the kernel stores them in a scratch the
+wrapper allocates and runs one forward per step, not 1 + 1.375.
+
+Returns (grads (P,) in the flat kernel order, stat sums (N_UPSTATS,)) as
+`cuda_update.ppo_update_cuda`: gradients are sums scaled by inv_m, and
+log_std's is its stat sums ST_DLS* minus ent_coef.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from drone_tpu_torch.models.lstm import (
+    lstm_kernel_offsets,
+    lstm_step,
+    lstm_weights,
+)
+from drone_tpu_torch.ops import cuda_build
+from drone_tpu_torch.ops.cuda_acting_lstm import (
+    act_smem_bytes,
+    net_layout,
+    pack_gates,
+)
+from drone_tpu_torch.ops.cuda_acting_traj import (
+    N_TRAJ,
+    TP_ACT0,
+    TP_DONE,
+    TP_LOGP,
+    TP_OBS0,
+    TP_VAL,
+)
+from drone_tpu_torch.ops.cuda_update import (
+    N_UPSTATS,
+    ST_DLS0,
+    UpdateConsts,
+    branch_counts,
+    check_cuda_tensor,
+    head_grads,
+    minibatch_lanes,
+)
+from drone_tpu_torch.types import OBS_DIM
+
+# kernel limits (csrc/update_lstm.cu)
+BP_LANES = 64             # lanes of a through-time tile
+MAX_CHUNK = 2048          # samples of one split-K chunk of the gradient products
+_MAX_SMEM = 232448
+
+
+def _segments(x, S, bptt):
+    """(T, ..., L) -> (bptt, ..., S * L): step j of every segment, the
+    segments folded into the lane axis (segment-major)."""
+    x = x.reshape(S, bptt, *x.shape[1:])
+    x = x.movedim(0, -2)
+    return x.reshape(bptt, *x.shape[1:-2], S * x.shape[-1])
+
+
+def _segment_forward(planes, advret, snap, perm_mb, weights, hidden, rbl,
+                     bptt):
+    """The minibatch's segments run forward from their anchors, folded into
+    the batch. Returns (planes (bptt, 21, B), advret (bptt, 2, B), per step
+    (encoder activations, gates, c_in, h_in, tanh(c'), h', keep))."""
+    T = planes.shape[0]
+    if bptt <= 0 or T % bptt:
+        raise ValueError(f"the horizon {T} must be a multiple of bptt {bptt}")
+    S = T // bptt
+    lanes = minibatch_lanes(perm_mb, rbl)
+    blk = _segments(planes[:, :, lanes], S, bptt)     # (bptt, 21, B)
+    ar = _segments(advret[:, :, lanes].movedim(0, 1), S, bptt)  # (bptt, 2, B)
+    anc = snap[:, :, :, lanes]                         # (S, 2, H, L)
+    c = anc[:, 0].permute(0, 2, 1).reshape(-1, hidden)
+    h = anc[:, 1].permute(0, 2, 1).reshape(-1, hidden)
+    steps = []
+    for t in range(bptt):
+        pt = blk[t]
+        acts, gates, c2, th, h2 = lstm_step(pt[TP_OBS0:TP_OBS0 + OBS_DIM].t(),
+                                            c, h, weights)
+        keep = (1.0 - pt[TP_DONE])[:, None]
+        steps.append((acts, gates, c, h, th, h2, keep))
+        c, h = c2 * keep, h2 * keep
+    return blk, ar, steps
+
+
+@torch.no_grad()
+def lstm_head_branch_counts(planes, advret, snap, perm_mb, theta, arch,
+                            co: UpdateConsts, rbl: int, bptt: int) -> dict:
+    """cuda_update.head_branch_counts for the LSTM: how many samples of a
+    minibatch take each branch of the head's subgradients at theta."""
+    weights = lstm_weights(theta, *arch)
+    (hw, hb), (vw, vb), ls = weights[4:]
+    blk, ar, steps = _segment_forward(planes, advret, snap, perm_mb, weights,
+                                      arch[0], rbl, bptt)
+    h2 = torch.cat([s[5] for s in steps])
+    pt = blk.permute(1, 0, 2).reshape(N_TRAJ, -1)
+    arf = ar.permute(1, 0, 2).reshape(2, -1)
+    return branch_counts(F.linear(h2, hw, hb), F.linear(h2, vw, vb)[:, 0],
+                         pt[TP_ACT0:TP_ACT0 + 4].t(), pt[TP_LOGP], pt[TP_VAL],
+                         arf[0], arf[1], ls, co)
+
+
+@torch.no_grad()
+def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
+                      co: UpdateConsts, rbl: int, bptt: int,
+                      ent_coef: float = 0.0):
+    """Plain PyTorch version of K7. planes (T, N_TRAJ, N) and anchors (T //
+    bptt, 2, H, N) from the LSTM rollout; advret (2, T, N); perm_mb the
+    minibatch's row blocks of rbl lanes; theta the flat parameters of arch
+    = (hidden, encoder widths)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hidden, encoder = int(arch[0]), tuple(arch[1])
+    weights = lstm_weights(theta, hidden, encoder)
+    enc, wi, wh, bh, (hw, hb), (vw, vb), ls = weights
+    blk, ar, steps = _segment_forward(planes, advret, snap, perm_mb, weights,
+                                      hidden, rbl, bptt)
+    c = steps[0][2]
+    grads = torch.zeros_like(theta)
+    g_enc, g_wi, g_wh, g_bh, (g_hw, g_hb), (g_vw, g_vb), _ = lstm_weights(
+        grads, hidden, encoder)
+    st = torch.zeros(N_UPSTATS, device=theta.device)
+    dh = torch.zeros_like(c)
+    dc = torch.zeros_like(c)
+    for t in range(bptt - 1, -1, -1):
+        acts, (gi, gf, gg, go), c_in, h_in, th, h2, keep = steps[t]
+        pt = blk[t]
+        m = F.linear(h2, hw, hb)
+        v = F.linear(h2, vw, vb)[:, 0]
+        dm, g_v, stats = head_grads(
+            m, v, pt[TP_ACT0:TP_ACT0 + 4].t(), pt[TP_LOGP], pt[TP_VAL],
+            ar[t, 0], ar[t, 1], ls, co)
+        st += stats.sum(0)
+        g_hw += dm.t() @ h2
+        g_hb += dm.sum(0)
+        g_vw += g_v[None] @ h2
+        g_vb += g_v.sum(0, keepdim=True)
+        dh2 = dm @ hw + g_v[:, None] @ vw + dh * keep
+        dc2 = dc * keep + dh2 * go * (1.0 - th * th)
+        dgo = dh2 * th
+        dgi = dc2 * gg
+        dgf = dc2 * c_in
+        dgg = dc2 * gi
+        dc = dc2 * gf
+        dz = (dgi * (gi * (1.0 - gi)), dgf * (gf * (1.0 - gf)),
+              dgg * (1.0 - gg * gg), dgo * (go * (1.0 - go)))
+        x = acts[-1]
+        dh = torch.zeros_like(dh)
+        dx = torch.zeros_like(x)
+        for k in range(4):
+            g_wi[k] += dz[k].t() @ x
+            g_wh[k] += dz[k].t() @ h_in
+            g_bh[k] += dz[k].sum(0)
+            dh = dh + dz[k] @ wh[k]
+            dx = dx + dz[k] @ wi[k]
+        for li in range(len(enc) - 1, -1, -1):
+            y = acts[li + 1]
+            dpre = dx * (1.0 - y * y)
+            g_enc[li][0].add_(dpre.t() @ acts[li])
+            g_enc[li][1].add_(dpre.sum(0))
+            if li > 0:
+                dx = dpre @ enc[li][0]
+    offs, _ = lstm_kernel_offsets(hidden, encoder)
+    grads[offs["log_std"]:offs["log_std"] + 4] = st[ST_DLS0:] - ent_coef
+    return grads, st
+
+
+# scratch buffers of one segment, each (bptt, rows, NL): the forward's
+# activations [X, encoder outputs, h_in], the gates (then dz), [c_in,
+# tanh(c')], h', the head gradients [dm, g_v] and the encoder's dpre
+XS, GZ, CT, H2, DMV, DP = range(6)
+
+
+def grad_products(hidden: int, encoder):
+    """The weight-gradient products of csrc/update_lstm.cu and where their
+    sums go. Returns (pairs int32 (n, 7): [A buffer, A row0, M, B buffer, B
+    row0, N, out offset], each the (M, N + 1) block sum_s A[m, s] B[n, s]
+    with the bias sums sum_s A[m, s] as column N; their total size; the map
+    (P,) int32 from each flat parameter to its sum, -1 - k for log_std[k]).
+    """
+    encoder = tuple(int(e) for e in encoder)
+    H = int(hidden)
+    E = encoder[-1] if encoder else OBS_DIM
+    offs, P = lstm_kernel_offsets(H, encoder)
+    mp = np.zeros(P, np.int64)
+    pairs, out = [], 0
+
+    def place(w_off, b_off, M, N, out, w_cols=None, col0=0):
+        """W (M, w_cols) at w_off from columns col0.. of the block, b from
+        column N."""
+        w_cols = N if w_cols is None else w_cols
+        rows = out + np.arange(M)[:, None] * (N + 1)
+        if w_off is not None:
+            mp[w_off:w_off + M * w_cols] = (rows + col0
+                                            + np.arange(w_cols)).reshape(-1)
+        if b_off is not None:
+            mp[b_off:b_off + M] = rows[:, 0] + N
+
+    x_row = OBS_DIM + sum(encoder) - E if encoder else 0
+    in_row, nin, dp_row = 0, OBS_DIM, 0
+    for i, e in enumerate(encoder):
+        pairs.append((DP, dp_row, e, XS, in_row, nin, out))
+        place(offs[f"enc_h{i}.weight"], offs[f"enc_h{i}.bias"], e, nin, out)
+        out += e * (nin + 1)
+        in_row = OBS_DIM + dp_row
+        dp_row += e
+        nin = e
+    pairs.append((GZ, 0, 4 * H, XS, x_row, E + H, out))
+    for g, gate in enumerate("ifgo"):
+        blk = out + g * H * (E + H + 1)
+        place(offs[f"lstm.i{gate}.weight"], None, H, E + H, blk, E)
+        place(offs[f"lstm.h{gate}.weight"], offs[f"lstm.h{gate}.bias"], H,
+              E + H, blk, H, E)
+    out += 4 * H * (E + H + 1)
+    pairs.append((DMV, 0, 5, H2, 0, H, out))
+    place(offs["actor_mean.weight"], offs["actor_mean.bias"], 4, H, out)
+    place(offs["critic_value.weight"], offs["critic_value.bias"], 1, H,
+          out + 4 * (H + 1))
+    out += 5 * (H + 1)
+    mp[offs["log_std"]:offs["log_std"] + 4] = -1 - np.arange(4)
+    return np.array(pairs, np.int32), out, mp.astype(np.int32)
+
+
+def scratch_rows(hidden: int, encoder) -> list[int]:
+    """Rows per step of each scratch buffer (XS, GZ, CT, H2, DMV, DP)."""
+    enc_rows = sum(encoder)
+    return [OBS_DIM + enc_rows + hidden, 4 * hidden, 2 * hidden, hidden, 5,
+            enc_rows]
+
+
+def bptt_smem_bytes(hidden: int, encoder) -> int:
+    """Shared memory of one through-time block (update_lstm.cu)."""
+    encoder = tuple(encoder)
+    mid = encoder[:-1]
+    E = encoder[-1] if encoder else OBS_DIM
+    fwd = OBS_DIM + min(len(mid), 2) * max(mid, default=0) + E + 2 * hidden
+    bwd = 6 * hidden + max(encoder, default=0) + 6
+    return 4 * BP_LANES * max(fwd, bwd)
+
+
+def check_envelope(hidden: int, encoder) -> None:
+    """Raise ValueError for an LSTM that K6, K7 or K8 cannot take: at most
+    MAX_ENC encoder layers none wider than 4 x hidden, a hidden width <=
+    MAX_HIDDEN that is a multiple of 4, and the shared memory of a block."""
+    net_layout(hidden, encoder)
+    if max(encoder, default=0) > 4 * hidden:
+        raise ValueError(f"encoder widths above 4 x hidden ({4 * hidden}) do "
+                         f"not fit the update kernel's buffers, got "
+                         f"{list(encoder)}")
+    if (act_smem_bytes(hidden, encoder) > _MAX_SMEM - 256
+            or bptt_smem_bytes(hidden, encoder) > _MAX_SMEM):
+        raise ValueError(f"an LSTM of hidden {hidden} and encoder "
+                         f"{list(encoder)} needs more shared memory per block "
+                         f"than an H100 has")
+
+
+def chunk_lanes(NL: int) -> int:
+    """Lanes of one split-K chunk: the largest power of two up to MAX_CHUNK
+    that divides the minibatch's lanes."""
+    ck = MAX_CHUNK
+    while NL % ck:
+        ck //= 2
+    return ck
+
+
+_maps: dict = {}
+
+
+def _device_map(hidden, encoder, device):
+    """The flat-parameter map of grad_products on the device, made once per
+    shape (through pinned memory, so the copy does not wait for the
+    stream)."""
+    key = (hidden, tuple(encoder), str(device))
+    if key not in _maps:
+        pairs, ptot, mp = grad_products(hidden, encoder)
+        _maps[key] = (pairs, ptot, torch.from_numpy(mp).pin_memory().to(
+            device, non_blocking=True))
+    return _maps[key]
+
+
+def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
+                       co: UpdateConsts, rbl: int, bptt: int,
+                       ent_coef: float = 0.0):
+    """Launch K7 (csrc/update_lstm.cu). Same contract as lstm_update_plain.
+    """
+    hidden, encoder = int(arch[0]), tuple(int(e) for e in arch[1])
+    T, _, n = planes.shape
+    layout = net_layout(hidden, encoder)
+    if bptt <= 0 or T % bptt:
+        raise ValueError(f"the horizon {T} must be a multiple of bptt {bptt}")
+    if rbl % 128 or n % rbl:
+        raise ValueError(f"row blocks of {rbl} lanes: the kernel needs a "
+                         f"multiple of 128 that divides {n}")
+    check_envelope(hidden, encoder)
+    S = T // bptt
+    _, P = lstm_kernel_offsets(hidden, encoder)
+    check_cuda_tensor("planes", planes, torch.float32, (T, N_TRAJ, n))
+    check_cuda_tensor("advret", advret, torch.float32, (2, T, n))
+    check_cuda_tensor("snap", snap, torch.float32, (S, 2, hidden, n))
+    check_cuda_tensor("perm_mb", perm_mb, torch.int32, (perm_mb.numel(),))
+    check_cuda_tensor("theta", theta, torch.float32, (P,))
+    dev = planes.device
+    NL = perm_mb.numel() * rbl
+    CK = chunk_lanes(NL)
+    nk = bptt * NL // CK
+    nblk = NL // BP_LANES
+    pairs, ptot, mp = _device_map(hidden, encoder, dev)
+    wp, bp = pack_gates(theta, hidden, encoder)
+    rows = scratch_rows(hidden, encoder)
+    scratch = [torch.empty(max(r, 1) * bptt * NL, device=dev) for r in rows]
+    partial = torch.empty(S * nk, ptot, device=dev)
+    stat_part = torch.empty(S * nblk, N_UPSTATS, device=dev)
+    grads = torch.empty(P, device=dev)
+    stats = torch.empty(N_UPSTATS, device=dev)
+    ptrs = np.array([t.data_ptr() for t in (
+        planes, advret, snap, perm_mb, theta, wp, bp, *scratch, partial,
+        stat_part, mp, grads, stats)], np.uint64)
+    dims = np.array([n, T, bptt, rbl, NL, CK, P, ptot, len(pairs), *rows],
+                    np.int32)
+    consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
+                       co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
+                      np.float32)
+    fn = cuda_build.load("update_lstm").drone_lstm_update
+    fn.argtypes = [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(ptrs.ctypes.data, layout.ctypes.data, dims.ctypes.data,
+                 np.ascontiguousarray(pairs).ctypes.data, consts.ctypes.data,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "drone_lstm_update")
+    lstm_update_cuda.launches += 1
+    return grads, stats
+
+
+def lstm_update_cuda(planes, advret, snap, perm_mb, theta, arch,
+                     co: UpdateConsts, rbl: int, bptt: int,
+                     ent_coef: float = 0.0):
+    """One recurrent PPO minibatch gradient pass (truncated BPTT): the
+    kernels on CUDA tensors, the plain version on CPU tensors. perm_mb:
+    (n_sel,) int32 row-block indices, block i covering lanes [i*rbl,
+    (i+1)*rbl). Returns (grads (P,), stat sums (8,))."""
+    run = lstm_update_plain if planes.device.type == "cpu" else lstm_update_kernel
+    return run(planes, advret, snap, perm_mb, theta, arch, co, rbl, bptt,
+               ent_coef)
+
+
+lstm_update_cuda.launches = 0

@@ -37,6 +37,7 @@ import torch
 
 from drone_tpu_torch import env as env_mod
 from drone_tpu_torch.dynamics import sqrt_rn
+from drone_tpu_torch.models.mlp import kernel_order, tensor_sizes
 from drone_tpu_torch.ops.cuda_acting_traj import (
     HALF_LOG_2PI,
     TP_DONE,
@@ -176,6 +177,27 @@ def draw_permutations(generator: torch.Generator, epochs: int, n_rb: int):
                         for _ in range(epochs)])
 
 
+def update_permutations(runner, permutations, cfg: PPOConfig, n_rb: int,
+                        device):
+    """One update's (epochs, n_rb) int32 row-block permutations on
+    `device`: permutations(runner) when given, else drawn from the runner's
+    CPU generator."""
+    perms = (permutations(runner) if permutations is not None
+             else draw_permutations(runner.generator, cfg.epochs, n_rb))
+    perms = torch.as_tensor(perms, dtype=torch.int32)
+    if device.type == "cuda":
+        # from pinned memory the copy queues behind the previous update
+        # instead of waiting for it
+        perms = perms.pin_memory()
+    return perms.to(device, non_blocking=True)
+
+
+def entropies(ls_all):
+    """The Gaussian policy's entropy at each SGD step's log_std, (steps,)
+    from (steps, 4)."""
+    return torch.sum(ls_all + 0.5 * (1.0 + 2.0 * HALF_LOG_2PI), dim=1)
+
+
 def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None):
     """Build the megakernel train step: RunnerState -> (RunnerState,
     metrics), with the env's params and device.
@@ -198,19 +220,13 @@ def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None):
     def train_step(runner: RunnerState):
         mark("rollout")
         theta, hidden = kernel_tensors(runner.params)
+        sizes = tensor_sizes(kernel_order(hidden))
         count, mu, nu = runner.opt_state
         dev = theta.device
         if runner.env_state.n != cfg.num_envs:
             raise ValueError(f"the runner has {runner.env_state.n} lanes, "
                              f"the config {cfg.num_envs}")
-        perms = (permutations(runner) if permutations is not None
-                 else draw_permutations(runner.generator, cfg.epochs, n_rb))
-        perms = torch.as_tensor(perms, dtype=torch.int32)
-        if dev.type == "cuda":
-            # from pinned memory the copy queues behind the previous update
-            # instead of waiting for it
-            perms = perms.pin_memory()
-        perms = perms.to(dev, non_blocking=True)
+        perms = update_permutations(runner, permutations, cfg, n_rb, dev)
 
         # --- rollout: trajectory planes (T, 21, N) ------------------------
         final, planes, stats = traj_rollout_cuda(
@@ -236,11 +252,11 @@ def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None):
             grads, st = ppo_update_cuda(planes, advret, perm_mb, theta,
                                         hidden, co, rbl, cfg.ent_coef)
             st_all[i] = st
-            fused_adam_cuda(theta, grads, mu, nu, count, ac, sched, hidden)
+            fused_adam_cuda(theta, grads, mu, nu, count, ac, sched, sizes)
 
         run_epoch_scans(sgd_step, perms, cfg, mb_rb)
         mark("metrics")
-        ent = torch.sum(ls_all + 0.5 * (1.0 + 2.0 * HALF_LOG_2PI), dim=1)
+        ent = entropies(ls_all)
         losses, auxes = losses_fn(st_all, ent)
         metrics = trainer_metrics(stats, losses, auxes, cfg, cfg.num_envs)
         runner2 = RunnerState(params=runner.params, opt_state=(count, mu, nu),

@@ -1,10 +1,12 @@
 """Training and evaluation entry points (counterpart of `drone_tpu/train.py`).
 
 `train` is the outer loop around the megakernel train step
-(`ppo_cuda.make_train_step`): config -> env -> policy -> loop { rollout +
-update on the device } with metrics, periodic checkpoints and exact resume.
-The host reads scalar metrics back only every log_interval updates.
-`evaluate` restores a policy and rolls it out through the acting kernel.
+(`ppo_cuda.make_train_step` for run.policy=mlp,
+`ppo_rnn_cuda.make_rnn_train_step` for run.policy=lstm): config -> env ->
+policy -> loop { rollout + update on the device } with metrics, periodic
+checkpoints and exact resume. The host reads scalar metrics back only every
+log_interval updates. `evaluate` restores a policy and rolls it out through
+the acting kernel (K5 for the MLP, K8 for the LSTM).
 """
 
 from __future__ import annotations
@@ -17,11 +19,13 @@ from pathlib import Path
 import torch
 from torch import nn
 
-from drone_tpu_torch import ppo_cuda
+from drone_tpu_torch import ppo_cuda, ppo_rnn_cuda
 from drone_tpu_torch.env import DroneEnv
-from drone_tpu_torch.models import ActorCritic
-from drone_tpu_torch.ops import act_rollout_cuda
+from drone_tpu_torch.models import ActorCritic, LSTMActorCritic
+from drone_tpu_torch.ops import act_rollout_cuda, lstm_act_rollout_cuda
+from drone_tpu_torch.ops.cuda_update_lstm import check_envelope
 from drone_tpu_torch.ppo import init_runner
+from drone_tpu_torch.ppo_rnn import init_recurrent_runner, rollout_recurrent
 from drone_tpu_torch.rollout import rollout_policy
 from drone_tpu_torch.types import resolve_device
 from drone_tpu_torch.utils.checkpoint import Checkpointer
@@ -34,11 +38,12 @@ from drone_tpu_torch.utils.metrics import (
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _UNPORTED_POLICIES = {
-    "lstm": "the LSTM family",
-    "cnn_lstm": "the LSTM family",
+    "cnn_lstm": "the pixel families (cnn_lstm through the LSTM kernels' "
+                "encoder hook)",
     "cnn": "the pixel families",
     "cnn_overlap": "the pixel families",
 }
+_SCAN_TRAINER = "ROADMAP.md, module queue: the scan trainer"
 
 
 def build_env_and_model(cfg: Config, device="cuda"):
@@ -51,14 +56,21 @@ def build_env_and_model(cfg: Config, device="cuda"):
         raise NotImplementedError(
             f"run.policy={cfg.run.policy!r} is not ported yet (ROADMAP.md, "
             f"module queue: {_UNPORTED_POLICIES[cfg.run.policy]})")
-    if cfg.run.policy != "mlp":
-        raise ValueError(f"run.policy must be 'mlp', 'cnn', 'cnn_overlap', "
-                         f"'lstm' or 'cnn_lstm', got {cfg.run.policy!r}")
     # initialised on the CPU from the run's seed (the card and the CPU start
     # from the same weights), then moved
-    model = ActorCritic(hidden=tuple(cfg.run.hidden),
-                        dtype=_DTYPES[cfg.run.compute_dtype],
-                        generator=torch.Generator().manual_seed(cfg.run.seed))
+    generator = torch.Generator().manual_seed(cfg.run.seed)
+    if cfg.run.policy == "lstm":
+        # the encoder is run.hidden[:1], as the reference builds it
+        model = LSTMActorCritic(hidden=cfg.run.lstm_hidden,
+                                encoder=tuple(cfg.run.hidden)[:1],
+                                generator=generator)
+    elif cfg.run.policy == "mlp":
+        model = ActorCritic(hidden=tuple(cfg.run.hidden),
+                            dtype=_DTYPES[cfg.run.compute_dtype],
+                            generator=generator)
+    else:
+        raise ValueError(f"run.policy must be 'mlp', 'cnn', 'cnn_overlap', "
+                         f"'lstm' or 'cnn_lstm', got {cfg.run.policy!r}")
     return env, model.to(device)
 
 
@@ -72,38 +84,69 @@ def restore_dir(cfg: Config) -> Path:
 
 def build(cfg: Config, device="cuda"):
     """Config -> (env, model, runner, step_fn, cfg with train.total_updates
-    synced from run.total_updates). The megakernel trainer takes
+    synced from run.total_updates). The megakernel trainers take
     run.rollout 'auto' and 'pallas'; the scan trainer, bfloat16 training
     and run.profile_dir are still to port and raise NotImplementedError."""
     # run.total_updates is the run's length; the lr anneal spans it
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, total_updates=cfg.run.total_updates))
     env, model = build_env_and_model(cfg, device)
+    _check_options(cfg)
     eligible = cfg.train.num_envs % (128 * cfg.train.num_minibatches) == 0
+    if cfg.run.policy == "lstm":
+        return _build_recurrent(cfg, env, model, eligible)
     if cfg.run.rollout == "scan" or (cfg.run.rollout == "auto"
                                      and not eligible):
         raise NotImplementedError(
-            "the scan trainer (autograd, optax-shaped state) is not ported "
-            "yet (ROADMAP.md, module queue: the scan trainer); the megakernel "
-            "trainer needs num_envs divisible by 128 * num_minibatches")
+            f"the scan trainer (autograd, optax-shaped state) is not ported "
+            f"yet ({_SCAN_TRAINER}); the megakernel trainer needs num_envs "
+            f"divisible by 128 * num_minibatches")
     if cfg.run.rollout == "pallas" and not eligible:
         raise ValueError(
             f"run.rollout='pallas' needs num_envs divisible by "
             f"128*num_minibatches, got num_envs={cfg.train.num_envs}, "
             f"num_minibatches={cfg.train.num_minibatches}")
-    if cfg.run.rollout not in ("auto", "pallas"):
+    runner = init_runner(model, env, cfg.train, seed=cfg.run.seed)
+    step = ppo_cuda.make_train_step(env, cfg.train)
+    return env, runner.params, runner, step, cfg
+
+
+def _check_options(cfg: Config):
+    """The options no trainer of the port takes yet, for either family."""
+    if cfg.run.rollout not in ("auto", "pallas", "scan"):
         raise ValueError(f"run.rollout must be 'scan', 'pallas' or 'auto', "
                          f"got {cfg.run.rollout!r}")
-    if cfg.run.compute_dtype != "float32":
-        raise NotImplementedError(
-            "bfloat16 training is not ported yet (ROADMAP.md, module queue: "
-            "bf16 training)")
     if cfg.run.profile_dir:
         raise NotImplementedError(
             "run.profile_dir is not ported yet (ROADMAP.md, module queue: "
             "run.profile_dir through torch.profiler)")
-    runner = init_runner(model, env, cfg.train, seed=cfg.run.seed)
-    step = ppo_cuda.make_train_step(env, cfg.train)
+    if cfg.run.compute_dtype != "float32":
+        raise NotImplementedError(
+            "bfloat16 training is not ported yet (ROADMAP.md, module queue: "
+            "bf16 training)")
+
+
+def _build_recurrent(cfg: Config, env, model, eligible: bool):
+    """build() for run.policy=lstm: the recurrent megakernel trainer (K6,
+    K7, K4). The reference's other tiers (the scan trainer, and its hybrid
+    of the kernel rollout with a segmented_forward update for shapes the
+    update kernel does not take) are still to port."""
+    ppo_rnn_cuda.bptt_of(cfg.train)  # the horizon splits into segments
+    try:
+        check_envelope(model.hidden, model.encoder)
+        outside = None
+    except ValueError as e:
+        outside = str(e)
+    if cfg.run.rollout == "scan" or not eligible or outside:
+        why = ("run.rollout=scan" if cfg.run.rollout == "scan" else outside
+               or f"num_envs={cfg.train.num_envs} does not split into "
+                  f"{cfg.train.num_minibatches} minibatches of 128-lane rows")
+        raise NotImplementedError(
+            f"the recurrent scan trainer and the segmented_forward update are "
+            f"not ported yet ({_SCAN_TRAINER}); the LSTM megakernel trainer "
+            f"cannot take this run: {why}")
+    runner = init_recurrent_runner(model, env, cfg.train, seed=cfg.run.seed)
+    step = ppo_rnn_cuda.make_rnn_train_step(env, cfg.train)
     return env, runner.params, runner, step, cfg
 
 
@@ -194,10 +237,11 @@ def _episode_stats(stats) -> dict:
 @torch.no_grad()
 def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
              device="cuda") -> dict:
-    """Roll out the restored (or given: `runner.params`, a state dict or an
-    ActorCritic) policy for horizon + 1 steps on `episodes` lanes and report
+    """Roll out the restored (or given: `runner.params`, a state dict or a
+    module) policy for horizon + 1 steps on `episodes` lanes and report
     episode stats. A deterministic float32 MLP policy goes through the
-    acting kernel (K5; its plain version on the CPU)."""
+    acting kernel K5, a deterministic LSTM policy through K8 (their plain
+    versions on the CPU); the rest through the module."""
     env, model = build_env_and_model(cfg, device)
     if runner is None:
         raw, _ = Checkpointer(restore_dir(cfg)).restore_raw()
@@ -212,6 +256,19 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
     n = episodes
     state = env.init_batch(cfg.run.seed + 1, n)
     horizon = int(env.params.horizon) + 1
+
+    if cfg.run.policy == "lstm":
+        carry = model.initial_carry(n, env.device)
+        if deterministic:
+            _, _, stats = lstm_act_rollout_cuda(
+                state, model.flat_params(), (model.hidden, model.encoder),
+                carry, env.params, env.statics, horizon)
+            return _episode_stats(stats)
+        _, _, out = rollout_recurrent(
+            model, env, state, carry, horizon,
+            generator=torch.Generator(device=env.device).manual_seed(0),
+            deterministic=deterministic)
+        return _stats_of(out)
 
     # the kernel computes in float32: a bf16-trained policy is a slightly
     # different function, so it goes through the module with its dtype
@@ -231,6 +288,11 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
     generator = torch.Generator(device=env.device).manual_seed(0)
     _, (out, _) = rollout_policy(state, policy, horizon, env.params,
                                  env.statics, generator=generator)
+    return _stats_of(out)
+
+
+def _stats_of(out) -> dict:
+    """Episode statistics of a stacked StepOut."""
     done = (out.terminated | out.truncated).cpu().numpy()
     rets = out.ep_return.cpu().numpy()[done]
     lens = out.ep_length.cpu().numpy()[done]

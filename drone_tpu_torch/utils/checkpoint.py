@@ -4,7 +4,8 @@
 Counterpart of `drone_tpu/utils/checkpoint.py`. A policy checkpoint holds
 {"params": state_dict}; a training checkpoint holds the whole runner for an
 exact resume: params, the fused optimizer state (count, mu, nu), the env
-state, the permutation generator's state and update_idx. Either kind
+state, the permutation generator's state and update_idx, and for the
+recurrent trainer the LSTM carry (c, h). Either kind
 serves `restore_raw()["params"]`, which is all evaluation needs. The
 newest `max_to_keep` steps are kept.
 """
@@ -20,6 +21,7 @@ from torch import nn
 
 from drone_tpu_torch import env as env_mod
 from drone_tpu_torch.ppo import RunnerState
+from drone_tpu_torch.ppo_rnn import RecurrentRunnerState
 from drone_tpu_torch.types import EnvState
 
 _FILE = "params.pt"
@@ -52,6 +54,9 @@ class Checkpointer:
                 "generator": obj.generator.get_state(),
                 "update_idx": int(obj.update_idx),
             }
+            if isinstance(obj, RecurrentRunnerState):
+                data["carry"] = {"c": _cpu(obj.carry[0]),
+                                 "h": _cpu(obj.carry[1])}
         else:
             params = obj.state_dict() if isinstance(obj, nn.Module) else obj
             data = {"params": {k: _cpu(v) for k, v in params.items()}}
@@ -113,8 +118,17 @@ class Checkpointer:
         env_state = EnvState(**{k: v.to(dev) for k, v in saved_env.items()})
         gen = torch.Generator()
         gen.set_state(raw["generator"])
-        runner = RunnerState(params=params, opt_state=(count, mu, nu),
-                             env_state=env_state,
-                             last_obs=env_mod.observe(env_state),
-                             generator=gen, update_idx=int(raw["update_idx"]))
-        return runner, step
+        fields = dict(params=params, opt_state=(count, mu, nu),
+                      env_state=env_state, last_obs=env_mod.observe(env_state),
+                      generator=gen, update_idx=int(raw["update_idx"]))
+        if not isinstance(template, RecurrentRunnerState):
+            return RunnerState(**fields), step
+        if "carry" not in raw:
+            raise RuntimeError(f"checkpoint at {self.dir} holds no LSTM carry "
+                               f"(a feed-forward run?)")
+        carry = tuple(raw["carry"][k].to(dev) for k in ("c", "h"))
+        if carry[0].shape != template.carry[0].shape:
+            raise RuntimeError(f"checkpoint at {self.dir} holds a carry of "
+                               f"shape {tuple(carry[0].shape)}, this run "
+                               f"{tuple(template.carry[0].shape)}")
+        return RecurrentRunnerState(**fields, carry=carry), step

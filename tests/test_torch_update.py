@@ -35,8 +35,10 @@ from drone_tpu_torch import ppo_cuda
 from drone_tpu_torch.models import (
     ActorCritic,
     kernel_offsets,
+    kernel_order,
     params_from_flax,
     params_to_flax,
+    tensor_sizes,
 )
 from drone_tpu_torch.ops import cuda_update, fused_adam_cuda, ppo_update_cuda
 from drone_tpu_torch.ppo import PPOConfig
@@ -249,7 +251,8 @@ def test_plain_adam_matches_reference():
                      anneal_lr=True)
     launches = fused_adam_cuda.launches
     fused_adam_cuda(theta, cat(grads), mu, nu, c, cuda_update.AdamConsts(),
-                    ppo_cuda.make_fused_lr(pcfg), HIDDEN)
+                    ppo_cuda.make_fused_lr(pcfg),
+                    tensor_sizes(kernel_order(HIDDEN)))
     assert fused_adam_cuda.launches == launches
     assert float(c) == count + 1.0
     np.testing.assert_allclose(theta.numpy(), cat(w2).numpy(), rtol=1e-5,
@@ -319,7 +322,7 @@ def test_kernels_refuse_cpu_tensors():
                                       torch.tensor(0.0),
                                       cuda_update.AdamConsts(),
                                       ppo_cuda.make_fused_lr(PPOConfig()),
-                                      HIDDEN)
+                                      tensor_sizes(kernel_order(HIDDEN)))
 
 
 def test_gaussian_logp_entropy_and_gae_match_reference():
