@@ -2,7 +2,7 @@
 """Smoke test of drone_tpu_torch on one CUDA card: `python3 chip_smoke.py`.
 
 Builds the CUDA kernels from csrc/ (nvcc, in parallel), holds each against
-its plain PyTorch version on the card's inputs, drives the port's two paths
+its plain PyTorch version on the card's inputs, drives the port's paths
 through the entry points a user calls, checks what comes out, and times
 each kernel beside its plain version and its bound. Exits nonzero, printing
 no result, when there is no CUDA device or a phase fails.
@@ -89,6 +89,39 @@ Phases:
      resume(2) bitwise, carry included.
  18. Times of K8, K6 and K7 beside their plain versions and bounds, and one
      full-width LSTM update split and traced as in 11.
+ 19. K11 (csrc/acting_cnn.cu, serving) against its plain version: hover,
+     the PatchCNNActorCritic defaults (24x24x4 render, conv0 4x4/4 -> 64,
+     conv1 2x2/2 -> 64, trunk 128), 65,536 lanes, T = 3 (deterministic and
+     with K9's noise) within rtol 2e-5 / atol 2e-6 on the final state and
+     the per-lane statistics with episode counts equal, and T = 64
+     statistically; then waypoint/rk4 with a ragged last lane tile (8,256
+     lanes), T = 3.
+ 20. K9 (the same kernel, training) against its plain version at 65,536
+     lanes: T = 3 in both action modes, all 21 planes and the final state
+     within rtol 2e-5 / atol 2e-6; T = 128 stochastic, statistically.
+ 21. K10 (csrc/update_cnn.cu) against its plain version on the full-width
+     minibatch of the reference's CNN geometry (16 row blocks of 1,024
+     lanes x 128 steps, planes from K9): each gradient tensor and the stat
+     sums within 1e-4 x its max |value|, at the planes' own weights and at
+     weights moved off them (every branch of the head's subgradients on at
+     least 0.1% of the samples, each stat sum held on its own); two launches
+     bitwise equal. K4 over the CNN's 11 tensors against its plain version,
+     rtol 1e-5.
+ 22. The CNN serving path: `evaluate(episodes=65536)` and `cli eval` on
+     hover.toml with run.policy=cnn from a Checkpointer checkpoint (K11
+     twice); evaluate(512) on the card against the CPU.
+ 23. The CNN training path: `train` at the reference's CNN geometry
+     (hover.toml + run.policy=cnn train.horizon=128
+     train.num_minibatches=4) for 3 updates (K9 = 3, K10 = K4 = 48), then
+     `cli train` for 2 and `cli eval` of its checkpoint.
+ 24. The CNN learning gate (4,096 envs, horizon 32, 2 epochs x 2
+     minibatches, lr 1e-3, no entropy bonus, 150 updates: a 10-update mean
+     of the value loss below half that of updates 3-12, the mean reward of
+     the last 10 above the first 10 by 0.2, parameters finite) and
+     train(4) == train(2) + resume(2) bitwise.
+ 25. Times of K11, K9, K10 and K4 over the CNN layout beside their plain
+     versions and bounds, and one full-width CNN update split and traced as
+     in 11.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
@@ -330,7 +363,9 @@ def _wrappers() -> dict:
     return {"K1": ops.rollout_cuda, "K2": ops.traj_rollout_cuda,
             "K3": ops.ppo_update_cuda, "K4": ops.fused_adam_cuda,
             "K5": ops.act_rollout_cuda, "K6": ops.traj_lstm_rollout_cuda,
-            "K7": ops.lstm_update_cuda, "K8": ops.lstm_act_rollout_cuda}
+            "K7": ops.lstm_update_cuda, "K8": ops.lstm_act_rollout_cuda,
+            "K9": ops.traj_cnn_rollout_cuda, "K10": ops.ppo_cnn_update_cuda,
+            "K11": ops.cnn_act_rollout_cuda}
 
 
 def zero_counts():
@@ -421,12 +456,12 @@ def hover_minibatch(cfg, model, env):
     return planes, advret, perm_mb, co, rbu * 128
 
 
-def off_policy(flat, order, seed=5):
+def off_policy(flat, order, seed=5, critic_scale=2.0):
     """A copy of a flat parameter buffer (kernel order `order`) moved away
-    from the weights that wrote the planes: noise on the actor's and the
-    critic's heads, log_std up by 0.1. On part of the samples the ratio then
-    leaves 1 +- clip_eps and v leaves v_old +- vf_clip, as on every
-    minibatch of an update after its first."""
+    from the weights that wrote the planes: noise on the actor's head and
+    (critic_scale) on the critic's, log_std up by 0.1. On part of the
+    samples the ratio then leaves 1 +- clip_eps and v leaves v_old +-
+    vf_clip, as on every minibatch of an update after its first."""
     import torch
 
     from drone_tpu_torch.models import order_offsets
@@ -436,8 +471,8 @@ def off_policy(flat, order, seed=5):
     theta = flat.clone()
     g = torch.Generator().manual_seed(seed)
     for name, scale in (("actor_mean.weight", 0.02), ("actor_mean.bias", 0.02),
-                        ("critic_value.weight", 2.0),
-                        ("critic_value.bias", 2.0)):
+                        ("critic_value.weight", critic_scale),
+                        ("critic_value.bias", critic_scale)):
         n = math.prod(shapes[name])
         theta[offs[name]:offs[name] + n] += (
             scale * torch.randn(n, generator=g)).to(theta.device)
@@ -750,14 +785,15 @@ def split_update(cfg):
 
     import torch
 
-    from drone_tpu_torch import ppo_cuda, ppo_rnn_cuda
+    from drone_tpu_torch import ppo_cnn_cuda, ppo_cuda, ppo_rnn_cuda
     from drone_tpu_torch.train import build
 
     env, _, runner, _, bcfg = build(cfg)
     tc = bcfg.train
     marks = []
-    maker = (ppo_rnn_cuda.make_rnn_train_step if cfg.run.policy == "lstm"
-             else ppo_cuda.make_train_step)
+    maker = {"lstm": ppo_rnn_cuda.make_rnn_train_step,
+             "cnn": ppo_cnn_cuda.make_cnn_train_step}.get(
+                 cfg.run.policy, ppo_cuda.make_train_step)
 
     def mark(name):
         ev = torch.cuda.Event(enable_timing=True)
@@ -837,7 +873,10 @@ def trace_update(step, runner) -> dict:
                "K4": ("drone::adam_kernel",),
                "K6": ("drone::lstm_act_kernel",),
                "K7": ("drone::bptt_kernel", "drone::grad_gemm_kernel",
-                      "drone::lstm_reduce_kernel")}
+                      "drone::lstm_reduce_kernel"),
+               "K9": ("drone::cnn_act_kernel",),
+               "K10": ("drone::tile_kernel", "drone::cnn_gemm_kernel",
+                       "drone::cnn_reduce_kernel")}
     by_class = {k: 0.0 for k in (*classes, "other")}
     counts = {k: 0 for k in by_class}
     other, by_kernel = {}, {}
@@ -1361,6 +1400,501 @@ def time_lstm(cfg, env, k7_args):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The CNN slice: K11 (serving), K9 (training rollout), K10 (PPO update)
+# ---------------------------------------------------------------------------
+
+CNN_OVERRIDES = ("run.policy=cnn", "train.horizon=128",
+                 "train.num_minibatches=4")
+# the patch CNN's shapes (PatchCNNActorCritic defaults): 36 conv0 patches of
+# 64 inputs -> 64, 9 conv1 windows of 256 -> 64, trunk 576 -> 128
+CNN_PIXELS = 36 * 64          # rendered pixel-channels a lane-step
+CNN_MACS = 36 * 64 * 64 + 9 * 64 * 256 + 128 * 576
+
+
+def cnn_ops(value: bool) -> int:
+    """Operations of one CNN lane-step: the 12 splat scalars (~70), the
+    render (2 subs, 2 muls, an add, the scaled negation, the expf and the
+    amplitude: 8 a pixel-channel), the three layers (multiply-adds x2, bias
+    and relu a unit), the action head and the value head when asked."""
+    units = 36 * 64 + 9 * 64 + 128
+    ops = 70 + 8 * CNN_PIXELS + 2 * CNN_MACS + 2 * units + 2 * 4 * 128 + 4
+    return ops + (2 * 128 + 1 if value else 0)
+
+
+def cnn_update_ops() -> int:
+    """Operations of one sample through K10's function (the reference's
+    _cnn_block_grads): the forward with both heads, the PPO head, the heads'
+    gradients, dh and the trunk's mask, the weight gradients of the trunk,
+    conv1 and conv0 with their bias sums (multiply-adds x2 + 1 a weight
+    row), the input gradients dX2 and dX1 with their relu masks, and the
+    re-render of the 36 patches."""
+    ops = cnn_ops(True) + OPS_PPO_HEAD + 2 * 5 * 129 + 2 * 5 * 128 + 128
+    ops += 2 * CNN_MACS + 128 + 9 * 64 + 36 * 64       # weight gradients
+    ops += 2 * (128 * 576 + 9 * 64 * 256) + 576 + 2304  # dX2, dX1, masks
+    return ops + 8 * CNN_PIXELS
+
+
+def cnn_policy(seed=1, log_std=-0.5):
+    """A seeded PatchCNNActorCritic on the card, flattened as the trainer
+    keeps it, with actions of order 1 and a given log_std."""
+    import torch
+    from torch import nn
+
+    from drone_tpu_torch.models import PatchCNNActorCritic
+
+    g = torch.Generator().manual_seed(seed)
+    m = PatchCNNActorCritic(generator=g)
+    with torch.no_grad():
+        nn.init.orthogonal_(m.actor_mean.weight, 1.0, generator=g)
+        m.log_std.fill_(log_std)
+    m = m.cuda()
+    m.flatten_()
+    return m
+
+
+def phase_k11() -> float:
+    """K11 against its plain version on the card; returns the max abs error
+    of the T = 3 final states and statistics."""
+    import torch
+
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.ops import cuda_acting_cnn as K11
+    from drone_tpu_torch.types import default_params
+
+    # the main path's width (deterministic, and K9's noise at T = 3), then
+    # a ragged last lane tile on waypoint/rk4
+    cases = [("hover", "euler", 65536, ((3, 2, False), (3, 2, True),
+                                        (64, 40, False))),
+             ("waypoint", "rk4", 8192 + 64, ((3, 2, False),))]
+    model = cnn_policy()
+    max_err = 0.0
+    for task, integ, n, runs in cases:
+        for T, horizon, sto in runs:
+            env = DroneEnv(task, integ, default_params(task, horizon=horizon),
+                           device="cuda")
+            state = env.init_batch(2, n)
+            kf, ks = K11.cnn_act_rollout_kernel(state, model.flat, model.arch,
+                                                env.params, env.statics, T,
+                                                sto)
+            pf, ps = K11.cnn_act_rollout_plain(state, model.flat, model.arch,
+                                               env.params, env.statics, T,
+                                               sto)
+            torch.cuda.synchronize()
+            k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
+            k_r, p_r = float(ks[0].sum()) / (n * T), float(ps[0].sum()) / (n * T)
+            err = max(float((kf.fstate() - pf.fstate()).abs().max()),
+                      float((ks - ps).abs().max()))
+            print(f"K11 {task}/{integ} n={n} T={T} stochastic={sto}: "
+                  f"max|state, stats err|="
+                  f"{err:.3g} episodes {k_ep:.0f} vs {p_ep:.0f}, mean reward "
+                  f"{k_r:.6f} vs {p_r:.6f}", flush=True)
+            if T == 3:
+                max_err = max(max_err, err)
+                torch.testing.assert_close(kf.fstate(), pf.fstate(),
+                                           rtol=2e-5, atol=2e-6)
+                torch.testing.assert_close(ks, ps, rtol=2e-5, atol=2e-6)
+                if k_ep != p_ep or k_ep < n:
+                    raise AssertionError("K11 episode counts differ at T=3")
+            elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
+                raise AssertionError("K11 episode statistics disagree")
+    return max_err
+
+
+def phase_k9() -> float:
+    """K9 against its plain version on the card; returns the max abs error
+    of the T = 3 planes and final states."""
+    import torch
+
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.ops import cuda_acting_cnn as K9
+    from drone_tpu_torch.types import default_params
+
+    n = 65536
+    model = cnn_policy()
+    max_err = 0.0
+    for T, horizon, modes in ((3, 2, (False, True)), (128, 40, (True,))):
+        env = DroneEnv("hover", "euler", default_params("hover",
+                                                         horizon=horizon),
+                       device="cuda")
+        state = env.init_batch(5, n)
+        for sto in modes:
+            kf, kp, ks = K9.traj_cnn_rollout_kernel(
+                state, model.flat, model.arch, env.params, env.statics, T,
+                sto)
+            pf, pp, ps = K9.traj_cnn_rollout_plain(
+                state, model.flat, model.arch, env.params, env.statics, T,
+                sto)
+            torch.cuda.synchronize()
+            k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
+            k_r, p_r = float(ks[0].sum()) / (n * T), float(ps[0].sum()) / (n * T)
+            err = max(float((kp - pp).abs().max()),
+                      float((kf.fstate() - pf.fstate()).abs().max()))
+            print(f"K9 hover n={n} T={T} stochastic={sto}: max|plane, state "
+                  f"err|={err:.3g} episodes {k_ep:.0f} vs {p_ep:.0f}, mean "
+                  f"reward {k_r:.6f} vs {p_r:.6f}", flush=True)
+            if T == 3:
+                max_err = max(max_err, err)
+                torch.testing.assert_close(kp, pp, rtol=2e-5, atol=2e-6)
+                torch.testing.assert_close(kf.fstate(), pf.fstate(),
+                                           rtol=2e-5, atol=2e-6)
+                if k_ep != p_ep or k_ep < n:
+                    raise AssertionError("K9 episode counts differ at T=3")
+            elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
+                raise AssertionError("K9 episode statistics disagree")
+    return max_err
+
+
+def cnn_minibatch(cfg, model, env):
+    """The CNN update's inputs at full width on the card: K9's planes, their
+    normalized advantages, a minibatch's row blocks."""
+    import torch
+
+    from drone_tpu_torch import ppo_cuda
+    from drone_tpu_torch.env import observe
+    from drone_tpu_torch.ops import cuda_acting_cnn as K9
+
+    tc = cfg.train
+    _, _, rbu, n_rb, mb_rb, co = ppo_cuda.plan_minibatch_geometry(
+        tc, tc.num_envs)
+    state = env.init_batch(7, tc.num_envs)
+    final, planes, _ = K9.traj_cnn_rollout_kernel(
+        state, model.flat, model.arch, env.params, env.statics, tc.horizon)
+    with torch.no_grad():
+        last_value = model(observe(final))[2]
+    advret = ppo_cuda.normalized_advret(planes, last_value, tc)
+    perm = torch.randperm(n_rb, generator=torch.Generator().manual_seed(3))
+    perm_mb = perm[:mb_rb].to(device="cuda", dtype=torch.int32)
+    return planes, advret, perm_mb, co, rbu * 128
+
+
+def check_k10(args, order, each_stat: bool):
+    """K10 against its plain version on one minibatch (compare_grads), and
+    two launches of the kernel on the same inputs bitwise equal."""
+    import torch
+
+    from drone_tpu_torch.ops import cuda_update_cnn as K10
+
+    kg, ks = K10.ppo_cnn_update_kernel(*args)
+    kg2, ks2 = K10.ppo_cnn_update_kernel(*args)
+    pg, ps = K10.ppo_cnn_update_plain(*args)
+    torch.cuda.synchronize()
+    if not (bitwise_equal(kg, kg2) and bitwise_equal(ks, ks2)):
+        raise AssertionError("two K10 launches on the same inputs differ")
+    planes, perm_mb, rbl = args[0], args[2], args[6]
+    err = compare_grads(
+        f"K10 minibatch ({perm_mb.numel()} row blocks of {rbl} lanes x "
+        f"{planes.shape[0]} steps; two launches bitwise equal)",
+        kg, ks, pg, ps, order, each_stat)
+    return err, ps
+
+
+def phase_k10_k4(cfg, env):
+    """K10 against its plain version at the full-width minibatch, on the
+    planes' own weights and off them, and K4 over the CNN layout. Returns
+    (K10 max abs error, inputs for timing)."""
+    import torch
+
+    from drone_tpu_torch import ppo_cuda
+    from drone_tpu_torch.models import tensor_sizes
+    from drone_tpu_torch.ops import cuda_update as K4
+    from drone_tpu_torch.ops import cuda_update_cnn as K10
+
+    model = cnn_policy()
+    order = model.kernel_order()
+    planes, advret, perm_mb, co, rbl = cnn_minibatch(cfg, model, env)
+    args = (planes, advret, perm_mb, model.flat, model.arch, co, rbl,
+            cfg.train.ent_coef)
+    k10_err, _ = check_k10(args, order, each_stat=False)
+    # off the planes' weights. At the MLP's and LSTM's noise no sample's v
+    # left v_old +- vf_clip (10) here, so the value head takes more: the
+    # first of a few scales whose
+    # minibatch takes every branch of the head's subgradients on >= 0.1%
+    # of the samples
+    for critic_scale in (16.0, 64.0, 256.0):
+        theta = off_policy(model.flat, order, critic_scale=critic_scale)
+        n = K10.cnn_head_branch_counts(planes, advret, perm_mb, theta,
+                                       model.arch, co, rbl)
+        try:
+            check_branches(f"K10 (critic noise {critic_scale})", n)
+            break
+        except AssertionError:
+            if critic_scale == 256.0:
+                raise
+    err, ps = check_k10((*args[:3], theta, *args[4:]), order, each_stat=True)
+    if float(ps[K4.ST_KL]) == 0.0 or float(ps[K4.ST_CF]) == 0.0:
+        raise AssertionError("the off-policy approx-KL or clip-fraction sum "
+                             "is 0")
+    k10_err = max(k10_err, err)
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    P = model.flat.numel()
+    grads = 0.05 * torch.randn(P, device="cuda", generator=g)
+    mu0 = 0.01 * torch.randn(P, device="cuda", generator=g)
+    nu0 = 0.001 * torch.rand(P, device="cuda", generator=g)
+    sched = ppo_cuda.make_fused_lr(cfg.train)
+    ac = K4.AdamConsts(clip_norm=cfg.train.max_grad_norm)
+    outs = []
+    for run in (K4.fused_adam_kernel, K4.fused_adam_plain):
+        th, mu, nu = model.flat.clone(), mu0.clone(), nu0.clone()
+        count = torch.tensor(5.0, device="cuda")
+        run(th, grads, mu, nu, count, ac, sched, tensor_sizes(order))
+        outs.append((th, mu, nu, count))
+    torch.cuda.synchronize()
+    k4_err = 0.0
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-8)
+        k4_err = max(k4_err, float((a - b).abs().max()))
+    print(f"K4 over the CNN layout ({P} parameters, {len(order)} tensors): "
+          f"max|err| {k4_err:.3g}", flush=True)
+    return k10_err, (args, grads, mu0, nu0, sched, ac)
+
+
+def path_cnn_serving(cfg, cfg_path):
+    """evaluate() and cli eval of a seeded CNN policy on hover.toml with
+    run.policy=cnn; the card's evaluate(512) against the CPU's. Returns the
+    launch counts of the path."""
+    import torch
+
+    from drone_tpu_torch import cli
+    from drone_tpu_torch.train import evaluate
+    from drone_tpu_torch.utils.checkpoint import Checkpointer
+
+    n = cfg.train.num_envs
+    with tempfile.TemporaryDirectory() as tmp:
+        Checkpointer(tmp).save(0, cnn_policy(seed=2, log_std=0.0))
+        cfg_eval = cfg.with_overrides([f"run.resume_from={tmp}"])
+        zero_counts()
+        t0 = time.time()
+        res = evaluate(cfg_eval, episodes=n)
+        torch.cuda.synchronize()
+        t_eval = time.time() - t0
+        rc = cli.main(["eval", str(cfg_path), "run.policy=cnn",
+                       f"run.resume_from={tmp}"])
+        torch.cuda.synchronize()
+        serve_counts = counts()
+        print(f"CNN serving path: evaluate({n} episodes) {res} in "
+              f"{t_eval:.3f} s; cli eval rc={rc}; launches {serve_counts}",
+              flush=True)
+        if serve_counts["K11"] < 2 or rc != 0:
+            raise AssertionError("the CNN serving path did not launch K11 "
+                                 "twice")
+        if not all(v == v and abs(v) != float("inf") for v in res.values()):
+            raise AssertionError("evaluate returned non-finite stats")
+        horizon = int(cfg.env.build()[1].horizon) + 1
+        if res["episodes"] < n or not 1.0 <= res["ep_length_mean"] <= horizon:
+            raise AssertionError(f"implausible evaluate stats {res}")
+        small_gpu = evaluate(cfg_eval, episodes=512, device="cuda")
+        small_cpu = evaluate(cfg_eval, episodes=512, device="cpu")
+        print(f"CNN evaluate(512) card {small_gpu} cpu {small_cpu}",
+              flush=True)
+        if (abs(small_gpu["episodes"] - small_cpu["episodes"])
+                > 0.01 * small_cpu["episodes"]
+                or abs(small_gpu["ep_return_mean"] - small_cpu["ep_return_mean"])
+                > 0.01 * abs(small_cpu["ep_return_mean"])):
+            raise AssertionError("CNN evaluate on the card disagrees with "
+                                 "the CPU")
+    return serve_counts
+
+
+def path_cnn_training(cfg_path, tmp):
+    """train() at the CNN geometry for 3 updates, then cli train for 2 and
+    cli eval of its checkpoint. Returns the launch counts of train()."""
+    import torch
+
+    from drone_tpu_torch import cli, ppo_cuda
+    from drone_tpu_torch.train import train
+    from drone_tpu_torch.utils.config import Config
+
+    over = [*CNN_OVERRIDES, f"run.checkpoint_dir={tmp}"]
+    cfg = Config.from_toml(cfg_path).with_overrides(
+        [*over, "run.total_updates=3", "run.run_name=cnn"])
+    n_mb = cfg.train.epochs * cfg.train.num_minibatches
+    zero_counts()
+    t0 = time.time()
+    _, last = train(cfg)
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    train_counts = counts()
+    print(f"CNN training path: train(hover.toml + {list(CNN_OVERRIDES)}, 3 "
+          f"updates) in {t_train:.2f} s; launches {train_counts}; last {last}",
+          flush=True)
+    want = {"K9": 3, "K10": 3 * n_mb, "K4": 3 * n_mb}
+    if any(train_counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"the CNN training path launched "
+                             f"{train_counts}, expected {want}")
+    if not set(ppo_cuda.METRIC_KEYS) <= set(last):
+        raise AssertionError(f"metric keys {sorted(last)}")
+    if not all(v == v and abs(v) != float("inf") for k, v in last.items()
+               if k in ppo_cuda.METRIC_KEYS):
+        raise AssertionError("non-finite CNN training metrics")
+
+    zero_counts()
+    rc = cli.main(["train", str(cfg_path), *over, "run.total_updates=2",
+                   "run.run_name=cnn_cli"])
+    rc2 = cli.main(["eval", str(cfg_path), "run.policy=cnn",
+                    f"run.resume_from={tmp}/cnn_cli/checkpoints"])
+    torch.cuda.synchronize()
+    cli_counts = counts()
+    print(f"CNN cli train (2 updates) rc={rc}, then cli eval of its "
+          f"checkpoint rc={rc2}; launches {cli_counts}", flush=True)
+    if (rc, rc2) != (0, 0) or cli_counts["K9"] != 2 \
+            or cli_counts["K10"] != 2 * n_mb or cli_counts["K11"] != 1:
+        raise AssertionError("CNN cli train + cli eval did not run as "
+                             "expected")
+    return train_counts
+
+
+def phase_cnn_learning_and_resume(tmp):
+    """The CNN learning gate and bitwise resume on the card. Over 150
+    updates at a size the kernels take, the mean reward must rise, and the
+    value loss must fall, as tests/test_pallas_cnn.py's gate asks, at some
+    point: once the policy improves, the returns grow and the value loss
+    with them, so its last updates are not the place to read it."""
+    import torch
+
+    from drone_tpu_torch import ppo_cnn_cuda
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.models import PatchCNNActorCritic
+    from drone_tpu_torch.ppo import PPOConfig, init_runner
+    from drone_tpu_torch.train import train
+    from drone_tpu_torch.utils.config import Config
+
+    env = DroneEnv(device="cuda")
+    cfg = PPOConfig(horizon=32, num_envs=4096, epochs=2, num_minibatches=2,
+                    lr=1e-3, ent_coef=0.0)
+    model = PatchCNNActorCritic(generator=torch.Generator().manual_seed(0))
+    runner = init_runner(model, env, cfg, seed=0)
+    step = ppo_cnn_cuda.make_cnn_train_step(env, cfg)
+    vloss, rewards, t0 = [], [], time.time()
+    for _ in range(150):
+        runner, m = step(runner)
+        vloss.append(float(m["v_loss"]))
+        rewards.append(float(m["reward_mean"]))
+
+    def mean10(xs, i):
+        return sum(xs[i:i + 10]) / 10
+
+    early = mean10(vloss, 2)
+    lowest = min(mean10(vloss, i) for i in range(len(vloss) - 9))
+    r_first, r_last = mean10(rewards, 0), mean10(rewards, len(rewards) - 10)
+    finite = bool(torch.isfinite(runner.params.flat).all())
+    print(f"CNN learning gate (150 updates): value loss of updates 3-12 "
+          f"{early:.5g}, its lowest 10-update mean {lowest:.5g}, of the last "
+          f"10 {mean10(vloss, len(vloss) - 10):.5g}; mean reward of the "
+          f"first 10 {r_first:.4f}, of the last 10 {r_last:.4f}; parameters "
+          f"finite {finite} ({time.time() - t0:.1f} s)", flush=True)
+    if not (lowest < 0.5 * early and r_last > r_first + 0.2 and finite):
+        raise AssertionError("the CNN learning gate failed on the card")
+
+    def cfg_for(name, total, extra=()):
+        return Config.default().with_overrides([
+            "run.policy=cnn", "train.num_envs=1024", "train.horizon=16",
+            "train.epochs=2", "train.num_minibatches=2", "run.log_interval=2",
+            f"run.total_updates={total}", f"run.run_name={name}",
+            f"run.checkpoint_dir={tmp}", *extra])
+
+    full, _ = train(cfg_for("cnn_full", 4))
+    train(cfg_for("cnn_half", 2))
+    resumed, _ = train(cfg_for("cnn_resumed", 4, [
+        f"run.resume_from={tmp}/cnn_half/checkpoints"]))
+    torch.cuda.synchronize()
+
+    def tensors(r):
+        return [*r.params.state_dict().values(), *r.opt_state,
+                r.env_state.fstate(), r.env_state.step]
+
+    ok = all(bitwise_equal(a, b) for a, b in zip(tensors(full),
+                                                 tensors(resumed)))
+    print(f"CNN resume on the card: train(4) == train(2) + resume(2) "
+          f"bitwise: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("CNN resume is not bitwise on the card")
+
+
+def time_cnn(cfg, env, k10_inputs):
+    """Times of K11 (65,536 x 1,001), K9 (65,536 x 128), K10 (one full-width
+    minibatch) and K4 over the CNN layout by CUDA events beside their plain
+    versions and bounds, and one full-width CNN update split into its
+    phases. The plain K11 and K9 are timed at a reduced depth (20 and 32
+    steps) and scaled to the path's, linearly. Returns {name: (ms,
+    plain_ms, bound_ms, bound_by, library_ms)}."""
+    import torch
+
+    from drone_tpu_torch.models import tensor_sizes
+    from drone_tpu_torch.ops import cuda_acting_cnn as K9
+    from drone_tpu_torch.ops import cuda_update as K4
+    from drone_tpu_torch.ops import cuda_update_cnn as K10
+
+    tc = cfg.train
+    model = cnn_policy(seed=2, log_std=0.0)
+    P = model.flat.numel()
+    n = tc.num_envs
+    horizon = int(env.params.horizon) + 1
+    state_bytes = n * (2 * 25 * 4 + 5 * 4)
+    out = {}
+
+    def host_ms(fn, depth, full):
+        """The plain version's host-clock time at `depth` steps, scaled."""
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn(depth)
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3 * full / depth
+
+    state = env.init_batch(cfg.run.seed + 1, n)
+    _, lane = K9.cnn_act_rollout_kernel(state, model.flat, model.arch,
+                                        env.params, env.statics, horizon)
+    episodes = float(lane[1].sum())
+    ms = cuda_ms(lambda: K9.cnn_act_rollout_kernel(
+        state, model.flat, model.arch, env.params, env.statics, horizon),
+        reps=1)
+    plain = host_ms(lambda T: K9.cnn_act_rollout_plain(
+        state, model.flat, model.arch, env.params, env.statics, T), 20,
+        horizon)
+    ops = (n * horizon * (OPS_STEP + OPS_OBS + cnn_ops(False))
+           + episodes * OPS_RESET)
+    out["K11"] = (ms, plain, *bound(ops, state_bytes + P * 4), None)
+
+    T = tc.horizon
+    state = env.init_batch(9, n)
+    _, _, lane = K9.traj_cnn_rollout_kernel(state, model.flat, model.arch,
+                                            env.params, env.statics, T)
+    episodes = float(lane[1].sum())
+    ms = cuda_ms(lambda: K9.traj_cnn_rollout_kernel(
+        state, model.flat, model.arch, env.params, env.statics, T), reps=3)
+    plain = host_ms(lambda d: K9.traj_cnn_rollout_plain(
+        state, model.flat, model.arch, env.params, env.statics, d), 32, T)
+    ops = (n * T * (OPS_STEP + OPS_OBS + cnn_ops(True) + OPS_NOISE_LOGP)
+           + episodes * OPS_RESET)
+    out["K9"] = (ms, plain, *bound(ops, state_bytes + P * 4
+                                   + T * 21 * n * 4), None)
+
+    args, grads, mu0, nu0, sched, ac = k10_inputs
+    planes, perm_mb, rbl = args[0], args[2], args[6]
+    samples = perm_mb.numel() * rbl * planes.shape[0]
+    ms = cuda_ms(lambda: K10.ppo_cnn_update_kernel(*args), reps=2)
+    plain = cuda_ms(lambda: K10.ppo_cnn_update_plain(*args), reps=1)
+    nbytes = samples * 23 * 4 + P * 4 + (P + 8) * 4
+    out["K10"] = (ms, plain, *bound(samples * cnn_update_ops(), nbytes), None)
+
+    theta, mu, nu = args[3].clone(), mu0.clone(), nu0.clone()
+    count = torch.tensor(5.0, device="cuda")
+    sizes = tensor_sizes(model.kernel_order())
+    k4 = cuda_ms(lambda: K4.fused_adam_kernel(theta, grads, mu, nu, count, ac,
+                                              sched, sizes), reps=100)
+    k4_plain = cuda_ms(lambda: K4.fused_adam_plain(
+        theta, grads, mu, nu, count, ac, sched, sizes), reps=20)
+    print(f"K4 over the CNN layout ({P} parameters): kernel {k4:.4f} ms, "
+          f"plain {k4_plain:.3f} ms, bound {bound(P * 18, P * 4 * 7 + 8)[0]:.5f}"
+          f" ms (bytes)", flush=True)
+    for name, (ms, plain, bms, by, lib) in out.items():
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain:.2f} ms, bound "
+              f"{bms:.4f} ms ({by}), library {lib}", flush=True)
+    split_update(cfg)
+    return out
+
+
 class Laps:
     """Host-clock seconds of each phase of the script: lap(name) closes the
     phase that ends there."""
@@ -1539,6 +2073,24 @@ def main() -> int:
         lap("LSTM learning gate, resume")
     lstm_times = time_lstm(cfg_lstm, env, k7_args)
     lap("K8, K6, K7 times, LSTM update")
+    # -- the CNN slice: K11, K9, K10 and the CNN paths -----------------------
+    k11_err = phase_k11()
+    lap("K11 check")
+    k9_err = phase_k9()
+    lap("K9 check")
+    cfg_cnn = cfg.with_overrides(list(CNN_OVERRIDES))
+    k10_err, k10_inputs = phase_k10_k4(cfg_cnn, env)
+    lap("K10, K4 checks")
+    cnn_serve_counts = path_cnn_serving(
+        cfg.with_overrides(["run.policy=cnn"]), cfg_path)
+    lap("CNN serving path")
+    with tempfile.TemporaryDirectory() as tmp:
+        cnn_train_counts = path_cnn_training(cfg_path, tmp)
+        lap("CNN training path")
+        phase_cnn_learning_and_resume(tmp)
+        lap("CNN learning gate, resume")
+    cnn_times = time_cnn(cfg_cnn, env, k10_inputs)
+    lap("K11, K9, K10 times, CNN update")
     print(f"phase seconds: {lap.seconds}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
@@ -1578,6 +2130,16 @@ def main() -> int:
         entry("K8 LSTM acting", "drone_tpu_torch/csrc/acting_lstm.cu",
               "drone_tpu/ops/pallas_acting_lstm.py:186",
               lstm_serve_counts["K8"], k8_err, *lstm_times["K8"]),
+        entry("K9 CNN trajectory rollout",
+              "drone_tpu_torch/csrc/acting_cnn.cu",
+              "drone_tpu/ops/pallas_acting_cnn.py:271",
+              cnn_train_counts["K9"], k9_err, *cnn_times["K9"]),
+        entry("K10 CNN PPO update", "drone_tpu_torch/csrc/update_cnn.cu",
+              "drone_tpu/ops/pallas_update_cnn.py:151",
+              cnn_train_counts["K10"], k10_err, *cnn_times["K10"]),
+        entry("K11 CNN acting", "drone_tpu_torch/csrc/acting_cnn.cu",
+              "drone_tpu/ops/pallas_acting_cnn.py:434",
+              cnn_serve_counts["K11"], k11_err, *cnn_times["K11"]),
     ]
     print(dev, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,5 @@
-"""Policies: counterpart of `drone_tpu.models` (the MLP and LSTM families
-so far)."""
+"""Policies: counterpart of `drone_tpu.models` (the MLP, LSTM and
+patch-CNN families)."""
 
 from drone_tpu_torch.models.mlp import (  # noqa: F401
     ActorCritic,
@@ -16,4 +16,11 @@ from drone_tpu_torch.models.lstm import (  # noqa: F401
     LSTMActorCritic,
     lstm_kernel_offsets,
     lstm_kernel_order,
+)
+from drone_tpu_torch.models.cnn import (  # noqa: F401
+    CnnArch,
+    CnnGeom,
+    PatchCNNActorCritic,
+    cnn_kernel_offsets,
+    cnn_kernel_order,
 )

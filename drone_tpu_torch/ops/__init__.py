@@ -13,3 +13,8 @@ from drone_tpu_torch.ops.cuda_acting_lstm import (  # noqa: F401
     traj_lstm_rollout_cuda,
 )
 from drone_tpu_torch.ops.cuda_update_lstm import lstm_update_cuda  # noqa: F401
+from drone_tpu_torch.ops.cuda_update_cnn import ppo_cnn_update_cuda  # noqa: F401
+from drone_tpu_torch.ops.cuda_acting_cnn import (  # noqa: F401
+    cnn_act_rollout_cuda,
+    traj_cnn_rollout_cuda,
+)

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "drone_tpu_torch"
 SOURCES = ("rollout", "acting", "acting_traj", "update", "acting_lstm",
-           "update_lstm")
+           "update_lstm", "acting_cnn", "update_cnn")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,0 +1,232 @@
+"""CNN PPO update kernel (K10): one minibatch of the patch-CNN policy's
+forward and hand-written backward.
+
+Counterpart of `drone_tpu/ops/pallas_update_cnn.py`. The kernels are in
+`csrc/update_cnn.cu`; `ppo_cnn_update_plain` is the plain PyTorch version,
+the reference's `_cnn_block_grads` (`cnn_forward`, the PPO head's
+gradients, `cnn_encoder_bwd`) in batch-major torch over the gathered
+minibatch. A whole minibatch would hold the rendered patches and conv0's
+output for every sample (~19 GB each at 2.1 M samples), so the plain
+version walks the samples in chunks and adds the chunks' sums: another
+order than the reference's, inside the stated tolerance.
+`ppo_cnn_update_cuda` takes the plain version for CPU tensors only; on a
+CUDA tensor it launches the kernels.
+
+Returns (grads (P,) in the flat kernel order, stat sums (N_UPSTATS,)) as
+`cuda_update.ppo_update_cuda`: gradients are sums scaled by inv_m, and
+log_std's is its stat sums ST_DLS* minus ent_coef.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from drone_tpu_torch.models.cnn import (
+    CnnArch,
+    CnnGeom,
+    cnn_all_weights,
+    cnn_kernel_offsets,
+)
+from drone_tpu_torch.ops import cuda_build
+from drone_tpu_torch.ops.cuda_acting_cnn import (
+    KERNEL_ARCH,
+    check_envelope,
+    cnn_forward,
+    transposed_weights,
+    window_index,
+)
+from drone_tpu_torch.ops.cuda_acting_traj import N_TRAJ
+from drone_tpu_torch.ops.cuda_update import (
+    N_UPSTATS,
+    ST_DLS0,
+    UpdateConsts,
+    branch_counts,
+    check_cuda_tensor,
+    gather_minibatch,
+    head_grads,
+)
+from drone_tpu_torch.pixels import grid_table, patch_grid
+
+# the plain version's samples per chunk
+PLAIN_CHUNK = 16384
+# kernel limits (csrc/update_cnn.cu)
+TILE = 32                 # samples of a tile
+MAX_BLOCKS = 132          # UPD_BLOCKS
+MAX_CHUNK = 4096          # lanes of one split-K chunk of the trunk's product
+MAX_SCRATCH = 262144      # samples of one chunk of steps (~0.7 GB scratch)
+BP_W = 20608 + 645 + N_UPSTATS  # a block partial row
+GPT = 128 * 577                 # a product partial row
+
+
+def cnn_encoder_bwd(dh, acts, enc_weights, geom: CnnGeom):
+    """Hand-written backward of `cnn_encode`: dh (N, hidden) = d loss / d
+    trunk output -> [gW0, gb0, gW1, gb1, gWt, gbt]. acts from
+    cnn_encode(want_acts=True)."""
+    W0, b0, W1, b1, Wt, bt = enc_weights
+    _, X0, Y0, Y1, X2, h = acts
+    n, c0, c1 = dh.shape[0], W0.shape[0], W1.shape[0]
+    dzt = dh * (h > 0.0).to(dh.dtype)
+    gWt = dzt.t() @ X2
+    gbt = dzt.sum(0)
+    # conv1: un-concat dX2, relu-mask, the weight gradient against the
+    # windows' conv0 outputs, and the input gradient routed back to the
+    # feeding conv0 patches (patchify convs: each patch feeds one window)
+    dz1 = (dzt @ Wt).view(n, geom.n_q1, c1) * (Y1 > 0.0).to(dh.dtype)
+    idx = window_index(geom, dh.device)
+    X1 = Y0[:, idx].reshape(n, geom.n_q1, -1)
+    gW1 = dz1.reshape(-1, c1).t() @ X1.reshape(-1, X1.shape[-1])
+    gb1 = dz1.sum((0, 1))
+    dX1 = (dz1 @ W1).view(n, -1, c0)
+    dY0 = torch.empty_like(Y0)
+    dY0[:, idx.reshape(-1)] = dX1
+    # conv0 against the rendered patches
+    dz0 = dY0 * (Y0 > 0.0).to(dh.dtype)
+    gW0 = dz0.reshape(-1, c0).t() @ X0.reshape(-1, X0.shape[-1])
+    gb0 = dz0.sum((0, 1))
+    return [gW0, gb0, gW1, gb1, gWt, gbt]
+
+
+def cnn_block_grads(X, a, logp_old, v_old, adv, ret, weights, gx, gy,
+                    geom: CnnGeom, co: UpdateConsts):
+    """Forward + hand-written backward over a batch of samples (the
+    reference's _cnn_block_grads). Returns (the 10 gradient tensors in
+    kernel order without log_std, stats (S, 8))."""
+    hw, vw = weights[6][0], weights[7][0]
+    m, v, acts = cnn_forward(X, weights, gx, gy, geom, want_acts=True)
+    h = acts[-1]
+    dm, g_v, stats = head_grads(m, v, a, logp_old, v_old, adv, ret,
+                                weights[8], co)
+    heads = [dm.t() @ h, dm.sum(0), g_v[None] @ h, g_v.sum(0, keepdim=True)]
+    dh = dm @ hw + g_v[:, None] @ vw
+    return cnn_encoder_bwd(dh, acts, weights[:6], geom) + heads, stats
+
+
+def _chunks(samples, chunk):
+    for s0 in range(0, samples[0].shape[0], chunk):
+        yield [x[s0:s0 + chunk] for x in samples]
+
+
+@torch.no_grad()
+def ppo_cnn_update_plain(planes, advret, perm_mb, theta, arch,
+                         co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
+    """Plain PyTorch version of K10. planes (T, N_TRAJ, N) from the CNN
+    rollout; advret (2, T, N); perm_mb the minibatch's row blocks of rbl
+    lanes; theta the flat parameters of arch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = CnnArch(*arch)
+    weights = cnn_all_weights(theta, arch)
+    gx, gy = patch_grid(arch.res, arch.p0, theta.device)
+    samples = gather_minibatch(planes, advret, perm_mb, rbl)
+    grads = torch.zeros_like(theta)
+    views = cnn_all_weights(grads, arch)
+    g_views = [*views[:6], *views[6], *views[7]]
+    st = torch.zeros(N_UPSTATS, device=theta.device)
+    for X, a, logp_old, v_old, adv, ret in _chunks(samples, PLAIN_CHUNK):
+        g, stats = cnn_block_grads(X, a, logp_old, v_old, adv, ret, weights,
+                                   gx, gy, arch.geom, co)
+        for dst, src in zip(g_views, g):
+            dst += src.reshape(dst.shape)
+        st += stats.sum(0)
+    views[8][:] = st[ST_DLS0:] - ent_coef
+    return grads, st
+
+
+@torch.no_grad()
+def cnn_head_branch_counts(planes, advret, perm_mb, theta, arch,
+                           co: UpdateConsts, rbl: int) -> dict:
+    """cuda_update.head_branch_counts for the CNN: how many samples of a
+    minibatch take each branch of the head's subgradients at theta."""
+    arch = CnnArch(*arch)
+    weights = cnn_all_weights(theta, arch)
+    gx, gy = patch_grid(arch.res, arch.p0, theta.device)
+    samples = gather_minibatch(planes, advret, perm_mb, rbl)
+    m, v = [], []
+    for X, *_ in _chunks(samples, PLAIN_CHUNK):
+        mc, vc = cnn_forward(X, weights, gx, gy, arch.geom)
+        m.append(mc)
+        v.append(vc)
+    _, a, logp_old, v_old, adv, ret = samples
+    return branch_counts(torch.cat(m), torch.cat(v), a, logp_old, v_old, adv,
+                         ret, weights[8], co)
+
+
+def pick_chunk_steps(T: int, NL: int) -> int:
+    """Steps of one kernel chunk: the largest divisor of T whose samples
+    stay within MAX_SCRATCH."""
+    for tch in range(T, 0, -1):
+        if T % tch == 0 and tch * NL <= MAX_SCRATCH:
+            return tch
+    return 1
+
+
+def chunk_lanes(NL: int) -> int:
+    """Lanes of one split-K chunk: the largest power of two up to MAX_CHUNK
+    that divides the minibatch's lanes."""
+    ck = MAX_CHUNK
+    while NL % ck:
+        ck //= 2
+    return ck
+
+
+def ppo_cnn_update_kernel(planes, advret, perm_mb, theta, arch,
+                          co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
+    """Launch K10 (csrc/update_cnn.cu). Same contract as
+    ppo_cnn_update_plain."""
+    arch = CnnArch(*arch)
+    check_envelope(arch)
+    T, _, n = planes.shape
+    if rbl % 128 or n % rbl:
+        raise ValueError(f"row blocks of {rbl} lanes: the kernel needs a "
+                         f"multiple of 128 that divides {n}")
+    _, P = cnn_kernel_offsets(KERNEL_ARCH)
+    check_cuda_tensor("planes", planes, torch.float32, (T, N_TRAJ, n))
+    check_cuda_tensor("advret", advret, torch.float32, (2, T, n))
+    check_cuda_tensor("perm_mb", perm_mb, torch.int32, (perm_mb.numel(),))
+    check_cuda_tensor("theta", theta, torch.float32, (P,))
+    dev = planes.device
+    NL = perm_mb.numel() * rbl
+    tch = pick_chunk_steps(T, NL)
+    CK = chunk_lanes(NL)
+    G = min(MAX_BLOCKS, tch * NL // TILE)
+    n_chunks, nk = T // tch, tch * NL // CK
+    wt = transposed_weights(theta, arch)
+    grid = grid_table(arch.res, arch.p0, dev)
+    x2s = torch.empty(tch * 576 * NL, device=dev)
+    dzs = torch.empty(tch * 128 * NL, device=dev)
+    bpart = torch.empty(n_chunks * G, BP_W, device=dev)
+    gpart = torch.empty(n_chunks * nk, GPT, device=dev)
+    grads = torch.empty(P, device=dev)
+    stats = torch.empty(N_UPSTATS, device=dev)
+    ptrs = np.array([t.data_ptr() for t in (
+        planes, advret, perm_mb, theta, wt, grid, x2s, dzs, bpart, gpart,
+        grads, stats)], np.uint64)
+    dims = np.array([n, T, rbl, NL, tch, CK, G], np.int32)
+    consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
+                       co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
+                      np.float32)
+    fn = cuda_build.load("update_cnn").drone_cnn_update
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(ptrs.ctypes.data, dims.ctypes.data, consts.ctypes.data,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "drone_cnn_update")
+    ppo_cnn_update_cuda.launches += 1
+    return grads, stats
+
+
+def ppo_cnn_update_cuda(planes, advret, perm_mb, theta, arch,
+                        co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
+    """One CNN PPO minibatch gradient pass over the trajectory planes: the
+    kernels on CUDA tensors, the plain version on CPU tensors. perm_mb:
+    (n_sel,) int32 row-block indices, block i covering lanes [i*rbl,
+    (i+1)*rbl). Returns (grads (P,), stat sums (8,))."""
+    run = (ppo_cnn_update_plain if planes.device.type == "cpu"
+           else ppo_cnn_update_kernel)
+    return run(planes, advret, perm_mb, theta, arch, co, rbl, ent_coef)
+
+
+ppo_cnn_update_cuda.launches = 0

@@ -2,11 +2,12 @@
 
 `train` is the outer loop around the megakernel train step
 (`ppo_cuda.make_train_step` for run.policy=mlp,
-`ppo_rnn_cuda.make_rnn_train_step` for run.policy=lstm): config -> env ->
+`ppo_rnn_cuda.make_rnn_train_step` for run.policy=lstm,
+`ppo_cnn_cuda.make_cnn_train_step` for run.policy=cnn): config -> env ->
 policy -> loop { rollout + update on the device } with metrics, periodic
 checkpoints and exact resume. The host reads scalar metrics back only every
 log_interval updates. `evaluate` restores a policy and rolls it out through
-the acting kernel (K5 for the MLP, K8 for the LSTM).
+the acting kernel (K5 for the MLP, K8 for the LSTM, K11 for the CNN).
 """
 
 from __future__ import annotations
@@ -19,10 +20,19 @@ from pathlib import Path
 import torch
 from torch import nn
 
-from drone_tpu_torch import ppo_cuda, ppo_rnn_cuda
+from drone_tpu_torch import ppo_cnn_cuda, ppo_cuda, ppo_rnn_cuda
 from drone_tpu_torch.env import DroneEnv
-from drone_tpu_torch.models import ActorCritic, LSTMActorCritic
-from drone_tpu_torch.ops import act_rollout_cuda, lstm_act_rollout_cuda
+from drone_tpu_torch.models import (
+    ActorCritic,
+    LSTMActorCritic,
+    PatchCNNActorCritic,
+)
+from drone_tpu_torch.models.cnn import check_cnn_checkpoint_layout
+from drone_tpu_torch.ops import (
+    act_rollout_cuda,
+    cnn_act_rollout_cuda,
+    lstm_act_rollout_cuda,
+)
 from drone_tpu_torch.ops.cuda_update_lstm import check_envelope
 from drone_tpu_torch.ppo import init_runner
 from drone_tpu_torch.ppo_rnn import init_recurrent_runner, rollout_recurrent
@@ -38,10 +48,10 @@ from drone_tpu_torch.utils.metrics import (
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _UNPORTED_POLICIES = {
-    "cnn_lstm": "the pixel families (cnn_lstm through the LSTM kernels' "
-                "encoder hook)",
-    "cnn": "the pixel families",
-    "cnn_overlap": "the pixel families",
+    "cnn_lstm": "the pixel-recurrent family (cnn_lstm through the CNN-encoder "
+                "branch of the LSTM kernels)",
+    "cnn_overlap": "the scan trainer (cnn_overlap, the overlapping-conv "
+                   "PixelActorCritic, trains on it only)",
 }
 _SCAN_TRAINER = "ROADMAP.md, module queue: the scan trainer"
 
@@ -64,6 +74,9 @@ def build_env_and_model(cfg: Config, device="cuda"):
         model = LSTMActorCritic(hidden=cfg.run.lstm_hidden,
                                 encoder=tuple(cfg.run.hidden)[:1],
                                 generator=generator)
+    elif cfg.run.policy == "cnn":
+        # the reference always builds the default PatchCNNActorCritic
+        model = PatchCNNActorCritic(generator=generator)
     elif cfg.run.policy == "mlp":
         model = ActorCritic(hidden=tuple(cfg.run.hidden),
                             dtype=_DTYPES[cfg.run.compute_dtype],
@@ -107,8 +120,17 @@ def build(cfg: Config, device="cuda"):
             f"128*num_minibatches, got num_envs={cfg.train.num_envs}, "
             f"num_minibatches={cfg.train.num_minibatches}")
     runner = init_runner(model, env, cfg.train, seed=cfg.run.seed)
-    step = ppo_cuda.make_train_step(env, cfg.train)
-    return env, runner.params, runner, step, cfg
+    maker = (ppo_cnn_cuda.make_cnn_train_step if cfg.run.policy == "cnn"
+             else ppo_cuda.make_train_step)
+    return env, runner.params, runner, maker(env, cfg.train), cfg
+
+
+def _check_cnn_checkpoint_layout(cfg: Config, raw_params):
+    """run.policy='cnn' builds PatchCNNActorCritic: the parameters of the
+    overlapping-conv PixelActorCritic (a `cnn` submodule) fail with the
+    rename, not with a state-dict mismatch."""
+    if cfg.run.policy == "cnn":
+        check_cnn_checkpoint_layout(raw_params)
 
 
 def _check_options(cfg: Config):
@@ -170,8 +192,9 @@ def train(cfg: Config, on_update=None, device="cuda"):
             f"run.resume_from={ckpt.dir}")
     start_update = 0
     if cfg.run.resume_from:
-        runner, start_update = Checkpointer(cfg.run.resume_from).restore(
-            runner)
+        resume = Checkpointer(cfg.run.resume_from)
+        _check_cnn_checkpoint_layout(cfg, resume.restore_raw()[0]["params"])
+        runner, start_update = resume.restore(runner)
         print(f"resumed from {cfg.run.resume_from} at update {start_update}")
 
     metrics_path = cfg.run.metrics_path or (run_dir / "metrics.jsonl")
@@ -240,8 +263,9 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
     """Roll out the restored (or given: `runner.params`, a state dict or a
     module) policy for horizon + 1 steps on `episodes` lanes and report
     episode stats. A deterministic float32 MLP policy goes through the
-    acting kernel K5, a deterministic LSTM policy through K8 (their plain
-    versions on the CPU); the rest through the module."""
+    acting kernel K5, a deterministic LSTM policy through K8, a
+    deterministic CNN policy through K11 (their plain versions on the CPU);
+    the rest through the module."""
     env, model = build_env_and_model(cfg, device)
     if runner is None:
         raw, _ = Checkpointer(restore_dir(cfg)).restore_raw()
@@ -250,6 +274,7 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
         params = runner.params
     if isinstance(params, nn.Module):
         params = params.state_dict()
+    _check_cnn_checkpoint_layout(cfg, params)
     model.load_state_dict(params)
     model.eval()
 
@@ -269,6 +294,12 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
             generator=torch.Generator(device=env.device).manual_seed(0),
             deterministic=deterministic)
         return _stats_of(out)
+
+    if cfg.run.policy == "cnn" and deterministic:
+        _, stats = cnn_act_rollout_cuda(state, model.flat_params(),
+                                        model.arch, env.params, env.statics,
+                                        horizon)
+        return _episode_stats(stats)
 
     # the kernel computes in float32: a bf16-trained policy is a slightly
     # different function, so it goes through the module with its dtype
