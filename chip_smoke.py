@@ -122,6 +122,42 @@ Phases:
  25. Times of K11, K9, K10 and K4 over the CNN layout beside their plain
      versions and bounds, and one full-width CNN update split and traced as
      in 11.
+ 26. evaluate() on the card serves what its acting kernels cannot take
+     through the module, as the reference serves every policy it builds:
+     hover.toml with run.hidden=[256, 256] (past K5's shared memory), and
+     run.lstm_hidden=256 for the LSTM and the CNN-LSTM (past K8's hidden),
+     1,024 lanes x 201 steps each, finite statistics with the K5 and K8
+     launch counts 0;
+     build() refuses the MLP [256, 256] (past K2 and K3) with the scan
+     trainer's NotImplementedError.
+ 27. K8's CNN arm (the pixel-recurrent cnn_lstm: CNNLSTMActorCritic's
+     default tower, 24x24x4 render, conv0 4x4/4 -> 64, conv1 2x2/2 -> 64,
+     trunk 128, into an LSTM of hidden 128) against its plain version as in
+     12: hover, 65,536 lanes from a random carry, T = 3 within rtol 2e-5 /
+     atol 2e-6 and T = 64 statistically; waypoint/rk4 with a ragged last
+     tile (8,256 lanes), T = 3.
+ 28. K6's CNN arm against its plain version as in 13, at 65,536 lanes.
+ 29. K7's CNN arm against its plain version as in 14 on the full-width
+     minibatch of the cnn_lstm geometry (planes and anchors from K6's CNN
+     arm), on-policy and off-policy with every branch, two launches bitwise
+     equal; K4 over the 23 tensors (226,697 parameters), rtol 1e-5.
+ 30. The cnn_lstm serving path (`evaluate(episodes=65536)` and `cli eval`
+     from a Checkpointer checkpoint, K8's CNN arm twice; evaluate(512) on
+     the card against the CPU) and training path (`train` at hover.toml +
+     run.policy=cnn_lstm train.horizon=128 train.bptt_horizon=16
+     train.num_minibatches=4 for 3 updates: K6 = 3, K7 = K4 = 48, all on
+     the CNN arms; `cli train` for 2 and `cli eval` of its checkpoint).
+ 31. The cnn_lstm learning gate (2,048 envs, horizon 32, bptt 16, 2 epochs
+     x 2 minibatches, lr 2e-3, no entropy bonus, 150 updates: the lowest
+     10-update mean of the value loss below 0.75 of that of updates 3-12,
+     the mean reward of the last 10 above the first 10 by 0.2, parameters
+     finite) and train(4) == train(2) + resume(2) bitwise, carry included.
+ 32. Times of the CNN arms of K8, K6 and K7 and of K4 over their layout
+     beside their plain versions and bounds, and one full-width cnn_lstm
+     update split and traced as in 11.
+
+Launch counts: each wrapper counts its launches; the recurrent wrappers
+(K6, K7, K8) also count their CNN arm's alone (`cnn_launches`).
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
@@ -134,6 +170,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -368,13 +405,22 @@ def _wrappers() -> dict:
             "K11": ops.cnn_act_rollout_cuda}
 
 
+ARMS = ("K6", "K7", "K8")  # the recurrent kernels, with a CNN arm each
+
+
 def zero_counts():
-    for fn in _wrappers().values():
+    w = _wrappers()
+    for fn in w.values():
         fn.launches = 0
+    for k in ARMS:
+        w[k].cnn_launches = 0
 
 
 def counts() -> dict:
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    w = _wrappers()
+    c = {k: fn.launches for k, fn in w.items()}
+    c.update({f"{k} cnn": w[k].cnn_launches for k in ARMS})
+    return c
 
 
 def flat_policy(hidden=(64, 64), seed=1, log_std=-0.5):
@@ -792,6 +838,7 @@ def split_update(cfg):
     tc = bcfg.train
     marks = []
     maker = {"lstm": ppo_rnn_cuda.make_rnn_train_step,
+             "cnn_lstm": ppo_rnn_cuda.make_rnn_train_step,
              "cnn": ppo_cnn_cuda.make_cnn_train_step}.get(
                  cfg.run.policy, ppo_cuda.make_train_step)
 
@@ -872,8 +919,8 @@ def trace_update(step, runner) -> dict:
                "K3": ("drone::update_kernel", "drone::reduce_kernel"),
                "K4": ("drone::adam_kernel",),
                "K6": ("drone::lstm_act_kernel",),
-               "K7": ("drone::bptt_kernel", "drone::grad_gemm_kernel",
-                      "drone::lstm_reduce_kernel"),
+               "K7": ("drone::bptt_kernel", "drone::conv_bwd_kernel",
+                      "drone::grad_gemm_kernel", "drone::lstm_reduce_kernel"),
                "K9": ("drone::cnn_act_kernel",),
                "K10": ("drone::tile_kernel", "drone::cnn_gemm_kernel",
                        "drone::cnn_reduce_kernel")}
@@ -908,12 +955,18 @@ LSTM_OVERRIDES = ("run.policy=lstm", "train.horizon=128",
 
 def lstm_ops(hidden, encoder, value: bool) -> int:
     """Operations of one LSTM lane-step: the encoder (multiply-adds x2, bias,
-    tanh), the gate block (4H (E + H) multiply-adds x2, 4 bias adds and 4
-    activations a unit, then c' (3), tanh(c') and h'), the action head, the
-    value head when asked, and the carry mask (2 a unit)."""
-    dims = [13, *encoder]
-    ops = sum(2 * a * b + 2 * b for a, b in zip(dims[:-1], dims[1:]))
-    E, H = dims[-1], hidden
+    tanh; or the patch-CNN tower, cnn_tower_ops), the gate block (4H (E + H)
+    multiply-adds x2, 4 bias adds and 4 activations a unit, then c' (3),
+    tanh(c') and h'), the action head, the value head when asked, and the
+    carry mask (2 a unit)."""
+    from drone_tpu_torch.models.lstm import encoder_width, is_cnn
+
+    E, H = encoder_width(encoder), hidden
+    if is_cnn(encoder):
+        ops = cnn_tower_ops()
+    else:
+        dims = [13, *encoder]
+        ops = sum(2 * a * b + 2 * b for a, b in zip(dims[:-1], dims[1:]))
     ops += 2 * 4 * H * (E + H) + 13 * H + 2 * 4 * H + 4 + 2 * H
     return ops + (2 * H + 1 if value else 0)
 
@@ -922,12 +975,17 @@ def bptt_ops(hidden, encoder) -> int:
     """Operations of one sample through K7: the forward step with both heads,
     the PPO head, dh' (10 a unit), the cell backward (20 a unit), [dx; dh]
     (4H (E + H) multiply-adds), the encoder backward (3 a unit, and the
-    input gradient below the last layer), and the weight-gradient products
-    with their bias sums."""
-    dims = [13, *encoder]
-    E, H = dims[-1], hidden
+    input gradient below the last layer; or the patch-CNN tower's,
+    cnn_tower_bwd_ops), and the weight-gradient products with their bias
+    sums."""
+    from drone_tpu_torch.models.lstm import encoder_width, is_cnn
+
+    E, H = encoder_width(encoder), hidden
     ops = lstm_ops(H, encoder, True) + OPS_PPO_HEAD + 30 * H
     ops += 2 * 4 * H * (E + H) + 2 * 4 * H * (E + H + 1) + 2 * 5 * (H + 1)
+    if is_cnn(encoder):
+        return ops + cnn_tower_bwd_ops()
+    dims = [13, *encoder]
     for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
         ops += 3 * b + 2 * b * (a + 1) + (2 * a * b if i > 0 else 0)
     return ops
@@ -959,9 +1017,16 @@ def random_carry(n, hidden, seed):
                  for _ in range(2))
 
 
-def phase_k8() -> float:
-    """K8 against its plain version on the card; returns the max abs error
-    of the T = 3 carries and statistics."""
+def enc_label(encoder) -> str:
+    from drone_tpu_torch.models.lstm import is_cnn
+
+    return "cnn" if is_cnn(encoder) else str(list(encoder))
+
+
+def phase_k8(cases=None, name="K8") -> float:
+    """K8 (or its CNN arm: cases of a CnnArch encoder) against its plain
+    version on the card; returns the max abs error of the T = 3 carries and
+    statistics."""
     import torch
 
     from drone_tpu_torch.env import DroneEnv
@@ -970,8 +1035,9 @@ def phase_k8() -> float:
 
     # the main path's policy at its width, then a smaller two-layer encoder
     # on waypoint/rk4 with a ragged last lane tile
-    cases = [("hover", "euler", 128, (64,), 65536, ((3, 2), (64, 40))),
-             ("waypoint", "rk4", 32, (16, 24), 8192 + 64, ((3, 2),))]
+    cases = cases or [
+        ("hover", "euler", 128, (64,), 65536, ((3, 2), (64, 40))),
+        ("waypoint", "rk4", 32, (16, 24), 8192 + 64, ((3, 2),))]
     max_err = 0.0
     for task, integ, hidden, encoder, n, runs in cases:
         model = lstm_policy(hidden, encoder)
@@ -991,8 +1057,8 @@ def phase_k8() -> float:
             err = max(float((a - b).abs().max())
                       for a, b in zip((*kc, ks), (*pc, ps)))
             serr = float((kf.fstate() - pf.fstate()).abs().max())
-            print(f"K8 {task}/{integ} H={hidden} enc={list(encoder)} n={n} "
-                  f"T={T}: max|carry, stats err|={err:.3g} (state "
+            print(f"{name} {task}/{integ} H={hidden} enc={enc_label(encoder)} "
+                  f"n={n} T={T}: max|carry, stats err|={err:.3g} (state "
                   f"{serr:.3g}) episodes {k_ep:.0f} vs {p_ep:.0f}, mean "
                   f"reward {k_r:.6f} vs {p_r:.6f}", flush=True)
             if T == 3:
@@ -1000,15 +1066,17 @@ def phase_k8() -> float:
                 for a, b in zip((*kc, ks), (*pc, ps)):
                     torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
                 if k_ep != p_ep or k_ep < n:
-                    raise AssertionError("K8 episode counts differ at T=3")
+                    raise AssertionError(f"{name} episode counts differ at "
+                                         f"T=3")
             elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
-                raise AssertionError("K8 episode statistics disagree")
+                raise AssertionError(f"{name} episode statistics disagree")
     return max_err
 
 
-def phase_k6() -> float:
-    """K6 against its plain version on the card; returns the max abs error
-    of the T = 3 planes and anchors."""
+def phase_k6(model=None, name="K6") -> float:
+    """K6 (or its CNN arm, for a CNN-LSTM model) against its plain version
+    on the card; returns the max abs error of the T = 3 planes and
+    anchors."""
     import torch
 
     from drone_tpu_torch.env import DroneEnv
@@ -1016,7 +1084,7 @@ def phase_k6() -> float:
     from drone_tpu_torch.types import default_params
 
     n = 65536
-    model = lstm_policy()
+    model = model or lstm_policy()
     arch = (model.hidden, model.encoder)
     carry = random_carry(n, model.hidden, 4)
     max_err = 0.0
@@ -1037,7 +1105,8 @@ def phase_k6() -> float:
             k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
             k_r, p_r = float(ks[0].sum()) / (n * T), float(ps[0].sum()) / (n * T)
             err = max(float((kp - pp).abs().max()), float((ka - pa).abs().max()))
-            print(f"K6 hover H=128 enc=[64] n={n} T={T} bptt={bptt} "
+            print(f"{name} hover H={model.hidden} enc="
+                  f"{enc_label(model.encoder)} n={n} T={T} bptt={bptt} "
                   f"stochastic={sto}: max|plane, anchor err|={err:.3g} "
                   f"episodes {k_ep:.0f} vs {p_ep:.0f}, mean reward {k_r:.6f} "
                   f"vs {p_r:.6f}", flush=True)
@@ -1046,9 +1115,10 @@ def phase_k6() -> float:
                 for a, b in zip((kp, ka, *kc), (pp, pa, *pc)):
                     torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
                 if k_ep != p_ep or k_ep < n:
-                    raise AssertionError("K6 episode counts differ at T=3")
+                    raise AssertionError(f"{name} episode counts differ at "
+                                         f"T=3")
             elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
-                raise AssertionError("K6 episode statistics disagree")
+                raise AssertionError(f"{name} episode statistics disagree")
     return max_err
 
 
@@ -1059,7 +1129,7 @@ def lstm_minibatch(cfg, model, env):
 
     from drone_tpu_torch import ppo_cuda, ppo_rnn_cuda
     from drone_tpu_torch.env import observe
-    from drone_tpu_torch.models.lstm import lstm_value
+    from drone_tpu_torch.ops.cuda_acting_lstm import lstm_value
     from drone_tpu_torch.ops import cuda_acting_lstm as K6
 
     tc = cfg.train
@@ -1122,10 +1192,13 @@ def check_k7(args, order, each_stat: bool):
     return err, ps
 
 
-def phase_k7_k4(cfg, env):
-    """K7 against its plain version at the full-width minibatch, on the
-    planes' own weights and off them, and K4 over the LSTM layout. Returns
-    (K7 max abs error, inputs for timing)."""
+def phase_k7_k4(cfg, env, model=None, critic_scales=(2.0,)):
+    """K7 (or its CNN arm, for a CNN-LSTM model) against its plain version
+    at the full-width minibatch, on the planes' own weights and off them,
+    and K4 over the policy's layout. Off the planes' weights the critic's
+    noise is the first of critic_scales at which the minibatch takes every
+    branch of the head's subgradients. Returns (K7 max abs error, inputs
+    for timing)."""
     import torch
 
     from drone_tpu_torch import ppo_cuda
@@ -1133,7 +1206,7 @@ def phase_k7_k4(cfg, env):
     from drone_tpu_torch.ops import cuda_update as K4
     from drone_tpu_torch.ops import cuda_update_lstm as K7
 
-    model = lstm_policy()
+    model = model or lstm_policy()
     arch = (model.hidden, model.encoder)
     order = model.kernel_order()
     planes, advret, snap, perm_mb, co, rbl, bptt = lstm_minibatch(cfg, model,
@@ -1143,9 +1216,17 @@ def phase_k7_k4(cfg, env):
     args = (planes, advret, snap, perm_mb, model.flat, arch, co, rbl, bptt,
             ent)
     k7_err, _ = check_k7(args, order, each_stat=False)
-    theta = off_policy(model.flat, order)
-    check_branches("K7", K7.lstm_head_branch_counts(
-        planes, advret, snap, perm_mb, theta, arch, co, rbl, bptt))
+    for critic_scale in critic_scales:
+        theta = off_policy(model.flat, order, critic_scale=critic_scale)
+        try:
+            check_branches(f"K7 enc={enc_label(model.encoder)} (critic noise "
+                           f"{critic_scale})", K7.lstm_head_branch_counts(
+                               planes, advret, snap, perm_mb, theta, arch, co,
+                               rbl, bptt))
+            break
+        except AssertionError:
+            if critic_scale == critic_scales[-1]:
+                raise
     err, ps = check_k7((*args[:4], theta, *args[5:]), order, each_stat=True)
     if float(ps[K4.ST_KL]) == 0.0 or float(ps[K4.ST_CF]) == 0.0:
         raise AssertionError("the off-policy approx-KL or clip-fraction sum "
@@ -1170,15 +1251,16 @@ def phase_k7_k4(cfg, env):
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-8)
         k4_err = max(k4_err, float((a - b).abs().max()))
-    print(f"K4 over the LSTM layout ({P} parameters, {len(order)} tensors): "
-          f"max|err| {k4_err:.3g}", flush=True)
+    print(f"K4 over the {enc_label(model.encoder)} LSTM layout ({P} "
+          f"parameters, {len(order)} tensors): max|err| {k4_err:.3g}",
+          flush=True)
     return k7_err, args
 
 
-def path_lstm_serving(cfg, cfg_path):
-    """evaluate() and cli eval of a seeded LSTM policy on hover.toml with
-    run.policy=lstm; the card's evaluate(512) against the CPU's. Returns the
-    launch counts of the path."""
+def path_lstm_serving(cfg, cfg_path, model=None):
+    """evaluate() and cli eval of a seeded recurrent policy (the LSTM, or
+    `model`) on hover.toml with cfg's run.policy; the card's evaluate(512)
+    against the CPU's. Returns the launch counts of the path."""
     import torch
 
     from drone_tpu_torch import cli
@@ -1186,24 +1268,26 @@ def path_lstm_serving(cfg, cfg_path):
     from drone_tpu_torch.utils.checkpoint import Checkpointer
 
     n = cfg.train.num_envs
+    policy = cfg.run.policy
+    arm = "K8 cnn" if policy == "cnn_lstm" else "K8"
     with tempfile.TemporaryDirectory() as tmp:
-        Checkpointer(tmp).save(0, lstm_policy(seed=2, log_std=0.0))
+        Checkpointer(tmp).save(0, model or lstm_policy(seed=2, log_std=0.0))
         cfg_eval = cfg.with_overrides([f"run.resume_from={tmp}"])
         zero_counts()
         t0 = time.time()
         res = evaluate(cfg_eval, episodes=n)
         torch.cuda.synchronize()
         t_eval = time.time() - t0
-        rc = cli.main(["eval", str(cfg_path), "run.policy=lstm",
+        rc = cli.main(["eval", str(cfg_path), f"run.policy={policy}",
                        f"run.resume_from={tmp}"])
         torch.cuda.synchronize()
         serve_counts = counts()
-        print(f"LSTM serving path: evaluate({n} episodes) {res} in "
+        print(f"{policy} serving path: evaluate({n} episodes) {res} in "
               f"{t_eval:.3f} s; cli eval rc={rc}; launches {serve_counts}",
               flush=True)
-        if serve_counts["K8"] < 2 or rc != 0:
-            raise AssertionError("the LSTM serving path did not launch K8 "
-                                 "twice")
+        if serve_counts[arm] < 2 or rc != 0:
+            raise AssertionError(f"the {policy} serving path did not launch "
+                                 f"{arm} twice")
         if not all(v == v and abs(v) != float("inf") for v in res.values()):
             raise AssertionError("evaluate returned non-finite stats")
         horizon = int(cfg.env.build()[1].horizon) + 1
@@ -1211,30 +1295,33 @@ def path_lstm_serving(cfg, cfg_path):
             raise AssertionError(f"implausible evaluate stats {res}")
         small_gpu = evaluate(cfg_eval, episodes=512, device="cuda")
         small_cpu = evaluate(cfg_eval, episodes=512, device="cpu")
-        print(f"LSTM evaluate(512) card {small_gpu} cpu {small_cpu}",
+        print(f"{policy} evaluate(512) card {small_gpu} cpu {small_cpu}",
               flush=True)
         if (abs(small_gpu["episodes"] - small_cpu["episodes"])
                 > 0.01 * small_cpu["episodes"]
                 or abs(small_gpu["ep_return_mean"] - small_cpu["ep_return_mean"])
                 > 0.01 * abs(small_cpu["ep_return_mean"])):
-            raise AssertionError("LSTM evaluate on the card disagrees with "
-                                 "the CPU")
+            raise AssertionError(f"{policy} evaluate on the card disagrees "
+                                 f"with the CPU")
     return serve_counts
 
 
-def path_lstm_training(cfg_path, tmp):
-    """train() at full width with run.policy=lstm for 3 updates, then cli
-    train for 2 and cli eval of its checkpoint. Returns the launch counts
-    of train()."""
+def path_lstm_training(cfg_path, tmp, overrides=LSTM_OVERRIDES):
+    """train() at full width with a recurrent run.policy (lstm, or cnn_lstm
+    in `overrides`) for 3 updates, then cli train for 2 and cli eval of its
+    checkpoint. Returns the launch counts of train()."""
     import torch
 
     from drone_tpu_torch import cli, ppo_cuda
     from drone_tpu_torch.train import train
     from drone_tpu_torch.utils.config import Config
 
-    over = [*LSTM_OVERRIDES, f"run.checkpoint_dir={tmp}"]
+    over = [*overrides, f"run.checkpoint_dir={tmp}"]
     cfg = Config.from_toml(cfg_path).with_overrides(
-        [*over, "run.total_updates=3", "run.run_name=lstm"])
+        [*over, "run.total_updates=3"])
+    policy = cfg.run.policy
+    cfg = cfg.with_overrides([f"run.run_name={policy}"])
+    sfx = " cnn" if policy == "cnn_lstm" else ""  # the arm's own counts
     n_mb = cfg.train.epochs * cfg.train.num_minibatches
     zero_counts()
     t0 = time.time()
@@ -1242,32 +1329,33 @@ def path_lstm_training(cfg_path, tmp):
     torch.cuda.synchronize()
     t_train = time.time() - t0
     train_counts = counts()
-    print(f"LSTM training path: train(hover.toml + {list(LSTM_OVERRIDES)}, 3 "
+    print(f"{policy} training path: train(hover.toml + {list(overrides)}, 3 "
           f"updates) in {t_train:.2f} s; launches {train_counts}; last {last}",
           flush=True)
-    want = {"K6": 3, "K7": 3 * n_mb, "K4": 3 * n_mb}
+    want = {"K6" + sfx: 3, "K7" + sfx: 3 * n_mb, "K4": 3 * n_mb}
     if any(train_counts[k] != v for k, v in want.items()):
-        raise AssertionError(f"the LSTM training path launched "
+        raise AssertionError(f"the {policy} training path launched "
                              f"{train_counts}, expected {want}")
     if not set(ppo_cuda.METRIC_KEYS) <= set(last):
         raise AssertionError(f"metric keys {sorted(last)}")
     if not all(v == v and abs(v) != float("inf") for k, v in last.items()
                if k in ppo_cuda.METRIC_KEYS):
-        raise AssertionError("non-finite LSTM training metrics")
+        raise AssertionError(f"non-finite {policy} training metrics")
 
     zero_counts()
     rc = cli.main(["train", str(cfg_path), *over, "run.total_updates=2",
-                   "run.run_name=lstm_cli"])
-    rc2 = cli.main(["eval", str(cfg_path), "run.policy=lstm",
-                    f"run.resume_from={tmp}/lstm_cli/checkpoints"])
+                   f"run.run_name={policy}_cli"])
+    rc2 = cli.main(["eval", str(cfg_path), f"run.policy={policy}",
+                    f"run.resume_from={tmp}/{policy}_cli/checkpoints"])
     torch.cuda.synchronize()
     cli_counts = counts()
-    print(f"LSTM cli train (2 updates) rc={rc}, then cli eval of its "
+    print(f"{policy} cli train (2 updates) rc={rc}, then cli eval of its "
           f"checkpoint rc={rc2}; launches {cli_counts}", flush=True)
-    if (rc, rc2) != (0, 0) or cli_counts["K6"] != 2 \
-            or cli_counts["K7"] != 2 * n_mb or cli_counts["K8"] != 1:
-        raise AssertionError("LSTM cli train + cli eval did not run as "
-                             "expected")
+    if (rc, rc2) != (0, 0) or cli_counts["K6" + sfx] != 2 \
+            or cli_counts["K7" + sfx] != 2 * n_mb \
+            or cli_counts["K8" + sfx] != 1:
+        raise AssertionError(f"{policy} cli train + cli eval did not run as "
+                             f"expected")
     return train_counts, cfg
 
 
@@ -1328,21 +1416,35 @@ def phase_lstm_learning_and_resume(tmp):
         raise AssertionError("LSTM resume is not bitwise on the card")
 
 
-def time_lstm(cfg, env, k7_args):
-    """Times of K8 (65,536 x 1,001), K6 (65,536 x 128) and K7 (one
-    full-width minibatch) by CUDA events beside their plain versions and
-    bounds, and one full-width LSTM update split into its phases. Returns
-    {name: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+def host_ms(fn, depth, full):
+    """A plain version's host-clock time at `depth` steps, scaled linearly
+    to `full`."""
     import torch
 
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn(depth)
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3 * full / depth
+
+
+def time_lstm(cfg, env, k7_args, model=None, plain_depths=(100, 32)):
+    """Times of K8 (65,536 x 1,001), K6 (65,536 x 128) and K7 (one
+    full-width minibatch), or of their CNN arms for a CNN-LSTM model, by
+    CUDA events beside their plain versions and bounds, and one full-width
+    update of cfg's policy split into its phases. The plain K8 and K6 run
+    plain_depths steps, scaled linearly to the path's depth. Returns
+    {name: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
     from drone_tpu_torch import ppo_rnn_cuda
+    from drone_tpu_torch.models.lstm import is_cnn
     from drone_tpu_torch.ops import cuda_acting_lstm as K6
     from drone_tpu_torch.ops import cuda_update_lstm as K7
 
     tc = cfg.train
-    model = lstm_policy(seed=2, log_std=0.0)
+    model = model or lstm_policy(seed=2, log_std=0.0)
     arch = (model.hidden, model.encoder)
     H, enc = arch
+    cnn = is_cnn(enc)
     P = model.flat.numel()
     n = tc.num_envs
     horizon = int(env.params.horizon) + 1
@@ -1356,12 +1458,10 @@ def time_lstm(cfg, env, k7_args):
     episodes = float(lane[1].sum())
     ms = cuda_ms(lambda: K6.lstm_act_rollout_kernel(
         state, model.flat, arch, carry, env.params, env.statics, horizon),
-        reps=2)
-    t0 = time.time()
-    K6.lstm_act_rollout_plain(state, model.flat, arch, carry, env.params,
-                              env.statics, horizon)
-    torch.cuda.synchronize()
-    plain = (time.time() - t0) * 1e3
+        reps=1 if cnn else 2)
+    plain = host_ms(lambda d: K6.lstm_act_rollout_plain(
+        state, model.flat, arch, carry, env.params, env.statics, d),
+        plain_depths[0], horizon)
     ops = (n * horizon * (OPS_STEP + OPS_OBS + lstm_ops(H, enc, False))
            + episodes * OPS_RESET)
     out["K8"] = (ms, plain, *bound(ops, state_bytes + carry_bytes + P * 4),
@@ -1374,12 +1474,10 @@ def time_lstm(cfg, env, k7_args):
     episodes = float(lane[1].sum())
     ms = cuda_ms(lambda: K6.traj_lstm_rollout_kernel(
         state, model.flat, arch, carry, env.params, env.statics, T, bptt),
-        reps=3)
-    t0 = time.time()
-    K6.traj_lstm_rollout_plain(state, model.flat, arch, carry, env.params,
-                               env.statics, T, bptt)
-    torch.cuda.synchronize()
-    plain = (time.time() - t0) * 1e3
+        reps=2 if cnn else 3)
+    plain = host_ms(lambda d: K6.traj_lstm_rollout_plain(
+        state, model.flat, arch, carry, env.params, env.statics, d, bptt),
+        plain_depths[1], T)
     ops = (n * T * (OPS_STEP + OPS_OBS + lstm_ops(H, enc, True)
                     + OPS_NOISE_LOGP) + episodes * OPS_RESET)
     nbytes = (state_bytes + carry_bytes + P * 4 + T * 21 * n * 4
@@ -1388,16 +1486,47 @@ def time_lstm(cfg, env, k7_args):
 
     planes, perm_mb, rbl = k7_args[0], k7_args[3], k7_args[7]
     samples = perm_mb.numel() * rbl * T
-    ms = cuda_ms(lambda: K7.lstm_update_kernel(*k7_args), reps=3)
+    ms = cuda_ms(lambda: K7.lstm_update_kernel(*k7_args), reps=2 if cnn else 3)
     plain = cuda_ms(lambda: K7.lstm_update_plain(*k7_args), reps=1)
     nbytes = (samples * 23 * 4 + (T // bptt) * 2 * H * perm_mb.numel() * rbl
               * 4 + P * 4 + (P + 8) * 4)
     out["K7"] = (ms, plain, *bound(samples * bptt_ops(H, enc), nbytes), None)
     for name, (ms, plain, bms, by, lib) in out.items():
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain:.2f} ms, bound "
-              f"{bms:.4f} ms ({by}), library {lib}", flush=True)
+        print(f"{name} enc={enc_label(enc)}: kernel {ms:.4f} ms, plain "
+              f"{plain:.2f} ms, bound {bms:.4f} ms ({by}), library {lib}",
+              flush=True)
+    time_adam(model, cfg)
     split_update(cfg)
     return out
+
+
+def time_adam(model, cfg):
+    """K4 over a model's flat buffer (its kernel order's tensors) beside its
+    plain version and bound (printed)."""
+    import torch
+
+    from drone_tpu_torch import ppo_cuda
+    from drone_tpu_torch.models import tensor_sizes
+    from drone_tpu_torch.ops import cuda_update as K4
+
+    P = model.flat.numel()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    grads = 0.05 * torch.randn(P, device="cuda", generator=g)
+    theta, mu = model.flat.clone(), 0.01 * torch.randn(P, device="cuda",
+                                                        generator=g)
+    nu = 0.001 * torch.rand(P, device="cuda", generator=g)
+    count = torch.tensor(5.0, device="cuda")
+    sched = ppo_cuda.make_fused_lr(cfg.train)
+    ac = K4.AdamConsts(clip_norm=cfg.train.max_grad_norm)
+    sizes = tensor_sizes(model.kernel_order())
+    k4 = cuda_ms(lambda: K4.fused_adam_kernel(theta, grads, mu, nu, count, ac,
+                                              sched, sizes), reps=100)
+    k4_plain = cuda_ms(lambda: K4.fused_adam_plain(
+        theta, grads, mu, nu, count, ac, sched, sizes), reps=20)
+    print(f"K4 over {type(model).__name__}'s layout ({P} "
+          f"parameters, {len(sizes)} tensors): kernel {k4:.4f} ms, plain "
+          f"{k4_plain:.3f} ms, bound {bound(P * 18, P * 4 * 7 + 8)[0]:.5f} ms "
+          f"(bytes)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1412,27 +1541,38 @@ CNN_PIXELS = 36 * 64          # rendered pixel-channels a lane-step
 CNN_MACS = 36 * 64 * 64 + 9 * 64 * 256 + 128 * 576
 
 
-def cnn_ops(value: bool) -> int:
-    """Operations of one CNN lane-step: the 12 splat scalars (~70), the
-    render (2 subs, 2 muls, an add, the scaled negation, the expf and the
-    amplitude: 8 a pixel-channel), the three layers (multiply-adds x2, bias
-    and relu a unit), the action head and the value head when asked."""
+def cnn_tower_ops() -> int:
+    """Operations of the patch-CNN tower on one lane-step: the 12 splat
+    scalars (~70), the render (2 subs, 2 muls, an add, the scaled negation,
+    the expf and the amplitude: 8 a pixel-channel), the three layers
+    (multiply-adds x2, bias and relu a unit)."""
     units = 36 * 64 + 9 * 64 + 128
-    ops = 70 + 8 * CNN_PIXELS + 2 * CNN_MACS + 2 * units + 2 * 4 * 128 + 4
-    return ops + (2 * 128 + 1 if value else 0)
+    return 70 + 8 * CNN_PIXELS + 2 * CNN_MACS + 2 * units
+
+
+def cnn_tower_bwd_ops() -> int:
+    """Operations of the tower's backward on one sample, from the gradient at
+    its output: the trunk's mask, the weight gradients of the trunk, conv1
+    and conv0 with their bias sums (multiply-adds x2 + 1 a weight row), the
+    input gradients dX2 and dX1 with their relu masks, and the re-render of
+    the 36 patches."""
+    ops = 128 + 2 * CNN_MACS + 128 + 9 * 64 + 36 * 64
+    ops += 2 * (128 * 576 + 9 * 64 * 256) + 576 + 2304
+    return ops + 8 * CNN_PIXELS
+
+
+def cnn_ops(value: bool) -> int:
+    """Operations of one CNN lane-step: the tower, the action head and the
+    value head when asked."""
+    return cnn_tower_ops() + 2 * 4 * 128 + 4 + (2 * 128 + 1 if value else 0)
 
 
 def cnn_update_ops() -> int:
     """Operations of one sample through K10's function (the reference's
     _cnn_block_grads): the forward with both heads, the PPO head, the heads'
-    gradients, dh and the trunk's mask, the weight gradients of the trunk,
-    conv1 and conv0 with their bias sums (multiply-adds x2 + 1 a weight
-    row), the input gradients dX2 and dX1 with their relu masks, and the
-    re-render of the 36 patches."""
-    ops = cnn_ops(True) + OPS_PPO_HEAD + 2 * 5 * 129 + 2 * 5 * 128 + 128
-    ops += 2 * CNN_MACS + 128 + 9 * 64 + 36 * 64       # weight gradients
-    ops += 2 * (128 * 576 + 9 * 64 * 256) + 576 + 2304  # dX2, dX1, masks
-    return ops + 8 * CNN_PIXELS
+    gradients and dh, and the tower's backward."""
+    return (cnn_ops(True) + OPS_PPO_HEAD + 2 * 5 * 129 + 2 * 5 * 128
+            + cnn_tower_bwd_ops())
 
 
 def cnn_policy(seed=1, log_std=-0.5):
@@ -1647,7 +1787,7 @@ def phase_k10_k4(cfg, env):
         k4_err = max(k4_err, float((a - b).abs().max()))
     print(f"K4 over the CNN layout ({P} parameters, {len(order)} tensors): "
           f"max|err| {k4_err:.3g}", flush=True)
-    return k10_err, (args, grads, mu0, nu0, sched, ac)
+    return k10_err, args
 
 
 def path_cnn_serving(cfg, cfg_path):
@@ -1812,18 +1952,14 @@ def phase_cnn_learning_and_resume(tmp):
         raise AssertionError("CNN resume is not bitwise on the card")
 
 
-def time_cnn(cfg, env, k10_inputs):
+def time_cnn(cfg, env, k10_args):
     """Times of K11 (65,536 x 1,001), K9 (65,536 x 128), K10 (one full-width
-    minibatch) and K4 over the CNN layout by CUDA events beside their plain
-    versions and bounds, and one full-width CNN update split into its
-    phases. The plain K11 and K9 are timed at a reduced depth (20 and 32
-    steps) and scaled to the path's, linearly. Returns {name: (ms,
+    minibatch, k10_args) and K4 over the CNN layout by CUDA events beside
+    their plain versions and bounds, and one full-width CNN update split
+    into its phases. The plain K11 and K9 are timed at a reduced depth (10
+    and 32 steps) and scaled to the path's, linearly. Returns {name: (ms,
     plain_ms, bound_ms, bound_by, library_ms)}."""
-    import torch
-
-    from drone_tpu_torch.models import tensor_sizes
     from drone_tpu_torch.ops import cuda_acting_cnn as K9
-    from drone_tpu_torch.ops import cuda_update as K4
     from drone_tpu_torch.ops import cuda_update_cnn as K10
 
     tc = cfg.train
@@ -1834,14 +1970,6 @@ def time_cnn(cfg, env, k10_inputs):
     state_bytes = n * (2 * 25 * 4 + 5 * 4)
     out = {}
 
-    def host_ms(fn, depth, full):
-        """The plain version's host-clock time at `depth` steps, scaled."""
-        torch.cuda.synchronize()
-        t0 = time.time()
-        fn(depth)
-        torch.cuda.synchronize()
-        return (time.time() - t0) * 1e3 * full / depth
-
     state = env.init_batch(cfg.run.seed + 1, n)
     _, lane = K9.cnn_act_rollout_kernel(state, model.flat, model.arch,
                                         env.params, env.statics, horizon)
@@ -1850,7 +1978,7 @@ def time_cnn(cfg, env, k10_inputs):
         state, model.flat, model.arch, env.params, env.statics, horizon),
         reps=1)
     plain = host_ms(lambda T: K9.cnn_act_rollout_plain(
-        state, model.flat, model.arch, env.params, env.statics, T), 20,
+        state, model.flat, model.arch, env.params, env.statics, T), 10,
         horizon)
     ops = (n * horizon * (OPS_STEP + OPS_OBS + cnn_ops(False))
            + episodes * OPS_RESET)
@@ -1870,7 +1998,7 @@ def time_cnn(cfg, env, k10_inputs):
     out["K9"] = (ms, plain, *bound(ops, state_bytes + P * 4
                                    + T * 21 * n * 4), None)
 
-    args, grads, mu0, nu0, sched, ac = k10_inputs
+    args = k10_args
     planes, perm_mb, rbl = args[0], args[2], args[6]
     samples = perm_mb.numel() * rbl * planes.shape[0]
     ms = cuda_ms(lambda: K10.ppo_cnn_update_kernel(*args), reps=2)
@@ -1878,21 +2006,146 @@ def time_cnn(cfg, env, k10_inputs):
     nbytes = samples * 23 * 4 + P * 4 + (P + 8) * 4
     out["K10"] = (ms, plain, *bound(samples * cnn_update_ops(), nbytes), None)
 
-    theta, mu, nu = args[3].clone(), mu0.clone(), nu0.clone()
-    count = torch.tensor(5.0, device="cuda")
-    sizes = tensor_sizes(model.kernel_order())
-    k4 = cuda_ms(lambda: K4.fused_adam_kernel(theta, grads, mu, nu, count, ac,
-                                              sched, sizes), reps=100)
-    k4_plain = cuda_ms(lambda: K4.fused_adam_plain(
-        theta, grads, mu, nu, count, ac, sched, sizes), reps=20)
-    print(f"K4 over the CNN layout ({P} parameters): kernel {k4:.4f} ms, "
-          f"plain {k4_plain:.3f} ms, bound {bound(P * 18, P * 4 * 7 + 8)[0]:.5f}"
-          f" ms (bytes)", flush=True)
+    time_adam(model, cfg)
     for name, (ms, plain, bms, by, lib) in out.items():
         print(f"{name}: kernel {ms:.4f} ms, plain {plain:.2f} ms, bound "
               f"{bms:.4f} ms ({by}), library {lib}", flush=True)
     split_update(cfg)
     return out
+
+
+# ---------------------------------------------------------------------------
+# F5, and the pixel-recurrent slice: the CNN arms of K8, K6 and K7
+# ---------------------------------------------------------------------------
+
+CNN_LSTM_OVERRIDES = ("run.policy=cnn_lstm", "train.horizon=128",
+                      "train.bptt_horizon=16", "train.num_minibatches=4")
+# the cnn_lstm learning gate: its length, and the fall of the value loss
+# (the lowest 10-update mean against updates 3-12) and the rise of the mean
+# reward (the last 10 updates against the first 10) it asks for
+GATE_UPDATES = 150
+GATE_VLOSS_FALL = 0.75
+GATE_REWARD_RISE = 0.2
+
+
+def cnn_lstm_policy(seed=1, log_std=-0.5):
+    """A seeded CNNLSTMActorCritic (the default tower, hidden 128) on the
+    card, flattened, as lstm_policy."""
+    from drone_tpu_torch.ops.cuda_acting_cnn import KERNEL_ARCH
+
+    return lstm_policy(128, KERNEL_ARCH, seed, log_std)
+
+
+def phase_f5(cfg_path):
+    """evaluate() on the card serves the policies its acting kernels cannot
+    take through the module (the K5 and K8 counts stay 0), and build()
+    refuses an MLP that K2 and K3 cannot take."""
+    import torch
+
+    from drone_tpu_torch.train import build, build_env_and_model, evaluate
+    from drone_tpu_torch.utils.config import Config
+
+    # episodes of 200 steps: the routing, not the depth, is what is checked
+    for over in (["run.hidden=256,256"],
+                 ["run.policy=lstm", "run.lstm_hidden=256"],
+                 ["run.policy=cnn_lstm", "run.lstm_hidden=256"]):
+        cfg = Config.from_toml(cfg_path).with_overrides(
+            [*over, "env.params.horizon=200"])
+        _, model = build_env_and_model(cfg)
+        zero_counts()
+        t0 = time.time()
+        res = evaluate(cfg, runner=types.SimpleNamespace(params=model),
+                       episodes=1024)
+        torch.cuda.synchronize()
+        c = counts()
+        print(f"F5: evaluate(hover.toml + {over}, 1024 episodes of 200 "
+              f"steps) {res} in "
+              f"{time.time() - t0:.2f} s through the module; K5 {c['K5']}, "
+              f"K8 {c['K8']} launches", flush=True)
+        if c["K5"] or c["K8"]:
+            raise AssertionError("evaluate launched an acting kernel on a "
+                                 "policy outside its envelope")
+        if res["episodes"] < 1024 or not all(
+                v == v and abs(v) != float("inf") for v in res.values()):
+            raise AssertionError(f"implausible evaluate stats {res}")
+    try:
+        build(Config.from_toml(cfg_path).with_overrides(
+            ["run.hidden=256,256"]))
+    except NotImplementedError as e:
+        print(f"F5: build(run.hidden=[256, 256]) refused: {e}", flush=True)
+    else:
+        raise AssertionError("build took an MLP past K2 and K3")
+
+
+def phase_cnn_lstm_learning_and_resume(tmp):
+    """The cnn_lstm learning gate and bitwise resume on the card, after the
+    CNN's (phase 24): over GATE_UPDATES updates at 2,048 envs the value
+    loss must fall and the mean reward rise. The value loss reaches ~0.59
+    of its early level before the improving policy's growing returns raise
+    it again, where the CNN's fell below half."""
+    import torch
+
+    from drone_tpu_torch import ppo_rnn_cuda
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.models import CNNLSTMActorCritic
+    from drone_tpu_torch.ppo import PPOConfig
+    from drone_tpu_torch.ppo_rnn import init_recurrent_runner
+    from drone_tpu_torch.train import train
+    from drone_tpu_torch.utils.config import Config
+
+    env = DroneEnv(device="cuda")
+    cfg = PPOConfig(horizon=32, num_envs=2048, epochs=2, num_minibatches=2,
+                    lr=2e-3, ent_coef=0.0, bptt_horizon=16)
+    model = CNNLSTMActorCritic(generator=torch.Generator().manual_seed(0))
+    runner = init_recurrent_runner(model, env, cfg, seed=0)
+    step = ppo_rnn_cuda.make_rnn_train_step(env, cfg)
+    vloss, rewards, t0 = [], [], time.time()
+    for _ in range(GATE_UPDATES):
+        runner, m = step(runner)
+        vloss.append(float(m["v_loss"]))
+        rewards.append(float(m["reward_mean"]))
+
+    def mean10(xs, i):
+        return sum(xs[i:i + 10]) / 10
+
+    early = mean10(vloss, 2)
+    lowest = min(mean10(vloss, i) for i in range(len(vloss) - 9))
+    r_first, r_last = mean10(rewards, 0), mean10(rewards, len(rewards) - 10)
+    finite = bool(torch.isfinite(runner.params.flat).all())
+    print(f"cnn_lstm learning gate ({GATE_UPDATES} updates): value loss of "
+          f"updates 3-12 {early:.5g}, its lowest 10-update mean {lowest:.5g}, "
+          f"of the last 10 {mean10(vloss, len(vloss) - 10):.5g}; mean reward "
+          f"of the first 10 {r_first:.4f}, of the last 10 {r_last:.4f}; "
+          f"parameters finite {finite} ({time.time() - t0:.1f} s)",
+          flush=True)
+    if not (lowest < GATE_VLOSS_FALL * early
+            and r_last > r_first + GATE_REWARD_RISE and finite):
+        raise AssertionError("the cnn_lstm learning gate failed on the card")
+
+    def cfg_for(name, total, extra=()):
+        return Config.default().with_overrides([
+            "run.policy=cnn_lstm", "train.num_envs=1024", "train.horizon=16",
+            "train.bptt_horizon=8", "train.epochs=2",
+            "train.num_minibatches=2", "run.log_interval=2",
+            f"run.total_updates={total}", f"run.run_name={name}",
+            f"run.checkpoint_dir={tmp}", *extra])
+
+    full, _ = train(cfg_for("cnn_lstm_full", 4))
+    train(cfg_for("cnn_lstm_half", 2))
+    resumed, _ = train(cfg_for("cnn_lstm_resumed", 4, [
+        f"run.resume_from={tmp}/cnn_lstm_half/checkpoints"]))
+    torch.cuda.synchronize()
+
+    def tensors(r):
+        return [*r.params.state_dict().values(), *r.opt_state,
+                r.env_state.fstate(), r.env_state.step, *r.carry]
+
+    ok = all(bitwise_equal(a, b) for a, b in zip(tensors(full),
+                                                 tensors(resumed)))
+    print(f"cnn_lstm resume on the card: train(4) == train(2) + resume(2) "
+          f"bitwise: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("cnn_lstm resume is not bitwise on the card")
 
 
 class Laps:
@@ -2011,10 +2264,9 @@ def main() -> int:
     lane_steps = n * horizon
     k1_ms = cuda_ms(lambda: cuda_rollout.rollout_kernel(
         state, env.params, env.statics, horizon), reps=10)
-    t0 = time.time()
-    cuda_rollout.rollout_plain(state, env.params, env.statics, horizon)
-    torch.cuda.synchronize()
-    k1_plain_ms = (time.time() - t0) * 1e3
+    # the plain versions' host-bound loops at 100 steps, scaled
+    k1_plain_ms = host_ms(lambda d: cuda_rollout.rollout_plain(
+        state, env.params, env.statics, d), 100, horizon)
     k1_ops = (lane_steps * (OPS_STEP + OPS_RANDOM_ACTIONS)
               + float(stats["episodes"]) * OPS_RESET)
     k1_bytes = n * (2 * 25 * 4 + 5 * 4)  # state in and out, stats out
@@ -2026,11 +2278,8 @@ def main() -> int:
     k5_episodes = float(k5_lane[1].sum())
     k5_ms = cuda_ms(lambda: cuda_acting.act_rollout_kernel(
         state, policy, env.params, env.statics, horizon), reps=5)
-    t0 = time.time()
-    cuda_acting.act_rollout_plain(state, policy, env.params, env.statics,
-                                  horizon)
-    torch.cuda.synchronize()
-    k5_plain_ms = (time.time() - t0) * 1e3
+    k5_plain_ms = host_ms(lambda d: cuda_acting.act_rollout_plain(
+        state, policy, env.params, env.statics, d), 100, horizon)
     k5_ops = (lane_steps * (OPS_STEP + OPS_OBS + tower_ops((64, 64)))
               + k5_episodes * OPS_RESET)
     k5_bytes = n * (2 * 25 * 4 + 5 * 4) + 4 * (13 * 64 + 64 * 64 + 64 * 4
@@ -2079,7 +2328,7 @@ def main() -> int:
     k9_err = phase_k9()
     lap("K9 check")
     cfg_cnn = cfg.with_overrides(list(CNN_OVERRIDES))
-    k10_err, k10_inputs = phase_k10_k4(cfg_cnn, env)
+    k10_err, k10_args = phase_k10_k4(cfg_cnn, env)
     lap("K10, K4 checks")
     cnn_serve_counts = path_cnn_serving(
         cfg.with_overrides(["run.policy=cnn"]), cfg_path)
@@ -2089,8 +2338,39 @@ def main() -> int:
         lap("CNN training path")
         phase_cnn_learning_and_resume(tmp)
         lap("CNN learning gate, resume")
-    cnn_times = time_cnn(cfg_cnn, env, k10_inputs)
+    cnn_times = time_cnn(cfg_cnn, env, k10_args)
     lap("K11, K9, K10 times, CNN update")
+    # -- F5, and the pixel-recurrent slice: the CNN arms of K8, K6, K7 -----
+    phase_f5(cfg_path)
+    lap("F5")
+    from drone_tpu_torch.ops.cuda_acting_cnn import KERNEL_ARCH
+
+    k8c_err = phase_k8([
+        ("hover", "euler", 128, KERNEL_ARCH, 65536, ((3, 2), (64, 40))),
+        ("waypoint", "rk4", 128, KERNEL_ARCH, 8192 + 64, ((3, 2),))],
+        name="K8 cnn arm")
+    lap("K8 cnn check")
+    k6c_err = phase_k6(cnn_lstm_policy(), name="K6 cnn arm")
+    lap("K6 cnn check")
+    cfg_cl = cfg.with_overrides(list(CNN_LSTM_OVERRIDES))
+    # the CNN's critic noise (phase 21) until every branch is taken
+    k7c_err, k7c_args = phase_k7_k4(cfg_cl, env, cnn_lstm_policy(),
+                                    critic_scales=(2.0, 16.0, 64.0, 256.0))
+    lap("K7 cnn, K4 checks")
+    cl_serve_counts = path_lstm_serving(
+        cfg.with_overrides(["run.policy=cnn_lstm"]), cfg_path,
+        cnn_lstm_policy(seed=2, log_std=0.0))
+    lap("cnn_lstm serving path")
+    with tempfile.TemporaryDirectory() as tmp:
+        cl_train_counts, _ = path_lstm_training(cfg_path, tmp,
+                                                CNN_LSTM_OVERRIDES)
+        lap("cnn_lstm training path")
+        phase_cnn_lstm_learning_and_resume(tmp)
+        lap("cnn_lstm learning gate, resume")
+    cl_times = time_lstm(cfg_cl, env, k7c_args,
+                         cnn_lstm_policy(seed=2, log_std=0.0),
+                         plain_depths=(10, 16))
+    lap("K8, K6, K7 cnn times, cnn_lstm update")
     print(f"phase seconds: {lap.seconds}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
@@ -2140,6 +2420,18 @@ def main() -> int:
         entry("K11 CNN acting", "drone_tpu_torch/csrc/acting_cnn.cu",
               "drone_tpu/ops/pallas_acting_cnn.py:434",
               cnn_serve_counts["K11"], k11_err, *cnn_times["K11"]),
+        entry("K6 LSTM trajectory rollout, CNN-encoder arm",
+              "drone_tpu_torch/csrc/acting_lstm.cu",
+              "drone_tpu/ops/pallas_acting_lstm.py:335",
+              cl_train_counts["K6 cnn"], k6c_err, *cl_times["K6"]),
+        entry("K7 LSTM truncated-BPTT update, CNN-encoder arm",
+              "drone_tpu_torch/csrc/update_lstm.cu",
+              "drone_tpu/ops/pallas_update_lstm.py:270",
+              cl_train_counts["K7 cnn"], k7c_err, *cl_times["K7"]),
+        entry("K8 LSTM acting, CNN-encoder arm",
+              "drone_tpu_torch/csrc/acting_lstm.cu",
+              "drone_tpu/ops/pallas_acting_lstm.py:186",
+              cl_serve_counts["K8 cnn"], k8c_err, *cl_times["K8"]),
     ]
     print(dev, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,13 +15,21 @@ Module map (same names as `drone_tpu`):
   ops.cuda_acting         MLP acting megakernel (K5) + its plain version
   ops.cuda_acting_traj    trajectory rollout kernel (K2) + its plain version
   ops.cuda_update         PPO update (K3) and fused clip+adam (K4) + theirs
-  ops.cuda_acting_lstm    LSTM acting (K8) and trajectory rollout (K6)
-  ops.cuda_update_lstm    truncated-BPTT PPO update (K7)
-  models.mlp, models.lstm ActorCritic, LSTMActorCritic (flat parameter
-                          buffers) and the flax weight and optimizer-state
-                          converters
+  ops.cuda_acting_lstm    LSTM acting (K8) and trajectory rollout (K6),
+                          dense and CNN-encoder arms
+  ops.cuda_update_lstm    truncated-BPTT PPO update (K7), both arms
+  ops.cuda_acting_cnn     patch-CNN acting (K11) and trajectory rollout (K9)
+  ops.cuda_update_cnn     patch-CNN PPO update (K10)
+  models.mlp, models.lstm, models.cnn
+                          ActorCritic, LSTMActorCritic, CNNLSTMActorCritic,
+                          PatchCNNActorCritic, PatchCNNEncoder (flat
+                          parameter buffers) and the flax weight and
+                          optimizer-state converters
+  pixels                  the splat render and the pixel-grid table
   ppo, ppo_cuda           GAE, RunnerState; the MLP megakernel PPO trainer
-  ppo_rnn, ppo_rnn_cuda   RecurrentRunnerState; the LSTM megakernel trainer
+  ppo_rnn, ppo_rnn_cuda   RecurrentRunnerState; the recurrent megakernel
+                          trainer (lstm and cnn_lstm)
+  ppo_cnn_cuda            the patch-CNN megakernel trainer
   utils.config, utils.checkpoint, utils.metrics, train (train, evaluate),
   cli (train, eval)
 """

@@ -98,20 +98,8 @@ cnn_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
     }
     __syncthreads();
 
-    float tacc[TRUNK_ROWS<L>][4];
-    zero_acc(tacc);
-    for (int q1 = 0; q1 < CNN_NQ1; ++q1) {
-      for (int k = 0; k < CNN_WIN; ++k) {
-        render_patch<L, S>(window_patch(q1, k), sp, io.grid, xr);
-        __syncthreads();
-        conv_relu<L, S>(io.wt + T_W0, CNN_K0, io.theta + OFF_B0, xr,
-                        y0 + k * CNN_C0 * S);
-        __syncthreads();
-      }
-      window_conv1_trunk<L, S>(q1, io.theta, io.wt, y0, y1, tacc);
-      __syncthreads();  // conv1 and the next window's conv0 share y0
-    }
-    trunk_out<L, S>(io.theta, tacc, h);
+    cnn_encode_tile<L, S>(sp, io.theta, io.wt, io.grid, xr, y0, y1, h,
+                          NoWindowOut{});
     __syncthreads();
 
     if (lane_thread) {

@@ -20,11 +20,22 @@
 // (n, H) row-major tensors, the module's layout; the anchors are (S, 2, H,
 // n) planes, what K7 reads.
 //
+// The CNN arm (pixel-recurrent cnn_lstm; the reference's encoder == "cnn"
+// branches of both kernels): per step the lane threads store the 12 splat
+// scalars of their observation, then the block runs cnn.cuh's forward
+// window by window (K11's) with the trunk output going to the first 128
+// rows of xh, then the same gate block, heads, env step and masks. Its
+// tile is 64 lanes: the window buffers (396 rows) beside xh and c (384
+// rows at H 128) take 195 KB of shared memory at 64 lanes and would not
+// fit at 128. The dense arm keeps its 128 lanes and its code.
+//
 // What bounds it on an H100: the gate block's multiply-adds, 4H (E + H) per
 // lane-step (98,304 at H 128 / E 64), on the fp32 cores; the env, the
 // encoder and the heads are a few percent beside them, the planes 84 bytes
-// a lane-step. The gate weights stream from L2 (lstm.cuh). Tensor cores
-// wait: TF32 would break the tolerance, and 3xTF32 or wgmma is later work.
+// a lane-step. The CNN arm adds the tower's ~369k multiply-adds and 2,304
+// expf a lane-step (E 128: 131,072 in the gate block), 4x the dense arm's
+// work. The weights stream from L2 (lstm.cuh, cnn.cuh). Tensor cores wait:
+// TF32 would break the tolerance, and 3xTF32 or wgmma is later work.
 
 #include <cuda_runtime.h>
 
@@ -40,6 +51,13 @@ constexpr int ACT_LANES = 128;
 constexpr int ACT_PASSES = (LSTM_MAX_H / 4) * (ACT_LANES / 4) / LSTM_THREADS;
 // 2 input rows of gate weights in flight (at 4 the registers spill)
 constexpr int ACT_UNROLL = 2;
+// the CNN arm's tile and gate passes, and its window buffers' rows: the
+// splat scalars, a rendered patch, a window's conv0 outputs, its conv1
+// output
+constexpr int ACT_LANES_CNN = 64;
+constexpr int ACT_PASSES_CNN =
+    (LSTM_MAX_H / 4) * (ACT_LANES_CNN / 4) / LSTM_THREADS;
+constexpr int CNN_ROWS = 12 + CNN_K0 + CNN_K1 + CNN_C1;
 
 struct LstmIO {
   const float* theta;  // flat parameters
@@ -54,27 +72,50 @@ struct LstmIO {
   int T, bptt, stochastic;
 };
 
-inline size_t act_smem_bytes(const LstmNet& net) {
+// The CNN arm's tower inputs (unused by the dense arm).
+struct CnnIn {
+  const float* wt;    // W0^T, W1^T, Wt^T (cnn.cuh T_*)
+  const float* grid;  // the pixel coordinates (2, 576)
+};
+
+inline size_t act_smem_bytes(const LstmNet& net, int encoder) {
+  if (encoder == ENC_CNN)
+    return sizeof(float) * (size_t)ACT_LANES_CNN *
+           (CNN_ROWS + net.E + 2 * net.H);
   int maxw, nbuf;
   enc_buffers(net, maxw, nbuf);
   return sizeof(float) * (size_t)ACT_LANES *
          (OBS_DIM + nbuf * maxw + net.E + 2 * net.H);
 }
 
-template <int TASK, int INTEG>
+template <int TASK, int INTEG, int ENC>
 __global__ void __launch_bounds__(LSTM_THREADS, 1)
 lstm_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
-                Planes pl, LstmNet net, LstmIO io) {
-  constexpr int L = ACT_LANES;
+                Planes pl, LstmNet net, LstmIO io, CnnIn cn) {
+  constexpr bool CNN = ENC == ENC_CNN;
+  constexpr int L = CNN ? ACT_LANES_CNN : ACT_LANES;
   extern __shared__ float4 smem4[];
   __shared__ EnvP P;
   const int H = net.H, E = net.E;
-  int maxw, nbuf;
-  enc_buffers(net, maxw, nbuf);
-  float* obs = reinterpret_cast<float*>(smem4);
-  float* buf0 = obs + OBS_DIM * L;
-  float* buf1 = buf0 + maxw * L;
-  float* xh = buf0 + nbuf * maxw * L;
+  // dense: the obs rows and the encoder's buffers before xh; CNN: the
+  // window buffers (sp, xr, y0, y1) before xh
+  float* const sm = reinterpret_cast<float*>(smem4);
+  float *obs, *buf0, *buf1, *xh;
+  if constexpr (CNN) {
+    obs = buf0 = buf1 = nullptr;
+    xh = sm + CNN_ROWS * L;
+  } else {
+    int maxw, nbuf;
+    enc_buffers(net, maxw, nbuf);
+    obs = sm;
+    buf0 = obs + OBS_DIM * L;
+    buf1 = buf0 + maxw * L;
+    xh = buf0 + nbuf * maxw * L;
+  }
+  float* sp = sm;
+  float* xr = sp + 12 * L;
+  float* y0 = xr + CNN_K0 * L;
+  float* y1 = y0 + CNN_K1 * L;
   float* h = xh + E * L;
   float* c = xh + (E + H) * L;
   const int n = pl.n;
@@ -118,22 +159,48 @@ lstm_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
         s[(size_t)(H + u) * n + l] = h[u * L + l];
       }
     }
-    if (lane_thread) {
-      float o[OBS_DIM];
-      observe(cr, o);
+    if constexpr (CNN) {
+      // the splat scalars of the observation (zeros past n)
+      if (tid < L) {
+        float o[OBS_DIM], s12[12];
+        if (lane_thread) {
+          observe(cr, o);
+        } else {
 #pragma unroll
-      for (int k = 0; k < OBS_DIM; ++k) {
-        obs_rows[k * L + tid] = o[k];
-        if (out) out[(size_t)k * n] = o[k];
+          for (int k = 0; k < OBS_DIM; ++k) o[k] = 0.0f;
+        }
+        if (out && lane_thread) {
+#pragma unroll
+          for (int k = 0; k < OBS_DIM; ++k) out[(size_t)k * n] = o[k];
+        }
+        splat12(o, s12);
+#pragma unroll
+        for (int k = 0; k < 12; ++k) sp[k * L + tid] = s12[k];
       }
-    } else if (tid < L) {
+      __syncthreads();
+      cnn_encode_tile<L, L>(sp, io.theta, cn.wt, cn.grid, xr, y0, y1, xh,
+                            NoWindowOut{});
+      __syncthreads();
+      lstm_gates<L, ACT_PASSES_CNN, ACT_UNROLL>(xh, c, E, H, io.WP, io.BP,
+                                                NoGateOut{});
+    } else {
+      if (lane_thread) {
+        float o[OBS_DIM];
+        observe(cr, o);
 #pragma unroll
-      for (int k = 0; k < OBS_DIM; ++k) obs_rows[k * L + tid] = 0.0f;
+        for (int k = 0; k < OBS_DIM; ++k) {
+          obs_rows[k * L + tid] = o[k];
+          if (out) out[(size_t)k * n] = o[k];
+        }
+      } else if (tid < L) {
+#pragma unroll
+        for (int k = 0; k < OBS_DIM; ++k) obs_rows[k * L + tid] = 0.0f;
+      }
+      __syncthreads();
+      lstm_encoder<L>(obs, buf0, buf1, xh, io.theta, net, NoLayerOut{});
+      lstm_gates<L, ACT_PASSES, ACT_UNROLL>(xh, c, E, H, io.WP, io.BP,
+                                            NoGateOut{});
     }
-    __syncthreads();
-    lstm_encoder<L>(obs, buf0, buf1, xh, io.theta, net, NoLayerOut{});
-    lstm_gates<L, ACT_PASSES, ACT_UNROLL>(xh, c, E, H, io.WP, io.BP,
-                                          NoGateOut{});
     __syncthreads();
     if (lane_thread) {
       float m[4], v, a[4];
@@ -181,18 +248,29 @@ lstm_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
   if (lane_thread) write_back(pl, i, cr, acc);
 }
 
-template <int TASK, int INTEG>
-cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
-                   const LstmNet& net, const LstmIO& io, cudaStream_t stream) {
-  const size_t smem = act_smem_bytes(net);
+template <int TASK, int INTEG, int ENC>
+cudaError_t launch_arm(const float* pf, const int* pi, const Planes& pl,
+                       const LstmNet& net, const LstmIO& io, const CnnIn& cn,
+                       cudaStream_t stream) {
+  constexpr int L = ENC == ENC_CNN ? ACT_LANES_CNN : ACT_LANES;
+  const size_t smem = act_smem_bytes(net, ENC);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_act_kernel<TASK, INTEG>,
+      lstm_act_kernel<TASK, INTEG, ENC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  lstm_act_kernel<TASK, INTEG>
-      <<<(pl.n + ACT_LANES - 1) / ACT_LANES, LSTM_THREADS, smem, stream>>>(
-          pf, pi, pl, net, io);
+  lstm_act_kernel<TASK, INTEG, ENC>
+      <<<(pl.n + L - 1) / L, LSTM_THREADS, smem, stream>>>(pf, pi, pl, net,
+                                                           io, cn);
   return cudaGetLastError();
+}
+
+template <int TASK, int INTEG>
+cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
+                   const LstmNet& net, const LstmIO& io, const CnnIn& cn,
+                   int encoder, cudaStream_t stream) {
+  if (encoder == ENC_CNN)
+    return launch_arm<TASK, INTEG, ENC_CNN>(pf, pi, pl, net, io, cn, stream);
+  return launch_arm<TASK, INTEG, ENC_DENSE>(pf, pi, pl, net, io, cn, stream);
 }
 
 }  // namespace drone
@@ -201,28 +279,34 @@ cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
 // statistic planes of rollout.cu; theta: the flat parameters; wp/bp: the
 // packed gate weights (E + H, H, 4) and biases (H, 4); c_in/h_in and
 // c_out/h_out: the carry, (n, H) each; traj/snap: the trajectory planes
-// and the anchors, both null to serve (K8) or both set to train (K6).
-// layout: host ints (lstm.cuh NET_INTS).
+// and the anchors, both null to serve (K8) or both set to train (K6);
+// wt/grid: the CNN tower's transposed weights and the pixel coordinates
+// (the CNN arm's, else null). layout: host ints (lstm.cuh NET_INTS);
+// encoder: ENC_DENSE or ENC_CNN.
 extern "C" int drone_lstm_act_rollout(
     const float* pf, const int* pi, const float* fs, const uint32_t* us,
     const int* st, float* ofs, uint32_t* ous, int* ost, float* stats,
     const float* theta, const float* wp, const float* bp, const float* c_in,
     const float* h_in, float* c_out, float* h_out, float* traj, float* snap,
-    const int* layout, int stochastic, int bptt, int n, int T, int task,
-    int integrator, void* stream) {
+    const float* wt, const float* grid, const int* layout, int encoder,
+    int stochastic, int bptt, int n, int T, int task, int integrator,
+    void* stream) {
   using namespace drone;
   LstmNet net;
-  if (!read_net(layout, net) || n <= 0 || T < 0 ||
+  if (!read_net(layout, encoder, net) || n <= 0 || T < 0 ||
       (traj == nullptr) != (snap == nullptr) ||
-      (snap != nullptr && (bptt <= 0 || T % bptt != 0)))
+      (snap != nullptr && (bptt <= 0 || T % bptt != 0)) ||
+      (encoder == ENC_CNN && (wt == nullptr || grid == nullptr)))
     return (int)cudaErrorInvalidValue;
   const LstmIO io{theta, reinterpret_cast<const float4*>(wp),
                   reinterpret_cast<const float4*>(bp), c_in, h_in, c_out,
                   h_out, traj, snap, T, bptt > 0 ? bptt : 1, stochastic};
   const Planes pl{fs, us, st, ofs, ous, ost, stats, n};
+  const CnnIn cn{wt, grid};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DRONE_LSTM_CASE(TK, IG) \
-  if (task == TK && integrator == IG) return (int)launch<TK, IG>(pf, pi, pl, net, io, s);
+#define DRONE_LSTM_CASE(TK, IG)                                             \
+  if (task == TK && integrator == IG)                                       \
+    return (int)launch<TK, IG>(pf, pi, pl, net, io, cn, encoder, s);
   DRONE_LSTM_CASE(TASK_HOVER, INTEG_EULER)
   DRONE_LSTM_CASE(TASK_HOVER, INTEG_RK4)
   DRONE_LSTM_CASE(TASK_WAYPOINT, INTEG_EULER)

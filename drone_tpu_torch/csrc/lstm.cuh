@@ -27,13 +27,25 @@
 // kernels are held to their plain versions at a tolerance. sigmoid is
 // 1 / (1 + expf(-x)) and tanh is tanhf, as torch's CUDA kernels compute
 // them.
+//
+// Two encoder arms, a template parameter of each kernel (ENC_DENSE,
+// ENC_CNN), as the reference's encode_features switches between them: the
+// tanh dense tower below, or the pixel-recurrent family's patch CNN
+// (cnn.cuh's window-by-window forward, its trunk output written into the
+// first E = 128 rows of xh). The CNN arm takes CNNLSTMActorCritic's
+// default tower only, whose six tensors open the flat buffer at cnn.cuh's
+// offsets (OFF_W0 .. OFF_BT): the cnn_lstm buffer's first 94,464 floats are
+// laid out as PatchCNNActorCritic's.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "cnn.cuh"
 #include "policy.cuh"
 
 namespace drone {
+
+enum { ENC_DENSE = 0, ENC_CNN = 1 };
 
 constexpr int MAX_ENC = 4;
 constexpr int LSTM_MAX_H = 128;
@@ -55,11 +67,15 @@ struct LstmNet {
   int head_off, vhead_off, ls_off;
 };
 
-inline bool read_net(const int* layout, LstmNet& net) {
+// The layout of an ENC_CNN net has no dense layer (n_enc 0); E is the
+// trunk's width.
+inline bool read_net(const int* layout, int encoder, LstmNet& net) {
   net.n_enc = layout[0];
   net.H = layout[1];
   if (net.n_enc < 0 || net.n_enc > MAX_ENC || net.H <= 0 ||
-      net.H > LSTM_MAX_H || net.H % 4 != 0)
+      net.H > LSTM_MAX_H || net.H % 4 != 0 ||
+      (encoder != ENC_DENSE && encoder != ENC_CNN) ||
+      (encoder == ENC_CNN && net.n_enc != 0))
     return false;
   net.E = OBS_DIM;
   net.enc_rows = 0;
@@ -72,6 +88,7 @@ inline bool read_net(const int* layout, LstmNet& net) {
     net.E = net.enc_w[i];
     net.enc_rows += net.enc_w[i];
   }
+  if (encoder == ENC_CNN) net.E = CNN_H;
   net.head_off = layout[2 + 2 * MAX_ENC];
   net.vhead_off = layout[3 + 2 * MAX_ENC];
   net.ls_off = layout[4 + 2 * MAX_ENC];

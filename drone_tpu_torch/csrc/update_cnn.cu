@@ -84,48 +84,6 @@ struct UpdArgs {
   int n, T, rbl, NL, tch, chunk, n_tiles;
 };
 
-// G[m][j] += sum_l A[m][l] B[j][l] over the tile's samples (A M rows, B N
-// rows, [row][US]); with gb, gb[m] += sum_l A[m][l]. A thread owns 4 x 4
-// blocks of G, a warp 4 row blocks x 8 column blocks (K3's gemm4x4 layout),
-// so with the odd row stride its reads fall in distinct banks.
-__device__ __forceinline__ void outer_acc(const float* A, int M, const float* B,
-                                          int N, float* G, int ldg,
-                                          float* gb) {
-  const int mb = M / 4, nb = N / 4, nb8 = (nb + 7) / 8;
-  const int total = ((mb + 3) / 4) * nb8 * 32;
-  for (int id = threadIdx.x; id < total; id += blockDim.x) {
-    const int lane = id & 31, w = id >> 5;
-    const int mi = (w / nb8) * 4 + (lane >> 3);
-    const int ni = (w % nb8) * 8 + (lane & 7);
-    if (mi >= mb || ni >= nb) continue;
-    const int m0 = 4 * mi, n0 = 4 * ni;
-    float acc[4][4];
-    zero_acc(acc);
-    for (int l = 0; l < UL; ++l) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = A[(m0 + i) * US + l];
-        bv[i] = B[(n0 + i) * US + l];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        G[(m0 + i) * ldg + n0 + j] = G[(m0 + i) * ldg + n0 + j] + acc[i][j];
-  }
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    float s = 0.0f;
-    for (int l = 0; l < UL; ++l) s = s + A[m * US + l];
-    gb[m] = gb[m] + s;
-  }
-}
-
 __global__ void __launch_bounds__(CNN_THREADS, 1)
 tile_kernel(UpdArgs A, UConsts co) {
   constexpr int L = UL, S = US;
@@ -234,58 +192,8 @@ tile_kernel(UpdArgs A, UConsts co) {
     __syncthreads();
 
     // ---- the encoder's backward, window by window ---------------------------
-    for (int q1 = 0; q1 < CNN_NQ1; ++q1) {
-      for (int k = 0; k < CNN_WIN; ++k)
-        render_patch<L, S>(window_patch(q1, k), sp, A.grid, xr + k * CNN_K0 * S);
-      __syncthreads();
-      for (int k = 0; k < CNN_WIN; ++k)
-        conv_relu<L, S>(A.wt + T_W0, CNN_K0, A.theta + OFF_B0,
-                        xr + k * CNN_K0 * S, y0 + k * CNN_C0 * S);
-      {
-        // dz1 = (Wt[:, window]^T dzt) * (X2 > 0), X2 read back from the
-        // scratch this block wrote
-        constexpr int RM = CNN_C1 * (L / 4) / CNN_THREADS;
-        int m0, l0;
-        tile_of<L, RM>(m0, l0);
-        float acc[RM][4];
-        zero_acc(acc);
-        mm_acc<RM, S>(A.theta + OFF_WT + q1 * CNN_C1, CNN_X2, CNN_H, hh, m0,
-                      l0, acc);
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float x2 = x2s[(size_t)(q1 * CNN_C1 + m0 + r) * NL + l0 + q];
-            y1[(m0 + r) * S + l0 + q] = acc[r][q] * (x2 > 0.0f ? 1.0f : 0.0f);
-          }
-      }
-      __syncthreads();
-      // gW1 += dz1 X1^T (X1: the window's conv0 outputs), gb1 += sum dz1
-      outer_acc(y1, CNN_C1, y0, CNN_K1, sm + U_GW1, CNN_K1, sm + U_GB1);
-      __syncthreads();
-      {
-        // dz0 = (W1^T dz1) * (Y0 > 0), over y0 in place
-        constexpr int RM = CNN_K1 * (L / 4) / CNN_THREADS;
-        int m0, l0;
-        tile_of<L, RM>(m0, l0);
-        float acc[RM][4];
-        zero_acc(acc);
-        mm_acc<RM, S>(A.theta + OFF_W1, CNN_K1, CNN_C1, y1, m0, l0, acc);
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float* y = y0 + (m0 + r) * S + l0 + q;
-            *y = acc[r][q] * (*y > 0.0f ? 1.0f : 0.0f);
-          }
-      }
-      __syncthreads();
-      // gW0 += dz0 X0^T over the window's four patches, gb0 += sum dz0
-      for (int k = 0; k < CNN_WIN; ++k)
-        outer_acc(y0 + k * CNN_C0 * S, CNN_C0, xr + k * CNN_K0 * S, CNN_K0,
-                  sm + U_GW0, CNN_K0, sm + U_GB0);
-      __syncthreads();
-    }
+    cnn_tile_bwd<L, S>(sp, A.theta, A.wt, A.grid, hh, x2s, NL, xr, y0, y1,
+                       sm + U_GW0);
   }
 
   // this block's partial row

@@ -38,6 +38,22 @@
 // 128 / E 64 (forward 98k, dx and dh 98k, the weight products 98k), on the
 // fp32 cores; the bytes (planes, anchors, the scratch's traffic) are far
 // below the memory rate's share. The gate weights stream from L2.
+//
+// The CNN arm (pixel-recurrent cnn_lstm, the reference's encoder == "cnn"
+// branch): bptt_kernel<ENC_CNN> runs cnn.cuh's forward window by window
+// (K8's CNN arm) into x, storing each window's conv1 output (the trunk's
+// input X2, 576 rows a sample) and x in the scratch, and its backward ends
+// at dzt = dx * (x > 0), the gradient at the trunk's pre-activation, to
+// the scratch. The conv backward does not depend on time, so it runs per
+// segment after the walk through time as a second kernel, conv_bwd_kernel:
+// K10's tile machinery (cnn.cuh cnn_tile_bwd: the patches re-rendered from
+// the stored obs, conv0 re-run, gW0 and gW1 in a block's shared memory over
+// fixed 32-sample tiles), its block rows written into the product rows'
+// first OFF_WT columns; gWt and gbt are one more product pair (dzt x X2).
+// Per sample the arm adds ~920k multiply-adds to the LSTM's 2 x 131k: the
+// forward tower 369k, conv0 again 147k, dX2 74k, gW1 147k, dX1 147k, gW0
+// 147k, gWt 74k; one segment's scratch is ~1.9 GB at 16,384 lanes x 16
+// steps, H 128.
 
 #include <cuda_runtime.h>
 
@@ -55,7 +71,20 @@ constexpr int BP_PASSES = (LSTM_MAX_H / 4) * (BP_LANES / 4) / LSTM_THREADS;
 constexpr int BP_UNROLL = 8;
 constexpr int GT = 64;  // product tile (rows and columns)
 constexpr int GK = 16;  // samples per product step
-enum { XS = 0, GZ = 1, CT = 2, H2S = 3, DMV = 4, DP = 5, N_SCRATCH = 6 };
+// scratch buffers, each (bptt, rows, NL): X2S only in the CNN arm, DP the
+// dense encoder's dpre or the CNN arm's dzt
+enum { XS = 0, GZ = 1, CT = 2, H2S = 3, DMV = 4, DP = 5, N_SCRATCH = 6,
+       X2S = 6, N_BUFS = 7 };
+// the CNN arm's window buffers before xh (acting_lstm.cu's), and the conv
+// backward's tile (K10's: 32 samples, an odd row stride)
+constexpr int CNN_ROWS = 12 + CNN_K0 + CNN_K1 + CNN_C1;
+constexpr int CB_L = 32, CB_S = CB_L + 1;
+constexpr int CB_XR = 12 * CB_S;                 // splat scalars before
+constexpr int CB_Y0 = CB_XR + CNN_K1 * CB_S;     // 4 patches [256][S]
+constexpr int CB_Y1 = CB_Y0 + CNN_K1 * CB_S;     // conv0 out, then dz0
+constexpr int CB_DZ = CB_Y1 + CNN_C1 * CB_S;     // dz1 [64][S]
+constexpr int CB_G = CB_DZ + CNN_H * CB_S;       // dzt [128][S]
+constexpr int CB_FLOATS = CB_G + OFF_WT;         // gW0 gb0 gW1 gb1
 
 struct BpttArgs {
   const float* planes;  // (T, 21, n)
@@ -68,6 +97,13 @@ struct BpttArgs {
   float* s[N_SCRATCH];  // each (bptt, rows, NL)
   float* stat_part;     // (blocks, 8) of this segment
   int n, T, bptt, seg, rbl, NL;
+};
+
+// The CNN arm's tower inputs and its X2 scratch (unused by the dense arm).
+struct CnnUpd {
+  const float* wt;    // W0^T, W1^T, Wt^T (cnn.cuh T_*)
+  const float* grid;  // the pixel coordinates (2, 576)
+  float* x2s;         // (bptt, 576, NL)
 };
 
 __device__ __forceinline__ void store4(float* p, const float* v) {
@@ -107,26 +143,35 @@ __device__ __forceinline__ void dense_t(const float* __restrict__ W, int nout,
   }
 }
 
-__host__ __device__ inline int bptt_smem_floats(const LstmNet& net) {
+__host__ __device__ inline int bptt_smem_floats(const LstmNet& net,
+                                                int encoder) {
   int maxw, nbuf;
   enc_buffers(net, maxw, nbuf);
   int maxe = 0;
   for (int i = 0; i < net.n_enc; ++i) maxe = net.enc_w[i] > maxe ? net.enc_w[i] : maxe;
-  const int fwd = OBS_DIM + nbuf * maxw + net.E + 2 * net.H;
+  int fwd = OBS_DIM + nbuf * maxw + net.E + 2 * net.H;
+  if (encoder == ENC_CNN) {
+    fwd = CNN_ROWS + net.E + 2 * net.H;
+    maxe = net.E;
+  }
   const int bwd = 6 * net.H + maxe + 6;
   return BP_LANES * (fwd > bwd ? fwd : bwd);
 }
 
+template <int ENC>
 __global__ void __launch_bounds__(LSTM_THREADS, 1)
-bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
+bptt_kernel(BpttArgs A, LstmNet net, UConsts co, CnnUpd cu) {
+  constexpr bool CNN = ENC == ENC_CNN;
   constexpr int L = BP_LANES;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int H = net.H, E = net.E, n = A.n, NL = A.NL, tid = threadIdx.x;
   const int ml0 = blockIdx.x * L;  // the tile's first minibatch lane
   const int lane0 = A.perm[ml0 / A.rbl] * A.rbl + ml0 % A.rbl;
-  const int RX = OBS_DIM + net.enc_rows + H;  // rows of the XS scratch
-  const int h_row = OBS_DIM + net.enc_rows;   // h_in's first row there
+  // the XS scratch: [obs, the encoder's outputs (the CNN's x), h_in]
+  const int x_rows = CNN ? CNN_H : net.enc_rows;
+  const int RX = OBS_DIM + x_rows + H;  // rows of the XS scratch
+  const int h_row = OBS_DIM + x_rows;   // h_in's first row there
   float ls[4], stdv[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -135,12 +180,24 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
   }
 
   // ---- forward: the segment from its anchor, activations to the scratch --
-  int maxw, nbuf;
-  enc_buffers(net, maxw, nbuf);
-  float* obs = sm;
-  float* buf0 = obs + OBS_DIM * L;
-  float* buf1 = buf0 + maxw * L;
-  float* xh = buf0 + nbuf * maxw * L;
+  // dense: the obs rows and the encoder's buffers before xh; CNN: the
+  // window buffers (sp, xr, y0, y1) before xh
+  float *obs, *buf0, *buf1, *xh;
+  if constexpr (CNN) {
+    obs = buf0 = buf1 = nullptr;
+    xh = sm + CNN_ROWS * L;
+  } else {
+    int maxw, nbuf;
+    enc_buffers(net, maxw, nbuf);
+    obs = sm;
+    buf0 = obs + OBS_DIM * L;
+    buf1 = buf0 + maxw * L;
+    xh = buf0 + nbuf * maxw * L;
+  }
+  float* sp = sm;
+  float* xr = sp + 12 * L;
+  float* y0 = xr + CNN_K0 * L;
+  float* y1 = y0 + CNN_K1 * L;
   float* h = xh + E * L;
   float* c = xh + (E + H) * L;
   float* obs_rows = net.n_enc ? obs : xh;
@@ -154,26 +211,61 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
   for (int t = 0; t < A.bptt; ++t) {
     const float* pt = A.planes + (size_t)(A.seg * A.bptt + t) * N_TRAJ * n + lane0;
     float* xs = A.s[XS] + (size_t)t * RX * NL + ml0;
-    for (int e = tid; e < OBS_DIM * L; e += blockDim.x) {
-      const int k = e / L, l = e % L;
-      const float v = pt[(size_t)(TP_OBS0 + k) * n + l];
-      obs_rows[k * L + l] = v;
-      xs[(size_t)k * NL + l] = v;
+    if constexpr (CNN) {
+      // each lane thread: its obs to the scratch, its splat scalars
+      if (tid < L) {
+        float o[OBS_DIM], s12[12];
+#pragma unroll
+        for (int k = 0; k < OBS_DIM; ++k) {
+          o[k] = pt[(size_t)(TP_OBS0 + k) * n + tid];
+          xs[(size_t)k * NL + tid] = o[k];
+        }
+        splat12(o, s12);
+#pragma unroll
+        for (int k = 0; k < 12; ++k) sp[k * L + tid] = s12[k];
+      }
+    } else {
+      for (int e = tid; e < OBS_DIM * L; e += blockDim.x) {
+        const int k = e / L, l = e % L;
+        const float v = pt[(size_t)(TP_OBS0 + k) * n + l];
+        obs_rows[k * L + l] = v;
+        xs[(size_t)k * NL + l] = v;
+      }
     }
     for (int e = tid; e < H * L; e += blockDim.x) {
       const int u = e / L, l = e % L;
       xs[(size_t)(h_row + u) * NL + l] = h[u * L + l];
     }
     __syncthreads();
-    lstm_encoder<L>(obs, buf0, buf1, xh, A.theta, net,
-                    [&](int i, const float* out) {
-                      int r0 = OBS_DIM;
-                      for (int j = 0; j < i; ++j) r0 += net.enc_w[j];
-                      for (int e = tid; e < net.enc_w[i] * L; e += blockDim.x) {
-                        const int k = e / L, l = e % L;
-                        xs[(size_t)(r0 + k) * NL + l] = out[k * L + l];
-                      }
-                    });
+    if constexpr (CNN) {
+      // the tower into x, each window's conv1 output (X2) to the scratch,
+      // then x to the XS scratch
+      float* x2s = cu.x2s + (size_t)t * CNN_X2 * NL + ml0;
+      cnn_encode_tile<L, L>(
+          sp, A.theta, cu.wt, cu.grid, xr, y0, y1, xh,
+          [&](int q1, const float* y) {
+            for (int e = tid; e < CNN_C1 * L; e += blockDim.x) {
+              const int o = e / L, l = e % L;
+              x2s[(size_t)(q1 * CNN_C1 + o) * NL + l] = y[o * L + l];
+            }
+          });
+      __syncthreads();
+      for (int e = tid; e < E * L; e += blockDim.x) {
+        const int k = e / L, l = e % L;
+        xs[(size_t)(OBS_DIM + k) * NL + l] = xh[k * L + l];
+      }
+    } else {
+      lstm_encoder<L>(obs, buf0, buf1, xh, A.theta, net,
+                      [&](int i, const float* out) {
+                        int r0 = OBS_DIM;
+                        for (int j = 0; j < i; ++j) r0 += net.enc_w[j];
+                        for (int e = tid; e < net.enc_w[i] * L;
+                             e += blockDim.x) {
+                          const int k = e / L, l = e % L;
+                          xs[(size_t)(r0 + k) * NL + l] = out[k * L + l];
+                        }
+                      });
+    }
     float* gs = A.s[GZ] + (size_t)t * 4 * H * NL + ml0;
     float* cts = A.s[CT] + (size_t)t * 2 * H * NL + ml0;
     float* h2s = A.s[H2S] + (size_t)t * H * NL + ml0;
@@ -204,6 +296,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
   // ---- backward through time ---------------------------------------------
   int maxe = 0;
   for (int i = 0; i < net.n_enc; ++i) maxe = net.enc_w[i] > maxe ? net.enc_w[i] : maxe;
+  if constexpr (CNN) maxe = E;
   float* dh = sm;
   float* dc = dh + H * L;
   float* dz = dc + H * L;
@@ -219,7 +312,8 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
   for (int k = 0; k < N_UPSTATS; ++k) stv[k] = 0.0f;
   const float* hw = A.theta + net.head_off;
   const float* vw = A.theta + net.vhead_off;
-  const int r_lo = net.n_enc ? 0 : E;  // no encoder: x is data, no dx
+  // no encoder: x is data, no dx
+  const int r_lo = CNN || net.n_enc ? 0 : E;
   for (int t = A.bptt - 1; t >= 0; --t) {
     const int ts = A.seg * A.bptt + t;
     const float* pt = A.planes + (size_t)ts * N_TRAJ * n + lane0;
@@ -318,6 +412,17 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
       }
     }
     __syncthreads();
+    if constexpr (CNN) {
+      // the trunk's relu: dzt = dx * (x > 0) to the scratch; the conv
+      // backward runs after the segment (conv_bwd_kernel)
+      float* dzs = A.s[DP] + (size_t)t * E * NL + ml0;
+      for (int e = tid; e < E * L; e += blockDim.x) {
+        const int k = e / L, l = e % L;
+        const float x = xs[(size_t)(OBS_DIM + k) * NL + l];
+        dzs[(size_t)k * NL + l] = dx[e] * (x > 0.0f ? 1.0f : 0.0f);
+      }
+      continue;
+    }
     // the encoder backward: dpre = dx (1 - y^2), then dx of the layer below
     float* d = dx;
     for (int i = net.n_enc - 1; i >= 0; --i) {
@@ -353,6 +458,63 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
     for (int l = 0; l < L; ++l) s = s + red[tid * L + l];
     A.stat_part[(size_t)blockIdx.x * N_UPSTATS + tid] = s;
   }
+}
+
+// The CNN arm's conv backward over one segment's samples, after its walk
+// through time: fixed tiles of 32 samples (lanes ml0.. of step tl) taken
+// by block b in the order b, b + G, ...; per tile the splat scalars of the
+// obs in the XS scratch, dzt from the DP scratch, then cnn_tile_bwd with
+// the tile's X2 from the X2S scratch. The block's gW0, gb0, gW1, gb1 go to
+// the first OFF_WT columns of partial row (row0 + b): the flat buffer's
+// order, summed with the product rows by lstm_reduce_kernel.
+struct ConvBwdArgs {
+  const float* xs;    // the XS scratch (bptt, RX, NL)
+  const float* dzs;   // the DP scratch: dzt (bptt, 128, NL)
+  const float* x2s;   // the X2S scratch (bptt, 576, NL)
+  const float* theta;
+  const float* wt;
+  const float* grid;
+  float* partial;
+  int RX, NL, n_tiles, ptot, row0;
+};
+
+__global__ void __launch_bounds__(CNN_THREADS, 1)
+conv_bwd_kernel(ConvBwdArgs A) {
+  constexpr int L = CB_L, S = CB_S;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* sp = sm;
+  float* xr = sm + CB_XR;
+  float* y0 = sm + CB_Y0;
+  float* y1 = sm + CB_Y1;
+  float* dz = sm + CB_DZ;
+  float* g = sm + CB_G;
+  const int tid = threadIdx.x, NL = A.NL, per_t = NL / L;
+  for (int e = tid; e < OFF_WT; e += blockDim.x) g[e] = 0.0f;
+  for (int tau = blockIdx.x; tau < A.n_tiles; tau += gridDim.x) {
+    const int tl = tau / per_t, ml0 = (tau % per_t) * L;
+    const float* xs = A.xs + (size_t)tl * A.RX * NL + ml0;
+    const float* dzs = A.dzs + (size_t)tl * CNN_H * NL + ml0;
+    __syncthreads();  // the last tile's readers are done
+    if (tid < L) {
+      float o[OBS_DIM], s12[12];
+#pragma unroll
+      for (int k = 0; k < OBS_DIM; ++k) o[k] = xs[(size_t)k * NL + tid];
+      splat12(o, s12);
+#pragma unroll
+      for (int k = 0; k < 12; ++k) sp[k * S + tid] = s12[k];
+    }
+    for (int e = tid; e < CNN_H * L; e += blockDim.x) {
+      const int u = e / L, l = e % L;
+      dz[u * S + l] = dzs[(size_t)u * NL + l];
+    }
+    __syncthreads();
+    cnn_tile_bwd<L, S>(sp, A.theta, A.wt, A.grid, dz,
+                       A.x2s + (size_t)tl * CNN_X2 * NL + ml0, NL, xr, y0, y1,
+                       g);
+  }
+  float* part = A.partial + (size_t)(A.row0 + blockIdx.x) * A.ptot;
+  for (int e = tid; e < OFF_WT; e += blockDim.x) part[e] = g[e];
 }
 
 // One product of the weight gradients over a segment's samples: C (M x N)
@@ -474,25 +636,31 @@ __global__ void lstm_reduce_kernel(const float* __restrict__ partial, int R,
 }  // namespace drone
 
 // C interface (ctypes). ptrs: host array of device pointers [planes,
-// advret, snap, perm, theta, wp, bp, the 6 scratch buffers (XS, GZ, CT, H2,
-// DMV, DP), partial, stat_part, map, grads, stats]. layout: lstm.cuh's
-// NET_INTS. dims: [n, T, bptt, rbl, NL, CK, P, ptot, n_pairs, the 6
-// scratch row counts]. pairs: n_pairs x [A buffer, A row0, M, B buffer, B
-// row0, N, out offset]. consts: [inv_m, clip_lo, clip_hi, clip_eps,
-// vf_clip, half_vf_coef, ent_coef]. Returns the cudaError_t of the
-// launches.
+// advret, snap, perm, theta, wp, bp, the 7 scratch buffers (XS, GZ, CT, H2,
+// DMV, DP, X2S), partial, stat_part, map, grads, stats, wt, grid]; X2S, wt
+// and grid are the CNN arm's (null for the dense one). layout: lstm.cuh's
+// NET_INTS; encoder: ENC_DENSE or ENC_CNN. dims: [n, T, bptt, rbl, NL, CK,
+// P, ptot, n_pairs, the 7 scratch row counts]. pairs: n_pairs x [A buffer,
+// A row0, M, B buffer, B row0, N, out offset]. consts: [inv_m, clip_lo,
+// clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the
+// cudaError_t of the launches.
 extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
-                                 const int* dims, const int* pairs,
-                                 const float* consts, void* stream) {
+                                 int encoder, const int* dims,
+                                 const int* pairs, const float* consts,
+                                 void* stream) {
   using namespace drone;
   LstmNet net;
-  if (!read_net(layout, net)) return (int)cudaErrorInvalidValue;
+  if (!read_net(layout, encoder, net)) return (int)cudaErrorInvalidValue;
   const int n = dims[0], T = dims[1], bptt = dims[2], rbl = dims[3];
   const int NL = dims[4], CK = dims[5], P = dims[6], ptot = dims[7];
   const int n_pairs = dims[8];
   const int* rows = dims + 9;
+  const bool cnn = encoder == ENC_CNN;
   if (n <= 0 || bptt <= 0 || T % bptt != 0 || rbl % 128 != 0 ||
-      NL % BP_LANES != 0 || CK % GK != 0 || NL % CK != 0 || n_pairs <= 0)
+      NL % BP_LANES != 0 || CK % GK != 0 || NL % CK != 0 || n_pairs <= 0 ||
+      (cnn && (NL % CB_L != 0 || ptot < OFF_WT ||
+               rows[XS] != OBS_DIM + CNN_H + net.H || rows[DP] != CNN_H ||
+               rows[X2S] != CNN_X2)))
     return (int)cudaErrorInvalidValue;
   const float** ptr = reinterpret_cast<const float**>(const_cast<uint64_t*>(ptrs));
   BpttArgs A;
@@ -503,12 +671,17 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   A.theta = ptr[4];
   A.WP = reinterpret_cast<const float4*>(ptr[5]);
   A.BP = reinterpret_cast<const float4*>(ptr[6]);
-  for (int b = 0; b < N_SCRATCH; ++b) A.s[b] = const_cast<float*>(ptr[7 + b]);
-  float* partial = const_cast<float*>(ptr[13]);
-  float* stat_part = const_cast<float*>(ptr[14]);
-  const int* map = reinterpret_cast<const int*>(ptr[15]);
-  float* grads = const_cast<float*>(ptr[16]);
-  float* stats = const_cast<float*>(ptr[17]);
+  float* bufs[N_BUFS];
+  for (int b = 0; b < N_BUFS; ++b) bufs[b] = const_cast<float*>(ptr[7 + b]);
+  for (int b = 0; b < N_SCRATCH; ++b) A.s[b] = bufs[b];
+  float* partial = const_cast<float*>(ptr[14]);
+  float* stat_part = const_cast<float*>(ptr[15]);
+  const int* map = reinterpret_cast<const int*>(ptr[16]);
+  float* grads = const_cast<float*>(ptr[17]);
+  float* stats = const_cast<float*>(ptr[18]);
+  const CnnUpd cu{ptr[19], ptr[20], bufs[X2S]};
+  if (cnn && (cu.wt == nullptr || cu.grid == nullptr || cu.x2s == nullptr))
+    return (int)cudaErrorInvalidValue;
   A.n = n;
   A.T = T;
   A.bptt = bptt;
@@ -517,21 +690,38 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const UConsts co{consts[0], consts[1], consts[2], consts[3],
                    consts[4], consts[5], consts[6]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * (size_t)bptt_smem_floats(net);
+  const size_t smem = sizeof(float) * (size_t)bptt_smem_floats(net, encoder);
+  auto* walk = cnn ? bptt_kernel<ENC_CNN> : bptt_kernel<ENC_DENSE>;
   cudaError_t err = cudaFuncSetAttribute(
-      bptt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const size_t cb_smem = sizeof(float) * (size_t)CB_FLOATS;
+  if (cnn) {
+    err = cudaFuncSetAttribute(conv_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)cb_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int S = T / bptt, nblk = NL / BP_LANES, nk = bptt * (NL / CK);
   for (int seg = 0; seg < S; ++seg) {
     A.seg = seg;
     A.stat_part = stat_part + (size_t)seg * nblk * N_UPSTATS;
-    bptt_kernel<<<nblk, LSTM_THREADS, smem, s>>>(A, net, co);
+    walk<<<nblk, LSTM_THREADS, smem, s>>>(A, net, co, cu);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    if (cnn) {
+      // one block per product row of the segment (nk <= the tiles)
+      const ConvBwdArgs cb{A.s[XS], A.s[DP], cu.x2s, A.theta, cu.wt,
+                           cu.grid, partial, rows[XS], NL,
+                           bptt * (NL / CB_L), ptot, seg * nk};
+      conv_bwd_kernel<<<nk, CNN_THREADS, cb_smem, s>>>(cb);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
     for (int q = 0; q < n_pairs; ++q) {
       const int* d = pairs + 7 * q;
-      const GemmPair gp{A.s[d[0]], rows[d[0]], d[1], d[2],
-                        A.s[d[3]], rows[d[3]], d[4], d[5], d[6]};
+      const GemmPair gp{bufs[d[0]], rows[d[0]], d[1], d[2],
+                        bufs[d[3]], rows[d[3]], d[4], d[5], d[6]};
       const dim3 grid((gp.M + GT - 1) / GT, (gp.N + GT - 1) / GT, nk);
       grad_gemm_kernel<<<grid, 256, 0, s>>>(gp, NL, CK, partial, ptot, seg * nk);
       err = cudaGetLastError();

@@ -1,5 +1,5 @@
-"""Policies: counterpart of `drone_tpu.models` (the MLP, LSTM and
-patch-CNN families)."""
+"""Policies: counterpart of `drone_tpu.models` (the MLP, LSTM, patch-CNN
+and pixel-recurrent CNN-LSTM families)."""
 
 from drone_tpu_torch.models.mlp import (  # noqa: F401
     ActorCritic,
@@ -13,6 +13,7 @@ from drone_tpu_torch.models.mlp import (  # noqa: F401
     tensor_sizes,
 )
 from drone_tpu_torch.models.lstm import (  # noqa: F401
+    CNNLSTMActorCritic,
     LSTMActorCritic,
     lstm_kernel_offsets,
     lstm_kernel_order,
@@ -21,6 +22,7 @@ from drone_tpu_torch.models.cnn import (  # noqa: F401
     CnnArch,
     CnnGeom,
     PatchCNNActorCritic,
+    PatchCNNEncoder,
     cnn_kernel_offsets,
     cnn_kernel_order,
 )

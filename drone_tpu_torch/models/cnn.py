@@ -25,6 +25,12 @@ kernels, orthogonal(0.01) mean head, orthogonal(1.0) value head, zero
 biases, log_std 0) from the caller's CPU generator; the bits differ from
 JAX's. `params_from_flax` / `params_to_flax` carry weights across, and
 `fused_opt_state_to_flax` the reference's fused optimizer state.
+
+`PatchCNNEncoder` is the tower alone (obs -> trunk features), the module
+form of `patch_cnn_trunk` (the reference's `PatchCNNEncoder`); the
+pixel-recurrent `models.lstm.CNNLSTMActorCritic` builds the same tower with
+`add_patch_cnn_tower` and converts it with `tower_from_flax` /
+`tower_to_flax`.
 """
 
 from __future__ import annotations
@@ -149,6 +155,52 @@ def patch_cnn_trunk(obs, enc_weights, arch: CnnArch):
     return torch.relu(F.linear(y1.reshape(n, -1), Wt, bt))
 
 
+TOWER = ("conv0", "conv1", "trunk")
+
+
+def add_patch_cnn_tower(module: nn.Module, arch: CnnArch, generator=None,
+                        device=None) -> None:
+    """Register conv0, conv1 and trunk on `module` as nn.Linear layers in
+    the kernel layout, lecun-normal weights drawn from `generator` in that
+    order, zero biases."""
+    shapes = dict(cnn_kernel_order(arch))
+    for name in TOWER:
+        out, fan_in = shapes[f"{name}.weight"]
+        lin = nn.Linear(fan_in, out, device=device)
+        _lecun_normal_(lin.weight, generator)
+        nn.init.zeros_(lin.bias)
+        module.add_module(name, lin)
+
+
+def tower_weights(module: nn.Module):
+    """(W0, b0, W1, b1, Wt, bt) of a module built by add_patch_cnn_tower."""
+    return tuple(p for name in TOWER
+                 for p in (getattr(module, name).weight,
+                           getattr(module, name).bias))
+
+
+def make_arch(res=24, patch0=4, patch1=2, channels=(64, 64),
+              hidden=128) -> CnnArch:
+    """The CnnArch of a patch-CNN module's constructor arguments."""
+    c0, c1 = (int(c) for c in channels)
+    return CnnArch(int(res), int(patch0), int(patch1), c0, c1, int(hidden))
+
+
+class PatchCNNEncoder(nn.Module):
+    """obs (N, 13) -> trunk features (N, hidden): the patch-CNN tower alone
+    (the reference's PatchCNNEncoder)."""
+
+    def __init__(self, res: int = 24, patch0: int = 4, patch1: int = 2,
+                 channels=(64, 64), hidden: int = 128,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.arch = make_arch(res, patch0, patch1, channels, hidden)
+        add_patch_cnn_tower(self, self.arch, generator, device)
+
+    def forward(self, obs):
+        return patch_cnn_trunk(obs, tower_weights(self), self.arch)
+
+
 class PatchCNNActorCritic(nn.Module):
     """obs (N, 13) -> (action mean (N, 4), log_std (N, 4), value (N,))."""
 
@@ -156,16 +208,8 @@ class PatchCNNActorCritic(nn.Module):
                  channels=(64, 64), hidden: int = 128,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
-        c0, c1 = (int(c) for c in channels)
-        self.arch = CnnArch(int(res), int(patch0), int(patch1), c0, c1,
-                            int(hidden))
-        shapes = dict(cnn_kernel_order(self.arch))
-        for name in ("conv0", "conv1", "trunk"):
-            out, fan_in = shapes[f"{name}.weight"]
-            lin = nn.Linear(fan_in, out, device=device)
-            _lecun_normal_(lin.weight, generator)
-            nn.init.zeros_(lin.bias)
-            self.add_module(name, lin)
+        self.arch = make_arch(res, patch0, patch1, channels, hidden)
+        add_patch_cnn_tower(self, self.arch, generator, device)
         self.actor_mean = nn.Linear(self.arch.hidden, ACT_DIM, device=device)
         nn.init.orthogonal_(self.actor_mean.weight, 0.01, generator=generator)
         nn.init.zeros_(self.actor_mean.bias)
@@ -208,9 +252,7 @@ class PatchCNNActorCritic(nn.Module):
         return flat
 
     def forward(self, obs):
-        enc = (self.conv0.weight, self.conv0.bias, self.conv1.weight,
-               self.conv1.bias, self.trunk.weight, self.trunk.bias)
-        h = patch_cnn_trunk(obs, enc, self.arch)
+        h = patch_cnn_trunk(obs, tower_weights(self), self.arch)
         mean = self.actor_mean(h)
         value = self.critic_value(h)[:, 0]
         return mean, self.log_std.expand_as(mean), value
@@ -227,43 +269,60 @@ def check_cnn_checkpoint_layout(params) -> None:
         raise RuntimeError(_RENAME)
 
 
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+
+def tower_from_flax(p) -> dict[str, torch.Tensor]:
+    """The conv0/conv1/trunk entries of a flax param dict -> their state-dict
+    entries in the kernel layout (conv0 rows channel-major, conv1 columns
+    (di, dj, cin), the trunk's NHWC flatten)."""
+    k0 = np.asarray(p["conv0"]["kernel"], np.float32)    # (p0, p0, C, c0)
+    k1 = np.asarray(p["conv1"]["kernel"], np.float32)    # (p1, p1, c0, c1)
+    c0, c1 = k0.shape[3], k1.shape[3]
+    sd = {"conv0.weight": _t(k0.transpose(2, 0, 1, 3).reshape(-1, c0).T),
+          "conv1.weight": _t(k1.reshape(-1, c1).T),
+          "trunk.weight": _t(np.asarray(p["trunk"]["kernel"], np.float32).T)}
+    for name in TOWER:
+        sd[f"{name}.bias"] = _t(p[name]["bias"])
+    return sd
+
+
+def tower_to_flax(sd, arch: CnnArch) -> dict:
+    """tower_from_flax inverted: numpy state-dict entries -> {conv0, conv1,
+    trunk} flax dicts."""
+    g = arch.geom
+    p = {"conv0": {"kernel": sd["conv0.weight"].T.reshape(
+            N_CHAN, g.p0, g.p0, arch.c0).transpose(1, 2, 0, 3).copy()},
+         "conv1": {"kernel": sd["conv1.weight"].T.reshape(
+            g.p1, g.p1, arch.c0, arch.c1).copy()},
+         "trunk": {"kernel": sd["trunk.weight"].T.copy()}}
+    for name in TOWER:
+        p[name]["bias"] = sd[f"{name}.bias"]
+    return p
+
+
 def params_from_flax(tree) -> dict[str, torch.Tensor]:
     """flax PatchCNNActorCritic variables ({"params": {...}} or the inner
     dict) -> a PatchCNNActorCritic state dict (CPU float32 tensors)."""
     check_cnn_checkpoint_layout(tree)
     p = tree["params"] if "params" in tree else tree
-
-    def t(a):
-        return torch.from_numpy(np.array(a, np.float32, order="C"))
-
-    k0 = np.asarray(p["conv0"]["kernel"], np.float32)    # (p0, p0, C, c0)
-    k1 = np.asarray(p["conv1"]["kernel"], np.float32)    # (p1, p1, c0, c1)
-    c0, c1 = k0.shape[3], k1.shape[3]
-    sd = {"conv0.weight": t(k0.transpose(2, 0, 1, 3).reshape(-1, c0).T),
-          "conv1.weight": t(k1.reshape(-1, c1).T),
-          "log_std": t(np.asarray(p["log_std"], np.float32))}
-    for name in ("trunk", "actor_mean", "critic_value"):
-        sd[f"{name}.weight"] = t(np.asarray(p[name]["kernel"], np.float32).T)
-    for name in ("conv0", "conv1", "trunk", "actor_mean", "critic_value"):
-        sd[f"{name}.bias"] = t(np.asarray(p[name]["bias"], np.float32))
+    sd = {**tower_from_flax(p), "log_std": _t(p["log_std"])}
+    for name in ("actor_mean", "critic_value"):
+        sd[f"{name}.weight"] = _t(np.asarray(p[name]["kernel"], np.float32).T)
+        sd[f"{name}.bias"] = _t(p[name]["bias"])
     return sd
 
 
 def params_to_flax(module: PatchCNNActorCritic) -> dict:
     """PatchCNNActorCritic -> flax variable tree {"params": {...}} of numpy
     arrays."""
-    a, g = module.arch, module.geom
     sd = {k: v.detach().cpu().numpy().astype(np.float32)
           for k, v in module.state_dict().items()}
-    p = {"conv0": {"kernel": sd["conv0.weight"].T.reshape(
-            N_CHAN, g.p0, g.p0, a.c0).transpose(1, 2, 0, 3).copy()},
-         "conv1": {"kernel": sd["conv1.weight"].T.reshape(
-            g.p1, g.p1, a.c0, a.c1).copy()},
-         "log_std": sd["log_std"]}
-    for name in ("trunk", "actor_mean", "critic_value"):
-        p[name] = {"kernel": sd[f"{name}.weight"].T.copy()}
-    for name in ("conv0", "conv1", "trunk", "actor_mean", "critic_value"):
-        p[name]["bias"] = sd[f"{name}.bias"]
+    p = {**tower_to_flax(sd, module.arch), "log_std": sd["log_std"]}
+    for name in ("actor_mean", "critic_value"):
+        p[name] = {"kernel": sd[f"{name}.weight"].T.copy(),
+                   "bias": sd[f"{name}.bias"]}
     return {"params": p}
 
 

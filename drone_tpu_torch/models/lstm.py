@@ -25,19 +25,36 @@ log_std. The parameters are views of that buffer, as in `models.mlp`.
 `params_from_flax` / `params_to_flax` carry weights across, and
 `fused_opt_state_to_flax` the reference's fused optimizer state (count, mu
 list, nu list); `models.mlp.fused_opt_state_from_flax`, a concatenation,
-serves both families.
+serves every family.
+
+The pixel-recurrent family (`CNNLSTMActorCritic`, run.policy=cnn_lstm)
+replaces the dense tower with the patch-CNN one of `models.cnn` (render,
+conv0, conv1, relu trunk), inlined with the reference's flat names conv0 /
+conv1 / trunk. Everywhere below, `encoder` is either the dense widths (a
+tuple of ints) or the tower's `CnnArch`; `encoder_of` tells them apart.
+In the flat buffer the CNN's three (W, b) pairs take the dense pairs'
+place, in the kernel layouts of `models.cnn`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from drone_tpu_torch.models.cnn import (
+    CnnArch,
+    add_patch_cnn_tower,
+    cnn_kernel_order,
+    make_arch,
+    patch_cnn_trunk,
+    tower_from_flax,
+    tower_to_flax,
+    tower_weights,
+)
 from drone_tpu_torch.models.mlp import (
     _lecun_normal_,
     order_offsets,
@@ -48,14 +65,40 @@ from drone_tpu_torch.types import ACT_DIM, OBS_DIM
 GATES = ("i", "f", "g", "o")
 
 
-def lstm_kernel_order(hidden: int, encoder: Sequence[int]):
+def encoder_of(encoder):
+    """The encoder as the functions below take it: a CnnArch as it is, the
+    dense widths as a tuple of ints."""
+    if isinstance(encoder, CnnArch):
+        return encoder
+    return tuple(int(e) for e in encoder)
+
+
+def is_cnn(encoder) -> bool:
+    return isinstance(encoder, CnnArch)
+
+
+def encoder_width(encoder) -> int:
+    """E, the LSTM's input width: the trunk's, the last dense layer's, or
+    the observation's with no encoder."""
+    if is_cnn(encoder):
+        return encoder.hidden
+    return encoder[-1] if encoder else OBS_DIM
+
+
+def lstm_kernel_order(hidden: int, encoder):
     """(state-dict name, shape) of every parameter in the reference's
     `lstm_kernel_tensors` order (its (out, 1) biases and (1, 4) log_std
     hold the same numbers as (out,) and (4,) here)."""
-    order, fan_in = [], OBS_DIM
-    for i, e in enumerate(encoder):
-        order += [(f"enc_h{i}.weight", (e, fan_in)), (f"enc_h{i}.bias", (e,))]
-        fan_in = e
+    encoder = encoder_of(encoder)
+    if is_cnn(encoder):
+        order = cnn_kernel_order(encoder)[:6]
+    else:
+        order = []
+        for i, e in enumerate(encoder):
+            fan_in = encoder[i - 1] if i else OBS_DIM
+            order += [(f"enc_h{i}.weight", (e, fan_in)),
+                      (f"enc_h{i}.bias", (e,))]
+    fan_in = encoder_width(encoder)
     order += [(f"lstm.i{g}.weight", (hidden, fan_in)) for g in GATES]
     order += [(f"lstm.h{g}.weight", (hidden, hidden)) for g in GATES]
     order += [(f"lstm.h{g}.bias", (hidden,)) for g in GATES]
@@ -67,25 +110,33 @@ def lstm_kernel_order(hidden: int, encoder: Sequence[int]):
     return order
 
 
-def lstm_kernel_offsets(hidden: int, encoder: Sequence[int]):
+def lstm_kernel_offsets(hidden: int, encoder):
     """({state-dict name: offset in the flat buffer}, buffer length)."""
     return order_offsets(lstm_kernel_order(hidden, encoder))
 
 
-def lstm_weights(theta: torch.Tensor, hidden: int, encoder: Sequence[int]):
+def encoder_layers(encoder) -> list[str]:
+    """The state-dict prefixes of the encoder's (W, b) pairs, in order."""
+    if is_cnn(encoder):
+        return ["conv0", "conv1", "trunk"]
+    return [f"enc_h{i}" for i in range(len(encoder))]
+
+
+def lstm_weights(theta: torch.Tensor, hidden: int, encoder):
     """Views of the flat buffer: (enc [(W, b), ...], wi [4 x (H, E)], wh [4 x
     (H, H)], bh [4 x (H,)], head (W (4, H), b (4,)), vhead (W (1, H), b (1,)),
-    log_std (4,))."""
+    log_std (4,)). enc holds the dense pairs, or the CNN's (W0, b0), (W1,
+    b1), (Wt, bt)."""
+    encoder = encoder_of(encoder)
     order = lstm_kernel_order(hidden, encoder)
     offs, total = lstm_kernel_offsets(hidden, encoder)
     if theta.shape != (total,):
         raise ValueError(f"flat LSTM parameters (hidden {hidden}, encoder "
-                         f"{list(encoder)}) have {total} floats, got shape "
+                         f"{encoder}) have {total} floats, got shape "
                          f"{tuple(theta.shape)}")
     v = {name: theta[offs[name]:offs[name] + math.prod(shape)].view(shape)
          for name, shape in order}
-    enc = [(v[f"enc_h{i}.weight"], v[f"enc_h{i}.bias"])
-           for i in range(len(encoder))]
+    enc = [(v[f"{e}.weight"], v[f"{e}.bias"]) for e in encoder_layers(encoder)]
     wi = [v[f"lstm.i{g}.weight"] for g in GATES]
     wh = [v[f"lstm.h{g}.weight"] for g in GATES]
     bh = [v[f"lstm.h{g}.bias"] for g in GATES]
@@ -93,15 +144,23 @@ def lstm_weights(theta: torch.Tensor, hidden: int, encoder: Sequence[int]):
             (v["critic_value.weight"], v["critic_value.bias"]), v["log_std"])
 
 
-def lstm_step(obs, c, h, weights):
-    """One encoder + LSTM step, batch-major: obs (N, 13), c/h (N, H) ->
-    (encoder activations [obs, enc_1, ..., x], gates (i, f, g, o), c', tanh(c'),
-    h'). The gate pre-activation is (x Wi^T + h Wh^T) + b, the reference's
-    dot(wi, x) + dot(wh, h) + bh."""
-    enc, wi, wh, bh = weights[:4]
+def dense_encode(obs, enc):
+    """The tanh dense tower: obs (N, 13) -> activations [obs, enc_1, ...,
+    x]."""
     acts = [obs]
     for w, b in enc:
         acts.append(torch.tanh(F.linear(acts[-1], w, b)))
+    return acts
+
+
+def lstm_step(obs, c, h, weights, encode=dense_encode):
+    """One encoder + LSTM step, batch-major: obs (N, 13), c/h (N, H) ->
+    (encoder activations, gates (i, f, g, o), c', tanh(c'), h').
+    encode(obs, enc) gives the activations, the last of them x (the dense
+    tower's [obs, enc_1, ..., x] by default). The gate pre-activation is (x
+    Wi^T + h Wh^T) + b, the reference's dot(wi, x) + dot(wh, h) + bh."""
+    enc, wi, wh, bh = weights[:4]
+    acts = encode(obs, enc)
     x = acts[-1]
     pre = [F.linear(x, wi[k]) + F.linear(h, wh[k]) + bh[k] for k in range(4)]
     gi, gf, go = (torch.sigmoid(pre[k]) for k in (0, 1, 3))
@@ -111,31 +170,26 @@ def lstm_step(obs, c, h, weights):
     return acts, (gi, gf, gg, go), c2, th, go * th
 
 
-def lstm_value(obs, carry, theta, hidden, encoder):
-    """The critic's value at obs (N, 13) given the carry (c, h) entering the
-    step (ppo_rnn_pallas._lstm_value): (N,)."""
-    weights = lstm_weights(theta, hidden, encoder)
-    *_, h2 = lstm_step(obs, carry[0], carry[1], weights)
-    vw, vb = weights[5]
-    return F.linear(h2, vw, vb)[:, 0]
-
-
 class LSTMActorCritic(nn.Module):
     """obs (N, 13), carry (c, h) -> (mean (N, 4), log_std (N, 4), value (N,),
-    carry')."""
+    carry'). `encoder` is the dense widths or, for the pixel-recurrent
+    family, the patch-CNN tower's CnnArch (see CNNLSTMActorCritic)."""
 
-    def __init__(self, hidden: int = 128, encoder: Sequence[int] = (64,),
+    def __init__(self, hidden: int = 128, encoder=(64,),
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         self.hidden = int(hidden)
-        self.encoder = tuple(int(e) for e in encoder)
-        fan_in = OBS_DIM
-        for i, e in enumerate(self.encoder):
-            lin = nn.Linear(fan_in, e, device=device)
-            _lecun_normal_(lin.weight, generator)
-            nn.init.zeros_(lin.bias)
-            self.add_module(f"enc_h{i}", lin)
-            fan_in = e
+        self.encoder = encoder_of(encoder)
+        if is_cnn(self.encoder):
+            add_patch_cnn_tower(self, self.encoder, generator, device)
+        else:
+            for i, e in enumerate(self.encoder):
+                lin = nn.Linear(self.encoder[i - 1] if i else OBS_DIM, e,
+                                device=device)
+                _lecun_normal_(lin.weight, generator)
+                nn.init.zeros_(lin.bias)
+                self.add_module(f"enc_h{i}", lin)
+        fan_in = encoder_width(self.encoder)
         self.lstm = nn.ModuleDict()
         for g in GATES:
             lin = nn.Linear(fan_in, self.hidden, bias=False, device=device)
@@ -189,8 +243,8 @@ class LSTMActorCritic(nn.Module):
 
     def weights(self):
         """lstm_weights of the module's own parameters."""
-        enc = [(getattr(self, f"enc_h{i}").weight, getattr(self, f"enc_h{i}").bias)
-               for i in range(len(self.encoder))]
+        enc = [(getattr(self, e).weight, getattr(self, e).bias)
+               for e in encoder_layers(self.encoder)]
         return (enc, [self.lstm[f"i{g}"].weight for g in GATES],
                 [self.lstm[f"h{g}"].weight for g in GATES],
                 [self.lstm[f"h{g}"].bias for g in GATES],
@@ -200,35 +254,55 @@ class LSTMActorCritic(nn.Module):
 
     def forward(self, obs, carry):
         c, h = carry
-        *_, c2, _, h2 = lstm_step(obs, c, h, self.weights())
+        encode = dense_encode
+        if is_cnn(self.encoder):
+            def encode(x, enc):
+                return [patch_cnn_trunk(x, tower_weights(self), self.encoder)]
+        *_, c2, _, h2 = lstm_step(obs, c, h, self.weights(), encode)
         mean = self.actor_mean(h2)
         value = self.critic_value(h2)[:, 0]
         return mean, self.log_std.expand_as(mean), value, (c2, h2)
 
 
+class CNNLSTMActorCritic(LSTMActorCritic):
+    """The pixel-recurrent policy (run.policy=cnn_lstm): obs (N, 13) ->
+    rendered 24x24x4 image -> patch-CNN tower (conv0, conv1, relu trunk) ->
+    LSTM -> Gaussian and value heads (the reference's CNNLSTMActorCritic)."""
+
+    def __init__(self, hidden: int = 128, res: int = 24, patch0: int = 4,
+                 patch1: int = 2, channels=(64, 64), trunk_hidden: int = 128,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__(hidden, make_arch(res, patch0, patch1, channels,
+                                           trunk_hidden),
+                         generator=generator, device=device)
+
+
 def params_from_flax(tree) -> dict[str, torch.Tensor]:
-    """flax LSTMActorCritic variables ({"params": {...}} or the inner dict) ->
-    an LSTMActorCritic state dict (CPU float32 tensors)."""
+    """flax LSTMActorCritic or CNNLSTMActorCritic variables ({"params":
+    {...}} or the inner dict) -> the port's state dict (CPU float32
+    tensors). A conv0 tree is the pixel-recurrent family; its tower goes to
+    the kernel layout as in models.cnn."""
     p = tree["params"] if "params" in tree else tree
-    if "conv0" in p:
-        raise NotImplementedError(
-            "the pixel-recurrent (cnn_lstm) family is not ported yet "
-            "(ROADMAP.md, module queue: the pixel families)")
+    cnn = "conv0" in p
+    known = {"lstm", "actor_mean", "critic_value", "log_std",
+             *(("conv0", "conv1", "trunk") if cnn else ())}
     # a tree with conv1 or trunk but no conv0 is neither encoder (the
     # reference's lstm_encoder_kind lets it through as an empty dense one)
-    unknown = sorted(k for k in p if k not in ("lstm", "actor_mean",
-                                               "critic_value", "log_std")
-                     and not k.startswith("enc_h"))
+    unknown = sorted(k for k in p if k not in known
+                     and (cnn or not k.startswith("enc_h")))
     if unknown:
         raise ValueError(f"unrecognized LSTM encoder params {unknown}: the "
-                         f"port takes the dense enc_h* tower")
+                         f"port takes the dense enc_h* tower or the "
+                         f"conv0/conv1/trunk patch-CNN tower")
 
     def t(a, transpose=False):
         a = np.array(a, np.float32)
         return torch.from_numpy(a.T.copy() if transpose else a)
 
-    sd = {}
+    sd = tower_from_flax(p) if cnn else {}
     for name, leaf in p.items():
+        if name in ("conv0", "conv1", "trunk"):
+            continue
         if name == "log_std":
             sd["log_std"] = t(leaf)
         elif name == "lstm":
@@ -243,11 +317,15 @@ def params_from_flax(tree) -> dict[str, torch.Tensor]:
 
 
 def params_to_flax(module: LSTMActorCritic) -> dict:
-    """LSTMActorCritic -> flax variable tree {"params": {...}} of numpy
-    arrays."""
-    p = {}
-    for name, t in module.state_dict().items():
-        a = t.detach().cpu().numpy().astype(np.float32)
+    """LSTMActorCritic or CNNLSTMActorCritic -> flax variable tree
+    {"params": {...}} of numpy arrays."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32)
+          for k, v in module.state_dict().items()}
+    p = tower_to_flax(sd, module.encoder) if is_cnn(module.encoder) else {}
+    tower = set(p)
+    for name, a in sd.items():
+        if name.split(".")[0] in tower:
+            continue
         if name == "log_std":
             p["log_std"] = a
             continue
@@ -262,7 +340,7 @@ def params_to_flax(module: LSTMActorCritic) -> dict:
     return {"params": p}
 
 
-def fused_opt_state_to_flax(opt_state, hidden: int, encoder: Sequence[int]):
+def fused_opt_state_to_flax(opt_state, hidden: int, encoder):
     """(count, flat mu, flat nu) -> the reference's recurrent fused state
     (numpy float32 count, [mu arrays], [nu arrays]) in its kernel-tensor
     shapes (biases (out, 1), log_std (1, 4))."""

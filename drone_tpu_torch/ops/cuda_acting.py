@@ -131,6 +131,14 @@ def check_smem(n_weights: int, widths) -> None:
                          f"memory per block; the kernels have {_MAX_SMEM}")
 
 
+def check_envelope(widths) -> None:
+    """Raise ValueError for an actor tower the acting kernel cannot take
+    (tower_layout's limits and a block's shared memory). evaluate() asks
+    this before it picks K5."""
+    layout, _ = tower_layout(widths)
+    check_smem(int(layout[2]), widths)
+
+
 def _pad16(w: int) -> int:
     return -(-w // _CHUNK) * _CHUNK
 
@@ -153,7 +161,7 @@ def pack_tower(policy: ActorCritic, device):
                   policy.actor_mean.bias.to(device)]
         weights = torch.cat(parts).to(torch.float32).contiguous()
     assert weights.numel() == layout[2]
-    check_smem(int(layout[2]), widths)
+    check_envelope(widths)
     std = np.ascontiguousarray(
         torch.exp(policy.log_std.detach()).cpu().numpy(), np.float32)
     return weights, layout, std

@@ -231,14 +231,19 @@ def traj_cnn_rollout_plain(state: EnvState, theta, arch,
     return state, planes, acc
 
 
-def transposed_weights(theta, arch):
-    """W0^T, W1^T and Wt^T in one buffer (94,208 floats at the kernels'
-    architecture): the forward products read a thread's output rows as one
-    vector. Made with torch ops on the device, so a launch needs no host
-    copy."""
-    W0, _, W1, _, Wt, _ = cnn_encoder_weights(theta, arch)
+def transposed_tower(enc_weights):
+    """W0^T, W1^T and Wt^T of the encoder's (W0, b0, W1, b1, Wt, bt) in one
+    buffer (94,208 floats at the kernels' architecture): the forward
+    products read a thread's output rows as one vector. Made with torch ops
+    on the device, so a launch needs no host copy."""
+    W0, _, W1, _, Wt, _ = enc_weights
     return torch.cat([W0.t().reshape(-1), W1.t().reshape(-1),
                       Wt.t().reshape(-1)]).contiguous()
+
+
+def transposed_weights(theta, arch):
+    """transposed_tower of a PatchCNNActorCritic's flat buffer."""
+    return transposed_tower(cnn_encoder_weights(theta, arch))
 
 
 def _launch(state, theta, arch, env_params, statics, T, traj: bool,

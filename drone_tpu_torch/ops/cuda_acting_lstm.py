@@ -21,8 +21,16 @@ tensors only; on a CUDA tensor they launch the kernel.
 The carry is the flax tuple (c, h), each (N, hidden), cell state first.
 The policy is the flat parameter buffer in the reference's
 `lstm_kernel_tensors` order (`models.lstm`) with its shape `arch` =
-(hidden, encoder widths); the wrapper packs the gate weights for the kernel
-(`pack_gates`) with torch ops on the device, so a launch needs no host copy.
+(hidden, encoder): the dense tower's widths, or the pixel-recurrent
+family's patch-CNN `CnnArch`. `encode_features` is the reference's switch
+between the two (`pallas_acting_lstm.encode_features`): the tanh dense
+stack, or `cuda_acting_cnn.cnn_encode` (render, conv0, conv1, trunk in the
+CNN kernels' formulation). The kernel's CNN arm runs `csrc/cnn.cuh`'s
+window-by-window forward into the LSTM's input rows, on tiles of 64 lanes
+(`LANES_CNN`), and takes the reference trainer's default tower only
+(`cuda_acting_cnn.KERNEL_ARCH`). The wrapper packs the gate weights for the
+kernel (`pack_gates`), and for the CNN arm the tower's transposed weights,
+with torch ops on the device, so a launch needs no host copy.
 """
 
 from __future__ import annotations
@@ -35,12 +43,21 @@ from torch.nn import functional as F
 
 from drone_tpu_torch import env as env_mod
 from drone_tpu_torch.models.lstm import (
+    dense_encode,
+    encoder_of,
+    encoder_width,
+    is_cnn,
     lstm_kernel_offsets,
     lstm_step,
     lstm_weights,
 )
 from drone_tpu_torch.ops import cuda_build
 from drone_tpu_torch.ops.cuda_acting import gauss4
+from drone_tpu_torch.ops.cuda_acting_cnn import (
+    KERNEL_ARCH,
+    cnn_encode,
+    transposed_tower,
+)
 from drone_tpu_torch.ops.cuda_acting_traj import N_TRAJ, sample_logp
 from drone_tpu_torch.ops.cuda_rollout import (
     N_STATS,
@@ -50,34 +67,78 @@ from drone_tpu_torch.ops.cuda_rollout import (
     stats_dict,
 )
 from drone_tpu_torch.ppo_rnn import mask_carry
+from drone_tpu_torch.pixels import grid_table, patch_grid
 from drone_tpu_torch.types import OBS_DIM, EnvParams, EnvState, EnvStatics
 
 # kernel limits (csrc/lstm.cuh, csrc/acting_lstm.cu)
 LANES = 128
+LANES_CNN = 64            # the CNN arm's tile
 MAX_ENC = 4
 MAX_HIDDEN = 128
 NET_INTS = 5 + 2 * MAX_ENC
+ENC_DENSE, ENC_CNN = 0, 1  # the kernels' encoder arms (lstm.cuh)
+# shared rows of the CNN arm's window buffers: the splat scalars (12), a
+# rendered patch (64), a window's conv0 outputs (256), its conv1 output (64)
+CNN_ROWS = 12 + 64 + 256 + 64
 # dynamic shared memory one H100 block can use, less the env params' copy
 _MAX_SMEM = 232448 - 256
 
 
+def enc_flat(enc):
+    """The encoder's (W, b) pairs as one tuple (W0, b0, W1, b1, ...), the
+    order cnn_encode takes (the reference's enc_flat)."""
+    return tuple(t for pair in enc for t in pair)
+
+
+def encode_features(encoder, device):
+    """The encoder of `lstm_step` for this encoder kind (the reference's
+    encode_features; its lstm_encoder_kind is `models.lstm.is_cnn` of the
+    arch's encoder): (obs (N, 13), enc pairs) -> activations whose last is
+    the LSTM input. The CNN's are cnn_encode's (sp, X0, Y0, Y1, X2, h),
+    rendered on the host-built pixel grid."""
+    if not is_cnn(encoder):
+        return dense_encode
+    gx, gy = patch_grid(encoder.res, encoder.p0, device)
+
+    def encode(obs, enc):
+        return cnn_encode(obs, enc_flat(enc), gx, gy, encoder.geom, True)[1]
+
+    return encode
+
+
+def lstm_value(obs, carry, theta, hidden, encoder):
+    """The critic's value at obs (N, 13) given the carry (c, h) entering the
+    step (ppo_rnn_pallas._lstm_value): (N,)."""
+    weights = lstm_weights(theta, hidden, encoder)
+    *_, h2 = lstm_step(obs, carry[0], carry[1], weights,
+                       encode_features(encoder_of(encoder), obs.device))
+    vw, vb = weights[5]
+    return F.linear(h2, vw, vb)[:, 0]
+
+
 def net_layout(hidden: int, encoder) -> np.ndarray:
     """The host ints of csrc/lstm.cuh's LstmNet: [n_enc, H, enc widths,
-    enc W offsets, head_off, vhead_off, ls_off]. Raises for a policy the
+    enc W offsets, head_off, vhead_off, ls_off]; the CNN tower counts as no
+    dense layer (its offsets are cnn.cuh's). Raises for a policy the
     kernels cannot take."""
-    encoder = tuple(int(e) for e in encoder)
+    encoder = encoder_of(encoder)
     hidden = int(hidden)
-    if len(encoder) > MAX_ENC or hidden > MAX_HIDDEN or hidden % 4:
+    if is_cnn(encoder) and tuple(encoder) != tuple(KERNEL_ARCH):
+        raise ValueError(f"the LSTM kernels' CNN arm takes the tower "
+                         f"{KERNEL_ARCH} only (CNNLSTMActorCritic's "
+                         f"defaults), got {encoder}")
+    dense = () if is_cnn(encoder) else encoder
+    if len(dense) > MAX_ENC or hidden > MAX_HIDDEN or hidden % 4:
         raise ValueError(f"the LSTM kernels take at most {MAX_ENC} encoder "
                          f"layers and a hidden width <= {MAX_HIDDEN} that is a "
-                         f"multiple of 4, got encoder {list(encoder)}, hidden "
+                         f"multiple of 4, got encoder {encoder}, hidden "
                          f"{hidden}")
     offs, _ = lstm_kernel_offsets(hidden, encoder)
     ints = np.zeros(NET_INTS, np.int32)
-    ints[0], ints[1] = len(encoder), hidden
-    ints[2:2 + len(encoder)] = encoder
-    ints[2 + MAX_ENC:2 + MAX_ENC + len(encoder)] = [
-        offs[f"enc_h{i}.weight"] for i in range(len(encoder))]
+    ints[0], ints[1] = len(dense), hidden
+    ints[2:2 + len(dense)] = dense
+    ints[2 + MAX_ENC:2 + MAX_ENC + len(dense)] = [
+        offs[f"enc_h{i}.weight"] for i in range(len(dense))]
     ints[2 + 2 * MAX_ENC:] = (offs["actor_mean.weight"],
                               offs["critic_value.weight"], offs["log_std"])
     return ints
@@ -85,11 +146,24 @@ def net_layout(hidden: int, encoder) -> np.ndarray:
 
 def act_smem_bytes(hidden: int, encoder) -> int:
     """Shared memory of one acting block (acting_lstm.cu act_smem_bytes)."""
-    encoder = tuple(encoder)
+    encoder = encoder_of(encoder)
+    E = encoder_width(encoder)
+    if is_cnn(encoder):
+        return 4 * LANES_CNN * (CNN_ROWS + E + 2 * hidden)
     mid = encoder[:-1]
     nbuf = min(len(mid), 2)
-    E = encoder[-1] if encoder else OBS_DIM
     return 4 * LANES * (OBS_DIM + nbuf * max(mid, default=0) + E + 2 * hidden)
+
+
+def check_act_envelope(hidden: int, encoder) -> None:
+    """Raise ValueError for a policy K8 and K6 cannot take (net_layout's
+    limits and a block's shared memory). evaluate() asks this before it
+    picks K8."""
+    net_layout(hidden, encoder)
+    if act_smem_bytes(hidden, encoder) > _MAX_SMEM:
+        raise ValueError(f"an LSTM of hidden {hidden} and encoder "
+                         f"{encoder_of(encoder)} needs more shared memory per "
+                         f"block than an H100 has")
 
 
 def pack_gates(theta: torch.Tensor, hidden: int, encoder):
@@ -110,10 +184,12 @@ def lstm_act_rollout_plain(state: EnvState, theta, arch, carry,
     per-lane statistics (N_STATS, N))."""
     torch.backends.cuda.matmul.allow_tf32 = False
     weights = lstm_weights(theta, *arch)
+    encode = encode_features(encoder_of(arch[1]), state.pos.device)
     hw, hb = weights[4]
     acc = torch.zeros(N_STATS, state.n, device=state.pos.device)
     for _ in range(T):
-        *_, c2, _, h2 = lstm_step(env_mod.observe(state), *carry, weights)
+        *_, c2, _, h2 = lstm_step(env_mod.observe(state), *carry, weights,
+                                  encode)
         state, out = env_mod.step(state, F.linear(h2, hw, hb), env_params,
                                   statics)
         carry = mask_carry((c2, h2), out.terminated | out.truncated)
@@ -136,6 +212,7 @@ def traj_lstm_rollout_plain(state: EnvState, theta, arch, carry,
     vw, vb = weights[5]
     ls = weights[6]
     dev = state.pos.device
+    encode = encode_features(encoder_of(arch[1]), dev)
     planes = torch.empty(T, N_TRAJ, state.n, device=dev)
     snap = torch.empty(T // bptt, 2, arch[0], state.n, device=dev)
     acc = torch.zeros(N_STATS, state.n, device=dev)
@@ -143,7 +220,7 @@ def traj_lstm_rollout_plain(state: EnvState, theta, arch, carry,
         if t % bptt == 0:
             snap[t // bptt] = torch.stack([carry[0].t(), carry[1].t()])
         obs = env_mod.observe(state)
-        *_, c2, _, h2 = lstm_step(obs, *carry, weights)
+        *_, c2, _, h2 = lstm_step(obs, *carry, weights, encode)
         m = F.linear(h2, hw, hb)
         v = F.linear(h2, vw, vb)[:, 0]
         z = gauss4(state) if stochastic else torch.zeros_like(m)
@@ -173,18 +250,19 @@ def _launch(state, theta, arch, carry, env_params, statics, T, bptt=None,
     training rollout. Returns (final EnvState, carry, planes or None,
     anchors or None, per-lane statistics)."""
     check_cuda_state(state)
-    hidden, encoder = int(arch[0]), tuple(arch[1])
+    hidden, encoder = int(arch[0]), encoder_of(arch[1])
     dev = state.pos.device
-    lstm_weights(theta, hidden, encoder)  # checks the buffer's length
+    weights = lstm_weights(theta, hidden, encoder)  # checks the length
     if (theta.device != dev or theta.dtype != torch.float32
             or not theta.is_contiguous()):
         raise ValueError("theta must be a contiguous float32 buffer on the "
                          "state's device")
+    check_act_envelope(hidden, encoder)
     layout = net_layout(hidden, encoder)
-    if act_smem_bytes(hidden, encoder) > _MAX_SMEM:
-        raise ValueError(f"an LSTM of hidden {hidden} and encoder "
-                         f"{list(encoder)} needs more shared memory per block "
-                         f"than an H100 has")
+    wt = grid = None
+    if is_cnn(encoder):
+        wt = transposed_tower(enc_flat(weights[0]))
+        grid = grid_table(encoder.res, encoder.p0, dev)
     n = state.n
     _check_carry(carry, n, hidden, dev)
     c_in, h_in = (t.contiguous() for t in carry)
@@ -198,13 +276,16 @@ def _launch(state, theta, arch, carry, env_params, statics, T, bptt=None,
         planes = torch.empty(T, N_TRAJ, n, device=dev)
         snap = torch.empty(T // bptt, 2, hidden, n, device=dev)
     fn = cuda_build.load("acting_lstm").drone_lstm_act_rollout
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     final, lane_stats = launch_planes(
         fn, state, env_params, statics, T, theta.data_ptr(), wp.data_ptr(),
         bp.data_ptr(), c_in.data_ptr(), h_in.data_ptr(), c_out.data_ptr(),
         h_out.data_ptr(), None if planes is None else planes.data_ptr(),
-        None if snap is None else snap.data_ptr(), layout.ctypes.data,
-        int(stochastic), int(bptt or 0))
+        None if snap is None else snap.data_ptr(),
+        None if wt is None else wt.data_ptr(),
+        None if grid is None else grid.data_ptr(), layout.ctypes.data,
+        ENC_CNN if is_cnn(encoder) else ENC_DENSE, int(stochastic),
+        int(bptt or 0))
     return final, (c_out, h_out), planes, snap, lane_stats
 
 
@@ -214,6 +295,7 @@ def lstm_act_rollout_kernel(state, theta, arch, carry, env_params, statics,
     final, carry, _, _, lane_stats = _launch(state, theta, arch, carry,
                                              env_params, statics, T)
     lstm_act_rollout_cuda.launches += 1
+    lstm_act_rollout_cuda.cnn_launches += is_cnn(arch[1])
     return final, carry, lane_stats
 
 
@@ -223,6 +305,7 @@ def traj_lstm_rollout_kernel(state, theta, arch, carry, env_params, statics,
     out = _launch(state, theta, arch, carry, env_params, statics, T, bptt,
                   stochastic)
     traj_lstm_rollout_cuda.launches += 1
+    traj_lstm_rollout_cuda.cnn_launches += is_cnn(arch[1])
     return out
 
 
@@ -230,7 +313,7 @@ def lstm_act_rollout_cuda(state: EnvState, theta, arch, carry,
                           env_params: EnvParams, statics: EnvStatics, T: int):
     """T deterministic LSTM-policy + env steps per lane: the kernel on a
     CUDA state, the plain version on a CPU state. arch = (hidden, encoder
-    widths) of the flat buffer theta. Returns (final EnvState, final carry
+    widths or CnnArch) of the flat buffer theta. Returns (final EnvState, final carry
     (c, h), stats dict)."""
     run = (lstm_act_rollout_plain if state.pos.device.type == "cpu"
            else lstm_act_rollout_kernel)
@@ -239,7 +322,9 @@ def lstm_act_rollout_cuda(state: EnvState, theta, arch, carry,
     return final, carry, stats_dict(lane_stats)
 
 
+# launches of either arm, and of the CNN arm alone
 lstm_act_rollout_cuda.launches = 0
+lstm_act_rollout_cuda.cnn_launches = 0
 
 
 def traj_lstm_rollout_cuda(state: EnvState, theta, arch, carry,
@@ -257,3 +342,4 @@ def traj_lstm_rollout_cuda(state: EnvState, theta, arch, carry,
 
 
 traj_lstm_rollout_cuda.launches = 0
+traj_lstm_rollout_cuda.cnn_launches = 0

@@ -23,6 +23,17 @@ the whole minibatch fit in device memory (about 1.2 GB at 16,384 lanes x
 16 steps, H 128, encoder (64,)), so the kernel stores them in a scratch the
 wrapper allocates and runs one forward per step, not 1 + 1.375.
 
+The CNN arm (the pixel-recurrent family, `arch` = (hidden, CnnArch)): the
+gradient at the LSTM's input flows back through the trunk, conv1 and conv0
+by `cuda_update_cnn.cnn_encoder_bwd`, as the reference's `_segment_grads`
+calls `cnn_encoder_bwd`, with the patches re-rendered from the stored obs.
+The plain version keeps only the tower's output x of each step and re-runs
+the tower in chunks of PLAIN_CHUNK samples in the backward, so it never
+holds conv0's output for a whole minibatch (~19 GB). The kernel's arm
+stores x, the trunk's inputs X2 (576 rows a sample) and dzt (128) for one
+segment, ~1.9 GB in all at 16,384 lanes x 16 steps (H 128), and runs the
+conv backward per segment after the walk through time (update_lstm.cu).
+
 Returns (grads (P,) in the flat kernel order, stat sums (N_UPSTATS,)) as
 `cuda_update.ppo_update_cuda`: gradients are sums scaled by inv_m, and
 log_std's is its stat sums ST_DLS* minus ent_coef.
@@ -37,13 +48,22 @@ import torch
 from torch.nn import functional as F
 
 from drone_tpu_torch.models.lstm import (
+    encoder_of,
+    encoder_width,
+    is_cnn,
     lstm_kernel_offsets,
     lstm_step,
     lstm_weights,
 )
 from drone_tpu_torch.ops import cuda_build
+from drone_tpu_torch.ops.cuda_acting_cnn import transposed_tower
 from drone_tpu_torch.ops.cuda_acting_lstm import (
-    act_smem_bytes,
+    CNN_ROWS,
+    ENC_CNN,
+    ENC_DENSE,
+    check_act_envelope,
+    enc_flat,
+    encode_features,
     net_layout,
     pack_gates,
 )
@@ -64,12 +84,28 @@ from drone_tpu_torch.ops.cuda_update import (
     head_grads,
     minibatch_lanes,
 )
+from drone_tpu_torch.ops.cuda_update_cnn import PLAIN_CHUNK, cnn_encoder_bwd
+from drone_tpu_torch.pixels import grid_table
 from drone_tpu_torch.types import OBS_DIM
 
 # kernel limits (csrc/update_lstm.cu)
 BP_LANES = 64             # lanes of a through-time tile
 MAX_CHUNK = 2048          # samples of one split-K chunk of the gradient products
 _MAX_SMEM = 232448
+
+
+def _forward_encode(encoder, device):
+    """The encoder of the plain version's forward: the dense tower's
+    activations, or for the CNN only its output x, run PLAIN_CHUNK samples
+    at a time (the backward re-runs the tower)."""
+    if not is_cnn(encoder):
+        return encode_features(encoder, device)
+    full = encode_features(encoder, device)
+
+    def encode(obs, enc):
+        return [torch.cat([full(o, enc)[-1] for o in obs.split(PLAIN_CHUNK)])]
+
+    return encode
 
 
 def _segments(x, S, bptt):
@@ -80,11 +116,13 @@ def _segments(x, S, bptt):
     return x.reshape(bptt, *x.shape[1:-2], S * x.shape[-1])
 
 
-def _segment_forward(planes, advret, snap, perm_mb, weights, hidden, rbl,
+def _segment_forward(planes, advret, snap, perm_mb, weights, arch, rbl,
                      bptt):
     """The minibatch's segments run forward from their anchors, folded into
     the batch. Returns (planes (bptt, 21, B), advret (bptt, 2, B), per step
     (encoder activations, gates, c_in, h_in, tanh(c'), h', keep))."""
+    hidden, encoder = int(arch[0]), encoder_of(arch[1])
+    encode = _forward_encode(encoder, planes.device)
     T = planes.shape[0]
     if bptt <= 0 or T % bptt:
         raise ValueError(f"the horizon {T} must be a multiple of bptt {bptt}")
@@ -99,7 +137,7 @@ def _segment_forward(planes, advret, snap, perm_mb, weights, hidden, rbl,
     for t in range(bptt):
         pt = blk[t]
         acts, gates, c2, th, h2 = lstm_step(pt[TP_OBS0:TP_OBS0 + OBS_DIM].t(),
-                                            c, h, weights)
+                                            c, h, weights, encode)
         keep = (1.0 - pt[TP_DONE])[:, None]
         steps.append((acts, gates, c, h, th, h2, keep))
         c, h = c2 * keep, h2 * keep
@@ -114,7 +152,7 @@ def lstm_head_branch_counts(planes, advret, snap, perm_mb, theta, arch,
     weights = lstm_weights(theta, *arch)
     (hw, hb), (vw, vb), ls = weights[4:]
     blk, ar, steps = _segment_forward(planes, advret, snap, perm_mb, weights,
-                                      arch[0], rbl, bptt)
+                                      arch, rbl, bptt)
     h2 = torch.cat([s[5] for s in steps])
     pt = blk.permute(1, 0, 2).reshape(N_TRAJ, -1)
     arf = ar.permute(1, 0, 2).reshape(2, -1)
@@ -130,13 +168,14 @@ def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
     """Plain PyTorch version of K7. planes (T, N_TRAJ, N) and anchors (T //
     bptt, 2, H, N) from the LSTM rollout; advret (2, T, N); perm_mb the
     minibatch's row blocks of rbl lanes; theta the flat parameters of arch
-    = (hidden, encoder widths)."""
+    = (hidden, encoder widths or CnnArch)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    hidden, encoder = int(arch[0]), tuple(arch[1])
+    hidden, encoder = int(arch[0]), encoder_of(arch[1])
     weights = lstm_weights(theta, hidden, encoder)
     enc, wi, wh, bh, (hw, hb), (vw, vb), ls = weights
     blk, ar, steps = _segment_forward(planes, advret, snap, perm_mb, weights,
-                                      hidden, rbl, bptt)
+                                      arch, rbl, bptt)
+    full_encode = encode_features(encoder, theta.device)
     c = steps[0][2]
     grads = torch.zeros_like(theta)
     g_enc, g_wi, g_wh, g_bh, (g_hw, g_hb), (g_vw, g_vb), _ = lstm_weights(
@@ -175,6 +214,16 @@ def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
             g_bh[k] += dz[k].sum(0)
             dh = dh + dz[k] @ wh[k]
             dx = dx + dz[k] @ wi[k]
+        if is_cnn(encoder):
+            # the tower re-run a chunk at a time, and its backward
+            obs = pt[TP_OBS0:TP_OBS0 + OBS_DIM].t()
+            for s0 in range(0, obs.shape[0], PLAIN_CHUNK):
+                sl = slice(s0, s0 + PLAIN_CHUNK)
+                g = cnn_encoder_bwd(dx[sl], full_encode(obs[sl], enc),
+                                    enc_flat(enc), encoder.geom)
+                for dst, src in zip(enc_flat(g_enc), g):
+                    dst += src
+            continue
         for li in range(len(enc) - 1, -1, -1):
             y = acts[li + 1]
             dpre = dx * (1.0 - y * y)
@@ -189,8 +238,9 @@ def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
 
 # scratch buffers of one segment, each (bptt, rows, NL): the forward's
 # activations [X, encoder outputs, h_in], the gates (then dz), [c_in,
-# tanh(c')], h', the head gradients [dm, g_v] and the encoder's dpre
-XS, GZ, CT, H2, DMV, DP = range(6)
+# tanh(c')], h', the head gradients [dm, g_v], the dense encoder's dpre or
+# the CNN arm's dzt, and the CNN arm's trunk inputs X2
+XS, GZ, CT, H2, DMV, DP, X2S = range(7)
 
 
 def grad_products(hidden: int, encoder):
@@ -199,10 +249,13 @@ def grad_products(hidden: int, encoder):
     row0, N, out offset], each the (M, N + 1) block sum_s A[m, s] B[n, s]
     with the bias sums sum_s A[m, s] as column N; their total size; the map
     (P,) int32 from each flat parameter to its sum, -1 - k for log_std[k]).
+    The CNN arm's gW0, gb0, gW1, gb1 come first, in the flat buffer's
+    order: conv_bwd_kernel writes them into each row's first OFF_WT
+    columns; its gWt and gbt are the product dzt x X2.
     """
-    encoder = tuple(int(e) for e in encoder)
+    encoder = encoder_of(encoder)
     H = int(hidden)
-    E = encoder[-1] if encoder else OBS_DIM
+    E = encoder_width(encoder)
     offs, P = lstm_kernel_offsets(H, encoder)
     mp = np.zeros(P, np.int64)
     pairs, out = [], 0
@@ -218,15 +271,25 @@ def grad_products(hidden: int, encoder):
         if b_off is not None:
             mp[b_off:b_off + M] = rows[:, 0] + N
 
-    x_row = OBS_DIM + sum(encoder) - E if encoder else 0
-    in_row, nin, dp_row = 0, OBS_DIM, 0
-    for i, e in enumerate(encoder):
-        pairs.append((DP, dp_row, e, XS, in_row, nin, out))
-        place(offs[f"enc_h{i}.weight"], offs[f"enc_h{i}.bias"], e, nin, out)
-        out += e * (nin + 1)
-        in_row = OBS_DIM + dp_row
-        dp_row += e
-        nin = e
+    if is_cnn(encoder):
+        out = offs["trunk.weight"]
+        mp[:out] = np.arange(out)
+        nx2 = _x2_rows(encoder)
+        pairs.append((DP, 0, E, X2S, 0, nx2, out))
+        place(offs["trunk.weight"], offs["trunk.bias"], E, nx2, out)
+        out += E * (nx2 + 1)
+        x_row = OBS_DIM
+    else:
+        x_row = OBS_DIM + sum(encoder) - E if encoder else 0
+        in_row, nin, dp_row = 0, OBS_DIM, 0
+        for i, e in enumerate(encoder):
+            pairs.append((DP, dp_row, e, XS, in_row, nin, out))
+            place(offs[f"enc_h{i}.weight"], offs[f"enc_h{i}.bias"], e, nin,
+                  out)
+            out += e * (nin + 1)
+            in_row = OBS_DIM + dp_row
+            dp_row += e
+            nin = e
     pairs.append((GZ, 0, 4 * H, XS, x_row, E + H, out))
     for g, gate in enumerate("ifgo"):
         blk = out + g * H * (E + H + 1)
@@ -243,36 +306,51 @@ def grad_products(hidden: int, encoder):
     return np.array(pairs, np.int32), out, mp.astype(np.int32)
 
 
+def _x2_rows(arch) -> int:
+    """The trunk's input width: conv1's windows x channels (576)."""
+    return arch.geom.n_q1 * arch.c1
+
+
 def scratch_rows(hidden: int, encoder) -> list[int]:
-    """Rows per step of each scratch buffer (XS, GZ, CT, H2, DMV, DP)."""
+    """Rows per step of each scratch buffer (XS, GZ, CT, H2, DMV, DP, X2S)."""
+    encoder = encoder_of(encoder)
+    if is_cnn(encoder):
+        E = encoder.hidden
+        return [OBS_DIM + E + hidden, 4 * hidden, 2 * hidden, hidden, 5, E,
+                _x2_rows(encoder)]
     enc_rows = sum(encoder)
     return [OBS_DIM + enc_rows + hidden, 4 * hidden, 2 * hidden, hidden, 5,
-            enc_rows]
+            enc_rows, 0]
 
 
 def bptt_smem_bytes(hidden: int, encoder) -> int:
     """Shared memory of one through-time block (update_lstm.cu)."""
-    encoder = tuple(encoder)
-    mid = encoder[:-1]
-    E = encoder[-1] if encoder else OBS_DIM
-    fwd = OBS_DIM + min(len(mid), 2) * max(mid, default=0) + E + 2 * hidden
-    bwd = 6 * hidden + max(encoder, default=0) + 6
+    encoder = encoder_of(encoder)
+    E = encoder_width(encoder)
+    if is_cnn(encoder):
+        fwd, maxe = CNN_ROWS + E + 2 * hidden, E
+    else:
+        mid = encoder[:-1]
+        fwd = OBS_DIM + min(len(mid), 2) * max(mid, default=0) + E + 2 * hidden
+        maxe = max(encoder, default=0)
+    bwd = 6 * hidden + maxe + 6
     return 4 * BP_LANES * max(fwd, bwd)
 
 
 def check_envelope(hidden: int, encoder) -> None:
     """Raise ValueError for an LSTM that K6, K7 or K8 cannot take: at most
-    MAX_ENC encoder layers none wider than 4 x hidden, a hidden width <=
-    MAX_HIDDEN that is a multiple of 4, and the shared memory of a block."""
-    net_layout(hidden, encoder)
-    if max(encoder, default=0) > 4 * hidden:
+    MAX_ENC encoder layers none wider than 4 x hidden (or the CNN arm's one
+    tower), a hidden width <= MAX_HIDDEN that is a multiple of 4, and the
+    shared memory of a block."""
+    encoder = encoder_of(encoder)
+    check_act_envelope(hidden, encoder)
+    if not is_cnn(encoder) and max(encoder, default=0) > 4 * hidden:
         raise ValueError(f"encoder widths above 4 x hidden ({4 * hidden}) do "
                          f"not fit the update kernel's buffers, got "
                          f"{list(encoder)}")
-    if (act_smem_bytes(hidden, encoder) > _MAX_SMEM - 256
-            or bptt_smem_bytes(hidden, encoder) > _MAX_SMEM):
+    if bptt_smem_bytes(hidden, encoder) > _MAX_SMEM:
         raise ValueError(f"an LSTM of hidden {hidden} and encoder "
-                         f"{list(encoder)} needs more shared memory per block "
+                         f"{encoder} needs more shared memory per block "
                          f"than an H100 has")
 
 
@@ -292,7 +370,7 @@ def _device_map(hidden, encoder, device):
     """The flat-parameter map of grad_products on the device, made once per
     shape (through pinned memory, so the copy does not wait for the
     stream)."""
-    key = (hidden, tuple(encoder), str(device))
+    key = (hidden, encoder_of(encoder), str(device))
     if key not in _maps:
         pairs, ptot, mp = grad_products(hidden, encoder)
         _maps[key] = (pairs, ptot, torch.from_numpy(mp).pin_memory().to(
@@ -305,7 +383,7 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
                        ent_coef: float = 0.0):
     """Launch K7 (csrc/update_lstm.cu). Same contract as lstm_update_plain.
     """
-    hidden, encoder = int(arch[0]), tuple(int(e) for e in arch[1])
+    hidden, encoder = int(arch[0]), encoder_of(arch[1])
     T, _, n = planes.shape
     layout = net_layout(hidden, encoder)
     if bptt <= 0 or T % bptt:
@@ -334,23 +412,31 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
     stat_part = torch.empty(S * nblk, N_UPSTATS, device=dev)
     grads = torch.empty(P, device=dev)
     stats = torch.empty(N_UPSTATS, device=dev)
+    cnn = is_cnn(encoder)
+    if cnn:
+        wt = transposed_tower(enc_flat(lstm_weights(theta, hidden,
+                                                    encoder)[0]))
+        grid = grid_table(encoder.res, encoder.p0, dev)
     ptrs = np.array([t.data_ptr() for t in (
         planes, advret, snap, perm_mb, theta, wp, bp, *scratch, partial,
-        stat_part, mp, grads, stats)], np.uint64)
+        stat_part, mp, grads, stats)]
+        + ([wt.data_ptr(), grid.data_ptr()] if cnn else [0, 0]), np.uint64)
     dims = np.array([n, T, bptt, rbl, NL, CK, P, ptot, len(pairs), *rows],
                     np.int32)
     consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
                        co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
                       np.float32)
     fn = cuda_build.load("update_lstm").drone_lstm_update
-    fn.argtypes = [ctypes.c_void_p] * 6
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
-        err = fn(ptrs.ctypes.data, layout.ctypes.data, dims.ctypes.data,
+        err = fn(ptrs.ctypes.data, layout.ctypes.data,
+                 ENC_CNN if cnn else ENC_DENSE, dims.ctypes.data,
                  np.ascontiguousarray(pairs).ctypes.data, consts.ctypes.data,
                  torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "drone_lstm_update")
     lstm_update_cuda.launches += 1
+    lstm_update_cuda.cnn_launches += cnn
     return grads, stats
 
 
@@ -366,4 +452,6 @@ def lstm_update_cuda(planes, advret, snap, perm_mb, theta, arch,
                ent_coef)
 
 
+# launches of either arm, and of the CNN arm alone
 lstm_update_cuda.launches = 0
+lstm_update_cuda.cnn_launches = 0

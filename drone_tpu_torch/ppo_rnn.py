@@ -35,8 +35,8 @@ def mask_carry(carry, done):
 
 def init_recurrent_runner(model, env, cfg: PPOConfig,
                           seed: int = 0) -> RecurrentRunnerState:
-    """Fresh RecurrentRunnerState: the LSTMActorCritic moved to the env's
-    device and flattened, a zero fused optimizer state, cfg.num_envs lanes
+    """Fresh RecurrentRunnerState: the LSTMActorCritic (or
+    CNNLSTMActorCritic) moved to the env's device and flattened, a zero fused optimizer state, cfg.num_envs lanes
     of episode 0 under `seed`, a zero carry, and the permutation generator
     seeded with `seed`."""
     model = model.to(env.device)
@@ -57,9 +57,10 @@ def init_recurrent_runner(model, env, cfg: PPOConfig,
 def rollout_recurrent(model, env, state, carry, steps: int,
                       generator: torch.Generator | None = None,
                       deterministic: bool = True):
-    """Policy rollout for evaluation through the module: returns
-    (final_state, final_carry, StepOut stacked over T). A stochastic
-    rollout draws its noise from `generator` (on the env's device)."""
+    """Policy rollout for evaluation through the module (either recurrent
+    family): returns (final_state, final_carry, StepOut stacked over T). A
+    stochastic rollout draws its noise from `generator` (on the env's
+    device)."""
     if generator is None and not deterministic:
         raise ValueError("a stochastic rollout_recurrent needs a generator")
     obs = env_mod.observe(state)

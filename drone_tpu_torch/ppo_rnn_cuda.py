@@ -8,12 +8,17 @@ Counterpart of `drone_tpu/ppo_rnn_pallas.py` with the fused optimizer
               and the (c, h) anchor entering every bptt segment, policy and
               env fused, exploration noise from the lanes' counter streams;
   GAE       - ppo_cuda's, with the bootstrap value of the last obs at the
-              last carry (`models.lstm.lstm_value`, the reference's
-              `_lstm_value`);
+              last carry (`ops.cuda_acting_lstm.lstm_value`, the
+              reference's `_lstm_value`, through the policy's encoder);
   update    - K7 (ops/cuda_update_lstm.py) per minibatch: row blocks of
               whole lanes, each bptt segment re-run from its anchor and
               walked backward through time;
   optimizer - K4 (ops/cuda_update.py) over the LSTM's flat buffer.
+
+Both recurrent families train here: `arch` = (hidden, encoder) carries
+the encoder kind, the dense widths (run.policy=lstm) or the patch-CNN
+tower's CnnArch (run.policy=cnn_lstm, whose flat buffer holds 23 tensors),
+and K6, K7 and the last value take the matching arm.
 
 The trainer scaffolding (minibatch geometry, advantage normalization, the
 losses from the stat sums, the epoch loop, the metrics, the permutations)
@@ -27,9 +32,12 @@ from __future__ import annotations
 import torch
 
 from drone_tpu_torch import env as env_mod
-from drone_tpu_torch.models.lstm import lstm_value, lstm_weights
+from drone_tpu_torch.models.lstm import lstm_weights
 from drone_tpu_torch.models.mlp import tensor_sizes
-from drone_tpu_torch.ops.cuda_acting_lstm import traj_lstm_rollout_cuda
+from drone_tpu_torch.ops.cuda_acting_lstm import (
+    lstm_value,
+    traj_lstm_rollout_cuda,
+)
 from drone_tpu_torch.ops.cuda_update import (
     N_UPSTATS,
     AdamConsts,

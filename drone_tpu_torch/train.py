@@ -2,12 +2,15 @@
 
 `train` is the outer loop around the megakernel train step
 (`ppo_cuda.make_train_step` for run.policy=mlp,
-`ppo_rnn_cuda.make_rnn_train_step` for run.policy=lstm,
+`ppo_rnn_cuda.make_rnn_train_step` for run.policy=lstm and cnn_lstm,
 `ppo_cnn_cuda.make_cnn_train_step` for run.policy=cnn): config -> env ->
 policy -> loop { rollout + update on the device } with metrics, periodic
 checkpoints and exact resume. The host reads scalar metrics back only every
 log_interval updates. `evaluate` restores a policy and rolls it out through
-the acting kernel (K5 for the MLP, K8 for the LSTM, K11 for the CNN).
+the acting kernel (K5 for the MLP, K8 for both recurrent families, K11 for
+the CNN) when the kernel takes the policy, as the kernel's own envelope
+check says, and through the module otherwise, as the reference serves
+every policy it builds.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from drone_tpu_torch import ppo_cnn_cuda, ppo_cuda, ppo_rnn_cuda
 from drone_tpu_torch.env import DroneEnv
 from drone_tpu_torch.models import (
     ActorCritic,
+    CNNLSTMActorCritic,
     LSTMActorCritic,
     PatchCNNActorCritic,
 )
@@ -31,8 +35,12 @@ from drone_tpu_torch.models.cnn import check_cnn_checkpoint_layout
 from drone_tpu_torch.ops import (
     act_rollout_cuda,
     cnn_act_rollout_cuda,
+    cuda_acting,
+    cuda_acting_traj,
+    cuda_update,
     lstm_act_rollout_cuda,
 )
+from drone_tpu_torch.ops.cuda_acting_lstm import check_act_envelope
 from drone_tpu_torch.ops.cuda_update_lstm import check_envelope
 from drone_tpu_torch.ppo import init_runner
 from drone_tpu_torch.ppo_rnn import init_recurrent_runner, rollout_recurrent
@@ -48,11 +56,10 @@ from drone_tpu_torch.utils.metrics import (
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _UNPORTED_POLICIES = {
-    "cnn_lstm": "the pixel-recurrent family (cnn_lstm through the CNN-encoder "
-                "branch of the LSTM kernels)",
     "cnn_overlap": "the scan trainer (cnn_overlap, the overlapping-conv "
                    "PixelActorCritic, trains on it only)",
 }
+_RECURRENT = ("lstm", "cnn_lstm")
 _SCAN_TRAINER = "ROADMAP.md, module queue: the scan trainer"
 
 
@@ -74,6 +81,11 @@ def build_env_and_model(cfg: Config, device="cuda"):
         model = LSTMActorCritic(hidden=cfg.run.lstm_hidden,
                                 encoder=tuple(cfg.run.hidden)[:1],
                                 generator=generator)
+    elif cfg.run.policy == "cnn_lstm":
+        # the default patch-CNN tower into the LSTM, as the reference builds
+        # it
+        model = CNNLSTMActorCritic(hidden=cfg.run.lstm_hidden,
+                                   generator=generator)
     elif cfg.run.policy == "cnn":
         # the reference always builds the default PatchCNNActorCritic
         model = PatchCNNActorCritic(generator=generator)
@@ -106,7 +118,7 @@ def build(cfg: Config, device="cuda"):
     env, model = build_env_and_model(cfg, device)
     _check_options(cfg)
     eligible = cfg.train.num_envs % (128 * cfg.train.num_minibatches) == 0
-    if cfg.run.policy == "lstm":
+    if cfg.run.policy in _RECURRENT:
         return _build_recurrent(cfg, env, model, eligible)
     if cfg.run.rollout == "scan" or (cfg.run.rollout == "auto"
                                      and not eligible):
@@ -114,6 +126,15 @@ def build(cfg: Config, device="cuda"):
             f"the scan trainer (autograd, optax-shaped state) is not ported "
             f"yet ({_SCAN_TRAINER}); the megakernel trainer needs num_envs "
             f"divisible by 128 * num_minibatches")
+    if cfg.run.policy == "mlp":
+        # the towers K2 and K3 take; the reference trains the others on its
+        # scan trainer
+        outside = _outside(cuda_acting_traj.kernel_layout, model.hidden) \
+            or _outside(cuda_update.update_layout, model.hidden)
+        if outside:
+            raise NotImplementedError(
+                f"the scan trainer is not ported yet ({_SCAN_TRAINER}); the "
+                f"MLP megakernel trainer cannot take this run: {outside}")
     if cfg.run.rollout == "pallas" and not eligible:
         raise ValueError(
             f"run.rollout='pallas' needs num_envs divisible by "
@@ -148,17 +169,23 @@ def _check_options(cfg: Config):
             "bf16 training)")
 
 
-def _build_recurrent(cfg: Config, env, model, eligible: bool):
-    """build() for run.policy=lstm: the recurrent megakernel trainer (K6,
-    K7, K4). The reference's other tiers (the scan trainer, and its hybrid
-    of the kernel rollout with a segmented_forward update for shapes the
-    update kernel does not take) are still to port."""
-    ppo_rnn_cuda.bptt_of(cfg.train)  # the horizon splits into segments
+def _outside(check, *args) -> str | None:
+    """The reason a kernel's own envelope check gives for refusing args, or
+    None when the kernel takes them."""
     try:
-        check_envelope(model.hidden, model.encoder)
-        outside = None
+        check(*args)
     except ValueError as e:
-        outside = str(e)
+        return str(e)
+    return None
+
+
+def _build_recurrent(cfg: Config, env, model, eligible: bool):
+    """build() for run.policy=lstm and cnn_lstm: the recurrent megakernel
+    trainer (K6, K7, K4). The reference's other tiers (the scan trainer,
+    and its hybrid of the kernel rollout with a segmented_forward update
+    for shapes the update kernel does not take) are still to port."""
+    ppo_rnn_cuda.bptt_of(cfg.train)  # the horizon splits into segments
+    outside = _outside(check_envelope, model.hidden, model.encoder)
     if cfg.run.rollout == "scan" or not eligible or outside:
         why = ("run.rollout=scan" if cfg.run.rollout == "scan" else outside
                or f"num_envs={cfg.train.num_envs} does not split into "
@@ -263,9 +290,10 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
     """Roll out the restored (or given: `runner.params`, a state dict or a
     module) policy for horizon + 1 steps on `episodes` lanes and report
     episode stats. A deterministic float32 MLP policy goes through the
-    acting kernel K5, a deterministic LSTM policy through K8, a
-    deterministic CNN policy through K11 (their plain versions on the CPU);
-    the rest through the module."""
+    acting kernel K5, a deterministic LSTM or CNN-LSTM policy through K8, a
+    deterministic CNN policy through K11 (their plain versions on the CPU),
+    each when its kernel's envelope check takes the policy; the rest
+    through the module."""
     env, model = build_env_and_model(cfg, device)
     if runner is None:
         raw, _ = Checkpointer(restore_dir(cfg)).restore_raw()
@@ -282,9 +310,10 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
     state = env.init_batch(cfg.run.seed + 1, n)
     horizon = int(env.params.horizon) + 1
 
-    if cfg.run.policy == "lstm":
+    if cfg.run.policy in _RECURRENT:
         carry = model.initial_carry(n, env.device)
-        if deterministic:
+        if deterministic and not _outside(check_act_envelope, model.hidden,
+                                          model.encoder):
             _, _, stats = lstm_act_rollout_cuda(
                 state, model.flat_params(), (model.hidden, model.encoder),
                 carry, env.params, env.statics, horizon)
@@ -303,7 +332,8 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
 
     # the kernel computes in float32: a bf16-trained policy is a slightly
     # different function, so it goes through the module with its dtype
-    if deterministic and cfg.run.compute_dtype == "float32":
+    if (deterministic and cfg.run.compute_dtype == "float32"
+            and not _outside(cuda_acting.check_envelope, model.hidden)):
         _, stats = act_rollout_cuda(state, model, env.params, env.statics,
                                     horizon)
         return _episode_stats(stats)

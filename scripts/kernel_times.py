@@ -1,0 +1,68 @@
+"""Times and registers of the dense-LSTM and CNN kernels of a checkout.
+
+Run from the root of a checkout on a machine with an H100:
+
+    python3 scripts/kernel_times.py <label>
+
+It builds acting_lstm, update_lstm, acting_cnn and update_cnn, times K8 and
+K6 (dense encoder) and K11 and K9 at their paths' shapes, and K7 and K10 on
+one full-width minibatch, by CUDA events, and prints one JSON line with
+the ptxas register count of every kernel. To compare two commits, copy the
+script into a second checkout (git archive) and run both in one call, in
+turns (parent, change, change, parent).
+"""
+import json
+import sys
+
+sys.path.insert(0, ".")  # the checkout it runs from
+
+import chip_smoke as cs  # noqa: E402
+from drone_tpu_torch.env import DroneEnv  # noqa: E402
+from drone_tpu_torch.ops import cuda_acting_cnn as K11  # noqa: E402
+from drone_tpu_torch.ops import cuda_acting_lstm as K8  # noqa: E402
+from drone_tpu_torch.ops import cuda_build  # noqa: E402
+from drone_tpu_torch.ops import cuda_update_cnn as K10  # noqa: E402
+from drone_tpu_torch.ops import cuda_update_lstm as K7  # noqa: E402
+from drone_tpu_torch.utils.config import Config  # noqa: E402
+
+libs = cuda_build.build(("acting_lstm", "update_lstm", "acting_cnn",
+                         "update_cnn"))
+regs = {}
+for name, lib in libs.items():
+    entry = None
+    for line in lib.with_suffix(".so.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1][:48]
+        if "Used " in line:
+            regs[f"{name}:{entry}"] = int(line.split("Used ")[1].split()[0])
+cfg = Config.from_toml("configs/hover.toml")
+statics, params = cfg.env.build()
+env = DroneEnv(statics.task, statics.integrator, params, device="cuda")
+n, horizon = 65536, int(env.params.horizon) + 1
+t = {}
+model = cs.lstm_policy(seed=2, log_std=0.0)
+arch = (model.hidden, model.encoder)
+state, s9 = env.init_batch(1, n), env.init_batch(9, n)
+carry = model.initial_carry(n, "cuda")
+t["K8"] = cs.cuda_ms(lambda: K8.lstm_act_rollout_kernel(
+    state, model.flat, arch, carry, env.params, env.statics, horizon), 3)
+t["K6"] = cs.cuda_ms(lambda: K8.traj_lstm_rollout_kernel(
+    s9, model.flat, arch, carry, env.params, env.statics, 128, 16), 5)
+lm = cs.lstm_policy()
+planes, advret, snap, perm_mb, co, rbl, bptt = cs.lstm_minibatch(
+    cfg.with_overrides(list(cs.LSTM_OVERRIDES)), lm, env)
+args = (planes, advret, snap, perm_mb, lm.flat, (lm.hidden, lm.encoder), co,
+        rbl, bptt, 0.001)
+t["K7"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(*args), 5)
+del planes, advret, snap, args
+cm = cs.cnn_policy(seed=2, log_std=0.0)
+t["K11"] = cs.cuda_ms(lambda: K11.cnn_act_rollout_kernel(
+    state, cm.flat, cm.arch, env.params, env.statics, horizon), 1)
+t["K9"] = cs.cuda_ms(lambda: K11.traj_cnn_rollout_kernel(
+    s9, cm.flat, cm.arch, env.params, env.statics, 128), 3)
+planes, advret, perm_mb, co, rbl = cs.cnn_minibatch(
+    cfg.with_overrides(list(cs.CNN_OVERRIDES)), cm, env)
+t["K10"] = cs.cuda_ms(lambda: K10.ppo_cnn_update_kernel(
+    planes, advret, perm_mb, cm.flat, cm.arch, co, rbl, 0.001), 3)
+print(json.dumps({"tree": sys.argv[1], "device": cs.device_line(), "ms": t,
+                  "regs": regs}), flush=True)

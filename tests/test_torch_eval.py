@@ -119,7 +119,7 @@ def test_evaluate_defaults_to_cuda():
 
 
 def test_unported_policies_name_their_roadmap_item():
-    cfg = Config.default().with_overrides(["run.policy=cnn_lstm"])
+    cfg = Config.default().with_overrides(["run.policy=cnn_overlap"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.build_env_and_model(cfg, device="cpu")
 

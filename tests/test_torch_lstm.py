@@ -95,16 +95,18 @@ def test_params_to_flax_round_trip():
 @pytest.mark.parametrize("stray", ["conv1", "trunk"])
 def test_param_tree_with_conv_pieces_but_no_conv0_is_refused(stray):
     """The reference's lstm_encoder_kind lets such a tree through as an
-    empty dense encoder (ops/pallas_acting_lstm.py:140); the port refuses."""
+    empty dense encoder (ops/pallas_acting_lstm.py:140); the port refuses.
+    A conv0 tree is the pixel-recurrent family, whose tower leaves no room
+    for enc_h* layers beside it."""
     _, params, _ = _weights()
     bad = {"params": {**params["params"],
                       stray: {"kernel": np.zeros((4, 4), np.float32),
                               "bias": np.zeros(4, np.float32)}}}
     with pytest.raises(ValueError, match=stray):
         params_from_flax(bad)
-    cnn = {"params": {**params["params"], "conv0": {}}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        params_from_flax(cnn)
+    mixed = {"params": {**params["params"], "conv0": {}}}
+    with pytest.raises(ValueError, match="enc_h0"):
+        params_from_flax(mixed)
 
 
 def test_flat_parameters_are_the_module_parameters():
