@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of drone_tpu_torch on one CUDA card: `python3 chip_smoke.py`.
 
-Builds the CUDA kernels from csrc/ (nvcc, in parallel), holds each against
+Builds the CUDA kernels from csrc/ (nvcc, in parallel; prints each
+library's registers and spills, and those of the tensor-core kernels of
+K10 and K7's CNN arm with their shared memory), holds each against
 its plain PyTorch version on the card's inputs, drives the port's paths
 through the entry points a user calls, checks what comes out, and times
 each kernel beside its plain version and its bound. Exits nonzero, printing
@@ -99,9 +101,10 @@ Phases:
  20. K9 (the same kernel, training) against its plain version at 65,536
      lanes: T = 3 in both action modes, all 21 planes and the final state
      within rtol 2e-5 / atol 2e-6; T = 128 stochastic, statistically.
- 21. K10 (csrc/update_cnn.cu) against its plain version on the full-width
-     minibatch of the reference's CNN geometry (16 row blocks of 1,024
-     lanes x 128 steps, planes from K9): each gradient tensor and the stat
+ 21. K10 (csrc/update_cnn.cu; the tower's products on the tensor cores in
+     3xTF32, csrc/cnn_mma.cuh) against its fp32 plain version on the
+     full-width minibatch of the reference's CNN geometry (16 row blocks of
+     1,024 lanes x 128 steps, planes from K9): each gradient tensor and the stat
      sums within 1e-4 x its max |value|, at the planes' own weights and at
      weights moved off them (every branch of the head's subgradients on at
      least 0.1% of the samples, each stat sum held on its own); two launches
@@ -120,8 +123,11 @@ Phases:
      the last 10 above the first 10 by 0.2, parameters finite) and
      train(4) == train(2) + resume(2) bitwise.
  25. Times of K11, K9, K10 and K4 over the CNN layout beside their plain
-     versions and bounds, and one full-width CNN update split and traced as
-     in 11.
+     versions, bounds and (K4) library pair, and one full-width CNN update
+     split and traced as in 11 (K10 by its kernels: tower forward, tower
+     backward, products, reduction). K10's bound is the tensor-pipe one
+     (the tower's products at the 3xTF32 rate, the rest at the fp32 rate),
+     its fp32 bound beside it.
  26. evaluate() on the card serves what its acting kernels cannot take
      through the module, as the reference serves every policy it builds:
      hover.toml with run.hidden=[256, 256] (past K5's shared memory), and
@@ -137,10 +143,12 @@ Phases:
      atol 2e-6 and T = 64 statistically; waypoint/rk4 with a ragged last
      tile (8,256 lanes), T = 3.
  28. K6's CNN arm against its plain version as in 13, at 65,536 lanes.
- 29. K7's CNN arm against its plain version as in 14 on the full-width
-     minibatch of the cnn_lstm geometry (planes and anchors from K6's CNN
-     arm), on-policy and off-policy with every branch, two launches bitwise
-     equal; K4 over the 23 tensors (226,697 parameters), rtol 1e-5.
+ 29. K7's CNN arm (the tower's forward and backward on the tensor cores in
+     3xTF32, out of the walk through time) against its fp32 plain version
+     as in 14 on the full-width minibatch of the cnn_lstm geometry (planes
+     and anchors from K6's CNN arm), on-policy and off-policy with every
+     branch, two launches bitwise equal; K4 over the 23 tensors (226,697
+     parameters), rtol 1e-5.
  30. The cnn_lstm serving path (`evaluate(episodes=65536)` and `cli eval`
      from a Checkpointer checkpoint, K8's CNN arm twice; evaluate(512) on
      the card against the CPU) and training path (`train` at hover.toml +
@@ -153,8 +161,9 @@ Phases:
      the mean reward of the last 10 above the first 10 by 0.2, parameters
      finite) and train(4) == train(2) + resume(2) bitwise, carry included.
  32. Times of the CNN arms of K8, K6 and K7 and of K4 over their layout
-     beside their plain versions and bounds, and one full-width cnn_lstm
-     update split and traced as in 11.
+     beside their plain versions and bounds (K7's arm both bounds, as K10),
+     and one full-width cnn_lstm update split and traced as in 11 (K7 by its
+     kernels: tower forward, walk, tower backward, products, reduction).
 
 Launch counts: each wrapper counts its launches; the recurrent wrappers
 (K6, K7, K8) also count their CNN arm's alone (`cnn_launches`).
@@ -181,6 +190,9 @@ ROOT = Path(__file__).resolve().parent
 # bound stays a lower bound on the time.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# The tensor cores' TF32 rate (495 TFLOP/s dense); a 3xTF32 product takes
+# three TF32 products for one fp32-accurate one: 165 TFLOP/s.
+MMA_3XTF32_OPS_PER_S = 495e12 / 3
 
 # Operations of the hover/euler paths, counted from csrc/env.cuh and the
 # kernels (one op per add, mul, div, sqrt, compare, select, shift, xor or
@@ -233,6 +245,37 @@ def bound(ops, nbytes):
     t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tensor_bound(mma_ops, other_ops, nbytes):
+    """The bound of a kernel whose matrix products run on the tensor cores
+    in 3xTF32 (K10, K7's CNN arm): (the least time in ms, what sets it), the
+    larger of the products at the 3xTF32 rate plus the rest at the fp32
+    rate, and the bytes over the HBM rate."""
+    t_ops = mma_ops / MMA_3XTF32_OPS_PER_S + other_ops / FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_report(lib, keys) -> dict:
+    """{kernel: (registers, spill line)} from a library's ptxas log, for the
+    entry functions whose name holds one of keys."""
+    out, entry = {}, None
+    for line in lib.with_suffix(".so.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = next((k for k in keys if k in name), None)
+            if entry and "ILi0E" in name:  # a template's encoder arm
+                entry = f"{entry}<dense>"
+            elif entry and "ILi1E" in name:
+                entry = f"{entry}<cnn>"
+        elif entry and "spill stores" in line:
+            out[entry] = (None, line.strip())
+        elif entry and "Used " in line:
+            out[entry] = (int(line.split("Used ")[1].split()[0]),
+                          out.get(entry, (None, ""))[1])
+    return out
 
 
 def device_line() -> str:
@@ -794,20 +837,7 @@ def time_training(cfg, env, inputs):
         theta, grads, mu, nu, count, ac, sched, sizes), reps=100)
     k4_plain = cuda_ms(lambda: K3.fused_adam_plain(
         theta, grads, mu, nu, count, ac, sched, sizes), reps=20)
-    # the nearest library pair (two calls): clip_grad_norm_ + fused Adam
-    shapes = [sh for _, sh in kernel_order(hidden)]
-    numels = [math.prod(sh) for sh in shapes]
-    params = [torch.nn.Parameter(t.clone().reshape(sh)) for t, sh in
-              zip(torch.split(model.flat, numels), shapes)]
-    for prm, g in zip(params, torch.split(grads, numels)):
-        prm.grad = g.clone().reshape(prm.shape)
-    opt = torch.optim.Adam(params, lr=tc.lr, eps=1e-5, fused=True)
-
-    def library_step():
-        torch.nn.utils.clip_grad_norm_(params, tc.max_grad_norm, foreach=True)
-        opt.step()
-
-    k4_lib = cuda_ms(library_step, reps=100)
+    k4_lib = adam_library_ms(model.flat, grads, kernel_order(hidden), tc)
     # squares and sum (2), then per element: scale, 2 moments (7), the
     # update (8) and the add (1); read params, grads, mu, nu, write 3
     out["K4"] = (k4_ms, k4_plain, *bound(P * 18, P * 4 * 7 + 8), k4_lib)
@@ -817,6 +847,27 @@ def time_training(cfg, env, inputs):
               f"{bms:.4f} ms ({by}), library {lib}", flush=True)
     split_update(cfg)
     return out
+
+
+def adam_library_ms(flat, grads, order, tc) -> float:
+    """The time of the nearest library pair to K4 over a layout's tensors
+    (two calls: clip_grad_norm_(foreach=True) + Adam(fused=True).step()), by
+    CUDA events."""
+    import torch
+
+    shapes = [sh for _, sh in order]
+    numels = [math.prod(sh) for sh in shapes]
+    params = [torch.nn.Parameter(t.clone().reshape(sh)) for t, sh in
+              zip(torch.split(flat, numels), shapes)]
+    for prm, g in zip(params, torch.split(grads, numels)):
+        prm.grad = g.clone().reshape(prm.shape)
+    opt = torch.optim.Adam(params, lr=tc.lr, eps=1e-5, fused=True)
+
+    def library_step():
+        torch.nn.utils.clip_grad_norm_(params, tc.max_grad_norm, foreach=True)
+        opt.step()
+
+    return cuda_ms(library_step, reps=100)
 
 
 def split_update(cfg):
@@ -875,14 +926,18 @@ def split_update(cfg):
         split[f"{name}_host_ms"] = (h1 - h0) * 1e3
     print(f"one {cfg.run.policy} update at hover.toml's shape (no host sync "
           f"inside): {split}", flush=True)
-    print(f"the same update traced: {trace_update(step, runner)}", flush=True)
+    print(f"the same update traced: "
+          f"{trace_update(step, runner, cfg.run.policy)}", flush=True)
     return split
 
 
-def trace_update(step, runner) -> dict:
+def trace_update(step, runner, policy) -> dict:
     """Device busy time, idle share and the time of each kernel class over
     one update (torch.profiler, from its host-side range to the read of the
-    loss). Returns {"not measured": reason} when the trace holds no device
+    loss), and of each kernel of a class: K7's and K10's tower forward,
+    walk, tower backward, products and reductions apart. The tower's
+    backward and packing kernels are K10's in a CNN update, else K7's.
+    Returns {"not measured": reason} when the trace holds no device
     activity."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -915,15 +970,18 @@ def trace_update(step, runner) -> dict:
         end = max(end, b)
     # the port's kernels live in namespace drone (torch has reduce_kernels
     # of its own)
+    tower = ("drone::pack_tower_kernel", "drone::tower_bwd_kernel")
     classes = {"K2": ("drone::traj_kernel",),
                "K3": ("drone::update_kernel", "drone::reduce_kernel"),
                "K4": ("drone::adam_kernel",),
                "K6": ("drone::lstm_act_kernel",),
-               "K7": ("drone::bptt_kernel", "drone::conv_bwd_kernel",
+               "K7": ("drone::tower_fwd_kernel", "drone::bptt_kernel",
+                      *(() if policy == "cnn" else tower),
                       "drone::grad_gemm_kernel", "drone::lstm_reduce_kernel"),
                "K9": ("drone::cnn_act_kernel",),
-               "K10": ("drone::tile_kernel", "drone::cnn_gemm_kernel",
-                       "drone::cnn_reduce_kernel")}
+               "K10": ("drone::cnn_fwd_kernel",
+                       *(tower if policy == "cnn" else ()),
+                       "drone::cnn_gemm_kernel", "drone::cnn_reduce_kernel")}
     by_class = {k: 0.0 for k in (*classes, "other")}
     counts = {k: 0 for k in by_class}
     other, by_kernel = {}, {}
@@ -1490,11 +1548,18 @@ def time_lstm(cfg, env, k7_args, model=None, plain_depths=(100, 32)):
     plain = cuda_ms(lambda: K7.lstm_update_plain(*k7_args), reps=1)
     nbytes = (samples * 23 * 4 + (T // bptt) * 2 * H * perm_mb.numel() * rbl
               * 4 + P * 4 + (P + 8) * 4)
-    out["K7"] = (ms, plain, *bound(samples * bptt_ops(H, enc), nbytes), None)
-    for name, (ms, plain, bms, by, lib) in out.items():
+    ops = samples * bptt_ops(H, enc)
+    out["K7"] = (ms, plain, *bound(ops, nbytes), None)
+    if cnn:  # the tower's products on the tensor cores
+        mma = samples * cnn_tower_mma_ops()
+        tb = tensor_bound(mma, ops - mma, nbytes)
+        out["K7"] = (ms, plain, *tb, None,
+                     {"tensor_bound_ms": tb[0],
+                      "fp32_bound_ms": bound(ops, nbytes)[0]})
+    for name, (ms, plain, bms, by, lib, *extra) in out.items():
         print(f"{name} enc={enc_label(enc)}: kernel {ms:.4f} ms, plain "
-              f"{plain:.2f} ms, bound {bms:.4f} ms ({by}), library {lib}",
-              flush=True)
+              f"{plain:.2f} ms, bound {bms:.4f} ms ({by}), library {lib} "
+              f"{extra}", flush=True)
     time_adam(model, cfg)
     split_update(cfg)
     return out
@@ -1502,7 +1567,7 @@ def time_lstm(cfg, env, k7_args, model=None, plain_depths=(100, 32)):
 
 def time_adam(model, cfg):
     """K4 over a model's flat buffer (its kernel order's tensors) beside its
-    plain version and bound (printed)."""
+    plain version, bound and library pair (printed)."""
     import torch
 
     from drone_tpu_torch import ppo_cuda
@@ -1523,10 +1588,11 @@ def time_adam(model, cfg):
                                               sched, sizes), reps=100)
     k4_plain = cuda_ms(lambda: K4.fused_adam_plain(
         theta, grads, mu, nu, count, ac, sched, sizes), reps=20)
+    lib = adam_library_ms(model.flat, grads, model.kernel_order(), cfg.train)
     print(f"K4 over {type(model).__name__}'s layout ({P} "
           f"parameters, {len(sizes)} tensors): kernel {k4:.4f} ms, plain "
           f"{k4_plain:.3f} ms, bound {bound(P * 18, P * 4 * 7 + 8)[0]:.5f} ms "
-          f"(bytes)", flush=True)
+          f"(bytes), library {lib:.4f} ms", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1559,6 +1625,15 @@ def cnn_tower_bwd_ops() -> int:
     ops = 128 + 2 * CNN_MACS + 128 + 9 * 64 + 36 * 64
     ops += 2 * (128 * 576 + 9 * 64 * 256) + 576 + 2304
     return ops + 8 * CNN_PIXELS
+
+
+def cnn_tower_mma_ops() -> int:
+    """The tower's matrix operations on one sample that K10 and K7's CNN arm
+    run on the tensor cores (multiply-adds x2): the forward (CNN_MACS), the
+    weight gradients of conv0, conv1 and the trunk (CNN_MACS), dX2 and dX1.
+    958,464 multiply-adds; the kernels' re-run of conv0 is not counted, as
+    the function does not need it."""
+    return 2 * (2 * CNN_MACS + 128 * 576 + 9 * 64 * 256)
 
 
 def cnn_ops(value: bool) -> int:
@@ -2004,12 +2079,15 @@ def time_cnn(cfg, env, k10_args):
     ms = cuda_ms(lambda: K10.ppo_cnn_update_kernel(*args), reps=2)
     plain = cuda_ms(lambda: K10.ppo_cnn_update_plain(*args), reps=1)
     nbytes = samples * 23 * 4 + P * 4 + (P + 8) * 4
-    out["K10"] = (ms, plain, *bound(samples * cnn_update_ops(), nbytes), None)
+    ops, mma = samples * cnn_update_ops(), samples * cnn_tower_mma_ops()
+    tb = tensor_bound(mma, ops - mma, nbytes)
+    out["K10"] = (ms, plain, *tb, None, {"tensor_bound_ms": tb[0],
+                                         "fp32_bound_ms": bound(ops, nbytes)[0]})
 
     time_adam(model, cfg)
-    for name, (ms, plain, bms, by, lib) in out.items():
+    for name, (ms, plain, bms, by, lib, *extra) in out.items():
         print(f"{name}: kernel {ms:.4f} ms, plain {plain:.2f} ms, bound "
-              f"{bms:.4f} ms ({by}), library {lib}", flush=True)
+              f"{bms:.4f} ms ({by}), library {lib} {extra}", flush=True)
     split_update(cfg)
     return out
 
@@ -2194,6 +2272,23 @@ def main() -> int:
                   and " 0 bytes spill stores" not in line]
         print(f"  {name}: registers per kernel {regs}; spilling kernels: "
               f"{len(spills)} {spills}", flush=True)
+    # the tensor-core kernels of K10 and K7's CNN arm, with their dynamic
+    # shared memory (cnn_mma.cuh TF_SMEM, TB_SMEM; the walk's is the
+    # wrapper's bptt_smem_bytes)
+    from drone_tpu_torch.ops import cuda_update_cnn as K10
+    from drone_tpu_torch.ops import cuda_update_lstm as K7
+    from drone_tpu_torch.ops.cuda_acting_cnn import KERNEL_ARCH
+
+    smem = {"cnn_fwd_kernel": K10.TOWER_FWD_SMEM,
+            "tower_fwd_kernel": K10.TOWER_FWD_SMEM,
+            "tower_bwd_kernel": K10.TOWER_BWD_SMEM, "pack_tower_kernel": 0,
+            "bptt_kernel<cnn>": K7.bptt_smem_bytes(128, KERNEL_ARCH)}
+    for name in ("update_cnn", "update_lstm"):
+        keys = [k.split("<")[0] for k in smem]
+        for k, (regs, spill) in ptxas_report(libs[name], keys).items():
+            if k in smem:
+                print(f"  {name} {k}: {regs} registers, {smem[k]} bytes of "
+                      f"dynamic shared memory; {spill}", flush=True)
     lap("build")
 
     k1_err = phase_k1()
@@ -2375,12 +2470,13 @@ def main() -> int:
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms,
-              bound_ms, bound_by, library_ms):
+              bound_ms, bound_by, library_ms, bounds=None):
+        # bounds: K10's and K7's CNN arm's tensor-pipe and fp32 bounds
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms}
+                "library_ms": library_ms, **(bounds or {})}
 
     kernels = [
         entry("K1 env rollout", "drone_tpu_torch/csrc/rollout.cu",

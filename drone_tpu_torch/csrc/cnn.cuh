@@ -1,6 +1,9 @@
 // cnn.cuh — the patch-CNN policy (PatchCNNActorCritic) as CUDA device
 // functions over a tile of lanes, shared by the CNN acting kernels
-// (acting_cnn.cu: K11 and K9) and the CNN PPO update (update_cnn.cu: K10).
+// (acting_cnn.cu: K11 and K9, and the CNN arms of acting_lstm.cu: K8 and
+// K6). The CNN updates (K10 and K7's CNN arm) take its render, splat
+// scalars and heads, and run the tower's products on the tensor cores
+// (cnn_mma.cuh).
 //
 // Ports drone_tpu/ops/pallas_acting_cnn.py: `splat_planes` (12 splat scalars
 // per lane from its observation), `render_patch` (one conv0 input block of
@@ -25,9 +28,8 @@
 // and per input row reads its RM weights as vectors and 4 activations.
 // The weights (~370 KB, the trunk's 288 KB of them) do not fit shared
 // memory; they stream from L2, read as broadcasts by the threads that
-// share their rows. The forward products read the transposed copies W^T
-// that the wrapper makes (a thread's rows contiguous); the backward ones
-// the flat buffer itself.
+// share their rows. The products read the transposed copies W^T that the
+// wrapper makes (a thread's rows contiguous).
 //
 // Sums use explicit fmaf and run in another order than the reference's
 // matmuls (the trunk's 576-long dot as 9 windows of 64): the kernels are
@@ -300,118 +302,6 @@ __device__ __forceinline__ void cnn_encode_tile(
     __syncthreads();  // conv1 and the next window's conv0 share y0
   }
   trunk_out<L, S>(theta, tacc, h);
-}
-
-// G[m][j] += sum_l A[m][l] B[j][l] over the tile's L samples (A M rows, B
-// N rows, [row][S]); with gb, gb[m] += sum_l A[m][l]. A thread owns 4 x 4
-// blocks of G, a warp 4 row blocks x 8 column blocks (K3's gemm4x4
-// layout), so with an odd row stride S its reads fall in distinct banks.
-template <int L, int S>
-__device__ __forceinline__ void outer_acc(const float* A, int M, const float* B,
-                                          int N, float* G, int ldg,
-                                          float* gb) {
-  const int mb = M / 4, nb = N / 4, nb8 = (nb + 7) / 8;
-  const int total = ((mb + 3) / 4) * nb8 * 32;
-  for (int id = threadIdx.x; id < total; id += blockDim.x) {
-    const int lane = id & 31, w = id >> 5;
-    const int mi = (w / nb8) * 4 + (lane >> 3);
-    const int ni = (w % nb8) * 8 + (lane & 7);
-    if (mi >= mb || ni >= nb) continue;
-    const int m0 = 4 * mi, n0 = 4 * ni;
-    float acc[4][4];
-    zero_acc(acc);
-    for (int l = 0; l < L; ++l) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = A[(m0 + i) * S + l];
-        bv[i] = B[(n0 + i) * S + l];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        G[(m0 + i) * ldg + n0 + j] = G[(m0 + i) * ldg + n0 + j] + acc[i][j];
-  }
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    float s = 0.0f;
-    for (int l = 0; l < L; ++l) s = s + A[m * S + l];
-    gb[m] = gb[m] + s;
-  }
-}
-
-// The encoder's backward over a tile of L samples, window by window (K10's,
-// and K7's CNN arm): from the splat scalars sp ([12][S]), dzt ([128][S], the
-// loss gradient at the trunk's pre-activation) and the tile's conv1
-// outputs X2 in device memory (x2s[(q1 * 64 + o) * NL + l]), per window:
-// re-render the four patches into xr ([256][S]) and re-run conv0 into y0
-// ([256][S]); dz1 = (Wt[:, window]^T dzt) * (X2 > 0) into y1 ([64][S]);
-// gW1 += dz1 X1^T; dz0 = (W1^T dz1) * (Y0 > 0) over y0; gW0 += dz0 X0^T.
-// g holds [gW0 gb0 gW1 gb1] (the flat buffer's first OFF_WT floats) in
-// shared memory, each entry always added to by the same thread. The
-// caller needs a barrier before and ends with one.
-template <int L, int S>
-__device__ __forceinline__ void cnn_tile_bwd(
-    const float* sp, const float* __restrict__ theta,
-    const float* __restrict__ wt, const float* __restrict__ grid,
-    const float* dzt, const float* x2s, int NL, float* xr, float* y0,
-    float* y1, float* g) {
-  for (int q1 = 0; q1 < CNN_NQ1; ++q1) {
-    for (int k = 0; k < CNN_WIN; ++k)
-      render_patch<L, S>(window_patch(q1, k), sp, grid, xr + k * CNN_K0 * S);
-    __syncthreads();
-    for (int k = 0; k < CNN_WIN; ++k)
-      conv_relu<L, S>(wt + T_W0, CNN_K0, theta + OFF_B0, xr + k * CNN_K0 * S,
-                      y0 + k * CNN_C0 * S);
-    {
-      // dz1 = (Wt[:, window]^T dzt) * (X2 > 0)
-      constexpr int RM = CNN_C1 * (L / 4) / CNN_THREADS;
-      int m0, l0;
-      tile_of<L, RM>(m0, l0);
-      float acc[RM][4];
-      zero_acc(acc);
-      mm_acc<RM, S>(theta + OFF_WT + q1 * CNN_C1, CNN_X2, CNN_H, dzt, m0, l0,
-                    acc);
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float x2 = x2s[(size_t)(q1 * CNN_C1 + m0 + r) * NL + l0 + q];
-          y1[(m0 + r) * S + l0 + q] = acc[r][q] * (x2 > 0.0f ? 1.0f : 0.0f);
-        }
-    }
-    __syncthreads();
-    // gW1 += dz1 X1^T (X1: the window's conv0 outputs), gb1 += sum dz1
-    outer_acc<L, S>(y1, CNN_C1, y0, CNN_K1, g + OFF_W1, CNN_K1, g + OFF_B1);
-    __syncthreads();
-    {
-      // dz0 = (W1^T dz1) * (Y0 > 0), over y0 in place
-      constexpr int RM = CNN_K1 * (L / 4) / CNN_THREADS;
-      int m0, l0;
-      tile_of<L, RM>(m0, l0);
-      float acc[RM][4];
-      zero_acc(acc);
-      mm_acc<RM, S>(theta + OFF_W1, CNN_K1, CNN_C1, y1, m0, l0, acc);
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float* y = y0 + (m0 + r) * S + l0 + q;
-          *y = acc[r][q] * (*y > 0.0f ? 1.0f : 0.0f);
-        }
-    }
-    __syncthreads();
-    // gW0 += dz0 X0^T over the window's four patches, gb0 += sum dz0
-    for (int k = 0; k < CNN_WIN; ++k)
-      outer_acc<L, S>(y0 + k * CNN_C0 * S, CNN_C0, xr + k * CNN_K0 * S,
-                      CNN_K0, g + OFF_W0, CNN_K0, g + OFF_B0);
-    __syncthreads();
-  }
 }
 
 // The action means and the value at lane l of h ([128][S]): dot(W, h) + b.

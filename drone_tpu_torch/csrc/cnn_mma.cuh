@@ -1,0 +1,601 @@
+// cnn_mma.cuh — the patch-CNN tower over a tile of samples on the tensor
+// cores, in 3xTF32: the machinery of the CNN update (update_cnn.cu: K10)
+// and of the CNN arm of the truncated-BPTT update (update_lstm.cu: K7).
+// The acting kernels keep cnn.cuh's fp32 products.
+//
+// Each layer is the matrix product it is, over samples x positions:
+//   conv0   (samples . 36, 64)  x (64, 64)
+//   conv1   (samples . 9, 256)  x (256, 64)
+//   trunk   (samples, 576)      x (576, 128)
+// and in the backward dX2 = dzt Wt (masked by conv1's relu), dX1 = dz1 W1
+// (masked by conv0's relu), and gW1, gW0 as products over the samples.
+// The render (splat12, render_patch, IEEE expf) stays on the CUDA cores
+// with cnn.cuh's arithmetic, and the backward re-renders and re-runs conv0:
+// conv0's output would take ~19 GB a minibatch.
+//
+// Instruction: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (a warp
+// multiplies a 16 x 8 tile by an 8 x 8 one). It takes its fragments from
+// registers in any layout, so the activations stay in shared memory as
+// rows of the tile ([row][sample], stride TM_S) for the forward products
+// (M = samples, K = rows) and the weight-gradient ones (K = samples) alike.
+//
+// Precision, 3xTF32: each fp32 operand x is split into big = cvt.rna.tf32(x)
+// and small = cvt.rna.tf32(x - big) (exact with --fmad=false), and a
+// product accumulates small.big + big.small + big.big in the tensor cores'
+// fp32 accumulators. The error of a product is ~2^-21 of its size, against
+// fp32's 2^-24; the weight gradients' sums over a block's samples add each
+// window's partial sums with IEEE adds (fold). The kernels are held to
+// their fp32 plain versions at the update's tolerance (1e-4 of each
+// gradient tensor's max). Plain TF32 or bf16 would not hold it.
+//
+// Weights: pack_tower_kernel splits the tower's weights once per call into
+// (big, small) fragments in the order a warp reads them (a float4 a lane a
+// k x n tile: 512 contiguous bytes), 1.47 MB that stay in L2 and L1. They
+// are not staged through shared memory: the tiles fill it (two forward
+// blocks take 228 KB of an SM's 228 KB, a backward block 206 KB), and W1's
+// fragments alone are 128 KB. Each fragment serves the tile's 64 samples,
+// and the next one or two k-steps' fragments load into registers while a
+// step multiplies (mma_rows_packed). The activations are split as their
+// fragments load.
+//
+// Tiles: 64 samples, 8 warps. Shared memory: the forward 114,048 bytes
+// (two blocks an SM: one block's render overlaps the other's products),
+// the backward 206,208 bytes (one block an SM; its weight gradients stay
+// in registers, 80 a thread, across all its tiles).
+//
+// Determinism (H6): no float atomics. Every product accumulates in a fixed
+// order, each block keeps its weight gradients in a fixed per-thread
+// ownership across its tiles and writes its own partial row, and the bias
+// sums are warp butterflies (every lane ends with the same bits).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "cnn.cuh"
+
+namespace drone {
+
+constexpr int TM_L = 64;        // samples of a tile
+constexpr int TM_S = 72;        // row stride: 8 mod 32, so a forward
+                                // A fragment's 32 reads hit 32 banks
+constexpr int TM_THREADS = 256;
+// A 64 x 64 product's warp tile: CMI m-tiles x CNI n-tiles, CMW warps
+// along the samples. One A fragment feeds four n-tiles, so a warp splits
+// half the operands it would at 2 x 2 (K10 5% faster on an H100).
+constexpr int CMI = 1, CNI = 4, CMW = 4;
+
+// shared rows of the tower's forward tile: splat scalars, one rendered
+// patch, the window's four conv0 outputs, its conv1 output
+constexpr int TF_SP = 0;
+constexpr int TF_XR = TF_SP + 12;
+constexpr int TF_Y0 = TF_XR + CNN_K0;
+constexpr int TF_Y1 = TF_Y0 + CNN_K1;
+constexpr int TF_ROWS = TF_Y1 + CNN_C1;                        // 396
+constexpr int TF_SMEM = TF_ROWS * TM_S * 4;                    // 114,048
+// ... of the backward tile: splat scalars, dzt, the window's four rendered
+// patches, their conv0 outputs (then dz0), dz1
+constexpr int TB_SP = 0;
+constexpr int TB_DZT = TB_SP + 12;
+constexpr int TB_XR = TB_DZT + CNN_H;
+constexpr int TB_Y0 = TB_XR + CNN_K1;
+constexpr int TB_DZ1 = TB_Y0 + CNN_K1;
+constexpr int TB_ROWS = TB_DZ1 + CNN_C1;                       // 716
+constexpr int TB_SMEM = TB_ROWS * TM_S * 4;                    // 206,208
+
+// The packed weights, in float4s: B[k][n] fragments of each product
+constexpr int PK_W0 = 0;                        // conv0: B = W0^T (64, 64)
+constexpr int PK_W1 = PK_W0 + CNN_K0 * CNN_C0 / 2;     // conv1: W1^T (256, 64)
+constexpr int PK_WT = PK_W1 + CNN_K1 * CNN_C1 / 2;     // trunk: Wt^T (576, 128)
+constexpr int PK_WTB = PK_WT + CNN_X2 * CNN_H / 2;     // dX2: Wt (128, 576)
+constexpr int PK_W1B = PK_WTB + CNN_H * CNN_X2 / 2;    // dX1: W1 (64, 256)
+constexpr int PK_TOTAL = PK_W1B + CNN_C1 * CNN_K1 / 2;  // 92,160
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// big's low 13 bits are cleared, as x - big must see the TF32 value the
+// tensor cores multiply; small's are left, as the tensor cores ignore them.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x) & 0xffffe000u;
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[i][j] += A_i B_j in 3xTF32, pass by pass over the tiles (the three
+// products of one tile depend on each other; the tiles do not).
+template <int MI, int NI>
+__device__ __forceinline__ void mma3(float (&acc)[MI][NI][4],
+                                     const uint32_t (&ab)[MI][4],
+                                     const uint32_t (&as)[MI][4],
+                                     const uint32_t (&bb)[NI][2],
+                                     const uint32_t (&bs)[NI][2]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j) mma_tf32(acc[i][j], as[i], bb[j]);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j) mma_tf32(acc[i][j], ab[i], bs[j]);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j) mma_tf32(acc[i][j], ab[i], bb[j]);
+}
+
+template <int MI, int NI>
+__device__ __forceinline__ void zero_frags(float (&acc)[MI][NI][4]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
+}
+
+// Fragment loads from rows of a tile ([row][sample], stride TM_S), split.
+// An A fragment with M = samples m0.. and K = rows k0..
+__device__ __forceinline__ void frag_a_rows(const float* X, int k0, int m0,
+                                            uint32_t (&ab)[4],
+                                            uint32_t (&as)[4]) {
+  const int lane = threadIdx.x & 31;
+  const float* p = X + (k0 + (lane & 3)) * TM_S + m0 + (lane >> 2);
+  split_tf32(p[0], ab[0], as[0]);
+  split_tf32(p[8], ab[1], as[1]);
+  split_tf32(p[4 * TM_S], ab[2], as[2]);
+  split_tf32(p[4 * TM_S + 8], ab[3], as[3]);
+}
+
+// An A fragment with M = rows m0.. and K = samples k0..
+__device__ __forceinline__ void frag_a_samples(const float* X, int m0, int k0,
+                                               uint32_t (&ab)[4],
+                                               uint32_t (&as)[4]) {
+  const int lane = threadIdx.x & 31;
+  const float* p = X + (m0 + (lane >> 2)) * TM_S + k0 + (lane & 3);
+  split_tf32(p[0], ab[0], as[0]);
+  split_tf32(p[8 * TM_S], ab[1], as[1]);
+  split_tf32(p[4], ab[2], as[2]);
+  split_tf32(p[8 * TM_S + 4], ab[3], as[3]);
+}
+
+// A B fragment with K = samples k0.. and N = rows n0..
+__device__ __forceinline__ void frag_b_samples(const float* X, int n0, int k0,
+                                               uint32_t (&bb)[2],
+                                               uint32_t (&bs)[2]) {
+  const int lane = threadIdx.x & 31;
+  const float* p = X + (n0 + (lane >> 2)) * TM_S + k0 + (lane & 3);
+  split_tf32(p[0], bb[0], bs[0]);
+  split_tf32(p[4], bb[1], bs[1]);
+}
+
+// acc[i][j] (samples m0 + 16 i .., n-tile nt0 + j) += sum over the K rows
+// of X of X[k][sample] B[kt0 * 8 + k][n], B packed (NT n-tiles a k-tile).
+// The weights of the next PF k-steps load while one multiplies (they come
+// from L2; PF = 2 where a kernel has the registers). K is a multiple of
+// 8 PF.
+template <int PF, int MI, int NI>
+__device__ __forceinline__ void mma_rows_packed(const float* X, int K, int m0,
+                                                const float4* __restrict__ B,
+                                                int NT, int kt0, int nt0,
+                                                float (&acc)[MI][NI][4]) {
+  const float4* bp = B + ((size_t)kt0 * NT + nt0) * 32 + (threadIdx.x & 31);
+  float4 w[PF][NI];
+#pragma unroll
+  for (int p = 0; p < PF; ++p)
+#pragma unroll
+    for (int j = 0; j < NI; ++j) w[p][j] = __ldg(bp + (size_t)p * NT * 32 + j * 32);
+#pragma unroll 2
+  for (int k = 0; k < K; k += 8 * PF) {
+#pragma unroll
+    for (int p = 0; p < PF; ++p) {
+      const int kk = k + 8 * p;
+      uint32_t bb[NI][2], bs[NI][2];
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        bb[j][0] = __float_as_uint(w[p][j].x);
+        bb[j][1] = __float_as_uint(w[p][j].y);
+        bs[j][0] = __float_as_uint(w[p][j].z);
+        bs[j][1] = __float_as_uint(w[p][j].w);
+      }
+      if (kk + 8 * PF < K) {
+        const float4* nx = bp + (size_t)(kk / 8 + PF) * NT * 32;
+#pragma unroll
+        for (int j = 0; j < NI; ++j) w[p][j] = __ldg(nx + j * 32);
+      }
+      uint32_t ab[MI][4], as[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) frag_a_rows(X, kk, m0 + 16 * i, ab[i], as[i]);
+      mma3(acc, ab, as, bb, bs);
+    }
+  }
+}
+
+// out rows (64) = relu(X W^T + b) over the tile: X K rows, W packed (8
+// n-tiles). Warp w takes samples 16 (w % 4) .. and columns 32 (w / 4) ..
+template <int PF>
+__device__ __forceinline__ void conv_mma(const float* X, int K,
+                                         const float4* __restrict__ B,
+                                         const float* __restrict__ bias,
+                                         float* out) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * CMI * (w % CMW), nt0 = CNI * (w / CMW);
+  float acc[CMI][CNI][4];
+  zero_frags(acc);
+  mma_rows_packed<PF>(X, K, m0, B, 8, 0, nt0, acc);
+#pragma unroll
+  for (int j = 0; j < CNI; ++j) {
+    const int n = (nt0 + j) * 8 + 2 * t;
+    const float b0 = __ldg(bias + n), b1 = __ldg(bias + n + 1);
+#pragma unroll
+    for (int i = 0; i < CMI; ++i) {
+      const int m = m0 + 16 * i + g;
+      out[n * TM_S + m] = fmaxf(acc[i][j][0] + b0, 0.0f);
+      out[(n + 1) * TM_S + m] = fmaxf(acc[i][j][1] + b1, 0.0f);
+      out[n * TM_S + m + 8] = fmaxf(acc[i][j][2] + b0, 0.0f);
+      out[(n + 1) * TM_S + m + 8] = fmaxf(acc[i][j][3] + b1, 0.0f);
+    }
+  }
+}
+
+// The tower's forward over a tile of TM_L samples, after the caller put
+// the splat scalars in sp (rows TF_SP ..) and passed a barrier: per conv1
+// window, each of its four patches rendered into xr and put through conv0
+// into y0, conv1 into y1, and the window's share of the trunk into sums
+// held in registers (warp w: samples 32 (w & 1) .., units 32 (w >> 1) ..);
+// on_window(q1, y1) sees each window's conv1 output (X2 rows q1 * 64 ..).
+// Then h = relu(trunk + bt) into rows 0..127 of y0; the caller needs a
+// barrier before it reads h. All threads.
+template <class OnWindow>
+__device__ __forceinline__ void tower_fwd_tile(
+    float* sm, const float* __restrict__ theta, const float4* __restrict__ pk,
+    const float* __restrict__ grid, const OnWindow& on_window) {
+  const float* sp = sm + TF_SP * TM_S;
+  float* xr = sm + TF_XR * TM_S;
+  float* y0 = sm + TF_Y0 * TM_S;
+  float* y1 = sm + TF_Y1 * TM_S;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = 32 * (w & 1), nt0 = 4 * (w >> 1);
+  float tacc[2][4][4];
+  zero_frags(tacc);
+  for (int q1 = 0; q1 < CNN_NQ1; ++q1) {
+    for (int k = 0; k < CNN_WIN; ++k) {
+      render_patch<TM_L, TM_S>(window_patch(q1, k), sp, grid, xr);
+      __syncthreads();
+      conv_mma<1>(xr, CNN_K0, pk + PK_W0, theta + OFF_B0,
+                  y0 + k * CNN_C0 * TM_S);
+      __syncthreads();  // the next patch renders over xr
+    }
+    conv_mma<1>(y0, CNN_K1, pk + PK_W1, theta + OFF_B1, y1);
+    __syncthreads();
+    mma_rows_packed<1>(y1, CNN_C1, m0, pk + PK_WT, CNN_H / 8, q1 * (CNN_C1 / 8),
+                    nt0, tacc);
+    on_window(q1, y1);
+    // no barrier: y1 is next written after the next window's renders
+  }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = (nt0 + j) * 8 + 2 * t;
+    const float b0 = __ldg(theta + OFF_BT + n), b1 = __ldg(theta + OFF_BT + n + 1);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + 16 * i + g;
+      y0[n * TM_S + m] = fmaxf(tacc[i][j][0] + b0, 0.0f);
+      y0[(n + 1) * TM_S + m] = fmaxf(tacc[i][j][1] + b1, 0.0f);
+      y0[n * TM_S + m + 8] = fmaxf(tacc[i][j][2] + b0, 0.0f);
+      y0[(n + 1) * TM_S + m + 8] = fmaxf(tacc[i][j][3] + b1, 0.0f);
+    }
+  }
+}
+
+// A warp's sum of row r (TM_L samples) of a tile, the same bits in every
+// lane (a butterfly: each step adds two equal pairs in either order).
+__device__ __forceinline__ float row_sum(const float* row) {
+  const int lane = threadIdx.x & 31;
+  float v = row[lane] + row[lane + 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// A block's weight gradients of conv1 and conv0, in registers across its
+// tiles: gW1 (64 x 256) as warp w's rows 32 (w & 1) .., columns 64 (w >>
+// 1) ..; gW0 (64 x 64) as rows 32 (w & 1) .., columns 16 (w >> 1) ..; gb1
+// of row 8 w + lane in lanes 0..7, conv0's row sums (4 patches x 64) of
+// row 32 w + lane.
+struct TowerGrads {
+  float w1[2][8][4];
+  float w0[2][2][4];
+  float b1, b0;
+};
+
+// g[i][NI * part + j] += acc[i][j], IEEE adds. The tensor cores' own
+// accumulation is not fp32's round-to-nearest: over a block's thousands of
+// samples its error would grow with the sum, so a window's sums start from
+// zero and are added here.
+template <int MI, int NG, int NI>
+__device__ __forceinline__ void fold(float (&g)[MI][NG][4], int part,
+                                     const float (&acc)[MI][NI][4]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        g[i][NI * part + j][r] = g[i][NI * part + j][r] + acc[i][j][r];
+}
+
+// The tower's backward over a tile, after the caller put the splat
+// scalars (rows TB_SP ..) and dzt (rows TB_DZT .., the loss gradient at the
+// trunk's pre-activation) in shared memory and passed a barrier; x2 is the
+// tile's conv1 output in device memory (x2[(q1 * 64 + o) * NL + sample]).
+// Per window: re-render the four patches and re-run conv0; dz1 = (dzt Wt)
+// masked by X2 > 0; gW1 += dz1 X1^T; dz0 = (dz1 W1) masked by Y0 > 0, over
+// y0; gW0 += dz0 X0^T. Ends with a barrier. All threads.
+__device__ __forceinline__ void tower_bwd_tile(
+    float* sm, const float* __restrict__ theta, const float4* __restrict__ pk,
+    const float* __restrict__ grid, const float* __restrict__ x2, int NL,
+    TowerGrads& gr) {
+  const float* sp = sm + TB_SP * TM_S;
+  const float* dzt = sm + TB_DZT * TM_S;
+  float* xr = sm + TB_XR * TM_S;
+  float* y0 = sm + TB_Y0 * TM_S;
+  float* dz1 = sm + TB_DZ1 * TM_S;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 32 * (w & 1), wq = w >> 1;
+  for (int q1 = 0; q1 < CNN_NQ1; ++q1) {
+    for (int k = 0; k < CNN_WIN; ++k)
+      render_patch<TM_L, TM_S>(window_patch(q1, k), sp, grid,
+                               xr + k * CNN_K0 * TM_S);
+    __syncthreads();
+    for (int k = 0; k < CNN_WIN; ++k)
+      conv_mma<2>(xr + k * CNN_K0 * TM_S, CNN_K0, pk + PK_W0, theta + OFF_B0,
+               y0 + k * CNN_C0 * TM_S);
+    {
+      // dz1 = (dzt Wt[:, window]) * (X2 > 0)
+      const int mc = 16 * CMI * (w % CMW), ntc = CNI * (w / CMW);
+      float acc[CMI][CNI][4];
+      zero_frags(acc);
+      mma_rows_packed<2>(dzt, CNN_H, mc, pk + PK_WTB, CNN_X2 / 8,
+                         0, q1 * (CNN_C1 / 8) + ntc, acc);
+#pragma unroll
+      for (int j = 0; j < CNI; ++j) {
+        const int n = (ntc + j) * 8 + 2 * t;
+        const float* xa = x2 + (size_t)(q1 * CNN_C1 + n) * NL;
+#pragma unroll
+        for (int i = 0; i < CMI; ++i) {
+          const int m = mc + 16 * i + g;
+          dz1[n * TM_S + m] = acc[i][j][0] * (xa[m] > 0.0f ? 1.0f : 0.0f);
+          dz1[(n + 1) * TM_S + m] =
+              acc[i][j][1] * (xa[NL + m] > 0.0f ? 1.0f : 0.0f);
+          dz1[n * TM_S + m + 8] = acc[i][j][2] * (xa[m + 8] > 0.0f ? 1.0f : 0.0f);
+          dz1[(n + 1) * TM_S + m + 8] =
+              acc[i][j][3] * (xa[NL + m + 8] > 0.0f ? 1.0f : 0.0f);
+        }
+      }
+    }
+    __syncthreads();
+    // gW1 += dz1 X1^T (X1: the window's conv0 outputs), gb1 += sum dz1;
+    // the window's sums in fresh accumulators, 32 columns at a time
+    // (unrolled: gr is indexed by constants only, so it stays in registers)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float acc[2][4][4];
+      zero_frags(acc);
+#pragma unroll 2
+      for (int s0 = 0; s0 < TM_L; s0 += 8) {
+        uint32_t ab[2][4], as[2][4], bb[4][2], bs[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          frag_a_samples(dz1, m0 + 16 * i, s0, ab[i], as[i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          frag_b_samples(y0, 64 * wq + 32 * hf + 8 * j, s0, bb[j], bs[j]);
+        mma3(acc, ab, as, bb, bs);
+      }
+      fold(gr.w1, hf, acc);
+    }
+#pragma unroll 1
+    for (int r = 0; r < 8; ++r) {
+      const float v = row_sum(dz1 + (8 * w + r) * TM_S);
+      if (lane == r) gr.b1 = gr.b1 + v;
+    }
+    __syncthreads();
+    // dz0 = (dz1 W1) * (Y0 > 0), over y0 in place, 128 columns at a time
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      float acc[2][4][4];
+      zero_frags(acc);
+      const int nt0 = hf * 16 + 4 * wq;
+      mma_rows_packed<2>(dz1, CNN_C1, m0, pk + PK_W1B, CNN_K1 / 8, 0, nt0,
+                         acc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = (nt0 + j) * 8 + 2 * t;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = m0 + 16 * i + g;
+          float* y = y0 + n * TM_S + m;
+          y[0] = acc[i][j][0] * (y[0] > 0.0f ? 1.0f : 0.0f);
+          y[TM_S] = acc[i][j][1] * (y[TM_S] > 0.0f ? 1.0f : 0.0f);
+          y[8] = acc[i][j][2] * (y[8] > 0.0f ? 1.0f : 0.0f);
+          y[TM_S + 8] = acc[i][j][3] * (y[TM_S + 8] > 0.0f ? 1.0f : 0.0f);
+        }
+      }
+    }
+    __syncthreads();
+    // gW0 += dz0 X0^T over the window's four patches (the window's sums in
+    // fresh accumulators), conv0's row sums
+    {
+      float acc[2][2][4];
+      zero_frags(acc);
+#pragma unroll 1
+      for (int k = 0; k < CNN_WIN; ++k) {
+        const float* d = y0 + k * CNN_C0 * TM_S;
+        const float* x = xr + k * CNN_K0 * TM_S;
+#pragma unroll 2
+        for (int s0 = 0; s0 < TM_L; s0 += 8) {
+          uint32_t ab[2][4], as[2][4], bb[2][2], bs[2][2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            frag_a_samples(d, m0 + 16 * i, s0, ab[i], as[i]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            frag_b_samples(x, 16 * wq + 8 * j, s0, bb[j], bs[j]);
+          mma3(acc, ab, as, bb, bs);
+        }
+      }
+      fold(gr.w0, 0, acc);
+    }
+#pragma unroll 1
+    for (int r = 0; r < 32; ++r) {
+      const float v = row_sum(y0 + (32 * w + r) * TM_S);
+      if (lane == r) gr.b0 = gr.b0 + v;
+    }
+    __syncthreads();  // the next window renders over xr and y0
+  }
+}
+
+// Block part of the tower's gradients, [gW0 gb0 gW1 gb1] (the flat
+// buffer's first OFF_WT floats), from a block's TowerGrads. red: 256
+// floats of shared memory no thread reads any more. All threads.
+__device__ __forceinline__ void tower_grads_out(const TowerGrads& gr,
+                                                float* red, float* part) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 32 * (w & 1), wq = w >> 1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int o = m0 + 16 * i + g;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 64 * wq + 8 * j + 2 * t;
+      float* p = part + OFF_W1 + o * CNN_K1 + c;
+      p[0] = gr.w1[i][j][0];
+      p[1] = gr.w1[i][j][1];
+      p[8 * CNN_K1] = gr.w1[i][j][2];
+      p[8 * CNN_K1 + 1] = gr.w1[i][j][3];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = 16 * wq + 8 * j + 2 * t;
+      float* p = part + OFF_W0 + o * CNN_K0 + c;
+      p[0] = gr.w0[i][j][0];
+      p[1] = gr.w0[i][j][1];
+      p[8 * CNN_K0] = gr.w0[i][j][2];
+      p[8 * CNN_K0 + 1] = gr.w0[i][j][3];
+    }
+  }
+  if (lane < 8) part[OFF_B1 + 8 * w + lane] = gr.b1;
+  red[threadIdx.x] = gr.b0;  // conv0 row k * 64 + c of each window
+  __syncthreads();
+  if (threadIdx.x < CNN_C0) {
+    const int c = threadIdx.x;
+    part[OFF_B0 + c] = ((red[c] + red[CNN_C0 + c]) + red[2 * CNN_C0 + c])
+                       + red[3 * CNN_C0 + c];
+  }
+}
+
+// The tower's backward over fixed tiles of TM_L samples (lanes ml0 .. of
+// step tl), block b taking tiles b, b + G, ...; its gW0, gb0, gW1, gb1 go
+// to the first OFF_WT floats of partial row row0 + b.
+struct TowerBwdArgs {
+  const float* obs;    // obs row 0, step 0, lane 0
+  size_t obs_step;     // floats between steps
+  int obs_row;         // floats between obs rows
+  const int* perm;     // the minibatch's row blocks, or null: lanes as is
+  int rbl;
+  int t0;              // the first step's index
+  const float* dzs;    // dzt (steps, 128, NL)
+  const float* x2s;    // X2 (steps, 576, NL)
+  const float* theta;
+  const float4* pk;
+  const float* grid;
+  float* partial;
+  int ptot, row0, NL, n_tiles;
+};
+
+__global__ void __launch_bounds__(TM_THREADS, 1)
+tower_bwd_kernel(TowerBwdArgs A) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* sp = sm + TB_SP * TM_S;
+  float* dzt = sm + TB_DZT * TM_S;
+  const int tid = threadIdx.x, NL = A.NL, per_t = NL / TM_L;
+  TowerGrads gr;
+  zero_frags(gr.w1);
+  zero_frags(gr.w0);
+  gr.b1 = 0.0f;
+  gr.b0 = 0.0f;
+  for (int tau = blockIdx.x; tau < A.n_tiles; tau += gridDim.x) {
+    const int tl = tau / per_t, ml0 = (tau % per_t) * TM_L;
+    const int lane0 =
+        A.perm ? A.perm[ml0 / A.rbl] * A.rbl + ml0 % A.rbl : ml0;
+    const float* ob = A.obs + (size_t)(A.t0 + tl) * A.obs_step + lane0;
+    const float* dzs = A.dzs + (size_t)tl * CNN_H * NL + ml0;
+    __syncthreads();  // the last tile's readers are done
+    if (tid < TM_L) {
+      float o[OBS_DIM], s12[12];
+#pragma unroll
+      for (int k = 0; k < OBS_DIM; ++k) o[k] = ob[(size_t)k * A.obs_row + tid];
+      splat12(o, s12);
+#pragma unroll
+      for (int k = 0; k < 12; ++k) sp[k * TM_S + tid] = s12[k];
+    }
+    for (int e = tid; e < CNN_H * TM_L; e += blockDim.x) {
+      const int u = e / TM_L, l = e % TM_L;
+      dzt[u * TM_S + l] = dzs[(size_t)u * NL + l];
+    }
+    __syncthreads();
+    tower_bwd_tile(sm, A.theta, A.pk, A.grid,
+                   A.x2s + (size_t)tl * CNN_X2 * NL + ml0, NL, gr);
+  }
+  tower_grads_out(gr, sm, A.partial + (size_t)(A.row0 + blockIdx.x) * A.ptot);
+}
+
+// The packed (big, small) fragments of the tower's weights (PK_*): float4
+// i of a product's K x N matrix B is lane (i % 32) of tile (kt, nt) = (i /
+// 32 / NT, i / 32 % NT): {big, big, small, small} of B[8 kt + t][8 nt + g]
+// and B[8 kt + t + 4][8 nt + g], g = lane / 4, t = lane % 4.
+__global__ void pack_tower_kernel(const float* __restrict__ theta,
+                                  float4* __restrict__ pk) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= PK_TOTAL) return;
+  int base, N, off, sn, sk;  // B[k][n] = theta[off + n * sn + k * sk]
+  if (i < PK_W1) {
+    base = PK_W0, N = CNN_C0, off = OFF_W0, sn = CNN_K0, sk = 1;
+  } else if (i < PK_WT) {
+    base = PK_W1, N = CNN_C1, off = OFF_W1, sn = CNN_K1, sk = 1;
+  } else if (i < PK_WTB) {
+    base = PK_WT, N = CNN_H, off = OFF_WT, sn = CNN_X2, sk = 1;
+  } else if (i < PK_W1B) {
+    base = PK_WTB, N = CNN_X2, off = OFF_WT, sn = 1, sk = CNN_X2;
+  } else {
+    base = PK_W1B, N = CNN_K1, off = OFF_W1, sn = 1, sk = CNN_K1;
+  }
+  const int e = i - base, lane = e % 32, tile = e / 32;
+  const int NT = N / 8, kt = tile / NT, nt = tile % NT;
+  const int n = 8 * nt + lane / 4, k = 8 * kt + lane % 4;
+  uint32_t b0, s0, b1, s1;
+  split_tf32(theta[off + n * sn + k * sk], b0, s0);
+  split_tf32(theta[off + n * sn + (k + 4) * sk], b1, s1);
+  pk[i] = make_float4(__uint_as_float(b0), __uint_as_float(b1),
+                      __uint_as_float(s0), __uint_as_float(s1));
+}
+
+}  // namespace drone

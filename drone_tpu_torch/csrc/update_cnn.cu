@@ -7,105 +7,95 @@
 //
 // The pixels are never stored, in either direction: each tile re-renders
 // its conv0 patches from the stored obs planes, as the reference does. The
+// tower's products run on the tensor cores in 3xTF32 (cnn_mma.cuh). The
 // minibatch's steps go in chunks (the scratch of one chunk is ~0.7 GB at
-// 16,384 lanes x 16 steps); per chunk two kernels run:
-//   tile_kernel: a block of 256 threads takes fixed tiles of 32 samples (32
-//     lanes of one row block at one step). Per tile it runs the forward
-//     window by window (cnn.cuh), storing each window's conv1 output (the
-//     trunk's input X2) in a device scratch; the heads and the PPO head's
-//     gradients per sample (policy.cuh head_grads, K3's); dzt = dh * (h > 0),
-//     also to the scratch; then window by window again: re-render the four
-//     patches and re-run conv0, dX2 = Wt^T dzt masked by conv1's relu (dz1),
-//     gW1 += dz1 X1^T, dX1 = W1^T dz1 masked by conv0's relu (dz0), gW0 +=
-//     dz0 X0^T. gW0, gW1 (80 KB), their biases and the heads' gradients
-//     accumulate in the block's shared memory over its tiles (each entry
-//     always by the same thread), then go to the block's own partial row.
-//   cnn_gemm_kernel (K7's product): gWt and gbt as a split-K product of the
-//     scratch's dzt (128 rows) and X2 (576 rows) over the chunk's samples,
-//     each (tile, chunk) block writing its own partial row.
+// 16,384 lanes x 16 steps); pack_tower_kernel first splits the weights
+// into their (big, small) fragments, then per chunk three kernels run:
+//   cnn_fwd_kernel: a block of 256 threads (two an SM) takes fixed tiles of
+//     64 samples (64 lanes of one row block at one step). Per tile the
+//     tower's forward (cnn_mma.cuh tower_fwd_tile), storing each window's
+//     conv1 output (the trunk's input X2) in a device scratch; the heads and
+//     the PPO head's gradients per sample (policy.cuh head_grads, K3's); the
+//     heads' gradient sums in registers (each entry always the same
+//     thread's); dzt = dh * (h > 0) to the scratch. Each block writes its
+//     heads' gradients and its 8 stat sums to its own partial row.
+//   tower_bwd_kernel (cnn_mma.cuh, shared with K7's CNN arm): per tile of
+//     64 samples, window by window, the patches re-rendered and conv0
+//     re-run, dX2 = dzt Wt masked by conv1's relu (dz1), gW1 += dz1 X1^T,
+//     dX1 = dz1 W1 masked by conv0's relu (dz0), gW0 += dz0 X0^T; gW0 and
+//     gW1 stay in the block's registers over its tiles, then go to its own
+//     partial row.
+//   cnn_gemm_kernel (K7's product, fp32 CUDA cores): gWt and gbt as a
+//     split-K product of the scratch's dzt (128 rows) and X2 (576 rows) over
+//     the chunk's samples, each (tile, chunk) block writing its own partial
+//     row.
 // A last kernel adds the partial rows in a fixed order. No float atomics:
 // two launches on the same inputs give the same bits, so training on the
 // card is deterministic and a resume repeats a run (H6).
 //
-// What bounds it on an H100: per sample ~1.1 M multiply-adds (the forward
-// 369k, conv0 again 147k, dX2 74k, gW1 147k, dX1 147k, gW0 147k, gWt 74k)
-// and 4,608 expf on the fp32 cores; the planes and the scratch's traffic
-// are far below the memory rate's share.
+// What bounds it on an H100: per sample ~958k matrix multiply-adds of the
+// tower (the forward 369k, the weight gradients 369k, dX2 74k and dX1 147k;
+// the kernels add conv0's re-run, 147k) at the 3xTF32 rate (3 TF32
+// products at 495 TFLOP/s: 165 TFLOP/s of fp32-accurate products), and the
+// rest (the render's 2 x 2,304 expf, the heads, gWt's 74k multiply-adds on
+// the fp32 cores) at 67 TFLOP/s; the planes and the scratch's traffic are
+// far below the memory rate's share.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "cnn.cuh"
+#include "cnn_mma.cuh"
 
 namespace drone {
 
 constexpr int N_UPSTATS = 8;
-constexpr int UL = 32;       // samples of a tile
-constexpr int US = UL + 1;   // row stride of the tile's activations: odd,
-                             // so the outer products' column reads fall in
-                             // distinct banks
-// One block per SM of an H100. A constant, so the order of the sums never
-// depends on the card.
-constexpr int UPD_BLOCKS = 132;
-// the block partial row: [W0 b0 W1 b1 | head W, head b, value W, value b |
-// the 8 stats]
-constexpr int BP_HEADS = OFF_WT;
-constexpr int BP_STATS = BP_HEADS + (OFF_LS - OFF_HW);
-constexpr int BP_W = BP_STATS + N_UPSTATS;
+// Block counts: constants, so the order of the sums never depends on the
+// card. The forward takes two blocks an SM of an H100, the backward one.
+constexpr int FWD_BLOCKS = 264;
+constexpr int BWD_BLOCKS = 132;
+// a forward block's partial row: [head W, head b, value W, value b | the 8
+// stats]; a backward block's: [W0 b0 W1 b1] (OFF_WT floats)
+constexpr int N_HEADS = OFF_LS - OFF_HW;                    // 645
+constexpr int FP_W = N_HEADS + N_UPSTATS;
+constexpr int GH_PER = (5 * (CNN_H + 1) + TM_THREADS - 1) / TM_THREADS;
 constexpr int GPT = CNN_H * (CNN_X2 + 1);  // a gemm partial row: [gWt | gbt]
 constexpr int GT = 64;  // product tile (rows and columns)
 constexpr int GK = 16;  // samples per product step
-
-// shared floats of tile_kernel
-constexpr int U_SP = 0;                        // splat scalars [12][US]
-constexpr int U_XR = U_SP + 12 * US;           // 4 rendered patches [256][US]
-constexpr int U_Y0 = U_XR + CNN_K1 * US;       // conv0 out, then dz0 [256][US]
-constexpr int U_Y1 = U_Y0 + CNN_K1 * US;       // conv1 out, then dz1 [64][US]
-constexpr int U_H = U_Y1 + CNN_C1 * US;        // h, then dzt [128][US]
-constexpr int U_DMV = U_H + CNN_H * US;        // dm, g_v [5][US]
-constexpr int U_GW0 = U_DMV + 5 * US;          // gW0 (64, 64)
-constexpr int U_GB0 = U_GW0 + CNN_C0 * CNN_K0;
-constexpr int U_GW1 = U_GB0 + CNN_C0;          // gW1 (64, 256)
-constexpr int U_GB1 = U_GW1 + CNN_C1 * CNN_K1;
-constexpr int U_GH = U_GB1 + CNN_C1;           // heads (5, 129)
-constexpr int U_FLOATS = U_GH + 5 * (CNN_H + 1);
 
 struct UpdArgs {
   const float* planes;  // (T, 21, n)
   const float* advret;  // (2, T, n)
   const int* perm;      // (n_sel,) row blocks of the minibatch
   const float* theta;   // flat parameters
-  const float* wt;      // transposed weights (cnn.cuh T_*)
+  const float4* pk;     // packed weights (cnn_mma.cuh PK_*)
   const float* grid;    // pixel coordinates (2, 576)
   float* x2s;           // (tch, 576, NL) this chunk's trunk inputs
   float* dzs;           // (tch, 128, NL) this chunk's dzt
-  float* bpart;         // (G, BP_W) this chunk's block partial rows
+  float* fpart;         // (Gf, FP_W) this chunk's forward partial rows
   int n, T, rbl, NL, tch, chunk, n_tiles;
 };
 
-__global__ void __launch_bounds__(CNN_THREADS, 1)
-tile_kernel(UpdArgs A, UConsts co) {
-  constexpr int L = UL, S = US;
+__global__ void __launch_bounds__(TM_THREADS, 2)
+cnn_fwd_kernel(UpdArgs A, UConsts co) {
+  constexpr int L = TM_L, S = TM_S;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* sp = sm + U_SP;
-  float* xr = sm + U_XR;
-  float* y0 = sm + U_Y0;
-  float* y1 = sm + U_Y1;
-  float* hh = sm + U_H;
-  float* dmv = sm + U_DMV;
+  float* sp = sm + TF_SP * S;
+  float* hh = sm + TF_Y0 * S;   // h, rows 0..127 of y0
+  float* dmv = sm + TF_XR * S;  // dm, g_v [5][S], over the patch rows
   const int tid = threadIdx.x, n = A.n, NL = A.NL;
-  for (int e = tid; e < U_FLOATS - U_GW0; e += blockDim.x) sm[U_GW0 + e] = 0.0f;
   float ls[4], stdv[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     ls[k] = A.theta[OFF_LS + k];
     stdv[k] = expf(ls[k]);
   }
-  float stv[N_UPSTATS];
+  float stv[N_UPSTATS], gh[GH_PER];
 #pragma unroll
   for (int k = 0; k < N_UPSTATS; ++k) stv[k] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < GH_PER; ++k) gh[k] = 0.0f;
   const int per_t = NL / L;
 
   for (int tau = blockIdx.x; tau < A.n_tiles; tau += gridDim.x) {
@@ -126,25 +116,13 @@ tile_kernel(UpdArgs A, UConsts co) {
     }
     __syncthreads();
 
-    // ---- forward ----------------------------------------------------------
-    float tacc[TRUNK_ROWS<L>][4];
-    zero_acc(tacc);
-    for (int q1 = 0; q1 < CNN_NQ1; ++q1) {
-      for (int k = 0; k < CNN_WIN; ++k)
-        render_patch<L, S>(window_patch(q1, k), sp, A.grid, xr + k * CNN_K0 * S);
-      __syncthreads();
-      for (int k = 0; k < CNN_WIN; ++k)
-        conv_relu<L, S>(A.wt + T_W0, CNN_K0, A.theta + OFF_B0,
-                        xr + k * CNN_K0 * S, y0 + k * CNN_C0 * S);
-      __syncthreads();
-      window_conv1_trunk<L, S>(q1, A.theta, A.wt, y0, y1, tacc);
+    // ---- the tower's forward, X2 to the scratch -------------------------
+    tower_fwd_tile(sm, A.theta, A.pk, A.grid, [&](int q1, const float* y1) {
       for (int e = tid; e < CNN_C1 * L; e += blockDim.x) {
         const int o = e / L, l = e % L;
         x2s[(size_t)(q1 * CNN_C1 + o) * NL + l] = y1[o * S + l];
       }
-      __syncthreads();
-    }
-    trunk_out<L, S>(A.theta, tacc, hh);
+    });
     __syncthreads();
 
     // ---- the heads and the PPO surrogate's gradients (K3's _head_grads) ---
@@ -164,9 +142,12 @@ tile_kernel(UpdArgs A, UConsts co) {
       dmv[4 * S + tid] = g_v;
     }
     __syncthreads();
-    // the heads' gradients: [dm; g_v] h^T and their sums
-    float* gh = sm + U_GH;
-    for (int e = tid; e < 5 * (CNN_H + 1); e += blockDim.x) {
+    // the heads' gradients: [dm; g_v] h^T and their sums, entry e = r *
+    // 129 + u always thread e % 256's
+#pragma unroll
+    for (int k = 0; k < GH_PER; ++k) {
+      const int e = tid + k * TM_THREADS;
+      if (e >= 5 * (CNN_H + 1)) break;
       const int r = e / (CNN_H + 1), u = e % (CNN_H + 1);
       float s = 0.0f;
       if (u < CNN_H) {
@@ -174,10 +155,9 @@ tile_kernel(UpdArgs A, UConsts co) {
       } else {
         for (int l = 0; l < L; ++l) s = s + dmv[r * S + l];
       }
-      gh[e] = gh[e] + s;
+      gh[k] = gh[k] + s;
     }
-    __syncthreads();
-    // dzt = (Hw^T dm + Vw^T g_v) * (h > 0), over h in place and to the scratch
+    // dzt = (Hw^T dm + Vw^T g_v) * (h > 0), to the scratch
     for (int e = tid; e < CNN_H * L; e += blockDim.x) {
       const int u = e / L, l = e % L;
       float d = __ldg(A.theta + OFF_HW + u) * dmv[l];
@@ -185,27 +165,21 @@ tile_kernel(UpdArgs A, UConsts co) {
       for (int k = 1; k < 4; ++k)
         d = __fmaf_rn(__ldg(A.theta + OFF_HW + k * CNN_H + u), dmv[k * S + l], d);
       d = d + __ldg(A.theta + OFF_VW + u) * dmv[4 * S + l];
-      const float dz = d * (hh[u * S + l] > 0.0f ? 1.0f : 0.0f);
-      hh[u * S + l] = dz;
-      dzs[(size_t)u * NL + l] = dz;
+      dzs[(size_t)u * NL + l] = d * (hh[u * S + l] > 0.0f ? 1.0f : 0.0f);
     }
-    __syncthreads();
-
-    // ---- the encoder's backward, window by window ---------------------------
-    cnn_tile_bwd<L, S>(sp, A.theta, A.wt, A.grid, hh, x2s, NL, xr, y0, y1,
-                       sm + U_GW0);
   }
 
   // this block's partial row
-  float* part = A.bpart + (size_t)blockIdx.x * BP_W;
-  for (int e = tid; e < OFF_WT; e += blockDim.x) part[e] = sm[U_GW0 + e];
-  for (int e = tid; e < 5 * (CNN_H + 1); e += blockDim.x) {
+  float* part = A.fpart + (size_t)blockIdx.x * FP_W;
+#pragma unroll
+  for (int k = 0; k < GH_PER; ++k) {
+    const int e = tid + k * TM_THREADS;
+    if (e >= 5 * (CNN_H + 1)) break;
     const int r = e / (CNN_H + 1), u = e % (CNN_H + 1);
-    const float g = sm[U_GH + e];
     if (r < 4)
-      part[BP_HEADS + (u < CNN_H ? r * CNN_H + u : 4 * CNN_H + r)] = g;
+      part[u < CNN_H ? r * CNN_H + u : 4 * CNN_H + r] = gh[k];
     else
-      part[BP_HEADS + (OFF_VW - OFF_HW) + u] = g;  // value W then value b
+      part[(OFF_VW - OFF_HW) + u] = gh[k];  // value W then value b
   }
   __syncthreads();
   float* red = sm;  // the lanes' stat sums, summed in lane order
@@ -216,7 +190,7 @@ tile_kernel(UpdArgs A, UConsts co) {
   if (tid < N_UPSTATS) {
     float s = 0.0f;
     for (int l = 0; l < L; ++l) s = s + red[tid * L + l];
-    part[BP_STATS + tid] = s;
+    part[N_HEADS + tid] = s;
   }
 }
 
@@ -302,16 +276,23 @@ cnn_gemm_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
 }
 
 // grads[q] for every flat parameter q and the 8 stat sums: the sum, in
-// row order, over the RG gemm rows (Wt, bt) or the RB block rows (the
-// rest); log_std's gradient is its stat sums minus ent_coef.
-__global__ void cnn_reduce_kernel(const float* __restrict__ gpart, int RG,
-                                  const float* __restrict__ bpart, int RB,
+// row order, over the RB backward block rows (W0 .. b1), the RG gemm rows
+// (Wt, bt) or the RF forward block rows (the heads, log_std and the stats);
+// log_std's gradient is its stat sums minus ent_coef.
+__global__ void cnn_reduce_kernel(const float* __restrict__ bpart, int RB,
+                                  const float* __restrict__ gpart, int RG,
+                                  const float* __restrict__ fpart, int RF,
                                   float ent_coef, float* __restrict__ grads,
                                   float* __restrict__ stats) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= CNN_P + N_UPSTATS) return;
   float s = 0.0f;
-  if (q >= OFF_WT && q < OFF_HW) {
+  if (q < OFF_WT) {
+    for (int r = 0; r < RB; ++r) s = s + bpart[(size_t)r * OFF_WT + q];
+    grads[q] = s;
+    return;
+  }
+  if (q < OFF_HW) {
     const int j = q - OFF_WT;
     const int e = q < OFF_BT ? (j / CNN_X2) * (CNN_X2 + 1) + j % CNN_X2
                              : (q - OFF_BT) * (CNN_X2 + 1) + CNN_X2;
@@ -320,11 +301,10 @@ __global__ void cnn_reduce_kernel(const float* __restrict__ gpart, int RG,
     return;
   }
   int e;
-  if (q >= CNN_P) e = BP_STATS + (q - CNN_P);
-  else if (q >= OFF_LS) e = BP_STATS + 4 + (q - OFF_LS);
-  else if (q >= OFF_HW) e = BP_HEADS + (q - OFF_HW);
-  else e = q;
-  for (int r = 0; r < RB; ++r) s = s + bpart[(size_t)r * BP_W + e];
+  if (q >= CNN_P) e = N_HEADS + (q - CNN_P);
+  else if (q >= OFF_LS) e = N_HEADS + 4 + (q - OFF_LS);
+  else e = q - OFF_HW;
+  for (int r = 0; r < RF; ++r) s = s + fpart[(size_t)r * FP_W + e];
   if (q >= CNN_P)
     stats[q - CNN_P] = s;
   else
@@ -334,20 +314,23 @@ __global__ void cnn_reduce_kernel(const float* __restrict__ gpart, int RG,
 }  // namespace drone
 
 // C interface (ctypes). ptrs: host array of device pointers [planes,
-// advret, perm, theta, wt, grid, x2s, dzs, bpart, gpart, grads, stats]; the
-// scratch x2s (tch, 576, NL) and dzs (tch, 128, NL), the partial rows bpart
-// (n_chunks * G, BP_W) and gpart (n_chunks * tch * NL / CK, 128 * 577).
-// dims: [n, T, rbl, NL, tch, CK, G]. consts: [inv_m, clip_lo, clip_hi,
-// clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the cudaError_t of
-// the launches.
+// advret, perm, theta, pk, grid, x2s, dzs, fpart, bpart, gpart, grads,
+// stats]; the packed weights pk (PK_TOTAL float4s), the scratch x2s (tch,
+// 576, NL) and dzs (tch, 128, NL), the partial rows fpart (n_chunks * Gf,
+// FP_W), bpart (n_chunks * Gb, OFF_WT) and gpart (n_chunks * tch * NL / CK,
+// 128 * 577). dims: [n, T, rbl, NL, tch, CK, Gf, Gb, the forward's and the
+// backward's shared bytes as the wrapper counts them]. consts: [inv_m,
+// clip_lo, clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the
+// cudaError_t of the launches.
 extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
                                 const float* consts, void* stream) {
   using namespace drone;
   const int n = dims[0], T = dims[1], rbl = dims[2], NL = dims[3];
-  const int tch = dims[4], CK = dims[5], G = dims[6];
+  const int tch = dims[4], CK = dims[5], Gf = dims[6], Gb = dims[7];
   if (n <= 0 || T <= 0 || tch <= 0 || T % tch != 0 || rbl % 128 != 0 ||
-      NL % rbl != 0 || NL % UL != 0 || CK % GK != 0 || NL % CK != 0 ||
-      G <= 0 || G > UPD_BLOCKS)
+      NL % rbl != 0 || NL % TM_L != 0 || CK % GK != 0 || NL % CK != 0 ||
+      Gf <= 0 || Gf > FWD_BLOCKS || Gb <= 0 || Gb > BWD_BLOCKS ||
+      dims[8] != TF_SMEM || dims[9] != TB_SMEM)
     return (int)cudaErrorInvalidValue;
   const float** ptr = reinterpret_cast<const float**>(const_cast<uint64_t*>(ptrs));
   UpdArgs A;
@@ -355,35 +338,62 @@ extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
   A.advret = ptr[1];
   A.perm = reinterpret_cast<const int*>(ptr[2]);
   A.theta = ptr[3];
-  A.wt = ptr[4];
+  float4* pk = reinterpret_cast<float4*>(const_cast<float*>(ptr[4]));
+  A.pk = pk;
   A.grid = ptr[5];
   A.x2s = const_cast<float*>(ptr[6]);
   A.dzs = const_cast<float*>(ptr[7]);
-  float* bpart = const_cast<float*>(ptr[8]);
-  float* gpart = const_cast<float*>(ptr[9]);
-  float* grads = const_cast<float*>(ptr[10]);
-  float* stats = const_cast<float*>(ptr[11]);
+  float* fpart = const_cast<float*>(ptr[8]);
+  float* bpart = const_cast<float*>(ptr[9]);
+  float* gpart = const_cast<float*>(ptr[10]);
+  float* grads = const_cast<float*>(ptr[11]);
+  float* stats = const_cast<float*>(ptr[12]);
   A.n = n;
   A.T = T;
   A.rbl = rbl;
   A.NL = NL;
   A.tch = tch;
-  A.n_tiles = tch * (NL / UL);
-  if (G > A.n_tiles) return (int)cudaErrorInvalidValue;
+  A.n_tiles = tch * (NL / TM_L);
+  if (Gf > A.n_tiles || Gb > A.n_tiles) return (int)cudaErrorInvalidValue;
   const UConsts co{consts[0], consts[1], consts[2], consts[3],
                    consts[4], consts[5], consts[6]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * (size_t)U_FLOATS;
   cudaError_t err = cudaFuncSetAttribute(
-      tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cnn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      tower_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TB_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  pack_tower_kernel<<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(A.theta, pk);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_chunks = T / tch, nk = tch * (NL / CK);
   const GemmPair gp{A.dzs, CNN_H, CNN_H, A.x2s, CNN_X2, CNN_X2};
   const dim3 grid((CNN_H + GT - 1) / GT, (CNN_X2 + GT - 1) / GT, nk);
+  TowerBwdArgs B;
+  B.obs = A.planes + (size_t)TP_OBS0 * n;
+  B.obs_step = (size_t)N_TRAJ * n;
+  B.obs_row = n;
+  B.perm = A.perm;
+  B.rbl = rbl;
+  B.dzs = A.dzs;
+  B.x2s = A.x2s;
+  B.theta = A.theta;
+  B.pk = pk;
+  B.grid = A.grid;
+  B.partial = bpart;
+  B.ptot = OFF_WT;
+  B.NL = NL;
+  B.n_tiles = A.n_tiles;
   for (int c = 0; c < n_chunks; ++c) {
     A.chunk = c;
-    A.bpart = bpart + (size_t)c * G * BP_W;
-    tile_kernel<<<G, CNN_THREADS, smem, s>>>(A, co);
+    A.fpart = fpart + (size_t)c * Gf * FP_W;
+    cnn_fwd_kernel<<<Gf, TM_THREADS, TF_SMEM, s>>>(A, co);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    B.t0 = c * tch;
+    B.row0 = c * Gb;
+    tower_bwd_kernel<<<Gb, TM_THREADS, TB_SMEM, s>>>(B);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     cnn_gemm_kernel<<<grid, 256, 0, s>>>(gp, NL, CK, gpart, GPT, c * nk);
@@ -391,6 +401,7 @@ extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
     if (err != cudaSuccess) return (int)err;
   }
   cnn_reduce_kernel<<<(CNN_P + N_UPSTATS + 255) / 256, 256, 0, s>>>(
-      gpart, n_chunks * nk, bpart, n_chunks * G, co.ent_coef, grads, stats);
+      bpart, n_chunks * Gb, gpart, n_chunks * nk, fpart, n_chunks * Gf,
+      co.ent_coef, grads, stats);
   return (int)cudaGetLastError();
 }

@@ -40,25 +40,35 @@
 // below the memory rate's share. The gate weights stream from L2.
 //
 // The CNN arm (pixel-recurrent cnn_lstm, the reference's encoder == "cnn"
-// branch): bptt_kernel<ENC_CNN> runs cnn.cuh's forward window by window
-// (K8's CNN arm) into x, storing each window's conv1 output (the trunk's
-// input X2, 576 rows a sample) and x in the scratch, and its backward ends
-// at dzt = dx * (x > 0), the gradient at the trunk's pre-activation, to
-// the scratch. The conv backward does not depend on time, so it runs per
-// segment after the walk through time as a second kernel, conv_bwd_kernel:
-// K10's tile machinery (cnn.cuh cnn_tile_bwd: the patches re-rendered from
-// the stored obs, conv0 re-run, gW0 and gW1 in a block's shared memory over
-// fixed 32-sample tiles), its block rows written into the product rows'
-// first OFF_WT columns; gWt and gbt are one more product pair (dzt x X2).
-// Per sample the arm adds ~920k multiply-adds to the LSTM's 2 x 131k: the
+// branch). The tower depends on no recurrent state, so it leaves the walk
+// through time: per segment, pack_tower_kernel having split the tower's
+// weights once into their (big, small) fragments,
+//   tower_fwd_kernel: the tower's forward over the segment's bptt x NL
+//     samples, 64-sample tiles on the tensor cores in 3xTF32 (cnn_mma.cuh
+//     tower_fwd_tile, two blocks an SM), writing the obs and x (the XS
+//     rows 0 .. OBS_DIM + 128) and each window's conv1 output (the trunk's
+//     input X2, 576 rows a sample, the X2S scratch);
+//   bptt_kernel<ENC_CNN>: reads x from XS as the dense arm reads its
+//     encoder's output, walks the LSTM, and ends at dzt = dx * (x > 0), the
+//     gradient at the trunk's pre-activation, to the scratch. Its forward
+//     needs E + 2H rows, its backward 6H + E + 6 = 902 rows of 64 lanes
+//     (230,912 bytes at H 128), so it stays one block an SM;
+//   tower_bwd_kernel (cnn_mma.cuh, K10's): the tower's backward on the
+//     tensor cores (the patches re-rendered from the stored obs, conv0
+//     re-run, gW0 and gW1 in a block's registers over fixed 64-sample
+//     tiles), its block rows written into the product rows' first OFF_WT
+//     columns;
+//   the product pairs, gWt and gbt among them (dzt x X2, fp32).
+// Per sample the arm adds ~1.1 M multiply-adds to the LSTM's 2 x 131k: the
 // forward tower 369k, conv0 again 147k, dX2 74k, gW1 147k, dX1 147k, gW0
-// 147k, gWt 74k; one segment's scratch is ~1.9 GB at 16,384 lanes x 16
-// steps, H 128.
+// 147k on the tensor cores, gWt 74k on the fp32 cores; one segment's
+// scratch is ~1.9 GB at 16,384 lanes x 16 steps, H 128.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cnn_mma.cuh"
 #include "lstm.cuh"
 
 namespace drone {
@@ -75,16 +85,9 @@ constexpr int GK = 16;  // samples per product step
 // dense encoder's dpre or the CNN arm's dzt
 enum { XS = 0, GZ = 1, CT = 2, H2S = 3, DMV = 4, DP = 5, N_SCRATCH = 6,
        X2S = 6, N_BUFS = 7 };
-// the CNN arm's window buffers before xh (acting_lstm.cu's), and the conv
-// backward's tile (K10's: 32 samples, an odd row stride)
-constexpr int CNN_ROWS = 12 + CNN_K0 + CNN_K1 + CNN_C1;
-constexpr int CB_L = 32, CB_S = CB_L + 1;
-constexpr int CB_XR = 12 * CB_S;                 // splat scalars before
-constexpr int CB_Y0 = CB_XR + CNN_K1 * CB_S;     // 4 patches [256][S]
-constexpr int CB_Y1 = CB_Y0 + CNN_K1 * CB_S;     // conv0 out, then dz0
-constexpr int CB_DZ = CB_Y1 + CNN_C1 * CB_S;     // dz1 [64][S]
-constexpr int CB_G = CB_DZ + CNN_H * CB_S;       // dzt [128][S]
-constexpr int CB_FLOATS = CB_G + OFF_WT;         // gW0 gb0 gW1 gb1
+// the tower's forward takes two blocks an SM; its block count is a
+// constant (its tiles write no sums)
+constexpr int TOWER_FWD_BLOCKS = 264;
 
 struct BpttArgs {
   const float* planes;  // (T, 21, n)
@@ -97,13 +100,6 @@ struct BpttArgs {
   float* s[N_SCRATCH];  // each (bptt, rows, NL)
   float* stat_part;     // (blocks, 8) of this segment
   int n, T, bptt, seg, rbl, NL;
-};
-
-// The CNN arm's tower inputs and its X2 scratch (unused by the dense arm).
-struct CnnUpd {
-  const float* wt;    // W0^T, W1^T, Wt^T (cnn.cuh T_*)
-  const float* grid;  // the pixel coordinates (2, 576)
-  float* x2s;         // (bptt, 576, NL)
 };
 
 __device__ __forceinline__ void store4(float* p, const float* v) {
@@ -151,7 +147,7 @@ __host__ __device__ inline int bptt_smem_floats(const LstmNet& net,
   for (int i = 0; i < net.n_enc; ++i) maxe = net.enc_w[i] > maxe ? net.enc_w[i] : maxe;
   int fwd = OBS_DIM + nbuf * maxw + net.E + 2 * net.H;
   if (encoder == ENC_CNN) {
-    fwd = CNN_ROWS + net.E + 2 * net.H;
+    fwd = net.E + 2 * net.H;
     maxe = net.E;
   }
   const int bwd = 6 * net.H + maxe + 6;
@@ -160,7 +156,7 @@ __host__ __device__ inline int bptt_smem_floats(const LstmNet& net,
 
 template <int ENC>
 __global__ void __launch_bounds__(LSTM_THREADS, 1)
-bptt_kernel(BpttArgs A, LstmNet net, UConsts co, CnnUpd cu) {
+bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
   constexpr bool CNN = ENC == ENC_CNN;
   constexpr int L = BP_LANES;
   extern __shared__ float4 smem4[];
@@ -180,12 +176,12 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co, CnnUpd cu) {
   }
 
   // ---- forward: the segment from its anchor, activations to the scratch --
-  // dense: the obs rows and the encoder's buffers before xh; CNN: the
-  // window buffers (sp, xr, y0, y1) before xh
+  // dense: the obs rows and the encoder's buffers before xh; CNN: xh alone
+  // (tower_fwd_kernel wrote x to the scratch)
   float *obs, *buf0, *buf1, *xh;
   if constexpr (CNN) {
     obs = buf0 = buf1 = nullptr;
-    xh = sm + CNN_ROWS * L;
+    xh = sm;
   } else {
     int maxw, nbuf;
     enc_buffers(net, maxw, nbuf);
@@ -194,10 +190,6 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co, CnnUpd cu) {
     buf1 = buf0 + maxw * L;
     xh = buf0 + nbuf * maxw * L;
   }
-  float* sp = sm;
-  float* xr = sp + 12 * L;
-  float* y0 = xr + CNN_K0 * L;
-  float* y1 = y0 + CNN_K1 * L;
   float* h = xh + E * L;
   float* c = xh + (E + H) * L;
   float* obs_rows = net.n_enc ? obs : xh;
@@ -212,17 +204,10 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co, CnnUpd cu) {
     const float* pt = A.planes + (size_t)(A.seg * A.bptt + t) * N_TRAJ * n + lane0;
     float* xs = A.s[XS] + (size_t)t * RX * NL + ml0;
     if constexpr (CNN) {
-      // each lane thread: its obs to the scratch, its splat scalars
-      if (tid < L) {
-        float o[OBS_DIM], s12[12];
-#pragma unroll
-        for (int k = 0; k < OBS_DIM; ++k) {
-          o[k] = pt[(size_t)(TP_OBS0 + k) * n + tid];
-          xs[(size_t)k * NL + tid] = o[k];
-        }
-        splat12(o, s12);
-#pragma unroll
-        for (int k = 0; k < 12; ++k) sp[k * L + tid] = s12[k];
+      // x, the tower's output, from the scratch
+      for (int e = tid; e < E * L; e += blockDim.x) {
+        const int k = e / L, l = e % L;
+        xh[k * L + l] = xs[(size_t)(OBS_DIM + k) * NL + l];
       }
     } else {
       for (int e = tid; e < OBS_DIM * L; e += blockDim.x) {
@@ -237,24 +222,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co, CnnUpd cu) {
       xs[(size_t)(h_row + u) * NL + l] = h[u * L + l];
     }
     __syncthreads();
-    if constexpr (CNN) {
-      // the tower into x, each window's conv1 output (X2) to the scratch,
-      // then x to the XS scratch
-      float* x2s = cu.x2s + (size_t)t * CNN_X2 * NL + ml0;
-      cnn_encode_tile<L, L>(
-          sp, A.theta, cu.wt, cu.grid, xr, y0, y1, xh,
-          [&](int q1, const float* y) {
-            for (int e = tid; e < CNN_C1 * L; e += blockDim.x) {
-              const int o = e / L, l = e % L;
-              x2s[(size_t)(q1 * CNN_C1 + o) * NL + l] = y[o * L + l];
-            }
-          });
-      __syncthreads();
-      for (int e = tid; e < E * L; e += blockDim.x) {
-        const int k = e / L, l = e % L;
-        xs[(size_t)(OBS_DIM + k) * NL + l] = xh[k * L + l];
-      }
-    } else {
+    if constexpr (!CNN) {
       lstm_encoder<L>(obs, buf0, buf1, xh, A.theta, net,
                       [&](int i, const float* out) {
                         int r0 = OBS_DIM;
@@ -414,7 +382,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co, CnnUpd cu) {
     __syncthreads();
     if constexpr (CNN) {
       // the trunk's relu: dzt = dx * (x > 0) to the scratch; the conv
-      // backward runs after the segment (conv_bwd_kernel)
+      // backward runs after the segment (tower_bwd_kernel)
       float* dzs = A.s[DP] + (size_t)t * E * NL + ml0;
       for (int e = tid; e < E * L; e += blockDim.x) {
         const int k = e / L, l = e % L;
@@ -460,61 +428,62 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co, CnnUpd cu) {
   }
 }
 
-// The CNN arm's conv backward over one segment's samples, after its walk
-// through time: fixed tiles of 32 samples (lanes ml0.. of step tl) taken
-// by block b in the order b, b + G, ...; per tile the splat scalars of the
-// obs in the XS scratch, dzt from the DP scratch, then cnn_tile_bwd with
-// the tile's X2 from the X2S scratch. The block's gW0, gb0, gW1, gb1 go to
-// the first OFF_WT columns of partial row (row0 + b): the flat buffer's
-// order, summed with the product rows by lstm_reduce_kernel.
-struct ConvBwdArgs {
-  const float* xs;    // the XS scratch (bptt, RX, NL)
-  const float* dzs;   // the DP scratch: dzt (bptt, 128, NL)
-  const float* x2s;   // the X2S scratch (bptt, 576, NL)
+// The CNN arm's tower forward over one segment's samples, before its walk
+// through time: fixed tiles of 64 samples (lanes ml0 .. of step tl) taken
+// by block b in the order b, b + G, ...; per tile the obs to the XS
+// scratch and their splat scalars, cnn_mma.cuh's tower_fwd_tile with each
+// window's conv1 output to the X2S scratch, then x = relu(trunk + bt) to
+// the XS rows OBS_DIM .. OBS_DIM + 128.
+struct TowerFwdArgs {
+  const float* planes;  // (T, 21, n)
+  const int* perm;      // (n_sel,) row blocks of the minibatch
   const float* theta;
-  const float* wt;
+  const float4* pk;     // packed weights (cnn_mma.cuh PK_*)
   const float* grid;
-  float* partial;
-  int RX, NL, n_tiles, ptot, row0;
+  float* xs;            // the XS scratch (bptt, RX, NL)
+  float* x2s;           // the X2S scratch (bptt, 576, NL)
+  int n, rbl, t0, RX, NL, n_tiles;
 };
 
-__global__ void __launch_bounds__(CNN_THREADS, 1)
-conv_bwd_kernel(ConvBwdArgs A) {
-  constexpr int L = CB_L, S = CB_S;
+__global__ void __launch_bounds__(TM_THREADS, 2)
+tower_fwd_kernel(TowerFwdArgs A) {
+  constexpr int L = TM_L, S = TM_S;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* sp = sm;
-  float* xr = sm + CB_XR;
-  float* y0 = sm + CB_Y0;
-  float* y1 = sm + CB_Y1;
-  float* dz = sm + CB_DZ;
-  float* g = sm + CB_G;
-  const int tid = threadIdx.x, NL = A.NL, per_t = NL / L;
-  for (int e = tid; e < OFF_WT; e += blockDim.x) g[e] = 0.0f;
+  float* sp = sm + TF_SP * S;
+  const float* hh = sm + TF_Y0 * S;
+  const int tid = threadIdx.x, n = A.n, NL = A.NL, per_t = NL / L;
   for (int tau = blockIdx.x; tau < A.n_tiles; tau += gridDim.x) {
     const int tl = tau / per_t, ml0 = (tau % per_t) * L;
-    const float* xs = A.xs + (size_t)tl * A.RX * NL + ml0;
-    const float* dzs = A.dzs + (size_t)tl * CNN_H * NL + ml0;
+    const int lane0 = A.perm[ml0 / A.rbl] * A.rbl + ml0 % A.rbl;
+    const float* pt = A.planes + (size_t)(A.t0 + tl) * N_TRAJ * n + lane0;
+    float* xs = A.xs + (size_t)tl * A.RX * NL + ml0;
+    float* x2s = A.x2s + (size_t)tl * CNN_X2 * NL + ml0;
     __syncthreads();  // the last tile's readers are done
     if (tid < L) {
       float o[OBS_DIM], s12[12];
 #pragma unroll
-      for (int k = 0; k < OBS_DIM; ++k) o[k] = xs[(size_t)k * NL + tid];
+      for (int k = 0; k < OBS_DIM; ++k) {
+        o[k] = pt[(size_t)(TP_OBS0 + k) * n + tid];
+        xs[(size_t)k * NL + tid] = o[k];
+      }
       splat12(o, s12);
 #pragma unroll
       for (int k = 0; k < 12; ++k) sp[k * S + tid] = s12[k];
     }
-    for (int e = tid; e < CNN_H * L; e += blockDim.x) {
-      const int u = e / L, l = e % L;
-      dz[u * S + l] = dzs[(size_t)u * NL + l];
-    }
     __syncthreads();
-    cnn_tile_bwd<L, S>(sp, A.theta, A.wt, A.grid, dz,
-                       A.x2s + (size_t)tl * CNN_X2 * NL + ml0, NL, xr, y0, y1,
-                       g);
+    tower_fwd_tile(sm, A.theta, A.pk, A.grid, [&](int q1, const float* y1) {
+      for (int e = tid; e < CNN_C1 * L; e += blockDim.x) {
+        const int o = e / L, l = e % L;
+        x2s[(size_t)(q1 * CNN_C1 + o) * NL + l] = y1[o * S + l];
+      }
+    });
+    __syncthreads();
+    for (int e = tid; e < CNN_H * L; e += blockDim.x) {
+      const int k = e / L, l = e % L;
+      xs[(size_t)(OBS_DIM + k) * NL + l] = hh[k * S + l];
+    }
   }
-  float* part = A.partial + (size_t)(A.row0 + blockIdx.x) * A.ptot;
-  for (int e = tid; e < OFF_WT; e += blockDim.x) part[e] = g[e];
 }
 
 // One product of the weight gradients over a segment's samples: C (M x N)
@@ -637,10 +606,13 @@ __global__ void lstm_reduce_kernel(const float* __restrict__ partial, int R,
 
 // C interface (ctypes). ptrs: host array of device pointers [planes,
 // advret, snap, perm, theta, wp, bp, the 7 scratch buffers (XS, GZ, CT, H2,
-// DMV, DP, X2S), partial, stat_part, map, grads, stats, wt, grid]; X2S, wt
-// and grid are the CNN arm's (null for the dense one). layout: lstm.cuh's
-// NET_INTS; encoder: ENC_DENSE or ENC_CNN. dims: [n, T, bptt, rbl, NL, CK,
-// P, ptot, n_pairs, the 7 scratch row counts]. pairs: n_pairs x [A buffer,
+// DMV, DP, X2S), partial, stat_part, map, grads, stats, pk, grid]; X2S, the
+// packed tower weights pk (PK_TOTAL float4s) and grid are the CNN arm's
+// (null for the dense one). layout: lstm.cuh's NET_INTS; encoder: ENC_DENSE
+// or ENC_CNN. dims: [n, T, bptt, rbl, NL, CK, P, ptot, n_pairs, the 7
+// scratch row counts, the walk's shared bytes as the wrapper counts them,
+// and for the CNN arm the tower's forward and backward ones]. pairs:
+// n_pairs x [A buffer,
 // A row0, M, B buffer, B row0, N, out offset]. consts: [inv_m, clip_lo,
 // clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the
 // cudaError_t of the launches.
@@ -655,12 +627,16 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const int NL = dims[4], CK = dims[5], P = dims[6], ptot = dims[7];
   const int n_pairs = dims[8];
   const int* rows = dims + 9;
+  const int* smem_bytes = dims + 9 + N_BUFS;
   const bool cnn = encoder == ENC_CNN;
+  const size_t smem = sizeof(float) * (size_t)bptt_smem_floats(net, encoder);
   if (n <= 0 || bptt <= 0 || T % bptt != 0 || rbl % 128 != 0 ||
       NL % BP_LANES != 0 || CK % GK != 0 || NL % CK != 0 || n_pairs <= 0 ||
-      (cnn && (NL % CB_L != 0 || ptot < OFF_WT ||
+      smem_bytes[0] != (int)smem ||
+      (cnn && (NL % TM_L != 0 || ptot < OFF_WT ||
                rows[XS] != OBS_DIM + CNN_H + net.H || rows[DP] != CNN_H ||
-               rows[X2S] != CNN_X2)))
+               rows[X2S] != CNN_X2 || smem_bytes[1] != TF_SMEM ||
+               smem_bytes[2] != TB_SMEM)))
     return (int)cudaErrorInvalidValue;
   const float** ptr = reinterpret_cast<const float**>(const_cast<uint64_t*>(ptrs));
   BpttArgs A;
@@ -679,8 +655,9 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const int* map = reinterpret_cast<const int*>(ptr[16]);
   float* grads = const_cast<float*>(ptr[17]);
   float* stats = const_cast<float*>(ptr[18]);
-  const CnnUpd cu{ptr[19], ptr[20], bufs[X2S]};
-  if (cnn && (cu.wt == nullptr || cu.grid == nullptr || cu.x2s == nullptr))
+  float4* pk = reinterpret_cast<float4*>(const_cast<float*>(ptr[19]));
+  const float* grid = ptr[20];
+  if (cnn && (pk == nullptr || grid == nullptr || bufs[X2S] == nullptr))
     return (int)cudaErrorInvalidValue;
   A.n = n;
   A.T = T;
@@ -690,31 +667,47 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const UConsts co{consts[0], consts[1], consts[2], consts[3],
                    consts[4], consts[5], consts[6]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * (size_t)bptt_smem_floats(net, encoder);
   auto* walk = cnn ? bptt_kernel<ENC_CNN> : bptt_kernel<ENC_DENSE>;
   cudaError_t err = cudaFuncSetAttribute(
       walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const size_t cb_smem = sizeof(float) * (size_t)CB_FLOATS;
+  const int S = T / bptt, nblk = NL / BP_LANES, nk = bptt * (NL / CK);
+  const int n_tiles = bptt * (NL / TM_L);
+  TowerFwdArgs tf{A.planes, A.perm, A.theta, pk, grid, bufs[XS], bufs[X2S],
+                  n, rbl, 0, rows[XS], NL, n_tiles};
+  TowerBwdArgs tb{bufs[XS], (size_t)rows[XS] * NL, NL, nullptr, rbl, 0,
+                  bufs[DP], bufs[X2S], A.theta, pk, grid, partial, ptot, 0,
+                  NL, n_tiles};
+  const int tf_blocks = n_tiles < TOWER_FWD_BLOCKS ? n_tiles : TOWER_FWD_BLOCKS;
   if (cnn) {
-    err = cudaFuncSetAttribute(conv_bwd_kernel,
+    err = cudaFuncSetAttribute(tower_fwd_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)cb_smem);
+                               TF_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(tower_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               TB_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    pack_tower_kernel<<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(A.theta, pk);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const int S = T / bptt, nblk = NL / BP_LANES, nk = bptt * (NL / CK);
   for (int seg = 0; seg < S; ++seg) {
     A.seg = seg;
     A.stat_part = stat_part + (size_t)seg * nblk * N_UPSTATS;
-    walk<<<nblk, LSTM_THREADS, smem, s>>>(A, net, co, cu);
+    if (cnn) {
+      tf.t0 = seg * bptt;
+      tower_fwd_kernel<<<tf_blocks, TM_THREADS, TF_SMEM, s>>>(tf);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    walk<<<nblk, LSTM_THREADS, smem, s>>>(A, net, co);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (cnn) {
       // one block per product row of the segment (nk <= the tiles)
-      const ConvBwdArgs cb{A.s[XS], A.s[DP], cu.x2s, A.theta, cu.wt,
-                           cu.grid, partial, rows[XS], NL,
-                           bptt * (NL / CB_L), ptot, seg * nk};
-      conv_bwd_kernel<<<nk, CNN_THREADS, cb_smem, s>>>(cb);
+      tb.row0 = seg * nk;
+      tower_bwd_kernel<<<nk, TM_THREADS, TB_SMEM, s>>>(tb);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

@@ -156,6 +156,13 @@ def window_index(geom: CnnGeom, device) -> torch.Tensor:
                         lambda: np.array(conv1_patches(geom), np.int64), device)
 
 
+def tower_linear(x, w, b):
+    """F.linear for the tower's layers (conv0, conv1, the trunk), whose
+    products the CNN update kernels run in 3xTF32; an emulation of those
+    (cuda_update_cnn.mm_3xtf32) can take its place."""
+    return F.linear(x, w, b)
+
+
 def cnn_encode(X, enc_weights, gx, gy, geom: CnnGeom, want_acts=False):
     """The patchify-CNN encoder in the kernels' formulation: X (N, 13) ->
     trunk features h (N, hidden) [, acts = (sp, X0 (N, n_q0, C p0^2), Y0
@@ -164,11 +171,11 @@ def cnn_encode(X, enc_weights, gx, gy, geom: CnnGeom, want_acts=False):
     n = X.shape[0]
     sp = splat_planes(X)
     X0 = render_patches(sp, gx, gy, geom)
-    Y0 = torch.relu(F.linear(X0, W0, b0))
+    Y0 = torch.relu(tower_linear(X0, W0, b0))
     X1 = Y0[:, window_index(geom, X.device)].reshape(n, geom.n_q1, -1)
-    Y1 = torch.relu(F.linear(X1, W1, b1))
+    Y1 = torch.relu(tower_linear(X1, W1, b1))
     X2 = Y1.reshape(n, -1)
-    h = torch.relu(F.linear(X2, Wt, bt))
+    h = torch.relu(tower_linear(X2, Wt, bt))
     if want_acts:
         return h, (sp, X0, Y0, Y1, X2, h)
     return h

@@ -12,6 +12,12 @@ order than the reference's, inside the stated tolerance.
 `ppo_cnn_update_cuda` takes the plain version for CPU tensors only; on a
 CUDA tensor it launches the kernels.
 
+The kernels run the tower's products (conv0, conv1, the trunk, dX2, gW1,
+dX1, gW0) on the tensor cores in 3xTF32 (`csrc/cnn_mma.cuh`): each fp32
+operand split into two TF32 halves, three products a pair. `mm_3xtf32`
+is that product in torch, which `tower_linear` and `tower_mm` can be
+swapped for to see what the precision costs the plain version.
+
 Returns (grads (P,) in the flat kernel order, stat sums (N_UPSTATS,)) as
 `cuda_update.ppo_update_cuda`: gradients are sums scaled by inv_m, and
 log_std's is its stat sums ST_DLS* minus ent_coef.
@@ -35,7 +41,6 @@ from drone_tpu_torch.ops.cuda_acting_cnn import (
     KERNEL_ARCH,
     check_envelope,
     cnn_forward,
-    transposed_weights,
     window_index,
 )
 from drone_tpu_torch.ops.cuda_acting_traj import N_TRAJ
@@ -52,13 +57,51 @@ from drone_tpu_torch.pixels import grid_table, patch_grid
 
 # the plain version's samples per chunk
 PLAIN_CHUNK = 16384
-# kernel limits (csrc/update_cnn.cu)
-TILE = 32                 # samples of a tile
-MAX_BLOCKS = 132          # UPD_BLOCKS
+# kernel limits (csrc/update_cnn.cu, csrc/cnn_mma.cuh)
+TILE = 64                 # samples of a tower tile (TM_L)
+ROW_STRIDE = 72           # floats between a tile's rows in shared memory
+FWD_BLOCKS = 264          # the forward's blocks (two an SM)
+BWD_BLOCKS = 132          # the tower backward's blocks (one an SM)
 MAX_CHUNK = 4096          # lanes of one split-K chunk of the trunk's product
 MAX_SCRATCH = 262144      # samples of one chunk of steps (~0.7 GB scratch)
-BP_W = 20608 + 645 + N_UPSTATS  # a block partial row
-GPT = 128 * 577                 # a product partial row
+FP_W = 645 + N_UPSTATS    # a forward block's partial row: heads, stats
+BP_W = 20608              # a backward block's: W0 b0 W1 b1
+GPT = 128 * 577           # a product partial row
+PACKED_FLOATS = 4 * 92160  # the tower's packed (big, small) weights
+# shared rows of a forward tile (splat scalars, a patch, conv0's four
+# outputs, conv1's) and of a backward one (splat scalars, dzt, four
+# patches, conv0's four outputs, dz1)
+TOWER_FWD_ROWS = 12 + 64 + 256 + 64
+TOWER_BWD_ROWS = 12 + 128 + 256 + 256 + 64
+TOWER_FWD_SMEM = 4 * ROW_STRIDE * TOWER_FWD_ROWS   # 114,048
+TOWER_BWD_SMEM = 4 * ROW_STRIDE * TOWER_BWD_ROWS   # 206,208
+
+
+def tf32_split(x):
+    """(big, small) of float32 x as the kernels split an operand of a
+    3xTF32 product: big = x rounded to nearest TF32 (10 mantissa bits),
+    ties away from zero, as cvt.rna.tf32.f32; small = the same of x - big.
+    By bit operations, for finite x."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def mm_3xtf32(a, b):
+    """a @ b as the tensor cores compute it in 3xTF32: small.big +
+    big.small + big.big, each product exact in float32."""
+    ab, a_s = tf32_split(a)
+    bb, bs = tf32_split(b)
+    return (a_s @ bb + ab @ bs) + ab @ bb
+
+
+def tower_mm(a, b):
+    """a @ b for the tower's backward products (dX2, gW1, dX1, gW0), which
+    the kernels run in 3xTF32; mm_3xtf32 can take its place."""
+    return a @ b
 
 
 def cnn_encoder_bwd(dh, acts, enc_weights, geom: CnnGeom):
@@ -74,17 +117,17 @@ def cnn_encoder_bwd(dh, acts, enc_weights, geom: CnnGeom):
     # conv1: un-concat dX2, relu-mask, the weight gradient against the
     # windows' conv0 outputs, and the input gradient routed back to the
     # feeding conv0 patches (patchify convs: each patch feeds one window)
-    dz1 = (dzt @ Wt).view(n, geom.n_q1, c1) * (Y1 > 0.0).to(dh.dtype)
+    dz1 = tower_mm(dzt, Wt).view(n, geom.n_q1, c1) * (Y1 > 0.0).to(dh.dtype)
     idx = window_index(geom, dh.device)
     X1 = Y0[:, idx].reshape(n, geom.n_q1, -1)
-    gW1 = dz1.reshape(-1, c1).t() @ X1.reshape(-1, X1.shape[-1])
+    gW1 = tower_mm(dz1.reshape(-1, c1).t(), X1.reshape(-1, X1.shape[-1]))
     gb1 = dz1.sum((0, 1))
-    dX1 = (dz1 @ W1).view(n, -1, c0)
+    dX1 = tower_mm(dz1, W1).view(n, -1, c0)
     dY0 = torch.empty_like(Y0)
     dY0[:, idx.reshape(-1)] = dX1
     # conv0 against the rendered patches
     dz0 = dY0 * (Y0 > 0.0).to(dh.dtype)
-    gW0 = dz0.reshape(-1, c0).t() @ X0.reshape(-1, X0.shape[-1])
+    gW0 = tower_mm(dz0.reshape(-1, c0).t(), X0.reshape(-1, X0.shape[-1]))
     gb0 = dz0.sum((0, 1))
     return [gW0, gb0, gW1, gb1, gWt, gbt]
 
@@ -190,20 +233,23 @@ def ppo_cnn_update_kernel(planes, advret, perm_mb, theta, arch,
     NL = perm_mb.numel() * rbl
     tch = pick_chunk_steps(T, NL)
     CK = chunk_lanes(NL)
-    G = min(MAX_BLOCKS, tch * NL // TILE)
+    n_tiles = tch * NL // TILE
+    Gf, Gb = min(FWD_BLOCKS, n_tiles), min(BWD_BLOCKS, n_tiles)
     n_chunks, nk = T // tch, tch * NL // CK
-    wt = transposed_weights(theta, arch)
+    pk = torch.empty(PACKED_FLOATS, device=dev)
     grid = grid_table(arch.res, arch.p0, dev)
     x2s = torch.empty(tch * 576 * NL, device=dev)
     dzs = torch.empty(tch * 128 * NL, device=dev)
-    bpart = torch.empty(n_chunks * G, BP_W, device=dev)
+    fpart = torch.empty(n_chunks * Gf, FP_W, device=dev)
+    bpart = torch.empty(n_chunks * Gb, BP_W, device=dev)
     gpart = torch.empty(n_chunks * nk, GPT, device=dev)
     grads = torch.empty(P, device=dev)
     stats = torch.empty(N_UPSTATS, device=dev)
     ptrs = np.array([t.data_ptr() for t in (
-        planes, advret, perm_mb, theta, wt, grid, x2s, dzs, bpart, gpart,
-        grads, stats)], np.uint64)
-    dims = np.array([n, T, rbl, NL, tch, CK, G], np.int32)
+        planes, advret, perm_mb, theta, pk, grid, x2s, dzs, fpart, bpart,
+        gpart, grads, stats)], np.uint64)
+    dims = np.array([n, T, rbl, NL, tch, CK, Gf, Gb, TOWER_FWD_SMEM,
+                     TOWER_BWD_SMEM], np.int32)
     consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
                        co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
                       np.float32)

@@ -31,8 +31,11 @@ The plain version keeps only the tower's output x of each step and re-runs
 the tower in chunks of PLAIN_CHUNK samples in the backward, so it never
 holds conv0's output for a whole minibatch (~19 GB). The kernel's arm
 stores x, the trunk's inputs X2 (576 rows a sample) and dzt (128) for one
-segment, ~1.9 GB in all at 16,384 lanes x 16 steps (H 128), and runs the
-conv backward per segment after the walk through time (update_lstm.cu).
+segment, ~1.9 GB in all at 16,384 lanes x 16 steps (H 128). It runs the
+tower's forward per segment before the walk through time and its backward
+after it, both on the tensor cores in 3xTF32 (`csrc/cnn_mma.cuh`, shared
+with K10), so the walk reads x as the dense arm reads its encoder's output
+(update_lstm.cu).
 
 Returns (grads (P,) in the flat kernel order, stat sums (N_UPSTATS,)) as
 `cuda_update.ppo_update_cuda`: gradients are sums scaled by inv_m, and
@@ -56,9 +59,7 @@ from drone_tpu_torch.models.lstm import (
     lstm_weights,
 )
 from drone_tpu_torch.ops import cuda_build
-from drone_tpu_torch.ops.cuda_acting_cnn import transposed_tower
 from drone_tpu_torch.ops.cuda_acting_lstm import (
-    CNN_ROWS,
     ENC_CNN,
     ENC_DENSE,
     check_act_envelope,
@@ -84,7 +85,13 @@ from drone_tpu_torch.ops.cuda_update import (
     head_grads,
     minibatch_lanes,
 )
-from drone_tpu_torch.ops.cuda_update_cnn import PLAIN_CHUNK, cnn_encoder_bwd
+from drone_tpu_torch.ops.cuda_update_cnn import (
+    PACKED_FLOATS,
+    PLAIN_CHUNK,
+    TOWER_BWD_SMEM,
+    TOWER_FWD_SMEM,
+    cnn_encoder_bwd,
+)
 from drone_tpu_torch.pixels import grid_table
 from drone_tpu_torch.types import OBS_DIM
 
@@ -250,7 +257,7 @@ def grad_products(hidden: int, encoder):
     with the bias sums sum_s A[m, s] as column N; their total size; the map
     (P,) int32 from each flat parameter to its sum, -1 - k for log_std[k]).
     The CNN arm's gW0, gb0, gW1, gb1 come first, in the flat buffer's
-    order: conv_bwd_kernel writes them into each row's first OFF_WT
+    order: tower_bwd_kernel writes them into each row's first OFF_WT
     columns; its gWt and gbt are the product dzt x X2.
     """
     encoder = encoder_of(encoder)
@@ -324,17 +331,27 @@ def scratch_rows(hidden: int, encoder) -> list[int]:
 
 
 def bptt_smem_bytes(hidden: int, encoder) -> int:
-    """Shared memory of one through-time block (update_lstm.cu)."""
+    """Shared memory of one through-time block (update_lstm.cu). The CNN
+    arm's walk reads x from the scratch, so its forward holds xh and c."""
     encoder = encoder_of(encoder)
     E = encoder_width(encoder)
     if is_cnn(encoder):
-        fwd, maxe = CNN_ROWS + E + 2 * hidden, E
+        fwd, maxe = E + 2 * hidden, E
     else:
         mid = encoder[:-1]
         fwd = OBS_DIM + min(len(mid), 2) * max(mid, default=0) + E + 2 * hidden
         maxe = max(encoder, default=0)
     bwd = 6 * hidden + maxe + 6
     return 4 * BP_LANES * max(fwd, bwd)
+
+
+def kernel_smem_bytes(hidden: int, encoder) -> list[int]:
+    """Shared bytes of a block of each kernel the C entry point launches
+    with dynamic shared memory, as it checks them: the walk through time,
+    and the CNN arm's tower forward and backward (0 for the dense arm)."""
+    cnn = is_cnn(encoder_of(encoder))
+    return [bptt_smem_bytes(hidden, encoder),
+            TOWER_FWD_SMEM if cnn else 0, TOWER_BWD_SMEM if cnn else 0]
 
 
 def check_envelope(hidden: int, encoder) -> None:
@@ -348,7 +365,7 @@ def check_envelope(hidden: int, encoder) -> None:
         raise ValueError(f"encoder widths above 4 x hidden ({4 * hidden}) do "
                          f"not fit the update kernel's buffers, got "
                          f"{list(encoder)}")
-    if bptt_smem_bytes(hidden, encoder) > _MAX_SMEM:
+    if max(kernel_smem_bytes(hidden, encoder)) > _MAX_SMEM:
         raise ValueError(f"an LSTM of hidden {hidden} and encoder "
                          f"{encoder} needs more shared memory per block "
                          f"than an H100 has")
@@ -414,15 +431,14 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
     stats = torch.empty(N_UPSTATS, device=dev)
     cnn = is_cnn(encoder)
     if cnn:
-        wt = transposed_tower(enc_flat(lstm_weights(theta, hidden,
-                                                    encoder)[0]))
+        pk = torch.empty(PACKED_FLOATS, device=dev)
         grid = grid_table(encoder.res, encoder.p0, dev)
     ptrs = np.array([t.data_ptr() for t in (
         planes, advret, snap, perm_mb, theta, wp, bp, *scratch, partial,
         stat_part, mp, grads, stats)]
-        + ([wt.data_ptr(), grid.data_ptr()] if cnn else [0, 0]), np.uint64)
-    dims = np.array([n, T, bptt, rbl, NL, CK, P, ptot, len(pairs), *rows],
-                    np.int32)
+        + ([pk.data_ptr(), grid.data_ptr()] if cnn else [0, 0]), np.uint64)
+    dims = np.array([n, T, bptt, rbl, NL, CK, P, ptot, len(pairs), *rows,
+                     *kernel_smem_bytes(hidden, encoder)], np.int32)
     consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
                        co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
                       np.float32)

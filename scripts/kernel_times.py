@@ -1,15 +1,15 @@
-"""Times and registers of the dense-LSTM and CNN kernels of a checkout.
+"""Times and registers of the LSTM, CNN and CNN-LSTM kernels of a checkout.
 
 Run from the root of a checkout on a machine with an H100:
 
     python3 scripts/kernel_times.py <label>
 
 It builds acting_lstm, update_lstm, acting_cnn and update_cnn, times K8 and
-K6 (dense encoder) and K11 and K9 at their paths' shapes, and K7 and K10 on
-one full-width minibatch, by CUDA events, and prints one JSON line with
-the ptxas register count of every kernel. To compare two commits, copy the
-script into a second checkout (git archive) and run both in one call, in
-turns (parent, change, change, parent).
+K6 (dense encoder and CNN arm) and K11 and K9 at their paths' shapes, and
+K7 (both arms) and K10 on one full-width minibatch, by CUDA events, and
+prints one JSON line with the ptxas register count of every kernel. To
+compare two commits, copy the script into a second checkout (git archive)
+and run both in one call, in turns (parent, change, change, parent).
 """
 import json
 import sys
@@ -64,5 +64,19 @@ planes, advret, perm_mb, co, rbl = cs.cnn_minibatch(
     cfg.with_overrides(list(cs.CNN_OVERRIDES)), cm, env)
 t["K10"] = cs.cuda_ms(lambda: K10.ppo_cnn_update_kernel(
     planes, advret, perm_mb, cm.flat, cm.arch, co, rbl, 0.001), 3)
+del planes, advret
+clm = cs.cnn_lstm_policy(seed=2, log_std=0.0)
+arch = (clm.hidden, clm.encoder)
+carry = clm.initial_carry(n, "cuda")
+t["K8 cnn"] = cs.cuda_ms(lambda: K8.lstm_act_rollout_kernel(
+    state, clm.flat, arch, carry, env.params, env.statics, horizon), 1)
+t["K6 cnn"] = cs.cuda_ms(lambda: K8.traj_lstm_rollout_kernel(
+    s9, clm.flat, arch, carry, env.params, env.statics, 128, 16), 2)
+clm = cs.cnn_lstm_policy()
+planes, advret, snap, perm_mb, co, rbl, bptt = cs.lstm_minibatch(
+    cfg.with_overrides(list(cs.CNN_LSTM_OVERRIDES)), clm, env)
+args = (planes, advret, snap, perm_mb, clm.flat, (clm.hidden, clm.encoder),
+        co, rbl, bptt, 0.001)
+t["K7 cnn"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(*args), 3)
 print(json.dumps({"tree": sys.argv[1], "device": cs.device_line(), "ms": t,
                   "regs": regs}), flush=True)
