@@ -8,62 +8,59 @@
 //     `traj_cnn_rollout_pallas`).
 // Wrappers and plain versions: ops/cuda_acting_cnn.py.
 //
-// Design: a block of 256 threads owns a tile of 64 lanes (cnn.cuh). Per
-// step the first 64 threads, one lane each, observe their lane (env.cuh's
-// Carry stays in registers for the whole loop, as in K5 and K2), store the
-// obs planes and its 12 splat scalars; then every thread takes part in the
-// encoder, window by window (render a patch -> conv0, four times; conv1;
-// the window's share of the trunk into sums held in registers); then the
-// lane threads run the heads, the noise and log-prob (policy.cuh), the env
-// step and the planes. Shared memory: the splat scalars, one rendered
-// patch, one window's conv0 output and its conv1 output, 99 KB, so two
-// blocks share an SM. A ragged last tile computes on zeros for its lanes
-// past n and stores nothing for them.
+// Design: a block of 256 threads owns a tile of 64 lanes. Per step the
+// first 64 threads, one lane each, observe their lane (env.cuh's Carry
+// stays in registers for the whole loop, as in K5 and K2), store the obs
+// planes and its 12 splat scalars; then the block runs the tower's forward
+// on the tensor cores in 3xTF32, cnn_mma.cuh's tower_fwd_tile (the one the
+// updates K10 and K7 run: a patch's render overlapping the last patch's
+// conv0, W0's fragments in shared memory, conv1 and the trunk summed in
+// registers), h landing in the tile's rows; then the lane threads run the
+// heads, the noise and log-prob (policy.cuh), the env step and the planes.
+// The wrapper's call packs the forward's weights once (pack_tower_kernel,
+// PK_W0 .. PK_WTB, 736 KB) on the launch's stream. Shared memory 109,952
+// bytes (cnn_mma.cuh TF_SMEM), so two blocks share an SM and one block's
+// render overlaps the other's products. A ragged last tile computes on
+// zeros for its lanes past n and stores nothing for them.
 //
-// What bounds it on an H100: ~369k multiply-adds per lane-step (conv0
-// 147,456, conv1 147,456, trunk 73,728, heads 640) and 2,304 expf on the
-// fp32 cores; the env step is ~1% beside them and the planes 84 bytes a
-// lane-step. The weights stream from L2 (cnn.cuh). Tensor cores wait:
-// TF32 would break the tolerance, and 3xTF32 through wgmma is later work.
+// What bounds it on an H100: ~369k multiply-adds of the tower per
+// lane-step (conv0 147,456, conv1 147,456, trunk 73,728) at the 3xTF32
+// rate (165 TFLOP/s of fp32-accurate products), and 2,304 expf, the heads'
+// 640 multiply-adds and the env step on the fp32 cores; the planes are 84
+// bytes a lane-step. The tower's operands split and its barriers hold the
+// tensor cores below that rate (PERF.md).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "cnn.cuh"
+#include "cnn_mma.cuh"
 #include "env.cuh"
 
 namespace drone {
 
-constexpr int ACT_L = 64;  // lanes of a tile
-constexpr int ACT_S = ACT_L;
-// shared floats: splat scalars (12 rows), a patch (64), a window's conv0
-// output (256, later h), its conv1 output (64)
-constexpr int ACT_SMEM_FLOATS = (12 + CNN_K0 + CNN_K1 + CNN_C1) * ACT_S;
-
 struct CnnIO {
   const float* theta;  // flat parameters
-  const float* wt;     // W0^T, W1^T, Wt^T (cnn.cuh T_*)
+  const float4* pk;    // the forward's packed fragments (cnn_mma.cuh PK_FWD)
   const float* grid;   // gx, gy: (2, 576)
   float* traj;         // (T, 21, n), or null when serving
   int T, stochastic;
 };
 
 template <int TASK, int INTEG>
-__global__ void __launch_bounds__(CNN_THREADS, 2)
+__global__ void __launch_bounds__(TM_THREADS, 2)
 cnn_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
                Planes pl, CnnIO io) {
-  constexpr int L = ACT_L, S = ACT_S;
+  constexpr int L = TM_L, S = TM_S;
   extern __shared__ float4 smem4[];
   __shared__ EnvP P;
-  float* sp = reinterpret_cast<float*>(smem4);
-  float* xr = sp + 12 * S;
-  float* y0 = xr + CNN_K0 * S;
-  float* y1 = y0 + CNN_K1 * S;
-  float* h = y0;  // the trunk's output, once the last window is done
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* sp = tf_rows(sm) + TF_SP * S;
+  const float* h = tf_rows(sm) + TF_Y0 * S;  // the tower's output
   const int n = pl.n;
   const int tid = threadIdx.x;
   const int i = blockIdx.x * L + tid;
+  tower_load_w0(sm, io.pk);
   load_params(pf, pi, P);  // ends with a barrier
 
   const bool lane_thread = tid < L && i < n;
@@ -98,8 +95,7 @@ cnn_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
     }
     __syncthreads();
 
-    cnn_encode_tile<L, S>(sp, io.theta, io.wt, io.grid, xr, y0, y1, h,
-                          NoWindowOut{});
+    tower_fwd_tile(sm, io.theta, io.pk, io.grid, [](int, const float*) {});
     __syncthreads();
 
     if (lane_thread) {
@@ -134,21 +130,24 @@ cnn_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
       accumulate(acc, r, done, epret2, step2);
     }
     // the next step's first writes (sp) are read only after its barrier,
-    // and h is rewritten only after two more
+    // and h is rewritten only after one more
   }
   if (lane_thread) write_back(pl, i, cr, acc);
 }
 
 template <int TASK, int INTEG>
 cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
-                   const CnnIO& io, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)ACT_SMEM_FLOATS;
+                   const CnnIO& io, float4* pk, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       cnn_act_kernel<TASK, INTEG>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+  if (err != cudaSuccess) return err;
+  pack_tower_kernel<<<(PK_FWD + 255) / 256, 256, 0, stream>>>(io.theta, pk,
+                                                               PK_FWD);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cnn_act_kernel<TASK, INTEG>
-      <<<(pl.n + ACT_L - 1) / ACT_L, CNN_THREADS, smem, stream>>>(pf, pi, pl,
+      <<<(pl.n + TM_L - 1) / TM_L, TM_THREADS, TF_SMEM, stream>>>(pf, pi, pl,
                                                                    io);
   return cudaGetLastError();
 }
@@ -156,21 +155,28 @@ cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
 }  // namespace drone
 
 // C interface (ctypes). pf/pi: device env params; fs..stats: the state and
-// statistic planes of rollout.cu; theta: the flat parameters (95,113); wt:
-// the transposed weights (94,208); grid: the pixel coordinates (2, 576);
-// traj: the (T, 21, n) planes to train (K9), or null to serve (K11).
+// statistic planes of rollout.cu; theta: the flat parameters (95,113); pk:
+// room for the forward's packed fragments (PK_FWD float4s), written here on
+// the stream before the kernel reads them; grid: the pixel coordinates (2,
+// 576); traj: the (T, 21, n) planes to train (K9), or null to serve (K11);
+// smem: the block's shared bytes as the wrapper counts them (refused unless
+// TF_SMEM).
 extern "C" int drone_cnn_act_rollout(
     const float* pf, const int* pi, const float* fs, const uint32_t* us,
     const int* st, float* ofs, uint32_t* ous, int* ost, float* stats,
-    const float* theta, const float* wt, const float* grid, float* traj,
-    int stochastic, int n, int T, int task, int integrator, void* stream) {
+    const float* theta, float* pk, const float* grid, float* traj,
+    int stochastic, int smem, int n, int T, int task, int integrator,
+    void* stream) {
   using namespace drone;
-  if (n <= 0 || T < 0) return (int)cudaErrorInvalidValue;
-  const CnnIO io{theta, wt, grid, traj, T, stochastic};
+  if (n <= 0 || T < 0 || smem != TF_SMEM || pk == nullptr)
+    return (int)cudaErrorInvalidValue;
+  float4* pk4 = reinterpret_cast<float4*>(pk);
+  const CnnIO io{theta, pk4, grid, traj, T, stochastic};
   const Planes pl{fs, us, st, ofs, ous, ost, stats, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DRONE_CNN_CASE(TK, IG) \
-  if (task == TK && integrator == IG) return (int)launch<TK, IG>(pf, pi, pl, io, s);
+  if (task == TK && integrator == IG) \
+    return (int)launch<TK, IG>(pf, pi, pl, io, pk4, s);
   DRONE_CNN_CASE(TASK_HOVER, INTEG_EULER)
   DRONE_CNN_CASE(TASK_HOVER, INTEG_RK4)
   DRONE_CNN_CASE(TASK_WAYPOINT, INTEG_EULER)

@@ -1,7 +1,9 @@
 // cnn_mma.cuh — the patch-CNN tower over a tile of samples on the tensor
-// cores, in 3xTF32: the machinery of the CNN update (update_cnn.cu: K10)
-// and of the CNN arm of the truncated-BPTT update (update_lstm.cu: K7).
-// The acting kernels keep cnn.cuh's fp32 products.
+// cores, in 3xTF32: the one tower forward of the port (tower_fwd_tile), run
+// by the acting kernels (acting_cnn.cu: K11 and K9; the CNN arms of
+// acting_lstm.cu: K8 and K6) once a step and by the updates (update_cnn.cu:
+// K10; update_lstm.cu: K7's CNN arm) once a sample, and the tower's
+// backward (tower_bwd_tile, the updates').
 //
 // Each layer is the matrix product it is, over samples x positions:
 //   conv0   (samples . 36, 64)  x (64, 64)
@@ -18,30 +20,51 @@
 // registers in any layout, so the activations stay in shared memory as
 // rows of the tile ([row][sample], stride TM_S) for the forward products
 // (M = samples, K = rows) and the weight-gradient ones (K = samples) alike.
+// wgmma would need the activations K-major in shared memory and its
+// descriptors; mma.sync keeps the layout the render and the heads share.
 //
 // Precision, 3xTF32: each fp32 operand x is split into big = cvt.rna.tf32(x)
 // and small = cvt.rna.tf32(x - big) (exact with --fmad=false), and a
 // product accumulates small.big + big.small + big.big in the tensor cores'
 // fp32 accumulators. The error of a product is ~2^-21 of its size, against
 // fp32's 2^-24; the weight gradients' sums over a block's samples add each
-// window's partial sums with IEEE adds (fold). The kernels are held to
+// window's partial sums with IEEE adds (fold). The updates are held to
 // their fp32 plain versions at the update's tolerance (1e-4 of each
-// gradient tensor's max). Plain TF32 or bf16 would not hold it.
+// gradient tensor's max), the acting kernels at the serving one (rtol 2e-5,
+// atol 2e-6 over 3 steps). Plain TF32 or bf16 would not hold them.
 //
 // Weights: pack_tower_kernel splits the tower's weights once per call into
 // (big, small) fragments in the order a warp reads them (a float4 a lane a
-// k x n tile: 512 contiguous bytes), 1.47 MB that stay in L2 and L1. They
-// are not staged through shared memory: the tiles fill it (two forward
-// blocks take 228 KB of an SM's 228 KB, a backward block 206 KB), and W1's
-// fragments alone are 128 KB. Each fragment serves the tile's 64 samples,
-// and the next one or two k-steps' fragments load into registers while a
-// step multiplies (mma_rows_packed). The activations are split as their
-// fragments load.
+// k x n tile: 512 contiguous bytes). The forward stages W0's 32 KB in each
+// block's shared memory (tower_load_w0): conv0 runs 36 times a sample and
+// is 40% of the forward's products. W1's and Wt's fragments (704 KB) stay
+// in L2 and L1, the next k-step's loaded into registers while a step
+// multiplies (mma_rows_packed; the backward, at one block an SM, loads two
+// ahead). The activations are split as their fragments load.
 //
-// Tiles: 64 samples, 8 warps. Shared memory: the forward 114,048 bytes
-// (two blocks an SM: one block's render overlaps the other's products),
-// the backward 206,208 bytes (one block an SM; its weight gradients stay
-// in registers, 80 a thread, across all its tiles).
+// The forward (tower_fwd_tile), patch by patch with one barrier each: while
+// conv0 multiplies patch j, the block renders patch j + 1 into the other of
+// two patch buffers, so one warp's render overlaps another's products
+// (besides the two blocks an SM); conv1 adds each patch's 64 inputs into
+// sums held in registers as the patch's conv0 output arrives, so only two
+// patches' conv0 outputs are ever live (128 rows, later h), not a window's
+// four; at a window's end its conv1 output goes over the patch buffer conv0
+// has read, and the trunk adds the window's share. Each product sums its
+// k-steps in the order it did when the forward ran window by window, so
+// the updates' gradients kept their bits. Shared memory 109,952 bytes (two
+// blocks an SM, which the acting kernel K11 needs: at one, 28% slower),
+// 55 barriers a tile (81 before). Not taken: 128-sample tiles (twice the
+// rows, and twice the accumulators in registers capped at 128 a thread by
+// the second block), W1's and Wt's fragments staged in shared memory (no
+// room beside two tiles), wgmma (the activations K-major, in place of the
+// rows the render and the heads share), the render interleaved between
+// conv0's k-steps (K11 5% slower, K8's CNN arm 4%), and W1's and Wt's
+// fragments loaded two k-steps ahead (K11 0.5% faster, K8's and K7's CNN
+// arms 1% slower). Their times: PERF.md.
+
+// Tiles: 64 samples, 8 warps. The backward 206,208 bytes (one block an SM;
+// its weight gradients stay in registers, 80 a thread, across all its
+// tiles).
 //
 // Determinism (H6): no float atomics. Every product accumulates in a fixed
 // order, each block keeps its weight gradients in a fixed per-thread
@@ -66,14 +89,25 @@ constexpr int TM_THREADS = 256;
 // half the operands it would at 2 x 2 (K10 5% faster on an H100).
 constexpr int CMI = 1, CNI = 4, CMW = 4;
 
-// shared rows of the tower's forward tile: splat scalars, one rendered
-// patch, the window's four conv0 outputs, its conv1 output
+// The packed weights, in float4s: B[k][n] fragments of each product
+constexpr int PK_W0 = 0;                        // conv0: B = W0^T (64, 64)
+constexpr int PK_W1 = PK_W0 + CNN_K0 * CNN_C0 / 2;     // conv1: W1^T (256, 64)
+constexpr int PK_WT = PK_W1 + CNN_K1 * CNN_C1 / 2;     // trunk: Wt^T (576, 128)
+constexpr int PK_WTB = PK_WT + CNN_X2 * CNN_H / 2;     // dX2: Wt (128, 576)
+constexpr int PK_W1B = PK_WTB + CNN_H * CNN_X2 / 2;    // dX1: W1 (64, 256)
+constexpr int PK_TOTAL = PK_W1B + CNN_C1 * CNN_K1 / 2;  // 92,160
+// the forward's share (PK_W0 .. PK_WTB): what the acting kernels pack
+constexpr int PK_FWD = PK_WTB;                          // 47,104
+
+// The forward tile's shared memory: W0's fragments (floats), then rows of
+// the tile: splat scalars, two rendered patches (a window's conv1 output
+// goes over the one conv0 has read), two patches' conv0 outputs (then h)
+constexpr int TF_W0F = (PK_W1 - PK_W0) * 4;                    // 8,192
 constexpr int TF_SP = 0;
 constexpr int TF_XR = TF_SP + 12;
-constexpr int TF_Y0 = TF_XR + CNN_K0;
-constexpr int TF_Y1 = TF_Y0 + CNN_K1;
-constexpr int TF_ROWS = TF_Y1 + CNN_C1;                        // 396
-constexpr int TF_SMEM = TF_ROWS * TM_S * 4;                    // 114,048
+constexpr int TF_Y0 = TF_XR + 2 * CNN_K0;
+constexpr int TF_ROWS = TF_Y0 + 2 * CNN_C0;                    // 268
+constexpr int TF_SMEM = (TF_W0F + TF_ROWS * TM_S) * 4;         // 109,952
 // ... of the backward tile: splat scalars, dzt, the window's four rendered
 // patches, their conv0 outputs (then dz0), dz1
 constexpr int TB_SP = 0;
@@ -83,14 +117,6 @@ constexpr int TB_Y0 = TB_XR + CNN_K1;
 constexpr int TB_DZ1 = TB_Y0 + CNN_K1;
 constexpr int TB_ROWS = TB_DZ1 + CNN_C1;                       // 716
 constexpr int TB_SMEM = TB_ROWS * TM_S * 4;                    // 206,208
-
-// The packed weights, in float4s: B[k][n] fragments of each product
-constexpr int PK_W0 = 0;                        // conv0: B = W0^T (64, 64)
-constexpr int PK_W1 = PK_W0 + CNN_K0 * CNN_C0 / 2;     // conv1: W1^T (256, 64)
-constexpr int PK_WT = PK_W1 + CNN_K1 * CNN_C1 / 2;     // trunk: Wt^T (576, 128)
-constexpr int PK_WTB = PK_WT + CNN_X2 * CNN_H / 2;     // dX2: Wt (128, 576)
-constexpr int PK_W1B = PK_WTB + CNN_H * CNN_X2 / 2;    // dX1: W1 (64, 256)
-constexpr int PK_TOTAL = PK_W1B + CNN_C1 * CNN_K1 / 2;  // 92,160
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
@@ -181,12 +207,21 @@ __device__ __forceinline__ void frag_b_samples(const float* X, int n0, int k0,
   split_tf32(p[4], bb[1], bs[1]);
 }
 
+// A packed fragment: from L2 and L1 (__ldg), or from shared memory (SB).
+template <bool SB>
+__device__ __forceinline__ float4 ld_frag(const float4* p) {
+  if constexpr (SB)
+    return *p;
+  else
+    return __ldg(p);
+}
+
 // acc[i][j] (samples m0 + 16 i .., n-tile nt0 + j) += sum over the K rows
-// of X of X[k][sample] B[kt0 * 8 + k][n], B packed (NT n-tiles a k-tile).
-// The weights of the next PF k-steps load while one multiplies (they come
-// from L2; PF = 2 where a kernel has the registers). K is a multiple of
-// 8 PF.
-template <int PF, int MI, int NI>
+// of X of X[k][sample] B[kt0 * 8 + k][n], B packed (NT n-tiles a k-tile),
+// in device memory or, with SB, in shared memory. The weights of the next
+// PF k-steps load while one multiplies (from L2; PF = 2 where a kernel has
+// the registers). K is a multiple of 8 PF.
+template <int PF, bool SB = false, int MI, int NI>
 __device__ __forceinline__ void mma_rows_packed(const float* X, int K, int m0,
                                                 const float4* __restrict__ B,
                                                 int NT, int kt0, int nt0,
@@ -196,7 +231,8 @@ __device__ __forceinline__ void mma_rows_packed(const float* X, int K, int m0,
 #pragma unroll
   for (int p = 0; p < PF; ++p)
 #pragma unroll
-    for (int j = 0; j < NI; ++j) w[p][j] = __ldg(bp + (size_t)p * NT * 32 + j * 32);
+    for (int j = 0; j < NI; ++j)
+      w[p][j] = ld_frag<SB>(bp + (size_t)p * NT * 32 + j * 32);
 #pragma unroll 2
   for (int k = 0; k < K; k += 8 * PF) {
 #pragma unroll
@@ -213,7 +249,7 @@ __device__ __forceinline__ void mma_rows_packed(const float* X, int K, int m0,
       if (kk + 8 * PF < K) {
         const float4* nx = bp + (size_t)(kk / 8 + PF) * NT * 32;
 #pragma unroll
-        for (int j = 0; j < NI; ++j) w[p][j] = __ldg(nx + j * 32);
+        for (int j = 0; j < NI; ++j) w[p][j] = ld_frag<SB>(nx + j * 32);
       }
       uint32_t ab[MI][4], as[MI][4];
 #pragma unroll
@@ -223,25 +259,20 @@ __device__ __forceinline__ void mma_rows_packed(const float* X, int K, int m0,
   }
 }
 
-// out rows (64) = relu(X W^T + b) over the tile: X K rows, W packed (8
-// n-tiles). Warp w takes samples 16 (w % 4) .. and columns 32 (w / 4) ..
-template <int PF>
-__device__ __forceinline__ void conv_mma(const float* X, int K,
-                                         const float4* __restrict__ B,
-                                         const float* __restrict__ bias,
-                                         float* out) {
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = 16 * CMI * (w % CMW), nt0 = CNI * (w / CMW);
-  float acc[CMI][CNI][4];
-  zero_frags(acc);
-  mma_rows_packed<PF>(X, K, m0, B, 8, 0, nt0, acc);
+// out rows = relu(acc + b) from a warp tile's accumulators: samples m0 +
+// 16 i .., rows (n-tile nt0 + j) * 8 ..
+template <int MI, int NI>
+__device__ __forceinline__ void store_relu(const float (&acc)[MI][NI][4],
+                                           int m0, int nt0,
+                                           const float* __restrict__ bias,
+                                           float* out) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < CNI; ++j) {
+  for (int j = 0; j < NI; ++j) {
     const int n = (nt0 + j) * 8 + 2 * t;
     const float b0 = __ldg(bias + n), b1 = __ldg(bias + n + 1);
 #pragma unroll
-    for (int i = 0; i < CMI; ++i) {
+    for (int i = 0; i < MI; ++i) {
       const int m = m0 + 16 * i + g;
       out[n * TM_S + m] = fmaxf(acc[i][j][0] + b0, 0.0f);
       out[(n + 1) * TM_S + m] = fmaxf(acc[i][j][1] + b1, 0.0f);
@@ -251,55 +282,91 @@ __device__ __forceinline__ void conv_mma(const float* X, int K,
   }
 }
 
-// The tower's forward over a tile of TM_L samples, after the caller put
-// the splat scalars in sp (rows TF_SP ..) and passed a barrier: per conv1
-// window, each of its four patches rendered into xr and put through conv0
-// into y0, conv1 into y1, and the window's share of the trunk into sums
-// held in registers (warp w: samples 32 (w & 1) .., units 32 (w >> 1) ..);
-// on_window(q1, y1) sees each window's conv1 output (X2 rows q1 * 64 ..).
-// Then h = relu(trunk + bt) into rows 0..127 of y0; the caller needs a
-// barrier before it reads h. All threads.
+// out rows (64) = relu(X W^T + b) over the tile: X K rows, W packed (8
+// n-tiles; in shared memory with SB). Warp w takes samples 16 (w % 4) ..
+// and columns 32 (w / 4) ..
+template <int PF, bool SB = false>
+__device__ __forceinline__ void conv_mma(const float* X, int K,
+                                         const float4* __restrict__ B,
+                                         const float* __restrict__ bias,
+                                         float* out) {
+  const int w = threadIdx.x >> 5;
+  const int m0 = 16 * CMI * (w % CMW), nt0 = CNI * (w / CMW);
+  float acc[CMI][CNI][4];
+  zero_frags(acc);
+  mma_rows_packed<PF, SB>(X, K, m0, B, 8, 0, nt0, acc);
+  store_relu(acc, m0, nt0, bias, out);
+}
+
+// W0's fragments into the first TF_W0F floats of a forward tile's shared
+// memory; a barrier must come before the block's first tower_fwd_tile.
+// All threads.
+__device__ __forceinline__ void tower_load_w0(float* sm,
+                                              const float4* __restrict__ pk) {
+  float4* w0 = reinterpret_cast<float4*>(sm);
+  for (int i = threadIdx.x; i < PK_W1 - PK_W0; i += blockDim.x)
+    w0[i] = __ldg(pk + PK_W0 + i);
+}
+
+// The rows of a forward tile's shared memory (TF_SP .. TF_ROWS), after
+// W0's fragments.
+__device__ __forceinline__ float* tf_rows(float* sm) { return sm + TF_W0F; }
+
+// The tower's forward over a tile of TM_L samples. sm: the tile's TF_SMEM
+// bytes of shared memory, W0's fragments first (tower_load_w0); the caller
+// put the splat scalars in rows TF_SP .. and passed a barrier. Patch j (36,
+// four to a conv1 window) goes through conv0 into y0 buffer j % 2 while the
+// block renders patch j + 1 into xr buffer (j + 1) % 2; after the patch's
+// barrier conv1's sums in registers (warp w: samples 16 (w % 4) ..,
+// columns 32 (w / 4) ..) add its 64 inputs. At a window's end its conv1
+// output y1 goes over xr buffer 1, which conv0 has read; after a barrier
+// the window's share of the trunk adds into sums in registers (warp w:
+// samples 32 (w & 1) .., units 32 (w >> 1) ..) and on_window(q1, y1) sees
+// y1 (X2 rows q1 * 64 ..); a barrier ends the window. Then h = relu(trunk +
+// bt) into rows TF_Y0 .. TF_Y0 + 127; the caller needs a barrier before it
+// reads h. All threads.
 template <class OnWindow>
 __device__ __forceinline__ void tower_fwd_tile(
     float* sm, const float* __restrict__ theta, const float4* __restrict__ pk,
     const float* __restrict__ grid, const OnWindow& on_window) {
-  const float* sp = sm + TF_SP * TM_S;
-  float* xr = sm + TF_XR * TM_S;
-  float* y0 = sm + TF_Y0 * TM_S;
-  float* y1 = sm + TF_Y1 * TM_S;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  static_assert(CNN_WIN % 2 == 0, "a window ends on xr buffer 1");
+  constexpr int NP = CNN_NQ1 * CNN_WIN;
+  const float4* w0 = reinterpret_cast<const float4*>(sm);
+  float* rows = tf_rows(sm);
+  const float* sp = rows + TF_SP * TM_S;
+  float* xr = rows + TF_XR * TM_S;
+  float* y0 = rows + TF_Y0 * TM_S;
+  const int w = threadIdx.x >> 5;
+  const int mc = 16 * CMI * (w % CMW), ntc = CNI * (w / CMW);
   const int m0 = 32 * (w & 1), nt0 = 4 * (w >> 1);
-  float tacc[2][4][4];
+  float c1[CMI][CNI][4], tacc[2][4][4];
+  zero_frags(c1);
   zero_frags(tacc);
-  for (int q1 = 0; q1 < CNN_NQ1; ++q1) {
-    for (int k = 0; k < CNN_WIN; ++k) {
-      render_patch<TM_L, TM_S>(window_patch(q1, k), sp, grid, xr);
-      __syncthreads();
-      conv_mma<1>(xr, CNN_K0, pk + PK_W0, theta + OFF_B0,
-                  y0 + k * CNN_C0 * TM_S);
-      __syncthreads();  // the next patch renders over xr
-    }
-    conv_mma<1>(y0, CNN_K1, pk + PK_W1, theta + OFF_B1, y1);
+  render_patch<TM_L, TM_S>(window_patch(0, 0), sp, grid, xr);
+  __syncthreads();
+  for (int j = 0; j < NP; ++j) {
+    const int q1 = j / CNN_WIN, k = j % CNN_WIN;
+    float* xb = xr + (j & 1) * CNN_K0 * TM_S;
+    float* yb = y0 + (j & 1) * CNN_C0 * TM_S;
+    const int pn = window_patch((j + 1) / CNN_WIN, (j + 1) % CNN_WIN);
+    float* xn = xr + ((j + 1) & 1) * CNN_K0 * TM_S;
+    if (j + 1 < NP) render_patch<TM_L, TM_S>(pn, sp, grid, xn);
+    conv_mma<1, true>(xb, CNN_K0, w0, theta + OFF_B0, yb);
     __syncthreads();
-    mma_rows_packed<1>(y1, CNN_C1, m0, pk + PK_WT, CNN_H / 8, q1 * (CNN_C1 / 8),
-                    nt0, tacc);
-    on_window(q1, y1);
-    // no barrier: y1 is next written after the next window's renders
-  }
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = (nt0 + j) * 8 + 2 * t;
-    const float b0 = __ldg(theta + OFF_BT + n), b1 = __ldg(theta + OFF_BT + n + 1);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + 16 * i + g;
-      y0[n * TM_S + m] = fmaxf(tacc[i][j][0] + b0, 0.0f);
-      y0[(n + 1) * TM_S + m] = fmaxf(tacc[i][j][1] + b1, 0.0f);
-      y0[n * TM_S + m + 8] = fmaxf(tacc[i][j][2] + b0, 0.0f);
-      y0[(n + 1) * TM_S + m + 8] = fmaxf(tacc[i][j][3] + b1, 0.0f);
+    mma_rows_packed<1>(yb, CNN_C0, mc, pk + PK_W1, CNN_C1 / 8,
+                       k * (CNN_C0 / 8), ntc, c1);
+    if (k == CNN_WIN - 1) {
+      float* y1 = xb;
+      store_relu(c1, mc, ntc, theta + OFF_B1, y1);
+      zero_frags(c1);
+      __syncthreads();
+      mma_rows_packed<1>(y1, CNN_C1, m0, pk + PK_WT, CNN_H / 8,
+                         q1 * (CNN_C1 / 8), nt0, tacc);
+      on_window(q1, y1);
+      __syncthreads();  // patch j + 2 renders over y1
     }
   }
+  store_relu(tacc, m0, nt0, theta + OFF_BT, y0);
 }
 
 // A warp's sum of row r (TM_L samples) of a tile, the same bits in every
@@ -568,14 +635,15 @@ tower_bwd_kernel(TowerBwdArgs A) {
   tower_grads_out(gr, sm, A.partial + (size_t)(A.row0 + blockIdx.x) * A.ptot);
 }
 
-// The packed (big, small) fragments of the tower's weights (PK_*): float4
-// i of a product's K x N matrix B is lane (i % 32) of tile (kt, nt) = (i /
+// The packed (big, small) fragments of the tower's weights (PK_*), the
+// first `count` float4s (PK_TOTAL, or the forward's PK_FWD): float4 i of a
+// product's K x N matrix B is lane (i % 32) of tile (kt, nt) = (i /
 // 32 / NT, i / 32 % NT): {big, big, small, small} of B[8 kt + t][8 nt + g]
 // and B[8 kt + t + 4][8 nt + g], g = lane / 4, t = lane % 4.
 __global__ void pack_tower_kernel(const float* __restrict__ theta,
-                                  float4* __restrict__ pk) {
+                                  float4* __restrict__ pk, int count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= PK_TOTAL) return;
+  if (i >= count) return;
   int base, N, off, sn, sk;  // B[k][n] = theta[off + n * sn + k * sk]
   if (i < PK_W1) {
     base = PK_W0, N = CNN_C0, off = OFF_W0, sn = CNN_K0, sk = 1;

@@ -13,7 +13,8 @@
 // into their (big, small) fragments, then per chunk three kernels run:
 //   cnn_fwd_kernel: a block of 256 threads (two an SM) takes fixed tiles of
 //     64 samples (64 lanes of one row block at one step). Per tile the
-//     tower's forward (cnn_mma.cuh tower_fwd_tile), storing each window's
+//     tower's forward (cnn_mma.cuh tower_fwd_tile, the acting kernels'
+//     too; W0's fragments in shared memory), storing each window's
 //     conv1 output (the trunk's input X2) in a device scratch; the heads and
 //     the PPO head's gradients per sample (policy.cuh head_grads, K3's); the
 //     heads' gradient sums in registers (each entry always the same
@@ -81,10 +82,12 @@ cnn_fwd_kernel(UpdArgs A, UConsts co) {
   constexpr int L = TM_L, S = TM_S;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* sp = sm + TF_SP * S;
-  float* hh = sm + TF_Y0 * S;   // h, rows 0..127 of y0
-  float* dmv = sm + TF_XR * S;  // dm, g_v [5][S], over the patch rows
+  float* rows = tf_rows(sm);
+  float* sp = rows + TF_SP * S;
+  float* hh = rows + TF_Y0 * S;   // h, over the conv0 output rows
+  float* dmv = rows + TF_XR * S;  // dm, g_v [5][S], over the patch rows
   const int tid = threadIdx.x, n = A.n, NL = A.NL;
+  tower_load_w0(sm, A.pk);  // before the first tile's barriers
   float ls[4], stdv[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -364,7 +367,8 @@ extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
   err = cudaFuncSetAttribute(
       tower_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TB_SMEM);
   if (err != cudaSuccess) return (int)err;
-  pack_tower_kernel<<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(A.theta, pk);
+  pack_tower_kernel<<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(A.theta, pk,
+                                                         PK_TOTAL);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_chunks = T / tch, nk = tch * (NL / CK);

@@ -450,9 +450,10 @@ tower_fwd_kernel(TowerFwdArgs A) {
   constexpr int L = TM_L, S = TM_S;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* sp = sm + TF_SP * S;
-  const float* hh = sm + TF_Y0 * S;
+  float* sp = tf_rows(sm) + TF_SP * S;
+  const float* hh = tf_rows(sm) + TF_Y0 * S;
   const int tid = threadIdx.x, n = A.n, NL = A.NL, per_t = NL / L;
+  tower_load_w0(sm, A.pk);  // before the first tile's barriers
   for (int tau = blockIdx.x; tau < A.n_tiles; tau += gridDim.x) {
     const int tl = tau / per_t, ml0 = (tau % per_t) * L;
     const int lane0 = A.perm[ml0 / A.rbl] * A.rbl + ml0 % A.rbl;
@@ -688,7 +689,8 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                TB_SMEM);
     if (err != cudaSuccess) return (int)err;
-    pack_tower_kernel<<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(A.theta, pk);
+    pack_tower_kernel<<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(A.theta, pk,
+                                                             PK_TOTAL);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

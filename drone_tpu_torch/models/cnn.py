@@ -133,11 +133,6 @@ def cnn_all_weights(theta: torch.Tensor, arch: CnnArch):
     return (*v[:6], (v[6], v[7]), (v[8], v[9]), v[10])
 
 
-def cnn_encoder_weights(theta: torch.Tensor, arch: CnnArch):
-    """(W0, b0, W1, b1, Wt, bt): the encoder's views of the flat buffer."""
-    return cnn_all_weights(theta, arch)[:6]
-
-
 def patch_cnn_trunk(obs, enc_weights, arch: CnnArch):
     """The patchify-CNN feature tower on images: obs (N, 13) -> render ->
     conv0 -> conv1 -> trunk features (N, hidden), as flax convolves the

@@ -153,6 +153,14 @@ def dense_encode(obs, enc):
     return acts
 
 
+def gate_linear(x, h, wi, wh):
+    """x Wi^T + h Wh^T, one gate's pre-activation before its bias (the
+    reference's dot(wi, x) + dot(wh, h)). The acting kernels' CNN arm runs
+    the four gates as one product (x; h) [Wi; Wh] in 3xTF32; an emulation
+    of that (cuda_update_cnn.mm_3xtf32) can take its place."""
+    return F.linear(x, wi) + F.linear(h, wh)
+
+
 def lstm_step(obs, c, h, weights, encode=dense_encode):
     """One encoder + LSTM step, batch-major: obs (N, 13), c/h (N, H) ->
     (encoder activations, gates (i, f, g, o), c', tanh(c'), h').
@@ -162,7 +170,7 @@ def lstm_step(obs, c, h, weights, encode=dense_encode):
     enc, wi, wh, bh = weights[:4]
     acts = encode(obs, enc)
     x = acts[-1]
-    pre = [F.linear(x, wi[k]) + F.linear(h, wh[k]) + bh[k] for k in range(4)]
+    pre = [gate_linear(x, h, wi[k], wh[k]) + bh[k] for k in range(4)]
     gi, gf, go = (torch.sigmoid(pre[k]) for k in (0, 1, 3))
     gg = torch.tanh(pre[2])
     c2 = gf * c + gi * gg

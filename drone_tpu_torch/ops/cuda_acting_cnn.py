@@ -2,7 +2,7 @@
 
 Counterpart of `drone_tpu/ops/pallas_acting_cnn.py`. Both kernels are one
 CUDA kernel, `csrc/acting_cnn.cu`, over the device functions of
-`csrc/cnn.cuh`:
+`csrc/cnn.cuh` and the tensor-core tower of `csrc/cnn_mma.cuh`:
 
   - `cnn_act_rollout_cuda` (K11): T CNN-policy + env steps per lane,
     deterministic by default, episode statistics only; evaluate()'s path
@@ -17,9 +17,11 @@ splat scalars of a lane (`splat_planes`) and the patch's pixel coordinates
 versions read alike). The plain versions beside the kernels run the
 reference's plane-space math (`cnn_forward`, batch-major here): render,
 conv0 per patch, conv1 per window of `conv1_patches`, trunk, heads. The
-wrappers take the plain version for CPU tensors only; on a CUDA tensor they
-launch the kernel, which takes the default architecture only
-(`check_envelope`).
+kernels run the tower's products (conv0, conv1, the trunk) on the tensor
+cores in 3xTF32, the updates' forward (`tower_linear` is the hook an
+emulation of those takes). The wrappers take the plain version for CPU
+tensors only; on a CUDA tensor they launch the kernel, which takes the
+default architecture only (`check_envelope`).
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ from drone_tpu_torch.models.cnn import (  # noqa: F401 (re-exported)
     CnnArch,
     CnnGeom,
     cnn_all_weights,
-    cnn_encoder_weights,
 )
 from drone_tpu_torch.ops import cuda_build
 from drone_tpu_torch.ops.cuda_acting import gauss4
@@ -61,6 +62,19 @@ from drone_tpu_torch.types import EnvParams, EnvState, EnvStatics
 # reference's PatchCNNActorCritic() defaults, which its trainer always
 # builds.
 KERNEL_ARCH = CnnArch(24, 4, 2, 64, 64, 128)
+# The tensor-core tower's forward tile (csrc/cnn_mma.cuh), which K11, K9,
+# the CNN arms of K8 and K6, K10 and K7's CNN arm run: 64 samples (TILE),
+# rows of the tile ROW_STRIDE floats apart in shared memory after W0's
+# (big, small) fragments: the splat scalars (12), two rendered patches
+# (2 x 64), two patches' conv0 outputs (2 x 64, later the tower's output).
+TILE = 64
+ROW_STRIDE = 72
+W0_FRAG_FLOATS = 2 * 64 * 64
+TOWER_FWD_ROWS = 12 + 2 * 64 + 2 * 64
+TOWER_FWD_SMEM = 4 * (W0_FRAG_FLOATS + ROW_STRIDE * TOWER_FWD_ROWS)  # 109,952
+# the forward's packed (big, small) fragments of W0, W1 and Wt, which the
+# acting kernels' calls write (cnn_mma.cuh PK_FWD float4s)
+FWD_PACKED_FLOATS = 2 * (64 * 64 + 256 * 64 + 576 * 128)   # 188,416
 # float32(1 / (2 * SPLAT_SIGMA^2)): computed in double, then rounded, as the
 # reference's render_patch does
 RENDER_INV = float(np.float32(1.0 / (2.0 * SPLAT_SIGMA * SPLAT_SIGMA)))
@@ -158,7 +172,7 @@ def window_index(geom: CnnGeom, device) -> torch.Tensor:
 
 def tower_linear(x, w, b):
     """F.linear for the tower's layers (conv0, conv1, the trunk), whose
-    products the CNN update kernels run in 3xTF32; an emulation of those
+    products every CNN kernel runs in 3xTF32; an emulation of those
     (cuda_update_cnn.mm_3xtf32) can take its place."""
     return F.linear(x, w, b)
 
@@ -238,21 +252,6 @@ def traj_cnn_rollout_plain(state: EnvState, theta, arch,
     return state, planes, acc
 
 
-def transposed_tower(enc_weights):
-    """W0^T, W1^T and Wt^T of the encoder's (W0, b0, W1, b1, Wt, bt) in one
-    buffer (94,208 floats at the kernels' architecture): the forward
-    products read a thread's output rows as one vector. Made with torch ops
-    on the device, so a launch needs no host copy."""
-    W0, _, W1, _, Wt, _ = enc_weights
-    return torch.cat([W0.t().reshape(-1), W1.t().reshape(-1),
-                      Wt.t().reshape(-1)]).contiguous()
-
-
-def transposed_weights(theta, arch):
-    """transposed_tower of a PatchCNNActorCritic's flat buffer."""
-    return transposed_tower(cnn_encoder_weights(theta, arch))
-
-
 def _launch(state, theta, arch, env_params, statics, T, traj: bool,
             stochastic: bool):
     """Launch csrc/acting_cnn.cu: serving (K11) when traj is False, else the
@@ -267,15 +266,15 @@ def _launch(state, theta, arch, env_params, statics, T, traj: bool,
             or not theta.is_contiguous()):
         raise ValueError("theta must be a contiguous float32 buffer on the "
                          "state's device")
-    wt = transposed_weights(theta, arch)
+    pk = torch.empty(FWD_PACKED_FLOATS, device=dev)  # packed by the call
     grid = grid_table(arch.res, arch.p0, dev)
     planes = torch.empty(T, N_TRAJ, state.n, device=dev) if traj else None
     fn = cuda_build.load("acting_cnn").drone_cnn_act_rollout
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     final, lane_stats = launch_planes(
-        fn, state, env_params, statics, T, theta.data_ptr(), wt.data_ptr(),
+        fn, state, env_params, statics, T, theta.data_ptr(), pk.data_ptr(),
         grid.data_ptr(), None if planes is None else planes.data_ptr(),
-        int(stochastic))
+        int(stochastic), TOWER_FWD_SMEM)
     return final, planes, lane_stats
 
 

@@ -25,12 +25,16 @@ The policy is the flat parameter buffer in the reference's
 family's patch-CNN `CnnArch`. `encode_features` is the reference's switch
 between the two (`pallas_acting_lstm.encode_features`): the tanh dense
 stack, or `cuda_acting_cnn.cnn_encode` (render, conv0, conv1, trunk in the
-CNN kernels' formulation). The kernel's CNN arm runs `csrc/cnn.cuh`'s
-window-by-window forward into the LSTM's input rows, on tiles of 64 lanes
-(`LANES_CNN`), and takes the reference trainer's default tower only
+CNN kernels' formulation). The kernel's CNN arm runs the tower's forward on
+the tensor cores in 3xTF32 (`csrc/cnn_mma.cuh`, K11's and the updates'),
+its output the LSTM's input rows, and the gate block there too
+(`csrc/lstm_mma.cuh`: the product (x; h) [Wi; Wh] in one, `gate_linear`
+the plain version's hook for an emulation), on tiles of 64 lanes
+(`LANES_CNN`); it takes the reference trainer's default tower only
 (`cuda_acting_cnn.KERNEL_ARCH`). The wrapper packs the gate weights for the
-kernel (`pack_gates`), and for the CNN arm the tower's transposed weights,
-with torch ops on the device, so a launch needs no host copy.
+kernel (`pack_gates`) with torch ops on the device, so a launch needs no
+host copy; for the CNN arm the call then splits the tower's and the gates'
+weights into their tensor-core fragments on the launch's stream.
 """
 
 from __future__ import annotations
@@ -54,9 +58,12 @@ from drone_tpu_torch.models.lstm import (
 from drone_tpu_torch.ops import cuda_build
 from drone_tpu_torch.ops.cuda_acting import gauss4
 from drone_tpu_torch.ops.cuda_acting_cnn import (
+    FWD_PACKED_FLOATS,
     KERNEL_ARCH,
+    ROW_STRIDE,
+    TILE,
+    TOWER_FWD_SMEM,
     cnn_encode,
-    transposed_tower,
 )
 from drone_tpu_torch.ops.cuda_acting_traj import N_TRAJ, sample_logp
 from drone_tpu_torch.ops.cuda_rollout import (
@@ -72,14 +79,11 @@ from drone_tpu_torch.types import OBS_DIM, EnvParams, EnvState, EnvStatics
 
 # kernel limits (csrc/lstm.cuh, csrc/acting_lstm.cu)
 LANES = 128
-LANES_CNN = 64            # the CNN arm's tile
+LANES_CNN = TILE          # the CNN arm's tile: the tower's
 MAX_ENC = 4
 MAX_HIDDEN = 128
 NET_INTS = 5 + 2 * MAX_ENC
 ENC_DENSE, ENC_CNN = 0, 1  # the kernels' encoder arms (lstm.cuh)
-# shared rows of the CNN arm's window buffers: the splat scalars (12), a
-# rendered patch (64), a window's conv0 outputs (256), its conv1 output (64)
-CNN_ROWS = 12 + 64 + 256 + 64
 # dynamic shared memory one H100 block can use, less the env params' copy
 _MAX_SMEM = 232448 - 256
 
@@ -144,12 +148,27 @@ def net_layout(hidden: int, encoder) -> np.ndarray:
     return ints
 
 
+def gate_units(hidden: int) -> int:
+    """The CNN arm's gate block units: hidden rounded up to a multiple of 8
+    (csrc/lstm_mma.cuh gate_units; the padding units are zero)."""
+    return -(-int(hidden) // 8) * 8
+
+
+def gate_packed_floats(hidden: int, encoder) -> int:
+    """Floats of the CNN arm's packed gate fragments: (E + Hp) x 4 Hp
+    weights, big and small (csrc/lstm_mma.cuh gate_frags)."""
+    hp = gate_units(hidden)
+    return 2 * (encoder_width(encoder_of(encoder)) + hp) * 4 * hp
+
+
 def act_smem_bytes(hidden: int, encoder) -> int:
-    """Shared memory of one acting block (acting_lstm.cu act_smem_bytes)."""
+    """Shared memory of one acting block (acting_lstm.cu act_smem_bytes):
+    the CNN arm's is the tower's forward tile, then h and c (gate_units
+    rows each at the tile's row stride)."""
     encoder = encoder_of(encoder)
     E = encoder_width(encoder)
     if is_cnn(encoder):
-        return 4 * LANES_CNN * (CNN_ROWS + E + 2 * hidden)
+        return TOWER_FWD_SMEM + 4 * ROW_STRIDE * 2 * gate_units(hidden)
     mid = encoder[:-1]
     nbuf = min(len(mid), 2)
     return 4 * LANES * (OBS_DIM + nbuf * max(mid, default=0) + E + 2 * hidden)
@@ -252,16 +271,17 @@ def _launch(state, theta, arch, carry, env_params, statics, T, bptt=None,
     check_cuda_state(state)
     hidden, encoder = int(arch[0]), encoder_of(arch[1])
     dev = state.pos.device
-    weights = lstm_weights(theta, hidden, encoder)  # checks the length
+    lstm_weights(theta, hidden, encoder)  # checks the length
     if (theta.device != dev or theta.dtype != torch.float32
             or not theta.is_contiguous()):
         raise ValueError("theta must be a contiguous float32 buffer on the "
                          "state's device")
     check_act_envelope(hidden, encoder)
     layout = net_layout(hidden, encoder)
-    wt = grid = None
-    if is_cnn(encoder):
-        wt = transposed_tower(enc_flat(weights[0]))
+    pk = pg = grid = None
+    if is_cnn(encoder):  # fragments, written by the call on its stream
+        pk = torch.empty(FWD_PACKED_FLOATS, device=dev)
+        pg = torch.empty(gate_packed_floats(hidden, encoder), device=dev)
         grid = grid_table(encoder.res, encoder.p0, dev)
     n = state.n
     _check_carry(carry, n, hidden, dev)
@@ -276,16 +296,18 @@ def _launch(state, theta, arch, carry, env_params, statics, T, bptt=None,
         planes = torch.empty(T, N_TRAJ, n, device=dev)
         snap = torch.empty(T // bptt, 2, hidden, n, device=dev)
     fn = cuda_build.load("acting_lstm").drone_lstm_act_rollout
-    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     final, lane_stats = launch_planes(
         fn, state, env_params, statics, T, theta.data_ptr(), wp.data_ptr(),
         bp.data_ptr(), c_in.data_ptr(), h_in.data_ptr(), c_out.data_ptr(),
-        h_out.data_ptr(), None if planes is None else planes.data_ptr(),
-        None if snap is None else snap.data_ptr(),
-        None if wt is None else wt.data_ptr(),
-        None if grid is None else grid.data_ptr(), layout.ctypes.data,
+        h_out.data_ptr(), ptr(planes), ptr(snap), ptr(pk), ptr(pg),
+        ptr(grid), layout.ctypes.data,
         ENC_CNN if is_cnn(encoder) else ENC_DENSE, int(stochastic),
-        int(bptt or 0))
+        int(bptt or 0), act_smem_bytes(hidden, encoder))
     return final, (c_out, h_out), planes, snap, lane_stats
 
 

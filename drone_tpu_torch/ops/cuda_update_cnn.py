@@ -13,7 +13,8 @@ order than the reference's, inside the stated tolerance.
 CUDA tensor it launches the kernels.
 
 The kernels run the tower's products (conv0, conv1, the trunk, dX2, gW1,
-dX1, gW0) on the tensor cores in 3xTF32 (`csrc/cnn_mma.cuh`): each fp32
+dX1, gW0) on the tensor cores in 3xTF32 (`csrc/cnn_mma.cuh`, whose
+forward the acting kernels run too): each fp32
 operand split into two TF32 halves, three products a pair. `mm_3xtf32`
 is that product in torch, which `tower_linear` and `tower_mm` can be
 swapped for to see what the precision costs the plain version.
@@ -39,6 +40,9 @@ from drone_tpu_torch.models.cnn import (
 from drone_tpu_torch.ops import cuda_build
 from drone_tpu_torch.ops.cuda_acting_cnn import (
     KERNEL_ARCH,
+    ROW_STRIDE,
+    TILE,
+    TOWER_FWD_SMEM,
     check_envelope,
     cnn_forward,
     window_index,
@@ -58,8 +62,6 @@ from drone_tpu_torch.pixels import grid_table, patch_grid
 # the plain version's samples per chunk
 PLAIN_CHUNK = 16384
 # kernel limits (csrc/update_cnn.cu, csrc/cnn_mma.cuh)
-TILE = 64                 # samples of a tower tile (TM_L)
-ROW_STRIDE = 72           # floats between a tile's rows in shared memory
 FWD_BLOCKS = 264          # the forward's blocks (two an SM)
 BWD_BLOCKS = 132          # the tower backward's blocks (one an SM)
 MAX_CHUNK = 4096          # lanes of one split-K chunk of the trunk's product
@@ -68,12 +70,10 @@ FP_W = 645 + N_UPSTATS    # a forward block's partial row: heads, stats
 BP_W = 20608              # a backward block's: W0 b0 W1 b1
 GPT = 128 * 577           # a product partial row
 PACKED_FLOATS = 4 * 92160  # the tower's packed (big, small) weights
-# shared rows of a forward tile (splat scalars, a patch, conv0's four
-# outputs, conv1's) and of a backward one (splat scalars, dzt, four
-# patches, conv0's four outputs, dz1)
-TOWER_FWD_ROWS = 12 + 64 + 256 + 64
+# shared rows of a backward tile (splat scalars, dzt, four patches, conv0's
+# four outputs, dz1; TILE samples each), ROW_STRIDE floats apart; the
+# forward tile's are cuda_acting_cnn's (TOWER_FWD_SMEM)
 TOWER_BWD_ROWS = 12 + 128 + 256 + 256 + 64
-TOWER_FWD_SMEM = 4 * ROW_STRIDE * TOWER_FWD_ROWS   # 114,048
 TOWER_BWD_SMEM = 4 * ROW_STRIDE * TOWER_BWD_ROWS   # 206,208
 
 

@@ -168,11 +168,11 @@ def test_flat_parameters_are_the_module_parameters():
     with torch.no_grad():
         flat[offs["log_std"]] = 0.25
     assert float(model.log_std.detach()[0]) == 0.25
-    # the kernels' transposed copies
-    wt = cuda_acting_cnn.transposed_weights(flat, model.arch)
-    assert wt.shape == (94208,)
-    assert torch.equal(wt[4096:20480].view(256, 64), W1.t())
-    assert torch.equal(wt[20480:].view(576, 128), Wt.t())
+    # the kernels' packed forward fragments: W0, W1 and Wt, big and small
+    # (W0's also in each block's shared memory)
+    assert cuda_acting_cnn.FWD_PACKED_FLOATS == 2 * (
+        W0.numel() + W1.numel() + Wt.numel()) == 188416
+    assert cuda_acting_cnn.W0_FRAG_FLOATS == 2 * W0.numel() == 8192
 
 
 def _jax_env(horizon):

@@ -398,7 +398,7 @@ def test_net_layout_and_envelope_of_the_cnn_arm():
                                       offs["critic_value.weight"],
                                       offs["log_std"]]
     assert offs["lstm.ii.weight"] == offs["trunk.bias"] + 128 == 94464
-    assert cuda_acting_lstm.act_smem_bytes(128, KERNEL_ARCH) == 199680
+    assert cuda_acting_lstm.act_smem_bytes(128, KERNEL_ARCH) == 183680
     assert cuda_update_lstm.bptt_smem_bytes(128, KERNEL_ARCH) == 230912
     cuda_update_lstm.check_envelope(128, KERNEL_ARCH)
     for hidden, arch in ((256, KERNEL_ARCH), (30, KERNEL_ARCH), (16, ARCH)):

@@ -1,5 +1,7 @@
-"""The precision and the layouts of the CNN update kernels' tensor-core
-design (K10 and K7's CNN arm, csrc/cnn_mma.cuh).
+"""The precision and the layouts of the CNN kernels' tensor-core design
+(csrc/cnn_mma.cuh: K10 and K7's CNN arm, and the acting kernels K11, K9
+and the CNN arms of K8 and K6, whose gate block csrc/lstm_mma.cuh runs
+there too).
 
 The kernels run the patch-CNN tower's products in 3xTF32: each fp32
 operand split into big = round-to-nearest TF32 (ties away, as
@@ -9,10 +11,16 @@ torch; here it takes the place of the tower's products in the plain K10 and
 the plain K7 CNN arm, which must stay within the update's tolerance (each
 gradient tensor and the stats within 1e-4 of their max |value|) of the
 fp32 plain versions, which tests/test_torch_update_cnn.py and
-tests/test_torch_cnn_lstm.py hold to drone_tpu. The inputs are made with
-numpy at a few hundred samples of the default tower, the one the kernels
-take. The kernels' shared memory, scratch rows and envelope are mirrored
-in Python; the C entry points refuse a call whose byte counts disagree.
+tests/test_torch_cnn_lstm.py hold to drone_tpu. Likewise the plain K11 and
+the plain K8's CNN arm, with their tower's and gate block's products
+emulated, stay within the serving tolerance (rtol 2e-5 / atol 2e-6 over 3
+steps, episode counts equal) of their fp32 selves, which
+tests/test_torch_cnn.py and tests/test_torch_cnn_lstm.py hold to
+drone_tpu. The inputs are made with numpy (or the env's seeded init) at a
+few hundred samples of the default tower, the one the kernels take. The
+kernels' shared memory, scratch rows, packed fragments and envelope are
+mirrored in Python; the C entry points refuse a call whose byte counts
+disagree.
 """
 import math
 
@@ -20,13 +28,16 @@ import numpy as np
 import pytest
 import torch
 
+from drone_tpu_torch import env as tenv
 from drone_tpu_torch.models import (
     CNNLSTMActorCritic,
     PatchCNNActorCritic,
     lstm_kernel_order,
 )
-from drone_tpu_torch.ops import cuda_acting_cnn, cuda_update_cnn
-from drone_tpu_torch.ops import cuda_update_lstm
+from drone_tpu_torch.models import lstm as lstm_model
+from drone_tpu_torch.ops import cuda_acting_cnn, cuda_acting_lstm
+from drone_tpu_torch.ops import cuda_update_cnn, cuda_update_lstm
+from drone_tpu_torch.types import default_params
 from drone_tpu_torch.ops.cuda_acting_cnn import KERNEL_ARCH
 from drone_tpu_torch.ops.cuda_acting_traj import N_TRAJ
 from drone_tpu_torch.ops.cuda_update import UpdateConsts
@@ -82,6 +93,39 @@ def _emulate(monkeypatch):
     monkeypatch.setattr(cuda_acting_cnn, "tower_linear",
                         lambda x, w, b: mm(x, w.t()) + b)
     monkeypatch.setattr(cuda_update_cnn, "tower_mm", mm)
+
+
+def _emulate_gates(monkeypatch):
+    """The gate block's product of the plain LSTM cell in 3xTF32, as the
+    acting kernels' CNN arm runs it: (x; h) [Wi; Wh] in one."""
+    mm = cuda_update_cnn.mm_3xtf32
+
+    def gate_linear(x, h, wi, wh):
+        return mm(torch.cat([x, h], 1), torch.cat([wi, wh], 1).t())
+
+    monkeypatch.setattr(lstm_model, "gate_linear", gate_linear)
+
+
+def _acting_policy(model):
+    """A flattened policy with actions of order 1 (an orthogonal action head
+    of gain 1) and log_std -0.5, as the card's checks use."""
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        torch.nn.init.orthogonal_(model.actor_mean.weight, 1.0, generator=g)
+        model.log_std.fill_(-0.5)
+    model.flatten_()
+    return model
+
+
+def _serving_env():
+    """hover/euler with 2-step episodes: every lane ends one inside T = 3."""
+    return tenv.DroneEnv("hover", "euler", default_params("hover", horizon=2),
+                         device="cpu")
+
+
+def _within_serving_tolerance(got, want):
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
 
 
 def _planes(rng, T, n):
@@ -146,6 +190,66 @@ def test_3xtf32_plain_k7_cnn_arm_within_tolerance(monkeypatch):
     _within_update_tolerance(got, want, lstm_kernel_order(H, KERNEL_ARCH))
 
 
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_3xtf32_plain_k11_within_serving_tolerance(monkeypatch, stochastic):
+    n, T = 384, 3
+    env = _serving_env()
+    state = env.init_batch(2, n)
+    model = _acting_policy(
+        PatchCNNActorCritic(generator=torch.Generator().manual_seed(0)))
+    args = (state, model.flat, model.arch, env.params, env.statics, T,
+            stochastic)
+    wf, ws = cuda_acting_cnn.cnn_act_rollout_plain(*args)
+    _emulate(monkeypatch)
+    gf, gs = cuda_acting_cnn.cnn_act_rollout_plain(*args)
+    assert not torch.equal(gs, ws)  # the emulation ran
+    _within_serving_tolerance((gf.fstate(), gs), (wf.fstate(), ws))
+    assert float(gs[1].sum()) == float(ws[1].sum()) >= n
+
+
+@pytest.mark.parametrize("hidden", [128, 36])
+def test_3xtf32_plain_k8_cnn_arm_within_serving_tolerance(monkeypatch,
+                                                         hidden):
+    rng = np.random.default_rng(6)
+    n, T = 256, 3
+    env = _serving_env()
+    state = env.init_batch(2, n)
+    model = _acting_policy(CNNLSTMActorCritic(
+        hidden, generator=torch.Generator().manual_seed(0)))
+    carry = tuple(torch.from_numpy(
+        0.5 * rng.standard_normal((n, hidden)).astype(np.float32))
+        for _ in range(2))
+    args = (state, model.flat, (hidden, KERNEL_ARCH), carry, env.params,
+            env.statics, T)
+    wf, wc, ws = cuda_acting_lstm.lstm_act_rollout_plain(*args)
+    _emulate(monkeypatch)
+    _emulate_gates(monkeypatch)
+    gf, gc, gs = cuda_acting_lstm.lstm_act_rollout_plain(*args)
+    assert not torch.equal(gc[1], wc[1])
+    _within_serving_tolerance((gf.fstate(), *gc, gs), (wf.fstate(), *wc, ws))
+    assert float(gs[1].sum()) == float(ws[1].sum()) >= n
+
+
+@pytest.mark.parametrize("hidden", [128, 64, 36, 16])
+def test_acting_kernels_shared_memory_and_fragments(hidden):
+    """The byte counts the acting wrappers pass: K11 and K9 the tower's
+    forward tile, two blocks an SM; the CNN arms of K8 and K6 that tile,
+    then h and c over the gate block's units (hidden padded to 8) at the
+    tile's row stride, one block; the gate weights' packed fragments."""
+    A, L = cuda_acting_cnn, cuda_acting_lstm
+    assert A.TOWER_FWD_SMEM == 4 * (A.W0_FRAG_FLOATS + 72 * 268) == 109952
+    assert 2 * (A.TOWER_FWD_SMEM + 256 + 1024) <= SM_SMEM
+    hp = L.gate_units(hidden)
+    assert hp % 8 == 0 and hidden <= hp < hidden + 8
+    smem = L.act_smem_bytes(hidden, KERNEL_ARCH)
+    assert smem == A.TOWER_FWD_SMEM + 4 * 72 * 2 * hp <= MAX_SMEM - 256
+    assert L.gate_packed_floats(hidden, KERNEL_ARCH) == 2 * (128 + hp) * 4 * hp
+    if hidden == 128:
+        assert smem == 183680
+        assert L.gate_packed_floats(128, KERNEL_ARCH) == 2**18
+    L.check_act_envelope(hidden, KERNEL_ARCH)
+
+
 @pytest.mark.parametrize("hidden", [128, 64, 16])
 def test_tower_kernels_shared_memory_and_scratch(hidden):
     """The byte counts the K7 wrapper passes (the walk, the tower's forward
@@ -153,7 +257,8 @@ def test_tower_kernels_shared_memory_and_scratch(hidden):
     an SM; the CNN arm's walk no longer holds the tower's window rows."""
     U, C = cuda_update_lstm, cuda_update_cnn
     walk, fwd, bwd = U.kernel_smem_bytes(hidden, KERNEL_ARCH)
-    assert fwd == C.TOWER_FWD_SMEM == 4 * 72 * (12 + 64 + 256 + 64) == 114048
+    assert fwd == C.TOWER_FWD_SMEM == 109952 == 4 * (
+        8192 + 72 * (12 + 2 * 64 + 2 * 64))
     assert bwd == C.TOWER_BWD_SMEM == 4 * 72 * (12 + 128 + 2 * 256 + 64)
     assert max(walk, fwd, bwd) <= MAX_SMEM
     assert 2 * (fwd + 1024) <= SM_SMEM
