@@ -1,27 +1,19 @@
-// lstm.cuh — the LSTM policy as CUDA device functions over a tile of lanes,
+// lstm.cuh — the LSTM policy's fp32 device functions over a tile of lanes,
 // shared by the recurrent acting kernels (acting_lstm.cu: K8 and K6) and the
-// truncated-BPTT update (update_lstm.cu: K7).
+// truncated-BPTT update (update_lstm.cu: K7): the net's layout, the tanh
+// dense encoder and the heads. The gate block runs on the tensor cores
+// (lstm_mma.cuh) in every kernel.
 //
 // Ports drone_tpu/ops/pallas_acting_lstm.py `lstm_encoder` (tanh dense
-// tower) and `lstm_gates` (flax OptimizedLSTMCell):
-//   i = sig(x Wi_i + h Wh_i + b_i)   f = sig(...)   g = tanh(...)   o = sig(...)
-//   c' = f*c + i*g ;  h' = o*tanh(c')
+// tower) and the heads of `_kernel`.
 //
-// Unlike the MLP tower, one lane's LSTM does not fit a thread: at H = 128 a
-// lane carries c and h (256 floats) and four gate sums (512). So a block
-// owns a tile of LANES lanes and shares the work on it:
-//   - the tile's activations live in shared memory as rows of LANES floats
-//     (unit-major, [row][lane]): the encoder's layers, then x and h stacked
-//     as one (E + H)-row block `xh`, and the cell state c;
-//   - each product is register-tiled: a thread owns 4 output rows x 4 lanes
-//     (the gate block: 4 units x 4 gates x 4 lanes, 64 sums) and per input
-//     row reads one float4 of activations and its weights;
-//   - the gate weights are packed on the host as WP (E + H, H, 4): per input
-//     row k and unit u the 4 gates' weights as one float4, so a thread's 4
-//     units are 4 float4 loads. With LANES = 128 a warp's threads share
-//     their units and every weight load is a broadcast. The 393 KB of gate
-//     weights at H 128 / E 64 do not fit shared memory; they stream from L2
-//     each step, read once per tile (64 operations per byte at 128 lanes).
+// One lane's LSTM does not fit a thread: at H = 128 a lane carries c and h
+// (256 floats) and four gate sums (512). So a block owns a tile of lanes
+// and shares the work on it: the tile's activations live in shared memory
+// as rows of the tile (unit-major, [row][lane]); an encoder layer is register-tiled, a thread owning 4 output rows x 4 lanes
+// and reading per input row one float4 of activations and its weights. The
+// encoder is 4 (13 + ...) multiply-adds a unit against the gate block's
+// 4 (E + H): it stays on the fp32 cores.
 //
 // Sums use explicit fmaf and run in another order than a matmul: the
 // kernels are held to their plain versions at a tolerance. sigmoid is
@@ -31,11 +23,11 @@
 // Two encoder arms, a template parameter of each kernel (ENC_DENSE,
 // ENC_CNN), as the reference's encode_features switches between them: the
 // tanh dense tower below, or the pixel-recurrent family's patch CNN
-// (cnn.cuh's window-by-window forward, its trunk output written into the
-// first E = 128 rows of xh). The CNN arm takes CNNLSTMActorCritic's
-// default tower only, whose six tensors open the flat buffer at cnn.cuh's
-// offsets (OFF_W0 .. OFF_BT): the cnn_lstm buffer's first 94,464 floats are
-// laid out as PatchCNNActorCritic's.
+// (cnn_mma.cuh's tower forward, its trunk output the E = 128 input rows of
+// the gate block). The CNN arm takes CNNLSTMActorCritic's default tower
+// only, whose six tensors open the flat buffer at cnn.cuh's offsets
+// (OFF_W0 .. OFF_BT): the cnn_lstm buffer's first 94,464 floats are laid
+// out as PatchCNNActorCritic's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -95,15 +87,9 @@ inline bool read_net(const int* layout, int encoder, LstmNet& net) {
   return true;
 }
 
-// Empty callbacks of lstm_encoder and lstm_gates, for kernels that keep
-// nothing of a step.
+// An empty callback of lstm_encoder, for kernels that keep no layer.
 struct NoLayerOut {
-  __device__ void operator()(int, const float*) const {}
-};
-struct NoGateOut {
-  __device__ void operator()(int, int, const float*, const float*,
-                             const float*, const float*, const float*,
-                             const float*, const float*) const {}
+  __device__ void operator()(int, const float*, int) const {}
 };
 
 // The widest encoder layer before the last and the number of ping-pong
@@ -121,9 +107,10 @@ __device__ __forceinline__ float sigmoidf(float x) {
 }
 
 // One encoder layer over the tile: out[j] = tanh(W[j] . in + b[j]) for
-// nout rows from nin input rows. Every thread of the block takes part; no
-// barrier at the end.
-template <int LANES>
+// nout rows from nin input rows (LANES lanes; input rows SI floats apart,
+// output rows SO). Every thread of the block takes part; no barrier at the
+// end.
+template <int LANES, int SI, int SO>
 __device__ __forceinline__ void dense_tanh(const float* __restrict__ W,
                                            int nout, int nin, const float* in,
                                            float* out) {
@@ -138,7 +125,7 @@ __device__ __forceinline__ void dense_tanh(const float* __restrict__ W,
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
     for (int k = 0; k < nin; ++k) {
-      const float4 x = *reinterpret_cast<const float4*>(in + k * LANES + l0);
+      const float4 x = *reinterpret_cast<const float4*>(in + k * SI + l0);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float w = j0 + i < nout ? __ldg(W + (j0 + i) * nin + k) : 0.0f;
@@ -157,129 +144,65 @@ __device__ __forceinline__ void dense_tanh(const float* __restrict__ W,
       y.y = tanhf(acc[i][1] + bias);
       y.z = tanhf(acc[i][2] + bias);
       y.w = tanhf(acc[i][3] + bias);
-      *reinterpret_cast<float4*>(out + (j0 + i) * LANES + l0) = y;
+      *reinterpret_cast<float4*>(out + (j0 + i) * SO + l0) = y;
     }
   }
 }
 
-// The encoder tower (lstm_encoder): obs rows -> x, the first E rows of xh.
-// Hidden layers before the last alternate between buf0 and buf1. After each
-// layer (and its barrier) on_layer(i, out) sees its output rows. With no
-// encoder layer the caller writes the obs straight into xh.
-template <int LANES, class OnLayer>
+// The encoder tower (lstm_encoder): obs rows -> x, the gate block's input
+// rows. Hidden layers before the last alternate between buf0 and buf1; the
+// obs and those buffers have rows SB floats apart, x rows SX apart. After
+// each layer (and its barrier) on_layer(i, out, stride) sees its output
+// rows. With no encoder layer the caller writes the obs straight into x.
+template <int LANES, int SB, int SX, class OnLayer>
 __device__ __forceinline__ void lstm_encoder(const float* obs, float* buf0,
-                                             float* buf1, float* xh,
+                                             float* buf1, float* x,
                                              const float* __restrict__ theta,
                                              const LstmNet& net,
                                              const OnLayer& on_layer) {
   const float* in = obs;
   int nin = OBS_DIM;
   for (int i = 0; i < net.n_enc; ++i) {
-    float* out = i == net.n_enc - 1 ? xh : (i & 1 ? buf1 : buf0);
-    dense_tanh<LANES>(theta + net.enc_off[i], net.enc_w[i], nin, in, out);
-    __syncthreads();
-    on_layer(i, out);
-    in = out;
-    nin = net.enc_w[i];
+    const float* W = theta + net.enc_off[i];
+    if (i == net.n_enc - 1) {
+      dense_tanh<LANES, SB, SX>(W, net.enc_w[i], nin, in, x);
+      __syncthreads();
+      on_layer(i, x, SX);
+    } else {
+      float* out = i & 1 ? buf1 : buf0;
+      dense_tanh<LANES, SB, SB>(W, net.enc_w[i], nin, in, out);
+      __syncthreads();
+      on_layer(i, out, SB);
+      in = out;
+      nin = net.enc_w[i];
+    }
   }
 }
 
-// The gate block of one step (lstm_gates) for the tile: reads x and h from
-// xh and c, writes c' over c and, after a barrier, h' over the h rows of
-// xh. A thread owns 4 units x 4 lanes per pass and keeps each pass's h' in
-// registers until every thread has read h (MAXP passes cover H/4 x LANES/4
-// tiles with the block's threads). KU unrolls the loop over input rows, to
-// keep more weight loads from L2 in flight: each kernel takes as many as
-// its registers allow. epi(u, l0, gi, gf, gg, go, c_in, th, h') sees each
-// unit's 4 lanes (arrays of 4) before the barrier. The caller needs a
-// barrier before it reads h'.
-template <int LANES, int MAXP, int KU, class Epi>
-__device__ __forceinline__ void lstm_gates(float* xh, float* c, int E, int H,
-                                           const float4* __restrict__ WP,
-                                           const float4* __restrict__ BP,
-                                           const Epi& epi) {
-  constexpr int LB = LANES / 4;
-  const int UB = H / 4;
-  const int K = E + H;
-  float hn[MAXP][4][4];
-#pragma unroll
-  for (int p = 0; p < MAXP; ++p) {
-    const int tile = threadIdx.x + p * blockDim.x;
-    const int ub = tile / LB, l0 = 4 * (tile % LB);
-    if (ub >= UB) continue;
-    const int u0 = 4 * ub;
-    float acc[4][4][4];  // [unit][gate][lane]
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[j][g][q] = 0.0f;
-    const float4* w = WP + u0;
-#pragma unroll (KU)
-    for (int k = 0; k < K; ++k) {
-      const float4 x4 = *reinterpret_cast<const float4*>(xh + k * LANES + l0);
-      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 w4 = __ldg(w + (size_t)k * H + j);
-        const float wg[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            acc[j][g][q] = __fmaf_rn(wg[g], x[q], acc[j][g][q]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int u = u0 + j;
-      const float4 b = __ldg(BP + u);
-      float gi[4], gf[4], gg[4], go[4], cin[4], th[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        gi[q] = sigmoidf(acc[j][0][q] + b.x);
-        gf[q] = sigmoidf(acc[j][1][q] + b.y);
-        gg[q] = tanhf(acc[j][2][q] + b.z);
-        go[q] = sigmoidf(acc[j][3][q] + b.w);
-        float* cp = c + u * LANES + l0 + q;
-        cin[q] = *cp;
-        const float c2 = gf[q] * cin[q] + gi[q] * gg[q];
-        *cp = c2;
-        th[q] = tanhf(c2);
-        hn[p][j][q] = go[q] * th[q];
-      }
-      epi(u, l0, gi, gf, gg, go, cin, th, hn[p][j]);
-    }
-  }
-  __syncthreads();  // every thread has read h
-#pragma unroll
-  for (int p = 0; p < MAXP; ++p) {
-    const int tile = threadIdx.x + p * blockDim.x;
-    const int ub = tile / LB, l0 = 4 * (tile % LB);
-    if (ub >= UB) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(xh + (E + 4 * ub + j) * LANES + l0) =
-          make_float4(hn[p][j][0], hn[p][j][1], hn[p][j][2], hn[p][j][3]);
-  }
-}
-
-// The action head (4 means) and the value head at lane l's h' (rows
-// `stride` floats apart): dot(W, h') + b, as the reference.
-__device__ __forceinline__ void lstm_heads(const float* h, int stride, int l,
-                                           const float* __restrict__ theta,
-                                           const LstmNet& net, float m[4],
-                                           float& v) {
-  const int H = net.H;
+// The action head (4 means) and the value head at h' of lane threadIdx.x
+// / 4 (rows `stride` floats apart): dot(W, h') + b, as the reference. The
+// block's threads 4 l .. 4 l + 3 share lane l, thread q summing units q, q
+// + 4, ...; a butterfly adds the four partial sums, so each of the four
+// ends with the same m and v. Each thread reads only the units it sums.
+__device__ __forceinline__ void lstm_heads4(const float* h, int stride,
+                                            const float* __restrict__ theta,
+                                            const LstmNet& net, float m[4],
+                                            float& v) {
+  const int H = net.H, l = threadIdx.x >> 2;
   const float* hw = theta + net.head_off;
   const float* vw = theta + net.vhead_off;
   float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int u = 0; u < H; ++u) {
-    const float hv = h[(size_t)u * stride + l];
+#pragma unroll 4
+  for (int u = threadIdx.x & 3; u < H; u += 4) {
+    const float hv = h[u * stride + l];
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[k] = __fmaf_rn(__ldg(hw + k * H + u), hv, acc[k]);
     acc[4] = __fmaf_rn(__ldg(vw + u), hv, acc[4]);
+  }
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    acc[k] = acc[k] + __shfl_xor_sync(0xffffffffu, acc[k], 1);
+    acc[k] = acc[k] + __shfl_xor_sync(0xffffffffu, acc[k], 2);
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) m[k] = acc[k] + __ldg(hw + 4 * H + k);

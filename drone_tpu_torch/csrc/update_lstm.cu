@@ -6,26 +6,38 @@
 // (driven by `ppo_lstm_update`). Wrapper and plain version:
 // ops/cuda_update_lstm.py.
 //
-// Three kernels, launched for each bptt segment of the minibatch in turn:
-//   bptt_kernel: a block of 256 threads owns 64 lanes of the minibatch. It
-//     runs the segment forward from its (c, h) anchor (lstm.cuh: encoder,
-//     gate block), storing each step's activations in a device scratch, then
-//     walks the steps backward: the PPO head's gradients per lane
-//     (policy.cuh head_grads, K3's), dh' and dc' through the cell, the gate
-//     pre-activation gradients dz (4H per sample, written over the stored
-//     gates), dx and the next dh from one register-tiled product with the
-//     packed gate weights, and the encoder's dpre. The gradient entering
-//     step t through time is masked by step t's keep; it stops at the
-//     anchor (truncation). Each block sums its lanes' 8 stats in a fixed
-//     order into its own row.
-//   grad_gemm_kernel: the weight gradients as products over the segment's
-//     samples, dW = sum_s A[:, s] B[:, s]^T with the bias sums beside them
-//     (dz x [x; h_in] for the gates, [dm; g_v] x h' for the heads, dpre x
-//     the layer input for the encoder). The samples are split in fixed
-//     chunks; each (tile, chunk) block writes its own partial row.
-//   reduce_kernel: adds the partial rows of every segment and chunk in a
-//     fixed order into the flat gradient, and the stat rows into the 8 sums
-//     (log_std's gradient is its stat sums minus ent_coef).
+// Per call pack_gates_kernel and pack_gates_t_kernel split the gate
+// weights once into their (big, small) tensor-core fragments, the
+// forward's and the backward's (lstm_mma.cuh). Then, for each bptt segment
+// of the minibatch in turn:
+//   bptt_kernel (the walk): a block of 256 threads owns 64 lanes of the
+//     minibatch. It runs the segment forward from its (c, h) anchor (the
+//     dense encoder on the fp32 cores, the gate block on the tensor cores
+//     in 3xTF32, lstm_mma.cuh lstm_gates_mma), storing each step's
+//     activations in a device scratch (and the heads' outputs, which four
+//     threads a lane compute from h' in shared memory), then walks the
+//     steps backward: the PPO head's gradients per lane (policy.cuh
+//     head_grads, K3's), dh' and dc' through the cell, the gate
+//     pre-activation gradients dz (4H per sample, copied row by row to the
+//     GZ scratch), dx and the next dh from one tensor-core product with the
+//     transposed fragments (gates_bwd_mma), and the encoder's dpre (fp32).
+//     A thread owns the same (lane, unit)
+//     pairs in the gate block, the cell's backward and dh's product, so c,
+//     dh and dc live in its registers, not in shared memory. The gradient
+//     entering step t through time is masked by step t's keep; it stops at
+//     the anchor (truncation). Each block sums its lanes' 8 stats in a
+//     fixed order into its own row.
+//   grad_mma_kernel (the products): the weight gradients as products over
+//     the segment's samples on the tensor cores in 3xTF32, dW = sum_s A[:,
+//     s] B[:, s]^T with the bias sums beside them (dz x [x; h_in] for the
+//     gates, [dm; g_v] x h' for the heads, dpre x the layer input for the
+//     encoder, the CNN arm's dzt x X2). A block takes a 64 x 64 tile over a
+//     fixed chunk of one step's lanes and writes its own partial row; its
+//     sums start each window of 64 samples from zero in the tensor cores'
+//     accumulators and add it to the chunk's total with IEEE adds (fold).
+//   lstm_reduce_kernel: adds the partial rows of every segment and chunk in
+//     a fixed order into the flat gradient, and the stat rows into the 8
+//     sums (log_std's gradient is its stat sums minus ent_coef).
 // No float atomics: two launches on the same inputs give the same bits, so
 // training on the card is deterministic and a resume repeats a run.
 //
@@ -34,10 +46,27 @@
 // (~1.2 GB per segment at 16,384 lanes x 16 steps, H 128, E 64), so one
 // forward per step is run, not 1 + 1.375.
 //
-// What bounds it on an H100: per sample about 298.5k multiply-adds at H
-// 128 / E 64 (forward 98k, dx and dh 98k, the weight products 98k), on the
-// fp32 cores; the bytes (planes, anchors, the scratch's traffic) are far
-// below the memory rate's share. The gate weights stream from L2.
+// Shared memory of the walk, rows of the tile: forward, the obs and the
+// dense encoder's buffers at stride 64 (fp32 rows) and x and h at the
+// tensor-core tiles' TM_S = 72 (their A fragments' 32 reads hit 32 banks);
+// backward, dz, dx, [dm; g_v] and keep at 72. At stride 72 the old
+// backward rows (dh, dc, dz, dx: 6H + maxe + 6) would not fit beside the
+// CNN arm's E = 128 (259,776 bytes, over a block's 232,448); with c, dh and
+// dc in registers they are 4H + maxe + 6: 167,616 bytes at H 128 / E 64,
+// 186,048 in the CNN arm (one block an SM). Every shape the fp32 walk took
+// fits.
+//
+// What bounds it on an H100: per sample 3 x 4H (E + H) multiply-adds at
+// the 3xTF32 rate (forward, [dx; dh], the gates' weight product: 294,912 at
+// H 128 / E 64), the rest (encoder, heads, cell) on the fp32 cores, and
+// the scratch's bytes: the forward writes ~1,100 floats a sample (the gate
+// block's six quantities over its padded units among them), the walk back
+// reads ~840 and writes ~580, the products read ~910 (each operand once;
+// 13.75 KB a sample in all, 28.8 GB a minibatch at the reference's
+// geometry); the gate fragments come from L2, 786,432 bytes a tile-step
+// each way. What takes the time on the card is the tensor cores' mma.sync
+// and the operands' split (two cvt.rna a value, in every warp that reads
+// an A fragment): PERF.md.
 //
 // The CNN arm (pixel-recurrent cnn_lstm, the reference's encoder == "cnn"
 // branch). The tower depends on no recurrent state, so it leaves the walk
@@ -50,19 +79,17 @@
 //     input X2, 576 rows a sample, the X2S scratch);
 //   bptt_kernel<ENC_CNN>: reads x from XS as the dense arm reads its
 //     encoder's output, walks the LSTM, and ends at dzt = dx * (x > 0), the
-//     gradient at the trunk's pre-activation, to the scratch. Its forward
-//     needs E + 2H rows, its backward 6H + E + 6 = 902 rows of 64 lanes
-//     (230,912 bytes at H 128), so it stays one block an SM;
+//     gradient at the trunk's pre-activation, to the scratch;
 //   tower_bwd_kernel (cnn_mma.cuh, K10's): the tower's backward on the
 //     tensor cores (the patches re-rendered from the stored obs, conv0
 //     re-run, gW0 and gW1 in a block's registers over fixed 64-sample
 //     tiles), its block rows written into the product rows' first OFF_WT
 //     columns;
-//   the product pairs, gWt and gbt among them (dzt x X2, fp32).
-// Per sample the arm adds ~1.1 M multiply-adds to the LSTM's 2 x 131k: the
+//   the products, gWt and gbt among them (dzt x X2).
+// Per sample the arm adds ~1.1 M multiply-adds to the LSTM's 3 x 131k: the
 // forward tower 369k, conv0 again 147k, dX2 74k, gW1 147k, dX1 147k, gW0
-// 147k on the tensor cores, gWt 74k on the fp32 cores; one segment's
-// scratch is ~1.9 GB at 16,384 lanes x 16 steps, H 128.
+// 147k, gWt 74k, all on the tensor cores; one segment's scratch is ~1.9 GB
+// at 16,384 lanes x 16 steps, H 128.
 
 #include <cuda_runtime.h>
 
@@ -70,20 +97,25 @@
 
 #include "cnn_mma.cuh"
 #include "lstm.cuh"
+#include "lstm_mma.cuh"
 
 namespace drone {
 
 constexpr int N_UPSTATS = 8;
-constexpr int BP_LANES = 64;
-constexpr int BP_PASSES = (LSTM_MAX_H / 4) * (BP_LANES / 4) / LSTM_THREADS;
-// the gate block's and the backward product's loops over weight rows keep 8
-// rows of loads in flight (233 registers, no spill)
-constexpr int BP_UNROLL = 8;
-constexpr int GT = 64;  // product tile (rows and columns)
-constexpr int GK = 16;  // samples per product step
+constexpr int BP_LANES = TM_L;  // lanes of a walk's tile
+// the gate-gradient products: 64 x 64 output tiles over windows of 64
+// samples; their operand tiles' rows GM_S floats apart (4 mod 32: a
+// sample-major fragment's 32 reads hit 32 banks), A and B double-buffered
+constexpr int GM_T = 64;
+constexpr int GM_S = 68;
+constexpr int GM_SMEM = 2 * 2 * GM_T * GM_S * 4;  // 69,632
 // scratch buffers, each (bptt, rows, NL): X2S only in the CNN arm, DP the
-// dense encoder's dpre or the CNN arm's dzt
-enum { XS = 0, GZ = 1, CT = 2, H2S = 3, DMV = 4, DP = 5, N_SCRATCH = 6,
+// dense encoder's dpre or the CNN arm's dzt. GF holds the gate block's
+// gi, gf, gg, go, c_in and tanh(c') (6 Hp rows a step) in its threads'
+// order: a tile's 6 Hp x 64 floats as [unit group][m-tile][quantity]
+// [fragment][lane of the warp], so the forward writes and the walk back
+// reads 128 contiguous bytes a warp instruction (gf_at).
+enum { XS = 0, GZ = 1, GF = 2, H2S = 3, DMV = 4, DP = 5, N_SCRATCH = 6,
        X2S = 6, N_BUFS = 7 };
 // the tower's forward takes two blocks an SM; its block count is a
 // constant (its tiles write no sums)
@@ -95,20 +127,18 @@ struct BpttArgs {
   const float* snap;    // (S, 2, H, n)
   const int* perm;      // (n_sel,) row blocks of the minibatch
   const float* theta;
-  const float4* WP;     // (E + H, H, 4)
+  const float4* PG;     // the gate weights' forward fragments
+  const float4* PGT;    // ... and the transposed ones
   const float4* BP;     // (H, 4)
   float* s[N_SCRATCH];  // each (bptt, rows, NL)
   float* stat_part;     // (blocks, 8) of this segment
   int n, T, bptt, seg, rbl, NL;
 };
 
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
 // out[r] = sum_j W[j][r] d[j] over a tile (W (nout, nin) row-major, r <
-// nin, rows of LANES floats): the input gradient of a dense layer.
-template <int LANES>
+// nin, rows of LANES lanes S floats apart): the input gradient of a dense
+// layer.
+template <int LANES, int S>
 __device__ __forceinline__ void dense_t(const float* __restrict__ W, int nout,
                                         int nin, const float* d, float* out) {
   constexpr int LB = LANES / 4;
@@ -121,7 +151,7 @@ __device__ __forceinline__ void dense_t(const float* __restrict__ W, int nout,
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
     for (int j = 0; j < nout; ++j) {
-      const float4 x = *reinterpret_cast<const float4*>(d + j * LANES + l0);
+      const float4 x = *reinterpret_cast<const float4*>(d + j * S + l0);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float w = r0 + i < nin ? __ldg(W + j * nin + r0 + i) : 0.0f;
@@ -134,34 +164,59 @@ __device__ __forceinline__ void dense_t(const float* __restrict__ W, int nout,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (r0 + i >= nin) break;
-      store4(out + (r0 + i) * LANES + l0, acc[i]);
+      *reinterpret_cast<float4*>(out + (r0 + i) * S + l0) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   }
 }
 
+// The offset in a tile's GF chunk of quantity q of the pair this thread
+// owns as fragment r of m-tile i in pass p.
+__device__ __forceinline__ int gf_at(int p, int i, int q, int r) {
+  const int ug = (threadIdx.x >> 5) + GATE_WARPS * p;
+  return (((ug * 4 + i) * 6 + q) * 4 + r) * 32 + (threadIdx.x & 31);
+}
+
+// The widest dense encoder layer (the CNN arm: its E).
+__host__ __device__ inline int widest_layer(const LstmNet& net, int encoder) {
+  if (encoder == ENC_CNN) return net.E;
+  int maxe = 0;
+  for (int i = 0; i < net.n_enc; ++i)
+    maxe = net.enc_w[i] > maxe ? net.enc_w[i] : maxe;
+  return maxe;
+}
+
+// The rows of dx in the walk's backward: the product's Ep, and the dense
+// encoder's input gradients.
+__host__ __device__ inline int dx_rows(const LstmNet& net, int encoder) {
+  const int Ep = gate_inputs(net.E), maxe = widest_layer(net, encoder);
+  return maxe > Ep ? maxe : Ep;
+}
+
+// The walk's shared floats: the larger of the forward's (the obs and the
+// encoder's buffers at stride 64, x and h at TM_S) and the backward's (dz,
+// dx, [dm; g_v] and keep at TM_S).
 __host__ __device__ inline int bptt_smem_floats(const LstmNet& net,
                                                 int encoder) {
   int maxw, nbuf;
   enc_buffers(net, maxw, nbuf);
-  int maxe = 0;
-  for (int i = 0; i < net.n_enc; ++i) maxe = net.enc_w[i] > maxe ? net.enc_w[i] : maxe;
-  int fwd = OBS_DIM + nbuf * maxw + net.E + 2 * net.H;
-  if (encoder == ENC_CNN) {
-    fwd = net.E + 2 * net.H;
-    maxe = net.E;
-  }
-  const int bwd = 6 * net.H + maxe + 6;
-  return BP_LANES * (fwd > bwd ? fwd : bwd);
+  const int Ep = gate_inputs(net.E), Hp = gate_units(net.H);
+  int fwd = TM_S * (Ep + Hp);
+  if (encoder != ENC_CNN) fwd += BP_LANES * (OBS_DIM + nbuf * maxw);
+  const int bwd = TM_S * (4 * Hp + dx_rows(net, encoder) + 6);
+  return fwd > bwd ? fwd : bwd;
 }
 
 template <int ENC>
 __global__ void __launch_bounds__(LSTM_THREADS, 1)
 bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
   constexpr bool CNN = ENC == ENC_CNN;
-  constexpr int L = BP_LANES;
+  constexpr int L = BP_LANES, S = TM_S;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int H = net.H, E = net.E, n = A.n, NL = A.NL, tid = threadIdx.x;
+  const int Hp = gate_units(H), Ep = gate_inputs(E), UG = Hp / 8;
+  const int w = tid >> 5;
   const int ml0 = blockIdx.x * L;  // the tile's first minibatch lane
   const int lane0 = A.perm[ml0 / A.rbl] * A.rbl + ml0 % A.rbl;
   // the XS scratch: [obs, the encoder's outputs (the CNN's x), h_in]
@@ -176,218 +231,239 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
   }
 
   // ---- forward: the segment from its anchor, activations to the scratch --
-  // dense: the obs rows and the encoder's buffers before xh; CNN: xh alone
-  // (tower_fwd_kernel wrote x to the scratch)
-  float *obs, *buf0, *buf1, *xh;
+  // dense: the obs rows and the encoder's buffers (stride L) before x;
+  // CNN: x alone (tower_fwd_kernel wrote it to the scratch); then h
+  float *obs, *buf0, *buf1, *x;
   if constexpr (CNN) {
     obs = buf0 = buf1 = nullptr;
-    xh = sm;
+    x = sm;
   } else {
     int maxw, nbuf;
     enc_buffers(net, maxw, nbuf);
     obs = sm;
     buf0 = obs + OBS_DIM * L;
     buf1 = buf0 + maxw * L;
-    xh = buf0 + nbuf * maxw * L;
+    x = buf0 + nbuf * maxw * L;
   }
-  float* h = xh + E * L;
-  float* c = xh + (E + H) * L;
-  float* obs_rows = net.n_enc ? obs : xh;
+  float* h = x + Ep * S;
+  // with no encoder the obs are x's rows
+  float* obs_rows = net.n_enc ? obs : x;
+  const int obs_s = net.n_enc ? L : S;
+  // c of the (lane, unit) pairs this thread owns in the gate block
+  float cr[GATE_PASSES][4][4];
   const float* anc = A.snap + (size_t)A.seg * 2 * H * n + lane0;
-  for (int e = tid; e < H * L; e += blockDim.x) {
+#pragma unroll
+  for (int p = 0; p < GATE_PASSES; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int u = owned_unit(p, r);
+        cr[p][i][r] = u < H ? anc[(size_t)u * n + owned_lane(i, r)] : 0.0f;
+      }
+  for (int e = tid; e < Hp * L; e += blockDim.x) {
     const int u = e / L, l = e % L;
-    c[u * L + l] = anc[(size_t)u * n + l];
-    h[u * L + l] = anc[(size_t)(H + u) * n + l];
+    h[u * S + l] = u < H ? anc[(size_t)(H + u) * n + l] : 0.0f;
   }
+  for (int e = tid; e < (Ep - E) * L; e += blockDim.x)
+    x[(E + e / L) * S + e % L] = 0.0f;  // x's padded rows
   __syncthreads();
   for (int t = 0; t < A.bptt; ++t) {
     const float* pt = A.planes + (size_t)(A.seg * A.bptt + t) * N_TRAJ * n + lane0;
     float* xs = A.s[XS] + (size_t)t * RX * NL + ml0;
     if constexpr (CNN) {
       // x, the tower's output, from the scratch
-      for (int e = tid; e < E * L; e += blockDim.x) {
+#pragma unroll 8
+      for (int e = tid; e < CNN_H * L; e += blockDim.x) {
         const int k = e / L, l = e % L;
-        xh[k * L + l] = xs[(size_t)(OBS_DIM + k) * NL + l];
+        x[k * S + l] = xs[(size_t)(OBS_DIM + k) * NL + l];
       }
     } else {
       for (int e = tid; e < OBS_DIM * L; e += blockDim.x) {
         const int k = e / L, l = e % L;
         const float v = pt[(size_t)(TP_OBS0 + k) * n + l];
-        obs_rows[k * L + l] = v;
+        obs_rows[k * obs_s + l] = v;
         xs[(size_t)k * NL + l] = v;
       }
     }
     for (int e = tid; e < H * L; e += blockDim.x) {
       const int u = e / L, l = e % L;
-      xs[(size_t)(h_row + u) * NL + l] = h[u * L + l];
+      xs[(size_t)(h_row + u) * NL + l] = h[u * S + l];
     }
     __syncthreads();
     if constexpr (!CNN) {
-      lstm_encoder<L>(obs, buf0, buf1, xh, A.theta, net,
-                      [&](int i, const float* out) {
-                        int r0 = OBS_DIM;
-                        for (int j = 0; j < i; ++j) r0 += net.enc_w[j];
-                        for (int e = tid; e < net.enc_w[i] * L;
-                             e += blockDim.x) {
-                          const int k = e / L, l = e % L;
-                          xs[(size_t)(r0 + k) * NL + l] = out[k * L + l];
-                        }
-                      });
+      lstm_encoder<L, L, S>(obs, buf0, buf1, x, A.theta, net,
+                            [&](int i, const float* out, int os) {
+                              int r0 = OBS_DIM;
+                              for (int j = 0; j < i; ++j) r0 += net.enc_w[j];
+                              for (int e = tid; e < net.enc_w[i] * L;
+                                   e += blockDim.x) {
+                                const int k = e / L, l = e % L;
+                                xs[(size_t)(r0 + k) * NL + l] = out[k * os + l];
+                              }
+                            });
     }
-    float* gs = A.s[GZ] + (size_t)t * 4 * H * NL + ml0;
-    float* cts = A.s[CT] + (size_t)t * 2 * H * NL + ml0;
+    float* gfs = A.s[GF] + (size_t)t * 6 * Hp * NL + (size_t)ml0 * 6 * Hp;
     float* h2s = A.s[H2S] + (size_t)t * H * NL + ml0;
-    lstm_gates<L, BP_PASSES, BP_UNROLL>(
-        xh, c, E, H, A.WP, A.BP,
-        [&](int u, int l0, const float* gi, const float* gf, const float* gg,
-            const float* go, const float* cin, const float* th,
-            const float* h2) {
-          store4(gs + (size_t)u * NL + l0, gi);
-          store4(gs + (size_t)(H + u) * NL + l0, gf);
-          store4(gs + (size_t)(2 * H + u) * NL + l0, gg);
-          store4(gs + (size_t)(3 * H + u) * NL + l0, go);
-          store4(cts + (size_t)u * NL + l0, cin);
-          store4(cts + (size_t)(H + u) * NL + l0, th);
-          store4(h2s + (size_t)u * NL + l0, h2);
-        });
+    lstm_gates_mma(x, h, E, H, A.PG, A.BP,
+                   [&](int p, int i, int r, int u, int l, float gi, float gf,
+                       float gg, float go) {
+                     const float cin = cr[p][i][r];
+                     const float c2 = gf * cin + gi * gg;
+                     cr[p][i][r] = c2;
+                     const float th = tanhf(c2), h2 = go * th;
+                     const float q6[6] = {gi, gf, gg, go, cin, th};
+#pragma unroll
+                     for (int q = 0; q < 6; ++q) gfs[gf_at(p, i, q, r)] = q6[q];
+                     if (u < H) h2s[(size_t)u * NL + l] = h2;
+                     return h2;
+                   });
     __syncthreads();
-    // _mask_carry with the step's stored done
-    for (int e = tid; e < H * L; e += blockDim.x) {
-      const int u = e / L, l = e % L;
-      const float keep = 1.0f - pt[(size_t)TP_DONE * n + l];
-      c[u * L + l] = c[u * L + l] * keep;
-      h[u * L + l] = h[u * L + l] * keep;
+    // the heads at h', for the walk back (in the DMV scratch, which it
+    // overwrites with their gradients); then _mask_carry with the step's
+    // stored done, each thread masking the units of h it read, and c where
+    // its owners keep it
+    const float* done = pt + (size_t)TP_DONE * n;
+    {
+      float m[4], v;
+      lstm_heads4(h, S, A.theta, net, m, v);
+      const int l = tid >> 2;
+      if ((tid & 3) == 0) {
+        float* mvs = A.s[DMV] + (size_t)t * 5 * NL + ml0 + l;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) mvs[(size_t)k * NL] = m[k];
+        mvs[(size_t)4 * NL] = v;
+      }
+      const float keep = 1.0f - done[l];
+      for (int u = tid & 3; u < H; u += 4) h[u * S + l] = h[u * S + l] * keep;
     }
+#pragma unroll
+    for (int p = 0; p < GATE_PASSES; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          cr[p][i][r] = cr[p][i][r] * (1.0f - done[owned_lane(i, r)]);
     __syncthreads();
   }
 
   // ---- backward through time ---------------------------------------------
-  int maxe = 0;
-  for (int i = 0; i < net.n_enc; ++i) maxe = net.enc_w[i] > maxe ? net.enc_w[i] : maxe;
-  if constexpr (CNN) maxe = E;
-  float* dh = sm;
-  float* dc = dh + H * L;
-  float* dz = dc + H * L;
-  float* dx = dz + 4 * H * L;
-  float* dmv = dx + maxe * L;
-  float* keep_s = dmv + 5 * L;
-  for (int e = tid; e < H * L; e += blockDim.x) {
-    dh[e] = 0.0f;
-    dc[e] = 0.0f;
-  }
+  float* dz = sm;  // 4 Hp rows in the gate block's column order
+  float* dx = dz + 4 * Hp * S;
+  float* dmv = dx + dx_rows(net, ENC) * S;
+  float* keep_s = dmv + 5 * S;
+  // dh and dc of the pairs this thread owns
+  float dh[GATE_PASSES][4][4], dc[GATE_PASSES][4][4];
+  zero_frags(dh);
+  zero_frags(dc);
   float stv[N_UPSTATS];
 #pragma unroll
   for (int k = 0; k < N_UPSTATS; ++k) stv[k] = 0.0f;
   const float* hw = A.theta + net.head_off;
   const float* vw = A.theta + net.vhead_off;
   // no encoder: x is data, no dx
-  const int r_lo = CNN || net.n_enc ? 0 : E;
+  const bool want_dx = CNN || net.n_enc;
   for (int t = A.bptt - 1; t >= 0; --t) {
     const int ts = A.seg * A.bptt + t;
     const float* pt = A.planes + (size_t)ts * N_TRAJ * n + lane0;
     const float* xs = A.s[XS] + (size_t)t * RX * NL + ml0;
     float* gs = A.s[GZ] + (size_t)t * 4 * H * NL + ml0;
-    const float* cts = A.s[CT] + (size_t)t * 2 * H * NL + ml0;
+    const float* gfs =
+        A.s[GF] + (size_t)t * 6 * Hp * NL + (size_t)ml0 * 6 * Hp;
     if (tid < L) {
-      // the heads and the PPO surrogate's gradients (K3's _head_grads)
-      float m[4], v, a[4], dm[4], g_v, st[N_UPSTATS];
-      lstm_heads(A.s[H2S] + (size_t)t * H * NL + ml0, NL, tid, A.theta, net,
-                 m, v);
+      // the PPO surrogate's gradients (K3's _head_grads) at the heads the
+      // forward kept
+      float m[4], a[4], dm[4], g_v, st[N_UPSTATS];
+      float* dmvs = A.s[DMV] + (size_t)t * 5 * NL + ml0 + tid;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) a[k] = pt[(size_t)(TP_ACT0 + k) * n + tid];
+      for (int k = 0; k < 4; ++k) {
+        m[k] = dmvs[(size_t)k * NL];
+        a[k] = pt[(size_t)(TP_ACT0 + k) * n + tid];
+      }
+      const float v = dmvs[(size_t)4 * NL];
       const float* ar = A.advret + (size_t)ts * n + lane0 + tid;
       head_grads(m, v, a, pt[(size_t)TP_LOGP * n + tid],
                  pt[(size_t)TP_VAL * n + tid], ar[0],
                  ar[(size_t)A.T * n], ls, stdv, co, dm, g_v, st);
 #pragma unroll
       for (int k = 0; k < N_UPSTATS; ++k) stv[k] = stv[k] + st[k];
-      float* dmvs = A.s[DMV] + (size_t)t * 5 * NL + ml0 + tid;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        dmv[k * L + tid] = dm[k];
+        dmv[k * S + tid] = dm[k];
         dmvs[(size_t)k * NL] = dm[k];
       }
-      dmv[4 * L + tid] = g_v;
+      dmv[4 * S + tid] = g_v;
       dmvs[(size_t)4 * NL] = g_v;
       keep_s[tid] = 1.0f - pt[(size_t)TP_DONE * n + tid];
     }
     __syncthreads();
-    // through the cell: dh', dc', dz; dc for the step before
-    for (int e = tid; e < H * L; e += blockDim.x) {
-      const int u = e / L, l = e % L;
-      const float keep = keep_s[l];
-      float hd = __ldg(hw + u) * dmv[l];
+    // through the cell, on the pairs this thread owns: dh', dc', dz; dc for
+    // the step before. A fragment's four pairs load their stored gates
+    // together before any arithmetic.
 #pragma unroll
-      for (int k = 1; k < 4; ++k) hd = __fmaf_rn(__ldg(hw + k * H + u), dmv[k * L + l], hd);
-      const float dh2 = (hd + __ldg(vw + u) * dmv[4 * L + l]) + dh[e] * keep;
-      const size_t gu = (size_t)u * NL + l;
-      const float gi = gs[gu], gf = gs[gu + (size_t)H * NL];
-      const float gg = gs[gu + (size_t)2 * H * NL], go = gs[gu + (size_t)3 * H * NL];
-      const float cin = cts[gu], th = cts[gu + (size_t)H * NL];
-      const float dc2 = dc[e] * keep + dh2 * go * (1.0f - th * th);
-      const float dgo = dh2 * th;
-      const float dgi = dc2 * gg;
-      const float dgf = dc2 * cin;
-      const float dgg = dc2 * gi;
-      dc[e] = dc2 * gf;
-      const float z[4] = {dgi * (gi * (1.0f - gi)), dgf * (gf * (1.0f - gf)),
-                          dgg * (1.0f - gg * gg), dgo * (go * (1.0f - go))};
+    for (int p = 0; p < GATE_PASSES; ++p) {
+      const int ug = w + GATE_WARPS * p;
+      if (ug >= UG) continue;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        dz[(g * H + u) * L + l] = z[g];
-        gs[gu + (size_t)g * H * NL] = z[g];
+      for (int i = 0; i < 4; ++i) {
+        float st6[6][4];
+#pragma unroll
+        for (int q = 0; q < 6; ++q)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) st6[q][r] = gfs[gf_at(p, i, q, r)];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int u = owned_unit(p, r), l = owned_lane(i, r);
+          float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (u < H) {
+            const float keep = keep_s[l];
+            float hd = __ldg(hw + u) * dmv[l];
+#pragma unroll
+            for (int k = 1; k < 4; ++k)
+              hd = __fmaf_rn(__ldg(hw + k * H + u), dmv[k * S + l], hd);
+            const float dh2 =
+                (hd + __ldg(vw + u) * dmv[4 * S + l]) + dh[p][i][r] * keep;
+            const float gi = st6[0][r], gf = st6[1][r], gg = st6[2][r];
+            const float go = st6[3][r], cin = st6[4][r], th = st6[5][r];
+            const float dc2 = dc[p][i][r] * keep + dh2 * go * (1.0f - th * th);
+            const float dgo = dh2 * th;
+            const float dgi = dc2 * gg;
+            const float dgf = dc2 * cin;
+            const float dgg = dc2 * gi;
+            dc[p][i][r] = dc2 * gf;
+            z[0] = dgi * (gi * (1.0f - gi));
+            z[1] = dgf * (gf * (1.0f - gf));
+            z[2] = dgg * (1.0f - gg * gg);
+            z[3] = dgo * (go * (1.0f - go));
+          }
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            dz[(32 * ug + 8 * g + u % 8) * S + l] = z[g];
+        }
       }
     }
     __syncthreads();
-    // [dx; dh] = sum over units u and gates g of WP[r][u][g] dz[g][u]
-    {
-      constexpr int LB = L / 4;
-      const int rows = E + H - r_lo;
-      const int tiles = ((rows + 3) / 4) * LB;
-      for (int tile = tid; tile < tiles; tile += blockDim.x) {
-        const int r0 = r_lo + 4 * (tile / LB), l0 = 4 * (tile % LB);
-        float acc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
-#pragma unroll (BP_UNROLL)
-        for (int u = 0; u < H; ++u) {
-          float4 zg[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            zg[g] = *reinterpret_cast<const float4*>(dz + (g * H + u) * L + l0);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float4 w = r0 + i < E + H ? __ldg(A.WP + (size_t)(r0 + i) * H + u)
-                                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            const float wg[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-              acc[i][0] = __fmaf_rn(wg[g], zg[g].x, acc[i][0]);
-              acc[i][1] = __fmaf_rn(wg[g], zg[g].y, acc[i][1]);
-              acc[i][2] = __fmaf_rn(wg[g], zg[g].z, acc[i][2]);
-              acc[i][3] = __fmaf_rn(wg[g], zg[g].w, acc[i][3]);
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = r0 + i;
-          if (r >= E + H) break;
-          store4(r < E ? dx + r * L + l0 : dh + (r - E) * L + l0, acc[i]);
-        }
-      }
+    // [dx; dh] = dz [Wi; Wh]^T: dh into this thread's registers; beside it
+    // dz's rows to the GZ scratch (natural order: gate g of unit u at row
+    // g H + u), 256 contiguous bytes a row
+    gates_bwd_mma(dz, E, H, A.PGT, want_dx, dx, dh);
+    for (int e = tid; e < 4 * H * (L / 4); e += blockDim.x) {
+      const int row = e / (L / 4), l4 = 4 * (e % (L / 4));
+      const int g = row / H, u = row % H;
+      *reinterpret_cast<float4*>(gs + (size_t)row * NL + l4) =
+          *reinterpret_cast<const float4*>(
+              dz + (32 * (u / 8) + 8 * g + u % 8) * S + l4);
     }
     __syncthreads();
     if constexpr (CNN) {
       // the trunk's relu: dzt = dx * (x > 0) to the scratch; the conv
       // backward runs after the segment (tower_bwd_kernel)
       float* dzs = A.s[DP] + (size_t)t * E * NL + ml0;
-      for (int e = tid; e < E * L; e += blockDim.x) {
+#pragma unroll 8
+      for (int e = tid; e < CNN_H * L; e += blockDim.x) {
         const int k = e / L, l = e % L;
-        const float x = xs[(size_t)(OBS_DIM + k) * NL + l];
-        dzs[(size_t)k * NL + l] = dx[e] * (x > 0.0f ? 1.0f : 0.0f);
+        const float xv = xs[(size_t)(OBS_DIM + k) * NL + l];
+        dzs[(size_t)k * NL + l] = dx[k * S + l] * (xv > 0.0f ? 1.0f : 0.0f);
       }
       continue;
     }
@@ -397,18 +473,19 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
       int r0 = 0;
       for (int j = 0; j < i; ++j) r0 += net.enc_w[j];
       float* dps = A.s[DP] + ((size_t)t * net.enc_rows + r0) * NL + ml0;
+#pragma unroll 4
       for (int e = tid; e < net.enc_w[i] * L; e += blockDim.x) {
         const int k = e / L, l = e % L;
         const float y = xs[(size_t)(OBS_DIM + r0 + k) * NL + l];
-        const float dp = d[e] * (1.0f - y * y);
-        d[e] = dp;
+        const float dp = d[k * S + l] * (1.0f - y * y);
+        d[k * S + l] = dp;
         dps[(size_t)k * NL + l] = dp;
       }
       __syncthreads();
       if (i > 0) {
         float* d2 = d == dx ? dz : dx;  // dz is free once the product ran
-        dense_t<L>(A.theta + net.enc_off[i], net.enc_w[i], net.enc_w[i - 1],
-                   d, d2);
+        dense_t<L, S>(A.theta + net.enc_off[i], net.enc_w[i], net.enc_w[i - 1],
+                      d, d2);
         __syncthreads();
         d = d2;
       }
@@ -487,13 +564,13 @@ tower_fwd_kernel(TowerFwdArgs A) {
   }
 }
 
-// One product of the weight gradients over a segment's samples: C (M x N)
-// = sum_s A[m][s] B[n][s], and with blockIdx.y == 0 the bias sums sum_s
-// A[m][s] as column N. A and B are scratch buffers (bptt, rows, NL) from
-// rows a0 / b0; sample s = t * NL + lane. Block (i, j, kc) takes the 64 x
-// 64 tile (i, j) over chunk kc of CK lanes of one step and writes its own
-// partial row (row0 + kc) of the (rows, ptot) buffer at out_off, the block
-// (M, N + 1) row-major.
+// One product of the weight gradients over a segment's samples, on the
+// tensor cores in 3xTF32: C (M x N) = sum_s A[m][s] B[n][s], and with
+// blockIdx.y == 0 the bias sums sum_s A[m][s] as column N (fp32). A and B
+// are scratch buffers (bptt, rows, NL) from rows a0 / b0; sample s = t * NL
+// + lane. Block (i, j, kc) takes the 64 x 64 tile (i, j) over chunk kc of
+// CK lanes of one step and writes its own partial row (row0 + kc) of the
+// (rows, ptot) buffer at out_off, the block (M, N + 1) row-major.
 struct GemmPair {
   const float* a;
   int ra, a0, M;
@@ -502,79 +579,104 @@ struct GemmPair {
   int out_off;
 };
 
-__global__ void __launch_bounds__(256)
-grad_gemm_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
-                 int ptot, int row0) {
-  // A thread owns 4 rows x 4 columns of the 64 x 64 tile. The tiles are
-  // double-buffered in shared memory: each thread loads its float4 of A and
-  // of B for the next step while the block computes this one, so one
-  // barrier a step.
-  __shared__ __align__(16) float As[2][GK][GT + 4];
-  __shared__ __align__(16) float Bs[2][GK][GT + 4];
-  const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
-  const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT, kc = blockIdx.z;
+__global__ void __launch_bounds__(256, 2)
+grad_mma_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
+                int ptot, int row0) {
+  // Per window of 64 samples each thread stores the float4s of A and B it
+  // loaded during the last window into one of two buffers, so one barrier
+  // a window. Warp w takes rows 32 (w & 1) .., columns 16 (w >> 1) .. of
+  // the tile: 2 x 2 fragments.
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.x * GM_T, n0 = blockIdx.y * GM_T, kc = blockIdx.z;
   const int per_t = NL / CK;
   const int t = kc / per_t, lane0 = (kc % per_t) * CK;
   const float* a = p.a + ((size_t)t * p.ra + p.a0) * NL + lane0;
   const float* b = p.b + ((size_t)t * p.rb + p.b0) * NL + lane0;
-  const bool bias = blockIdx.y == 0 && tn == 0;
-  float acc[4][4], bsum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    bsum[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-  // this thread's row (li) and 4 samples (lk ..) of each step's tiles
-  const int li = tid / 4, lk = 4 * (tid % 4);
-  const bool a_ok = m0 + li < p.M, b_ok = n0 + li < p.N;
+  const bool bias = blockIdx.y == 0;
+  const int wm = 32 * (w & 1), wn = 16 * (w >> 1);
+  float sum[2][2][4], bsum = 0.0f;
+  zero_frags(sum);
+  // this thread's float4s of a window: element e = tid + 256 q, row e / 16,
+  // samples 4 (e % 16) ..
+  constexpr int NQ = GM_T * GM_T / 4 / 256;
   const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const float4* pa = reinterpret_cast<const float4*>(a + (size_t)(m0 + li) * NL + lk);
-  const float4* pb = reinterpret_cast<const float4*>(b + (size_t)(n0 + li) * NL + lk);
-  float4 ra = a_ok ? __ldg(pa) : zero4, rb = b_ok ? __ldg(pb) : zero4;
-  int buf = 0;
-  for (int k0 = 0; k0 < CK; k0 += GK) {
-    As[buf][lk + 0][li] = ra.x;
-    As[buf][lk + 1][li] = ra.y;
-    As[buf][lk + 2][li] = ra.z;
-    As[buf][lk + 3][li] = ra.w;
-    Bs[buf][lk + 0][li] = rb.x;
-    Bs[buf][lk + 1][li] = rb.y;
-    Bs[buf][lk + 2][li] = rb.z;
-    Bs[buf][lk + 3][li] = rb.w;
-    __syncthreads();
-    if (k0 + GK < CK) {
-      ra = a_ok ? __ldg(pa + (k0 + GK) / 4) : zero4;
-      rb = b_ok ? __ldg(pb + (k0 + GK) / 4) : zero4;
+  float4 ra[NQ], rb[NQ];
+  auto load = [&](int s0) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int e = tid + 256 * q, row = e / 16, col = 4 * (e % 16);
+      ra[q] = m0 + row < p.M
+                  ? __ldg(reinterpret_cast<const float4*>(
+                        a + (size_t)(m0 + row) * NL + s0 + col))
+                  : zero4;
+      rb[q] = n0 + row < p.N
+                  ? __ldg(reinterpret_cast<const float4*>(
+                        b + (size_t)(n0 + row) * NL + s0 + col))
+                  : zero4;
     }
+  };
+  load(0);
+  int buf = 0;
+  for (int s0 = 0; s0 < CK; s0 += GM_T) {
+    float* As = sm + buf * 2 * GM_T * GM_S;
+    float* Bs = As + GM_T * GM_S;
 #pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[buf][kk][4 * tm]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][kk][4 * tn]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+    for (int q = 0; q < NQ; ++q) {
+      const int e = tid + 256 * q, row = e / 16, col = 4 * (e % 16);
+      *reinterpret_cast<float4*>(As + row * GM_S + col) = ra[q];
+      *reinterpret_cast<float4*>(Bs + row * GM_S + col) = rb[q];
+    }
+    __syncthreads();
+    if (s0 + GM_T < CK) load(s0 + GM_T);
+    // the window's sums in fresh accumulators, folded into the chunk's
+    float acc[2][2][4];
+    zero_frags(acc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+    for (int k0 = 0; k0 < GM_T; k0 += 8) {
+      uint32_t ab[2][4], as[2][4], bb[2][2], bs[2][2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(ar[i], br[j], acc[i][j]);
-        if (bias) bsum[i] = bsum[i] + ar[i];
+      for (int i = 0; i < 2; ++i) {
+        const float* pa = As + (wm + 16 * i + g) * GM_S + k0 + tq;
+        split_tf32(pa[0], ab[i][0], as[i][0]);
+        split_tf32(pa[8 * GM_S], ab[i][1], as[i][1]);
+        split_tf32(pa[4], ab[i][2], as[i][2]);
+        split_tf32(pa[8 * GM_S + 4], ab[i][3], as[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* pb = Bs + (wn + 8 * j + g) * GM_S + k0 + tq;
+        split_tf32(pb[0], bb[j][0], bs[j][0]);
+        split_tf32(pb[4], bb[j][1], bs[j][1]);
+      }
+      mma3(acc, ab, as, bb, bs);
+    }
+    fold(sum, 0, acc);
+    if (bias) {
+#pragma unroll 1
+      for (int r = 0; r < 8; ++r) {
+        const float v = row_sum(As + (8 * w + r) * GM_S);
+        if (lane == r) bsum = bsum + v;
       }
     }
-    buf ^= 1;  // the other buffer's last readers passed this step's barrier
+    buf ^= 1;  // the other buffer's last readers passed this window's barrier
   }
   float* out = partial + (size_t)(row0 + kc) * ptot + p.out_off;
   const int W = p.N + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * tm + i;
-    if (m >= p.M) break;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + 4 * tn + j;
-      if (c < p.N) out[(size_t)m * W + c] = acc[i][j];
-    }
-    if (bias) out[(size_t)m * W + p.N] = bsum[i];
-  }
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + wm + 16 * i + g + (r & 2 ? 8 : 0);
+        const int c = n0 + wn + 8 * j + 2 * tq + (r & 1);
+        if (m < p.M && c < p.N) out[(size_t)m * W + c] = sum[i][j][r];
+      }
+  if (bias && lane < 8 && m0 + 8 * w + lane < p.M)
+    out[(size_t)(m0 + 8 * w + lane) * W + p.N] = bsum;
 }
 
 // grads[q] = the sum over the R partial rows of entry map[q] (fixed order);
@@ -606,15 +708,17 @@ __global__ void lstm_reduce_kernel(const float* __restrict__ partial, int R,
 }  // namespace drone
 
 // C interface (ctypes). ptrs: host array of device pointers [planes,
-// advret, snap, perm, theta, wp, bp, the 7 scratch buffers (XS, GZ, CT, H2,
-// DMV, DP, X2S), partial, stat_part, map, grads, stats, pk, grid]; X2S, the
-// packed tower weights pk (PK_TOTAL float4s) and grid are the CNN arm's
-// (null for the dense one). layout: lstm.cuh's NET_INTS; encoder: ENC_DENSE
-// or ENC_CNN. dims: [n, T, bptt, rbl, NL, CK, P, ptot, n_pairs, the 7
-// scratch row counts, the walk's shared bytes as the wrapper counts them,
-// and for the CNN arm the tower's forward and backward ones]. pairs:
-// n_pairs x [A buffer,
-// A row0, M, B buffer, B row0, N, out offset]. consts: [inv_m, clip_lo,
+// advret, snap, perm, theta, wp, bp, the 7 scratch buffers (XS, GZ, GF, H2,
+// DMV, DP, X2S), partial, stat_part, map, grads, stats, pk, grid, pg, pgt];
+// X2S, the packed tower weights pk (PK_TOTAL float4s) and grid are the CNN
+// arm's (null for the dense one); pg and pgt room for the gate weights'
+// forward and transposed fragments (gate_frags and gate_t_frags float4s),
+// written here on the stream. layout: lstm.cuh's NET_INTS; encoder:
+// ENC_DENSE or ENC_CNN. dims: [n, T, bptt, rbl, NL, CK, P, ptot, n_pairs,
+// the 7 scratch row counts, then the shared bytes of a block of the walk,
+// the CNN arm's tower forward and backward (0 for the dense arm) and the
+// products, as the wrapper counts them]. pairs: n_pairs x [A buffer, A
+// row0, M, B buffer, B row0, N, out offset]. consts: [inv_m, clip_lo,
 // clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the
 // cudaError_t of the launches.
 extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
@@ -632,12 +736,14 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const bool cnn = encoder == ENC_CNN;
   const size_t smem = sizeof(float) * (size_t)bptt_smem_floats(net, encoder);
   if (n <= 0 || bptt <= 0 || T % bptt != 0 || rbl % 128 != 0 ||
-      NL % BP_LANES != 0 || CK % GK != 0 || NL % CK != 0 || n_pairs <= 0 ||
-      smem_bytes[0] != (int)smem ||
+      NL % BP_LANES != 0 || CK % GM_T != 0 || NL % CK != 0 || n_pairs <= 0 ||
+      smem_bytes[0] != (int)smem || smem_bytes[3] != GM_SMEM ||
+      rows[GF] != 6 * gate_units(net.H) ||
+      smem_bytes[1] != (cnn ? TF_SMEM : 0) ||
+      smem_bytes[2] != (cnn ? TB_SMEM : 0) ||
       (cnn && (NL % TM_L != 0 || ptot < OFF_WT ||
                rows[XS] != OBS_DIM + CNN_H + net.H || rows[DP] != CNN_H ||
-               rows[X2S] != CNN_X2 || smem_bytes[1] != TF_SMEM ||
-               smem_bytes[2] != TB_SMEM)))
+               rows[X2S] != CNN_X2)))
     return (int)cudaErrorInvalidValue;
   const float** ptr = reinterpret_cast<const float**>(const_cast<uint64_t*>(ptrs));
   BpttArgs A;
@@ -646,7 +752,7 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   A.snap = ptr[2];
   A.perm = reinterpret_cast<const int*>(ptr[3]);
   A.theta = ptr[4];
-  A.WP = reinterpret_cast<const float4*>(ptr[5]);
+  const float* wp = ptr[5];
   A.BP = reinterpret_cast<const float4*>(ptr[6]);
   float* bufs[N_BUFS];
   for (int b = 0; b < N_BUFS; ++b) bufs[b] = const_cast<float*>(ptr[7 + b]);
@@ -658,8 +764,13 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   float* stats = const_cast<float*>(ptr[18]);
   float4* pk = reinterpret_cast<float4*>(const_cast<float*>(ptr[19]));
   const float* grid = ptr[20];
-  if (cnn && (pk == nullptr || grid == nullptr || bufs[X2S] == nullptr))
+  float4* pg = reinterpret_cast<float4*>(const_cast<float*>(ptr[21]));
+  float4* pgt = reinterpret_cast<float4*>(const_cast<float*>(ptr[22]));
+  if (pg == nullptr || pgt == nullptr ||
+      (cnn && (pk == nullptr || grid == nullptr || bufs[X2S] == nullptr)))
     return (int)cudaErrorInvalidValue;
+  A.PG = pg;
+  A.PGT = pgt;
   A.n = n;
   A.T = T;
   A.bptt = bptt;
@@ -672,6 +783,10 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   cudaError_t err = cudaFuncSetAttribute(
       walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(grad_mma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             GM_SMEM);
+  if (err != cudaSuccess) return (int)err;
   const int S = T / bptt, nblk = NL / BP_LANES, nk = bptt * (NL / CK);
   const int n_tiles = bptt * (NL / TM_L);
   TowerFwdArgs tf{A.planes, A.perm, A.theta, pk, grid, bufs[XS], bufs[X2S],
@@ -680,6 +795,12 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
                   bufs[DP], bufs[X2S], A.theta, pk, grid, partial, ptot, 0,
                   NL, n_tiles};
   const int tf_blocks = n_tiles < TOWER_FWD_BLOCKS ? n_tiles : TOWER_FWD_BLOCKS;
+  const int nf = gate_frags(net.E, net.H), nft = gate_t_frags(net.E, net.H);
+  pack_gates_kernel<<<(nf + 255) / 256, 256, 0, s>>>(wp, net.E, net.H, pg);
+  pack_gates_t_kernel<<<(nft + 255) / 256, 256, 0, s>>>(wp, net.E, net.H,
+                                                        pgt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   if (cnn) {
     err = cudaFuncSetAttribute(tower_fwd_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -717,8 +838,9 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
       const int* d = pairs + 7 * q;
       const GemmPair gp{bufs[d[0]], rows[d[0]], d[1], d[2],
                         bufs[d[3]], rows[d[3]], d[4], d[5], d[6]};
-      const dim3 grid((gp.M + GT - 1) / GT, (gp.N + GT - 1) / GT, nk);
-      grad_gemm_kernel<<<grid, 256, 0, s>>>(gp, NL, CK, partial, ptot, seg * nk);
+      const dim3 grid((gp.M + GM_T - 1) / GM_T, (gp.N + GM_T - 1) / GM_T, nk);
+      grad_mma_kernel<<<grid, 256, GM_SMEM, s>>>(gp, NL, CK, partial, ptot,
+                                                 seg * nk);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

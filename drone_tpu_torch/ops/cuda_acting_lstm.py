@@ -25,16 +25,17 @@ The policy is the flat parameter buffer in the reference's
 family's patch-CNN `CnnArch`. `encode_features` is the reference's switch
 between the two (`pallas_acting_lstm.encode_features`): the tanh dense
 stack, or `cuda_acting_cnn.cnn_encode` (render, conv0, conv1, trunk in the
-CNN kernels' formulation). The kernel's CNN arm runs the tower's forward on
-the tensor cores in 3xTF32 (`csrc/cnn_mma.cuh`, K11's and the updates'),
-its output the LSTM's input rows, and the gate block there too
-(`csrc/lstm_mma.cuh`: the product (x; h) [Wi; Wh] in one, `gate_linear`
-the plain version's hook for an emulation), on tiles of 64 lanes
-(`LANES_CNN`); it takes the reference trainer's default tower only
-(`cuda_acting_cnn.KERNEL_ARCH`). The wrapper packs the gate weights for the
-kernel (`pack_gates`) with torch ops on the device, so a launch needs no
-host copy; for the CNN arm the call then splits the tower's and the gates'
-weights into their tensor-core fragments on the launch's stream.
+CNN kernels' formulation). The kernel runs, on tiles of 64 lanes
+(`cuda_acting_cnn.TILE`) in both arms, the gate block on the tensor cores
+in 3xTF32 (`csrc/lstm_mma.cuh`: the product (x; h) [Wi; Wh] in one,
+`gate_linear` the plain version's hook for an emulation), after the dense
+encoder on the fp32 cores or the CNN arm's tower on the tensor cores
+(`csrc/cnn_mma.cuh`, K11's and the updates'); the CNN arm takes the
+reference trainer's default tower only (`cuda_acting_cnn.KERNEL_ARCH`). The
+wrapper packs the gate weights for the kernel (`pack_gates`) with torch ops
+on the device, so a launch needs no host copy; the call then splits the
+gates' (and the CNN arm's tower's) weights into their tensor-core fragments
+on the launch's stream.
 """
 
 from __future__ import annotations
@@ -61,7 +62,6 @@ from drone_tpu_torch.ops.cuda_acting_cnn import (
     FWD_PACKED_FLOATS,
     KERNEL_ARCH,
     ROW_STRIDE,
-    TILE,
     TOWER_FWD_SMEM,
     cnn_encode,
 )
@@ -78,8 +78,6 @@ from drone_tpu_torch.pixels import grid_table, patch_grid
 from drone_tpu_torch.types import OBS_DIM, EnvParams, EnvState, EnvStatics
 
 # kernel limits (csrc/lstm.cuh, csrc/acting_lstm.cu)
-LANES = 128
-LANES_CNN = TILE          # the CNN arm's tile: the tower's
 MAX_ENC = 4
 MAX_HIDDEN = 128
 NET_INTS = 5 + 2 * MAX_ENC
@@ -149,29 +147,39 @@ def net_layout(hidden: int, encoder) -> np.ndarray:
 
 
 def gate_units(hidden: int) -> int:
-    """The CNN arm's gate block units: hidden rounded up to a multiple of 8
+    """The gate block's units: hidden rounded up to a multiple of 8
     (csrc/lstm_mma.cuh gate_units; the padding units are zero)."""
     return -(-int(hidden) // 8) * 8
 
 
+def gate_inputs(width: int) -> int:
+    """The gate block's input rows: the LSTM's input width rounded up to a
+    multiple of 8 (csrc/lstm_mma.cuh gate_inputs; the padding rows are
+    zero)."""
+    return -(-int(width) // 8) * 8
+
+
 def gate_packed_floats(hidden: int, encoder) -> int:
-    """Floats of the CNN arm's packed gate fragments: (E + Hp) x 4 Hp
-    weights, big and small (csrc/lstm_mma.cuh gate_frags)."""
+    """Floats of the packed gate fragments: (Ep + Hp) x 4 Hp weights, big
+    and small (csrc/lstm_mma.cuh gate_frags)."""
     hp = gate_units(hidden)
-    return 2 * (encoder_width(encoder_of(encoder)) + hp) * 4 * hp
+    return 2 * (gate_inputs(encoder_width(encoder_of(encoder))) + hp) * 4 * hp
 
 
 def act_smem_bytes(hidden: int, encoder) -> int:
-    """Shared memory of one acting block (acting_lstm.cu act_smem_bytes):
-    the CNN arm's is the tower's forward tile, then h and c (gate_units
-    rows each at the tile's row stride)."""
+    """Shared memory of one acting block (acting_lstm.cu act_smem_bytes),
+    rows of the tile at the tensor-core tiles' stride: the dense arm's obs,
+    encoder buffers, x (Ep rows), h and c (Hp rows each); the CNN arm's
+    tower forward tile, then h and c; both then the heads' 5 rows and
+    keep's."""
     encoder = encoder_of(encoder)
-    E = encoder_width(encoder)
+    hc = 2 * gate_units(hidden) + 6
     if is_cnn(encoder):
-        return TOWER_FWD_SMEM + 4 * ROW_STRIDE * 2 * gate_units(hidden)
+        return TOWER_FWD_SMEM + 4 * ROW_STRIDE * hc
     mid = encoder[:-1]
     nbuf = min(len(mid), 2)
-    return 4 * LANES * (OBS_DIM + nbuf * max(mid, default=0) + E + 2 * hidden)
+    return 4 * ROW_STRIDE * (OBS_DIM + nbuf * max(mid, default=0)
+                             + gate_inputs(encoder_width(encoder)) + hc)
 
 
 def check_act_envelope(hidden: int, encoder) -> None:
@@ -278,10 +286,11 @@ def _launch(state, theta, arch, carry, env_params, statics, T, bptt=None,
                          "state's device")
     check_act_envelope(hidden, encoder)
     layout = net_layout(hidden, encoder)
-    pk = pg = grid = None
-    if is_cnn(encoder):  # fragments, written by the call on its stream
+    # fragments, written by the call on its stream
+    pg = torch.empty(gate_packed_floats(hidden, encoder), device=dev)
+    pk = grid = None
+    if is_cnn(encoder):
         pk = torch.empty(FWD_PACKED_FLOATS, device=dev)
-        pg = torch.empty(gate_packed_floats(hidden, encoder), device=dev)
         grid = grid_table(encoder.res, encoder.p0, dev)
     n = state.n
     _check_carry(carry, n, hidden, dev)
@@ -304,7 +313,7 @@ def _launch(state, theta, arch, carry, env_params, statics, T, bptt=None,
     final, lane_stats = launch_planes(
         fn, state, env_params, statics, T, theta.data_ptr(), wp.data_ptr(),
         bp.data_ptr(), c_in.data_ptr(), h_in.data_ptr(), c_out.data_ptr(),
-        h_out.data_ptr(), ptr(planes), ptr(snap), ptr(pk), ptr(pg),
+        h_out.data_ptr(), ptr(planes), ptr(snap), pg.data_ptr(), ptr(pk),
         ptr(grid), layout.ctypes.data,
         ENC_CNN if is_cnn(encoder) else ENC_DENSE, int(stochastic),
         int(bptt or 0), act_smem_bytes(hidden, encoder))

@@ -23,6 +23,13 @@ the whole minibatch fit in device memory (about 1.2 GB at 16,384 lanes x
 16 steps, H 128, encoder (64,)), so the kernel stores them in a scratch the
 wrapper allocates and runs one forward per step, not 1 + 1.375.
 
+The kernels run the gate block, its input gradient [dx; dh] and the
+weight-gradient products on the tensor cores in 3xTF32
+(`csrc/lstm_mma.cuh`, `csrc/update_lstm.cu`); the plain version's forward
+gate product is `models.lstm.gate_linear` and its backward products
+`gate_mm`, hooks an emulation of that precision
+(`cuda_update_cnn.mm_3xtf32`) can take the place of.
+
 The CNN arm (the pixel-recurrent family, `arch` = (hidden, CnnArch)): the
 gradient at the LSTM's input flows back through the trunk, conv1 and conv0
 by `cuda_update_cnn.cnn_encoder_bwd`, as the reference's `_segment_grads`
@@ -59,12 +66,16 @@ from drone_tpu_torch.models.lstm import (
     lstm_weights,
 )
 from drone_tpu_torch.ops import cuda_build
+from drone_tpu_torch.ops.cuda_acting_cnn import ROW_STRIDE, TILE
 from drone_tpu_torch.ops.cuda_acting_lstm import (
     ENC_CNN,
     ENC_DENSE,
     check_act_envelope,
     enc_flat,
     encode_features,
+    gate_inputs,
+    gate_packed_floats,
+    gate_units,
     net_layout,
     pack_gates,
 )
@@ -95,9 +106,12 @@ from drone_tpu_torch.ops.cuda_update_cnn import (
 from drone_tpu_torch.pixels import grid_table
 from drone_tpu_torch.types import OBS_DIM
 
-# kernel limits (csrc/update_lstm.cu)
-BP_LANES = 64             # lanes of a through-time tile
+# kernel limits (csrc/update_lstm.cu, csrc/lstm_mma.cuh)
+BP_LANES = TILE           # lanes of a through-time tile
 MAX_CHUNK = 2048          # samples of one split-K chunk of the gradient products
+# the products' operand tiles: A and B, 64 rows of 64 samples at a stride of
+# 68 floats, double-buffered
+PRODUCT_SMEM = 2 * 2 * 64 * 68 * 4
 _MAX_SMEM = 232448
 
 
@@ -168,6 +182,13 @@ def lstm_head_branch_counts(planes, advret, snap, perm_mb, theta, arch,
                          arf[0], arf[1], ls, co)
 
 
+def gate_mm(a, b):
+    """a @ b for the products the kernels run on the tensor cores in 3xTF32
+    (dz [Wi; Wh]^T and the weight gradients over the samples);
+    cuda_update_cnn.mm_3xtf32 can take its place."""
+    return a @ b
+
+
 @torch.no_grad()
 def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
                       co: UpdateConsts, rbl: int, bptt: int,
@@ -199,9 +220,9 @@ def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
             m, v, pt[TP_ACT0:TP_ACT0 + 4].t(), pt[TP_LOGP], pt[TP_VAL],
             ar[t, 0], ar[t, 1], ls, co)
         st += stats.sum(0)
-        g_hw += dm.t() @ h2
+        g_hw += gate_mm(dm.t(), h2)
         g_hb += dm.sum(0)
-        g_vw += g_v[None] @ h2
+        g_vw += gate_mm(g_v[None], h2)
         g_vb += g_v.sum(0, keepdim=True)
         dh2 = dm @ hw + g_v[:, None] @ vw + dh * keep
         dc2 = dc * keep + dh2 * go * (1.0 - th * th)
@@ -216,11 +237,11 @@ def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
         dh = torch.zeros_like(dh)
         dx = torch.zeros_like(x)
         for k in range(4):
-            g_wi[k] += dz[k].t() @ x
-            g_wh[k] += dz[k].t() @ h_in
+            g_wi[k] += gate_mm(dz[k].t(), x)
+            g_wh[k] += gate_mm(dz[k].t(), h_in)
             g_bh[k] += dz[k].sum(0)
-            dh = dh + dz[k] @ wh[k]
-            dx = dx + dz[k] @ wi[k]
+            dh = dh + gate_mm(dz[k], wh[k])
+            dx = dx + gate_mm(dz[k], wi[k])
         if is_cnn(encoder):
             # the tower re-run a chunk at a time, and its backward
             obs = pt[TP_OBS0:TP_OBS0 + OBS_DIM].t()
@@ -234,7 +255,7 @@ def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
         for li in range(len(enc) - 1, -1, -1):
             y = acts[li + 1]
             dpre = dx * (1.0 - y * y)
-            g_enc[li][0].add_(dpre.t() @ acts[li])
+            g_enc[li][0].add_(gate_mm(dpre.t(), acts[li]))
             g_enc[li][1].add_(dpre.sum(0))
             if li > 0:
                 dx = dpre @ enc[li][0]
@@ -244,10 +265,11 @@ def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
 
 
 # scratch buffers of one segment, each (bptt, rows, NL): the forward's
-# activations [X, encoder outputs, h_in], the gates (then dz), [c_in,
-# tanh(c')], h', the head gradients [dm, g_v], the dense encoder's dpre or
-# the CNN arm's dzt, and the CNN arm's trunk inputs X2
-XS, GZ, CT, H2, DMV, DP, X2S = range(7)
+# activations [X, encoder outputs, h_in], dz, the gate block's [gi, gf, gg,
+# go, c_in, tanh(c')] over its padded units (in its threads' order), h',
+# the heads' outputs (then their gradients [dm, g_v]), the dense encoder's
+# dpre or the CNN arm's dzt, and the CNN arm's trunk inputs X2
+XS, GZ, GF, H2, DMV, DP, X2S = range(7)
 
 
 def grad_products(hidden: int, encoder):
@@ -319,39 +341,58 @@ def _x2_rows(arch) -> int:
 
 
 def scratch_rows(hidden: int, encoder) -> list[int]:
-    """Rows per step of each scratch buffer (XS, GZ, CT, H2, DMV, DP, X2S)."""
+    """Rows per step of each scratch buffer (XS, GZ, GF, H2, DMV, DP, X2S)."""
     encoder = encoder_of(encoder)
+    gf = 6 * gate_units(hidden)
     if is_cnn(encoder):
         E = encoder.hidden
-        return [OBS_DIM + E + hidden, 4 * hidden, 2 * hidden, hidden, 5, E,
+        return [OBS_DIM + E + hidden, 4 * hidden, gf, hidden, 5, E,
                 _x2_rows(encoder)]
     enc_rows = sum(encoder)
-    return [OBS_DIM + enc_rows + hidden, 4 * hidden, 2 * hidden, hidden, 5,
-            enc_rows, 0]
+    return [OBS_DIM + enc_rows + hidden, 4 * hidden, gf, hidden, 5, enc_rows,
+            0]
 
 
 def bptt_smem_bytes(hidden: int, encoder) -> int:
-    """Shared memory of one through-time block (update_lstm.cu). The CNN
-    arm's walk reads x from the scratch, so its forward holds xh and c."""
+    """Shared memory of one through-time block (update_lstm.cu
+    bptt_smem_floats): the larger of the forward's (the dense arm's obs and
+    encoder buffers at 64 floats a row, x (Ep rows) and h (Hp rows) at the
+    tensor-core tiles' stride; the CNN arm reads x from the scratch) and
+    the backward's (dz (4 Hp rows), dx (the larger of Ep and the widest
+    layer), [dm; g_v] and keep at that stride). c, dh and dc live in
+    registers."""
     encoder = encoder_of(encoder)
     E = encoder_width(encoder)
+    ep, hp = gate_inputs(E), gate_units(hidden)
+    fwd = 4 * ROW_STRIDE * (ep + hp)
     if is_cnn(encoder):
-        fwd, maxe = E + 2 * hidden, E
+        maxe = E
     else:
         mid = encoder[:-1]
-        fwd = OBS_DIM + min(len(mid), 2) * max(mid, default=0) + E + 2 * hidden
+        fwd += 4 * BP_LANES * (OBS_DIM + min(len(mid), 2)
+                               * max(mid, default=0))
         maxe = max(encoder, default=0)
-    bwd = 6 * hidden + maxe + 6
-    return 4 * BP_LANES * max(fwd, bwd)
+    bwd = 4 * ROW_STRIDE * (4 * hp + max(ep, maxe) + 6)
+    return max(fwd, bwd)
 
 
 def kernel_smem_bytes(hidden: int, encoder) -> list[int]:
     """Shared bytes of a block of each kernel the C entry point launches
     with dynamic shared memory, as it checks them: the walk through time,
-    and the CNN arm's tower forward and backward (0 for the dense arm)."""
+    the CNN arm's tower forward and backward (0 for the dense arm), and the
+    products."""
     cnn = is_cnn(encoder_of(encoder))
     return [bptt_smem_bytes(hidden, encoder),
-            TOWER_FWD_SMEM if cnn else 0, TOWER_BWD_SMEM if cnn else 0]
+            TOWER_FWD_SMEM if cnn else 0, TOWER_BWD_SMEM if cnn else 0,
+            PRODUCT_SMEM]
+
+
+def gate_t_packed_floats(hidden: int, encoder) -> int:
+    """Floats of the transposed gate fragments of the walk's backward
+    product: 4 Hp x (Ep + Hp) weights, big and small (csrc/lstm_mma.cuh
+    gate_t_frags)."""
+    hp = gate_units(hidden)
+    return 2 * 4 * hp * (gate_inputs(encoder_width(encoder_of(encoder))) + hp)
 
 
 def check_envelope(hidden: int, encoder) -> None:
@@ -433,10 +474,14 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
     if cnn:
         pk = torch.empty(PACKED_FLOATS, device=dev)
         grid = grid_table(encoder.res, encoder.p0, dev)
+    # the gate weights' fragments, written by the call on its stream
+    pg = torch.empty(gate_packed_floats(hidden, encoder), device=dev)
+    pgt = torch.empty(gate_t_packed_floats(hidden, encoder), device=dev)
     ptrs = np.array([t.data_ptr() for t in (
         planes, advret, snap, perm_mb, theta, wp, bp, *scratch, partial,
         stat_part, mp, grads, stats)]
-        + ([pk.data_ptr(), grid.data_ptr()] if cnn else [0, 0]), np.uint64)
+        + ([pk.data_ptr(), grid.data_ptr()] if cnn else [0, 0])
+        + [pg.data_ptr(), pgt.data_ptr()], np.uint64)
     dims = np.array([n, T, bptt, rbl, NL, CK, P, ptot, len(pairs), *rows,
                      *kernel_smem_bytes(hidden, encoder)], np.int32)
     consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,

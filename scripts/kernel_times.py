@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with an H100:
 It builds acting_lstm, update_lstm, acting_cnn and update_cnn, times K8 and
 K6 (dense encoder and CNN arm) and K11 and K9 at their paths' shapes, and
 K7 (both arms) and K10 on one full-width minibatch, by CUDA events, and
-prints one JSON line with the ptxas register count of every kernel. To
+prints one JSON line with the ptxas register count of every kernel. K7
+dense is read first and again last, on the same inputs ("K7" and "K7
+end"), so a drift of the card within one run shows beside the others. To
 compare two commits, copy the script into a second checkout (git archive)
 and run both in one call, in turns (parent, change, change, parent).
 """
@@ -40,6 +42,12 @@ statics, params = cfg.env.build()
 env = DroneEnv(statics.task, statics.integrator, params, device="cuda")
 n, horizon = 65536, int(env.params.horizon) + 1
 t = {}
+lm = cs.lstm_policy()
+planes, advret, snap, perm_mb, co, rbl, bptt = cs.lstm_minibatch(
+    cfg.with_overrides(list(cs.LSTM_OVERRIDES)), lm, env)
+k7_args = (planes, advret, snap, perm_mb, lm.flat, (lm.hidden, lm.encoder),
+           co, rbl, bptt, 0.001)
+t["K7"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(*k7_args), 5)
 model = cs.lstm_policy(seed=2, log_std=0.0)
 arch = (model.hidden, model.encoder)
 state, s9 = env.init_batch(1, n), env.init_batch(9, n)
@@ -48,13 +56,6 @@ t["K8"] = cs.cuda_ms(lambda: K8.lstm_act_rollout_kernel(
     state, model.flat, arch, carry, env.params, env.statics, horizon), 3)
 t["K6"] = cs.cuda_ms(lambda: K8.traj_lstm_rollout_kernel(
     s9, model.flat, arch, carry, env.params, env.statics, 128, 16), 5)
-lm = cs.lstm_policy()
-planes, advret, snap, perm_mb, co, rbl, bptt = cs.lstm_minibatch(
-    cfg.with_overrides(list(cs.LSTM_OVERRIDES)), lm, env)
-args = (planes, advret, snap, perm_mb, lm.flat, (lm.hidden, lm.encoder), co,
-        rbl, bptt, 0.001)
-t["K7"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(*args), 5)
-del planes, advret, snap, args
 cm = cs.cnn_policy(seed=2, log_std=0.0)
 t["K11"] = cs.cuda_ms(lambda: K11.cnn_act_rollout_kernel(
     state, cm.flat, cm.arch, env.params, env.statics, horizon), 1)
@@ -78,5 +79,7 @@ planes, advret, snap, perm_mb, co, rbl, bptt = cs.lstm_minibatch(
 args = (planes, advret, snap, perm_mb, clm.flat, (clm.hidden, clm.encoder),
         co, rbl, bptt, 0.001)
 t["K7 cnn"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(*args), 3)
+del planes, advret, snap, args
+t["K7 end"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(*k7_args), 5)
 print(json.dumps({"tree": sys.argv[1], "device": cs.device_line(), "ms": t,
                   "regs": regs}), flush=True)

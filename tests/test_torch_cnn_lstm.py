@@ -398,8 +398,8 @@ def test_net_layout_and_envelope_of_the_cnn_arm():
                                       offs["critic_value.weight"],
                                       offs["log_std"]]
     assert offs["lstm.ii.weight"] == offs["trunk.bias"] + 128 == 94464
-    assert cuda_acting_lstm.act_smem_bytes(128, KERNEL_ARCH) == 183680
-    assert cuda_update_lstm.bptt_smem_bytes(128, KERNEL_ARCH) == 230912
+    assert cuda_acting_lstm.act_smem_bytes(128, KERNEL_ARCH) == 185408
+    assert cuda_update_lstm.bptt_smem_bytes(128, KERNEL_ARCH) == 186048
     cuda_update_lstm.check_envelope(128, KERNEL_ARCH)
     for hidden, arch in ((256, KERNEL_ARCH), (30, KERNEL_ARCH), (16, ARCH)):
         with pytest.raises(ValueError):
@@ -423,8 +423,9 @@ def test_grad_products_of_the_cnn_arm_cover_the_flat_buffer():
     assert list(pairs[1][:6]) == [U.GZ, 0, 512, U.XS, 13, 256]
     assert mp[offs["trunk.bias"] + 5] == n_conv + 5 * 577 + 576
     assert n_conv + int(pairs[:, 2].dot(pairs[:, 5] + 1)) == ptot
-    assert U.scratch_rows(128, KERNEL_ARCH) == [269, 512, 256, 128, 5, 128,
-                                                576]
+    # GF: the gate block's six quantities over its 128 units
+    assert U.scratch_rows(128, KERNEL_ARCH) == [269, 512, 6 * 128, 128, 5,
+                                                128, 576]
 
 
 def test_cnn_arm_kernels_refuse_cpu_tensors():

@@ -1,7 +1,8 @@
-"""The precision and the layouts of the CNN kernels' tensor-core design
+"""The precision and the layouts of the kernels' tensor-core design
 (csrc/cnn_mma.cuh: K10 and K7's CNN arm, and the acting kernels K11, K9
-and the CNN arms of K8 and K6, whose gate block csrc/lstm_mma.cuh runs
-there too).
+and the CNN arms of K8 and K6; csrc/lstm_mma.cuh: the LSTM gate block of
+K8, K6 and K7 in both arms, K7's [dx; dh] product and its weight-gradient
+products).
 
 The kernels run the patch-CNN tower's products in 3xTF32: each fp32
 operand split into big = round-to-nearest TF32 (ties away, as
@@ -16,11 +17,13 @@ the plain K8's CNN arm, with their tower's and gate block's products
 emulated, stay within the serving tolerance (rtol 2e-5 / atol 2e-6 over 3
 steps, episode counts equal) of their fp32 selves, which
 tests/test_torch_cnn.py and tests/test_torch_cnn_lstm.py hold to
-drone_tpu. The inputs are made with numpy (or the env's seeded init) at a
-few hundred samples of the default tower, the one the kernels take. The
-kernels' shared memory, scratch rows, packed fragments and envelope are
-mirrored in Python; the C entry points refuse a call whose byte counts
-disagree.
+drone_tpu. The dense arms of K8 and K7, whose gate block (and K7's
+products) run there too, are held the same way with `models.lstm.
+gate_linear` and `cuda_update_lstm.gate_mm` emulated. The inputs are made
+with numpy (or the env's seeded init) at a few hundred samples of the
+default tower, the one the kernels take. The kernels' shared memory,
+scratch rows, packed fragments and envelope are mirrored in Python; the C
+entry points refuse a call whose byte counts disagree.
 """
 import math
 
@@ -31,6 +34,7 @@ import torch
 from drone_tpu_torch import env as tenv
 from drone_tpu_torch.models import (
     CNNLSTMActorCritic,
+    LSTMActorCritic,
     PatchCNNActorCritic,
     lstm_kernel_order,
 )
@@ -190,6 +194,54 @@ def test_3xtf32_plain_k7_cnn_arm_within_tolerance(monkeypatch):
     _within_update_tolerance(got, want, lstm_kernel_order(H, KERNEL_ARCH))
 
 
+def _emulate_gate_mm(monkeypatch):
+    """The products K7 runs on the tensor cores in 3xTF32 besides the gate
+    block: [dx; dh] and the weight gradients over the samples."""
+    monkeypatch.setattr(cuda_update_lstm, "gate_mm", cuda_update_cnn.mm_3xtf32)
+
+
+@pytest.mark.parametrize("hidden", [128, 36])
+def test_3xtf32_plain_k7_dense_within_tolerance(monkeypatch, hidden):
+    rng = np.random.default_rng(7)
+    T, n, bptt, encoder = 4, 128, 2, (64,)
+    planes, advret = _planes(rng, T, n)
+    snap = torch.from_numpy(
+        0.3 * rng.standard_normal((T // bptt, 2, hidden, n)).astype(np.float32))
+    model = LSTMActorCritic(hidden, encoder,
+                            generator=torch.Generator().manual_seed(0))
+    model.flatten_()
+    co = UpdateConsts(0.2, 0.5, 0.5, 1.0 / (n * T))
+    args = (planes, advret, snap, torch.tensor([0], dtype=torch.int32),
+            model.flat, (hidden, encoder), co, 128, bptt, 0.001)
+    want = cuda_update_lstm.lstm_update_plain(*args)
+    _emulate_gates(monkeypatch)
+    _emulate_gate_mm(monkeypatch)
+    got = cuda_update_lstm.lstm_update_plain(*args)
+    assert not torch.equal(got[0], want[0])
+    _within_update_tolerance(got, want, lstm_kernel_order(hidden, encoder))
+
+
+@pytest.mark.parametrize("hidden", [128, 36])
+def test_3xtf32_plain_k8_dense_within_serving_tolerance(monkeypatch, hidden):
+    rng = np.random.default_rng(8)
+    n, T, encoder = 256, 3, (64,)
+    env = _serving_env()
+    state = env.init_batch(2, n)
+    model = _acting_policy(LSTMActorCritic(
+        hidden, encoder, generator=torch.Generator().manual_seed(0)))
+    carry = tuple(torch.from_numpy(
+        0.5 * rng.standard_normal((n, hidden)).astype(np.float32))
+        for _ in range(2))
+    args = (state, model.flat, (hidden, encoder), carry, env.params,
+            env.statics, T)
+    wf, wc, ws = cuda_acting_lstm.lstm_act_rollout_plain(*args)
+    _emulate_gates(monkeypatch)
+    gf, gc, gs = cuda_acting_lstm.lstm_act_rollout_plain(*args)
+    assert not torch.equal(gc[1], wc[1])
+    _within_serving_tolerance((gf.fstate(), *gc, gs), (wf.fstate(), *wc, ws))
+    assert float(gs[1].sum()) == float(ws[1].sum()) >= n
+
+
 @pytest.mark.parametrize("stochastic", [False, True])
 def test_3xtf32_plain_k11_within_serving_tolerance(monkeypatch, stochastic):
     n, T = 384, 3
@@ -234,37 +286,111 @@ def test_3xtf32_plain_k8_cnn_arm_within_serving_tolerance(monkeypatch,
 def test_acting_kernels_shared_memory_and_fragments(hidden):
     """The byte counts the acting wrappers pass: K11 and K9 the tower's
     forward tile, two blocks an SM; the CNN arms of K8 and K6 that tile,
-    then h and c over the gate block's units (hidden padded to 8) at the
-    tile's row stride, one block; the gate weights' packed fragments."""
+    then h and c over the gate block's units (hidden padded to 8), the
+    heads' m and v and keep at the tile's row stride, one block; the gate
+    weights' packed fragments."""
     A, L = cuda_acting_cnn, cuda_acting_lstm
     assert A.TOWER_FWD_SMEM == 4 * (A.W0_FRAG_FLOATS + 72 * 268) == 109952
     assert 2 * (A.TOWER_FWD_SMEM + 256 + 1024) <= SM_SMEM
     hp = L.gate_units(hidden)
     assert hp % 8 == 0 and hidden <= hp < hidden + 8
     smem = L.act_smem_bytes(hidden, KERNEL_ARCH)
-    assert smem == A.TOWER_FWD_SMEM + 4 * 72 * 2 * hp <= MAX_SMEM - 256
+    assert smem == A.TOWER_FWD_SMEM + 4 * 72 * (2 * hp + 6) <= MAX_SMEM - 256
     assert L.gate_packed_floats(hidden, KERNEL_ARCH) == 2 * (128 + hp) * 4 * hp
     if hidden == 128:
-        assert smem == 183680
+        assert smem == 185408
         assert L.gate_packed_floats(128, KERNEL_ARCH) == 2**18
     L.check_act_envelope(hidden, KERNEL_ARCH)
+
+
+@pytest.mark.parametrize("hidden,encoder", [
+    (128, (64,)), (36, (64,)), (8, ()), (16, (36, 20, 12)), (100, (13,))])
+def test_dense_arm_shared_memory_and_fragments(hidden, encoder):
+    """The dense arms' byte counts on the tensor-core tiles (rows of 64
+    lanes at 72 floats): K8/K6's obs, encoder buffers, x (E padded to 8:
+    13 with no encoder, widths like 36), h and c (hidden padded to 8); K7's
+    walk, the larger of its forward (obs and buffers at 64 floats a row, x
+    and h at 72) and its backward (dz, dx, [dm; g_v], keep at 72); the
+    forward and transposed gate fragments."""
+    L, U = cuda_acting_lstm, cuda_update_lstm
+    hp, E = L.gate_units(hidden), (encoder or (13,))[-1]
+    ep = L.gate_inputs(E)
+    assert ep % 8 == 0 and E <= ep < E + 8
+    mid = encoder[:-1]
+    bufs = min(len(mid), 2) * max(mid, default=0)
+    assert L.act_smem_bytes(hidden, encoder) == 4 * 72 * (
+        13 + bufs + ep + 2 * hp + 6) <= MAX_SMEM - 256
+    walk = U.bptt_smem_bytes(hidden, encoder)
+    assert walk == max(4 * 64 * (13 + bufs) + 4 * 72 * (ep + hp),
+                       4 * 72 * (4 * hp + max(ep, max(encoder, default=0))
+                                 + 6)) <= MAX_SMEM
+    assert L.gate_packed_floats(hidden, encoder) == 2 * (ep + hp) * 4 * hp
+    assert U.gate_t_packed_floats(hidden, encoder) == 2 * 4 * hp * (ep + hp)
+    if (hidden, encoder) == (128, (64,)):
+        assert L.act_smem_bytes(hidden, encoder) == 97632
+        assert walk == 167616
+        assert L.gate_packed_floats(hidden, encoder) == 786432 // 4
+    U.check_envelope(hidden, encoder)
+
+
+def _fp32_design_accepts(hidden, encoder):
+    """Whether the fp32 gate blocks' kernels took an LSTM: K8/K6's tiles of
+    128 lanes at 128 floats a row, K7's walk of 64 lanes at 64 (with dh, dc
+    and dz in shared memory), widths up to 4 x hidden."""
+    mid = encoder[:-1]
+    bufs = min(len(mid), 2) * max(mid, default=0)
+    E = (encoder or (13,))[-1]
+    act = 4 * 128 * (13 + bufs + E + 2 * hidden)
+    walk = 4 * 64 * max(13 + bufs + E + 2 * hidden,
+                        6 * hidden + max(encoder, default=0) + 6)
+    return (act <= MAX_SMEM - 256 and walk <= MAX_SMEM
+            and max(encoder, default=0) <= 4 * hidden)
+
+
+def test_dense_arm_envelope_keeps_every_shape_of_the_fp32_kernels():
+    """Every dense LSTM the fp32 kernels took still fits: seeded widths of
+    0-4 layers up to 4 x hidden for every hidden 4-128 (a multiple of 4),
+    and the shapes at the old limit where the tensor-core tiles' wider rows
+    cost the most."""
+    rng = np.random.default_rng(9)
+    shapes = [(96, (275, 321)), (116, (174, 174, 201)), (108, (214,) * 3),
+              (128, (256,)), (128, (512,)), (4, ()), (128, ())]
+    for hidden in range(4, 129, 4):
+        for n_enc in range(5):
+            for _ in range(6):
+                shapes.append((hidden, tuple(
+                    int(w) for w in rng.integers(1, 4 * hidden + 1, n_enc))))
+    took = 0
+    for hidden, encoder in shapes:
+        if not _fp32_design_accepts(hidden, encoder):
+            continue
+        took += 1
+        cuda_update_lstm.check_envelope(hidden, encoder)
+        assert max(cuda_update_lstm.kernel_smem_bytes(hidden, encoder)
+                   + [cuda_acting_lstm.act_smem_bytes(hidden, encoder)]
+                   ) <= MAX_SMEM
+    assert took > 400
 
 
 @pytest.mark.parametrize("hidden", [128, 64, 16])
 def test_tower_kernels_shared_memory_and_scratch(hidden):
     """The byte counts the K7 wrapper passes (the walk, the tower's forward
-    and backward) and K10's: within a block's limit, the forward two blocks
-    an SM; the CNN arm's walk no longer holds the tower's window rows."""
+    and backward, the products) and K10's: within a block's limit, the
+    forward two blocks an SM; the CNN arm's walk holds x and h, then dz,
+    dx, [dm; g_v] and keep, at the tensor-core stride (c, dh and dc in
+    registers)."""
     U, C = cuda_update_lstm, cuda_update_cnn
-    walk, fwd, bwd = U.kernel_smem_bytes(hidden, KERNEL_ARCH)
+    walk, fwd, bwd, prod = U.kernel_smem_bytes(hidden, KERNEL_ARCH)
     assert fwd == C.TOWER_FWD_SMEM == 109952 == 4 * (
         8192 + 72 * (12 + 2 * 64 + 2 * 64))
     assert bwd == C.TOWER_BWD_SMEM == 4 * 72 * (12 + 128 + 2 * 256 + 64)
-    assert max(walk, fwd, bwd) <= MAX_SMEM
+    assert prod == U.PRODUCT_SMEM == 4 * 2 * 2 * 64 * 68 == 69632
+    assert max(walk, fwd, bwd, prod) <= MAX_SMEM
     assert 2 * (fwd + 1024) <= SM_SMEM
-    assert walk == U.bptt_smem_bytes(hidden, KERNEL_ARCH) == 4 * 64 * max(
-        128 + 2 * hidden, 6 * hidden + 128 + 6)
-    assert U.kernel_smem_bytes(hidden, (64,))[1:] == [0, 0]
+    hp = cuda_acting_lstm.gate_units(hidden)
+    assert walk == U.bptt_smem_bytes(hidden, KERNEL_ARCH) == 4 * 72 * max(
+        128 + hp, 4 * hp + 128 + 6)
+    assert U.kernel_smem_bytes(hidden, (64,))[1:] == [0, 0, 69632]
     U.check_envelope(hidden, KERNEL_ARCH)
     rows = U.scratch_rows(hidden, KERNEL_ARCH)
     assert rows[U.XS] == 13 + 128 + hidden and rows[U.DP] == 128
