@@ -3,9 +3,10 @@
 
 Builds the CUDA kernels from csrc/ (nvcc, in parallel; prints each
 library's registers and spills, and those of the tensor-core kernels of
-K10, K7 (both arms' walk and its products), K11/K9 and both arms of K8/K6
-with their shared memory and their HMMA instructions, the SASS of mma.sync,
-which each must hold), holds each against
+K10, K7 (both arms' walk and its products), K11/K9, both arms of K8/K6, K3
+(its weights and running sums on chip, and off it) and K5 with their
+shared memory and their HMMA instructions, the SASS of mma.sync, which
+each must hold), holds each against
 its plain PyTorch version on the card's inputs, drives the port's paths
 through the entry points a user calls, checks what comes out, and times
 each kernel beside its plain version and its bound. Exits nonzero, printing
@@ -22,12 +23,15 @@ Phases:
      action stream and with the in-kernel one. The plain version on the card must equal the CPU's
      bitwise too: env params are CUDA tensors there (a CPU scalar divisor
      would become a reciprocal multiply).
-  2. K5 (csrc/acting.cu) against its plain version on the card,
-     deterministic and stochastic: hover, [64, 64], 65,536 lanes, T = 3
-     within rtol 2e-5 / atol 2e-6 with episode counts equal, and T = 64
-     with episode counts within 2% and mean reward per lane-step within
-     0.01; then a [32, 48, 20] tower on waypoint/rk4 and a linear policy on
-     racing/euler, 8,192 lanes, T = 3.
+  2. K5 (csrc/acting.cu; the tower's products on the tensor cores in
+     3xTF32) against its fp32 plain version on the card, deterministic and
+     stochastic: hover, [64, 64], 65,536 lanes, T = 3 within rtol 2e-5 /
+     atol 2e-6 with episode counts equal, and T = 64 with episode counts
+     within 2% and mean reward per lane-step within 0.01; then a [32, 48,
+     20] tower on waypoint/rk4 and a linear policy on racing/euler, 8,192
+     lanes, [64, 64] on waypoint/rk4 over a ragged last block (8,232
+     lanes) and [128, 128] (its weights off chip), T = 3. Each T = 3 case
+     launched twice, bitwise equal.
   3. The env-engine path: `ops.rollout_cuda` at 65,536 lanes x 1,001 steps
      of in-kernel random actions (hover.toml's env).
   4. The serving path: a seeded ActorCritic([64, 64]) saved with the
@@ -41,16 +45,18 @@ Phases:
      [64, 64], 65,536 lanes, T = 3 (all 21 planes and the final state within
      rtol 2e-5 / atol 2e-6, episodes equal), both action modes, and T = 64
      stochastic (episodes within 2%, mean reward within 0.01).
-  8. K3 (csrc/update.cu) against its plain version on hover.toml's
-     minibatch (8 row blocks of 1,024 lanes x 64 steps, planes from K2):
-     each gradient tensor, and the stat sums, within 1e-4 x its max
-     |value|. Twice: at the weights that wrote the planes (ratio 1, the
-     first minibatch of an update), and at weights moved off them, where
-     at least 0.1% of the samples take each branch of the head's
-     subgradients (ratio clipped with and without gradient, value clipped
-     with and without gradient) and each of the policy-loss, value-loss,
-     approx-KL and clip-fraction sums is held on its own. K4 against its
-     plain version: rtol 1e-5 / atol 1e-8.
+  8. K3 (csrc/update.cu; the towers' products on the tensor cores in
+     3xTF32) against its fp32 plain version on hover.toml's minibatch (8
+     row blocks of 1,024 lanes x 64 steps, planes from K2): each gradient
+     tensor, and the stat sums, within 1e-4 x its max |value|, two launches
+     bitwise equal. Twice: at the weights that wrote the planes (ratio 1,
+     the first minibatch of an update), and at weights moved off them
+     (then also [128, 128], its weights and running sums off chip, on a
+     smaller run's minibatch), where at least 0.1% of the samples take
+     each branch of the head's subgradients (ratio clipped with and
+     without gradient, value clipped with and without gradient) and each
+     of the policy-loss, value-loss, approx-KL and clip-fraction sums is
+     held on its own. K4 against its plain version: rtol 1e-5 / atol 1e-8.
   9. The training path: `train.train` on hover.toml with 3 updates (K2 = 3,
      K3 = 96, K4 = 96 launches, finite metrics with the reference's keys);
      `cli train configs/hover.toml` for 2 updates, then `evaluate` of the
@@ -59,7 +65,9 @@ Phases:
      3e-3, no entropy bonus): mean reward of 5 updates above 0.3 within
      120; and resume: train(4) == train(2) + resume(2) bitwise.
  11. Times of K2, K3, K4 (CUDA events) beside their plain versions and
-     bounds. One full-width update, queued with torch's host-sync check on
+     bounds (K3's the tensor-pipe bound, its products at the 3xTF32 rate
+     and the rest at the fp32 rate, the fp32 bound beside it; K5's, in
+     phase 6, likewise). One full-width update, queued with torch's host-sync check on
      (it must not sync), split into rollout, GAE, update and metrics by
      CUDA events at make_train_step's phase marks and by the host clock;
      one more update traced with torch.profiler for the device's busy time
@@ -267,6 +275,28 @@ def update_ops(hidden) -> int:
     return ops
 
 
+def tower_mma_ops(hidden, n_head: int = 4) -> int:
+    """The part of tower_ops on the tensor cores in K5 and K3: the
+    products' multiply-adds x2."""
+    dims = [13, *hidden, n_head]
+    return 2 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def update_mma_ops(hidden) -> int:
+    """The part of update_ops on the tensor cores in K3: both towers'
+    forward products, dW and db (db as a product with ones), and dX of
+    every layer but the first."""
+    ops = 0
+    for n_head in (4, 1):
+        dims = [13, *hidden, n_head]
+        ops += tower_mma_ops(hidden, n_head)
+        for layer, (nin, nout) in enumerate(zip(dims[:-1], dims[1:])):
+            ops += 2 * nin * nout + 2 * nout
+            if layer > 0:
+                ops += 2 * nin * nout
+    return ops
+
+
 def bound(ops, nbytes):
     """(the least time in ms the card could take, what sets it): the larger
     of the operations over the fp32 rate and the bytes over the HBM rate."""
@@ -277,7 +307,8 @@ def bound(ops, nbytes):
 
 def tensor_bound(mma_ops, other_ops, nbytes):
     """The bound of a kernel whose matrix products run on the tensor cores
-    in 3xTF32 (K10, K7's CNN arm): (the least time in ms, what sets it), the
+    in 3xTF32 (every kernel but K1, K2 and K4): (the least time in ms, what
+    sets it), the
     larger of the products at the 3xTF32 rate plus the rest at the fp32
     rate, and the bytes over the HBM rate."""
     t_ops = mma_ops / MMA_3XTF32_OPS_PER_S + other_ops / FP32_OPS_PER_S
@@ -465,11 +496,15 @@ def phase_k5() -> float:
     from drone_tpu_torch.types import default_params
 
     # the main path's tower at its width, then a depth-3 tower of odd widths
-    # (ping-pong activation buffers, padded chunks) and a linear policy on
-    # the other task templates
+    # (ping-pong activation buffers, padded chunks), a linear policy on the
+    # other task templates, the main tower over a ragged last block (8,232
+    # lanes: 40 in the last, one warp of them ragged), and [128, 128], whose
+    # weights stay in device memory (384-lane blocks, act_layout)
     cases = [("hover", "euler", (64, 64), 65536, ((3, 2), (64, 40))),
              ("waypoint", "rk4", (32, 48, 20), 8192, ((3, 2),)),
-             ("racing", "euler", (), 8192, ((3, 2),))]
+             ("racing", "euler", (), 8192, ((3, 2),)),
+             ("waypoint", "rk4", (64, 64), 8192 + 40, ((3, 2),)),
+             ("hover", "euler", (128, 128), 8192, ((3, 2),))]
     max_err = 0.0
     for task, integ, hidden, n, runs in cases:
         policy = seeded_policy(hidden, head_gain=1.0).cuda()
@@ -478,10 +513,9 @@ def phase_k5() -> float:
                            device="cuda")
             state = env.init_batch(2, n)
             for sto in (False, True):
-                kf, ks = cuda_acting.act_rollout_kernel(
-                    state, policy, env.params, env.statics, T, sto)
-                pf, ps = cuda_acting.act_rollout_plain(
-                    state, policy, env.params, env.statics, T, sto)
+                args = (state, policy, env.params, env.statics, T, sto)
+                kf, ks = cuda_acting.act_rollout_kernel(*args)
+                pf, ps = cuda_acting.act_rollout_plain(*args)
                 torch.cuda.synchronize()
                 k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
                 k_r = float(ks[0].sum()) / (n * T)
@@ -497,6 +531,8 @@ def phase_k5() -> float:
                                                rtol=2e-5, atol=2e-6)
                     if k_ep != p_ep or k_ep < n:
                         raise AssertionError("K5 episode counts differ at T=3")
+                    kf2, ks2 = cuda_acting.act_rollout_kernel(*args)
+                    check_repeat("K5", (kf.fstate(), ks), (kf2.fstate(), ks2))
                 elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
                     raise AssertionError("K5 episode statistics disagree")
     return max_err
@@ -649,7 +685,7 @@ def check_branches(name, n):
 def check_k3(planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef,
              each_stat: bool) -> float:
     """K3 against its plain version on one minibatch: each gradient tensor
-    within 1e-4 x its max |value|. The stat sums likewise: with each_stat,
+    within 1e-4 x its max |value|, two launches bitwise equal. The stat sums likewise: with each_stat,
     the policy-loss, value-loss, approx-KL and clip-fraction sums each
     against its own value and the log_std terms as a group; otherwise all 8
     as one tensor. Returns (the largest absolute difference, the plain
@@ -663,6 +699,7 @@ def check_k3(planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef,
     kg, ks = K3.ppo_update_kernel(*args)
     pg, ps = K3.ppo_update_plain(*args)
     torch.cuda.synchronize()
+    check_repeat("K3", (kg, ks), K3.ppo_update_kernel(*args))
     max_err = compare_grads(
         f"K3 hover.toml minibatch ({perm_mb.numel()} row blocks of {rbl} "
         f"lanes x {planes.shape[0]} steps)", kg, ks, pg, ps,
@@ -727,6 +764,17 @@ def phase_k3_k4(cfg, env):
     if float(ps[K3.ST_KL]) == 0.0 or float(ps[K3.ST_CF]) == 0.0:
         raise AssertionError("the off-policy approx-KL or clip-fraction sum "
                              "is 0")
+    k3_err = max(k3_err, err)
+    # a tower whose weight planes and running sums do not fit beside its
+    # activations (update_kernel<false>), on a smaller run's minibatch
+    big = flat_policy((128, 128))
+    if K3.mma_layout(big.hidden)["onchip"]:
+        raise AssertionError("[128, 128] was to run off chip")
+    inputs = hover_minibatch(
+        cfg.with_overrides(["train.num_envs=8192", "train.horizon=16"]),
+        big, env)
+    err, _ = check_k3(*inputs[:3], off_policy(big.flat, kernel_order(
+        big.hidden)), big.hidden, *inputs[3:], ent, each_stat=False)
     k3_err = max(k3_err, err)
 
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -799,34 +847,56 @@ def path_training(cfg_path, tmp):
     return train_counts
 
 
-def phase_learning_and_resume(tmp):
-    """The learning gate and bitwise resume on the card."""
+# the MLP learning gate: the mean reward of 5 updates must pass this within
+# MLP_GATE_UPDATES updates
+MLP_GATE_REWARD = 0.3
+MLP_GATE_UPDATES = 120
+
+
+def mlp_gate_run(seed):
+    """The MLP learning gate's training (8,192 envs, horizon 32, [32, 32],
+    4 epochs x 4 minibatches, lr 3e-3, no entropy bonus), the model and the
+    runner from one seed, until the mean reward of the last 5 updates
+    passes MLP_GATE_REWARD or MLP_GATE_UPDATES updates have run: (updates
+    run, the last 5's mean reward, the first 5's, parameters finite)."""
     import torch
 
     from drone_tpu_torch import ppo_cuda
     from drone_tpu_torch.env import DroneEnv
     from drone_tpu_torch.models import ActorCritic
     from drone_tpu_torch.ppo import PPOConfig, init_runner
-    from drone_tpu_torch.train import train
-    from drone_tpu_torch.utils.config import Config
 
     env = DroneEnv(device="cuda")
     cfg = PPOConfig(horizon=32, num_envs=8192, epochs=4, num_minibatches=4,
                     lr=3e-3, ent_coef=0.0)
-    model = ActorCritic((32, 32), generator=torch.Generator().manual_seed(0))
-    runner = init_runner(model, env, cfg, seed=0)
+    model = ActorCritic((32, 32),
+                        generator=torch.Generator().manual_seed(seed))
+    runner = init_runner(model, env, cfg, seed=seed)
     step = ppo_cuda.make_train_step(env, cfg)
-    rewards, t0 = [], time.time()
-    for u in range(120):
+    rewards = []
+    for u in range(MLP_GATE_UPDATES):
         runner, m = step(runner)
         rewards.append(float(m["reward_mean"]))
-        if u >= 4 and sum(rewards[-5:]) / 5 > 0.3:
+        if u >= 4 and sum(rewards[-5:]) / 5 > MLP_GATE_REWARD:
             break
-    mean5 = sum(rewards[-5:]) / 5
+    return (len(rewards), sum(rewards[-5:]) / 5, sum(rewards[:5]) / 5,
+            bool(torch.isfinite(runner.params.flat).all()))
+
+
+def phase_learning_and_resume(tmp):
+    """The learning gate (one run from seed 0, mlp_gate_run) and bitwise
+    resume on the card."""
+    import torch
+
+    from drone_tpu_torch.train import train
+    from drone_tpu_torch.utils.config import Config
+
+    t0 = time.time()
+    updates, mean5, first5, finite = mlp_gate_run(0)
     print(f"learning gate: mean reward of the last 5 updates {mean5:.4f} "
-          f"after {len(rewards)} updates ({time.time() - t0:.1f} s); first 5 "
-          f"{sum(rewards[:5]) / 5:.4f}", flush=True)
-    if mean5 <= 0.3:
+          f"after {updates} updates ({time.time() - t0:.1f} s); first 5 "
+          f"{first5:.4f}; parameters finite {finite}", flush=True)
+    if not (mean5 > MLP_GATE_REWARD and finite):
         raise AssertionError("the learning gate failed on the card")
 
     def cfg_for(name, total, extra=()):
@@ -892,8 +962,12 @@ def time_training(cfg, env, inputs):
     k3_ms = cuda_ms(lambda: K3.ppo_update_kernel(*args), reps=10)
     k3_plain = cuda_ms(lambda: K3.ppo_update_plain(*args), reps=2)
     k3_ops = samples * update_ops(hidden)
+    k3_mma = samples * update_mma_ops(hidden)
     k3_bytes = samples * 21 * 4 + P * 4 + (P + 8) * 4
-    out["K3"] = (k3_ms, k3_plain, *bound(k3_ops, k3_bytes), None)
+    out["K3"] = (k3_ms, k3_plain,
+                 *tensor_bound(k3_mma, k3_ops - k3_mma, k3_bytes), None)
+    print(f"K3: {k3_mma:.4g} of {k3_ops:.4g} ops on the tensor cores; fp32 "
+          f"bound {bound(k3_ops, k3_bytes)[0]:.4f} ms", flush=True)
 
     theta, mu, nu = model.flat.clone(), mu0.clone(), nu0.clone()
     count = torch.tensor(5.0, device="cuda")
@@ -1039,7 +1113,8 @@ def trace_update(step, runner, policy) -> dict:
     # of its own)
     tower = ("drone::pack_tower_kernel", "drone::tower_bwd_kernel")
     classes = {"K2": ("drone::traj_kernel",),
-               "K3": ("drone::update_kernel", "drone::reduce_kernel"),
+               "K3": ("drone::pack_planes_kernel", "drone::update_kernel",
+                      "drone::reduce_kernel"),
                "K4": ("drone::adam_kernel",),
                "K6": ("drone::lstm_act_kernel",),
                "K7": ("drone::pack_gates", "drone::tower_fwd_kernel",
@@ -2442,9 +2517,10 @@ def cnn_lstm_gate_run(seed):
                          GATE_UPDATES, 10)
 
 
-# each learning gate: (its training from a seed, the value loss's fall it
-# asks or None, the mean reward's rise it asks); scripts/gate_seeds.py runs
-# them from several seeds
+# each learning gate but the MLP's (mlp_gate_run, a threshold within a
+# budget): (its training from a seed, the value loss's fall it asks or
+# None, the mean reward's rise it asks); scripts/gate_seeds.py runs them
+# from several seeds
 GATES = {"cnn": (cnn_gate_run, 0.5, 0.2), "lstm": (lstm_gate_run, None, 0.15),
          "cnn_lstm": (cnn_lstm_gate_run, GATE_VLOSS_FALL, GATE_REWARD_RISE)}
 
@@ -2564,11 +2640,14 @@ def main() -> int:
         print(f"  {name}: registers per kernel {regs}; spilling kernels: "
               f"{len(spills)} {spills}", flush=True)
     # the tensor-core kernels (K10, K7's both arms and its products, K11/K9
-    # and both arms of K8/K6 on hover/euler), with their dynamic shared
-    # memory at the main paths' shapes (cnn_mma.cuh TF_SMEM, TB_SMEM; the
-    # walk's, the acting arms' and the products' are the wrappers'
-    # bptt_smem_bytes, act_smem_bytes and PRODUCT_SMEM)
+    # and both arms of K8/K6 on hover/euler, K3 on chip and off it, K5 on
+    # hover/euler), with their dynamic shared memory at the main paths'
+    # shapes (cnn_mma.cuh TF_SMEM, TB_SMEM; the walk's, the acting arms'
+    # and the products' are the wrappers' bptt_smem_bytes, act_smem_bytes
+    # and PRODUCT_SMEM; K3's mma_layout, off chip at [128, 128]; K5's
+    # act_layout)
     from drone_tpu_torch.ops import cuda_acting_lstm as K8
+    from drone_tpu_torch.ops import cuda_update as K3
     from drone_tpu_torch.ops import cuda_update_cnn as K10
     from drone_tpu_torch.ops import cuda_update_lstm as K7
     from drone_tpu_torch.ops.cuda_acting_cnn import KERNEL_ARCH
@@ -2582,13 +2661,19 @@ def main() -> int:
             "cnn_act_kernelILi0ELi0E": K10.TOWER_FWD_SMEM,
             "lstm_act_kernel<cnn>": K8.act_smem_bytes(128, KERNEL_ARCH),
             "lstm_act_kernel<dense>": K8.act_smem_bytes(128, (64,)),
-            "pack_gates_kernel": 0, "pack_gates_t_kernel": 0}
+            "pack_gates_kernel": 0, "pack_gates_t_kernel": 0,
+            "update_kernelILb1E": K3.mma_layout((64, 64))["smem"],
+            "update_kernelILb0E": K3.mma_layout((128, 128))["smem"],
+            "pack_planes_kernel": 0,
+            "act_kernelILi0ELi0ELb0E": cuda_acting.act_layout((64, 64))["smem"],
+            "act_kernelILi0ELi0ELb1E": cuda_acting.act_layout((64, 64))["smem"]}
     # every one of them but the packing runs mma.sync: its SASS must hold
     # HMMA instructions
     keys = list(dict.fromkeys(k.split("<")[0] for k in smem))
     keys = [f"{k}ILi0ELi0E" if k == "lstm_act_kernel" else k for k in keys]
     mma = {}
-    for name in ("update_cnn", "update_lstm", "acting_cnn", "acting_lstm"):
+    for name in ("update_cnn", "update_lstm", "acting_cnn", "acting_lstm",
+                 "update", "acting"):
         lib_mma = mma_counts(libs[name], keys)
         mma.update(lib_mma)
         for k, (regs, spill) in ptxas_report(libs[name], keys).items():
@@ -2692,11 +2777,14 @@ def main() -> int:
                                              + 64 + 64 + 4)
 
     k1_bound, k1_by = bound(k1_ops, k1_bytes)
-    k5_bound, k5_by = bound(k5_ops, k5_bytes)
+    k5_mma = lane_steps * tower_mma_ops((64, 64))
+    k5_bound, k5_by = tensor_bound(k5_mma, k5_ops - k5_mma, k5_bytes)
     print(f"K1 {n} x {horizon}: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.1f} "
           f"ms, bound {k1_bound:.4f} ms ({k1_ops:.4g} ops)", flush=True)
     print(f"K5 {n} x {horizon}: kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.1f} "
-          f"ms, bound {k5_bound:.4f} ms ({k5_ops:.4g} ops)", flush=True)
+          f"ms, bound {k5_bound:.4f} ms tensor-pipe ({k5_mma:.4g} of "
+          f"{k5_ops:.4g} ops on the tensor cores), fp32 bound "
+          f"{bound(k5_ops, k5_bytes)[0]:.4f} ms", flush=True)
     lap("K1, K5 times")
     # -- the training slice: K2, K3, K4 and the training path ----------------
     k2_err = phase_k2()

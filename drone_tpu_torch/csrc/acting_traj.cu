@@ -6,13 +6,14 @@
 // `traj_act_rollout_pallas_planes`; the megakernel trainer's rollout).
 // Wrapper and plain version: ops/cuda_acting_traj.py.
 //
-// Design: one thread per lane, K5's loop (acting.cu) with both towers of
-// policy.cuh evaluated before each env step. Per lane-step it writes the 21
-// planes obs(13) act(4) logp value reward done in the reference's TP_*
-// order, time-major as (T, 21, n): thread i writes lane i, so every store
-// of a warp is one coalesced 128-byte run. The action's log-prob is rebuilt
-// from the stored action (_sample_logp), with std = expf(log_std) computed
-// here from the parameter buffer: a launch needs no host copy of it.
+// Design: one thread per lane over the env loop of env.cuh, with both fp32
+// towers of policy.cuh evaluated in the thread before each env step. Per
+// lane-step it writes the 21 planes obs(13) act(4) logp value reward done
+// in the reference's TP_* order, time-major as (T, 21, n): thread i writes
+// lane i, so every store of a warp is one coalesced 128-byte run. The
+// action's log-prob is rebuilt from the stored action (_sample_logp), with
+// std = expf(log_std) computed here from the parameter buffer: a launch
+// needs no host copy of it.
 //
 // The weights come straight from the trainer's flat parameter buffer (the
 // reference's _kernel_tensors order: per layer W (out, in) then b, actor
@@ -23,8 +24,8 @@
 // What bounds it on an H100: the two towers' multiply-adds on the fp32
 // cores (10,433 per lane-step for [64, 64]) and one tanhf per hidden unit,
 // beside the env step; its 21 planes are 84 bytes per lane-step, far below
-// the memory rate. So the design is K5's: weights in shared memory read as
-// broadcasts, activations in the thread's own shared-memory column.
+// the memory rate. So the weights sit in shared memory, read as
+// broadcasts, and the activations in the thread's own shared-memory column.
 
 #include <cuda_runtime.h>
 

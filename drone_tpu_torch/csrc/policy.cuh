@@ -1,13 +1,14 @@
-// policy.cuh — the MLP policy as CUDA device functions, shared by the
-// acting kernels (acting.cu: K5, acting_traj.cu: K2), and the pieces of a
-// Gaussian policy every family shares: the action's log-prob (K2, K6) and
-// the PPO head's gradients (K3, K7).
+// policy.cuh — the MLP policy as CUDA device functions: the fp32 tower of
+// the trajectory kernel (acting_traj.cu: K2), and the pieces of a Gaussian
+// policy every family shares: the Box-Muller draw (K2, K5), the action's
+// log-prob (K2, K6), the trajectory planes and the PPO head's gradients
+// (K3, K7).
 //
 // Ports drone_tpu/ops/pallas_acting.py `_tower` (a tanh tower with a linear
 // head, evaluated per lane) and `_gauss4_planes` (Box-Muller over the lane's
 // threefry stream). One thread owns one lane; the tower's weights sit in
 // the block's shared memory, its activations in the thread's own column of
-// shared memory.
+// shared memory. (K5 runs its tower on the tensor cores, acting.cu.)
 //
 // The tower uses explicit fmaf: the env math is built with --fmad=false for
 // its bitwise contract, the tower is held to a tolerance instead (its
@@ -174,7 +175,8 @@ struct UConsts {
 // (dm) and v (g_v), and the 8 stat terms (policy loss, value loss,
 // approx-KL, clip fraction, the 4 log_std gradient terms). max/clip
 // subgradients: the first branch wins ties; clip passes gradient inside the
-// closed interval. Shared by K3 (update.cu) and K7 (update_lstm.cu).
+// closed interval. K7's (update_lstm.cu); K3 (update.cu) computes the same
+// with four threads a sample.
 __device__ __forceinline__ void head_grads(const float m[4], float v,
                                            const float a[4], float logp_old,
                                            float v_old, float adv, float ret,

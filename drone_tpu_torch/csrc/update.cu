@@ -8,32 +8,58 @@
 //
 // K3 design. A tile is 64 samples: 64 neighbouring lanes of one row block
 // (the minibatch's row-block permutation picks the blocks) at one step, so
-// each of its 19 trajectory planes and 2 advantage/return planes is one
-// contiguous 256-byte run. A CUDA block of 256 threads takes tiles
-// b, b + G, b + 2G, ... for a fixed G (at most MAX_BLOCKS), and per tile:
-//   - loads the tile into shared memory, one row of 64 per plane;
-//   - runs both towers forward (_tower_fwd), keeping every layer's
-//     activations in shared memory (rows padded to 65 floats, which keeps
-//     the reads of the products below free of bank conflicts);
-//   - computes the clipped-PPO head gradients and the 8 stat values per
-//     sample (_head_grads), one thread per sample;
-//   - back-propagates (_tower_bwd): dW = dY @ In^T over the tile's
-//     samples, then the input gradient W^T @ dY times the tanh derivative
-//     overwrites the layer's input activations in place.
-// Every one of these is a small matrix product (gemm4x4) in which a thread
-// owns a 4 x 4 block of the result in registers, so each multiply-add
-// costs half a shared-memory load instead of two.
-// Each block sums its tiles into its own row of a partial-sum buffer in
-// device memory (a thread always owns the same entries, so no atomics),
-// and a second kernel adds the G rows in a fixed order. The result does not
-// depend on launch order, so training on the card is deterministic and a
-// resumed run repeats an uninterrupted one bit for bit.
+// each of its trajectory planes is one contiguous 256-byte run. A block of
+// 512 threads (one an SM) takes tiles b, b + G, b + 2G, ... for a fixed G
+// (at most MAX_BLOCKS), and per tile:
+//   - loads the obs rows into shared memory and each thread its sample's
+//     head inputs into registers;
+//   - runs both towers forward, layer by layer (_tower_fwd): Y = X W^T on
+//     the tensor cores, tanh (hidden) or the bias alone (head) on the
+//     accumulators, every layer's activations kept in shared memory;
+//   - computes the clipped-PPO head gradients and the 8 stat values
+//     (_head_grads), four threads a sample (one an action dimension) on
+//     half the block's warps, the stats summed by warp butterflies;
+//   - back-propagates (_tower_bwd), layer by layer from the head: dW = dY^T
+//     X over the tile's samples and db = dY^T 1 (a product with ones), then
+//     the input gradient dX = dY W times the tanh derivative over X.
+// Every product is mma.sync m16n8k8 in 3xTF32 (mma.cuh), the actor's and
+// the critic's units of one layer side by side: a warp takes a unit of 1
+// m-tile x 4 n-tiles at a time (16 a layer of 64 x 64). A phase runs on
+// every warp; a barrier ends it (10 a tile at two hidden layers). 16 warps
+// rather than 8 with units of 2 x 4: 20% faster (PERF.md).
 //
-// What bounds K3 on an H100: about 58k fp32 operations per sample at [64,
-// 64] (two towers forward and backward), against 84 bytes of input; the
-// operation bound is far above the bytes'. Its products run on the fp32
-// cores from shared memory and L1 (a tensor-core tile is work for a later
-// change).
+// On chip, at [64, 64] (219,040 bytes of shared memory, ONCHIP):
+//   - the towers' weights, split once per call into big and small TF32
+//     planes by pack_planes_kernel and staged in each block's shared
+//     memory: the forward reads W's fragments from them, the input
+//     gradient W^T's, from the same planes by index. A layer with an input
+//     gradient keeps rows of nin rounded up to 32 floats, element (o, i)
+//     at column i ^ swz(o), so both reads are free of bank conflicts;
+//     layer 0 (no input gradient) rows of 20 floats, unswizzled;
+//   - the activations, rows of the tile's 64 samples, sample s of row r at
+//     column s ^ swz(r): the fragments' reads along samples and along rows
+//     are free of bank conflicts at 64 floats a row, which keeps every
+//     tower the fp32 kernel took (sum of widths <= 436);
+//   - the block's running sums of dW and db, rows of W's with the bias in
+//     the column after them (a row stride = 8 mod 16: a fragment's float2
+//     read-modify-writes are free of bank conflicts). Each tile's window of
+//     64 samples is summed in the tensor cores' accumulators from zero and
+//     folded in with IEEE adds (H10); each entry is always folded by the
+//     same thread, so no atomics (H6). The stat sums stay in registers of
+//     threads 0..7.
+// A tower too large for that (!ONCHIP) keeps its weight planes and running
+// sums in device memory (the planes buffer and a per-block scratch row),
+// read and folded through L1 and L2; its activations must fit (update
+// layout's envelope). Each block writes its partial row once, in the flat
+// buffer's order, and reduce_kernel adds the G rows in block order, so the
+// result does not depend on launch order: training on the card is
+// deterministic and a resumed run repeats an uninterrupted one bit for bit.
+//
+// What bounds K3 on an H100: at [64, 64] 29,125 multiply-adds a sample
+// (the towers forward, dW and db, dX), 0.19 ms a minibatch at the 3xTF32
+// rate, against 84 bytes of input a sample. What holds it: the mma.sync
+// TF32 rate (~0.26 products a cycle an SM) and the latency of the phases'
+// short dependent chains between barriers (PERF.md).
 //
 // K4 design: one block of 1024 threads over the flat parameter buffer:
 // a strided sum of squares, a tree reduction in shared memory in a fixed
@@ -48,263 +74,564 @@
 
 #include <cstdint>
 
-#include "policy.cuh"  // the trajectory-plane layout, HALF_LOG_2PI
+#include "mma.cuh"
+#include "policy.cuh"  // the trajectory-plane layout, UConsts, HALF_LOG_2PI
 
 namespace drone {
 
 constexpr int N_UPSTATS = 8;
 constexpr int UPD_HIDDEN = 8;
-constexpr int UPD_THREADS = 256;
+constexpr int UPD_THREADS = 512;
+constexpr int UPD_WARPS = UPD_THREADS / 32;
 constexpr int TILE = 64;
-constexpr int SP = TILE + 1;
-// 3 blocks per SM of an H100. A constant, so the order of the sums never
-// depends on the card.
-constexpr int MAX_BLOCKS = 396;
-struct UTower {
-  int n_hidden, nh;           // hidden layers; head outputs (4 or 1)
-  int width[UPD_HIDDEN];      // hidden widths
-  int w[UPD_HIDDEN + 1];      // offset of each layer's W (out, in) in theta;
-                              // its bias follows W
+constexpr int HEAD_THREADS = 4 * TILE;  // the head: four threads a sample
+constexpr int HEAD_WARPS = HEAD_THREADS / 32;
+// one block an SM of an H100, 8,192 / 128 = 64 tiles each at hover.toml's
+// minibatch. A constant, so the order of the sums never depends on the card.
+constexpr int MAX_BLOCKS = 128;
+constexpr int SLACK_ROWS = 16;  // read as the padding of the last rows
+constexpr int W0_STRIDE = 20;   // = 4 mod 8: layer 0's fragment reads
+constexpr int UPD_MAX_SMEM = 232448;
+static_assert(UPD_THREADS >= HEAD_THREADS, "the head takes four threads a sample");
+
+__host__ __device__ constexpr int up8(int x) { return (x + 7) & ~7; }
+__host__ __device__ constexpr int up16(int x) { return (x + 15) & ~15; }
+__host__ __device__ constexpr int up32(int x) { return (x + 31) & ~31; }
+// a running-sum row: >= nin + 1 floats (W's row, then the bias), = 8 mod 16
+__host__ __device__ constexpr int sums_stride(int nin) {
+  return nin + 1 + ((8 - (nin + 1) % 16) + 16) % 16;
+}
+// the column swizzle of a row r (activations and swizzled weight planes)
+__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
+// activation (row r, sample s)
+__device__ __forceinline__ int ai(int r, int s) { return r * TILE + (s ^ swz(r)); }
+
+// One layer of one tower.
+struct MLayer {
+  int nin, nout;
+  int w;                  // offset of W (nout, nin) in theta; its bias follows
+  int wp, sw, swzl;       // its weight planes: offset, row stride, swizzled
+  int sb, ss;             // its running sums: offset, row stride
+  int in_row, out_row;    // the activation rows of its input and output
 };
+
+struct MLayout {
+  int L;                  // hidden layers
+  int wf;                 // floats of one weight plane (big; small follows)
+  int sf;                 // floats of the running sums
+  int rows;               // activation rows
+  int hm, hv;             // the head outputs' rows: 4 means, 1 value
+  MLayer ly[2][UPD_HIDDEN + 1];  // actor, critic; layer L is the head
+};
+
+// The layout of towers `width[0..L)` (the flat buffer's W offsets of the
+// actor's and the critic's layers in wa, wc); ops/cuda_update.py
+// mma_layout mirrors it.
+inline void make_layout(int L, const int* width, const int* wa,
+                        const int* wc, MLayout& lo) {
+  int h = 0;
+  for (int l = 0; l < L; ++l) h += width[l];
+  lo.L = L;
+  lo.hm = OBS_DIM + 2 * h;
+  lo.hv = lo.hm + 4;
+  lo.rows = lo.hv + 1 + SLACK_ROWS;
+  int wp = 0, sb = 0;
+  for (int t = 0; t < 2; ++t) {
+    const int base = OBS_DIM + t * h;
+    int cum = 0, nin = OBS_DIM, in_row = 0;
+    for (int l = 0; l <= L; ++l) {
+      MLayer& y = lo.ly[t][l];
+      y.nin = nin;
+      y.nout = l < L ? width[l] : (t == 0 ? 4 : 1);
+      y.w = (t == 0 ? wa : wc)[l];
+      y.swzl = l > 0;
+      y.sw = l > 0 ? up32(nin) : W0_STRIDE;
+      y.wp = wp;
+      wp += up8(y.nout) * y.sw;
+      y.ss = sums_stride(nin);
+      y.sb = sb;
+      sb += y.nout * y.ss;
+      y.in_row = in_row;
+      y.out_row = l < L ? base + cum : (t == 0 ? lo.hm : lo.hv);
+      in_row = y.out_row;
+      cum += y.nout;
+      nin = y.nout;
+    }
+  }
+  lo.wf = wp;
+  lo.sf = sb;
+}
+
+// The stat-sum partials of the head's warps (static shared memory).
+constexpr int STAT_PART_BYTES = HEAD_WARPS * N_UPSTATS * 4;
+
+// Shared memory of a block: the activations, then on chip the two weight
+// planes and the running sums.
+inline size_t layout_smem(const MLayout& lo, bool onchip) {
+  return sizeof(float) * ((size_t)lo.rows * TILE +
+                          (onchip ? 2 * (size_t)lo.wf + lo.sf : 0));
+}
+
+// Every fragment read below advances by whole k-steps of 8 rows or 8
+// samples, which leave the swizzle of a row (r & 7) as it is: a lane's
+// word offsets are computed once for a unit, and a k-step adds 8 rows
+// (8 * TILE words) or XORs 8-multiples into the columns.
+
+// A with M = samples m0.., K = rows r0.. (r0 the absolute row): the lane's
+// four offsets at k-step 0.
+struct RowsA {
+  int o[4];
+};
+__device__ __forceinline__ RowsA rows_a(int r0, int m0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r = r0 + t, m = m0 + g;
+  return RowsA{{ai(r, m), ai(r, m + 8), ai(r + 4, m), ai(r + 4, m + 8)}};
+}
+__device__ __forceinline__ void load_rows_a(const float* act, const RowsA& f,
+                                            int k0, uint32_t (&ab)[4],
+                                            uint32_t (&as)[4]) {
+  const float* p = act + k0 * TILE;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_tf32(p[f.o[q]], ab[q], as[q]);
+}
+
+// A with M = rows r0.., K = samples; B with K = samples, N = rows r0..:
+// a row's base word and the lane's column XORs ((t ^ swz(r)) and (t + 4 ^
+// swz(r))); sample s0 + t of row r is at base + (s0 ^ x).
+struct SamplesA {
+  int base[2], x[2][2];
+};
+__device__ __forceinline__ SamplesA samples_a(int r0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  SamplesA f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    f.base[h] = r * TILE;
+    f.x[h][0] = t ^ swz(r);
+    f.x[h][1] = (t + 4) ^ swz(r);
+  }
+  return f;
+}
+__device__ __forceinline__ void load_samples_a(const float* act,
+                                               const SamplesA& f, int s0,
+                                               uint32_t (&ab)[4],
+                                               uint32_t (&as)[4]) {
+  split_tf32(act[f.base[0] + (s0 ^ f.x[0][0])], ab[0], as[0]);
+  split_tf32(act[f.base[1] + (s0 ^ f.x[1][0])], ab[1], as[1]);
+  split_tf32(act[f.base[0] + (s0 ^ f.x[0][1])], ab[2], as[2]);
+  split_tf32(act[f.base[1] + (s0 ^ f.x[1][1])], ab[3], as[3]);
+}
+__device__ __forceinline__ void load_samples_b(const float* act,
+                                               const SamplesA& f, int s0,
+                                               uint32_t (&bb)[2],
+                                               uint32_t (&bs)[2]) {
+  split_tf32(act[f.base[0] + (s0 ^ f.x[0][0])], bb[0], bs[0]);
+  split_tf32(act[f.base[0] + (s0 ^ f.x[0][1])], bb[1], bs[1]);
+}
+
+// B from a layer's weight planes. The forward reads W^T: B[k][n] = W[n][k]
+// (element (n0 + g, k0 + t (+4)): the row's base and the column XORs, as
+// for samples; layer 0's rows are unswizzled, where k0 ^ (t + 4) = k0 + t
+// + 4 all the same). The input gradient reads W: B[k][n] = W[k][n]
+// (element (k0 + t (+4), n0 + g): two offsets at k-step 0, a k-step adds 8
+// rows).
+struct WeightB {
+  int o[2], x[2];
+};
+__device__ __forceinline__ WeightB weight_b_fwd(const MLayer& y, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int o = n0 + g, s = y.swzl ? swz(o) : 0;
+  const int base = y.wp + o * y.sw;
+  return WeightB{{base, base}, {t ^ s, (t + 4) ^ s}};
+}
+__device__ __forceinline__ WeightB weight_b_dx(const MLayer& y, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  return WeightB{{y.wp + t * y.sw + ((n0 + g) ^ swz(t)),
+                  y.wp + (t + 4) * y.sw + ((n0 + g) ^ swz(t + 4))},
+                 {0, 0}};
+}
+// the fragment at k-step k0: the forward's at base + (k0 ^ x), the input
+// gradient's at o + k0 sw
+template <bool FWD>
+__device__ __forceinline__ void load_weight_b(const float* wb,
+                                              const float* ws,
+                                              const WeightB& f, int k0,
+                                              int sw, uint32_t (&bb)[2],
+                                              uint32_t (&bs)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int e = FWD ? f.o[h] + (k0 ^ f.x[h]) : f.o[h] + k0 * sw;
+    bb[h] = __float_as_uint(wb[e]);
+    bs[h] = __float_as_uint(ws[e]);
+  }
+}
+
+// acc[i][j] += A_i B_j in 3xTF32 for the unit's valid tiles (i < mv, j <
+// nv; the same in every lane).
+template <int MI, int NI>
+__device__ __forceinline__ void mma3_valid(float (&acc)[MI][NI][4],
+                                           const uint32_t (&ab)[MI][4],
+                                           const uint32_t (&as)[MI][4],
+                                           const uint32_t (&bb)[NI][2],
+                                           const uint32_t (&bs)[NI][2],
+                                           int mv, int nv) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+      if (i < mv && j < nv) mma_tf32(acc[i][j], as[i], bb[j]);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+      if (i < mv && j < nv) mma_tf32(acc[i][j], ab[i], bs[j]);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+      if (i < mv && j < nv) mma_tf32(acc[i][j], ab[i], bb[j]);
+}
+
+// A unit of a product: UMI m-tiles x UNI n-tiles; the tile's samples are
+// UMP units along M.
+constexpr int UMI = 1, UNI = 4;
+constexpr int UMP = TILE / 16 / UMI;
+
+// The tiles a phase's units cover: units = 2 towers x mp x ng; unit u's
+// tower, m-tile group and n-group.
+struct Unit {
+  int t, mp, ng;
+};
+__device__ __forceinline__ Unit unit_of(int u, int mps, int ngs) {
+  const int per = mps * ngs, r = u % per;
+  return Unit{u / per, r % mps, r / mps};
+}
+__device__ __forceinline__ int groups(int n) { return (up8(n) / 8 + UNI - 1) / UNI; }
+
+// acc (the unit's m-tiles of the tile's samples x its n-tiles) += the K
+// rows from r0 of the activations times a layer's weights, B read as W^T
+// (FWD) or W. (Loading the next k-step's weights while one multiplies
+// was 2% slower, PERF.md.)
+template <bool FWD>
+__device__ __forceinline__ void rows_times_weights(
+    const float* act, int r0, int K, const Unit& un, const MLayer& y,
+    int nt0, int nv, const float* wb, const float* ws,
+    float (&acc)[UMI][UNI][4]) {
+  RowsA fa[UMI];
+  WeightB fb[UNI];
+#pragma unroll
+  for (int i = 0; i < UMI; ++i) fa[i] = rows_a(r0, 16 * (UMI * un.mp + i));
+#pragma unroll
+  for (int j = 0; j < UNI; ++j)
+    fb[j] = FWD ? weight_b_fwd(y, 8 * (nt0 + j)) : weight_b_dx(y, 8 * (nt0 + j));
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ab[UMI][4], as[UMI][4], bb[UNI][2], bs[UNI][2];
+#pragma unroll
+    for (int j = 0; j < UNI; ++j)
+      if (j < nv) load_weight_b<FWD>(wb, ws, fb[j], k0, y.sw, bb[j], bs[j]);
+#pragma unroll
+    for (int i = 0; i < UMI; ++i) load_rows_a(act, fa[i], k0, ab[i], as[i]);
+    mma3_valid(acc, ab, as, bb, bs, UMI, nv);
+  }
+}
+
+// The forward of layer l over the tile: out rows = tanh(X W^T + b), or X
+// W^T + b for the head. All threads; no barrier.
+__device__ __forceinline__ void layer_fwd(float* act, const MLayout& lo,
+                                          int l, const float* __restrict__ theta,
+                                          const float* wb, const float* ws) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool head = l == lo.L;
+  const int ngs = groups(lo.ly[0][l].nout);
+  for (int u = threadIdx.x >> 5; u < 2 * UMP * ngs; u += UPD_WARPS) {
+    const Unit un = unit_of(u, UMP, ngs);
+    const MLayer& y = lo.ly[un.t][l];
+    const int nt0 = UNI * un.ng, nv = min(UNI, up8(y.nout) / 8 - nt0);
+    float acc[UMI][UNI][4];
+    zero_frags(acc);
+    rows_times_weights<true>(act, y.in_row, up8(y.nin), un, y, nt0, nv, wb,
+                             ws, acc);
+    const float* bias = theta + y.w + y.nout * y.nin;
+#pragma unroll
+    for (int j = 0; j < UNI; ++j)
+#pragma unroll
+      for (int i = 0; i < UMI; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = 8 * (nt0 + j) + 2 * t + (r & 1);
+          const int m = 16 * (UMI * un.mp + i) + g + (r & 2 ? 8 : 0);
+          if (j < nv && n < y.nout) {
+            const float v = acc[i][j][r] + __ldg(bias + n);
+            act[ai(y.out_row + n, m)] = head ? v : tanhf(v);
+          }
+        }
+  }
+}
+
+// The input gradient of layer l >= 1: X rows (its input) = (dY W) * (1 -
+// X^2), dY its output rows. All threads; no barrier.
+__device__ __forceinline__ void layer_dx(float* act, const MLayout& lo, int l,
+                                         const float* wb, const float* ws) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ngs = groups(lo.ly[0][l].nin);
+  for (int u = threadIdx.x >> 5; u < 2 * UMP * ngs; u += UPD_WARPS) {
+    const Unit un = unit_of(u, UMP, ngs);
+    const MLayer& y = lo.ly[un.t][l];
+    const int nt0 = UNI * un.ng, nv = min(UNI, up8(y.nin) / 8 - nt0);
+    float acc[UMI][UNI][4];
+    zero_frags(acc);
+    rows_times_weights<false>(act, y.out_row, up8(y.nout), un, y, nt0, nv,
+                              wb, ws, acc);
+#pragma unroll
+    for (int j = 0; j < UNI; ++j)
+#pragma unroll
+      for (int i = 0; i < UMI; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = 8 * (nt0 + j) + 2 * t + (r & 1);
+          const int m = 16 * (UMI * un.mp + i) + g + (r & 2 ? 8 : 0);
+          if (j < nv && n < y.nin) {
+            float* x = act + ai(y.in_row + n, m);
+            *x = acc[i][j][r] * (1.0f - *x * *x);
+          }
+        }
+  }
+}
+
+// The weight and bias gradients of layer l over the tile's window of 64
+// samples, folded into the running sums: dW (nout, nin) = dY^T X, db = dY^T
+// 1 (the n-group 0 units, a product with a B of ones: big 1, small 0).
+// All threads; no barrier.
+__device__ __forceinline__ void layer_dw(const float* act, const MLayout& lo,
+                                         int l, float* sums) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mps = (up16(lo.ly[0][l].nout) / 16 + UMI - 1) / UMI;
+  const int ngs = groups(lo.ly[0][l].nin);
+  const uint32_t ones[2] = {0x3f800000u, 0x3f800000u};
+  for (int u = threadIdx.x >> 5; u < 2 * mps * ngs; u += UPD_WARPS) {
+    const Unit un = unit_of(u, mps, ngs);
+    const MLayer& y = lo.ly[un.t][l];
+    const int nt0 = UNI * un.ng, nv = min(UNI, up8(y.nin) / 8 - nt0);
+    const int mt0 = UMI * un.mp, mv = min(UMI, up16(y.nout) / 16 - mt0);
+    const bool bias = un.ng == 0;
+    SamplesA fa[UMI], fb[UNI];
+#pragma unroll
+    for (int i = 0; i < UMI; ++i) fa[i] = samples_a(y.out_row + 16 * (mt0 + i));
+#pragma unroll
+    for (int j = 0; j < UNI; ++j) fb[j] = samples_a(y.in_row + 8 * (nt0 + j));
+    float acc[UMI][UNI][4], accb[UMI][4];
+    zero_frags(acc);
+#pragma unroll
+    for (int i = 0; i < UMI; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) accb[i][r] = 0.0f;
+#pragma unroll 2
+    for (int s0 = 0; s0 < TILE; s0 += 8) {
+      uint32_t ab[UMI][4], as[UMI][4], bb[UNI][2], bs[UNI][2];
+#pragma unroll
+      for (int i = 0; i < UMI; ++i)
+        if (i < mv) load_samples_a(act, fa[i], s0, ab[i], as[i]);
+#pragma unroll
+      for (int j = 0; j < UNI; ++j)
+        if (j < nv) load_samples_b(act, fb[j], s0, bb[j], bs[j]);
+      mma3_valid(acc, ab, as, bb, bs, mv, nv);
+      if (bias) {
+#pragma unroll
+        for (int i = 0; i < UMI; ++i)
+          if (i < mv) {
+            mma_tf32(accb[i], as[i], ones);
+            mma_tf32(accb[i], ab[i], ones);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < UMI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = 16 * (mt0 + i) + g + 8 * h;
+        if (i >= mv || o >= y.nout) continue;
+        float* row = sums + y.sb + o * y.ss;
+#pragma unroll
+        for (int j = 0; j < UNI; ++j) {
+          const int c = 8 * (nt0 + j) + 2 * t;
+          if (j >= nv) continue;
+          const float a0 = acc[i][j][2 * h], a1 = acc[i][j][2 * h + 1];
+          if (c + 1 < y.nin) {
+            float2* p = reinterpret_cast<float2*>(row + c);
+            const float2 s = *p;
+            *p = make_float2(s.x + a0, s.y + a1);
+          } else if (c < y.nin) {
+            row[c] = row[c] + a0;
+          }
+        }
+        if (bias && t == 0) row[y.nin] = row[y.nin] + accb[i][2 * h];
+      }
+  }
+}
 
 struct UArgs {
   const float* planes;   // (T, 21, n)
   const float* advret;   // (2, T, n)
   const int* perm;       // (n_sel,) row-block indices
   const float* theta;    // flat parameters
+  const float* wplanes;  // the big and the small weight planes (2 wf)
+  float* scratch;        // (G, sf) running sums, when not on chip
   float* partial;        // (G, P + 8)
   int n, T, rbl, n_tiles, P, ls_off;
 };
 
-// One small matrix product of a tile, C (M x N) = sum_k A(m, k) B(k, n),
-// with every thread owning a 4 x 4 block of C in registers: per k it loads
-// 4 values of A and 4 of B for 16 multiply-adds. The blocks are laid out so
-// that a warp holds 4 row blocks x 8 column blocks; with rows of SP = 65
-// floats, its 4 (or 8) distinct shared-memory addresses per load fall in
-// distinct banks. `op.a`/`op.b` read the operands, `epi(m0, n0, acc)`
-// stores a finished block (rows >= M and columns >= N are never read and
-// hold zeros).
-template <class Op, class Epi>
-__device__ __forceinline__ void gemm4x4(int M, int N, int K, const Op& op,
-                                        const Epi& epi) {
-  const int mb = (M + 3) / 4, nb = (N + 3) / 4;
-  const int nb8 = (nb + 7) / 8;
-  const int total = ((mb + 3) / 4) * nb8 * 32;
-  for (int id = threadIdx.x; id < total; id += blockDim.x) {
-    const int lane = id & 31, w = id >> 5;
-    const int mi = (w / nb8) * 4 + (lane >> 3);
-    const int ni = (w % nb8) * 8 + (lane & 7);
-    if (mi >= mb || ni >= nb) continue;
-    const int m0 = 4 * mi, n0 = 4 * ni;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = m0 + i < M ? op.a(m0 + i, k) : 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = n0 + j < N ? op.b(k, n0 + j) : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-    }
-    epi(m0, n0, acc);
+template <bool ONCHIP>
+__global__ void __launch_bounds__(UPD_THREADS, 1)
+update_kernel(UArgs A, MLayout lo, UConsts co) {
+  extern __shared__ float4 smem4[];
+  __shared__ float stat_part[HEAD_WARPS][N_UPSTATS];
+  float* act = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const float* wb;
+  const float* ws;
+  float* sums;
+  if constexpr (ONCHIP) {
+    float* wsm = act + lo.rows * TILE;
+    const float4* src = reinterpret_cast<const float4*>(A.wplanes);
+    float4* dst = reinterpret_cast<float4*>(wsm);
+    for (int i = tid; i < lo.wf / 2; i += UPD_THREADS) dst[i] = __ldg(src + i);
+    wb = wsm;
+    ws = wsm + lo.wf;
+    sums = wsm + 2 * lo.wf;
+  } else {
+    wb = A.wplanes;
+    ws = A.wplanes + lo.wf;
+    sums = A.scratch + (size_t)blockIdx.x * lo.sf;
   }
-}
-
-// A = W (out, in) in device memory, B = rows of the tile: the forward
-// product W @ In (A(m, k) = W[m][k]) or the input gradient W^T @ dY
-// (A(m, k) = W[k][m]).
-struct WeightTimesRows {
-  const float* W;
-  int nin;
-  bool transpose;
-  const float* rows;  // shared memory, row k at rows + k * SP
-  __device__ float a(int m, int k) const {
-    return __ldg(W + (transpose ? k * nin + m : m * nin + k));
-  }
-  __device__ float b(int k, int n) const { return rows[k * SP + n]; }
-};
-
-// dW = dY @ In^T over the tile's samples: A(m, k) = dY[m][k], B(k, n) =
-// In[n][k].
-struct RowsTimesRowsT {
-  const float* dy;
-  const float* in;
-  __device__ float a(int m, int k) const { return dy[m * SP + k]; }
-  __device__ float b(int k, int n) const { return in[n * SP + k]; }
-};
-
-// _tower_fwd: layer l reads rows in_row.. (X for l = 0) and writes its
-// outputs at out rows (hidden: tanh; head: linear, at head_row).
-__device__ void tower_fwd(float* sm, const UTower& tw, int row0,
-                          int head_row, const float* __restrict__ theta) {
-  int nin = OBS_DIM, in_row = 0, out_row = row0;
-  for (int l = 0; l <= tw.n_hidden; ++l) {
-    const bool head = l == tw.n_hidden;
-    const int nout = head ? tw.nh : tw.width[l];
-    const int orow = head ? head_row : out_row;
-    const float* W = theta + tw.w[l];
-    const float* b = W + nout * nin;
-    float* out = sm + orow * SP;
-    gemm4x4(nout, TILE, nin, WeightTimesRows{W, nin, false, sm + in_row * SP},
-            [&](int m0, int n0, const float (&acc)[4][4]) {
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                if (m0 + i >= nout) break;
-                const float bias = __ldg(b + m0 + i);
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                  const float v = acc[i][j] + bias;
-                  out[(m0 + i) * SP + n0 + j] = head ? v : tanhf(v);
-                }
-              }
-            });
-    __syncthreads();
-    in_row = orow;
-    nin = nout;
-    out_row += nout;
-  }
-}
-
-// _tower_bwd: the head's output gradient is at head_row; a hidden layer's
-// output gradient overwrites its activations. Adds the tile's dW and db
-// into this block's partial row (each entry always by the same thread).
-__device__ void tower_bwd(float* sm, const UTower& tw, int row0,
-                          int head_row, const float* __restrict__ theta,
-                          float* part, bool first) {
-  int in_rows[UPD_HIDDEN + 1], nins[UPD_HIDDEN + 1];
-  in_rows[0] = 0;
-  nins[0] = OBS_DIM;
-  int r = row0;
-  for (int l = 1; l <= tw.n_hidden; ++l) {
-    in_rows[l] = r;
-    nins[l] = tw.width[l - 1];
-    r += tw.width[l - 1];
-  }
-  for (int l = tw.n_hidden; l >= 0; --l) {
-    const bool head = l == tw.n_hidden;
-    const int nout = head ? tw.nh : tw.width[l];
-    const float* dy = sm + (head ? head_row : in_rows[l + 1]) * SP;
-    const int nin = nins[l];
-    float* in = sm + in_rows[l] * SP;
-    float* gW = part + tw.w[l];
-    float* gb = gW + nout * nin;
-    gemm4x4(nout, nin, TILE, RowsTimesRowsT{dy, in},
-            [&](int m0, int n0, const float (&acc)[4][4]) {
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                if (m0 + i >= nout) break;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                  if (n0 + j >= nin) break;
-                  float* g = gW + (m0 + i) * nin + n0 + j;
-                  *g = first ? acc[i][j] : *g + acc[i][j];
-                }
-              }
-            });
-    for (int o = threadIdx.x; o < nout; o += blockDim.x) {
-      float acc = 0.0f;
-      for (int s = 0; s < TILE; ++s) acc = acc + dy[o * SP + s];
-      gb[o] = first ? acc : gb[o] + acc;
-    }
-    if (l == 0) break;
-    __syncthreads();
-    gemm4x4(nin, TILE, nout,
-            WeightTimesRows{theta + tw.w[l], nin, true, dy},
-            [&](int m0, int n0, const float (&acc)[4][4]) {
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                if (m0 + i >= nin) break;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                  float* y = in + (m0 + i) * SP + n0 + j;
-                  *y = acc[i][j] * (1.0f - *y * *y);
-                }
-              }
-            });
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(UPD_THREADS, 3)
-update_kernel(UArgs A, UTower ta, UTower tc, UConsts co) {
-  extern __shared__ float sm[];
-  int h_a = 0;
-  for (int l = 0; l < ta.n_hidden; ++l) h_a += ta.width[l];
-  const int RA = OBS_DIM;     // actor activations
-  const int RC = RA + h_a;    // critic activations (same widths)
-  const int HM = RC + h_a;    // 4 action means, then their gradients
-  const int HV = HM + 4;      // value, then its gradient
-  const int IN = HV + 1;      // a(4) logp_old v_old adv ret, then 8 stats
-  const int PW = A.P + N_UPSTATS;
-  float* part = A.partial + (size_t)blockIdx.x * PW;
+  for (int i = tid; i < lo.sf; i += UPD_THREADS) sums[i] = 0.0f;
+  // every row a product may read as padding holds a finite value
+  for (int i = tid; i < lo.rows * TILE; i += UPD_THREADS) act[i] = 0.0f;
+  // the head: sample hs, action dimension hk
+  const int hs = tid >> 2, hk = tid & 3;
+  const float lsk = A.theta[A.ls_off + hk], stdk = expf(lsk);
   const int nc = A.rbl / TILE;
-  float ls[4], stdv[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    ls[k] = A.theta[A.ls_off + k];
-    stdv[k] = expf(ls[k]);
-  }
   float st_acc = 0.0f;
-  bool first = true;
+  __syncthreads();
   for (int tau = blockIdx.x; tau < A.n_tiles; tau += gridDim.x) {
-    const int t = tau % A.T;
+    const int tt = tau % A.T;
     const int rest = tau / A.T;
     const int lane0 = A.perm[rest / nc] * A.rbl + (rest % nc) * TILE;
-    // the planes up to v_old (TP_VAL), then adv and ret
-    for (int e = threadIdx.x; e < (TP_VAL + 3) * TILE; e += blockDim.x) {
-      const int p = e / TILE, s = e % TILE;
-      float v;
-      if (p <= TP_VAL)
-        v = A.planes[((size_t)t * N_TRAJ + p) * A.n + lane0 + s];
-      else
-        v = A.advret[((size_t)(p - TP_VAL - 1) * A.T + t) * A.n + lane0 + s];
-      const int row = p < OBS_DIM ? p : IN + (p - OBS_DIM);
-      sm[row * SP + s] = v;
-    }
+    const float* pl = A.planes + (size_t)tt * N_TRAJ * A.n + lane0;
+    for (int e = tid; e < OBS_DIM * TILE; e += UPD_THREADS)
+      act[ai(e / TILE, e % TILE)] = pl[(size_t)(TP_OBS0 + e / TILE) * A.n + e % TILE];
+    const bool head_thread = tid < HEAD_THREADS;
+    const float a_k = head_thread ? pl[(size_t)(TP_ACT0 + hk) * A.n + hs] : 0.0f;
+    const float logp_old = head_thread ? pl[(size_t)TP_LOGP * A.n + hs] : 0.0f;
+    const float v_old = head_thread ? pl[(size_t)TP_VAL * A.n + hs] : 0.0f;
+    const float adv = head_thread ? A.advret[(size_t)tt * A.n + lane0 + hs] : 0.0f;
+    const float ret =
+        head_thread ? A.advret[((size_t)A.T + tt) * A.n + lane0 + hs] : 0.0f;
     __syncthreads();
-    tower_fwd(sm, ta, RA, HM, A.theta);
-    tower_fwd(sm, tc, RC, HV, A.theta);
+    for (int l = 0; l <= lo.L; ++l) {
+      layer_fwd(act, lo, l, A.theta, wb, ws);
+      __syncthreads();
+    }
 
-    // _head_grads, one thread per sample
-    if (threadIdx.x < TILE) {
-      const int s = threadIdx.x;
-      float m[4], a[4], dm[4], g_v, st[N_UPSTATS];
+    // _head_grads: four threads a sample, the log-prob's terms summed in
+    // the reference's order; the stats summed over the warp's 8 samples
+    if (head_thread) {
+      const float m = act[ai(lo.hm + hk, hs)];
+      const float v = act[ai(lo.hv, hs)];
+      const float z = (a_k - m) / stdk;
+      const float term = -0.5f * (z * z) - lsk - HALF_LOG_2PI;
+      const int q = lane & ~3;
+      const float lp = ((__shfl_sync(0xffffffffu, term, q) +
+                         __shfl_sync(0xffffffffu, term, q + 1)) +
+                        __shfl_sync(0xffffffffu, term, q + 2)) +
+                       __shfl_sync(0xffffffffu, term, q + 3);
+      const float ratio = expf(lp - logp_old);
+      const float pg1 = -adv * ratio;
+      const float rclip = fminf(fmaxf(ratio, co.clip_lo), co.clip_hi);
+      const float pg2 = -adv * rclip;
+      const float pg = fmaxf(pg1, pg2);
+      const bool use1 = pg1 >= pg2;
+      const bool inclip = (ratio >= co.clip_lo) & (ratio <= co.clip_hi);
+      const float dpg = (use1 | inclip) ? -adv : 0.0f;
+      const float g_logp = co.inv_m * dpg * ratio;
+      const float dv_raw = v - ret;
+      const float vdiff = fminf(fmaxf(v - v_old, -co.vf_clip), co.vf_clip);
+      const float dv_c = (v_old + vdiff) - ret;
+      const float vl = fmaxf(dv_raw * dv_raw, dv_c * dv_c);
+      const bool use_raw = (dv_raw * dv_raw) >= (dv_c * dv_c);
+      const bool in_vclip = (v - v_old >= -co.vf_clip) & (v - v_old <= co.vf_clip);
+      const float dvl = use_raw ? 2.0f * dv_raw : (in_vclip ? 2.0f * dv_c : 0.0f);
+      __syncwarp();  // every thread of the sample has read v
+      act[ai(lo.hm + hk, hs)] = g_logp * (z / expf(lsk));
+      if (hk == 0) act[ai(lo.hv, hs)] = co.half_vf_coef * co.inv_m * dvl;
+      float sv[5] = {pg, vl, logp_old - lp,
+                     fabsf(ratio - 1.0f) > co.clip_eps ? 1.0f : 0.0f,
+                     g_logp * (z * z - 1.0f)};
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        m[k] = sm[(HM + k) * SP + s];
-        a[k] = sm[(IN + k) * SP + s];
-      }
-      head_grads(m, sm[HV * SP + s], a, sm[(IN + 4) * SP + s],
-                 sm[(IN + 5) * SP + s], sm[(IN + 6) * SP + s],
-                 sm[(IN + 7) * SP + s], ls, stdv, co, dm, g_v, st);
+      for (int o = 4; o < 32; o <<= 1)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) sm[(HM + k) * SP + s] = dm[k];
-      sm[HV * SP + s] = g_v;
+        for (int k = 0; k < 5; ++k)
+          sv[k] = sv[k] + __shfl_xor_sync(0xffffffffu, sv[k], o);
+      if (lane == 0)
 #pragma unroll
-      for (int k = 0; k < N_UPSTATS; ++k) sm[(IN + k) * SP + s] = st[k];
+        for (int k = 0; k < 4; ++k) stat_part[w][k] = sv[k];
+      if (lane < 4) stat_part[w][4 + lane] = sv[4];
     }
     __syncthreads();
-    if (threadIdx.x < N_UPSTATS) {
-      float tile_sum = 0.0f;
-      for (int s = 0; s < TILE; ++s) tile_sum = tile_sum + sm[(IN + threadIdx.x) * SP + s];
+    if (tid < N_UPSTATS) {
+      float tile_sum = stat_part[0][tid];
+      for (int k = 1; k < HEAD_WARPS; ++k) tile_sum = tile_sum + stat_part[k][tid];
       st_acc = st_acc + tile_sum;
     }
-    tower_bwd(sm, ta, RA, HM, A.theta, part, first);
-    __syncthreads();
-    tower_bwd(sm, tc, RC, HV, A.theta, part, first);
-    __syncthreads();
-    first = false;
+    for (int l = lo.L; l >= 0; --l) {
+      layer_dw(act, lo, l, sums);
+      __syncthreads();
+      if (l == 0) break;
+      layer_dx(act, lo, l, wb, ws);
+      __syncthreads();
+    }
   }
-  if (threadIdx.x < N_UPSTATS) {
-    part[A.P + threadIdx.x] = st_acc;
-    if (threadIdx.x >= 4) part[A.ls_off + threadIdx.x - 4] = st_acc;
+  // the block's partial row, in the flat buffer's order
+  float* part = A.partial + (size_t)blockIdx.x * (A.P + N_UPSTATS);
+  for (int e = tid; e < A.P; e += UPD_THREADS) {
+    if (e >= A.ls_off && e < A.ls_off + 4) continue;
+    for (int t = 0; t < 2; ++t)
+      for (int l = 0; l <= lo.L; ++l) {
+        const MLayer& y = lo.ly[t][l];
+        const int r = e - y.w;
+        if (r < 0 || r >= y.nout * (y.nin + 1)) continue;
+        part[e] = r < y.nout * y.nin
+                      ? sums[y.sb + (r / y.nin) * y.ss + r % y.nin]
+                      : sums[y.sb + (r - y.nout * y.nin) * y.ss + y.nin];
+      }
   }
+  if (tid < N_UPSTATS) {
+    part[A.P + tid] = st_acc;
+    if (tid >= 4) part[A.ls_off + tid - 4] = st_acc;
+  }
+}
+
+// The big and the small TF32 planes of the towers' weights (MLayout's wp,
+// sw, swzl): element e of a layer's plane is W[o][i] (o = e / sw, i = the
+// column e % sw unswizzled), 0 past nout or nin.
+__global__ void pack_planes_kernel(const float* __restrict__ theta,
+                                   MLayout lo, float* __restrict__ planes) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= lo.wf) return;
+  float v = 0.0f;
+  for (int t = 0; t < 2; ++t)
+    for (int l = 0; l <= lo.L; ++l) {
+      const MLayer& y = lo.ly[t][l];
+      const int p = e - y.wp;
+      if (p < 0 || p >= up8(y.nout) * y.sw) continue;
+      const int o = p / y.sw, c = p % y.sw;
+      const int i = y.swzl ? c ^ swz(o) : c;
+      if (o < y.nout && i < y.nin) v = theta[y.w + o * y.nin + i];
+    }
+  uint32_t b, s;
+  split_tf32(v, b, s);
+  planes[e] = __uint_as_float(b);
+  planes[lo.wf + e] = __uint_as_float(s);
 }
 
 // Sum the G partial rows in block order: the gradients (log_std's minus
@@ -372,48 +699,52 @@ adam_kernel(float* __restrict__ theta, const float* __restrict__ grads,
 }  // namespace drone
 
 // C interface (ctypes). Device pointers: planes, advret, perm, theta,
-// partial ((G, P + 8) scratch), grads (P), stats (8). Host: layout ints
-// [n_hidden, width[UPD_HIDDEN], actor W offsets[UPD_HIDDEN + 1], critic W
-// offsets[UPD_HIDDEN + 1], P, ls_off]; consts floats [inv_m, clip_lo,
-// clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the
-// cudaError_t of the launches.
+// wplanes (2 wf floats: the split weights), scratch ((G, sf) running sums
+// when they are not on chip, else unused), partial ((G, P + 8) scratch),
+// grads (P), stats (8). Host: layout ints [n_hidden, width[UPD_HIDDEN],
+// actor W offsets[UPD_HIDDEN + 1], critic W offsets[UPD_HIDDEN + 1], P,
+// ls_off]; consts floats [inv_m, clip_lo, clip_hi, clip_eps, vf_clip,
+// half_vf_coef, ent_coef]; dims ints [dynamic shared memory bytes, on chip
+// (0 or 1), wf, sf], which must be the kernel's own (ops/cuda_update.py
+// mma_layout). Returns the cudaError_t of the launches.
 extern "C" int drone_ppo_update(const float* planes, const float* advret,
                                 const int* perm, const float* theta,
+                                float* wplanes, float* scratch,
                                 float* partial, float* grads, float* stats,
-                                const int* layout, const float* consts, int n,
-                                int T, int rbl, int n_sel, int G,
-                                void* stream) {
+                                const int* layout, const float* consts,
+                                const int* dims, int n, int T, int rbl,
+                                int n_sel, int G, void* stream) {
   using namespace drone;
-  const int nh = layout[0];
-  if (n <= 0 || T <= 0 || n_sel <= 0 || rbl % TILE != 0 || nh < 0 ||
-      nh > UPD_HIDDEN)
+  const int L = layout[0];
+  if (n <= 0 || T <= 0 || n_sel <= 0 || rbl % TILE != 0 || L < 0 ||
+      L > UPD_HIDDEN)
     return (int)cudaErrorInvalidValue;
-  UTower ta, tc;
-  ta.n_hidden = tc.n_hidden = nh;
-  ta.nh = 4;
-  tc.nh = 1;
-  int h = 0;
-  for (int l = 0; l < UPD_HIDDEN; ++l) {
-    ta.width[l] = tc.width[l] = layout[1 + l];
-    if (l < nh) h += layout[1 + l];
-  }
-  for (int l = 0; l <= UPD_HIDDEN; ++l) {
-    ta.w[l] = layout[1 + UPD_HIDDEN + l];
-    tc.w[l] = layout[2 + 2 * UPD_HIDDEN + l];
-  }
-  UArgs A{planes, advret, perm, theta, partial, n, T, rbl,
+  for (int l = 0; l < L; ++l)
+    if (layout[1 + l] <= 0) return (int)cudaErrorInvalidValue;
+  MLayout lo;
+  make_layout(L, layout + 1, layout + 1 + UPD_HIDDEN,
+              layout + 2 + 2 * UPD_HIDDEN, lo);
+  const bool onchip = layout_smem(lo, true) + STAT_PART_BYTES <= UPD_MAX_SMEM;
+  const size_t smem = layout_smem(lo, onchip);
+  if (smem + STAT_PART_BYTES > UPD_MAX_SMEM || (size_t)dims[0] != smem ||
+      dims[1] != (int)onchip || dims[2] != lo.wf || dims[3] != lo.sf)
+    return (int)cudaErrorInvalidValue;
+  UArgs A{planes, advret, perm, theta, wplanes, scratch, partial, n, T, rbl,
           n_sel * (rbl / TILE) * T, layout[3 + 3 * UPD_HIDDEN],
           layout[4 + 3 * UPD_HIDDEN]};
   if (G <= 0 || G > MAX_BLOCKS || G > A.n_tiles) return (int)cudaErrorInvalidValue;
   const UConsts co{consts[0], consts[1], consts[2], consts[3],
                    consts[4], consts[5], consts[6]};
-  const int rows = OBS_DIM + 2 * h + 5 + 8;
-  const size_t smem = sizeof(float) * (size_t)rows * SP;
-  cudaError_t err = cudaFuncSetAttribute(
-      update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  update_kernel<<<G, UPD_THREADS, smem, s>>>(A, ta, tc, co);
+  pack_planes_kernel<<<(lo.wf + 255) / 256, 256, 0, s>>>(theta, lo, wplanes);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = onchip ? update_kernel<true> : update_kernel<false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<G, UPD_THREADS, smem, s>>>(A, lo, co);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int PW = A.P + N_UPSTATS;

@@ -12,9 +12,12 @@ Two action modes, as in the reference:
     Box-Muller transform over the lane's threefry stream at blocks
     NOISE_BLOCK0 + 2*step (+1).
 
-The kernel sums the tower in another order than a matmul and takes tanh,
-log, sin and cos from CUDA's libdevice, so it agrees with the plain version
-to a tolerance, not bitwise; the env step inside stays bitwise.
+The kernel runs the tower's products on the tensor cores in 3xTF32 (its
+weights packed by `pack_tower_mma`) and takes tanh, log, sin and cos from
+CUDA's libdevice, so it agrees with the plain version to a tolerance, not
+bitwise; the env step inside stays bitwise. `tower_layout` and
+`check_smem` describe the fp32 tower of csrc/policy.cuh, which the
+trajectory kernel (K2, cuda_acting_traj) runs and whose envelope K5 keeps.
 """
 
 from __future__ import annotations
@@ -47,11 +50,14 @@ NOISE_BLOCK0 = 0x60000000  # exploration-noise stream (disjoint from the
                            # action, reset and waypoint blocks)
 _TWO_PI = 6.2831853071795864
 
-# kernel limits (csrc/acting.cu)
+# kernel limits (csrc/acting.cu, csrc/policy.cuh)
 MAX_HIDDEN = 8
 MAX_WIDTH = 256
-_CHUNK = 16
-_THREADS = 128
+_CHUNK = 16          # policy.cuh's fp32 tower: outputs padded to 16
+_THREADS = 128       # lanes a block of the fp32 tower's kernels
+ACT_MAX_LANES = 512  # K5's lanes a block (one block an SM at [64, 64])
+ACT_CHUNK = 16       # units of K5's fold chunk
+ACT_OBS_ROWS = 16    # the obs padded to two k-tiles
 # dynamic shared memory one H100 block can use: 232,448 bytes less the
 # static copy of the env params
 _MAX_SMEM = 232448 - 256
@@ -132,39 +138,110 @@ def check_smem(n_weights: int, widths) -> None:
 
 
 def check_envelope(widths) -> None:
-    """Raise ValueError for an actor tower the acting kernel cannot take
-    (tower_layout's limits and a block's shared memory). evaluate() asks
-    this before it picks K5."""
+    """Raise ValueError for an actor tower K5 does not take: the envelope of
+    the fp32 kernel it replaced (tower_layout's limits and the shared
+    memory of a 128-lane block), so that evaluate() routes every tower as
+    before; the tensor-core kernel takes every one of them (act_layout).
+    evaluate() asks this before it picks K5."""
     layout, _ = tower_layout(widths)
     check_smem(int(layout[2]), widths)
+    act_layout(widths)
+
+
+def _up8(w: int) -> int:
+    return -(-w // 8) * 8
+
+
+def act_layout(widths) -> dict:
+    """csrc/acting.cu's `make_act_layout` and `act_smem` for an actor tower
+    of hidden `widths`, at the lanes a block the wrapper picks: per layer
+    (the head last) its widths, its packed fragments' offset `fo` (float4s)
+    and its padded bias's `bo` (floats); the weights buffer's floats `wfl`;
+    the activation buffers' first rows (obs, the fold chunk, ping, pong) and
+    rows in all. The weights sit in shared memory (`wsm`) when 128 lanes or
+    more fit beside them, the lanes `bl` being the most (up to
+    ACT_MAX_LANES, a multiple of 32) that fit; otherwise the weights stay
+    in device memory. `ints` are the kernel's layout ints [n_hidden, bl,
+    wsm, dynamic shared memory bytes, wfl, width[MAX_HIDDEN]]. Raises for a
+    tower the kernel cannot take."""
+    widths = [int(w) for w in widths]
+    if len(widths) > MAX_HIDDEN or any(not 1 <= w <= MAX_WIDTH
+                                       for w in widths):
+        raise ValueError(f"the acting kernels take at most {MAX_HIDDEN} "
+                         f"hidden layers of width <= {MAX_WIDTH}, got {widths}")
+    L = len(widths)
+    layers, fo, nin, mw = [], 0, OBS_DIM, 0
+    for li in range(L + 1):
+        nout = widths[li] if li < L else 4
+        layers.append({"nin": nin, "nout": nout, "fo": fo})
+        fo += _up8(nin) * _up8(nout) // 2
+        if li + 2 <= L:
+            mw = max(mw, _up8(nout))
+        nin = nout
+    bo = 4 * fo
+    for y in layers:
+        y["bo"] = bo
+        bo += _up8(y["nout"])
+    wfl = -(-bo // 4) * 4
+    ch = ACT_OBS_ROWS if L == 1 else 0
+    ha = ACT_OBS_ROWS + (ACT_CHUNK if L == 1 else 0)
+    hb = ha + (mw if L >= 2 else 0)
+    rows = hb + (mw if L >= 3 else 0)
+    for wsm, least in ((True, 128), (False, 32)):
+        for bl in range(ACT_MAX_LANES, least - 1, -32):
+            smem = 4 * ((wfl if wsm else 0) + rows * (bl + 8))
+            if smem <= _MAX_SMEM:
+                ints = np.zeros(5 + MAX_HIDDEN, np.int32)
+                ints[:5] = (L, bl, int(wsm), smem, wfl)
+                ints[5:5 + L] = widths
+                return {"ints": ints, "layers": layers, "wfl": wfl,
+                        "obs": 0, "ch": ch, "ha": ha, "hb": hb, "rows": rows,
+                        "bl": bl, "wsm": wsm, "smem": smem}
+    raise ValueError(f"towers {widths}: no block of 32 lanes fits")
+
+
+def pack_tower_mma(policy: ActorCritic, device):
+    """The actor tower as K5 reads it (`act_layout`): each layer's B = W^T
+    (inputs x outputs, zero-padded to multiples of 8) split into (big,
+    small) TF32 halves and packed in the order a warp reads its fragments
+    (cnn_mma.cuh's pack_tower_kernel: float4 lane of tile (kt, nt) holds
+    big B[k][n], big B[k + 4][n], small B[k][n], small B[k + 4][n], n = 8 nt
+    + lane // 4, k = 8 kt + lane % 4), tiles k-major; then each layer's bias
+    padded to 8. Returns (buffer, layout ints, std float32 array)."""
+    # imported here: cuda_update_cnn imports this module
+    from drone_tpu_torch.ops.cuda_update_cnn import tf32_split
+
+    lins = [*policy.hidden_layers("actor"), policy.actor_mean]
+    widths = [lin.out_features for lin in lins[:-1]]
+    check_envelope(widths)
+    lay = act_layout(widths)
+    parts = []
+    with torch.no_grad():
+        for lin, y in zip(lins, lay["layers"]):
+            K, N = _up8(y["nin"]), _up8(y["nout"])
+            b = torch.zeros(K, N, device=device)
+            b[:y["nin"], :y["nout"]] = lin.weight.detach().t().to(
+                device, torch.float32)
+            halves = []
+            for half in tf32_split(b):
+                # k = 8 kt + 4 h + t, n = 8 nt + g -> (kt, nt, g, t, h)
+                x = half.reshape(K // 8, 2, 4, N // 8, 8).permute(0, 3, 4, 2, 1)
+                halves.append(x.reshape(K // 8, N // 8, 32, 2))
+            parts.append(torch.cat(halves, -1).reshape(-1))
+        for lin, y in zip(lins, lay["layers"]):
+            bias = torch.zeros(_up8(y["nout"]), device=device)
+            bias[:y["nout"]] = lin.bias.detach().to(device, torch.float32)
+            parts.append(bias)
+        weights = torch.cat(parts)
+        weights = torch.cat([weights, weights.new_zeros(
+            lay["wfl"] - weights.numel())]).contiguous()
+    std = np.ascontiguousarray(
+        torch.exp(policy.log_std.detach()).cpu().numpy(), np.float32)
+    return weights, lay["ints"], std
 
 
 def _pad16(w: int) -> int:
     return -(-w // _CHUNK) * _CHUNK
-
-
-def pack_tower(policy: ActorCritic, device):
-    """The actor tower in the kernel's shared-memory layout (`tower_layout`)
-    in one float32 buffer. Returns (buffer, layout int32 array, std float32
-    array)."""
-    widths = [lin.out_features for lin in policy.hidden_layers("actor")]
-    layout, offs = tower_layout(widths)
-    parts, nin = [], OBS_DIM
-    with torch.no_grad():
-        for lin in policy.hidden_layers("actor"):
-            blk = torch.zeros(nin + 1, _pad16(lin.out_features), device=device)
-            blk[:nin, :lin.out_features] = lin.weight.t()
-            blk[nin, :lin.out_features] = lin.bias
-            parts.append(blk.reshape(-1))
-            nin = lin.out_features
-        parts += [policy.actor_mean.weight.t().reshape(-1).to(device),
-                  policy.actor_mean.bias.to(device)]
-        weights = torch.cat(parts).to(torch.float32).contiguous()
-    assert weights.numel() == layout[2]
-    check_envelope(widths)
-    std = np.ascontiguousarray(
-        torch.exp(policy.log_std.detach()).cpu().numpy(), np.float32)
-    return weights, layout, std
 
 
 def act_rollout_kernel(state: EnvState, policy: ActorCritic,
@@ -172,7 +249,7 @@ def act_rollout_kernel(state: EnvState, policy: ActorCritic,
                        stochastic: bool = False):
     """Launch csrc/acting.cu. Same contract as act_rollout_plain."""
     check_cuda_state(state)
-    weights, layout, std = pack_tower(policy, state.pos.device)
+    weights, layout, std = pack_tower_mma(policy, state.pos.device)
     fn = cuda_build.load("acting").drone_act_rollout
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     out = launch_planes(fn, state, env_params, statics, T, weights.data_ptr(),

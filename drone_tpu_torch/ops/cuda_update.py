@@ -55,9 +55,12 @@ N_UPSTATS = 8
 # kernel limits (csrc/update.cu)
 UPD_HIDDEN = 8
 TILE = 64
-MAX_BLOCKS = 396
-_SP = TILE + 1
-_MAX_SMEM = 232448
+MAX_BLOCKS = 128       # one block an SM; 8,192 / 128 tiles a block
+_MAX_SMEM = 232448     # bytes of shared memory one H100 block can use
+W0_STRIDE = 20         # layer 0's weight-plane rows
+SLACK_ROWS = 16        # activation rows past the head's value
+STAT_PART_BYTES = 8 * 8 * 4  # the static stat partials of 8 warps
+_FP32_ROW = TILE + 1   # the fp32 kernel's row stride, its envelope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,10 +146,17 @@ def head_grads(m, v, a, logp_old, v_old, adv, ret, ls, co: UpdateConsts):
     return dm, g_v, stats
 
 
+def tower_mm(a, b):
+    """a @ b for the towers' products (the forward, dW and dX), which K3
+    runs on the tensor cores in 3xTF32; `cuda_update_cnn.mm_3xtf32` can
+    take its place to see what that precision costs the plain version."""
+    return a @ b
+
+
 def _tower_fwd(x, weights):
     acts = [x]
     for li, (w, b) in enumerate(weights):
-        x = x @ w.t() + b
+        x = tower_mm(x, w.t()) + b
         if li < len(weights) - 1:
             x = torch.tanh(x)
         acts.append(x)
@@ -158,10 +168,10 @@ def _tower_bwd(weights, acts, dy):
     grads = [None] * len(weights)
     for li in range(len(weights) - 1, -1, -1):
         w, _ = weights[li]
-        grads[li] = (dy.t() @ acts[li], dy.sum(0))
+        grads[li] = (tower_mm(dy.t(), acts[li]), dy.sum(0))
         if li > 0:
             y = acts[li]
-            dy = (dy @ w) * (1.0 - y * y)
+            dy = tower_mm(dy, w) * (1.0 - y * y)
     return grads
 
 
@@ -232,17 +242,69 @@ def branch_counts(m, v, a, logp_old, v_old, adv, ret, ls,
             "value_grad_zero": int((value_out & (g_v == 0)).sum())}
 
 
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def sums_stride(nin: int) -> int:
+    """A running-sum row of K3: nin floats of W's row and the bias, rounded
+    up to 8 mod 16 floats (its fragments' float2 adds free of bank
+    conflicts)."""
+    return nin + 1 + (8 - (nin + 1) % 16) % 16
+
+
+def mma_layout(hidden) -> dict:
+    """csrc/update.cu's `make_layout` and `layout_smem` for towers `hidden`:
+    per tower and layer (the head last) its input and output widths, its
+    weight planes' offset `wp`, row stride `sw` and swizzle, its running
+    sums' offset `sb` and row stride `ss`, its activation rows; the
+    floats of one weight plane `wf` and of the running sums `sf`, the
+    activation rows, whether the planes and the sums fit beside the
+    activations in a block's shared memory (`onchip`), and its dynamic
+    shared memory in bytes."""
+    hidden = tuple(int(h) for h in hidden)
+    L, h = len(hidden), sum(hidden)
+    hm = OBS_DIM + 2 * h
+    hv = hm + 4
+    rows = hv + 1 + SLACK_ROWS
+    layers, wp, sb = [[], []], 0, 0
+    for t in (0, 1):
+        base, cum, nin, in_row = OBS_DIM + t * h, 0, OBS_DIM, 0
+        for li in range(L + 1):
+            nout = hidden[li] if li < L else (4, 1)[t]
+            sw = _up(nin, 32) if li else W0_STRIDE
+            out_row = base + cum if li < L else (hm, hv)[t]
+            layers[t].append(dict(nin=nin, nout=nout, wp=wp, sw=sw,
+                                  swizzled=li > 0, sb=sb,
+                                  ss=sums_stride(nin), in_row=in_row,
+                                  out_row=out_row))
+            wp += _up(nout, 8) * sw
+            sb += nout * sums_stride(nin)
+            in_row, cum, nin = out_row, cum + nout, nout
+    act = 4 * rows * TILE
+    onchip = act + 4 * (2 * wp + sb) + STAT_PART_BYTES <= _MAX_SMEM
+    return dict(layers=layers, wf=wp, sf=sb, rows=rows, hm=hm, hv=hv,
+                onchip=onchip, smem=act + (4 * (2 * wp + sb) if onchip else 0))
+
+
 def update_layout(hidden) -> np.ndarray:
     """The host ints of drone_ppo_update: [n_hidden, widths, actor W
     offsets, critic W offsets, P, ls_off]. Raises for a tower the kernel
-    cannot take."""
+    cannot take: the envelope of the fp32 kernel it replaced (at most
+    UPD_HIDDEN hidden layers, the tile's activations in a block's shared
+    memory at 65 floats a row), inside which the tensor-core kernel's
+    activations always fit."""
     hidden = tuple(int(h) for h in hidden)
     rows = OBS_DIM + 2 * sum(hidden) + 5 + 8
-    if len(hidden) > UPD_HIDDEN or 4 * rows * _SP > _MAX_SMEM:
+    if (len(hidden) > UPD_HIDDEN or min(hidden, default=1) < 1
+            or 4 * rows * _FP32_ROW > _MAX_SMEM):
         raise ValueError(f"the update kernel takes at most {UPD_HIDDEN} hidden "
                          f"layers and {_MAX_SMEM} bytes of activations per "
                          f"tile; towers {list(hidden)} need "
-                         f"{4 * rows * _SP}")
+                         f"{4 * rows * _FP32_ROW}")
+    if mma_layout(hidden)["smem"] + STAT_PART_BYTES > _MAX_SMEM:
+        raise ValueError(f"towers {list(hidden)}: the tile's activations "
+                         f"exceed a block's shared memory")
     offs, total = kernel_offsets(hidden)
     ints = np.zeros(5 + 3 * UPD_HIDDEN, np.int32)
     ints[0] = len(hidden)
@@ -281,20 +343,26 @@ def ppo_update_kernel(planes, advret, perm_mb, theta, hidden,
                          f"multiple of {TILE} that divides {n}")
     n_tiles = perm_mb.numel() * (rbl // TILE) * T
     G = min(n_tiles, MAX_BLOCKS)
+    mm = mma_layout(hidden)
     dev = planes.device
+    wplanes = torch.empty(2 * mm["wf"], device=dev)
+    scratch = torch.empty(1 if mm["onchip"] else G * mm["sf"], device=dev)
     partial = torch.empty(G, P + N_UPSTATS, device=dev)
     grads = torch.empty(P, device=dev)
     stats = torch.empty(N_UPSTATS, device=dev)
     consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
                        co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
                       np.float32)
+    dims = np.array([mm["smem"], int(mm["onchip"]), mm["wf"], mm["sf"]],
+                    np.int32)
     fn = cuda_build.load("update").drone_ppo_update
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(planes.data_ptr(), advret.data_ptr(), perm_mb.data_ptr(),
-                 theta.data_ptr(), partial.data_ptr(), grads.data_ptr(),
-                 stats.data_ptr(), layout.ctypes.data, consts.ctypes.data, n,
+                 theta.data_ptr(), wplanes.data_ptr(), scratch.data_ptr(),
+                 partial.data_ptr(), grads.data_ptr(), stats.data_ptr(),
+                 layout.ctypes.data, consts.ctypes.data, dims.ctypes.data, n,
                  T, rbl, perm_mb.numel(), G,
                  torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "drone_ppo_update")

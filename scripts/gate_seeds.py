@@ -4,9 +4,10 @@ Run from the root of a checkout on a machine with an H100:
 
     python3 scripts/gate_seeds.py <family> <label> [checkout]
 
-family is one of chip_smoke.GATES: cnn (phase 24), lstm (phase 17) or
-cnn_lstm (phase 31). It runs that gate's training from seeds 0-11 with the
-drone_tpu_torch package of `checkout` (by default the one it runs from;
+family is mlp (phase 10) or one of chip_smoke.GATES: cnn (phase 24), lstm
+(phase 17) or cnn_lstm (phase 31). It runs that gate's training from seeds
+0-11 with the drone_tpu_torch package of `checkout` (by default the one it
+runs from;
 give a second checkout, e.g. a git archive of a parent commit, to train
 that one's kernels under the same gate) and prints each seed's readings:
 the lowest value-loss mean over that of the early updates, the mean
@@ -14,7 +15,10 @@ reward's rise from the first updates to the last, and whether the one-run
 rule (`gate_passes`, the gate's thresholds) passes. Then the four-run form
 (`gate_verdict`: every run falling, rising and finite, the rises' mean
 above the gate's threshold) on each group of four seeds, 0-3, 4-7 and
-8-11, and one JSON line.
+8-11, and one JSON line. The MLP gate is a threshold within a budget
+(`mlp_gate_run`): each seed's reading is the updates it took and the last
+5 updates' mean reward, its rule that mean above MLP_GATE_REWARD within
+MLP_GATE_UPDATES updates.
 """
 import json
 import statistics
@@ -27,6 +31,23 @@ import chip_smoke as cs  # noqa: E402
 family, label = sys.argv[1], sys.argv[2]
 if len(sys.argv) > 3:
     sys.path.insert(0, sys.argv[3])  # its package before this checkout's
+if family == "mlp":
+    readings = {}
+    for seed in range(12):
+        updates, mean5, first5, finite = cs.mlp_gate_run(seed)
+        readings[seed] = {"updates": updates, "reward_last5": mean5,
+                          "reward_first5": first5, "finite": finite,
+                          "one_run_rule": mean5 > cs.MLP_GATE_REWARD
+                          and finite}
+        print(f"mlp {label} seed {seed}: {readings[seed]}", flush=True)
+    took = [r["updates"] for r in readings.values()]
+    print(json.dumps({"family": family, "tree": label,
+                      "device": cs.device_line(), "runs": readings,
+                      "one_run_failures": sum(not r["one_run_rule"]
+                                              for r in readings.values()),
+                      "updates_mean": statistics.mean(took),
+                      "updates_max": max(took)}), flush=True)
+    sys.exit(0)
 run_seed, fall, rise = cs.GATES[family]
 runs, readings = [], {}
 for seed in range(12):

@@ -1,13 +1,18 @@
-"""Times and registers of the LSTM, CNN and CNN-LSTM kernels of a checkout.
+"""Times and registers of the MLP, LSTM, CNN and CNN-LSTM kernels of a
+checkout.
 
 Run from the root of a checkout on a machine with an H100:
 
     python3 scripts/kernel_times.py <label>
 
-It builds acting_lstm, update_lstm, acting_cnn and update_cnn, times K8 and
-K6 (dense encoder and CNN arm) and K11 and K9 at their paths' shapes, and
-K7 (both arms) and K10 on one full-width minibatch, by CUDA events, and
-prints one JSON line with the ptxas register count of every kernel. K7
+It builds acting, acting_traj, update, acting_lstm, update_lstm, acting_cnn
+and update_cnn, times K2 (65,536 lanes x 64 steps) on hover.toml's [64,
+64] tower, K3 on its full-width minibatch and K4 over its parameters, then
+K5 (65,536 x 1,001; after the short MLP kernels, which its seconds of
+load would slow), K8 and K6 (dense encoder and CNN arm) and K11
+and K9 at their paths' shapes, and K7 (both arms) and K10 on one
+full-width minibatch, by CUDA events, and prints one JSON line with the
+ptxas register count of every kernel. K7
 dense is read first and again last, on the same inputs ("K7" and "K7
 end"), so a drift of the card within one run shows beside the others. To
 compare two commits, copy the script into a second checkout (git archive)
@@ -19,16 +24,22 @@ import sys
 sys.path.insert(0, ".")  # the checkout it runs from
 
 import chip_smoke as cs  # noqa: E402
+import torch  # noqa: E402
+
 from drone_tpu_torch.env import DroneEnv  # noqa: E402
+from drone_tpu_torch.models import kernel_order, tensor_sizes  # noqa: E402
+from drone_tpu_torch.ops import cuda_acting as K5  # noqa: E402
+from drone_tpu_torch.ops import cuda_acting_traj as K2  # noqa: E402
 from drone_tpu_torch.ops import cuda_acting_cnn as K11  # noqa: E402
 from drone_tpu_torch.ops import cuda_acting_lstm as K8  # noqa: E402
 from drone_tpu_torch.ops import cuda_build  # noqa: E402
+from drone_tpu_torch.ops import cuda_update as K3  # noqa: E402
 from drone_tpu_torch.ops import cuda_update_cnn as K10  # noqa: E402
 from drone_tpu_torch.ops import cuda_update_lstm as K7  # noqa: E402
 from drone_tpu_torch.utils.config import Config  # noqa: E402
 
-libs = cuda_build.build(("acting_lstm", "update_lstm", "acting_cnn",
-                         "update_cnn"))
+libs = cuda_build.build(("acting", "acting_traj", "update", "acting_lstm",
+                         "update_lstm", "acting_cnn", "update_cnn"))
 regs = {}
 for name, lib in libs.items():
     entry = None
@@ -42,6 +53,23 @@ statics, params = cfg.env.build()
 env = DroneEnv(statics.task, statics.integrator, params, device="cuda")
 n, horizon = 65536, int(env.params.horizon) + 1
 t = {}
+state = env.init_batch(2, n)
+model = cs.flat_policy()
+t["K2"] = cs.cuda_ms(lambda: K2.traj_rollout_kernel(
+    state, model.flat, model.hidden, env.params, env.statics, 64), 5)
+planes, advret, perm_mb, co, rbl = cs.hover_minibatch(cfg, model, env)
+t["K3"] = cs.cuda_ms(lambda: K3.ppo_update_kernel(
+    planes, advret, perm_mb, model.flat, model.hidden, co, rbl, 0.001), 20)
+del planes, advret
+adam = [model.flat.clone(), 0.05 * torch.ones_like(model.flat),
+        torch.zeros_like(model.flat), torch.zeros_like(model.flat),
+        torch.zeros((), device="cuda"), K3.AdamConsts(),
+        K3.LrSchedule(3e-4, 1000, True),
+        tensor_sizes(kernel_order(model.hidden))]
+t["K4"] = cs.cuda_ms(lambda: K3.fused_adam_kernel(*adam), 100)
+mlp = cs.seeded_policy(seed=1).cuda()
+t["K5"] = cs.cuda_ms(lambda: K5.act_rollout_kernel(
+    state, mlp, env.params, env.statics, horizon), 5)
 lm = cs.lstm_policy()
 planes, advret, snap, perm_mb, co, rbl, bptt = cs.lstm_minibatch(
     cfg.with_overrides(list(cs.LSTM_OVERRIDES)), lm, env)

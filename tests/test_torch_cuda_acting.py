@@ -10,7 +10,8 @@ holds the Pallas kernel to the scan path) and long ones statistically.
 
 The kernel itself runs only on the card (chip_smoke.py). Its weight layout
 is checked here: an emulation of csrc/acting.cu's tower, reading the packed
-buffer by the kernel's offsets, must reproduce the module's actor.
+(big, small) fragments by the kernel's indices, must reproduce the
+module's actor.
 """
 
 import numpy as np
@@ -98,20 +99,30 @@ def test_plain_acting_long_horizon_statistics():
 
 
 def _tower_as_the_kernel_reads_it(weights, layout, obs):
-    """csrc/acting.cu's tower, indexing the packed buffer by its offsets."""
-    n_hidden, head_off = int(layout[0]), int(layout[1])
-    widths = layout[4:4 + n_hidden]
-    offs = layout[4 + cuda_acting.MAX_HIDDEN:4 + cuda_acting.MAX_HIDDEN + n_hidden]
-    x, nin = obs, 13
-    for w, off in zip(widths, offs):
-        npad = -(-int(w) // 16) * 16
-        wt = weights[off:off + nin * npad].reshape(nin, npad)
-        b = weights[off + nin * npad:off + nin * npad + npad]
-        x = torch.tanh(x @ wt + b)[:, :w]
-        nin = int(w)
-    wh = weights[head_off:head_off + nin * 4].reshape(nin, 4)
-    bh = weights[head_off + nin * 4:head_off + nin * 4 + 4]
-    return x @ wh + bh
+    """csrc/acting.cu's tower: each layer's B = W^T gathered from its packed
+    fragments by the kernel's index (float4 ((kt * NT + nt) * 32 + lane),
+    lane = 4 g + t, component h of big for row k + 4 h, 2 + h of small),
+    big + small, then the padded bias; the obs padded to 16 inputs."""
+    lay = cuda_acting.act_layout(layout[5:5 + int(layout[0])])
+    w = weights.double()
+
+    def b_of(y):
+        K, N = -(-y["nin"] // 8) * 8, -(-y["nout"] // 8) * 8
+        frags = w[4 * y["fo"]:4 * y["fo"] + 2 * K * N].reshape(
+            K // 8, N // 8, 32, 4)
+        k, n = torch.arange(K)[:, None], torch.arange(N)[None, :]
+        lane = 4 * (n % 8) + k % 4
+        h = (k % 8) // 4
+        return (frags[k // 8, n // 8, lane, h]
+                + frags[k // 8, n // 8, lane, 2 + h])
+
+    x = torch.nn.functional.pad(obs.double(), (0, 3))
+    for i, y in enumerate(lay["layers"]):
+        N = -(-y["nout"] // 8) * 8
+        x = x @ b_of(y) + w[y["bo"]:y["bo"] + N]
+        if i < len(lay["layers"]) - 1:
+            x = torch.tanh(x)
+    return x[:, :4].float()
 
 
 @pytest.mark.parametrize("hidden", [(), (16,), (64, 64), (32, 32, 32),
@@ -121,10 +132,10 @@ def test_packed_tower_layout(hidden):
     model = ActorCritic(hidden, generator=g)
     torch.nn.init.normal_(model.actor_mean.weight, generator=g)
     torch.nn.init.normal_(model.actor_mean.bias, generator=g)
-    weights, layout, std = cuda_acting.pack_tower(model, "cpu")
-    assert weights.numel() == layout[2] and layout[2] % 4 == 0
-    assert all(o % 16 == 0 for o in layout[4 + cuda_acting.MAX_HIDDEN:])
-    assert layout[1] % 4 == 0  # float4-aligned head
+    weights, layout, std = cuda_acting.pack_tower_mma(model, "cpu")
+    lay = cuda_acting.act_layout(hidden)
+    assert weights.numel() == layout[4] == lay["wfl"] and layout[4] % 4 == 0
+    assert layout[3] == lay["smem"] <= 232448 - 256
     obs = torch.randn(32, 13, generator=g)
     with torch.no_grad():
         want = model.actor(obs)
@@ -136,7 +147,7 @@ def test_packed_tower_layout(hidden):
 @pytest.mark.parametrize("hidden", [(8,) * 9, (300,), (256, 256)])
 def test_pack_tower_refuses_what_the_kernel_cannot_take(hidden):
     with pytest.raises(ValueError):
-        cuda_acting.pack_tower(ActorCritic(hidden), "cpu")
+        cuda_acting.pack_tower_mma(ActorCritic(hidden), "cpu")
 
 
 def test_kernel_refuses_cpu_tensors():

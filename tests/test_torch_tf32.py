@@ -2,7 +2,8 @@
 (csrc/cnn_mma.cuh: K10 and K7's CNN arm, and the acting kernels K11, K9
 and the CNN arms of K8 and K6; csrc/lstm_mma.cuh: the LSTM gate block of
 K8, K6 and K7 in both arms, K7's [dx; dh] product and its weight-gradient
-products).
+products; csrc/update.cu and csrc/acting.cu: the MLP towers of K3 and
+K5).
 
 The kernels run the patch-CNN tower's products in 3xTF32: each fp32
 operand split into big = round-to-nearest TF32 (ties away, as
@@ -19,7 +20,10 @@ steps, episode counts equal) of their fp32 selves, which
 tests/test_torch_cnn.py and tests/test_torch_cnn_lstm.py hold to
 drone_tpu. The dense arms of K8 and K7, whose gate block (and K7's
 products) run there too, are held the same way with `models.lstm.
-gate_linear` and `cuda_update_lstm.gate_mm` emulated. The inputs are made
+gate_linear` and `cuda_update_lstm.gate_mm` emulated, and the MLP's K3 and
+K5 with `cuda_update.tower_mm` and `models.mlp.ActorCritic._dense`
+emulated (tests/test_torch_update.py and tests/test_torch_cuda_acting.py
+hold their fp32 selves to drone_tpu). The inputs are made
 with numpy (or the env's seeded init) at a few hundred samples of the
 default tower, the one the kernels take. The kernels' shared memory,
 scratch rows, packed fragments and envelope are mirrored in Python; the C
@@ -33,14 +37,17 @@ import torch
 
 from drone_tpu_torch import env as tenv
 from drone_tpu_torch.models import (
+    ActorCritic,
     CNNLSTMActorCritic,
     LSTMActorCritic,
     PatchCNNActorCritic,
+    kernel_offsets,
+    kernel_order,
     lstm_kernel_order,
 )
 from drone_tpu_torch.models import lstm as lstm_model
-from drone_tpu_torch.ops import cuda_acting_cnn, cuda_acting_lstm
-from drone_tpu_torch.ops import cuda_update_cnn, cuda_update_lstm
+from drone_tpu_torch.ops import cuda_acting, cuda_acting_cnn, cuda_acting_lstm
+from drone_tpu_torch.ops import cuda_update, cuda_update_cnn, cuda_update_lstm
 from drone_tpu_torch.types import default_params
 from drone_tpu_torch.ops.cuda_acting_cnn import KERNEL_ARCH
 from drone_tpu_torch.ops.cuda_acting_traj import N_TRAJ
@@ -400,3 +407,212 @@ def test_tower_kernels_shared_memory_and_scratch(hidden):
     assert tch * 16384 <= C.MAX_SCRATCH and (tch * 16384) % C.TILE == 0
     assert C.FP_W == 645 + 8 and C.BP_W == 20608
     assert C.PACKED_FLOATS == 4 * (64 * 64 + 2 * 256 * 64 + 2 * 576 * 128) // 2
+
+
+@pytest.mark.parametrize("hidden", [(64, 64), (32, 32)])
+def test_3xtf32_plain_k3_within_tolerance(monkeypatch, hidden):
+    rng = np.random.default_rng(10)
+    T, n = 2, 256
+    planes, advret = _planes(rng, T, n)
+    model = _acting_policy(ActorCritic(
+        hidden, generator=torch.Generator().manual_seed(0)))
+    co = UpdateConsts(0.2, 0.5, 0.5, 1.0 / (128 * T))
+    args = (planes, advret, torch.tensor([1], dtype=torch.int32), model.flat,
+            hidden, co, 128, 0.001)
+    want = cuda_update.ppo_update_plain(*args)
+    monkeypatch.setattr(cuda_update, "tower_mm", cuda_update_cnn.mm_3xtf32)
+    got = cuda_update.ppo_update_plain(*args)
+    assert not torch.equal(got[0], want[0])  # the emulation ran
+    _within_update_tolerance(got, want, kernel_order(hidden))
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_3xtf32_plain_k5_within_serving_tolerance(monkeypatch, stochastic):
+    n, T = 384, 3
+    env = _serving_env()
+    state = env.init_batch(2, n)
+    model = _acting_policy(
+        ActorCritic((64, 64), generator=torch.Generator().manual_seed(0)))
+    args = (state, model, env.params, env.statics, T, stochastic)
+    wf, ws = cuda_acting.act_rollout_plain(*args)
+    mm = cuda_update_cnn.mm_3xtf32
+    monkeypatch.setattr(ActorCritic, "_dense",
+                        lambda self, lin, x: mm(x, lin.weight.t()) + lin.bias)
+    gf, gs = cuda_acting.act_rollout_plain(*args)
+    assert not torch.equal(gf.fstate(), wf.fstate())  # the emulation ran
+    _within_serving_tolerance((gf.fstate(), gs), (wf.fstate(), ws))
+    assert float(gs[1].sum()) == float(ws[1].sum()) >= n
+
+
+def _swz(r):
+    """csrc/update.cu's column swizzle of row r."""
+    return ((r & 3) << 3) | (r & 4)
+
+
+def _distinct_banks(words):
+    """32 lanes' word addresses hit 32 different banks."""
+    return len({int(w) % 32 for w in np.ravel(words)}) == 32
+
+
+@pytest.mark.parametrize("hidden", [(64, 64), (32, 48, 20), (), (13,)])
+def test_k3_weight_planes_sums_and_activations(hidden):
+    """csrc/update.cu's layout, mirrored: pack_planes_kernel's planes read
+    back by the forward's and the input gradient's fragment indices give
+    W^T and W (zero-padded), with every fragment read of the planes and of
+    the swizzled activation rows free of bank conflicts; each flat gradient
+    has its own running-sum entry (W's row, then the bias column), whose
+    fragment float2 folds are free of bank conflicts; the shared memory
+    byte counts the wrapper passes."""
+    lay = cuda_update.mma_layout(hidden)
+    model = ActorCritic(hidden, generator=torch.Generator().manual_seed(3))
+    flat = model.flatten_().numpy()
+    offs, total = kernel_offsets(hidden)
+    names = [[f"{tw}_h{i}" for i in range(len(hidden))] + [head]
+             for tw, head in (("actor", "actor_mean"),
+                              ("critic", "critic_value"))]
+    planes = np.full(lay["wf"], np.nan, np.float32)
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    sums_of = {}
+    for tower, layers in enumerate(lay["layers"]):
+        for li, y in enumerate(layers):
+            nin, nout, sw, wp = y["nin"], y["nout"], y["sw"], y["wp"]
+            w0 = offs[f"{names[tower][li]}.weight"]
+            W = flat[w0:w0 + nout * nin].reshape(nout, nin)
+            # pack_planes_kernel
+            e = np.arange(-(-nout // 8) * 8 * sw)
+            o, c = e // sw, e % sw
+            i = c ^ _swz(o) if y["swizzled"] else c
+            ok = (o < nout) & (i < nin)
+            vals = np.zeros(e.size, np.float32)
+            vals[ok] = W[o[ok], i[ok]]
+            planes[wp + e] = vals
+            K, N = -(-nin // 8) * 8, -(-nout // 8) * 8
+            Wp = np.zeros((N, K), np.float32)
+            Wp[:nout, :nin] = W
+
+            def wi(oo, ii):
+                return wp + oo * sw + (ii ^ _swz(oo) if y["swizzled"] else ii)
+
+            k, n = np.arange(K)[:, None], np.arange(N)[None, :]
+            np.testing.assert_array_equal(planes[wi(n, k)], Wp.T)
+            for k0 in range(0, K, 8):
+                for n0 in range(0, N, 8):
+                    for h in (0, 4):
+                        assert _distinct_banks(wi(n0 + g, k0 + t + h))
+            if li > 0:  # the input gradient reads W
+                np.testing.assert_array_equal(planes[wi(n.T, k.T)], Wp)
+                for k0 in range(0, N, 8):
+                    for n0 in range(0, K, 8):
+                        for h in (0, 4):
+                            assert _distinct_banks(wi(k0 + t + h, n0 + g))
+            # the running sums and the kernel's copy to the flat row
+            assert y["ss"] >= nin + 1 and y["ss"] % 16 == 8
+            for r in range(nout * (nin + 1)):
+                sums_of[w0 + r] = y["sb"] + (
+                    (r // nin) * y["ss"] + r % nin if r < nout * nin
+                    else (r - nout * nin) * y["ss"] + nin)
+            for half in (0, 1):  # a fold's float2 words, half a warp
+                gg, tt = g[16 * half:16 * half + 16], t[16 * half:16 * half + 16]
+                pairs = (y["sb"] + gg * y["ss"] + 2 * tt) // 2
+                assert len({int(p) % 16 for p in pairs}) == 16
+    assert not np.isnan(planes).any()
+    assert sorted(sums_of) == [e for e in range(total)
+                               if not offs["log_std"] <= e < offs["log_std"] + 4]
+    assert len(set(sums_of.values())) == len(sums_of)
+    assert max(sums_of.values()) < lay["sf"]
+    # the activations: rows of 64 samples, swizzled
+    def ai(r, s):
+        return r * 64 + (s ^ _swz(r))
+    for r0 in range(16):
+        for m0 in (0, 16, 32, 48):
+            assert _distinct_banks(ai(r0 + t, m0 + g))         # A, M = samples
+            assert _distinct_banks(ai(r0 + g, 8 * (m0 // 16) + t))  # M = rows
+    rows = 13 + 2 * sum(hidden) + 5 + 16
+    assert lay["rows"] == rows and lay["hm"] == 13 + 2 * sum(hidden)
+    static = cuda_update.STAT_PART_BYTES
+    if lay["onchip"]:
+        assert lay["smem"] == 4 * (64 * rows + 2 * lay["wf"] + lay["sf"])
+    assert lay["smem"] + static <= MAX_SMEM
+    if hidden == (64, 64):
+        assert lay["onchip"] and lay["smem"] == 219040
+        assert (lay["wf"], lay["sf"]) == (11776, 12648)
+
+
+def _fp32_k3_took(hidden):
+    """The fp32 K3's envelope: at most 8 hidden layers, the tile's rows
+    (obs, both towers, 5 head and 8 stat rows) at 65 floats a row."""
+    return (len(hidden) <= 8
+            and 4 * 65 * (13 + 2 * sum(hidden) + 13) <= MAX_SMEM)
+
+
+def _fp32_k5_took(widths):
+    """The fp32 K5's envelope: at most 8 hidden layers of width <= 256, the
+    weights (W^T, outputs padded to 16, and biases) and a 128-lane block's
+    activation columns in a block's shared memory."""
+    if len(widths) > 8 or any(w > 256 for w in widths):
+        return False
+    nin, n_w = 13, 0
+    for w in widths:
+        n_w += (nin + 1) * (-(-w // 16) * 16)
+        nin = w
+    n_w = -(-(n_w + (nin + 1) * 4) // 4) * 4
+    n_buf = 2 if len(widths) >= 3 else (1 if len(widths) == 2 else 0)
+    maxw = max((-(-w // 16) * 16 for w in widths), default=0)
+    return 4 * (n_w + (16 + n_buf * maxw) * 128) <= MAX_SMEM - 256
+
+
+def test_mlp_envelopes_keep_every_tower_of_the_fp32_kernels():
+    """Every tower the fp32 K3 and K5 took is still taken, and every tower
+    they refused is still refused (so train.build and evaluate route as
+    before): seeded towers of 0-9 hidden layers around both limits, and the
+    towers at them."""
+    rng = np.random.default_rng(12)
+    shapes = [(), (434,), (435,), (217, 217), (217, 218), (256, 256),
+              (256, 64), (256, 72), (8,) * 8, (8,) * 9, (64, 64),
+              (32, 48, 20), (20, 40, 8, 24), (300,), (1,) * 8]
+    for depth in range(1, 10):
+        for _ in range(16):
+            total = int(rng.integers(depth, 520))
+            cuts = np.sort(rng.choice(np.arange(1, total), depth - 1,
+                                      replace=False)) if depth > 1 else []
+            shapes.append(tuple(int(w) for w in
+                                np.diff([0, *cuts, total])))
+    took3 = took5 = 0
+    for hidden in shapes:
+        try:
+            cuda_update.update_layout(hidden)
+            k3 = True
+        except ValueError:
+            k3 = False
+        assert k3 == _fp32_k3_took(hidden), hidden
+        if k3:
+            took3 += 1
+            lay = cuda_update.mma_layout(hidden)
+            assert lay["smem"] + cuda_update.STAT_PART_BYTES <= MAX_SMEM
+        try:
+            cuda_acting.check_envelope(hidden)
+            k5 = True
+        except ValueError:
+            k5 = False
+        assert k5 == _fp32_k5_took(hidden), hidden
+        if k5:
+            took5 += 1
+            lay = cuda_acting.act_layout(hidden)
+            assert 32 <= lay["bl"] <= 512 and lay["smem"] <= MAX_SMEM - 256
+    assert took3 > 60 and took5 > 40
+
+
+def test_k5_residency_and_activation_reads():
+    """K5 at [64, 64]: 512 lanes a block (rows of 520 floats: a fragment's
+    reads in 32 banks), the weights' 45,600 bytes and 80 activation rows,
+    one block an SM: 65,536 lanes in 128 blocks, one wave on 132 SMs."""
+    lay = cuda_acting.act_layout((64, 64))
+    assert lay["wsm"] and lay["bl"] == 512 and lay["rows"] == 16 + 64
+    assert lay["wfl"] == 2 * (16 * 64 + 64 * 64 + 64 * 8) + 64 + 64 + 8
+    assert lay["smem"] == 4 * (lay["wfl"] + 80 * 520) == 212000
+    assert 2 * (lay["smem"] + 256 + 1024) > SM_SMEM  # one block an SM
+    assert -(-65536 // lay["bl"]) == 128 <= 132
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    for i in (0, 16):
+        for h in (0, 4):
+            assert _distinct_banks((t + h) * 520 + i + g)
