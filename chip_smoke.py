@@ -4,7 +4,7 @@
 Builds the CUDA kernels from csrc/ (nvcc, in parallel; prints each
 library's registers and spills, and those of the tensor-core kernels of
 K10, K7 (both arms' walk and its products), K11/K9, both arms of K8/K6, K3
-(its weights and running sums on chip, and off it) and K5 with their
+(its weights and running sums on chip, and off it), K5 and K2 with their
 shared memory and their HMMA instructions, the SASS of mma.sync, which
 each must hold), holds each against
 its plain PyTorch version on the card's inputs, drives the port's paths
@@ -41,10 +41,17 @@ Phases:
   5. evaluate() on the card against evaluate() on the CPU (plain versions)
      at 512 episodes: episode counts within 1%, mean return within 1%.
   6. Times by CUDA events after a warm-up, at the paths' shapes.
-  7. K2 (csrc/acting_traj.cu) against its plain version on the card: hover,
-     [64, 64], 65,536 lanes, T = 3 (all 21 planes and the final state within
-     rtol 2e-5 / atol 2e-6, episodes equal), both action modes, and T = 64
-     stochastic (episodes within 2%, mean reward within 0.01).
+  7. K2 (csrc/acting_traj.cu; both towers' products on the tensor cores in
+     3xTF32, the weights packed on the device from the flat buffer) against
+     its fp32 plain version on the card: hover, [64, 64], 65,536 lanes, T =
+     3 (all 21 planes and the final state within rtol 2e-5 / atol 2e-6,
+     episodes equal), both action modes, and T = 64 stochastic (episodes
+     within 2%, mean reward within 0.01); then at T = 3 in both modes
+     [64, 64] on waypoint/rk4 over a ragged last block (8,232 lanes), a
+     [32, 48, 20] tower on waypoint/rk4, [128, 128], the widest tower of
+     its envelope, a linear policy on racing/euler and [48] on hover/rk4
+     (their fragments staged in shared memory, the others' read through
+     L1), 8,192 lanes. Each T = 3 case launched twice, bitwise equal.
   8. K3 (csrc/update.cu; the towers' products on the tensor cores in
      3xTF32) against its fp32 plain version on hover.toml's minibatch (8
      row blocks of 1,024 lanes x 64 steps, planes from K2): each gradient
@@ -56,7 +63,11 @@ Phases:
      each branch of the head's subgradients (ratio clipped with and
      without gradient, value clipped with and without gradient) and each
      of the policy-loss, value-loss, approx-KL and clip-fraction sums is
-     held on its own. K4 against its plain version: rtol 1e-5 / atol 1e-8.
+     held on its own. K4 (csrc/update.cu, one cooperative launch over a
+     grid fixed by the buffer's length) against its plain version: rtol
+     1e-5 / atol 1e-8, the norm clip active and inactive, each case
+     launched twice, bitwise equal (likewise over the LSTM, CNN and
+     CNN-LSTM layouts in 14, 21 and 29).
   9. The training path: `train.train` on hover.toml with 3 updates (K2 = 3,
      K3 = 96, K4 = 96 launches, finite metrics with the reference's keys);
      `cli train configs/hover.toml` for 2 updates, then `evaluate` of the
@@ -65,13 +76,13 @@ Phases:
      3e-3, no entropy bonus): mean reward of 5 updates above 0.3 within
      120; and resume: train(4) == train(2) + resume(2) bitwise.
  11. Times of K2, K3, K4 (CUDA events) beside their plain versions and
-     bounds (K3's the tensor-pipe bound, its products at the 3xTF32 rate
-     and the rest at the fp32 rate, the fp32 bound beside it; K5's, in
-     phase 6, likewise). One full-width update, queued with torch's host-sync check on
-     (it must not sync), split into rollout, GAE, update and metrics by
-     CUDA events at make_train_step's phase marks and by the host clock;
-     one more update traced with torch.profiler for the device's busy time
-     and idle share.
+     bounds (K2's and K3's the tensor-pipe bound, their products at the
+     3xTF32 rate and the rest at the fp32 rate, the fp32 bound beside it;
+     K5's, in phase 6, likewise). One full-width update, queued with
+     torch's host-sync check on (it must not sync), split into rollout,
+     GAE, update and metrics by CUDA events at make_train_step's phase
+     marks and by the host clock; one more update traced with
+     torch.profiler for the device's busy time and idle share.
  12. K8 (csrc/acting_lstm.cu, serving) against its plain version: hover,
      H 128 / encoder (64,), 65,536 lanes from a random carry, T = 3 within
      rtol 2e-5 / atol 2e-6 on the final carry and the per-lane statistics
@@ -276,7 +287,7 @@ def update_ops(hidden) -> int:
 
 
 def tower_mma_ops(hidden, n_head: int = 4) -> int:
-    """The part of tower_ops on the tensor cores in K5 and K3: the
+    """The part of tower_ops on the tensor cores in K5, K2 and K3: the
     products' multiply-adds x2."""
     dims = [13, *hidden, n_head]
     return 2 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
@@ -307,10 +318,9 @@ def bound(ops, nbytes):
 
 def tensor_bound(mma_ops, other_ops, nbytes):
     """The bound of a kernel whose matrix products run on the tensor cores
-    in 3xTF32 (every kernel but K1, K2 and K4): (the least time in ms, what
-    sets it), the
-    larger of the products at the 3xTF32 rate plus the rest at the fp32
-    rate, and the bytes over the HBM rate."""
+    in 3xTF32 (every kernel but K1 and K4): (the least time in ms, what
+    sets it), the larger of the products at the 3xTF32 rate plus the rest
+    at the fp32 rate, and the bytes over the HBM rate."""
     t_ops = mma_ops / MMA_3XTF32_OPS_PER_S + other_ops / FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -395,12 +405,14 @@ def planes(state, lane_stats):
     return [*cuda_rollout.pack_state(state), lane_stats]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     """Mean time of `fn` over `reps` back-to-back calls, by CUDA events,
-    after one warm-up call."""
+    after one warm-up call (none for a call of seconds that its check has
+    already made at the same shapes)."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -580,6 +592,18 @@ def flat_policy(hidden=(64, 64), seed=1, log_std=-0.5):
     return m
 
 
+# K2's checks: (task, integrator, hidden, lanes, ((T, horizon), ...)); T = 3
+# in both action modes, T = 64 stochastic
+K2_CASES = (
+    ("hover", "euler", (64, 64), 65536, ((3, 2), (64, 40))),
+    ("waypoint", "rk4", (64, 64), 8192 + 40, ((3, 2),)),  # a ragged block
+    ("waypoint", "rk4", (32, 48, 20), 8192, ((3, 2),)),
+    ("hover", "euler", (128, 128), 8192, ((3, 2),)),  # the widest, off chip
+    ("racing", "euler", (), 8192, ((3, 2),)),  # linear: fragments staged
+    ("hover", "rk4", (48,), 8192, ((3, 2),)),  # one layer, staged
+)
+
+
 def phase_k2() -> float:
     """K2 against its plain version on the card; returns the max abs error
     of the T = 3 planes."""
@@ -589,35 +613,46 @@ def phase_k2() -> float:
     from drone_tpu_torch.ops import cuda_acting_traj as K2
     from drone_tpu_torch.types import default_params
 
-    n = 65536
-    model = flat_policy()
+    if (K2.traj_layout((128, 128))["wsm"], K2.traj_layout(())["wsm"],
+            K2.traj_layout((48,))["wsm"]) != (0, 1, 1):
+        raise AssertionError("[128, 128] was to read its fragments through "
+                             "L1, [] and [48] to stage them")
     max_err = 0.0
-    for T, horizon, modes in ((3, 2, (False, True)), (64, 40, (True,))):
-        env = DroneEnv("hover", "euler", default_params("hover",
-                                                         horizon=horizon),
-                       device="cuda")
-        state = env.init_batch(5, n)
-        for sto in modes:
-            kf, kp, ks = K2.traj_rollout_kernel(state, model.flat, model.hidden,
-                                                env.params, env.statics, T, sto)
-            pf, pp, ps = K2.traj_rollout_plain(state, model.flat, model.hidden,
-                                               env.params, env.statics, T, sto)
-            torch.cuda.synchronize()
-            k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
-            k_r, p_r = float(ks[0].sum()) / (n * T), float(ps[0].sum()) / (n * T)
-            err = float((kp - pp).abs().max())
-            print(f"K2 hover [64, 64] n={n} T={T} stochastic={sto}: max|plane "
-                  f"err|={err:.3g} episodes {k_ep:.0f} vs {p_ep:.0f}, mean "
-                  f"reward {k_r:.6f} vs {p_r:.6f}", flush=True)
-            if T == 3:
-                max_err = max(max_err, err)
-                torch.testing.assert_close(kp, pp, rtol=2e-5, atol=2e-6)
-                torch.testing.assert_close(kf.fstate(), pf.fstate(),
-                                           rtol=2e-5, atol=2e-6)
-                if k_ep != p_ep or k_ep < n:
-                    raise AssertionError("K2 episode counts differ at T=3")
-            elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
-                raise AssertionError("K2 episode statistics disagree")
+    for task, integ, hidden, n, runs in K2_CASES:
+        model = flat_policy(hidden)
+        lay = K2.traj_layout(hidden)
+        for T, horizon in runs:
+            env = DroneEnv(task, integ, default_params(task, horizon=horizon),
+                           device="cuda")
+            state = env.init_batch(5, n)
+            for sto in ((False, True) if T == 3 else (True,)):
+                args = (state, model.flat, model.hidden, env.params,
+                        env.statics, T, sto)
+                kf, kp, ks = K2.traj_rollout_kernel(*args)
+                pf, pp, ps = K2.traj_rollout_plain(*args)
+                torch.cuda.synchronize()
+                k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
+                k_r = float(ks[0].sum()) / (n * T)
+                p_r = float(ps[0].sum()) / (n * T)
+                err = float((kp - pp).abs().max())
+                print(f"K2 {task}/{integ} {list(hidden)} n={n} T={T} "
+                      f"stochastic={sto} ({lay['bl']} lanes a block, "
+                      f"fragments staged {lay['wsm']}): max|plane err|="
+                      f"{err:.3g} episodes {k_ep:.0f} vs {p_ep:.0f}, mean "
+                      f"reward {k_r:.6f} vs {p_r:.6f}", flush=True)
+                if T == 3:
+                    max_err = max(max_err, err)
+                    torch.testing.assert_close(kp, pp, rtol=2e-5, atol=2e-6)
+                    torch.testing.assert_close(kf.fstate(), pf.fstate(),
+                                               rtol=2e-5, atol=2e-6)
+                    if k_ep != p_ep or k_ep < n:
+                        raise AssertionError("K2 episode counts differ at "
+                                             "T=3")
+                    kf2, kp2, ks2 = K2.traj_rollout_kernel(*args)
+                    check_repeat("K2", (kf.fstate(), kp, ks),
+                                 (kf2.fstate(), kp2, ks2))
+                elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
+                    raise AssertionError("K2 episode statistics disagree")
     return max_err
 
 
@@ -738,13 +773,56 @@ def compare_grads(what, kg, ks, pg, ps, order, each_stat: bool) -> float:
     return max_err
 
 
-def phase_k3_k4(cfg, env):
-    """K3 and K4 against their plain versions at hover.toml's shapes;
-    returns (K3 max abs error, K4 max abs error, inputs for timing)."""
+def check_k4(flat, order, cfg, label) -> tuple:
+    """K4 against its plain version over a layout (rtol 1e-5 / atol 1e-8)
+    at step count 5, with the norm clip active (|g| = 0.05 sqrt(P)) and
+    inactive (the same gradients scaled to a quarter of the clip norm),
+    each launched twice on the same inputs, bitwise equal. Returns (the
+    largest absolute difference, the active case's inputs for timing:
+    grads, mu, nu, schedule, constants)."""
     import torch
 
     from drone_tpu_torch import ppo_cuda
-    from drone_tpu_torch.models import kernel_order, tensor_sizes
+    from drone_tpu_torch.models import tensor_sizes
+    from drone_tpu_torch.ops import cuda_update as K4
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    P = flat.numel()
+    grads = 0.05 * torch.randn(P, device="cuda", generator=g)
+    mu0 = 0.01 * torch.randn(P, device="cuda", generator=g)
+    nu0 = 0.001 * torch.rand(P, device="cuda", generator=g)
+    sched = ppo_cuda.make_fused_lr(cfg.train)
+    ac = K4.AdamConsts(clip_norm=cfg.train.max_grad_norm)
+    sizes = tensor_sizes(order)
+    k4_err = 0.0
+    for clip, gr in (("active", grads),
+                     ("inactive", grads * (0.25 * ac.clip_norm
+                                           / float(grads.norm())))):
+        outs = []
+        for run in (K4.fused_adam_kernel, K4.fused_adam_kernel,
+                    K4.fused_adam_plain):
+            th, mu, nu = flat.clone(), mu0.clone(), nu0.clone()
+            count = torch.tensor(5.0, device="cuda")
+            run(th, gr, mu, nu, count, ac, sched, sizes)
+            outs.append((th, mu, nu, count))
+        torch.cuda.synchronize()
+        check_repeat("K4", outs[0], outs[1])
+        err = 0.0
+        for a, b in zip(outs[0], outs[2]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-8)
+            err = max(err, float((a - b).abs().max()))
+        k4_err = max(k4_err, err)
+        print(f"K4 over {label} ({P} parameters, {len(sizes)} tensors, "
+              f"{K4.adam_blocks(P)} blocks), count 5, clip {clip} (|g| = "
+              f"{float(gr.norm()):.3g}): max|err| {err:.3g}, two launches "
+              f"bitwise equal", flush=True)
+    return k4_err, (grads, mu0, nu0, sched, ac)
+
+
+def phase_k3_k4(cfg, env):
+    """K3 and K4 against their plain versions at hover.toml's shapes;
+    returns (K3 max abs error, K4 max abs error, inputs for timing)."""
+    from drone_tpu_torch.models import kernel_order
     from drone_tpu_torch.ops import cuda_update as K3
 
     model = flat_policy()
@@ -777,29 +855,10 @@ def phase_k3_k4(cfg, env):
         big.hidden)), big.hidden, *inputs[3:], ent, each_stat=False)
     k3_err = max(k3_err, err)
 
-    g = torch.Generator(device="cuda").manual_seed(4)
-    P = model.flat.numel()
-    grads = 0.05 * torch.randn(P, device="cuda", generator=g)
-    mu0 = 0.01 * torch.randn(P, device="cuda", generator=g)
-    nu0 = 0.001 * torch.rand(P, device="cuda", generator=g)
-    sched = ppo_cuda.make_fused_lr(cfg.train)
-    ac = K3.AdamConsts(clip_norm=cfg.train.max_grad_norm)
-    outs = []
-    for run in (K3.fused_adam_kernel, K3.fused_adam_plain):
-        theta, mu, nu = model.flat.clone(), mu0.clone(), nu0.clone()
-        count = torch.tensor(5.0, device="cuda")
-        run(theta, grads, mu, nu, count, ac, sched,
-            tensor_sizes(kernel_order(model.hidden)))
-        outs.append((theta, mu, nu, count))
-    torch.cuda.synchronize()
-    k4_err = 0.0
-    for a, b in zip(*outs):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-8)
-        k4_err = max(k4_err, float((a - b).abs().max()))
-    print(f"K4 {P} parameters, count 5, clip active (|g| = "
-          f"{float(grads.norm()):.3g}): max|err| {k4_err:.3g}", flush=True)
-    return k3_err, k4_err, (model, planes, advret, perm_mb, co, rbl, grads,
-                            mu0, nu0, sched, ac)
+    k4_err, k4_inputs = check_k4(model.flat, kernel_order(model.hidden),
+                                 cfg, "the MLP layout")
+    return k3_err, k4_err, (model, planes, advret, perm_mb, co, rbl,
+                            *k4_inputs)
 
 
 def path_training(cfg_path, tmp):
@@ -955,7 +1014,11 @@ def time_training(cfg, env, inputs):
                        + tower_ops(hidden, 1) + OPS_NOISE_LOGP)
               + episodes * OPS_RESET)
     k2_bytes = n * (2 * 25 * 4 + 5 * 4) + T * 21 * n * 4 + P * 4
-    out["K2"] = (k2_ms, k2_plain, *bound(k2_ops, k2_bytes), None)
+    k2_mma = n * T * (tower_mma_ops(hidden, 4) + tower_mma_ops(hidden, 1))
+    out["K2"] = (k2_ms, k2_plain,
+                 *tensor_bound(k2_mma, k2_ops - k2_mma, k2_bytes), None)
+    print(f"K2: {k2_mma:.4g} of {k2_ops:.4g} ops on the tensor cores; fp32 "
+          f"bound {bound(k2_ops, k2_bytes)[0]:.4f} ms", flush=True)
 
     args = (planes, advret, perm_mb, model.flat, hidden, co, rbl, tc.ent_coef)
     samples = perm_mb.numel() * rbl * T
@@ -1112,7 +1175,7 @@ def trace_update(step, runner, policy) -> dict:
     # the port's kernels live in namespace drone (torch has reduce_kernels
     # of its own)
     tower = ("drone::pack_tower_kernel", "drone::tower_bwd_kernel")
-    classes = {"K2": ("drone::traj_kernel",),
+    classes = {"K2": ("drone::pack_traj_kernel", "drone::traj_kernel"),
                "K3": ("drone::pack_planes_kernel", "drone::update_kernel",
                       "drone::reduce_kernel"),
                "K4": ("drone::adam_kernel",),
@@ -1497,11 +1560,7 @@ def phase_k7_k4(cfg, env, model=None, critic_scales=(2.0,)):
     and K4 over the policy's layout. Off the planes' weights the critic's
     noise is the first of critic_scales at which the minibatch takes every
     branch of the head's subgradients. Returns (K7 max abs error, inputs
-    for timing)."""
-    import torch
-
-    from drone_tpu_torch import ppo_cuda
-    from drone_tpu_torch.models import tensor_sizes
+    for timing, K4 max abs error)."""
     from drone_tpu_torch.ops import cuda_update as K4
     from drone_tpu_torch.ops import cuda_update_lstm as K7
 
@@ -1532,28 +1591,9 @@ def phase_k7_k4(cfg, env, model=None, critic_scales=(2.0,)):
                              "is 0")
     k7_err = max(k7_err, err)
 
-    g = torch.Generator(device="cuda").manual_seed(4)
-    P = model.flat.numel()
-    grads = 0.05 * torch.randn(P, device="cuda", generator=g)
-    mu0 = 0.01 * torch.randn(P, device="cuda", generator=g)
-    nu0 = 0.001 * torch.rand(P, device="cuda", generator=g)
-    sched = ppo_cuda.make_fused_lr(cfg.train)
-    ac = K4.AdamConsts(clip_norm=cfg.train.max_grad_norm)
-    outs = []
-    for run in (K4.fused_adam_kernel, K4.fused_adam_plain):
-        th, mu, nu = model.flat.clone(), mu0.clone(), nu0.clone()
-        count = torch.tensor(5.0, device="cuda")
-        run(th, grads, mu, nu, count, ac, sched, tensor_sizes(order))
-        outs.append((th, mu, nu, count))
-    torch.cuda.synchronize()
-    k4_err = 0.0
-    for a, b in zip(*outs):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-8)
-        k4_err = max(k4_err, float((a - b).abs().max()))
-    print(f"K4 over the {enc_label(model.encoder)} LSTM layout ({P} "
-          f"parameters, {len(order)} tensors): max|err| {k4_err:.3g}",
-          flush=True)
-    return k7_err, args
+    k4_err, _ = check_k4(model.flat, order, cfg,
+                         f"the {enc_label(model.encoder)} LSTM layout")
+    return k7_err, args, k4_err
 
 
 def path_lstm_serving(cfg, cfg_path, model=None):
@@ -1768,7 +1808,7 @@ def time_lstm(cfg, env, k7_args, model=None, plain_depths=(100, 32)):
     episodes = float(lane[1].sum())
     ms = cuda_ms(lambda: K6.lstm_act_rollout_kernel(
         state, model.flat, arch, carry, env.params, env.statics, horizon),
-        reps=1 if cnn else 2)
+        reps=1 if cnn else 2, warm_up=False)
     plain = host_ms(lambda d: K6.lstm_act_rollout_plain(
         state, model.flat, arch, carry, env.params, env.statics, d),
         plain_depths[0], horizon)
@@ -1787,7 +1827,7 @@ def time_lstm(cfg, env, k7_args, model=None, plain_depths=(100, 32)):
     episodes = float(lane[1].sum())
     ms = cuda_ms(lambda: K6.traj_lstm_rollout_kernel(
         state, model.flat, arch, carry, env.params, env.statics, T, bptt),
-        reps=2 if cnn else 3)
+        reps=2 if cnn else 3, warm_up=False)
     plain = host_ms(lambda d: K6.traj_lstm_rollout_plain(
         state, model.flat, arch, carry, env.params, env.statics, d, bptt),
         plain_depths[1], T)
@@ -1799,8 +1839,10 @@ def time_lstm(cfg, env, k7_args, model=None, plain_depths=(100, 32)):
 
     planes, perm_mb, rbl = k7_args[0], k7_args[3], k7_args[7]
     samples = perm_mb.numel() * rbl * T
-    ms = cuda_ms(lambda: K7.lstm_update_kernel(*k7_args), reps=2 if cnn else 3)
-    plain = cuda_ms(lambda: K7.lstm_update_plain(*k7_args), reps=1)
+    ms = cuda_ms(lambda: K7.lstm_update_kernel(*k7_args),
+                 reps=2 if cnn else 3, warm_up=False)
+    plain = cuda_ms(lambda: K7.lstm_update_plain(*k7_args), reps=1,
+                    warm_up=False)
     nbytes = (samples * 23 * 4 + (T // bptt) * 2 * H * perm_mb.numel() * rbl
               * 4 + P * 4 + (P + 8) * 4)
     ops = samples * bptt_ops(H, enc)
@@ -2086,11 +2128,7 @@ def check_k10(args, order, each_stat: bool):
 def phase_k10_k4(cfg, env):
     """K10 against its plain version at the full-width minibatch, on the
     planes' own weights and off them, and K4 over the CNN layout. Returns
-    (K10 max abs error, inputs for timing)."""
-    import torch
-
-    from drone_tpu_torch import ppo_cuda
-    from drone_tpu_torch.models import tensor_sizes
+    (K10 max abs error, inputs for timing, K4 max abs error)."""
     from drone_tpu_torch.ops import cuda_update as K4
     from drone_tpu_torch.ops import cuda_update_cnn as K10
 
@@ -2121,27 +2159,8 @@ def phase_k10_k4(cfg, env):
                              "is 0")
     k10_err = max(k10_err, err)
 
-    g = torch.Generator(device="cuda").manual_seed(4)
-    P = model.flat.numel()
-    grads = 0.05 * torch.randn(P, device="cuda", generator=g)
-    mu0 = 0.01 * torch.randn(P, device="cuda", generator=g)
-    nu0 = 0.001 * torch.rand(P, device="cuda", generator=g)
-    sched = ppo_cuda.make_fused_lr(cfg.train)
-    ac = K4.AdamConsts(clip_norm=cfg.train.max_grad_norm)
-    outs = []
-    for run in (K4.fused_adam_kernel, K4.fused_adam_plain):
-        th, mu, nu = model.flat.clone(), mu0.clone(), nu0.clone()
-        count = torch.tensor(5.0, device="cuda")
-        run(th, grads, mu, nu, count, ac, sched, tensor_sizes(order))
-        outs.append((th, mu, nu, count))
-    torch.cuda.synchronize()
-    k4_err = 0.0
-    for a, b in zip(*outs):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-8)
-        k4_err = max(k4_err, float((a - b).abs().max()))
-    print(f"K4 over the CNN layout ({P} parameters, {len(order)} tensors): "
-          f"max|err| {k4_err:.3g}", flush=True)
-    return k10_err, args
+    k4_err, _ = check_k4(model.flat, order, cfg, "the CNN layout")
+    return k10_err, args, k4_err
 
 
 def path_cnn_serving(cfg, cfg_path):
@@ -2389,7 +2408,7 @@ def time_cnn(cfg, env, k10_args):
     episodes = float(lane[1].sum())
     ms = cuda_ms(lambda: K9.cnn_act_rollout_kernel(
         state, model.flat, model.arch, env.params, env.statics, horizon),
-        reps=1)
+        reps=1, warm_up=False)
     plain = host_ms(lambda T: K9.cnn_act_rollout_plain(
         state, model.flat, model.arch, env.params, env.statics, T), 10,
         horizon)
@@ -2404,7 +2423,8 @@ def time_cnn(cfg, env, k10_args):
                                             env.params, env.statics, T)
     episodes = float(lane[1].sum())
     ms = cuda_ms(lambda: K9.traj_cnn_rollout_kernel(
-        state, model.flat, model.arch, env.params, env.statics, T), reps=3)
+        state, model.flat, model.arch, env.params, env.statics, T), reps=3,
+        warm_up=False)
     plain = host_ms(lambda d: K9.traj_cnn_rollout_plain(
         state, model.flat, model.arch, env.params, env.statics, d), 32, T)
     ops = (n * T * (OPS_STEP + OPS_OBS + cnn_ops(True) + OPS_NOISE_LOGP)
@@ -2415,8 +2435,10 @@ def time_cnn(cfg, env, k10_args):
     args = k10_args
     planes, perm_mb, rbl = args[0], args[2], args[6]
     samples = perm_mb.numel() * rbl * planes.shape[0]
-    ms = cuda_ms(lambda: K10.ppo_cnn_update_kernel(*args), reps=2)
-    plain = cuda_ms(lambda: K10.ppo_cnn_update_plain(*args), reps=1)
+    ms = cuda_ms(lambda: K10.ppo_cnn_update_kernel(*args), reps=2,
+                 warm_up=False)
+    plain = cuda_ms(lambda: K10.ppo_cnn_update_plain(*args), reps=1,
+                    warm_up=False)
     nbytes = samples * 23 * 4 + P * 4 + (P + 8) * 4
     ops, mma = samples * cnn_update_ops(), samples * cnn_tower_mma_ops()
     tb = tensor_bound(mma, ops - mma, nbytes)
@@ -2640,13 +2662,14 @@ def main() -> int:
         print(f"  {name}: registers per kernel {regs}; spilling kernels: "
               f"{len(spills)} {spills}", flush=True)
     # the tensor-core kernels (K10, K7's both arms and its products, K11/K9
-    # and both arms of K8/K6 on hover/euler, K3 on chip and off it, K5 on
-    # hover/euler), with their dynamic shared memory at the main paths'
-    # shapes (cnn_mma.cuh TF_SMEM, TB_SMEM; the walk's, the acting arms'
-    # and the products' are the wrappers' bptt_smem_bytes, act_smem_bytes
-    # and PRODUCT_SMEM; K3's mma_layout, off chip at [128, 128]; K5's
-    # act_layout)
+    # and both arms of K8/K6 on hover/euler, K3 on chip and off it, K5 and
+    # K2 on hover/euler), with their dynamic shared memory at the main
+    # paths' shapes (cnn_mma.cuh TF_SMEM, TB_SMEM; the walk's, the acting
+    # arms' and the products' are the wrappers' bptt_smem_bytes,
+    # act_smem_bytes and PRODUCT_SMEM; K3's mma_layout, off chip at [128,
+    # 128]; K5's act_layout; K2's traj_layout)
     from drone_tpu_torch.ops import cuda_acting_lstm as K8
+    from drone_tpu_torch.ops import cuda_acting_traj as K2
     from drone_tpu_torch.ops import cuda_update as K3
     from drone_tpu_torch.ops import cuda_update_cnn as K10
     from drone_tpu_torch.ops import cuda_update_lstm as K7
@@ -2666,14 +2689,17 @@ def main() -> int:
             "update_kernelILb0E": K3.mma_layout((128, 128))["smem"],
             "pack_planes_kernel": 0,
             "act_kernelILi0ELi0ELb0E": cuda_acting.act_layout((64, 64))["smem"],
-            "act_kernelILi0ELi0ELb1E": cuda_acting.act_layout((64, 64))["smem"]}
+            "act_kernelILi0ELi0ELb1E": cuda_acting.act_layout((64, 64))["smem"],
+            "traj_kernelILi0ELi0ELb0E": K2.traj_layout((64, 64))["smem"],
+            "traj_kernelILi0ELi0ELb1E": K2.traj_layout((64, 64))["smem"],
+            "pack_traj_kernel": 0}
     # every one of them but the packing runs mma.sync: its SASS must hold
     # HMMA instructions
     keys = list(dict.fromkeys(k.split("<")[0] for k in smem))
     keys = [f"{k}ILi0ELi0E" if k == "lstm_act_kernel" else k for k in keys]
     mma = {}
     for name in ("update_cnn", "update_lstm", "acting_cnn", "acting_lstm",
-                 "update", "acting"):
+                 "update", "acting", "acting_traj"):
         lib_mma = mma_counts(libs[name], keys)
         mma.update(lib_mma)
         for k, (regs, spill) in ptxas_report(libs[name], keys).items():
@@ -2804,7 +2830,7 @@ def main() -> int:
     k6_err = phase_k6()
     lap("K6 check")
     cfg_lstm = cfg.with_overrides(list(LSTM_OVERRIDES))
-    k7_err, k7_args = phase_k7_k4(cfg_lstm, env)
+    k7_err, k7_args, k4_lstm_err = phase_k7_k4(cfg_lstm, env)
     k7_err = max(k7_err, phase_k7_shapes(cfg_lstm, env))
     lap("K7, K4 checks")
     lstm_serve_counts = path_lstm_serving(
@@ -2823,7 +2849,7 @@ def main() -> int:
     k9_err = phase_k9()
     lap("K9 check")
     cfg_cnn = cfg.with_overrides(list(CNN_OVERRIDES))
-    k10_err, k10_args = phase_k10_k4(cfg_cnn, env)
+    k10_err, k10_args, k4_cnn_err = phase_k10_k4(cfg_cnn, env)
     lap("K10, K4 checks")
     cnn_serve_counts = path_cnn_serving(
         cfg.with_overrides(["run.policy=cnn"]), cfg_path)
@@ -2850,7 +2876,7 @@ def main() -> int:
     lap("K6 cnn check")
     cfg_cl = cfg.with_overrides(list(CNN_LSTM_OVERRIDES))
     # the CNN's critic noise (phase 21) until every branch is taken
-    k7c_err, k7c_args = phase_k7_k4(cfg_cl, env, cnn_lstm_policy(),
+    k7c_err, k7c_args, k4_cl_err = phase_k7_k4(cfg_cl, env, cnn_lstm_policy(),
                                     critic_scales=(2.0, 16.0, 64.0, 256.0))
     lap("K7 cnn, K4 checks")
     cl_serve_counts = path_lstm_serving(
@@ -2894,7 +2920,7 @@ def main() -> int:
               k3_err, *times["K3"]),
         entry("K4 fused clip+adam", "drone_tpu_torch/csrc/update.cu",
               "drone_tpu/ops/pallas_update.py:456", train_counts["K4"],
-              k4_err, *times["K4"]),
+              max(k4_err, k4_lstm_err, k4_cnn_err, k4_cl_err), *times["K4"]),
         entry("K5 MLP acting", "drone_tpu_torch/csrc/acting.cu",
               "drone_tpu/ops/pallas_acting.py:109", serve_counts["K5"],
               k5_err, k5_ms, k5_plain_ms, k5_bound, k5_by, None),

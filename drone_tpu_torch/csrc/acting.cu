@@ -16,17 +16,17 @@
 // at NOISE_BLOCK0 + 2*step (_gauss4_planes).
 //
 // A warp's activations are rows of the block's lanes in shared memory
-// ([unit][lane], row stride lanes + 8, = 8 mod 32: a fragment's 32 reads
-// fall in 32 banks). Each lane writes its obs into its column; the layers
-// but the last hidden one write their outputs (tanh on the accumulators,
-// padded units 0) into the next buffer, ping-pong; the last hidden layer
-// runs 16 units at a time, each chunk's tanh written over the obs rows
-// (which layer 0 has read) and multiplied at once into the head's
-// accumulators, so its activations never need a buffer of their own
-// (the fp32 kernel's fold, as products). Each thread reads its own lane's 4
-// means back. Only __syncwarp orders a step's layers: no block barrier
-// inside the step loop. Lanes past n take part in the warp's products with
-// zero obs and store nothing; a warp with no lane to step returns.
+// (tower_mma.cuh, with the products K2 shares). Each lane writes its obs
+// into its column; the layers but the last hidden one write their outputs
+// (tanh on the accumulators, padded units 0) into the next buffer,
+// ping-pong; the last hidden layer runs 16 units at a time, each chunk's
+// tanh written over the obs rows (which layer 0 has read) and multiplied
+// at once into the head's accumulators, so its activations never need a
+// buffer of their own (the fp32 kernel's fold, as products). Each thread
+// reads its own lane's 4 means back. Only __syncwarp orders a step's
+// layers: no block barrier inside the step loop. Lanes past n take part in
+// the warp's products with zero obs and store nothing; a warp with no lane
+// to step returns.
 //
 // Weights: packed once per call by the wrapper (ops/cuda_acting.py
 // pack_tower_mma) into (big, small) fragments in the order a warp reads
@@ -43,7 +43,7 @@
 // at [64, 64] (5,632 with the padding) at the 3xTF32 rate, 4.6 ms at
 // 65,536 lanes x 1,001 steps with the env step; what holds it is the
 // mma.sync TF32 rate, the operands' split and the 128 tanhf a lane-step on
-// the CUDA cores. The fp32 tower (policy.cuh) at this residency was
+// the CUDA cores. An fp32 tower, one thread a lane, at this residency was
 // measured too, and is slower (PERF.md).
 
 #include <cuda_runtime.h>
@@ -51,23 +51,13 @@
 #include <cstdint>
 
 #include "env.cuh"
-#include "mma.cuh"
 #include "policy.cuh"
+#include "tower_mma.cuh"
 
 namespace drone {
 
 constexpr int ACT_MAX_LANES = 512;
-constexpr int ACT_CHUNK = 16;      // units of a fold chunk: 2 n-tiles
-constexpr int ACT_OBS_ROWS = 16;   // the obs padded to 2 k-tiles
 constexpr int ACT_MAX_SMEM = 232448 - 256;  // less the env params' copy
-
-__host__ __device__ constexpr int act_up8(int x) { return (x + 7) & ~7; }
-
-// One layer of the tower: its packed fragments (float4 offset), its padded
-// bias (float offset in the weights buffer).
-struct ALayer {
-  int nin, nout, fo, bo;
-};
 
 // The tower's layout (ops/cuda_acting.py act_layout mirrors it): the
 // block's lanes `bl` and row stride `as`; the activation buffers' first
@@ -104,8 +94,8 @@ inline void make_act_layout(int L, const int* width, int bl, int wsm,
   }
   lo.wfl = (bo + 3) & ~3;
   lo.obs = 0;
-  lo.ch = L == 1 ? ACT_OBS_ROWS : 0;
-  lo.ha = ACT_OBS_ROWS + (L == 1 ? ACT_CHUNK : 0);
+  lo.ch = L == 1 ? TOWER_OBS_ROWS : 0;
+  lo.ha = TOWER_OBS_ROWS + (L == 1 ? TOWER_CHUNK : 0);
   lo.hb = lo.ha + (L >= 2 ? mw : 0);
   lo.rows = lo.hb + (L >= 3 ? mw : 0);
 }
@@ -114,86 +104,6 @@ inline void make_act_layout(int L, const int* width, int bl, int wsm,
 inline size_t act_smem(const ALayout& lo) {
   return sizeof(float) *
          ((lo.wsm ? (size_t)lo.wfl : 0) + (size_t)lo.rows * lo.as);
-}
-
-// acc[i][j] (the warp's lanes 16 i .., n-tile nt0 + j, j < nv) += sum over
-// the K rows of X of X[k][lane] B[k][n], B packed (NT n-tiles a k-tile). X
-// is the warp's first column of a buffer's first row. Each k-step's three
-// products sum in fresh accumulators, added to acc with IEEE adds: the
-// tensor cores' own accumulation over the k-steps (not fp32's
-// round-to-nearest) put the serving check's T = 3 states 2-3e-6 off the
-// fp32 plain version at [64, 64] and [128, 128], over its atol at the
-// latter; with the adds, 1.0-1.4e-6, at 2% of the time (PERF.md).
-template <int NI>
-__device__ __forceinline__ void warp_mma(const float* X, int as, int K,
-                                         const float4* B, int NT, int nt0,
-                                         int nv, float (&acc)[2][NI][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    uint32_t bb[NI][2], bs[NI][2];
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      const float4 f = j < nv ? B[((k0 >> 3) * NT + nt0 + j) * 32 + lane]
-                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      bb[j][0] = __float_as_uint(f.x);
-      bb[j][1] = __float_as_uint(f.y);
-      bs[j][0] = __float_as_uint(f.z);
-      bs[j][1] = __float_as_uint(f.w);
-    }
-    uint32_t ab[2][4], as_[2][4];
-    float part[2][NI][4];
-    zero_frags(part);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float* p = X + (k0 + t) * as + 16 * i + g;
-      split_tf32(p[0], ab[i][0], as_[i][0]);
-      split_tf32(p[8], ab[i][1], as_[i][1]);
-      split_tf32(p[4 * as], ab[i][2], as_[i][2]);
-      split_tf32(p[4 * as + 8], ab[i][3], as_[i][3]);
-    }
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-      if (j < nv)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_tf32(part[i][j], as_[i], bb[j]);
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-      if (j < nv)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_tf32(part[i][j], ab[i], bs[j]);
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-      if (j < nv)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_tf32(part[i][j], ab[i], bb[j]);
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][r] = acc[i][j][r] + part[i][j][r];
-  }
-}
-
-// Y rows = tanh(acc + b) for n-tiles nt0 .. nt0 + nv - 1 (row n - 8 nt0 +
-// row0 of Y); padded units get tanh(0) = 0.
-template <int NI>
-__device__ __forceinline__ void store_tanh(const float (&acc)[2][NI][4],
-                                           int nv, int nt0, int row0,
-                                           const float* bias, float* Y,
-                                           int as) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NI; ++j)
-    if (j < nv)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int n = 8 * (nt0 + j) + 2 * t + (r & 1);
-          const int m = 16 * i + g + (r & 2 ? 8 : 0);
-          Y[(row0 + n - 8 * nt0) * as + m] = tanhf(acc[i][j][r] + bias[n]);
-        }
 }
 
 // The actor tower for the warp's 32 lanes: obs rows (written, then a
@@ -225,9 +135,9 @@ __device__ __forceinline__ void warp_tower(const ALayout& lo,
   if (L > 0) {  // the last hidden layer, folded into the head by chunks
     const ALayer& y = lo.ly[L - 1];
     const int NT = act_up8(y.nout) / 8;
-    for (int nt0 = 0; nt0 < NT; nt0 += ACT_CHUNK / 8) {
-      const int nv = min(ACT_CHUNK / 8, NT - nt0);
-      float acc[2][ACT_CHUNK / 8][4];
+    for (int nt0 = 0; nt0 < NT; nt0 += TOWER_CHUNK / 8) {
+      const int nv = min(TOWER_CHUNK / 8, NT - nt0);
+      float acc[2][TOWER_CHUNK / 8][4];
       zero_frags(acc);
       warp_mma(act + in_row * as, as, act_up8(y.nin), W + y.fo, NT, nt0, nv,
                acc);
@@ -238,7 +148,8 @@ __device__ __forceinline__ void warp_tower(const ALayout& lo,
       __syncwarp();  // the chunk rows are read
     }
   } else {
-    warp_mma(act + lo.obs * as, as, ACT_OBS_ROWS, W + hd.fo, 1, 0, 1, hacc);
+    warp_mma(act + lo.obs * as, as, TOWER_OBS_ROWS, W + hd.fo, 1, 0, 1,
+             hacc);
     __syncwarp();  // the obs rows are read
   }
   // the means (columns 0..3 of the head's n-tile) over obs rows 0..3
@@ -272,7 +183,7 @@ act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
   }
   const int lane = threadIdx.x & 31;
   float* act = buf + (threadIdx.x - lane);  // the warp's first column
-  for (int r = OBS_DIM; r < ACT_OBS_ROWS; ++r)  // the obs' k padding
+  for (int r = OBS_DIM; r < TOWER_OBS_ROWS; ++r)  // the obs' k padding
     act[(lo.obs + r) * lo.as + lane] = 0.0f;
   load_params(pf, pi, P);  // ends with the barrier both copies need
   const int i = blockIdx.x * blockDim.x + threadIdx.x;

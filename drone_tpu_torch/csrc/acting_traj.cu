@@ -6,26 +6,48 @@
 // `traj_act_rollout_pallas_planes`; the megakernel trainer's rollout).
 // Wrapper and plain version: ops/cuda_acting_traj.py.
 //
-// Design: one thread per lane over the env loop of env.cuh, with both fp32
-// towers of policy.cuh evaluated in the thread before each env step. Per
-// lane-step it writes the 21 planes obs(13) act(4) logp value reward done
-// in the reference's TP_* order, time-major as (T, 21, n): thread i writes
-// lane i, so every store of a warp is one coalesced 128-byte run. The
-// action's log-prob is rebuilt from the stored action (_sample_logp), with
-// std = expf(log_std) computed here from the parameter buffer: a launch
-// needs no host copy of it.
+// Design: one thread per lane runs the observation, the Box-Muller draw
+// (policy.cuh gauss4), the log-prob of the stored action (sample_logp),
+// the env step (env.cuh) and the plane stores; the lanes of a warp
+// evaluate both towers together before each step, one product per layer
+// on the tensor cores (mma.sync m16n8k8 in 3xTF32, tower_mma.cuh, as K5):
+// M = the warp's 32 lanes, K and N the layers padded to 8 (the 13 obs to
+// 16), an IEEE add a k-step (H10). Per lane-step it writes the 21 planes
+// obs(13) act(4) logp value reward done in the reference's TP_* order,
+// time-major as (T, 21, n): thread i writes lane i, so every store of a
+// warp is one coalesced 128-byte run. std = expf(log_std) is computed here
+// from the parameter buffer: a launch needs no host copy of it.
 //
-// The weights come straight from the trainer's flat parameter buffer (the
-// reference's _kernel_tensors order: per layer W (out, in) then b, actor
-// then critic, then log_std). Each block stages both towers into shared
-// memory in policy.cuh's layout (W^T, outputs padded to 16), transposing as
-// it copies; the staging reads ~40 KB per block from L2.
+// A step: the lanes write their obs into the warp's columns of the obs
+// rows, and the actor, then the critic, runs over them: each hidden layer
+// but the last writes tanh of its products into the next rows (ping-pong
+// at depth 3 and more); the last hidden layer runs TRAJ_FOLD_NT n-tiles at
+// a time and each chunk's tanh, still in the accumulators, goes into the
+// head at once (regs_mma: the accumulators of a tile are an A fragment in
+// the order the head's fragments are packed), so the obs rows stay intact
+// for the critic and the last hidden layer needs no rows. Both heads share
+// one n-tile: the actor's 4 means are its columns 0-3, the critic's value
+// column 4. Each thread reads its lane's 5 back. Only __syncwarp orders a
+// step's layers: no block barrier inside the step loop. Lanes past n take
+// part in the products with zero obs and store nothing; a warp with no
+// lane to step returns.
 //
-// What bounds it on an H100: the two towers' multiply-adds on the fp32
-// cores (10,433 per lane-step for [64, 64]) and one tanhf per hidden unit,
-// beside the env step; its 21 planes are 84 bytes per lane-step, far below
-// the memory rate. So the weights sit in shared memory, read as
-// broadcasts, and the activations in the thread's own shared-memory column.
+// Weights: the trainer's flat parameter buffer (the reference's
+// _kernel_tensors order: per layer W (out, in) then b, actor then critic,
+// then log_std), which K4 rewrites on the device after every SGD step, is
+// split on the launch's stream by pack_traj_kernel into (big, small)
+// fragments in a warp's read order (tower_mma.cuh; the heads in pair
+// order), then the padded biases, in a buffer the wrapper allocates: no
+// host copy and no sync. Each block stages the biases and, where they fit
+// beside its lanes (ops/cuda_acting_traj.py traj_layout), both towers'
+// fragments in shared memory; else the fragments are read through L1 from
+// L2.
+//
+// What bounds it on an H100: both towers' products (10,368 multiply-adds
+// a lane-step at [64, 64]) at the 3xTF32 rate beside the env step and the
+// 256 tanhf a lane-step; its 21 planes are 84 bytes per lane-step, far
+// below the memory rate. What holds it, as K5: the mma.sync TF32 rate,
+// the operands' split and the tanhf on the CUDA cores.
 
 #include <cuda_runtime.h>
 
@@ -33,96 +55,235 @@
 
 #include "env.cuh"
 #include "policy.cuh"
+#include "tower_mma.cuh"
 
 namespace drone {
 
-constexpr int TRAJ_THREADS = 128;
+constexpr int TRAJ_MAX_LANES = 512;
+constexpr int TRAJ_MAX_SMEM = 232448 - 256;  // less the env params' copy
+constexpr int TRAJ_VALUE_COL = 4;            // the value's head column
+constexpr int TRAJ_HEAD_OUT = 5;             // 4 means and the value
+constexpr int TRAJ_NT = 4;       // n-tiles of a product of a stored layer
+constexpr int TRAJ_FOLD_NT = 2;  // n-tiles of a fold chunk
 
-// Where each layer of a tower starts in the flat parameter buffer: W of
-// layer l (hidden layers, then the head) at w[l], its bias right after.
-struct TowerSrc {
-  int w[MAX_HIDDEN + 1];
+// The layout (ops/cuda_acting_traj.py traj_layout mirrors it). The packed
+// buffer: the actor's fragments (f4 float4s), the critic's, then each
+// tower's padded biases (nb floats); wfl floats in all. Shared memory:
+// log_std and std (8 floats), both towers' biases, padded to hf floats;
+// both towers' fragments when staged (wsm 1); then the activation rows
+// (obs, ping, pong; `rows` of `as` floats). ly: a tower's layers, offsets
+// relative to its own fragments and biases; the head has 8 outputs (one
+// n-tile), the value at column TRAJ_VALUE_COL.
+struct TLayout {
+  int L, bl, as, wsm;
+  int f4, nb, wfl, hf;
+  int ha, hb, rows;
+  ALayer ly[MAX_HIDDEN + 1];
 };
 
-// Copy one tower from the flat buffer (W (out, in), b (out,)) into the
-// shared-memory layout of policy.cuh. Every thread of the block takes part.
-template <int NH>
-__device__ void stage_tower(float* sw, const Tower& tw, const TowerSrc& src,
-                            const float* __restrict__ theta) {
-  int nin = OBS_DIM;
-  for (int l = 0; l < tw.n_hidden; ++l) {
-    const int nout = tw.width[l];
-    const int np = pad16(nout);
-    const float* W = theta + src.w[l];
-    const float* b = W + nout * nin;
-    float* dst = sw + tw.off[l];
-    for (int k = threadIdx.x; k < (nin + 1) * np; k += blockDim.x) {
-      const int r = k / np, j = k % np;
-      float v = 0.0f;
-      if (j < nout) v = r < nin ? W[j * nin + r] : b[j];
-      dst[k] = v;
+// Where each tower's layers start in the flat buffer: W (out, in) of layer
+// l (hidden layers, then the head) at w[tower][l], its bias right after.
+struct TSrc {
+  int w[2][MAX_HIDDEN + 1];
+  int ls;
+};
+
+inline void make_traj_layout(int L, const int* width, int bl, int wsm,
+                             TLayout& lo) {
+  lo.L = L;
+  lo.bl = bl;
+  lo.as = bl + 8;
+  lo.wsm = wsm;
+  int fo = 0, bo = 0, nin = OBS_DIM, mw = 0;
+  for (int l = 0; l <= L; ++l) {
+    ALayer& y = lo.ly[l];
+    y.nin = nin;
+    y.nout = l < L ? width[l] : 8;
+    y.fo = fo;
+    y.bo = bo;
+    fo += act_up8(nin) * act_up8(y.nout) / 2;  // a float4 holds 2 of B
+    bo += act_up8(y.nout);
+    if (l + 2 <= L && act_up8(y.nout) > mw) mw = act_up8(y.nout);
+    nin = y.nout;
+  }
+  lo.f4 = fo;
+  lo.nb = bo;
+  lo.wfl = (8 * fo + 2 * bo + 3) & ~3;
+  lo.hf = (8 + 2 * bo + 3) & ~3;
+  lo.ha = TOWER_OBS_ROWS;
+  lo.hb = lo.ha + (L >= 3 ? mw : 0);
+  lo.rows = TOWER_OBS_ROWS + (L >= 2 ? mw : 0) + (L >= 3 ? mw : 0);
+}
+
+// Dynamic shared memory of a block.
+inline size_t traj_smem(const TLayout& lo) {
+  return sizeof(float) * ((size_t)lo.hf + (size_t)lo.wsm * 8 * lo.f4 +
+                          (size_t)lo.rows * lo.as);
+}
+
+// The packed buffer from the flat one: thread e < 2 f4 writes float4 e of
+// the fragments (tower e / f4), the next 2 nb threads a bias each. A head
+// after hidden layers is packed in pair order (regs_mma), the linear
+// policy's (L = 0) in the read order of warp_mma; the critic's value sits
+// in column TRAJ_VALUE_COL. Padding is zero.
+__global__ void pack_traj_kernel(const float* __restrict__ theta, TLayout lo,
+                                 TSrc src, float4* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nfrag = 2 * lo.f4;
+  const bool frag = e < nfrag;
+  const int q = frag ? e : e - nfrag;
+  const int per = frag ? lo.f4 : lo.nb;
+  if (!frag && q >= 2 * lo.nb) return;
+  const int tw = q / per, p = q % per;
+  int l = 0;
+  while (l < lo.L && p >= (frag ? lo.ly[l + 1].fo : lo.ly[l + 1].bo)) ++l;
+  const ALayer& y = lo.ly[l];
+  const bool head = l == lo.L;
+  const int nout = head ? (tw ? 1 : 4) : y.nout;
+  const int hc = head && tw ? TRAJ_VALUE_COL : 0;
+  const float* W = theta + src.w[tw][l];
+  if (!frag) {
+    const int o = p - y.bo - hc;
+    reinterpret_cast<float*>(out)[4 * nfrag + q] =
+        o >= 0 && o < nout ? W[nout * y.nin + o] : 0.0f;
+    return;
+  }
+  const int f = p - y.fo, NT = act_up8(y.nout) / 8;
+  const int kt = (f >> 5) / NT, nt = (f >> 5) % NT;
+  const int g = (f & 31) >> 2, t = f & 3;
+  const bool pair = head && lo.L > 0;
+  const int k0 = pair ? 8 * kt + 2 * t : 8 * kt + t;
+  const int k1 = pair ? k0 + 1 : k0 + 4;
+  const int o = 8 * nt + g - hc;
+  float v0 = 0.0f, v1 = 0.0f;
+  if (o >= 0 && o < nout) {
+    if (k0 < y.nin) v0 = W[o * y.nin + k0];
+    if (k1 < y.nin) v1 = W[o * y.nin + k1];
+  }
+  uint32_t b0, s0, b1, s1;
+  split_tf32(v0, b0, s0);
+  split_tf32(v1, b1, s1);
+  out[e] = make_float4(__uint_as_float(b0), __uint_as_float(b1),
+                       __uint_as_float(s0), __uint_as_float(s1));
+}
+
+// One tower for the warp's 32 lanes, the obs rows written (then a
+// __syncwarp): hacc += its head's products. act: the warp's first column
+// of the rows. Ends with a __syncwarp: its rows are read.
+__device__ __forceinline__ void traj_tower(const TLayout& lo, const float4* W,
+                                           const float* bias, float* act,
+                                           float (&hacc)[2][1][4]) {
+  const int as = lo.as, L = lo.L;
+  const ALayer& hd = lo.ly[L];
+  int in_row = 0;
+  for (int l = 0; l + 1 < L; ++l) {  // the layers before the last hidden
+    const ALayer& y = lo.ly[l];
+    const int out_row = (l & 1) ? lo.hb : lo.ha, NT = act_up8(y.nout) / 8;
+    for (int nt0 = 0; nt0 < NT; nt0 += TRAJ_NT) {
+      const int nv = min(TRAJ_NT, NT - nt0);
+      float acc[2][TRAJ_NT][4];
+      zero_frags(acc);
+      warp_mma(act + in_row * as, as, act_up8(y.nin), W + y.fo, NT, nt0, nv,
+               acc);
+      store_tanh(acc, nv, nt0, out_row + 8 * nt0, bias + y.bo, act, as);
     }
-    nin = nout;
+    __syncwarp();
+    in_row = out_row;
   }
-  const float* W = theta + src.w[tw.n_hidden];
-  float* dst = sw + tw.head_off;
-  for (int k = threadIdx.x; k < (nin + 1) * NH; k += blockDim.x) {
-    const int r = k / NH, h = k % NH;
-    dst[k] = r < nin ? W[h * nin + r] : W[NH * nin + h];
+  if (L > 0) {  // the last hidden layer, folded into the head by chunks
+    const ALayer& y = lo.ly[L - 1];
+    const int NT = act_up8(y.nout) / 8;
+    for (int nt0 = 0; nt0 < NT; nt0 += TRAJ_FOLD_NT) {
+      const int nv = min(TRAJ_FOLD_NT, NT - nt0);
+      float acc[2][TRAJ_FOLD_NT][4];
+      zero_frags(acc);
+      warp_mma(act + in_row * as, as, act_up8(y.nin), W + y.fo, NT, nt0, nv,
+               acc);
+      tanh_regs(acc, nv, nt0, bias + y.bo);
+      regs_mma(acc, nv, W + hd.fo + nt0 * 32, hacc);
+    }
+  } else {
+    warp_mma(act, as, TOWER_OBS_ROWS, W + hd.fo, 1, 0, 1, hacc);
   }
+  __syncwarp();
 }
 
 template <int TASK, int INTEG, bool STOCH>
-__global__ void __launch_bounds__(TRAJ_THREADS)
+__global__ void __launch_bounds__(TRAJ_MAX_LANES, 1)
 traj_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
-            Planes pl, float* __restrict__ traj, Tower ta, Tower tc,
-            TowerSrc sa, TowerSrc sc, const float* __restrict__ theta,
-            int ls_off, int T) {
+            Planes pl, float* __restrict__ traj, TLayout lo,
+            const float4* __restrict__ packed,
+            const float* __restrict__ theta, int ls_off, int T) {
   extern __shared__ float4 smem4[];
   __shared__ EnvP P;
-  float* sw_a = reinterpret_cast<float*>(smem4);
-  float* sw_c = sw_a + ta.n_weights;
-  stage_tower<4>(sw_a, ta, sa, theta);
-  stage_tower<1>(sw_c, tc, sc, theta);
-  load_params(pf, pi, P);  // ends with the barrier the copies need
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= pl.n) return;  // no barrier follows
-
-  const int B = blockDim.x;
-  const int n = pl.n;
-  float* col_obs = sw_c + tc.n_weights + threadIdx.x;
-  float* col_a = col_obs + CHUNK * B;
-  float* col_b = col_a + (ta.maxw_p > tc.maxw_p ? ta.maxw_p : tc.maxw_p) * B;
-  float ls[4], stdv[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    ls[k] = theta[ls_off + k];
-    stdv[k] = expf(ls[k]);
+  float* sm = reinterpret_cast<float*>(smem4);
+  const float* gb = reinterpret_cast<const float*>(packed + 2 * lo.f4);
+  for (int k = threadIdx.x; k < 2 * lo.nb; k += blockDim.x) sm[8 + k] = gb[k];
+  if (threadIdx.x < 4) {
+    const float ls = theta[ls_off + threadIdx.x];
+    sm[threadIdx.x] = ls;
+    sm[4 + threadIdx.x] = expf(ls);
   }
+  float4* staged = smem4 + lo.hf / 4;
+  for (int k = threadIdx.x; k < lo.wsm * 2 * lo.f4; k += blockDim.x)
+    staged[k] = packed[k];
+  const float4* W = lo.wsm ? staged : packed;  // the actor's, the critic's
+  const float* ba = sm + 8;
+  const int lane = threadIdx.x & 31;
+  float* act = sm + lo.hf + lo.wsm * 8 * lo.f4 + (threadIdx.x - lane);
+  for (int r = OBS_DIM; r < TOWER_OBS_ROWS; ++r)  // the obs' k padding
+    act[r * lo.as + lane] = 0.0f;
+  load_params(pf, pi, P);  // ends with the barrier every copy needs
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < pl.n;
+  if (!__any_sync(0xffffffffu, live)) return;  // no barrier follows
 
-  Carry c = read_carry(pl, i);
+  const int n = pl.n, g = lane >> 2, t = lane & 3;
+  const ALayer& hd = lo.ly[lo.L];
+  Carry c{};
+  if (live) c = read_carry(pl, i);
   float acc[N_STATS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int t = 0; t < T; ++t) {
-    float* out = traj + (size_t)t * N_TRAJ * n + i;
+  for (int s = 0; s < T; ++s) {
+    float* out = traj + (size_t)s * N_TRAJ * n + i;
     float o[OBS_DIM];
     observe(c, o);
 #pragma unroll
     for (int k = 0; k < OBS_DIM; ++k) {
-      col_obs[k * B] = o[k];
-      out[(size_t)k * n] = o[k];
+      act[k * lo.as + lane] = live ? o[k] : 0.0f;
+      if (live) out[(size_t)k * n] = o[k];
     }
-    float m[4], v[1];
-    tower<4>(sw_a, ta, col_obs, col_a, col_b, B, m);
-    tower<1>(sw_c, tc, col_obs, col_a, col_b, B, v);
+    __syncwarp();
+    float hacc[2][1][4];
+    zero_frags(hacc);
+    traj_tower(lo, W, ba, act, hacc);
+    traj_tower(lo, W + lo.f4, ba + lo.nb, act, hacc);
+    // the means and the value (head columns 0..4) over obs rows 0..4
+    if (t < 3)
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int col = 2 * t + (r & 1), m = 16 * ii + g + (r & 2 ? 8 : 0);
+          if (col < TRAJ_HEAD_OUT)
+            act[col * lo.as + m] =
+                hacc[ii][0][r] +
+                ba[(col < 4 ? 0 : lo.nb) + hd.bo + col];
+        }
+    __syncwarp();
+    float m[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) m[k] = act[k * lo.as + lane];
+    const float v = act[TRAJ_VALUE_COL * lo.as + lane];
+    if (!live) continue;
     float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (STOCH) gauss4(c.k0, c.k1, c.rc, c.stp, z);
     // _sample_logp: the log-prob of the stored action
     float a[4], logp;
-    sample_logp(m, z, ls, stdv, STOCH, a, logp);
+    sample_logp(m, z, sm, sm + 4, STOCH, a, logp);
 #pragma unroll
     for (int k = 0; k < 4; ++k) out[(size_t)(TP_ACT0 + k) * n] = a[k];
     out[(size_t)TP_LOGP * n] = logp;
-    out[(size_t)TP_VAL * n] = v[0];
+    out[(size_t)TP_VAL * n] = v;
     float r, epret2;
     bool done;
     int step2;
@@ -132,80 +293,87 @@ traj_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
     out[(size_t)TP_DONE * n] = done ? 1.0f : 0.0f;
     accumulate(acc, r, done, epret2, step2);
   }
-  write_back(pl, i, c, acc);
-}
-
-inline size_t smem_bytes(const Tower& ta, const Tower& tc) {
-  Tower wide = ta;
-  wide.maxw_p = ta.maxw_p > tc.maxw_p ? ta.maxw_p : tc.maxw_p;
-  return sizeof(float) * ((size_t)ta.n_weights + (size_t)tc.n_weights +
-                          (size_t)activation_floats(wide, TRAJ_THREADS));
+  if (live) write_back(pl, i, c, acc);
 }
 
 template <int TASK, int INTEG, bool STOCH>
 cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
-                   float* traj, const Tower& ta, const Tower& tc,
-                   const TowerSrc& sa, const TowerSrc& sc, const float* theta,
-                   int ls_off, int T, cudaStream_t stream) {
-  const size_t smem = smem_bytes(ta, tc);
+                   float* traj, const TLayout& lo, const float4* packed,
+                   const float* theta, int ls_off, int T,
+                   cudaStream_t stream) {
+  const size_t smem = traj_smem(lo);
   cudaError_t err = cudaFuncSetAttribute(
       traj_kernel<TASK, INTEG, STOCH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (pl.n + TRAJ_THREADS - 1) / TRAJ_THREADS;
-  traj_kernel<TASK, INTEG, STOCH><<<blocks, TRAJ_THREADS, smem, stream>>>(
-      pf, pi, pl, traj, ta, tc, sa, sc, theta, ls_off, T);
+  const int blocks = (pl.n + lo.bl - 1) / lo.bl;
+  traj_kernel<TASK, INTEG, STOCH><<<blocks, lo.bl, smem, stream>>>(
+      pf, pi, pl, traj, lo, packed, theta, ls_off, T);
   return cudaGetLastError();
 }
 
 template <int TASK, int INTEG>
 cudaError_t launch_mode(const float* pf, const int* pi, const Planes& pl,
-                        float* traj, const Tower& ta, const Tower& tc,
-                        const TowerSrc& sa, const TowerSrc& sc,
-                        const float* theta, int ls_off, int T, bool stochastic,
-                        cudaStream_t stream) {
+                        float* traj, const TLayout& lo, const float4* packed,
+                        const float* theta, int ls_off, int T,
+                        bool stochastic, cudaStream_t stream) {
   return stochastic
-             ? launch<TASK, INTEG, true>(pf, pi, pl, traj, ta, tc, sa, sc,
-                                         theta, ls_off, T, stream)
-             : launch<TASK, INTEG, false>(pf, pi, pl, traj, ta, tc, sa, sc,
-                                          theta, ls_off, T, stream);
+             ? launch<TASK, INTEG, true>(pf, pi, pl, traj, lo, packed, theta,
+                                         ls_off, T, stream)
+             : launch<TASK, INTEG, false>(pf, pi, pl, traj, lo, packed, theta,
+                                          ls_off, T, stream);
 }
 
 }  // namespace drone
 
 // C interface (ctypes). pf/pi: device env params; fs..stats: the state and
 // statistic planes of rollout.cu; traj: device (T, 21, n) float32; theta:
-// the device flat parameter buffer. layout: host ints, for the actor then
-// the critic, each the Tower ints of policy.cuh (read_tower) followed by
-// MAX_HIDDEN + 1 layer offsets into theta, then log_std's offset.
+// the device flat parameter buffer; packed: a device buffer of wfl floats
+// the kernel packs the weights into. layout: host ints [n_hidden, lanes a
+// block, fragments staged (0 or 1), dynamic shared memory bytes, wfl,
+// width[MAX_HIDDEN], the actor's layer offsets into
+// theta[MAX_HIDDEN + 1], the critic's[MAX_HIDDEN + 1], log_std's offset],
+// the shared memory and wfl the kernel's own (ops/cuda_acting_traj.py
+// traj_layout).
 extern "C" int drone_traj_rollout(const float* pf, const int* pi,
                                   const float* fs, const uint32_t* us,
                                   const int* st, float* ofs, uint32_t* ous,
                                   int* ost, float* stats, float* traj,
-                                  const float* theta, const int* layout,
-                                  int stochastic, int n, int T, int task,
-                                  int integrator, void* stream) {
+                                  const float* theta, float* packed,
+                                  const int* layout, int stochastic, int n,
+                                  int T, int task, int integrator,
+                                  void* stream) {
   using namespace drone;
-  if (n <= 0 || T < 0) return (int)cudaErrorInvalidValue;
-  constexpr int TOWER_INTS = 4 + 2 * MAX_HIDDEN;
-  constexpr int PER_TOWER = TOWER_INTS + MAX_HIDDEN + 1;
-  Tower ta, tc;
-  TowerSrc sa, sc;
-  if (!read_tower(layout, ta) || !read_tower(layout + PER_TOWER, tc))
+  const int L = layout[0], bl = layout[1], wsm = layout[2];
+  if (n <= 0 || T < 0 || L < 0 || L > MAX_HIDDEN || bl < 32 ||
+      bl > TRAJ_MAX_LANES || bl % 32 != 0 || wsm < 0 || wsm > 1)
     return (int)cudaErrorInvalidValue;
-  for (int l = 0; l <= MAX_HIDDEN; ++l) {
-    sa.w[l] = layout[TOWER_INTS + l];
-    sc.w[l] = layout[PER_TOWER + TOWER_INTS + l];
-  }
-  const int ls_off = layout[2 * PER_TOWER];
-  for (int k = 0; k < 4; ++k) ta.std[k] = tc.std[k] = 0.0f;
-  const Planes pl{fs, us, st, ofs, ous, ost, stats, n};
+  for (int l = 0; l < L; ++l)
+    if (layout[5 + l] <= 0 || layout[5 + l] > MAX_WIDTH)
+      return (int)cudaErrorInvalidValue;
+  TLayout lo;
+  make_traj_layout(L, layout + 5, bl, wsm, lo);
+  if ((size_t)layout[3] != traj_smem(lo) || layout[4] != lo.wfl ||
+      traj_smem(lo) > (size_t)TRAJ_MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  TSrc src;
+  const int* offs = layout + 5 + MAX_HIDDEN;
+  for (int tw = 0; tw < 2; ++tw)
+    for (int l = 0; l <= MAX_HIDDEN; ++l)
+      src.w[tw][l] = offs[tw * (MAX_HIDDEN + 1) + l];
+  src.ls = offs[2 * (MAX_HIDDEN + 1)];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float4* pk = reinterpret_cast<float4*>(packed);
+  const int threads = 2 * lo.f4 + 2 * lo.nb;
+  pack_traj_kernel<<<(threads + 255) / 256, 256, 0, s>>>(theta, lo, src, pk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const Planes pl{fs, us, st, ofs, ous, ost, stats, n};
   const bool sto = stochastic != 0;
-#define DRONE_TRAJ_CASE(TK, IG)                                           \
-  if (task == TK && integrator == IG)                                     \
-    return (int)launch_mode<TK, IG>(pf, pi, pl, traj, ta, tc, sa, sc,     \
-                                    theta, ls_off, T, sto, s);
+#define DRONE_TRAJ_CASE(TK, IG)                                            \
+  if (task == TK && integrator == IG)                                      \
+    return (int)launch_mode<TK, IG>(pf, pi, pl, traj, lo, pk, theta,       \
+                                    src.ls, T, sto, s);
   DRONE_TRAJ_CASE(TASK_HOVER, INTEG_EULER)
   DRONE_TRAJ_CASE(TASK_HOVER, INTEG_RK4)
   DRONE_TRAJ_CASE(TASK_WAYPOINT, INTEG_EULER)

@@ -1,18 +1,11 @@
-// policy.cuh — the MLP policy as CUDA device functions: the fp32 tower of
-// the trajectory kernel (acting_traj.cu: K2), and the pieces of a Gaussian
-// policy every family shares: the Box-Muller draw (K2, K5), the action's
+// policy.cuh — the pieces of a Gaussian policy every family shares, as
+// CUDA device functions: the Box-Muller draw (K2, K5), the action's
 // log-prob (K2, K6), the trajectory planes and the PPO head's gradients
-// (K3, K7).
+// (K3, K7). The MLP tower itself runs on the tensor cores
+// (tower_mma.cuh).
 //
-// Ports drone_tpu/ops/pallas_acting.py `_tower` (a tanh tower with a linear
-// head, evaluated per lane) and `_gauss4_planes` (Box-Muller over the lane's
-// threefry stream). One thread owns one lane; the tower's weights sit in
-// the block's shared memory, its activations in the thread's own column of
-// shared memory. (K5 runs its tower on the tensor cores, acting.cu.)
-//
-// The tower uses explicit fmaf: the env math is built with --fmad=false for
-// its bitwise contract, the tower is held to a tolerance instead (its
-// summation order differs from a matmul anyway).
+// Ports drone_tpu/ops/pallas_acting.py `_gauss4_planes` (Box-Muller over
+// the lane's threefry stream) and pallas_acting_traj.py `_sample_logp`.
 #pragma once
 
 #include <cstdint>
@@ -23,7 +16,6 @@ namespace drone {
 
 constexpr int MAX_HIDDEN = 8;
 constexpr int MAX_WIDTH = 256;
-constexpr int CHUNK = 16;
 // float32(2*pi), as drone_tpu's jnp.float32(_TWO_PI) rounds it (0x40C90FDB).
 constexpr float TWO_PI = 6.28318548202514648438f;
 // float32(0.5 * log(2 pi)) (0x3F6B3F8E), as jnp.float32(_HALF_LOG_2PI).
@@ -40,93 +32,6 @@ constexpr int TP_LOGP = OBS_DIM + 4;
 constexpr int TP_VAL = OBS_DIM + 5;
 constexpr int TP_REW = OBS_DIM + 6;
 constexpr int TP_DONE = OBS_DIM + 7;
-
-// Weight layout of one tower in shared memory: hidden layer l at off[l]:
-// W^T (nin, pad16(width[l])) then its bias (pad16(width[l])), with nin = 13
-// for l = 0 and width[l-1] after; the head at head_off: W^T (nin, NH) then
-// its bias (NH), NH = 4 action means (actor) or 1 value (critic). Padding
-// is zero. head_off is a multiple of 16 floats, so the actor head can be
-// read as float4.
-struct Tower {
-  int n_hidden, head_off, n_weights, maxw_p;
-  int width[MAX_HIDDEN];
-  int off[MAX_HIDDEN];
-  float std[4];
-};
-
-__device__ __forceinline__ int pad16(int w) { return (w + CHUNK - 1) & ~(CHUNK - 1); }
-
-// _tower: obs column -> NH head outputs. `col_obs`, `col_a`, `col_b` are
-// this thread's columns (stride B) of the block's activation buffers.
-// The last hidden layer is folded into the head accumulators chunk by
-// chunk, so its activations are never stored.
-template <int NH>
-__device__ __forceinline__ void tower(const float* sw, const Tower& tw,
-                                      const float* col_obs, float* col_a,
-                                      float* col_b, int B, float out_h[NH]) {
-  static_assert(NH == 4 || NH == 1, "an actor (4) or a critic (1) head");
-  const float* wh = sw + tw.head_off;
-  float head[NH];
-#pragma unroll
-  for (int h = 0; h < NH; ++h) head[h] = 0.0f;
-  const float* in = col_obs;
-  int nin = OBS_DIM;
-  for (int l = 0; l < tw.n_hidden; ++l) {
-    const int nout = tw.width[l];
-    const int np = pad16(nout);
-    const float* W = sw + tw.off[l];
-    const float* bias = W + nin * np;
-    const bool last = l == tw.n_hidden - 1;
-    float* out = (l & 1) ? col_b : col_a;
-    for (int j0 = 0; j0 < np; j0 += CHUNK) {
-      float acc[CHUNK];
-#pragma unroll
-      for (int c = 0; c < CHUNK; ++c) acc[c] = 0.0f;
-      for (int k = 0; k < nin; ++k) {
-        const float x = in[k * B];
-        const float4* w4 = reinterpret_cast<const float4*>(W + k * np + j0);
-#pragma unroll
-        for (int q = 0; q < CHUNK / 4; ++q) {
-          const float4 w = w4[q];
-          acc[4 * q + 0] = __fmaf_rn(w.x, x, acc[4 * q + 0]);
-          acc[4 * q + 1] = __fmaf_rn(w.y, x, acc[4 * q + 1]);
-          acc[4 * q + 2] = __fmaf_rn(w.z, x, acc[4 * q + 2]);
-          acc[4 * q + 3] = __fmaf_rn(w.w, x, acc[4 * q + 3]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        const float u = tanhf(acc[c] + bias[j0 + c]);
-        if (!last) {
-          out[(j0 + c) * B] = u;
-        } else if (j0 + c < nout) {
-          if constexpr (NH == 4) {
-            const float4 w = reinterpret_cast<const float4*>(wh)[j0 + c];
-            head[0] = __fmaf_rn(w.x, u, head[0]);
-            head[1] = __fmaf_rn(w.y, u, head[1]);
-            head[2] = __fmaf_rn(w.z, u, head[2]);
-            head[3] = __fmaf_rn(w.w, u, head[3]);
-          } else {
-            head[0] = __fmaf_rn(wh[j0 + c], u, head[0]);
-          }
-        }
-      }
-    }
-    in = out;
-    nin = nout;
-  }
-  if (tw.n_hidden == 0) {  // linear policy: the head reads the obs
-    for (int k = 0; k < OBS_DIM; ++k) {
-      const float x = col_obs[k * B];
-#pragma unroll
-      for (int h = 0; h < NH; ++h) head[h] = __fmaf_rn(wh[k * NH + h], x, head[h]);
-    }
-  }
-  const int head_rows = tw.n_hidden ? tw.width[tw.n_hidden - 1] : OBS_DIM;
-  const float* hb = wh + NH * head_rows;
-#pragma unroll
-  for (int h = 0; h < NH; ++h) out_h[h] = head[h] + hb[h];
-}
 
 // _gauss4_planes: 4 standard normals at blocks NOISE_BLOCK0 + 2*step (+1).
 __device__ __forceinline__ void gauss4(uint32_t k0, uint32_t k1, uint32_t e,
@@ -216,31 +121,6 @@ __device__ __forceinline__ void head_grads(const float m[4], float v,
   st[3] = fabsf(ratio - 1.0f) > co.clip_eps ? 1.0f : 0.0f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) st[4 + k] = g_logp * (z[k] * z[k] - 1.0f);
-}
-
-// Shared memory of a tower's activation columns: the obs column block and
-// up to two hidden-activation column blocks (ping-pong for depth >= 3).
-inline int activation_floats(const Tower& tw, int threads) {
-  const int nbuf = tw.n_hidden >= 3 ? 2 : (tw.n_hidden == 2 ? 1 : 0);
-  return (CHUNK + nbuf * tw.maxw_p) * threads;
-}
-
-// Read a Tower from the host layout ints [n_hidden, head_off, n_weights,
-// maxw_p, width[MAX_HIDDEN], off[MAX_HIDDEN]]; false if the kernel cannot
-// take it.
-inline bool read_tower(const int* layout, Tower& tw) {
-  tw.n_hidden = layout[0];
-  tw.head_off = layout[1];
-  tw.n_weights = layout[2];
-  tw.maxw_p = layout[3];
-  if (tw.n_hidden < 0 || tw.n_hidden > MAX_HIDDEN || tw.n_weights % 4 != 0 ||
-      tw.maxw_p > MAX_WIDTH || tw.head_off % 4 != 0)
-    return false;
-  for (int l = 0; l < MAX_HIDDEN; ++l) {
-    tw.width[l] = layout[4 + l];
-    tw.off[l] = layout[4 + MAX_HIDDEN + l];
-  }
-  return true;
 }
 
 }  // namespace drone

@@ -16,8 +16,9 @@ The kernel runs the tower's products on the tensor cores in 3xTF32 (its
 weights packed by `pack_tower_mma`) and takes tanh, log, sin and cos from
 CUDA's libdevice, so it agrees with the plain version to a tolerance, not
 bitwise; the env step inside stays bitwise. `tower_layout` and
-`check_smem` describe the fp32 tower of csrc/policy.cuh, which the
-trajectory kernel (K2, cuda_acting_traj) runs and whose envelope K5 keeps.
+`check_smem` describe the fp32 tower, one thread a lane, that K5 and the
+trajectory kernel (K2, cuda_acting_traj) ran before their tensor-core
+designs: its envelope is the one both keep.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ _TWO_PI = 6.2831853071795864
 # kernel limits (csrc/acting.cu, csrc/policy.cuh)
 MAX_HIDDEN = 8
 MAX_WIDTH = 256
-_CHUNK = 16          # policy.cuh's fp32 tower: outputs padded to 16
-_THREADS = 128       # lanes a block of the fp32 tower's kernels
+_CHUNK = 16          # the fp32 tower's envelope: outputs padded to 16,
+_THREADS = 128       # 128 lanes a block
 ACT_MAX_LANES = 512  # K5's lanes a block (one block an SM at [64, 64])
 ACT_CHUNK = 16       # units of K5's fold chunk
 ACT_OBS_ROWS = 16    # the obs padded to two k-tiles
@@ -101,12 +102,13 @@ def act_rollout_plain(state: EnvState, policy: ActorCritic,
 
 
 def tower_layout(widths, n_head: int = 4):
-    """policy.cuh's shared-memory layout of one tower: each hidden layer as
-    W^T (in, out padded to 16) then its padded bias, then the head as W^T
-    (in, n_head) and its bias. Returns (the Tower ints [n_hidden, head_off,
-    n_weights, maxw_p, width[MAX_HIDDEN], off[MAX_HIDDEN]] as int32, the
-    per-layer offsets). n_weights is rounded up to a multiple of 4 floats.
-    Raises for a tower the kernels cannot take."""
+    """The fp32 tower's shared-memory layout of one tower (the envelope K5
+    and K2 keep): each hidden layer as W^T (in, out padded to 16) then its
+    padded bias, then the head as W^T (in, n_head) and its bias. Returns
+    (the ints [n_hidden, head_off, n_weights, maxw_p, width[MAX_HIDDEN],
+    off[MAX_HIDDEN]] as int32, the per-layer offsets). n_weights is
+    rounded up to a multiple of 4 floats. Raises for a tower the kernels
+    cannot take."""
     widths = [int(w) for w in widths]
     if len(widths) > MAX_HIDDEN or any(w > MAX_WIDTH for w in widths):
         raise ValueError(f"the acting kernels take at most {MAX_HIDDEN} "

@@ -16,6 +16,12 @@ and its hidden widths; the kernel reads log_std from it on the device.
 Exploration noise comes from the lane's counter stream (blocks NOISE_BLOCK0
 + 2*step), as in the reference. The log-prob is rebuilt from the stored
 action, so the first PPO minibatch sees ratio == 1.
+
+The kernel runs both towers' products on the tensor cores in 3xTF32 (the
+weights split on the device from the flat buffer, `traj_layout`) and takes
+tanh, exp, log, sin and cos from CUDA's libdevice, so it agrees with the
+plain version to a tolerance, not bitwise; the env step inside stays
+bitwise. Its envelope is the fp32 kernel's it replaced (`check_envelope`).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from drone_tpu_torch import env as env_mod
 from drone_tpu_torch.models.mlp import kernel_offsets
 from drone_tpu_torch.ops import cuda_build
 from drone_tpu_torch.ops.cuda_acting import (
+    ACT_OBS_ROWS,
     MAX_HIDDEN,
     check_smem,
     gauss4,
@@ -53,6 +60,10 @@ TP_VAL = OBS_DIM + 5
 TP_REW = OBS_DIM + 6
 TP_DONE = OBS_DIM + 7
 N_TRAJ = OBS_DIM + 8       # 21
+
+TRAJ_MAX_LANES = 512       # the kernel's lanes a block at most
+# dynamic shared memory one H100 block can use, less the env params' copy
+_MAX_SMEM = 232448 - 256
 
 HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -128,25 +139,87 @@ def traj_rollout_plain(state: EnvState, theta: torch.Tensor, hidden,
     return state, planes, acc
 
 
-def kernel_layout(hidden) -> np.ndarray:
-    """The host ints of drone_traj_rollout: per tower (actor, critic) the
-    Tower ints of `cuda_acting.tower_layout` then MAX_HIDDEN + 1 layer
-    offsets into the flat buffer, then log_std's offset. Raises for a tower
-    the kernel cannot take."""
-    hidden = tuple(int(h) for h in hidden)
-    offs, _ = kernel_offsets(hidden)
-    parts, n_weights = [], 0
-    for tower, head, nh in (("actor", "actor_mean", 4),
-                            ("critic", "critic_value", 1)):
-        ints, _ = tower_layout(hidden, nh)
-        src = np.zeros(MAX_HIDDEN + 1, np.int32)
-        names = [f"{tower}_h{i}" for i in range(len(hidden))] + [head]
-        src[:len(names)] = [offs[f"{name}.weight"] for name in names]
-        parts += [ints, src]
+def check_envelope(hidden) -> None:
+    """Raise ValueError for towers K2 does not take: the envelope of the
+    fp32 kernel it replaced (both towers' weights, W^T with outputs padded
+    to 16, and a 128-lane block's activation columns in one block's shared
+    memory; `cuda_acting.tower_layout` and `check_smem`), so that
+    train.build routes every tower as before. The tensor-core kernel takes
+    every one of them (traj_layout)."""
+    n_weights = 0
+    for n_head in (4, 1):
+        ints, _ = tower_layout(hidden, n_head)
         n_weights += int(ints[2])
-    parts.append(np.array([offs["log_std"]], np.int32))
     check_smem(n_weights, hidden)
-    return np.ascontiguousarray(np.concatenate(parts), np.int32)
+
+
+def _up8(w: int) -> int:
+    return -(-w // 8) * 8
+
+
+def layout_at(hidden, lanes: int, wsm: int) -> dict | None:
+    """csrc/acting_traj.cu's `make_traj_layout` and `traj_smem` for towers
+    of hidden `hidden` at `lanes` a block (`bl`, a multiple of 32 up to
+    TRAJ_MAX_LANES), both towers' fragments staged in shared memory (`wsm`
+    1) or read through L1 (0), or None when that does not fit a block: per
+    layer (the head last, 8 outputs) its widths, its packed fragments'
+    float4 offset `fo` and its padded bias's `bo`, both relative to its
+    tower; a tower's fragment float4s `f4` and bias floats `nb`; the
+    packed buffer's floats `wfl`; the shared floats before the fragments
+    `hf` (log_std, std, both towers' biases); the activation rows (obs,
+    ping `ha`, pong `hb`, `rows` in all, stride bl + 8); the dynamic shared
+    memory `smem`. `ints` are the kernel's layout ints [n_hidden, bl, wsm,
+    smem, wfl, width[MAX_HIDDEN], the actor's layer offsets into the flat
+    buffer[MAX_HIDDEN + 1], the critic's[MAX_HIDDEN + 1], log_std's
+    offset]."""
+    hidden = tuple(int(h) for h in hidden)
+    L = len(hidden)
+    layers, fo, bo, nin, mw = [], 0, 0, OBS_DIM, 0
+    for li in range(L + 1):
+        nout = hidden[li] if li < L else 8
+        layers.append({"nin": nin, "nout": nout, "fo": fo, "bo": bo})
+        fo += _up8(nin) * _up8(nout) // 2
+        bo += _up8(nout)
+        if li + 2 <= L:
+            mw = max(mw, _up8(nout))
+        nin = nout
+    wfl = -(-(8 * fo + 2 * bo) // 4) * 4
+    hf = -(-(8 + 2 * bo) // 4) * 4
+    rows = ACT_OBS_ROWS + (mw if L >= 2 else 0) + (mw if L >= 3 else 0)
+    smem = 4 * (hf + wsm * 8 * fo + rows * (lanes + 8))
+    if (smem > _MAX_SMEM or lanes % 32 or not 32 <= lanes <= TRAJ_MAX_LANES
+            or wsm not in (0, 1)):
+        return None
+    offs, _ = kernel_offsets(hidden)
+    ints = np.zeros(6 + 3 * MAX_HIDDEN + 2, np.int32)
+    ints[:5] = (L, lanes, wsm, smem, wfl)
+    ints[5:5 + L] = hidden
+    for t, (tower, head) in enumerate((("actor", "actor_mean"),
+                                        ("critic", "critic_value"))):
+        names = [f"{tower}_h{i}" for i in range(L)] + [head]
+        at = 5 + MAX_HIDDEN + t * (MAX_HIDDEN + 1)
+        ints[at:at + L + 1] = [offs[f"{name}.weight"] for name in names]
+    ints[-1] = offs["log_std"]
+    return {"ints": ints, "layers": layers, "f4": fo, "nb": bo, "wfl": wfl,
+            "hf": hf, "ha": ACT_OBS_ROWS, "hb": ACT_OBS_ROWS + (
+                mw if L >= 3 else 0), "rows": rows, "bl": lanes, "wsm": wsm,
+            "smem": smem}
+
+
+def traj_layout(hidden) -> dict:
+    """K2's layout (`layout_at`) for towers of hidden `hidden`: the most
+    lanes a block whose rows fit, the fragments staged when they fit beside
+    them. At [64, 64] that is 512 lanes, one wave of 65,536 lanes, the
+    fragments through L1: staging them leaves room for 256 lanes, two
+    waves, 20% slower (PERF.md). Raises for towers the kernel cannot
+    take."""
+    check_envelope(hidden)
+    for lanes in range(TRAJ_MAX_LANES, 31, -32):
+        for wsm in (1, 0):
+            lay = layout_at(hidden, lanes, wsm)
+            if lay is not None:
+                return lay
+    raise ValueError(f"towers {list(hidden)}: no block of 32 lanes fits")
 
 
 def traj_rollout_kernel(state: EnvState, theta: torch.Tensor, hidden,
@@ -159,13 +232,16 @@ def traj_rollout_kernel(state: EnvState, theta: torch.Tensor, hidden,
             or not theta.is_contiguous()):
         raise ValueError("theta must be a contiguous float32 buffer on the "
                          "state's device")
-    layout = kernel_layout(hidden)
-    planes = torch.empty(T, N_TRAJ, state.n, device=state.pos.device)
+    lay = traj_layout(hidden)
+    dev = state.pos.device
+    planes = torch.empty(T, N_TRAJ, state.n, device=dev)
+    packed = torch.empty(lay["wfl"], device=dev)
     fn = cuda_build.load("acting_traj").drone_traj_rollout
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     final, lane_stats = launch_planes(
         fn, state, env_params, statics, T, planes.data_ptr(),
-        theta.data_ptr(), layout.ctypes.data, int(stochastic))
+        theta.data_ptr(), packed.data_ptr(), lay["ints"].ctypes.data,
+        int(stochastic))
     traj_rollout_cuda.launches += 1
     return final, planes, lane_stats
 

@@ -60,6 +60,8 @@ _MAX_SMEM = 232448     # bytes of shared memory one H100 block can use
 W0_STRIDE = 20         # layer 0's weight-plane rows
 SLACK_ROWS = 16        # activation rows past the head's value
 STAT_PART_BYTES = 8 * 8 * 4  # the static stat partials of 8 warps
+ADAM_SLICE = 2048      # K4: floats a block
+ADAM_MAX_BLOCKS = 256  # K4: blocks a launch, all co-resident on an H100
 _FP32_ROW = TILE + 1   # the fp32 kernel's row stride, its envelope
 
 
@@ -419,6 +421,24 @@ def fused_adam_plain(theta, grads, mu, nu, count, ac: AdamConsts,
     count.copy_(c)
 
 
+def adam_blocks(P: int) -> int:
+    """K4's blocks for a buffer of P floats, ceil(P / ADAM_SLICE): a
+    function of P alone, so the order of the gradient norm's sums never
+    depends on the card. Raises for a P past the envelope (ADAM_MAX_BLOCKS
+    co-resident blocks)."""
+    blocks = -(-P // ADAM_SLICE)
+    if P <= 0 or blocks > ADAM_MAX_BLOCKS:
+        raise ValueError(f"K4 takes 1 to {ADAM_MAX_BLOCKS * ADAM_SLICE} "
+                         f"parameters, got {P}")
+    return blocks
+
+
+def adam_slices(P: int) -> list[tuple[int, int]]:
+    """The slice [start, stop) of the buffer each of K4's blocks owns."""
+    return [(b * ADAM_SLICE, min(P, (b + 1) * ADAM_SLICE))
+            for b in range(adam_blocks(P))]
+
+
 def fused_adam_kernel(theta, grads, mu, nu, count, ac: AdamConsts,
                       sched: LrSchedule, sizes):
     """Launch K4 (csrc/update.cu). Same contract as fused_adam_plain."""
@@ -426,21 +446,24 @@ def fused_adam_kernel(theta, grads, mu, nu, count, ac: AdamConsts,
     if sum(sizes) != P:
         raise ValueError(f"tensor sizes sum to {sum(sizes)}, the buffer has "
                          f"{P} floats")
+    blocks = adam_blocks(P)
     for name, t in (("theta", theta), ("grads", grads), ("mu", mu),
                     ("nu", nu)):
         check_cuda_tensor(name, t, torch.float32, (P,))
     check_cuda_tensor("count", count, torch.float32, ())
+    part = torch.empty(blocks, device=theta.device)  # the block sums
     consts = np.array([sched.lr, sched.total_steps, ac.b1, ac.b2, ac.eps,
                        ac.clip_norm, math.log(ac.b1), math.log(ac.b2)],
                       np.float32)
     fn = cuda_build.load("update").drone_fused_adam
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
-                                           ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(theta.device):
         err = fn(theta.data_ptr(), grads.data_ptr(), mu.data_ptr(),
-                 nu.data_ptr(), count.data_ptr(), P, consts.ctypes.data,
-                 int(sched.anneal),
+                 nu.data_ptr(), count.data_ptr(), part.data_ptr(), P, blocks,
+                 consts.ctypes.data, int(sched.anneal),
                  torch.cuda.current_stream(theta.device).cuda_stream)
     cuda_build.check(err, "drone_fused_adam")
     fused_adam_cuda.launches += 1
@@ -452,7 +475,8 @@ def fused_adam_cuda(theta, grads, mu, nu, count, ac: AdamConsts,
     kernel on CUDA tensors, the plain version on CPU tensors. count is a
     0-d float32 tensor (the adam step count), incremented by one; sizes the
     element counts of the buffer's tensors in kernel order (the kernel
-    sums the whole buffer at once and needs them only for its check)."""
+    sums the buffer by fixed slices, `adam_slices`, and needs them only for
+    its check)."""
     run = fused_adam_plain if theta.device.type == "cpu" else fused_adam_kernel
     run(theta, grads, mu, nu, count, ac, sched, sizes)
 

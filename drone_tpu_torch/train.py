@@ -129,7 +129,7 @@ def build(cfg: Config, device="cuda"):
     if cfg.run.policy == "mlp":
         # the towers K2 and K3 take; the reference trains the others on its
         # scan trainer
-        outside = _outside(cuda_acting_traj.kernel_layout, model.hidden) \
+        outside = _outside(cuda_acting_traj.traj_layout, model.hidden) \
             or _outside(cuda_update.update_layout, model.hidden)
         if outside:
             raise NotImplementedError(

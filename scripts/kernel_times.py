@@ -7,12 +7,16 @@ Run from the root of a checkout on a machine with an H100:
 
 It builds acting, acting_traj, update, acting_lstm, update_lstm, acting_cnn
 and update_cnn, times K2 (65,536 lanes x 64 steps) on hover.toml's [64,
-64] tower, K3 on its full-width minibatch and K4 over its parameters, then
+64] tower, K3 on its full-width minibatch and K4 over its parameters
+(and, near the end, over the CNN-LSTM's 226,697: "K4 cnn_lstm"; each
+also by its device time in a torch.profiler trace, "K4 device"), then
 K5 (65,536 x 1,001; after the short MLP kernels, which its seconds of
 load would slow), K8 and K6 (dense encoder and CNN arm) and K11
 and K9 at their paths' shapes, and K7 (both arms) and K10 on one
-full-width minibatch, by CUDA events, and prints one JSON line with the
-ptxas register count of every kernel. K7
+full-width minibatch, by CUDA events, then one warm MLP update of
+hover.toml split into its phases (chip_smoke.split_update, which also
+prints its profiler trace), and prints one JSON line with the ptxas
+register count of every kernel. K7
 dense is read first and again last, on the same inputs ("K7" and "K7
 end"), so a drift of the card within one run shows beside the others. To
 compare two commits, copy the script into a second checkout (git archive)
@@ -48,6 +52,24 @@ for name, lib in libs.items():
             entry = line.split("'")[1][:48]
         if "Used " in line:
             regs[f"{name}:{entry}"] = int(line.split("Used ")[1].split()[0])
+
+
+def device_ms(fn, reps, key):
+    """The device time of one call of fn: the kernels whose name holds key
+    in a torch.profiler trace of reps calls (a short kernel's CUDA-event
+    time is its launch rate: the host's wrapper takes longer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if key in e.key) / reps / 1e3
+
+
 cfg = Config.from_toml("configs/hover.toml")
 statics, params = cfg.env.build()
 env = DroneEnv(statics.task, statics.integrator, params, device="cuda")
@@ -67,6 +89,8 @@ adam = [model.flat.clone(), 0.05 * torch.ones_like(model.flat),
         K3.LrSchedule(3e-4, 1000, True),
         tensor_sizes(kernel_order(model.hidden))]
 t["K4"] = cs.cuda_ms(lambda: K3.fused_adam_kernel(*adam), 100)
+t["K4 device"] = device_ms(lambda: K3.fused_adam_kernel(*adam), 100,
+                           "adam_kernel")
 mlp = cs.seeded_policy(seed=1).cuda()
 t["K5"] = cs.cuda_ms(lambda: K5.act_rollout_kernel(
     state, mlp, env.params, env.statics, horizon), 5)
@@ -108,6 +132,15 @@ args = (planes, advret, snap, perm_mb, clm.flat, (clm.hidden, clm.encoder),
         co, rbl, bptt, 0.001)
 t["K7 cnn"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(*args), 3)
 del planes, advret, snap, args
+adam = [clm.flat.clone(), 0.05 * torch.ones_like(clm.flat),
+        torch.zeros_like(clm.flat), torch.zeros_like(clm.flat),
+        torch.zeros((), device="cuda"), K3.AdamConsts(),
+        K3.LrSchedule(3e-4, 1000, True), tensor_sizes(clm.kernel_order())]
+t["K4 cnn_lstm"] = cs.cuda_ms(lambda: K3.fused_adam_kernel(*adam), 100)
+t["K4 cnn_lstm device"] = device_ms(lambda: K3.fused_adam_kernel(*adam),
+                                    100, "adam_kernel")
 t["K7 end"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(*k7_args), 5)
+del k7_args
+t.update({f"MLP update {k}": v for k, v in cs.split_update(cfg).items()})
 print(json.dumps({"tree": sys.argv[1], "device": cs.device_line(), "ms": t,
                   "regs": regs}), flush=True)

@@ -309,6 +309,53 @@ def test_update_layout_matches_the_flat_buffer():
         cuda_update.update_layout((512, 512))
 
 
+def _family_sizes():
+    """The flat buffer's length of each family at the trainers' main shapes:
+    MLP [64, 64], LSTM (128, encoder (64,)), patch CNN, CNN-LSTM (128)."""
+    from drone_tpu_torch.models import (CNNLSTMActorCritic,
+                                        PatchCNNActorCritic,
+                                        lstm_kernel_order)
+    return {"mlp": sum(tensor_sizes(kernel_order((64, 64)))),
+            "lstm": sum(tensor_sizes(lstm_kernel_order(128, (64,)))),
+            "cnn": sum(tensor_sizes(PatchCNNActorCritic().kernel_order())),
+            "cnn_lstm": sum(tensor_sizes(
+                CNNLSTMActorCritic(128).kernel_order()))}
+
+
+@pytest.mark.parametrize("family", ["mlp", "lstm", "cnn", "cnn_lstm"])
+def test_adam_grid_is_fixed_by_the_buffer_length(family):
+    """K4's grid and its blocks' slices are a function of P alone (so the
+    norm's sums run in one order on any card) and cover [0, P) exactly
+    once, in slices of at most ADAM_SLICE floats."""
+    P = _family_sizes()[family]
+    blocks, slices = cuda_update.adam_blocks(P), cuda_update.adam_slices(P)
+    assert slices == cuda_update.adam_slices(P)
+    assert blocks == len(slices) <= cuda_update.ADAM_MAX_BLOCKS
+    assert slices[0][0] == 0 and slices[-1][1] == P
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    assert all(0 < stop - start <= cuda_update.ADAM_SLICE
+               and start % cuda_update.ADAM_SLICE == 0
+               for start, stop in slices)
+    if family == "mlp":
+        assert P == 10441 and blocks == 6
+    if family == "cnn_lstm":
+        assert P == 226697 and blocks == 111
+
+
+def test_adam_refuses_a_buffer_past_its_envelope():
+    most = cuda_update.ADAM_MAX_BLOCKS * cuda_update.ADAM_SLICE
+    assert cuda_update.adam_blocks(most) == cuda_update.ADAM_MAX_BLOCKS
+    for P in (0, most + 1):
+        with pytest.raises(ValueError, match="K4 takes"):
+            cuda_update.adam_blocks(P)
+    z = torch.zeros(most + 1)
+    with pytest.raises(ValueError, match="K4 takes"):
+        cuda_update.fused_adam_kernel(z, z, z, z, torch.tensor(0.0),
+                                      cuda_update.AdamConsts(),
+                                      ppo_cuda.make_fused_lr(PPOConfig()),
+                                      [most + 1])
+
+
 def test_kernels_refuse_cpu_tensors():
     _, planes, advret, co, model = _fixture(T=2, rows=1)
     with pytest.raises(ValueError, match="CUDA"):
