@@ -16,13 +16,19 @@ then exits nonzero after them, its kernels line printed and its last line
 not.
 
 Phases:
-  1. K1 (csrc/rollout.cu) against its plain version run on the CPU, bitwise
+  1. K1 (csrc/rollout.cu; the auto-reset computed by the warp for its
+     lanes that are done) against its plain version run on the CPU, bitwise
      on every state plane and per-lane statistic: all 6 task x integrator
      pairs, hover/euler at 65,536 lanes (configs/hover.toml's num_envs) and
-     the others at 2,048, T = 32 over episodes of 20 steps, with a provided
-     action stream and with the in-kernel one. The plain version on the card must equal the CPU's
-     bitwise too: env params are CUDA tensors there (a CPU scalar divisor
-     would become a reciprocal multiply).
+     the others at 2,048, T = 32 over episodes of 20 steps (truncation ends
+     whole warps on one step), with a provided action stream and with the
+     in-kernel one; the same at 2,061 lanes (a ragged last warp); and
+     in-kernel actions at the default horizon, T = 256, 2,048 lanes, for
+     hover/euler and waypoint/rk4 (episodes end on scattered steps within
+     each warp). Each case launched twice, bitwise equal. The plain version
+     on the card must equal the CPU's bitwise too: env params are CUDA
+     tensors there (a CPU scalar divisor would become a reciprocal
+     multiply).
   2. K5 (csrc/acting.cu; the tower's products on the tensor cores in
      3xTF32) against its fp32 plain version on the card, deterministic and
      stochastic: hover, [64, 64], 65,536 lanes, T = 3 within rtol 2e-5 /
@@ -40,7 +46,11 @@ Phases:
      each path and read just after; each path must have run its kernel.
   5. evaluate() on the card against evaluate() on the CPU (plain versions)
      at 512 episodes: episode counts within 1%, mean return within 1%.
-  6. Times by CUDA events after a warm-up, at the paths' shapes.
+  6. Times by CUDA events after a warm-up, at the paths' shapes. K1's
+     bound counts arithmetic instructions (k1_instruction_bound): its probe
+     kernels' SASS, built with its flags, gives the fp32, int32 and MUFU
+     instructions of a lane-step and of a reset; moves, branches and
+     predicate logic are left out, and their tally printed.
   7. K2 (csrc/acting_traj.cu; both towers' products on the tensor cores in
      3xTF32, the weights packed on the device from the flat buffer) against
      its fp32 plain version on the card: hover, [64, 64], 65,536 lanes, T =
@@ -210,6 +220,20 @@ Phases:
      full-width cnn_lstm update split and traced as in 11 (K7 by its
      kernels: gate and tower packing, tower forward, walk, tower backward,
      products, reduction).
+ 33. The bench path's kernels at the bench's own shapes, against their
+     plain versions at their checks' tolerances (phase_bench_shapes): K1
+     bitwise with in-kernel actions, K5, K8's both arms, K11 and K2 at
+     131,072 lanes (T = 32 over 20-step episodes for K1, T = 3 for the
+     rest), K2 at 262,144 lanes, and one train_sps_262k minibatch (262,144
+     envs x 128 steps, 4 minibatches: 8.4 M samples) through K3, off the
+     weights that wrote it with every branch taken, and its gradients
+     through K4. The maxima join the kernels line's max_abs_err.
+ 34. The bench path: `cli bench configs/hover.toml` in-process (the
+     reference's phases and shapes, drone_tpu_torch/bench.py), with the
+     launch counts zeroed just before and read just after: K1-K11 and the
+     CNN arms of K6, K7 and K8 must each launch; its JSON line must hold
+     the reference's keys and "device", every ported phase a positive rate
+     and the unported scan_* phases null. Its seconds are printed.
 
 Launch counts: each wrapper counts its launches; the recurrent wrappers
 (K6, K7, K8) also count their CNN arm's alone (`cnn_launches`).
@@ -219,6 +243,7 @@ The second-to-last line is the kernels JSON, the last the device JSON.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import re
@@ -232,14 +257,206 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # The card's peaks used for bound_ms (NVIDIA H100 SXM data sheet, dense):
-# 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores. Integer
-# ops are counted at the same rate; an H100 issues them no faster, so the
-# bound stays a lower bound on the time.
+# 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores. 67 TFLOP/s
+# counts a fused multiply-add as 2 operations: 132 SMs x 128 lanes x 2 x
+# 1.98 GHz. Every bound but K1's divides operations counted that way by it.
+# K1 builds with --fmad=false, so each of its adds and multiplies is an
+# instruction of its own, IEEE division and sqrt are sequences of several,
+# and its threefry words are integer instructions, which run at half the
+# fp32 rate. Its bound counts arithmetic instructions instead
+# (k1_instruction_bound): every fp32, int32 and MUFU instruction at 128 a
+# clock an SM (INSTR_PER_S), and the int32 ones alone at 64 a clock an SM
+# (INT32_PER_S; the CUDA C++ Programming Guide's throughput table for
+# compute capability 9.0). The old operation count at 67 TFLOP/s is printed
+# beside it.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INSTR_PER_S = 33.5e12
+INT32_PER_S = 16.7e12
 # The tensor cores' TF32 rate (495 TFLOP/s dense); a 3xTF32 product takes
 # three TF32 products for one fp32-accurate one: 165 TFLOP/s.
 MMA_3XTF32_OPS_PER_S = 495e12 / 3
+
+# Probe kernels for K1's instruction counts, built with K1's nvcc flags
+# (k1_instructions): one lane-step of its main path (hover, Euler, in-kernel
+# actions; the env params as a kernel argument, so they are operands and not
+# loads), one block of a reset's draws, hover's reset tail, one IEEE
+# division and one sqrt; probe_base holds their common set-up
+K1_PROBE_CU = r"""
+#include <cstdint>
+#include "env.cuh"
+using namespace drone;
+struct ProbeIn { Carry c; Fresh f; float acc[N_STATS]; };
+struct ProbeOut { Carry c; Fresh f; float acc[N_STATS]; };
+extern "C" __global__ void probe_base(const ProbeIn* in, ProbeOut* out,
+                                      EnvP P) {
+  const int i = threadIdx.x;
+  out[i].acc[0] = in[i].acc[0];
+}
+extern "C" __global__ void probe_step(const ProbeIn* in, ProbeOut* out,
+                                      EnvP P) {
+  const int i = threadIdx.x;
+  Carry c = in[i].c;
+  const Fresh f = in[i].f;
+  float acc[N_STATS];
+  for (int k = 0; k < N_STATS; ++k) acc[k] = in[i].acc[k];
+  float a0, a1, a2, a3, r, epret2;
+  bool done;
+  int step2;
+  stream_actions(c.k0, c.k1, c.rc, c.stp, a0, a1, a2, a3);
+  Advance v;
+  env_advance<TASK_HOVER, INTEG_EULER>(c, a0, a1, a2, a3, P, v, r, done,
+                                       epret2, step2);
+  env_select(c, v, f, done, epret2, step2);
+  accumulate(acc, r, done, epret2, step2);
+  out[i].c = c;
+  for (int k = 0; k < N_STATS; ++k) out[i].acc[k] = acc[k];
+}
+extern "C" __global__ void probe_block(const ProbeIn* in, ProbeOut* out,
+                                       EnvP P) {
+  const int i = threadIdx.x;
+  fresh_uniforms(in[i].c.k0, in[i].c.k1, in[i].c.rc, in[i].c.wp,
+                 out[i].acc[0], out[i].acc[1]);
+}
+extern "C" __global__ void probe_tail(const ProbeIn* in, ProbeOut* out,
+                                      EnvP P) {
+  const int i = threadIdx.x;
+  float u[14];
+  for (int j = 0; j < 13; ++j) u[j] = in[i].f.s[j];
+  u[13] = in[i].f.tx;
+  Fresh f;
+  fresh_from_uniforms<TASK_HOVER>(u, P, f);
+  out[i].f = f;
+}
+extern "C" __global__ void probe_div(const ProbeIn* in, ProbeOut* out,
+                                     EnvP P) {
+  const int i = threadIdx.x;
+  out[i].acc[0] = in[i].acc[0] / in[i].acc[1];
+}
+extern "C" __global__ void probe_sqrt(const ProbeIn* in, ProbeOut* out,
+                                      EnvP P) {
+  const int i = threadIdx.x;
+  out[i].acc[0] = sqrtf(in[i].acc[0]);
+}
+"""
+# The SASS opcodes K1's bound counts: fp32 arithmetic (with the IEEE
+# division's range check and the conversions) and MUFU, and int32
+# arithmetic (the throughput table's integer add, multiply-add, shift,
+# logic, compare and select rows; IMAD.MOV is a move). Everything else
+# (moves, byte permutes, predicate logic, branches and convergence
+# barriers) is left out of the bound and tallied beside it; the memory and
+# uniform-datapath instructions are not looked at.
+FP32_OPS = {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I", "FSETP",
+            "FSEL", "FMNMX", "FSET", "FCHK", "FRND", "MUFU", "I2F", "I2FP",
+            "F2I", "F2IP", "F2F"}
+INT32_OPS = {"IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF",
+             "SHL", "SHR", "IMAD", "IMAD32I", "IMUL", "LEA", "ISETP", "SEL",
+             "IMNMX", "VIMNMX", "IABS", "POPC", "FLO", "BREV", "BMSK",
+             "VIADD"}
+UNCOUNTED_OPS = {"LDG", "STG", "LDS", "STS", "LDC", "LD", "ST", "LDL", "STL",
+                 "S2R", "CS2R", "S2UR", "NOP"}
+
+
+def sass_fast_path(lines) -> list:
+    """The opcodes of one function's SASS (cuobjdump -sass lines), with
+    their modifiers, in the order it runs them up to its EXIT, every
+    predicated branch taken: the IEEE division's and sqrt's fast paths jump
+    over the calls of their slow ones. Memory, uniform-datapath and
+    special-register instructions are left out."""
+    ops, skip = [], None
+    for line in lines:
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            skip = None if label.group(1) == skip else skip
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not ins:
+            continue
+        if skip is not None and skip != int(ins.group(1), 16):
+            continue
+        skip = None
+        text = ins.group(2)
+        words = text.split()
+        if words[0].startswith("@"):
+            words = words[1:]
+        op = words[0].split(".")[0]
+        if op == "EXIT":
+            break
+        target = re.search(r"(\.L_x_\d+)|BRA\s+(0x[0-9a-f]+)", text)
+        if op == "BRA" and text.startswith("@") and target:
+            skip = target.group(1) or int(target.group(2), 16)
+        if op in UNCOUNTED_OPS or op.startswith("U"):
+            continue
+        ops.append(words[0])
+    return ops
+
+
+def arithmetic(op) -> str | None:
+    """"fp32" or "int32" for an opcode K1's bound counts, else None."""
+    base = op.split(".")[0]
+    if base in FP32_OPS:
+        return "fp32"
+    if base in INT32_OPS and not op.startswith("IMAD.MOV"):
+        return "int32"
+    return None
+
+
+def k1_instructions() -> tuple:
+    """({probe: (arithmetic instructions, of them int32)} of K1's probe
+    kernels beyond probe_base's, {probe: {opcode: count}} of the
+    instructions left out), from cuobjdump -sass of K1_PROBE_CU built with
+    K1's nvcc flags (sass_fast_path, arithmetic)."""
+    from drone_tpu_torch.ops import cuda_build
+
+    nvcc = cuda_build.nvcc_path()
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = cuda_build.BUILD_DIR / "k1_probe.cu"
+    cubin = src.with_suffix(".cubin")
+    src.write_text(K1_PROBE_CU)
+    flags = [f for f in cuda_build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    subprocess.run([nvcc, *flags, "-cubin", f"-I{cuda_build.CSRC}", "-o",
+                    str(cubin), str(src)], check=True, timeout=300,
+                   capture_output=True, text=True)
+    tool = Path(nvcc).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(cubin)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+        elif name:
+            funcs[name].append(line)
+    counts, left_out = {}, {}
+    for fn, lines in funcs.items():
+        kinds = [(op, arithmetic(op)) for op in sass_fast_path(lines)]
+        counts[fn] = (sum(k is not None for _, k in kinds),
+                      sum(k == "int32" for _, k in kinds))
+        left_out[fn.removeprefix("probe_")] = dict(collections.Counter(
+            op for op, k in kinds if k is None))
+    base = counts.pop("probe_base")
+    return ({fn.removeprefix("probe_"): (n - base[0], k - base[1])
+             for fn, (n, k) in counts.items()}, left_out)
+
+
+def k1_instruction_bound(instr, lane_steps, resets, nbytes):
+    """K1's bound at the main path's hover/euler: (ms, what sets it, its
+    arithmetic instructions, of them int32), the larger of its arithmetic
+    instructions over INSTR_PER_S, its int32 ones over INT32_PER_S and its
+    bytes over the HBM rate. A lane-step is probe_step; a reset, counted
+    only for the lane-steps that end an episode, 7 blocks and hover's
+    tail."""
+    per_reset = [7 * b + t for b, t in zip(instr["block"], instr["tail"])]
+    total = lane_steps * instr["step"][0] + resets * per_reset[0]
+    ints = lane_steps * instr["step"][1] + resets * per_reset[1]
+    times = {"arithmetic instructions": total / INSTR_PER_S,
+             "int32 instructions": ints / INT32_PER_S,
+             "bytes": nbytes / HBM_BYTES_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by, total, ints
+
 
 # Operations of the hover/euler paths, counted from csrc/env.cuh and the
 # kernels (one op per add, mul, div, sqrt, compare, select, shift, xor or
@@ -424,7 +641,25 @@ def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def phase_k1():
+# K1's checks: (task, integrator, lanes, T, horizon or None for the
+# task's default, action modes). Episodes of 20 steps end whole warps on
+# one step (truncation; the warp's reset passes repeat); 2,061 lanes end in
+# a ragged warp and three warps past n; the default horizon with in-kernel
+# actions ends episodes on scattered steps within each warp
+K1_CASES = (
+    *[(task, integ, 65536 if (task, integ) == ("hover", "euler") else 2048,
+       32, 20, ("provided", "in-kernel"))
+      for task in ("hover", "waypoint", "racing")
+      for integ in ("euler", "rk4")],
+    *[(task, integ, 2061, 32, 20, ("provided", "in-kernel"))
+      for task in ("hover", "waypoint", "racing")
+      for integ in ("euler", "rk4")],
+    ("hover", "euler", 2048, 256, None, ("in-kernel",)),
+    ("waypoint", "rk4", 2048, 256, None, ("in-kernel",)),
+)
+
+
+def phase_k1(cases=K1_CASES):
     """K1 against its plain version; returns the largest difference (0.0)."""
     import torch
 
@@ -434,53 +669,59 @@ def phase_k1():
     from drone_tpu_torch.types import default_params
 
     # the plain version on the CPU is the slow part: the main path's width
-    # for hover/euler, a smaller one for the other pairs, and every lane
-    # through one reset and into its next episode
-    T = 32
-    for task in ("hover", "waypoint", "racing"):
-        for integ in ("euler", "rk4"):
-            n = 65536 if (task, integ) == ("hover", "euler") else 2048
-            # short horizon and a wide reach radius so auto-resets and
-            # waypoint/gate progression fire; domain randomization on
-            over = dict(horizon=20, dr_mass_lo=0.8, dr_mass_hi=1.2,
-                        dr_thrust_lo=0.9, dr_thrust_hi=1.1)
-            if task != "hover":
-                over["reach_tol2"] = 4.0
-            env = DroneEnv(task, integ, default_params(task, **over),
-                           device="cuda")
-            state = env.init_batch(11, n)
-            stream = torch.from_numpy(
-                prng.action_stream_np(T, n, seed=3, scale=0.9, bias=0.05))
-            plain_provided = None
-            for mode, acts in (("provided", stream), ("in-kernel", None)):
-                k_state, k_stats = cuda_rollout.rollout_kernel(
-                    state, env.params, env.statics, T,
+    # for hover/euler, a smaller one for the other cases, and every lane
+    # through at least one reset
+    for task, integ, n, T, horizon, modes in cases:
+        # a wide reach radius so waypoint/gate progression fires; domain
+        # randomization on
+        over = dict(dr_mass_lo=0.8, dr_mass_hi=1.2, dr_thrust_lo=0.9,
+                    dr_thrust_hi=1.1)
+        if horizon is not None:
+            over["horizon"] = horizon
+        if task != "hover":
+            over["reach_tol2"] = 4.0
+        env = DroneEnv(task, integ, default_params(task, **over),
+                       device="cuda")
+        state = env.init_batch(11, n)
+        stream = torch.from_numpy(
+            prng.action_stream_np(T, n, seed=3, scale=0.9, bias=0.05))
+        plain_provided = None
+        for mode in modes:
+            acts = stream if mode == "provided" else None
+            args = (state, env.params, env.statics, T,
                     None if acts is None else acts.cuda())
-                torch.cuda.synchronize()
-                plain = planes(*cuda_rollout.rollout_plain(
-                    state.to("cpu"), env.params.to("cpu"), env.statics, T,
-                    acts))
-                ok = all(bitwise_equal(a, b) for a, b in
-                         zip(planes(k_state, k_stats), plain))
-                episodes = float(k_stats[1].sum())
-                print(f"K1 {task}/{integ} n={n} T={T} {mode} actions: "
-                      f"bitwise={ok} episodes={episodes:.0f}", flush=True)
-                if not ok:
-                    raise AssertionError(f"K1 differs from its plain version "
-                                         f"({task}/{integ}, {mode})")
-                if episodes < n:
-                    raise AssertionError("K1 check exercised no resets")
-                if acts is not None:
-                    plain_provided = plain
-            on_card = planes(*cuda_rollout.rollout_plain(
-                state, env.params, env.statics, T, stream.cuda()))
-            ok = all(bitwise_equal(a, b)
-                     for a, b in zip(on_card, plain_provided))
-            print(f"plain env on the card == on the CPU ({task}/{integ}): "
-                  f"{ok}", flush=True)
+            k_state, k_stats = cuda_rollout.rollout_kernel(*args)
+            again = planes(*cuda_rollout.rollout_kernel(*args))
+            torch.cuda.synchronize()
+            plain = planes(*cuda_rollout.rollout_plain(
+                state.to("cpu"), env.params.to("cpu"), env.statics, T,
+                acts))
+            ok = all(bitwise_equal(a, b) for a, b in
+                     zip(planes(k_state, k_stats), plain))
+            episodes = float(k_stats[1].sum())
+            print(f"K1 {task}/{integ} n={n} T={T} horizon="
+                  f"{int(env.params.horizon)} {mode} actions: bitwise={ok} "
+                  f"episodes={episodes:.0f}", flush=True)
             if not ok:
-                raise AssertionError("the plain env differs between the card "
-                                     "and the CPU")
+                raise AssertionError(f"K1 differs from its plain version "
+                                     f"({task}/{integ}, n={n}, T={T}, "
+                                     f"{mode})")
+            check_repeat("K1", planes(k_state, k_stats), again)
+            if episodes < n:
+                raise AssertionError("K1 check exercised too few resets")
+            if acts is not None:
+                plain_provided = plain
+        if plain_provided is None:
+            continue
+        on_card = planes(*cuda_rollout.rollout_plain(
+            state, env.params, env.statics, T, stream.cuda()))
+        ok = all(bitwise_equal(a, b)
+                 for a, b in zip(on_card, plain_provided))
+        print(f"plain env on the card == on the CPU ({task}/{integ}): "
+              f"{ok}", flush=True)
+        if not ok:
+            raise AssertionError("the plain env differs between the card "
+                                 "and the CPU")
     return 0.0
 
 
@@ -498,7 +739,7 @@ def seeded_policy(hidden=(64, 64), seed=0, head_gain=None):
     return m
 
 
-def phase_k5() -> float:
+def phase_k5(cases=None) -> float:
     """K5 against its plain version on the card; returns the max abs error
     of the T = 3 final states."""
     import torch
@@ -512,7 +753,8 @@ def phase_k5() -> float:
     # other task templates, the main tower over a ragged last block (8,232
     # lanes: 40 in the last, one warp of them ragged), and [128, 128], whose
     # weights stay in device memory (384-lane blocks, act_layout)
-    cases = [("hover", "euler", (64, 64), 65536, ((3, 2), (64, 40))),
+    cases = cases or [
+             ("hover", "euler", (64, 64), 65536, ((3, 2), (64, 40))),
              ("waypoint", "rk4", (32, 48, 20), 8192, ((3, 2),)),
              ("racing", "euler", (), 8192, ((3, 2),)),
              ("waypoint", "rk4", (64, 64), 8192 + 40, ((3, 2),)),
@@ -604,7 +846,7 @@ K2_CASES = (
 )
 
 
-def phase_k2() -> float:
+def phase_k2(cases=K2_CASES) -> float:
     """K2 against its plain version on the card; returns the max abs error
     of the T = 3 planes."""
     import torch
@@ -618,7 +860,7 @@ def phase_k2() -> float:
         raise AssertionError("[128, 128] was to read its fragments through "
                              "L1, [] and [48] to stage them")
     max_err = 0.0
-    for task, integ, hidden, n, runs in K2_CASES:
+    for task, integ, hidden, n, runs in cases:
         model = flat_policy(hidden)
         lay = K2.traj_layout(hidden)
         for T, horizon in runs:
@@ -773,13 +1015,13 @@ def compare_grads(what, kg, ks, pg, ps, order, each_stat: bool) -> float:
     return max_err
 
 
-def check_k4(flat, order, cfg, label) -> tuple:
+def check_k4(flat, order, cfg, label, grads=None) -> tuple:
     """K4 against its plain version over a layout (rtol 1e-5 / atol 1e-8)
-    at step count 5, with the norm clip active (|g| = 0.05 sqrt(P)) and
-    inactive (the same gradients scaled to a quarter of the clip norm),
-    each launched twice on the same inputs, bitwise equal. Returns (the
-    largest absolute difference, the active case's inputs for timing:
-    grads, mu, nu, schedule, constants)."""
+    at step count 5, on `grads` (by default seeded noise, |g| = 0.05
+    sqrt(P), which the norm clip cuts) and on the same gradients scaled to
+    a quarter of the clip norm, each launched twice on the same inputs,
+    bitwise equal. Returns (the largest absolute difference, the first
+    case's inputs for timing: grads, mu, nu, schedule, constants)."""
     import torch
 
     from drone_tpu_torch import ppo_cuda
@@ -788,16 +1030,16 @@ def check_k4(flat, order, cfg, label) -> tuple:
 
     g = torch.Generator(device="cuda").manual_seed(4)
     P = flat.numel()
-    grads = 0.05 * torch.randn(P, device="cuda", generator=g)
+    noise = 0.05 * torch.randn(P, device="cuda", generator=g)
+    grads = noise if grads is None else grads
     mu0 = 0.01 * torch.randn(P, device="cuda", generator=g)
     nu0 = 0.001 * torch.rand(P, device="cuda", generator=g)
     sched = ppo_cuda.make_fused_lr(cfg.train)
     ac = K4.AdamConsts(clip_norm=cfg.train.max_grad_norm)
     sizes = tensor_sizes(order)
     k4_err = 0.0
-    for clip, gr in (("active", grads),
-                     ("inactive", grads * (0.25 * ac.clip_norm
-                                           / float(grads.norm())))):
+    for gr in (grads, grads * (0.25 * ac.clip_norm / float(grads.norm()))):
+        clip = "active" if float(gr.norm()) > ac.clip_norm else "inactive"
         outs = []
         for run in (K4.fused_adam_kernel, K4.fused_adam_kernel,
                     K4.fused_adam_plain):
@@ -1980,7 +2222,7 @@ def cnn_policy(seed=1, log_std=-0.5):
     return m
 
 
-def phase_k11() -> float:
+def phase_k11(cases=None) -> float:
     """K11 against its plain version on the card; returns the max abs error
     of the T = 3 final states and statistics."""
     import torch
@@ -1991,9 +2233,10 @@ def phase_k11() -> float:
 
     # the main path's width (deterministic, and K9's noise at T = 3), then
     # a ragged last lane tile (40 of a tile's 64) on waypoint/rk4
-    cases = [("hover", "euler", 65536, ((3, 2, False), (3, 2, True),
-                                        (64, 40, False))),
-             ("waypoint", "rk4", 8192 + 40, ((3, 2, False),))]
+    cases = cases or [
+        ("hover", "euler", 65536, ((3, 2, False), (3, 2, True),
+                                   (64, 40, False))),
+        ("waypoint", "rk4", 8192 + 40, ((3, 2, False),))]
     model = cnn_policy()
     max_err = 0.0
     for task, integ, n, runs in cases:
@@ -2605,6 +2848,108 @@ def phase_cnn_lstm_learning_and_resume(tmp):
         raise AssertionError("the cnn_lstm learning gate failed on the card")
 
 
+# the reference's bench keys (bench.py main): the secondary phases, and
+# the top level with the port's "device"
+BENCH_SECONDARY = (
+    "acting_megakernel_sps", "scan_policy_rollout_sps", "traj_rollout_sps",
+    "lstm_acting_sps", "cnn_acting_sps", "cnn_lstm_acting_sps",
+    "train_sps_64k", "scan_train_sps_64k", "train_sps_262k",
+    "lstm_train_sps_64k", "scan_lstm_train_sps_64k", "cnn_lstm_train_sps_64k",
+    "cnn_train_sps_64k", "cnn_train_sps_4k", "scan_cnn_train_sps_4k",
+    "scan_cnn_overlap_train_sps_64k")
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "secondary",
+              "spread", "repeats", "device")
+
+
+# the bench's lane and env counts (drone_tpu_torch/bench.py): its serving
+# phases' lanes and train_sps_262k's envs
+BENCH_LANES = 131072
+BENCH_TRAIN_ENVS = 262144
+
+
+def phase_bench_shapes(cfg, env) -> dict:
+    """The bench path's kernels against their plain versions at the bench's
+    own lane and env counts, at the tolerances of their own checks and a
+    short T: K1 bitwise (in-kernel actions, as the bench draws them), K5,
+    K8's both arms, K11 and K2 at 131,072 lanes, and one train_sps_262k
+    minibatch (262,144 envs x 128 steps in 4 minibatches, 8.4 M samples)
+    through K2 (also checked at T = 3 over 262,144 lanes), K3 (off the
+    weights that wrote the planes, every branch taken) and K4 (on K3's
+    gradients). Returns {kernel: max abs error}."""
+    from drone_tpu_torch.models import kernel_order
+    from drone_tpu_torch.ops import cuda_update as K3
+    from drone_tpu_torch.ops.cuda_acting_cnn import KERNEL_ARCH
+
+    n = BENCH_LANES
+    hover = ("hover", "euler")
+    err = {"K1": phase_k1([(*hover, n, 32, 20, ("in-kernel",))]),
+           "K5": phase_k5([(*hover, (64, 64), n, ((3, 2),))]),
+           "K8": phase_k8([(*hover, 128, (64,), n, ((3, 2),))]),
+           "K8 cnn": phase_k8([(*hover, 128, KERNEL_ARCH, n, ((3, 2),))],
+                              name="K8 cnn arm"),
+           "K11": phase_k11([(*hover, n, ((3, 2, False),))]),
+           "K2": phase_k2([(*hover, (64, 64), n, ((3, 2),)),
+                           (*hover, (64, 64), BENCH_TRAIN_ENVS, ((3, 2),))])}
+    cfg = cfg.with_overrides([f"train.num_envs={BENCH_TRAIN_ENVS}",
+                              "train.horizon=128", "train.num_minibatches=4"])
+    model = flat_policy()
+    planes, advret, perm_mb, co, rbl = hover_minibatch(cfg, model, env)
+    order = kernel_order(model.hidden)
+    theta = off_policy(model.flat, order)
+    check_branches("K3 train_sps_262k", K3.head_branch_counts(
+        planes, advret, perm_mb, theta, model.hidden, co, rbl))
+    args = (planes, advret, perm_mb, theta, model.hidden, co, rbl,
+            cfg.train.ent_coef)
+    err["K3"], _ = check_k3(*args, each_stat=True)
+    grads, _ = K3.ppo_update_kernel(*args)
+    err["K4"], _ = check_k4(model.flat, order, cfg, "the MLP layout, a "
+                            "train_sps_262k minibatch's K3 gradients", grads)
+    print(f"bench shapes: max abs errors {err}", flush=True)
+    return err
+
+
+def path_bench(cfg_path):
+    """The bench path: `cli bench` on hover.toml in-process, launch counts
+    zeroed just before and read just after. Every kernel (both arms of K6,
+    K7 and K8) must launch; its JSON line must hold the reference's keys
+    and "device", every ported phase a positive finite rate and the
+    unported ones None."""
+    import contextlib
+    import io
+
+    import torch
+
+    from drone_tpu_torch import bench, cli
+
+    zero_counts()
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["bench", str(cfg_path)])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    bench_counts = counts()
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"bench path: cli bench rc={rc} in {seconds:.1f} s, launches "
+          f"{bench_counts}\n{line}", flush=True)
+    res = json.loads(line)
+    missing = [k for k, v in bench_counts.items() if v < 1]
+    if rc != 0 or missing:
+        raise AssertionError(f"the bench path did not launch {missing}")
+    if (tuple(res) != BENCH_KEYS
+            or set(res["secondary"]) != set(BENCH_SECONDARY)
+            or set(res["spread"]) != {"headline", *BENCH_SECONDARY}):
+        raise AssertionError(f"the bench's keys differ from the reference's: "
+                             f"{list(res)}, {list(res['secondary'])}")
+    for key, v in [("value", res["value"]), *res["secondary"].items()]:
+        if key in bench.UNPORTED:
+            if v is not None:
+                raise AssertionError(f"unported bench phase {key} gave {v}")
+        elif not (isinstance(v, float) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"bench phase {key} gave {v}")
+    return res, bench_counts, seconds
+
+
 class Laps:
     """Host-clock seconds of each phase of the script: lap(name) closes the
     phase that ends there."""
@@ -2707,6 +3052,19 @@ def main() -> int:
                 print(f"  {name} {k}: {regs} registers, {smem[k]} bytes of "
                       f"dynamic shared memory, {lib_mma.get(k)} HMMA "
                       f"instructions; {spill}", flush=True)
+    # K1's instances: rollout_kernel<task, integrator, provided actions>
+    k1_keys = [f"rollout_kernelILi{t}ELi{i}ELb{a}E" for t in range(3)
+               for i in range(2) for a in range(2)]
+    for k, (regs, spill) in ptxas_report(libs["rollout"], k1_keys).items():
+        t, i, a = (int(c) for c in re.findall(r"\d", k)[:3])
+        print(f"  rollout_kernel<{('hover', 'waypoint', 'racing')[t]}, "
+              f"{('euler', 'rk4')[i]}, "
+              f"{('in-kernel', 'provided')[a]} actions>: {regs} registers; "
+              f"{spill}", flush=True)
+    k1_instr, k1_left_out = k1_instructions()
+    print(f"  K1's probes (arithmetic SASS instructions beyond the set-up, "
+          f"int32 ones beside them): {k1_instr}; left out of the bound: "
+          f"{k1_left_out}", flush=True)
     no_mma = [k for k in smem if not k.startswith("pack_") and not mma.get(k)]
     if no_mma:
         failed.append(f"no HMMA instruction in {no_mma}")
@@ -2802,11 +3160,15 @@ def main() -> int:
     k5_bytes = n * (2 * 25 * 4 + 5 * 4) + 4 * (13 * 64 + 64 * 64 + 64 * 4
                                              + 64 + 64 + 4)
 
-    k1_bound, k1_by = bound(k1_ops, k1_bytes)
+    k1_bound, k1_by, k1_total, k1_int = k1_instruction_bound(
+        k1_instr, lane_steps, float(stats["episodes"]), k1_bytes)
     k5_mma = lane_steps * tower_mma_ops((64, 64))
     k5_bound, k5_by = tensor_bound(k5_mma, k5_ops - k5_mma, k5_bytes)
     print(f"K1 {n} x {horizon}: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.1f} "
-          f"ms, bound {k1_bound:.4f} ms ({k1_ops:.4g} ops)", flush=True)
+          f"ms, bound {k1_bound:.4f} ms (by {k1_by}: {k1_total:.4g} "
+          f"arithmetic instructions, {k1_int:.4g} of them int32); the "
+          f"operation count's bound {bound(k1_ops, k1_bytes)[0]:.4f} ms ({k1_ops:.4g} "
+          f"ops at 67 TFLOP/s)", flush=True)
     print(f"K5 {n} x {horizon}: kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.1f} "
           f"ms, bound {k5_bound:.4f} ms tensor-pipe ({k5_mma:.4g} of "
           f"{k5_ops:.4g} ops on the tensor cores), fp32 bound "
@@ -2893,6 +3255,10 @@ def main() -> int:
                          cnn_lstm_policy(seed=2, log_std=0.0),
                          plain_depths=(10, 16))
     lap("K8, K6, K7 cnn times, cnn_lstm update")
+    bench_err = phase_bench_shapes(cfg, env)
+    lap("bench shapes check")
+    path_bench(cfg_path)
+    lap("bench path")
     print(f"phase seconds: {lap.seconds}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
@@ -2910,20 +3276,23 @@ def main() -> int:
     kernels = [
         entry("K1 env rollout", "drone_tpu_torch/csrc/rollout.cu",
               "drone_tpu/ops/pallas_rollout.py:460", engine_counts["K1"],
-              k1_err, k1_ms, k1_plain_ms, k1_bound, k1_by, None),
+              max(k1_err, bench_err["K1"]), k1_ms, k1_plain_ms, k1_bound,
+              "bytes" if k1_by == "bytes" else "operations", None),
         entry("K2 trajectory rollout",
               "drone_tpu_torch/csrc/acting_traj.cu",
               "drone_tpu/ops/pallas_acting_traj.py:120", train_counts["K2"],
-              k2_err, *times["K2"]),
+              max(k2_err, bench_err["K2"]), *times["K2"]),
         entry("K3 PPO update", "drone_tpu_torch/csrc/update.cu",
               "drone_tpu/ops/pallas_update.py:206", train_counts["K3"],
-              k3_err, *times["K3"]),
+              max(k3_err, bench_err["K3"]), *times["K3"]),
         entry("K4 fused clip+adam", "drone_tpu_torch/csrc/update.cu",
               "drone_tpu/ops/pallas_update.py:456", train_counts["K4"],
-              max(k4_err, k4_lstm_err, k4_cnn_err, k4_cl_err), *times["K4"]),
+              max(k4_err, k4_lstm_err, k4_cnn_err, k4_cl_err,
+                  bench_err["K4"]), *times["K4"]),
         entry("K5 MLP acting", "drone_tpu_torch/csrc/acting.cu",
               "drone_tpu/ops/pallas_acting.py:109", serve_counts["K5"],
-              k5_err, k5_ms, k5_plain_ms, k5_bound, k5_by, None),
+              max(k5_err, bench_err["K5"]), k5_ms, k5_plain_ms, k5_bound,
+              k5_by, None),
         entry("K6 LSTM trajectory rollout",
               "drone_tpu_torch/csrc/acting_lstm.cu",
               "drone_tpu/ops/pallas_acting_lstm.py:335",
@@ -2934,7 +3303,8 @@ def main() -> int:
               lstm_train_counts["K7"], k7_err, *lstm_times["K7"]),
         entry("K8 LSTM acting", "drone_tpu_torch/csrc/acting_lstm.cu",
               "drone_tpu/ops/pallas_acting_lstm.py:186",
-              lstm_serve_counts["K8"], k8_err, *lstm_times["K8"]),
+              lstm_serve_counts["K8"], max(k8_err, bench_err["K8"]),
+              *lstm_times["K8"]),
         entry("K9 CNN trajectory rollout",
               "drone_tpu_torch/csrc/acting_cnn.cu",
               "drone_tpu/ops/pallas_acting_cnn.py:271",
@@ -2944,7 +3314,8 @@ def main() -> int:
               cnn_train_counts["K10"], k10_err, *cnn_times["K10"]),
         entry("K11 CNN acting", "drone_tpu_torch/csrc/acting_cnn.cu",
               "drone_tpu/ops/pallas_acting_cnn.py:434",
-              cnn_serve_counts["K11"], k11_err, *cnn_times["K11"]),
+              cnn_serve_counts["K11"], max(k11_err, bench_err["K11"]),
+              *cnn_times["K11"]),
         entry("K6 LSTM trajectory rollout, CNN-encoder arm",
               "drone_tpu_torch/csrc/acting_lstm.cu",
               "drone_tpu/ops/pallas_acting_lstm.py:335",
@@ -2956,7 +3327,8 @@ def main() -> int:
         entry("K8 LSTM acting, CNN-encoder arm",
               "drone_tpu_torch/csrc/acting_lstm.cu",
               "drone_tpu/ops/pallas_acting_lstm.py:186",
-              cl_serve_counts["K8 cnn"], k8c_err, *cl_times["K8"]),
+              cl_serve_counts["K8 cnn"], max(k8c_err, bench_err["K8 cnn"]),
+              *cl_times["K8"]),
     ]
     print(dev, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

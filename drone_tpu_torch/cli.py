@@ -1,9 +1,9 @@
-"""CLI: `python -m drone_tpu_torch.cli {train,eval} [config.toml]
+"""CLI: `python -m drone_tpu_torch.cli {train,eval,bench} [config.toml]
 [section.key=value ...] [--device cuda|cpu]`.
 
 Counterpart of `drone_tpu/cli.py`, with the same subcommands and argument
-handling. `train` and `eval` are ported; the others exit with status 2 and
-name the ROADMAP.md item that ports them.
+handling. `train`, `eval` and `bench` are ported; the others exit with
+status 2 and name the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -15,7 +15,6 @@ import sys
 from drone_tpu_torch.utils.config import Config
 
 _UNPORTED = {
-    "bench": "outer surfaces (a GPU bench entry point)",
     "sweep": "outer surfaces",
     "export": "outer surfaces",
     "autotune": "outer surfaces",
@@ -54,7 +53,7 @@ def main(argv=None) -> int:
                        help="TOML config file (optional)")
         p.add_argument("overrides", nargs="*",
                        help="dotted overrides, e.g. run.seed=3 env.task=waypoint")
-        if name in ("train", "eval"):
+        if name in ("train", "eval", "bench"):
             p.add_argument("--device", default="cuda",
                            help="cuda (default) or cpu for the plain versions")
     args = parser.parse_args(argv)
@@ -65,6 +64,11 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     cfg = _load_config(args)
+    if args.cmd == "bench":
+        from drone_tpu_torch import bench
+
+        bench.main(cfg, device=args.device)
+        return 0
     if args.cmd == "train":
         from drone_tpu_torch.train import train
 

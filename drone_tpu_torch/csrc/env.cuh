@@ -1,5 +1,6 @@
 // env.cuh — the drone env as CUDA device functions, shared by every
-// rollout kernel of drone_tpu_torch (rollout.cu, acting.cu).
+// rollout kernel of drone_tpu_torch (rollout.cu, acting.cu,
+// acting_traj.cu, acting_lstm.cu, acting_cnn.cu).
 //
 // Ports, once, the device functions of drone_tpu/ops/pallas_rollout.py:
 // _deriv, _normalize_quat, _integrate, _gate_target, _sample_waypoint,
@@ -129,6 +130,23 @@ __device__ __forceinline__ float uniform01(uint32_t bits) {
   return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
+// The in-kernel action stream (pallas_rollout's random actions): 4
+// uniforms in [-1, 1) from blocks ACTION_BLOCK0 + 2 * step (+1) of the
+// lane's current episode.
+__device__ __forceinline__ void stream_actions(uint32_t k0, uint32_t k1,
+                                               uint32_t rc, int stp,
+                                               float& a0, float& a1,
+                                               float& a2, float& a3) {
+  const uint32_t jb = ACTION_BLOCK0 + 2u * (uint32_t)stp;
+  uint32_t b0, b1, b2, b3;
+  threefry2x32(k0, k1, rc, jb, b0, b1);
+  threefry2x32(k0, k1, rc, jb + 1u, b2, b3);
+  a0 = uniform01(b0) * 2.0f - 1.0f;
+  a1 = uniform01(b1) * 2.0f - 1.0f;
+  a2 = uniform01(b2) * 2.0f - 1.0f;
+  a3 = uniform01(b3) * 2.0f - 1.0f;
+}
+
 // ---------------------------------------------------------------------------
 // Dynamics (drone_tpu/dynamics.py)
 // ---------------------------------------------------------------------------
@@ -236,21 +254,30 @@ struct Fresh {
   float tx, ty, tz, drm, drt;
 };
 
-// env.reset_state for episode e: randomize.init_pose draws + task target.
-// Computes only the threefry blocks the task consumes.
+// The threefry blocks env.reset_state consumes for a task: init_pose's 14
+// uniforms, and the waypoint task's first target 3 more.
 template <int TASK>
-__device__ __forceinline__ void fresh_state(uint32_t k0, uint32_t k1,
-                                            uint32_t e, const EnvP& P,
-                                            Fresh& f) {
-  constexpr int NB = TASK == TASK_WAYPOINT ? 9 : 7;
-  float u[2 * NB];
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    uint32_t b0, b1;
-    threefry2x32(k0, k1, e, (uint32_t)j, b0, b1);
-    u[2 * j] = uniform01(b0);
-    u[2 * j + 1] = uniform01(b1);
-  }
+__host__ __device__ constexpr int fresh_blocks() {
+  return TASK == TASK_WAYPOINT ? 9 : 7;
+}
+
+// Block j of episode e's reset draws as two uniforms: u[2j], u[2j + 1] of
+// fresh_state. Every reset computes its blocks through this one function
+// (fresh_state per lane, rollout.cu's warp passes spread over threads).
+__device__ __forceinline__ void fresh_uniforms(uint32_t k0, uint32_t k1,
+                                               uint32_t e, uint32_t j,
+                                               float& u0, float& u1) {
+  uint32_t b0, b1;
+  threefry2x32(k0, k1, e, j, b0, b1);
+  u0 = uniform01(b0);
+  u1 = uniform01(b1);
+}
+
+// fresh_state's tail: randomize.init_pose and the task target from the
+// 2 * fresh_blocks<TASK>() uniforms.
+template <int TASK>
+__device__ __forceinline__ void fresh_from_uniforms(const float* u,
+                                                    const EnvP& P, Fresh& f) {
   f.s[0] = P.tgx + (u[0] * 2.0f - 1.0f) * P.pos_radius;
   f.s[1] = P.tgy + (u[1] * 2.0f - 1.0f) * P.pos_radius;
   f.s[2] = P.tgz + (u[2] * 2.0f - 1.0f) * P.pos_radius;
@@ -284,6 +311,20 @@ __device__ __forceinline__ void fresh_state(uint32_t k0, uint32_t k1,
   }
 }
 
+// env.reset_state for episode e: randomize.init_pose draws + task target.
+// Computes only the threefry blocks the task consumes.
+template <int TASK>
+__device__ __forceinline__ void fresh_state(uint32_t k0, uint32_t k1,
+                                            uint32_t e, const EnvP& P,
+                                            Fresh& f) {
+  constexpr int NB = fresh_blocks<TASK>();
+  float u[2 * NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    fresh_uniforms(k0, k1, e, (uint32_t)j, u[2 * j], u[2 * j + 1]);
+  fresh_from_uniforms<TASK>(u, P, f);
+}
+
 // obs_matrix: the policy input of one lane (tasks.observation order).
 __device__ __forceinline__ void observe(const Carry& c, float o[OBS_DIM]) {
   o[0] = c.tx - c.px;
@@ -301,13 +342,28 @@ __device__ __forceinline__ void observe(const Carry& c, float o[OBS_DIM]) {
   o[12] = c.wz;
 }
 
-// One env step with branch-free auto-reset (env.step). Outputs the reward,
+// env.step in two parts: env_advance, then env_select with a Fresh.
+// env_step joins them with a reset computed on every lane; rollout.cu
+// computes the reset only for the lanes that are done (warp_fresh).
+//
+// A step's state before the auto-reset: the integrated pose, the target
+// after progression, and the waypoint and gate counters (env_advance).
+struct Advance {
+  float s[13];
+  float tx, ty, tz;
+  uint32_t wp;
+  int gi;
+};
+
+// env.step up to its auto-reset: mixing, integration, reward, task
+// progression and termination. Outputs the advanced state, the reward,
 // done, and the pre-reset episode return and step count for accumulate().
 template <int TASK, int INTEG>
-__device__ __forceinline__ void env_step(Carry& c, float a0, float a1,
-                                         float a2, float a3, const EnvP& P,
-                                         float& r, bool& done, float& epret2,
-                                         int& step2) {
+__device__ __forceinline__ void env_advance(const Carry& c, float a0,
+                                            float a1, float a2, float a3,
+                                            const EnvP& P, Advance& v,
+                                            float& r, bool& done,
+                                            float& epret2, int& step2) {
   const float mass_eff = P.mass * c.drm;
   // mixing.mix
   float F[4];
@@ -318,8 +374,11 @@ __device__ __forceinline__ void env_step(Carry& c, float a0, float a1,
     f = fminf(fmaxf(f, 0.0f), 1.0f);
     F[k] = f * P.thrust_max * c.drt;
   }
-  float s[13] = {c.px, c.py, c.pz, c.vx, c.vy, c.vz, c.qw,
-                 c.qx, c.qy, c.qz, c.wx, c.wy, c.wz};
+  float* s = v.s;
+  s[0] = c.px; s[1] = c.py; s[2] = c.pz;
+  s[3] = c.vx; s[4] = c.vy; s[5] = c.vz;
+  s[6] = c.qw; s[7] = c.qx; s[8] = c.qy; s[9] = c.qz;
+  s[10] = c.wx; s[11] = c.wy; s[12] = c.wz;
   integrate<INTEG>(s, F[0], F[1], F[2], F[3], mass_eff, P);
 
   step2 = c.stp + 1;
@@ -336,9 +395,11 @@ __device__ __forceinline__ void env_step(Carry& c, float a0, float a1,
   const float aa = a0 * a0 + a1 * a1 + a2 * a2 + a3 * a3;
   r = r - P.c_act * aa;
 
-  float tx2 = c.tx, ty2 = c.ty, tz2 = c.tz;
-  uint32_t wp2 = c.wp;
-  int gi2 = c.gi;
+  v.tx = c.tx;
+  v.ty = c.ty;
+  v.tz = c.tz;
+  v.wp = c.wp;
+  v.gi = c.gi;
   if (TASK == TASK_WAYPOINT) {
     const bool reached = d2 < P.reach_tol2;
     r = reached ? r + P.reach_bonus : r;
@@ -349,17 +410,17 @@ __device__ __forceinline__ void env_step(Carry& c, float a0, float a1,
     float ntx, nty, ntz;
     sample_waypoint(uniform01(b0), uniform01(b1), uniform01(b2), P, ntx, nty,
                     ntz);
-    tx2 = reached ? ntx : c.tx;
-    ty2 = reached ? nty : c.ty;
-    tz2 = reached ? ntz : c.tz;
-    wp2 = c.wp + (reached ? 1u : 0u);
+    v.tx = reached ? ntx : c.tx;
+    v.ty = reached ? nty : c.ty;
+    v.tz = reached ? ntz : c.tz;
+    v.wp = c.wp + (reached ? 1u : 0u);
   } else if (TASK == TASK_RACING) {
     const bool reached = d2 < P.reach_tol2;
     r = reached ? r + P.reach_bonus : r;
     const int gate_next = (c.gi + 1) % max(P.n_gates, 1);
-    gi2 = reached ? gate_next : c.gi;
-    gate_target(gi2, P, tx2, ty2, tz2);
-    wp2 = c.wp + (reached ? 1u : 0u);
+    v.gi = reached ? gate_next : c.gi;
+    gate_target(v.gi, P, v.tx, v.ty, v.tz);
+    v.wp = c.wp + (reached ? 1u : 0u);
   }
 
   // tasks.check_crash
@@ -373,34 +434,54 @@ __device__ __forceinline__ void env_step(Carry& c, float a0, float a1,
   done = crashed | truncated;
   r = crashed ? r + P.crash_penalty : r;
   epret2 = c.epret + r;
+}
 
+// env.step's branch-free auto-reset: the carry becomes the fresh state of
+// episode rc + 1 where done, else the advanced state; f's values are
+// taken only where done.
+__device__ __forceinline__ void env_select(Carry& c, const Advance& v,
+                                           const Fresh& f, bool done,
+                                           float epret2, int step2) {
   const uint32_t e2 = c.rc + 1u;
-  Fresh f;
-  fresh_state<TASK>(c.k0, c.k1, e2, P, f);
-
-  c.px = done ? f.s[0] : s[0];
-  c.py = done ? f.s[1] : s[1];
-  c.pz = done ? f.s[2] : s[2];
-  c.vx = done ? f.s[3] : s[3];
-  c.vy = done ? f.s[4] : s[4];
-  c.vz = done ? f.s[5] : s[5];
-  c.qw = done ? f.s[6] : s[6];
-  c.qx = done ? f.s[7] : s[7];
-  c.qy = done ? f.s[8] : s[8];
-  c.qz = done ? f.s[9] : s[9];
-  c.wx = done ? f.s[10] : s[10];
-  c.wy = done ? f.s[11] : s[11];
-  c.wz = done ? f.s[12] : s[12];
-  c.tx = done ? f.tx : tx2;
-  c.ty = done ? f.ty : ty2;
-  c.tz = done ? f.tz : tz2;
+  c.px = done ? f.s[0] : v.s[0];
+  c.py = done ? f.s[1] : v.s[1];
+  c.pz = done ? f.s[2] : v.s[2];
+  c.vx = done ? f.s[3] : v.s[3];
+  c.vy = done ? f.s[4] : v.s[4];
+  c.vz = done ? f.s[5] : v.s[5];
+  c.qw = done ? f.s[6] : v.s[6];
+  c.qx = done ? f.s[7] : v.s[7];
+  c.qy = done ? f.s[8] : v.s[8];
+  c.qz = done ? f.s[9] : v.s[9];
+  c.wx = done ? f.s[10] : v.s[10];
+  c.wy = done ? f.s[11] : v.s[11];
+  c.wz = done ? f.s[12] : v.s[12];
+  c.tx = done ? f.tx : v.tx;
+  c.ty = done ? f.ty : v.ty;
+  c.tz = done ? f.tz : v.tz;
   c.drm = done ? f.drm : c.drm;
   c.drt = done ? f.drt : c.drt;
   c.epret = done ? 0.0f : epret2;
   c.stp = done ? 0 : step2;
-  c.wp = done ? 0u : wp2;
-  c.gi = done ? 0 : gi2;
+  c.wp = done ? 0u : v.wp;
+  c.gi = done ? 0 : v.gi;
   c.rc = done ? e2 : c.rc;
+}
+
+// One env step with branch-free auto-reset (env.step): env_advance, the
+// fresh state of episode rc + 1 on every lane, env_select. Outputs the
+// reward, done, and the pre-reset episode return and step count for
+// accumulate().
+template <int TASK, int INTEG>
+__device__ __forceinline__ void env_step(Carry& c, float a0, float a1,
+                                         float a2, float a3, const EnvP& P,
+                                         float& r, bool& done, float& epret2,
+                                         int& step2) {
+  Advance v;
+  env_advance<TASK, INTEG>(c, a0, a1, a2, a3, P, v, r, done, epret2, step2);
+  Fresh f;
+  fresh_state<TASK>(c.k0, c.k1, c.rc + 1u, P, f);
+  env_select(c, v, f, done, epret2, step2);
 }
 
 // Per-lane episode statistics (pallas_rollout.accumulate).

@@ -5,11 +5,13 @@ Run from the root of a checkout on a machine with an H100:
 
     python3 scripts/kernel_times.py <label>
 
-It builds acting, acting_traj, update, acting_lstm, update_lstm, acting_cnn
-and update_cnn, times K2 (65,536 lanes x 64 steps) on hover.toml's [64,
-64] tower, K3 on its full-width minibatch and K4 over its parameters
-(and, near the end, over the CNN-LSTM's 226,697: "K4 cnn_lstm"; each
-also by its device time in a torch.profiler trace, "K4 device"), then
+It builds rollout, acting, acting_traj, update, acting_lstm, update_lstm,
+acting_cnn and update_cnn, times K2 (65,536 lanes x 64 steps) on
+hover.toml's [64, 64] tower, K3 on its full-width minibatch and K4 over
+its parameters (and, near the end, over the CNN-LSTM's 226,697: "K4
+cnn_lstm"; each also by its device time in a torch.profiler trace, "K4
+device"), then K1 on hover.toml's env (65,536 x 1,001 and 131,072 x
+4,096 with in-kernel actions, 65,536 x 64 with provided ones), then
 K5 (65,536 x 1,001; after the short MLP kernels, which its seconds of
 load would slow), K8 and K6 (dense encoder and CNN arm) and K11
 and K9 at their paths' shapes, and K7 (both arms) and K10 on one
@@ -30,6 +32,7 @@ sys.path.insert(0, ".")  # the checkout it runs from
 import chip_smoke as cs  # noqa: E402
 import torch  # noqa: E402
 
+from drone_tpu_torch import prng  # noqa: E402
 from drone_tpu_torch.env import DroneEnv  # noqa: E402
 from drone_tpu_torch.models import kernel_order, tensor_sizes  # noqa: E402
 from drone_tpu_torch.ops import cuda_acting as K5  # noqa: E402
@@ -37,13 +40,15 @@ from drone_tpu_torch.ops import cuda_acting_traj as K2  # noqa: E402
 from drone_tpu_torch.ops import cuda_acting_cnn as K11  # noqa: E402
 from drone_tpu_torch.ops import cuda_acting_lstm as K8  # noqa: E402
 from drone_tpu_torch.ops import cuda_build  # noqa: E402
+from drone_tpu_torch.ops import cuda_rollout as K1  # noqa: E402
 from drone_tpu_torch.ops import cuda_update as K3  # noqa: E402
 from drone_tpu_torch.ops import cuda_update_cnn as K10  # noqa: E402
 from drone_tpu_torch.ops import cuda_update_lstm as K7  # noqa: E402
 from drone_tpu_torch.utils.config import Config  # noqa: E402
 
-libs = cuda_build.build(("acting", "acting_traj", "update", "acting_lstm",
-                         "update_lstm", "acting_cnn", "update_cnn"))
+libs = cuda_build.build(("rollout", "acting", "acting_traj", "update",
+                         "acting_lstm", "update_lstm", "acting_cnn",
+                         "update_cnn"))
 regs = {}
 for name, lib in libs.items():
     entry = None
@@ -91,6 +96,16 @@ adam = [model.flat.clone(), 0.05 * torch.ones_like(model.flat),
 t["K4"] = cs.cuda_ms(lambda: K3.fused_adam_kernel(*adam), 100)
 t["K4 device"] = device_ms(lambda: K3.fused_adam_kernel(*adam), 100,
                            "adam_kernel")
+for k1_n, k1_T, k1_acts in ((65536, 1001, None), (131072, 4096, None),
+                            (65536, 64, torch.from_numpy(
+                                prng.action_stream_np(64, 65536, seed=3))
+                             .cuda())):
+    k1_state = env.init_batch(0, k1_n)
+    t[f"K1 {k1_n} x {k1_T}{' provided' if k1_acts is not None else ''}"] = \
+        cs.cuda_ms(lambda: K1.rollout_kernel(k1_state, env.params, env.statics,
+                                             k1_T, k1_acts),
+                   10 if k1_T < 4096 else 4)
+del k1_state
 mlp = cs.seeded_policy(seed=1).cuda()
 t["K5"] = cs.cuda_ms(lambda: K5.act_rollout_kernel(
     state, mlp, env.params, env.statics, horizon), 5)
