@@ -8,10 +8,11 @@ K10, K7 (both arms' walk and its products), K11/K9, both arms of K8/K6, K3
 shared memory and their HMMA instructions, the SASS of mma.sync, which
 each must hold), holds each against
 its plain PyTorch version on the card's inputs, drives the port's paths
-through the entry points a user calls, checks what comes out, and times
+through the entry points a user calls (the megakernel trainers, the scan
+trainers and the hybrid recurrent tier), checks what comes out, and times
 each kernel beside its plain version and its bound. Exits nonzero, printing
 no result, when there is no CUDA device or a phase fails; a learning gate
-that fails (phases 10, 17, 24, 31) stops no later phase, and the script
+that fails (phases 10, 17, 24, 31, 38) stops no later phase, and the script
 then exits nonzero after them, its kernels line printed and its last line
 not.
 
@@ -184,8 +185,8 @@ Phases:
      run.lstm_hidden=256 for the LSTM and the CNN-LSTM (past K8's hidden),
      1,024 lanes x 201 steps each, finite statistics with the K5 and K8
      launch counts 0;
-     build() refuses the MLP [256, 256] (past K2 and K3) with the scan
-     trainer's NotImplementedError.
+     build() trains the MLP [256, 256] (past K2 and K3) on the scan
+     trainer and refuses it under run.rollout=pallas.
  27. K8's CNN arm (the pixel-recurrent cnn_lstm: CNNLSTMActorCritic's
      default tower, 24x24x4 render, conv0 4x4/4 -> 64, conv1 2x2/2 -> 64,
      trunk 128, into an LSTM of hidden 128; the tower and the gate block on
@@ -220,7 +221,47 @@ Phases:
      full-width cnn_lstm update split and traced as in 11 (K7 by its
      kernels: gate and tower packing, tower forward, walk, tower backward,
      products, reduction).
- 33. The bench path's kernels at the bench's own shapes, against their
+ 33. K4 past 524,288 parameters (each of its 256 blocks several slices of
+     2,048 floats): at 1,200,000 against its plain version as in 8 (rtol
+     1e-5, clip active and inactive, two launches bitwise equal); and at
+     the MLP's, the LSTM's, the CNN's and the CNN-LSTM's parameter counts
+     bitwise equal to the parent commit's K4 (sha256 of its outputs on
+     numpy-seeded inputs, K4_PARENT_DIGESTS, from scripts/k4_digests.py).
+ 34. Each scan trainer's update on the card against the same update on
+     the CPU (the plain versions) from the same weights, env state, noise
+     and permutations (numpy-seeded): the MLP ([64, 64], 1,024 envs x 8
+     steps, 2 x 2 minibatches) with shuffle="lanes", then "flat" with
+     grad_accum 2; the LSTM scan tier and the hybrid tier (K6 against its
+     plain version carrying the rollout; H 32, encoder (32,), 512 envs,
+     bptt 4); cnn_overlap (PixelActorCritic, 256 envs, grad_accum 2).
+     Every parameter tensor and its slices of mu and nu within 1e-4 x its
+     max |value|, the metrics likewise (one vector; episodes equal); each
+     update run twice on the card, bitwise equal.
+ 35. The scan paths through `cli train` on hover.toml (launch counts zeroed
+     before each, read after): run.rollout=scan, 3 updates (K4 = 96, K2 =
+     K3 = 0); run.policy=cnn_overlap train.grad_accum=16, 2 updates (K4 =
+     64, no CNN kernel); run.policy=lstm train.num_envs=65280 (510 rows of
+     128 that do not split into 8 minibatches of whole rows: the hybrid
+     tier), 1 update (K6 = 1, K4 = 32, K7 = 0); under run.rollout=auto,
+     run.hidden=256,256 and run.policy=lstm run.lstm_hidden=256, 1 update
+     each on the scan trainers (K4 = 32, no other kernel); `cli eval` of
+     each checkpoint (K5, the module, K8, the module, the module).
+ 36. Resume on the card: train(2) == train(1) + resume(1) bitwise for the
+     MLP scan trainer and cnn_overlap, both generators' states included;
+     a megakernel checkpoint restored under run.rollout=scan and the
+     reverse, parameters, moments and count bitwise as saved, then one more
+     update each.
+ 37. One hover.toml scan update split into rollout, GAE, update and
+     metrics (CUDA events at make_train_step's marks, the host clock, the
+     host syncs it makes), and traced as in 11 for the idle share.
+ 38. The trainer-equivalence gate (tests/test_trainer_equivalence.py's
+     sizes, thresholds and seeds 0 and 1): the scan and the megakernel
+     trainer of the MLP, the CNN (the default PatchCNNActorCritic, the only
+     architecture K9 and K10 take, at lr 1e-3) and the LSTM cross the same
+     hover threshold within 1.5x of each other's mean update budget; the
+     12 runs in 6 processes at once. A failure stops no later phase, as in
+     10, 17, 24 and 31.
+ 39. The bench path's kernels at the bench's own shapes, against their
      plain versions at their checks' tolerances (phase_bench_shapes): K1
      bitwise with in-kernel actions, K5, K8's both arms, K11 and K2 at
      131,072 lanes (T = 32 over 20-step episodes for K1, T = 3 for the
@@ -228,12 +269,13 @@ Phases:
      envs x 128 steps, 4 minibatches: 8.4 M samples) through K3, off the
      weights that wrote it with every branch taken, and its gradients
      through K4. The maxima join the kernels line's max_abs_err.
- 34. The bench path: `cli bench configs/hover.toml` in-process (the
+ 40. The bench path: `cli bench configs/hover.toml` in-process (the
      reference's phases and shapes, drone_tpu_torch/bench.py), with the
      launch counts zeroed just before and read just after: K1-K11 and the
      CNN arms of K6, K7 and K8 must each launch; its JSON line must hold
-     the reference's keys and "device", every ported phase a positive rate
-     and the unported scan_* phases null. Its seconds are printed.
+     the reference's keys and "device", every phase (the four scan_*
+     training phases, the scan trainers at the reference's shapes, among
+     them) a positive finite rate. Its seconds are printed.
 
 Launch counts: each wrapper counts its launches; the recurrent wrappers
 (K6, K7, K8) also count their CNN arm's alone (`cnn_launches`).
@@ -2721,7 +2763,8 @@ def cnn_lstm_policy(seed=1, log_std=-0.5):
 def phase_f5(cfg_path):
     """evaluate() on the card serves the policies its acting kernels cannot
     take through the module (the K5 and K8 counts stay 0), and build()
-    refuses an MLP that K2 and K3 cannot take."""
+    trains an MLP that K2 and K3 cannot take on the scan trainer (and
+    refuses it under run.rollout=pallas)."""
     import torch
 
     from drone_tpu_torch.train import build, build_env_and_model, evaluate
@@ -2750,13 +2793,19 @@ def phase_f5(cfg_path):
         if res["episodes"] < 1024 or not all(
                 v == v and abs(v) != float("inf") for v in res.values()):
             raise AssertionError(f"implausible evaluate stats {res}")
+    wide = Config.from_toml(cfg_path).with_overrides(["run.hidden=256,256"])
+    _, _, _, step, _ = build(wide)
     try:
-        build(Config.from_toml(cfg_path).with_overrides(
-            ["run.hidden=256,256"]))
-    except NotImplementedError as e:
-        print(f"F5: build(run.hidden=[256, 256]) refused: {e}", flush=True)
+        build(wide.with_overrides(["run.rollout=pallas"]))
+    except ValueError as e:
+        print(f"F5: build(run.hidden=[256, 256]) trains on {step.__module__}"
+              f"; with run.rollout=pallas refused: {e}", flush=True)
     else:
-        raise AssertionError("build took an MLP past K2 and K3")
+        raise AssertionError("build took an MLP past K2 and K3 on the "
+                             "megakernel trainer")
+    if step.__module__ != "drone_tpu_torch.ppo":
+        raise AssertionError(f"build(run.hidden=[256, 256]) picked "
+                             f"{step.__module__}, not the scan trainer")
 
 
 def cnn_lstm_gate_run(seed):
@@ -2912,14 +2961,14 @@ def path_bench(cfg_path):
     """The bench path: `cli bench` on hover.toml in-process, launch counts
     zeroed just before and read just after. Every kernel (both arms of K6,
     K7 and K8) must launch; its JSON line must hold the reference's keys
-    and "device", every ported phase a positive finite rate and the
-    unported ones None."""
+    and "device", every phase (the four scan_* training phases among them)
+    a positive finite rate."""
     import contextlib
     import io
 
     import torch
 
-    from drone_tpu_torch import bench, cli
+    from drone_tpu_torch import cli
 
     zero_counts()
     out = io.StringIO()
@@ -2942,12 +2991,521 @@ def path_bench(cfg_path):
         raise AssertionError(f"the bench's keys differ from the reference's: "
                              f"{list(res)}, {list(res['secondary'])}")
     for key, v in [("value", res["value"]), *res["secondary"].items()]:
-        if key in bench.UNPORTED:
-            if v is not None:
-                raise AssertionError(f"unported bench phase {key} gave {v}")
-        elif not (isinstance(v, float) and math.isfinite(v) and v > 0):
+        if not (isinstance(v, float) and math.isfinite(v) and v > 0):
             raise AssertionError(f"bench phase {key} gave {v}")
     return res, bench_counts, seconds
+
+
+# ---------------------------------------------------------------------------
+# The scan trainers: autograd PPO over the policy modules, K4 as their
+# optimizer, and the hybrid recurrent tier (K6's rollout, autograd update)
+# ---------------------------------------------------------------------------
+
+# K4's parameter counts at the policy families' default widths, and the
+# wide case past ADAM_MAX_BLOCKS one-slice blocks (an LSTM of hidden 512
+# has 1,185,161)
+K4_FAMILY_P = {"mlp": 10441, "lstm": 100361, "cnn": 95113, "cnn_lstm": 226697}
+K4_WIDE_P = 1_200_000
+# sha256 (first 16 hex digits) of K4's outputs (theta, mu, nu, count) on
+# k4_inputs(P) for the clip active and inactive, from the K4 of the commit
+# before its envelope grew past 524,288 parameters (one slice a block;
+# scripts/k4_digests.py on that commit's git archive, NVIDIA H100 80GB
+# HBM3, 700 W): the widened K4 must give them bit for bit
+K4_PARENT_DIGESTS = {
+    "mlp": ["25645d727ad1b8bb", "07752f1c5e69dc1f"],
+    "lstm": ["8a5869ffa2019d7b", "57c630dcc6075d94"],
+    "cnn": ["ca0c22783788e52b", "5cd7d8fa13f3e818"],
+    "cnn_lstm": ["743cdab97caeae9a", "0299929d857f5cd9"],
+}
+
+
+def k4_inputs(P: int):
+    """K4's seeded inputs at P, made with numpy (the same bits on any
+    machine): theta, gradients whose norm the clip cuts, mu, nu."""
+    import numpy as np
+
+    rng = np.random.default_rng(P)
+    theta = rng.random(P, dtype=np.float32) - np.float32(0.5)
+    grads = (rng.random(P, dtype=np.float32) - np.float32(0.5)) * np.float32(
+        0.2)
+    mu = (rng.random(P, dtype=np.float32) - np.float32(0.5)) * np.float32(0.02)
+    nu = rng.random(P, dtype=np.float32) * np.float32(0.001)
+    return theta, grads, mu, nu
+
+
+def k4_digests(P: int) -> list:
+    """[digest with the clip active, with it inactive] of K4's outputs on
+    k4_inputs(P) at step count 5, lr 3e-4 annealed over 2,400 steps."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from drone_tpu_torch.ops import cuda_update as K4
+
+    theta, grads, mu, nu = k4_inputs(P)
+    out = []
+    for scale in (1.0, 0.25 * 0.5 / float(np.linalg.norm(grads))):
+        t = [torch.from_numpy(x).cuda() for x in (theta, grads * np.float32(
+            scale), mu, nu)]
+        count = torch.full((), 5.0, device="cuda")
+        K4.fused_adam_kernel(t[0], t[1], t[2], t[3], count, K4.AdamConsts(),
+                             K4.LrSchedule(3e-4, 2400, True), [P])
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for x in (t[0], t[2], t[3], count):
+            h.update(x.cpu().numpy().tobytes())
+        out.append(h.hexdigest()[:16])
+    return out
+
+
+def phase_k4_wide(cfg) -> float:
+    """K4 at K4_WIDE_P (each block several slices) against its plain
+    version as check_k4 holds it, and at each family's P bitwise equal to
+    the parent's K4 (K4_PARENT_DIGESTS). Returns the max abs error."""
+    import torch
+
+    from drone_tpu_torch.ops import cuda_update as K4
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    flat = 0.1 * torch.randn(K4_WIDE_P, device="cuda", generator=g)
+    order = [("a", (K4_WIDE_P - 200_000,)), ("b", (200_000,))]
+    slices = len(K4.adam_slices(K4_WIDE_P))
+    err, _ = check_k4(flat, order, cfg, f"a wide buffer ({slices} slices)")
+    for family, P in K4_FAMILY_P.items():
+        got = k4_digests(P)
+        want = K4_PARENT_DIGESTS.get(family)
+        print(f"K4 at the {family} P ({P}): digests {got}, the parent's "
+              f"{want}", flush=True)
+        if got != want:
+            raise AssertionError(f"K4 at the {family} P differs from the "
+                                 f"parent's K4")
+    return err
+
+
+def _scan_case(name):
+    """(model on the CPU from its seed, PPOConfig, recurrent tier or None)
+    of a card-against-CPU scan update case."""
+    import torch
+
+    from drone_tpu_torch.models import (
+        ActorCritic,
+        LSTMActorCritic,
+        PixelActorCritic,
+    )
+    from drone_tpu_torch.ppo import PPOConfig
+
+    gen = torch.Generator().manual_seed(7)
+    base = dict(horizon=8, num_envs=1024, epochs=2, num_minibatches=2,
+                anneal_lr=True, total_updates=10)
+    if name == "MLP lanes":
+        return ActorCritic((64, 64), generator=gen), PPOConfig(**base), None
+    if name == "MLP flat, grad_accum 2":
+        return (ActorCritic((64, 64), generator=gen),
+                PPOConfig(shuffle="flat", grad_accum=2, **base), None)
+    rnn = dict(base, num_envs=512, bptt_horizon=4)
+    if name == "LSTM scan":
+        return LSTMActorCritic(32, (32,), generator=gen), PPOConfig(**rnn), \
+            "scan"
+    if name == "hybrid (K6)":
+        return LSTMActorCritic(32, (32,), generator=gen), PPOConfig(**rnn), \
+            "pallas"
+    return (PixelActorCritic(generator=gen),
+            PPOConfig(grad_accum=2, **dict(base, num_envs=256)), None)
+
+
+SCAN_CASES = ("MLP lanes", "MLP flat, grad_accum 2", "LSTM scan",
+              "hybrid (K6)", "cnn_overlap")
+
+
+def scan_update(name, device, draws):
+    """One update of a scan case on `device` from the case's weights, env
+    state, noise and permutations (draws: (noise (T, N, 4), perms)):
+    (runner after it, metrics)."""
+    import torch
+
+    from drone_tpu_torch import ppo, ppo_rnn
+    from drone_tpu_torch.env import DroneEnv
+
+    model, cfg, tier = _scan_case(name)
+    env = DroneEnv(device=device)
+    noise, perms = draws
+    kw = dict(permutations=lambda r: perms,
+              noise=lambda r: torch.from_numpy(noise).to(device))
+    if tier is None:
+        runner = ppo.init_runner(model, env, cfg, seed=3)
+        step = ppo.make_train_step(model, env, cfg, **kw)
+    else:
+        runner = ppo_rnn.init_recurrent_runner(model, env, cfg, seed=3)
+        step = ppo_rnn.make_recurrent_train_step(model, env, cfg,
+                                                 rollout=tier, **kw)
+    return step(runner)
+
+
+def phase_scan_vs_cpu() -> float:
+    """Each scan trainer's update on the card against the same update on
+    the CPU (the plain versions: K4's, and K6's for the hybrid tier), from
+    the same weights, env state, noise and permutations: every parameter
+    tensor and its slices of mu and nu within 1e-4 x its max |value|, the
+    metrics likewise (as one vector, episodes equal); the update run twice
+    on the card, bitwise equal. Returns the largest error over the
+    tolerance's scale."""
+    import numpy as np
+    import torch
+
+    from drone_tpu_torch.ppo import METRIC_KEYS
+
+    worst = 0.0
+    for name in SCAN_CASES:
+        _, cfg, _ = _scan_case(name)
+        rng = np.random.default_rng(5)
+        noise = rng.standard_normal((cfg.horizon, cfg.num_envs, 4),
+                                    dtype=np.float32)
+        n = cfg.num_envs * (cfg.horizon if cfg.shuffle == "flat" else 1)
+        perms = np.stack([rng.permutation(n) for _ in range(cfg.epochs)])
+        t0 = time.time()
+        card, m_card = scan_update(name, "cuda", (noise, perms))
+        again, m_again = scan_update(name, "cuda", (noise, perms))
+        torch.cuda.synchronize()
+        t_card = time.time() - t0
+        cpu, m_cpu = scan_update(name, "cpu", (noise, perms))
+        check_repeat(f"{name} update", [card.params.flat, *card.opt_state,
+                                        *m_card.values()],
+                     [again.params.flat, *again.opt_state,
+                      *m_again.values()])
+        err = 0.0
+        off = 0
+        for pname, shape in card.params.kernel_order():
+            k = math.prod(shape)
+            for what, a, b in (("param", card.params.flat, cpu.params.flat),
+                               ("mu", card.opt_state[1], cpu.opt_state[1]),
+                               ("nu", card.opt_state[2], cpu.opt_state[2])):
+                a, b = a[off:off + k].cpu(), b[off:off + k]
+                scale = float(b.abs().max()) or 1.0
+                e = float((a - b).abs().max()) / scale
+                if e > 1e-4:
+                    raise AssertionError(f"{name}: {what} {pname} differs "
+                                         f"from the CPU's by {e:.3g} of its "
+                                         f"max")
+                err = max(err, e)
+            off += k
+        if float(m_card["episodes"]) != float(m_cpu["episodes"]):
+            raise AssertionError(f"{name}: episodes differ from the CPU's")
+        keys = [k for k in METRIC_KEYS if k != "episodes"]
+        a = torch.stack([m_card[k].cpu() for k in keys])
+        b = torch.stack([m_cpu[k] for k in keys])
+        e = float((a - b).abs().max()) / float(b.abs().max())
+        if e > 1e-4:
+            raise AssertionError(f"{name}: metrics differ from the CPU's by "
+                                 f"{e:.3g} of their max: {a} {b}")
+        err = max(err, e)
+        worst = max(worst, err)
+        print(f"scan update {name} ({cfg.num_envs} envs x {cfg.horizon} "
+              f"steps, {cfg.epochs} x {cfg.num_minibatches} minibatches): "
+              f"card against CPU within {err:.3g} of each tensor's max; two "
+              f"card updates bitwise equal ({t_card:.2f} s for both)",
+              flush=True)
+    return worst
+
+
+# the hybrid path's updates: 1, cut from 2 when the whole script ran past
+# 720 s (771 s on an H100); the equivalence gate's CNN pair keeps both seeds, as its
+# runs share the card at once and seed 1 adds no time
+HYBRID_UPDATES = 1
+
+
+def path_scan_training(cfg_path, tmp) -> dict:
+    """The scan paths through `cli train` on hover.toml, launch counts
+    zeroed before each run and read after, then `cli eval` of each
+    checkpoint: run.rollout=scan for 3 updates (K4 96 times, K2 and K3
+    never); run.policy=cnn_overlap with grad_accum 16 for 2 (K4 64 times,
+    no CNN kernel); run.policy=lstm at 65,280 envs (510 rows of 128: 8
+    minibatches of 8,160 lanes are not whole rows, so K7 refuses and the
+    hybrid tier trains) for HYBRID_UPDATES (K6 once an update, K4, no K7);
+    and under run.rollout=auto the runs no kernel tier takes, an MLP [256,
+    256] and an LSTM of hidden 256, 1 update each on the scan trainers
+    (K4 32 times, no other kernel), served by the module. Returns {run:
+    launch counts}."""
+    import torch
+
+    from drone_tpu_torch import cli
+
+    out = {}
+    # (run, overrides, its launch counts, the launch counts of cli eval)
+    runs = (
+        ("scan", ["run.rollout=scan", "run.total_updates=3"],
+         {"K4": 96, "K2": 0, "K3": 0}, {"K5": 1}),
+        ("cnn_overlap", ["run.policy=cnn_overlap", "train.grad_accum=16",
+                         "run.total_updates=2"],
+         {"K4": 64, "K9": 0, "K10": 0, "K11": 0}, {"K11": 0}),
+        ("hybrid", ["run.policy=lstm", "train.num_envs=65280",
+                    f"run.total_updates={HYBRID_UPDATES}"],
+         {"K6": HYBRID_UPDATES, "K4": 32 * HYBRID_UPDATES, "K7": 0},
+         {"K8": 1}),
+        ("mlp256", ["run.hidden=256,256", "run.total_updates=1"],
+         {"K4": 32, "K2": 0, "K3": 0}, {"K5": 0}),
+        ("lstm256", ["run.policy=lstm", "run.lstm_hidden=256",
+                     "run.total_updates=1"],
+         {"K4": 32, "K6": 0, "K7": 0}, {"K8": 0}),
+    )
+    for name, over, want, want_eval in runs:
+        over = [*over, f"run.checkpoint_dir={tmp}", f"run.run_name={name}"]
+        zero_counts()
+        t0 = time.time()
+        rc = cli.main(["train", str(cfg_path), *over])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        c = counts()
+        last = json.loads((Path(tmp) / name / "metrics.jsonl").read_text()
+                          .splitlines()[-1])
+        print(f"scan path {name}: cli train hover.toml {over[:-2]} rc={rc} in "
+              f"{seconds:.1f} s; launches {c}; last {last}", flush=True)
+        if rc != 0 or any(c[k] != v for k, v in want.items()):
+            raise AssertionError(f"the {name} path launched {c}, expected "
+                                 f"{want}")
+        if not all(math.isfinite(last[k]) for k in ("loss", "v_loss",
+                                                     "reward_mean")):
+            raise AssertionError(f"the {name} path's metrics are not finite")
+        zero_counts()
+        rc = cli.main(["eval", str(cfg_path), *over[:-2],
+                       f"run.resume_from={tmp}/{name}/checkpoints"])
+        torch.cuda.synchronize()
+        ce = counts()
+        print(f"scan path {name}: cli eval of its checkpoint rc={rc}; "
+              f"launches {ce}", flush=True)
+        if rc != 0 or any(ce[k] != v for k, v in want_eval.items()):
+            raise AssertionError(f"cli eval of the {name} checkpoint: rc {rc}"
+                                 f", launches {ce}, expected {want_eval}")
+        out[name] = c
+    return out
+
+
+def phase_scan_resume(tmp):
+    """Resume on the card: train(2) == train(1) + resume(1) bitwise for the
+    MLP scan trainer and for cnn_overlap (every tensor of the runner, both
+    generators' states); and a megakernel checkpoint restored under
+    run.rollout=scan, and a scan one under the megakernel, with the
+    parameters, the moments and the count as saved, bitwise, each then
+    trained one more update."""
+    import torch
+
+    from drone_tpu_torch.train import build, train
+    from drone_tpu_torch.utils.checkpoint import Checkpointer
+    from drone_tpu_torch.utils.config import Config
+
+    def cfg_for(name, total, extra=()):
+        return Config.default().with_overrides([
+            "train.num_envs=4096", "train.horizon=16", "train.epochs=2",
+            "train.num_minibatches=2", "run.hidden=32,32",
+            "run.log_interval=1", f"run.total_updates={total}",
+            f"run.run_name={name}", f"run.checkpoint_dir={tmp}", *extra])
+
+    def tensors(r):
+        return [*r.params.state_dict().values(), *r.opt_state,
+                r.env_state.fstate(), r.env_state.step,
+                r.generator.get_state(), r.noise_generator.get_state()]
+
+    overlap = ["run.policy=cnn_overlap", "train.num_envs=1024",
+               "train.horizon=8", "train.epochs=1", "train.grad_accum=2"]
+    for label, extra in (("MLP scan", ["run.rollout=scan"]),
+                         ("cnn_overlap", overlap)):
+        tag = label.split()[0].lower()
+        full, _ = train(cfg_for(f"{tag}_full", 2, extra))
+        train(cfg_for(f"{tag}_half", 1, extra))
+        resumed, _ = train(cfg_for(f"{tag}_resumed", 2, [
+            *extra, f"run.resume_from={tmp}/{tag}_half/checkpoints"]))
+        torch.cuda.synchronize()
+        ok = all(bitwise_equal(a, b) for a, b in zip(tensors(full),
+                                                     tensors(resumed)))
+        print(f"{label} resume on the card: train(2) == train(1) + "
+              f"resume(1) bitwise: {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"{label} resume is not bitwise on the card")
+    for first, then in (("pallas", "scan"), ("scan", "pallas")):
+        saved, _ = train(cfg_for(f"x_{first}", 1, [f"run.rollout={first}"]))
+        ckpt = f"{tmp}/x_{first}/checkpoints"
+        _, _, template, _, _ = build(cfg_for(f"y_{then}", 2, [
+            f"run.rollout={then}"]))
+        restored, _ = Checkpointer(ckpt).restore(template)
+        ok = (all(bitwise_equal(a, b) for a, b in zip(restored.opt_state,
+                                                      saved.opt_state))
+              and bitwise_equal(restored.params.flat, saved.params.flat))
+        resumed, last = train(cfg_for(f"y_{then}", 2, [
+            f"run.rollout={then}", f"run.resume_from={ckpt}"]))
+        torch.cuda.synchronize()
+        print(f"a {first} checkpoint restored under run.rollout={then}: "
+              f"parameters, moments and count bitwise as saved: {ok}; "
+              f"count after one more update {float(resumed.opt_state[0])}, "
+              f"loss {last['loss']:.6g}", flush=True)
+        if not ok or float(resumed.opt_state[0]) != 8.0:
+            raise AssertionError(f"a {first} checkpoint did not carry over "
+                                 f"under run.rollout={then}")
+
+
+def split_scan_update(cfg) -> dict:
+    """One warm hover.toml update of the scan trainer (run.rollout=scan),
+    split into rollout, GAE, update and metrics by CUDA events at
+    make_train_step's phase marks and by the host clock, with the host
+    syncs torch's sync check reports while it queues; then one more
+    update traced (trace_update) for the device's busy time and idle
+    share."""
+    import warnings
+
+    import torch
+
+    from drone_tpu_torch import ppo
+    from drone_tpu_torch.train import build
+
+    env, model, runner, _, bcfg = build(cfg.with_overrides(
+        ["run.rollout=scan"]))
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev, time.perf_counter()))
+
+    step = ppo.make_train_step(model, env, bcfg.train, on_phase=mark)
+    runner, m = step(runner)  # warm-up
+    float(m["loss"])
+    marks.clear()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            runner, m = step(runner)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t_queued = time.perf_counter()
+    float(m["loss"])
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    tc = bcfg.train
+    split = {"wall_ms": wall_ms,
+             "samples_per_s": tc.num_envs * tc.horizon / wall_ms * 1e3,
+             "host_queue_ms": (t_queued - t0) * 1e3,
+             "host_syncs": sum("called a synchronizing" in str(w.message)
+                               for w in caught)}
+    for (name, e0, h0), (_, e1, h1) in zip(marks, marks[1:]):
+        split[f"{name}_device_ms"] = e0.elapsed_time(e1)
+        split[f"{name}_host_ms"] = (h1 - h0) * 1e3
+    print(f"one scan update at hover.toml's shape: {split}", flush=True)
+    print(f"the same scan update traced: "
+          f"{trace_update(step, runner, 'mlp')}", flush=True)
+    return split
+
+
+# the trainer-equivalence gate (tests/test_trainer_equivalence.py at its
+# sizes, thresholds and seeds): the scan trainer and the megakernel trainer
+# of each family cross the same hover threshold (a 5-update mean of the
+# mean reward) within EQUIV_RATIO of each other's mean update budget.
+# {family: (PPOConfig fields, threshold, most updates)}. The CNN pair runs
+# the default PatchCNNActorCritic, the only architecture K9 and K10 take
+# (the reference's test shrinks it to res 8, patches 2 x 2, channels 16,
+# hidden 32), at the port's CNN learning gate's lr for that architecture
+# (phase 24's 1e-3; the reference's 3e-3 is for its tiny CNN)
+EQUIV_RATIO = 1.5
+EQUIV_SEEDS = (0, 1)
+EQUIV = {
+    "mlp": (dict(horizon=32, num_envs=512, epochs=4, num_minibatches=4,
+                 lr=3e-3, ent_coef=0.0), 0.3, 120),
+    "cnn": (dict(horizon=32, num_envs=256, epochs=4, num_minibatches=2,
+                 lr=1e-3, ent_coef=0.0), 0.2, 160),
+    "lstm": (dict(horizon=32, num_envs=256, epochs=4, num_minibatches=2,
+                  lr=5e-3, ent_coef=0.0, bptt_horizon=16), 0.2, 160),
+}
+# the gate's runs go to this many processes at once (each run is a few
+# hundred lanes, bound by the host's Python)
+EQUIV_PROCS = 6
+
+
+def updates_to_threshold(step, runner, threshold, max_updates):
+    """Updates until the 5-update mean of the mean reward passes
+    `threshold`, or None within max_updates."""
+    window = []
+    for u in range(max_updates):
+        runner, m = step(runner)
+        window.append(float(m["reward_mean"]))
+        if len(window) >= 5 and sum(window[-5:]) / 5 > threshold:
+            return u + 1
+    return None
+
+
+def equivalence_run(task):
+    """One run of the gate, task = (family, trainer, seed, PPOConfig
+    fields, threshold, most updates): updates_to_threshold of that
+    trainer from the model and runner of that seed."""
+    import torch
+
+    from drone_tpu_torch import ppo, ppo_cnn_cuda, ppo_cuda, ppo_rnn
+    from drone_tpu_torch import ppo_rnn_cuda
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.models import (
+        ActorCritic,
+        LSTMActorCritic,
+        PatchCNNActorCritic,
+    )
+    from drone_tpu_torch.ppo import PPOConfig
+
+    family, trainer, seed, fields, threshold, most = task
+    env, cfg = DroneEnv(device="cuda"), PPOConfig(**fields)
+    gen = torch.Generator().manual_seed(seed)
+    if family == "lstm":
+        model = LSTMActorCritic(32, (32,), generator=gen)
+        runner = ppo_rnn.init_recurrent_runner(model, env, cfg, seed=seed)
+        step = (ppo_rnn.make_recurrent_train_step(model, env, cfg)
+                if trainer == "scan" else
+                ppo_rnn_cuda.make_rnn_train_step(env, cfg))
+    else:
+        model = (ActorCritic((32, 32), generator=gen) if family == "mlp"
+                 else PatchCNNActorCritic(generator=gen))
+        runner = ppo.init_runner(model, env, cfg, seed=seed)
+        kernel = (ppo_cuda.make_train_step if family == "mlp"
+                  else ppo_cnn_cuda.make_cnn_train_step)
+        step = (ppo.make_train_step(model, env, cfg) if trainer == "scan"
+                else kernel(env, cfg))
+    return updates_to_threshold(step, runner, threshold, most)
+
+
+def equivalence_budgets(tasks) -> list:
+    """equivalence_run of each task, EQUIV_PROCS processes at a time
+    (spawned, each on the card; all stopped before this returns)."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(EQUIV_PROCS) as pool:
+        return pool.map(equivalence_run, tasks, chunksize=1)
+
+
+def phase_trainer_equivalence(tmp):
+    """The trainer-equivalence gate for the MLP, the CNN and the LSTM: each
+    trainer crosses its family's threshold from every seed, and the mean
+    budgets agree within EQUIV_RATIO. A failure is raised after all three
+    families have been read."""
+    del tmp
+    # the slow families first, so the processes finish together
+    tasks = [(family, trainer, seed, *EQUIV[family])
+             for family in ("lstm", "cnn", "mlp")
+             for trainer in ("scan", "megakernel") for seed in EQUIV_SEEDS]
+    t0 = time.time()
+    results = dict(zip([t[:3] for t in tasks], equivalence_budgets(tasks)))
+    failures = []
+    for family in EQUIV:
+        b = {trainer: [results[family, trainer, seed] for seed in EQUIV_SEEDS]
+             for trainer in ("scan", "megakernel")}
+        crossed = all(n is not None for ns in b.values() for n in ns)
+        means = [sum(ns) / len(ns) for ns in b.values()] if crossed else []
+        ratio = max(means) / min(means) if crossed else float("inf")
+        print(f"trainer equivalence {family} ({EQUIV[family]}): updates to "
+              f"the threshold from seeds {EQUIV_SEEDS} {b}, ratio "
+              f"{ratio:.3f}", flush=True)
+        if ratio > EQUIV_RATIO:
+            failures.append(family)
+    print(f"trainer equivalence: {len(tasks)} runs in {EQUIV_PROCS} "
+          f"processes, {time.time() - t0:.1f} s", flush=True)
+    if failures:
+        raise AssertionError(f"the trainer-equivalence gate failed for "
+                             f"{failures}")
 
 
 class Laps:
@@ -3255,6 +3813,23 @@ def main() -> int:
                          cnn_lstm_policy(seed=2, log_std=0.0),
                          plain_depths=(10, 16))
     lap("K8, K6, K7 cnn times, cnn_lstm update")
+    # -- the scan trainers, the hybrid tier and K4's wider envelope -------
+    k4_wide_err = phase_k4_wide(cfg)
+    lap("K4 wide check, parent digests")
+    scan_err = phase_scan_vs_cpu()
+    lap("scan updates, card against CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        scan_counts = path_scan_training(cfg_path, tmp)
+        lap("scan, cnn_overlap and hybrid paths")
+        phase_scan_resume(tmp)
+        lap("scan resume, across trainers")
+    scan_times = split_scan_update(cfg)
+    lap("scan update split")
+    gate(phase_trainer_equivalence, None)
+    lap("trainer equivalence gate")
+    print(f"scan slice: card against CPU within {scan_err:.3g} of each "
+          f"tensor's max; path launches {scan_counts}; hover.toml scan "
+          f"update {scan_times}", flush=True)
     bench_err = phase_bench_shapes(cfg, env)
     lap("bench shapes check")
     path_bench(cfg_path)
@@ -3287,7 +3862,7 @@ def main() -> int:
               max(k3_err, bench_err["K3"]), *times["K3"]),
         entry("K4 fused clip+adam", "drone_tpu_torch/csrc/update.cu",
               "drone_tpu/ops/pallas_update.py:456", train_counts["K4"],
-              max(k4_err, k4_lstm_err, k4_cnn_err, k4_cl_err,
+              max(k4_err, k4_lstm_err, k4_cnn_err, k4_cl_err, k4_wide_err,
                   bench_err["K4"]), *times["K4"]),
         entry("K5 MLP acting", "drone_tpu_torch/csrc/acting.cu",
               "drone_tpu/ops/pallas_acting.py:109", serve_counts["K5"],

@@ -18,9 +18,12 @@ Deliberate deviations from the reference:
   - the policies' weights are the port's own seeded initialisation (seed 0,
     a torch.Generator), not flax's, so episode lengths, and with them the
     acting kernels' reset rates, differ from the reference's;
-  - a ported phase that raises makes the bench raise: no phase of a kernel
-    is hidden behind None. Only the phases of UNPORTED, whose trainer is
-    not ported yet, report None.
+  - a phase that raises makes the bench raise: no phase is hidden behind
+    None;
+  - the scan_* training phases run the port's scan trainers
+    (`ppo.make_train_step`, `ppo_rnn.make_recurrent_train_step`): autograd
+    through the policy module with K4 as the optimizer, where the reference
+    runs its XLA scan trainer with optax.
 """
 
 from __future__ import annotations
@@ -32,13 +35,14 @@ import time
 
 import torch
 
-from drone_tpu_torch import ppo_cnn_cuda, ppo_cuda, ppo_rnn_cuda
+from drone_tpu_torch import ppo, ppo_cnn_cuda, ppo_cuda, ppo_rnn, ppo_rnn_cuda
 from drone_tpu_torch.env import DroneEnv
 from drone_tpu_torch.models import (
     ActorCritic,
     CNNLSTMActorCritic,
     LSTMActorCritic,
     PatchCNNActorCritic,
+    PixelActorCritic,
 )
 from drone_tpu_torch.ops import (
     act_rollout_cuda,
@@ -54,15 +58,6 @@ from drone_tpu_torch.types import resolve_device
 
 REPEATS = 3
 SEED = 0
-
-# the reference's phases whose trainer is still to port: None in the JSON
-UNPORTED = {
-    "scan_train_sps_64k": "the scan trainer",
-    "scan_lstm_train_sps_64k": "the recurrent scan trainer",
-    "scan_cnn_train_sps_4k": "the scan trainer",
-    "scan_cnn_overlap_train_sps_64k": "the scan trainer (cnn_overlap)",
-}
-UNPORTED_ITEM = "ROADMAP.md, module queue 1 item 2"
 
 
 def measure(run_iters, sync, steps_per_repeat):
@@ -265,9 +260,57 @@ def bench_train_cnn(env, N=65536, T=128, iters=4):
     return _bench_train(mk, N, T, iters)
 
 
+def _bench_scan(env, model_cls, N, T, iters, **extra):
+    """A feed-forward scan-trainer phase: model_cls from the bench's seed,
+    4 epochs x 4 minibatches."""
+    cfg = _ppo_config(N, T, **extra)
+
+    def mk():
+        model = model_cls(generator=_generator())
+        return (ppo.init_runner(model, env, cfg, seed=SEED),
+                ppo.make_train_step(model, env, cfg))
+
+    return _bench_train(mk, N, T, iters)
+
+
+def bench_train_scan(env, N=65536, T=128, iters=4):
+    """The MLP scan PPO train step (the policy module's rollout, GAE,
+    autograd update, K4) at bench_train's shape: the denominator of the
+    megakernel-over-scan ratio."""
+    return _bench_scan(env, ActorCritic, N, T, iters)
+
+
+def bench_train_rnn_scan(env, N=65536, T=128, bptt=16, iters=2):
+    """The recurrent scan PPO train step (segmented_forward truncated BPTT
+    by autograd, K4) at bench_train_rnn's shape."""
+    cfg = _ppo_config(N, T, bptt_horizon=bptt)
+
+    def mk():
+        model = LSTMActorCritic(generator=_generator())
+        return (ppo_rnn.init_recurrent_runner(model, env, cfg, seed=SEED),
+                ppo_rnn.make_recurrent_train_step(model, env, cfg))
+
+    return _bench_train(mk, N, T, iters)
+
+
+def bench_train_cnn_scan(env, N=4096, T=128, iters=4):
+    """The scan PPO train step with the patch-CNN policy at the reference's
+    4,096 envs: the CNN megakernel's denominator (cnn_train_sps_4k)."""
+    return _bench_scan(env, PatchCNNActorCritic, N, T, iters)
+
+
+def bench_train_cnn_overlap_scan(env, N=65536, T=128, iters=2,
+                                 grad_accum=16):
+    """The scan PPO train step with the overlapping-conv PixelActorCritic
+    at 65,536 envs, each minibatch's forward and backward in grad_accum
+    chunks (run.policy=cnn_overlap has no megakernel)."""
+    return _bench_scan(env, PixelActorCritic, N, T, iters,
+                       grad_accum=grad_accum)
+
+
 def phases(env) -> list:
-    """[(key, phase returning its per-repeat rates, or None for a phase of
-    UNPORTED)] in the reference's order; hover/euler runs every phase."""
+    """[(key, phase returning its per-repeat rates)] in the reference's
+    order; hover/euler runs every phase."""
     out = [
         ("acting_megakernel_sps",
          lambda: bench_acting_megakernel(env)),
@@ -283,20 +326,24 @@ def phases(env) -> list:
         ("cnn_lstm_acting_sps",
          lambda: bench_cnn_lstm_acting(env)),
         ("train_sps_64k", lambda: bench_train(env, N=65536)),
-        ("scan_train_sps_64k", None),
+        ("scan_train_sps_64k",
+         lambda: bench_train_scan(env, N=65536)),
         ("train_sps_262k",
          lambda: bench_train(env, N=262144)),
         ("lstm_train_sps_64k",
          lambda: bench_train_rnn(env, N=65536)),
-        ("scan_lstm_train_sps_64k", None),
+        ("scan_lstm_train_sps_64k",
+         lambda: bench_train_rnn_scan(env, N=65536)),
         ("cnn_lstm_train_sps_64k",
          lambda: bench_train_rnn(env, N=65536, iters=3, policy="cnn_lstm")),
         ("cnn_train_sps_64k",
          lambda: bench_train_cnn(env, N=65536)),
         ("cnn_train_sps_4k",
          lambda: bench_train_cnn(env, N=4096)),
-        ("scan_cnn_train_sps_4k", None),
-        ("scan_cnn_overlap_train_sps_64k", None),
+        ("scan_cnn_train_sps_4k",
+         lambda: bench_train_cnn_scan(env, N=4096)),
+        ("scan_cnn_overlap_train_sps_64k",
+         lambda: bench_train_cnn_overlap_scan(env, N=65536)),
     ]
     return out
 
@@ -315,12 +362,9 @@ def device_name(device) -> str:
 
 def result(task, device, mega, mega_spread, rates) -> dict:
     """The JSON object: the reference's keys and "device". rates: {key:
-    per-repeat rates, or None for a phase of UNPORTED}."""
+    per-repeat rates}."""
     secondary, spread = {}, {"headline": round(mega_spread, 4)}
     for key, r in rates.items():
-        if r is None:
-            secondary[key] = spread[key] = None
-            continue
         m, s = med_spread(r)
         secondary[key] = round(m, 1)
         spread[key] = round(s, 4)
@@ -351,11 +395,6 @@ def main(cfg=None, device="cuda") -> dict:
     mega, mega_spread = med_spread(bench_megakernel(env))
     rates = {}
     for key, fn in phases(env):
-        if fn is None:
-            print(f"secondary bench {key}: not ported yet ({UNPORTED[key]}, "
-                  f"{UNPORTED_ITEM})", file=sys.stderr)
-            rates[key] = None
-            continue
         rates[key] = fn()
         print(f"secondary bench {key}: {med_spread(rates[key])[0] / 1e6:.2f}M"
               f" steps/s", file=sys.stderr, flush=True)

@@ -62,9 +62,10 @@
 // short dependent chains between barriers (PERF.md).
 //
 // K4 design: one cooperative launch over a grid fixed by the buffer's
-// length P alone (ceil(P / ADAM_SLICE) blocks of 256 threads, each block a
-// fixed slice of 2,048 floats read as float4): each block writes its
-// slice's sum of squares to a scratch float, the grid meets at one barrier
+// length P alone (min(ceil(P / ADAM_SLICE), 256) blocks of 256 threads,
+// each block the fixed slices b, b + G, ... of 2,048 floats read as float4,
+// one slice a block up to 524,288 parameters): each block writes its
+// slices' sum of squares to a scratch float, the grid meets at one barrier
 // (cooperative_groups grid sync: every block is resident), and every warp
 // then adds the block sums in block order, so every block scales by the
 // same clip factor bit for bit, and updates its slice. The sums' order is
@@ -666,8 +667,11 @@ __global__ void reduce_kernel(const float* __restrict__ partial, int G, int P,
 
 constexpr int ADAM_THREADS = 256;
 constexpr int ADAM_SLICE = 8 * ADAM_THREADS;  // floats a block, 8 a thread
-// the most blocks of a launch: 2 an SM of an H100 are co-resident
+// the most blocks of a launch: 2 an SM of an H100 are co-resident; a larger
+// buffer gives each block several slices
 constexpr int ADAM_MAX_BLOCKS = 256;
+// the largest buffer: slice offsets stay within int
+constexpr int ADAM_MAX_P = 1 << 30;
 
 struct AdamC {
   float lr, total_steps, b1, b2, eps, clip, log_b1, log_b2;
@@ -681,13 +685,98 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Block b owns the slice [b ADAM_SLICE, (b + 1) ADAM_SLICE) of the buffer;
-// thread t its floats 4 t + 4 ADAM_THREADS h .. + 3 (h = 0, 1), read as
-// float4 when the buffers are aligned. Phase 1: the block's sum of squares
-// (each thread's 8 in order, warp butterflies, the warps in order) into
-// part[b]. The grid's barrier. Phase 2: every warp of every block adds
-// part[0 .. G) in the same fixed order, so all get the same norm bit for
-// bit; then the adam update of the thread's floats.
+// The four floats at e of the buffers, as float4 when the buffers are
+// aligned and all four lie in [0, P), else one at a time (0 past P).
+__device__ __forceinline__ void adam_load(
+    const float* __restrict__ theta, const float* __restrict__ grads,
+    const float* __restrict__ mu, const float* __restrict__ nu, int e, int P,
+    bool vec, float* g, float* m, float* v, float* w) {
+  if (vec && e + 3 < P) {
+    const float4 a = *reinterpret_cast<const float4*>(grads + e);
+    const float4 b = *reinterpret_cast<const float4*>(mu + e);
+    const float4 c = *reinterpret_cast<const float4*>(nu + e);
+    const float4 d = *reinterpret_cast<const float4*>(theta + e);
+    g[0] = a.x; g[1] = a.y; g[2] = a.z; g[3] = a.w;
+    m[0] = b.x; m[1] = b.y; m[2] = b.z; m[3] = b.w;
+    v[0] = c.x; v[1] = c.y; v[2] = c.z; v[3] = c.w;
+    w[0] = d.x; w[1] = d.y; w[2] = d.z; w[3] = d.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool in = e + k < P;
+      g[k] = in ? grads[e + k] : 0.0f;
+      m[k] = in ? mu[e + k] : 0.0f;
+      v[k] = in ? nu[e + k] : 0.0f;
+      w[k] = in ? theta[e + k] : 0.0f;
+    }
+  }
+}
+
+// The squares of a slice's gradient floats the thread owns (8, in order).
+__device__ __forceinline__ float adam_squares(const float* __restrict__ grads,
+                                              int s, int P, bool vec) {
+  float ss = 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int e = s * ADAM_SLICE + 4 * (threadIdx.x + h * ADAM_THREADS);
+    float g[4];
+    if (vec && e + 3 < P) {
+      const float4 a = *reinterpret_cast<const float4*>(grads + e);
+      g[0] = a.x; g[1] = a.y; g[2] = a.z; g[3] = a.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) g[k] = e + k < P ? grads[e + k] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ss = ss + g[k] * g[k];
+  }
+  return ss;
+}
+
+struct AdamStep {
+  float scale, lr, bc1, bc2;
+};
+
+// The adam update of four floats at e, written back as they were read.
+__device__ __forceinline__ void adam_apply(
+    float* __restrict__ theta, float* __restrict__ mu, float* __restrict__ nu,
+    int e, int P, bool vec, const AdamC& ac, const AdamStep& st,
+    const float* g, float* m, float* v, float* w) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float gc = g[k] * st.scale;
+    const float mu2 = ac.b1 * m[k] + (1.0f - ac.b1) * gc;
+    const float nu2 = ac.b2 * v[k] + (1.0f - ac.b2) * (gc * gc);
+    const float upd = -st.lr * (mu2 / st.bc1) / (sqrtf(nu2 / st.bc2) + ac.eps);
+    w[k] = w[k] + upd;
+    m[k] = mu2;
+    v[k] = nu2;
+  }
+  if (vec && e + 3 < P) {
+    *reinterpret_cast<float4*>(theta + e) = make_float4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<float4*>(mu + e) = make_float4(m[0], m[1], m[2], m[3]);
+    *reinterpret_cast<float4*>(nu + e) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (e + k < P) {
+        theta[e + k] = w[k];
+        mu[e + k] = m[k];
+        nu[e + k] = v[k];
+      }
+  }
+}
+
+// The buffer is cut into slices of ADAM_SLICE floats; block b of the G =
+// min(ceil(P / ADAM_SLICE), ADAM_MAX_BLOCKS) blocks owns the slices b, b +
+// G, b + 2 G, ... (one slice each when P <= ADAM_MAX_BLOCKS ADAM_SLICE);
+// thread t the floats 4 t + 4 ADAM_THREADS h .. + 3 (h = 0, 1) of each, its
+// first slice's held in registers across the barrier. Phase 1: the block's
+// sum of squares (each thread's floats in slice order, warp butterflies,
+// the warps in order) into part[b]. The grid's barrier. Phase 2: every warp
+// of every block adds part[0 .. G) in the same fixed order, so all get the
+// same norm bit for bit; then the adam update of the thread's floats, the
+// first slice from registers, the later ones read again.
 __global__ void __launch_bounds__(ADAM_THREADS)
 adam_kernel(float* __restrict__ theta, const float* __restrict__ grads,
             float* __restrict__ mu, float* __restrict__ nu,
@@ -699,36 +788,22 @@ adam_kernel(float* __restrict__ theta, const float* __restrict__ grads,
                      reinterpret_cast<uintptr_t>(grads) |
                      reinterpret_cast<uintptr_t>(mu) |
                      reinterpret_cast<uintptr_t>(nu)) & 15) == 0;
+  const int G = (int)gridDim.x;
   int e0[2];
   float g[2][4], m[2][4], v[2][4], w[2][4];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     e0[h] = blockIdx.x * ADAM_SLICE + 4 * (threadIdx.x + h * ADAM_THREADS);
-    if (vec && e0[h] + 3 < P) {
-      const float4 a = *reinterpret_cast<const float4*>(grads + e0[h]);
-      const float4 b = *reinterpret_cast<const float4*>(mu + e0[h]);
-      const float4 c = *reinterpret_cast<const float4*>(nu + e0[h]);
-      const float4 d = *reinterpret_cast<const float4*>(theta + e0[h]);
-      g[h][0] = a.x; g[h][1] = a.y; g[h][2] = a.z; g[h][3] = a.w;
-      m[h][0] = b.x; m[h][1] = b.y; m[h][2] = b.z; m[h][3] = b.w;
-      v[h][0] = c.x; v[h][1] = c.y; v[h][2] = c.z; v[h][3] = c.w;
-      w[h][0] = d.x; w[h][1] = d.y; w[h][2] = d.z; w[h][3] = d.w;
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const bool in = e0[h] + k < P;
-        g[h][k] = in ? grads[e0[h] + k] : 0.0f;
-        m[h][k] = in ? mu[e0[h] + k] : 0.0f;
-        v[h][k] = in ? nu[e0[h] + k] : 0.0f;
-        w[h][k] = in ? theta[e0[h] + k] : 0.0f;
-      }
-    }
+    adam_load(theta, grads, mu, nu, e0[h], P, vec, g[h], m[h], v[h], w[h]);
   }
   float ss = 0.0f;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int k = 0; k < 4; ++k) ss = ss + g[h][k] * g[h][k];
+  // the block's later slices (none when P <= ADAM_MAX_BLOCKS ADAM_SLICE)
+  for (int s = blockIdx.x + G; s < (P + ADAM_SLICE - 1) / ADAM_SLICE; s += G)
+    ss = ss + adam_squares(grads, s, P, vec);
   ss = warp_sum(ss);
   if (lane == 0) wsum[warp] = ss;
   __syncthreads();
@@ -740,41 +815,25 @@ adam_kernel(float* __restrict__ theta, const float* __restrict__ grads,
   const float cnt = count[0];  // read by every block before the barrier
   cooperative_groups::this_grid().sync();
   float tot = 0.0f;
-  for (int b = lane; b < (int)gridDim.x; b += 32) tot = tot + __ldcg(part + b);
+  for (int b = lane; b < G; b += 32) tot = tot + __ldcg(part + b);
   const float gn = sqrtf(warp_sum(tot));
-  const float scale = gn > ac.clip ? ac.clip / gn : 1.0f;
-  const float lr = ac.anneal ? ac.lr * (1.0f - fminf(cnt / ac.total_steps, 1.0f))
-                             : ac.lr;
+  AdamStep st;
+  st.scale = gn > ac.clip ? ac.clip / gn : 1.0f;
+  st.lr = ac.anneal ? ac.lr * (1.0f - fminf(cnt / ac.total_steps, 1.0f))
+                    : ac.lr;
   const float c = cnt + 1.0f;
-  const float bc1 = 1.0f - expf(c * ac.log_b1);
-  const float bc2 = 1.0f - expf(c * ac.log_b2);
+  st.bc1 = 1.0f - expf(c * ac.log_b1);
+  st.bc2 = 1.0f - expf(c * ac.log_b2);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < 2; ++h)
+    adam_apply(theta, mu, nu, e0[h], P, vec, ac, st, g[h], m[h], v[h], w[h]);
+  for (int s = blockIdx.x + G; s < (P + ADAM_SLICE - 1) / ADAM_SLICE; s += G) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float gc = g[h][k] * scale;
-      const float mu2 = ac.b1 * m[h][k] + (1.0f - ac.b1) * gc;
-      const float nu2 = ac.b2 * v[h][k] + (1.0f - ac.b2) * (gc * gc);
-      const float upd = -lr * (mu2 / bc1) / (sqrtf(nu2 / bc2) + ac.eps);
-      w[h][k] = w[h][k] + upd;
-      m[h][k] = mu2;
-      v[h][k] = nu2;
-    }
-    if (vec && e0[h] + 3 < P) {
-      *reinterpret_cast<float4*>(theta + e0[h]) =
-          make_float4(w[h][0], w[h][1], w[h][2], w[h][3]);
-      *reinterpret_cast<float4*>(mu + e0[h]) =
-          make_float4(m[h][0], m[h][1], m[h][2], m[h][3]);
-      *reinterpret_cast<float4*>(nu + e0[h]) =
-          make_float4(v[h][0], v[h][1], v[h][2], v[h][3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (e0[h] + k < P) {
-          theta[e0[h] + k] = w[h][k];
-          mu[e0[h] + k] = m[h][k];
-          nu[e0[h] + k] = v[h][k];
-        }
+    for (int h = 0; h < 2; ++h) {
+      const int e = s * ADAM_SLICE + 4 * (threadIdx.x + h * ADAM_THREADS);
+      float gs[4], ms[4], vs[4], ws[4];
+      adam_load(theta, grads, mu, nu, e, P, vec, gs, ms, vs, ws);
+      adam_apply(theta, mu, nu, e, P, vec, ac, st, gs, ms, vs, ws);
     }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) count[0] = c;
@@ -839,8 +898,9 @@ extern "C" int drone_ppo_update(const float* planes, const float* advret,
 
 // theta, grads, mu, nu (P floats), count (1 float) and part (one float a
 // block) are device memory; consts: host floats [lr, total_steps, b1, b2,
-// eps, clip, log_b1, log_b2]; anneal: 0 or 1; blocks: ceil(P /
-// ADAM_SLICE), at most ADAM_MAX_BLOCKS (ops/cuda_update.py adam_blocks).
+// eps, clip, log_b1, log_b2]; anneal: 0 or 1; blocks: min(ceil(P /
+// ADAM_SLICE), ADAM_MAX_BLOCKS) (ops/cuda_update.py adam_blocks), P at most
+// ADAM_MAX_P.
 // Updates theta, mu, nu and count in place: one cooperative launch, so
 // every block of the grid is resident at its barrier.
 extern "C" int drone_fused_adam(float* theta, const float* grads, float* mu,
@@ -848,8 +908,9 @@ extern "C" int drone_fused_adam(float* theta, const float* grads, float* mu,
                                 int blocks, const float* consts, int anneal,
                                 void* stream) {
   using namespace drone;
-  if (P <= 0 || blocks != (P + ADAM_SLICE - 1) / ADAM_SLICE ||
-      blocks > ADAM_MAX_BLOCKS)
+  const int want = (P + ADAM_SLICE - 1) / ADAM_SLICE;
+  if (P <= 0 || P > ADAM_MAX_P ||
+      blocks != (want < ADAM_MAX_BLOCKS ? want : ADAM_MAX_BLOCKS))
     return (int)cudaErrorInvalidValue;
   AdamC ac{consts[0], consts[1], consts[2], consts[3], consts[4],
            consts[5], consts[6], consts[7], anneal};

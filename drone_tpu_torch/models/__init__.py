@@ -1,5 +1,5 @@
-"""Policies: counterpart of `drone_tpu.models` (the MLP, LSTM, patch-CNN
-and pixel-recurrent CNN-LSTM families)."""
+"""Policies: counterpart of `drone_tpu.models` (the MLP, LSTM, patch-CNN,
+overlapping-conv CNN and pixel-recurrent CNN-LSTM families)."""
 
 from drone_tpu_torch.models.mlp import (  # noqa: F401
     ActorCritic,
@@ -19,10 +19,14 @@ from drone_tpu_torch.models.lstm import (  # noqa: F401
     lstm_kernel_order,
 )
 from drone_tpu_torch.models.cnn import (  # noqa: F401
+    CNNActorCritic,
     CnnArch,
     CnnGeom,
     PatchCNNActorCritic,
     PatchCNNEncoder,
+    PixelActorCritic,
     cnn_kernel_offsets,
     cnn_kernel_order,
+    conv_params_from_flax,
+    conv_params_to_flax,
 )

@@ -26,6 +26,15 @@ biases, log_std 0) from the caller's CPU generator; the bits differ from
 JAX's. `params_from_flax` / `params_to_flax` carry weights across, and
 `fused_opt_state_to_flax` the reference's fused optimizer state.
 
+`CNNActorCritic` and `PixelActorCritic` are the reference's
+overlapping-conv family (run.policy=cnn_overlap, the scan trainer only):
+`nn.Conv2d` layers with flax's VALID padding on the NCHW view of the
+reference's NHWC image, the activations turned back to NHWC before the
+trunk so its rows follow flax's (h, w, c) flatten. Their flat order is the
+module's own (`models.mlp.module_order`); `conv_params_from_flax` /
+`conv_params_to_flax` carry weights across (flax HWIO kernels, torch
+OIHW).
+
 `PatchCNNEncoder` is the tower alone (obs -> trunk features), the module
 form of `patch_cnn_trunk` (the reference's `PatchCNNEncoder`); the
 pixel-recurrent `models.lstm.CNNLSTMActorCritic` builds the same tower with
@@ -45,6 +54,8 @@ from torch.nn import functional as F
 
 from drone_tpu_torch.models.mlp import (
     _lecun_normal_,
+    flatten_params_,
+    module_order,
     order_offsets,
     split_to_flax,
 )
@@ -235,16 +246,7 @@ class PatchCNNActorCritic(nn.Module):
         """Move every parameter into one flat float32 buffer in kernel order
         and make the parameters views of it (ActorCritic.flatten_). Call it
         after any `.to(device)`."""
-        sd = dict(self.named_parameters())
-        with torch.no_grad():
-            flat = self._concat()
-            off = 0
-            for name, shape in self.kernel_order():
-                n = math.prod(shape)
-                sd[name].data = flat[off:off + n].view(shape)
-                off += n
-        self.flat = flat
-        return flat
+        return flatten_params_(self, self.kernel_order())
 
     def forward(self, obs):
         h = patch_cnn_trunk(obs, tower_weights(self), self.arch)
@@ -326,3 +328,127 @@ def fused_opt_state_to_flax(opt_state, arch: CnnArch):
     float32 count, [mu arrays], [nu arrays]) in its kernel-tensor shapes
     (biases (out, 1), log_std (1, 4))."""
     return split_to_flax(opt_state, cnn_kernel_order(arch))
+
+
+def _conv_lecun_normal_(weight: torch.Tensor, generator=None):
+    """flax's lecun-normal conv kernel: fan_in = kh * kw * cin."""
+    _lecun_normal_(weight.view(weight.shape[0], -1), generator)
+
+
+class CNNActorCritic(nn.Module):
+    """(N, H, W, C) image -> (action mean (N, 4), log_std (N, 4), value
+    (N,)): the reference's Nature-CNN-shaped actor-critic, VALID convs with
+    relu, flax's (h, w, c) flatten, a relu trunk shared by the Gaussian and
+    value heads. `in_shape` = (H, W, C), which flax infers at init."""
+
+    def __init__(self, in_shape=(84, 84, 4), channels=(32, 64, 64),
+                 kernels=(8, 4, 3), strides=(4, 2, 1), hidden: int = 256,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        h, w, cin = (int(d) for d in in_shape)
+        self.in_shape = (h, w, cin)
+        self.hidden = int(hidden)
+        self.n_conv = len(channels)
+        for i, (c, k, st) in enumerate(zip(channels, kernels, strides)):
+            conv = nn.Conv2d(cin, int(c), int(k), int(st), device=device)
+            _conv_lecun_normal_(conv.weight, generator)
+            nn.init.zeros_(conv.bias)
+            self.add_module(f"conv{i}", conv)
+            h, w, cin = (h - k) // st + 1, (w - k) // st + 1, int(c)
+        if h <= 0 or w <= 0:
+            raise ValueError(f"an input of {in_shape} is smaller than the "
+                             f"convolutions' windows")
+        self.trunk = nn.Linear(h * w * cin, self.hidden, device=device)
+        _lecun_normal_(self.trunk.weight, generator)
+        nn.init.zeros_(self.trunk.bias)
+        self.actor_mean = nn.Linear(self.hidden, ACT_DIM, device=device)
+        nn.init.orthogonal_(self.actor_mean.weight, 0.01, generator=generator)
+        nn.init.zeros_(self.actor_mean.bias)
+        self.critic_value = nn.Linear(self.hidden, 1, device=device)
+        nn.init.orthogonal_(self.critic_value.weight, 1.0, generator=generator)
+        nn.init.zeros_(self.critic_value.bias)
+        self.log_std = nn.Parameter(torch.zeros(ACT_DIM, device=device))
+
+    def kernel_order(self):
+        return module_order(self)
+
+    def flatten_(self) -> torch.Tensor:
+        """One flat float32 buffer in the module's own order, the
+        parameters views of it (ActorCritic.flatten_)."""
+        return flatten_params_(self, self.kernel_order())
+
+    def forward(self, img):
+        x = img.to(torch.float32).permute(0, 3, 1, 2)      # NHWC -> NCHW
+        for i in range(self.n_conv):
+            x = torch.relu(getattr(self, f"conv{i}")(x))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # flax's flatten
+        x = torch.relu(self.trunk(x))
+        mean = self.actor_mean(x)
+        value = self.critic_value(x)[:, 0]
+        return mean, self.log_std.expand_as(mean), value
+
+
+class PixelActorCritic(nn.Module):
+    """obs (N, 13) -> rendered res x res x 4 image -> CNNActorCritic (the
+    reference's PixelActorCritic, run.policy=cnn_overlap): conv 5x5/2 -> 16,
+    conv 3x3/2 -> 32, trunk 128 by default, its parameters under `cnn`."""
+
+    def __init__(self, res: int = 24, channels=(16, 32), kernels=(5, 3),
+                 strides=(2, 2), hidden: int = 128,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.res = int(res)
+        self.cnn = CNNActorCritic((self.res, self.res, N_CHAN), channels,
+                                  kernels, strides, hidden, generator, device)
+
+    def kernel_order(self):
+        return module_order(self)
+
+    def flatten_(self) -> torch.Tensor:
+        return flatten_params_(self, self.kernel_order())
+
+    def forward(self, obs):
+        return self.cnn(obs_to_pixels(obs, self.res))
+
+
+def conv_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax CNNActorCritic or PixelActorCritic variables ({"params": {...}}
+    or the inner dict) -> the port's state dict: conv kernels HWIO -> OIHW,
+    dense kernels (in, out) -> (out, in)."""
+    p = tree["params"] if "params" in tree else tree
+    sd = {}
+
+    def walk(d, prefix):
+        for name, leaf in d.items():
+            if name == "log_std":
+                sd[prefix + name] = _t(leaf)
+            elif "kernel" in leaf:
+                k = np.asarray(leaf["kernel"], np.float32)
+                k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+                sd[f"{prefix}{name}.weight"] = _t(k)
+                sd[f"{prefix}{name}.bias"] = _t(leaf["bias"])
+            else:
+                walk(leaf, f"{prefix}{name}.")
+
+    walk(p, "")
+    return sd
+
+
+def conv_params_to_flax(module: nn.Module) -> dict:
+    """CNNActorCritic or PixelActorCritic -> flax variable tree {"params":
+    {...}} of numpy arrays (conv_params_from_flax inverted)."""
+    p = {}
+    for name, t in module.state_dict().items():
+        a = t.detach().cpu().numpy().astype(np.float32)
+        *path, kind = name.split(".")
+        leaf = p
+        for key in path:
+            leaf = leaf.setdefault(key, {})
+        if kind == "log_std":
+            leaf["log_std"] = a
+        elif kind == "weight":
+            leaf["kernel"] = (a.transpose(2, 3, 1, 0) if a.ndim == 4
+                              else a.T).copy()
+        else:
+            leaf["bias"] = a
+    return {"params": p}

@@ -34,6 +34,13 @@ conv1 / trunk. Everywhere below, `encoder` is either the dense widths (a
 tuple of ints) or the tower's `CnnArch`; `encoder_of` tells them apart.
 In the flat buffer the CNN's three (W, b) pairs take the dense pairs'
 place, in the kernel layouts of `models.cnn`.
+
+`LSTMActorCritic(encoder_module=...)` is the reference's LSTM over any
+obs -> features module (its LSTMWrapper-parity hook, the scan trainer
+only): the module's parameters come first, under `encoder_module`, and the
+flat order is the module's own (`models.mlp.module_order`). Its `encoder`
+is ENCODER_MODULE, which `encoder_of` and with it every kernel's envelope
+check refuses.
 """
 
 from __future__ import annotations
@@ -57,19 +64,28 @@ from drone_tpu_torch.models.cnn import (
 )
 from drone_tpu_torch.models.mlp import (
     _lecun_normal_,
+    flatten_params_,
+    module_order,
     order_offsets,
     split_to_flax,
 )
 from drone_tpu_torch.types import ACT_DIM, OBS_DIM
 
 GATES = ("i", "f", "g", "o")
+# the `encoder` of an LSTM over an encoder module: no kernel layout
+ENCODER_MODULE = "encoder_module"
 
 
 def encoder_of(encoder):
     """The encoder as the functions below take it: a CnnArch as it is, the
-    dense widths as a tuple of ints."""
+    dense widths as a tuple of ints. Raises ValueError for an encoder
+    module, which no kernel takes."""
     if isinstance(encoder, CnnArch):
         return encoder
+    if isinstance(encoder, str) and encoder == ENCODER_MODULE:
+        raise ValueError("an LSTMActorCritic(encoder_module=...) has no "
+                         "kernel layout: the LSTM kernels take the dense "
+                         "enc_h* tower or the patch-CNN tower only")
     return tuple(int(e) for e in encoder)
 
 
@@ -116,7 +132,10 @@ def lstm_kernel_offsets(hidden: int, encoder):
 
 
 def encoder_layers(encoder) -> list[str]:
-    """The state-dict prefixes of the encoder's (W, b) pairs, in order."""
+    """The state-dict prefixes of the encoder's (W, b) pairs, in order (none
+    for an encoder module)."""
+    if isinstance(encoder, str) and encoder == ENCODER_MODULE:
+        return []
     if is_cnn(encoder):
         return ["conv0", "conv1", "trunk"]
     return [f"enc_h{i}" for i in range(len(encoder))]
@@ -181,23 +200,34 @@ def lstm_step(obs, c, h, weights, encode=dense_encode):
 class LSTMActorCritic(nn.Module):
     """obs (N, 13), carry (c, h) -> (mean (N, 4), log_std (N, 4), value (N,),
     carry'). `encoder` is the dense widths or, for the pixel-recurrent
-    family, the patch-CNN tower's CnnArch (see CNNLSTMActorCritic)."""
+    family, the patch-CNN tower's CnnArch (see CNNLSTMActorCritic);
+    `encoder_module`, when given, replaces both (any obs -> features
+    module, its output width read from a forward on one zero obs)."""
 
     def __init__(self, hidden: int = 128, encoder=(64,),
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 encoder_module: nn.Module | None = None):
         super().__init__()
         self.hidden = int(hidden)
-        self.encoder = encoder_of(encoder)
+        if encoder_module is not None:
+            self.encoder = ENCODER_MODULE
+            self.encoder_module = encoder_module
+            with torch.no_grad():
+                fan_in = int(encoder_module(
+                    torch.zeros(1, OBS_DIM, device=device)).shape[-1])
+        else:
+            self.encoder = encoder_of(encoder)
+            self.encoder_module = None
+            fan_in = encoder_width(self.encoder)
         if is_cnn(self.encoder):
             add_patch_cnn_tower(self, self.encoder, generator, device)
         else:
-            for i, e in enumerate(self.encoder):
-                lin = nn.Linear(self.encoder[i - 1] if i else OBS_DIM, e,
-                                device=device)
+            for i, e in enumerate(encoder_layers(self.encoder)):
+                lin = nn.Linear(self.encoder[i - 1] if i else OBS_DIM,
+                                self.encoder[i], device=device)
                 _lecun_normal_(lin.weight, generator)
                 nn.init.zeros_(lin.bias)
-                self.add_module(f"enc_h{i}", lin)
-        fan_in = encoder_width(self.encoder)
+                self.add_module(e, lin)
         self.lstm = nn.ModuleDict()
         for g in GATES:
             lin = nn.Linear(fan_in, self.hidden, bias=False, device=device)
@@ -217,6 +247,8 @@ class LSTMActorCritic(nn.Module):
         self.log_std = nn.Parameter(torch.zeros(ACT_DIM, device=device))
 
     def kernel_order(self):
+        if self.encoder_module is not None:
+            return module_order(self)
         return lstm_kernel_order(self.hidden, self.encoder)
 
     def _concat(self) -> torch.Tensor:
@@ -234,16 +266,7 @@ class LSTMActorCritic(nn.Module):
         """Move every parameter into one flat float32 buffer in kernel order
         and make the parameters views of it (ActorCritic.flatten_). Call it
         after any `.to(device)`."""
-        sd = dict(self.named_parameters())
-        with torch.no_grad():
-            flat = self._concat()
-            off = 0
-            for name, shape in self.kernel_order():
-                n = math.prod(shape)
-                sd[name].data = flat[off:off + n].view(shape)
-                off += n
-        self.flat = flat
-        return flat
+        return flatten_params_(self, self.kernel_order())
 
     def initial_carry(self, n: int, device=None):
         zeros = torch.zeros(n, self.hidden, device=device)
@@ -263,7 +286,10 @@ class LSTMActorCritic(nn.Module):
     def forward(self, obs, carry):
         c, h = carry
         encode = dense_encode
-        if is_cnn(self.encoder):
+        if self.encoder_module is not None:
+            def encode(x, enc):
+                return [self.encoder_module(x)]
+        elif is_cnn(self.encoder):
             def encode(x, enc):
                 return [patch_cnn_trunk(x, tower_weights(self), self.encoder)]
         *_, c2, _, h2 = lstm_step(obs, c, h, self.weights(), encode)
@@ -293,7 +319,8 @@ def params_from_flax(tree) -> dict[str, torch.Tensor]:
     p = tree["params"] if "params" in tree else tree
     cnn = "conv0" in p
     known = {"lstm", "actor_mean", "critic_value", "log_std",
-             *(("conv0", "conv1", "trunk") if cnn else ())}
+             *(("conv0", "conv1", "trunk") if cnn else ()),
+             *(("encoder_module",) if "encoder_module" in p else ())}
     # a tree with conv1 or trunk but no conv0 is neither encoder (the
     # reference's lstm_encoder_kind lets it through as an empty dense one)
     unknown = sorted(k for k in p if k not in known
@@ -308,8 +335,13 @@ def params_from_flax(tree) -> dict[str, torch.Tensor]:
         return torch.from_numpy(a.T.copy() if transpose else a)
 
     sd = tower_from_flax(p) if cnn else {}
+    if "encoder_module" in p:
+        # the patch-CNN encoder module (PatchCNNEncoder), the one encoder
+        # module with a converter
+        sd.update({f"encoder_module.{k}": v
+                   for k, v in tower_from_flax(p["encoder_module"]).items()})
     for name, leaf in p.items():
-        if name in ("conv0", "conv1", "trunk"):
+        if name in ("conv0", "conv1", "trunk", "encoder_module"):
             continue
         if name == "log_std":
             sd["log_std"] = t(leaf)
@@ -330,6 +362,11 @@ def params_to_flax(module: LSTMActorCritic) -> dict:
     sd = {k: v.detach().cpu().numpy().astype(np.float32)
           for k, v in module.state_dict().items()}
     p = tower_to_flax(sd, module.encoder) if is_cnn(module.encoder) else {}
+    if module.encoder_module is not None:
+        pre = "encoder_module."
+        p["encoder_module"] = tower_to_flax(
+            {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)},
+            module.encoder_module.arch)
     tower = set(p)
     for name, a in sd.items():
         if name.split(".")[0] in tower:

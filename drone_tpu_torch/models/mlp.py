@@ -72,17 +72,10 @@ class ActorCritic(nn.Module):
         (`kernel_order`) and make the parameters views of it. Returns the
         buffer, also kept as `self.flat`. Call it after any `.to(device)`,
         which would give the parameters storage of their own again."""
-        sd = dict(self.named_parameters())
-        with torch.no_grad():
-            flat = torch.cat([sd[name].detach().reshape(-1).to(torch.float32)
-                              for name, _ in kernel_order(self.hidden)])
-            off = 0
-            for name, shape in kernel_order(self.hidden):
-                n = math.prod(shape)
-                sd[name].data = flat[off:off + n].view(shape)
-                off += n
-        self.flat = flat
-        return flat
+        return flatten_params_(self, kernel_order(self.hidden))
+
+    def kernel_order(self):
+        return kernel_order(self.hidden)
 
     def hidden_layers(self, tower: str) -> list[nn.Linear]:
         return [getattr(self, f"{tower}_h{i}") for i in range(len(self.hidden))]
@@ -124,6 +117,30 @@ def kernel_order(hidden: Sequence[int]) -> list[tuple[str, tuple]]:
                   (f"{head}.bias", (n_head,))]
     order.append(("log_std", (ACT_DIM,)))
     return order
+
+
+def module_order(module: nn.Module) -> list[tuple[str, tuple]]:
+    """(state-dict name, shape) of every parameter of a module in its own
+    registration order: the flat order of the families with no kernel
+    layout (the overlapping-conv CNN, an LSTM over an encoder module)."""
+    return [(name, tuple(p.shape)) for name, p in module.named_parameters()]
+
+
+def flatten_params_(module: nn.Module, order) -> torch.Tensor:
+    """Move every parameter of `module` into one flat float32 buffer in
+    `order` [(name, shape)] and make the parameters views of it; returns
+    the buffer, also kept as `module.flat` (ActorCritic.flatten_)."""
+    sd = dict(module.named_parameters())
+    with torch.no_grad():
+        flat = torch.cat([sd[name].detach().reshape(-1).to(torch.float32)
+                          for name, _ in order])
+        off = 0
+        for name, shape in order:
+            n = math.prod(shape)
+            sd[name].data = flat[off:off + n].view(shape)
+            off += n
+    module.flat = flat
+    return flat
 
 
 def tensor_sizes(order) -> list[int]:

@@ -60,8 +60,9 @@ _MAX_SMEM = 232448     # bytes of shared memory one H100 block can use
 W0_STRIDE = 20         # layer 0's weight-plane rows
 SLACK_ROWS = 16        # activation rows past the head's value
 STAT_PART_BYTES = 8 * 8 * 4  # the static stat partials of 8 warps
-ADAM_SLICE = 2048      # K4: floats a block
+ADAM_SLICE = 2048      # K4: floats a slice, one slice a block up to
 ADAM_MAX_BLOCKS = 256  # K4: blocks a launch, all co-resident on an H100
+ADAM_MAX_P = 1 << 30   # K4: the largest buffer (slice offsets within int)
 _FP32_ROW = TILE + 1   # the fp32 kernel's row stride, its envelope
 
 
@@ -422,21 +423,23 @@ def fused_adam_plain(theta, grads, mu, nu, count, ac: AdamConsts,
 
 
 def adam_blocks(P: int) -> int:
-    """K4's blocks for a buffer of P floats, ceil(P / ADAM_SLICE): a
-    function of P alone, so the order of the gradient norm's sums never
-    depends on the card. Raises for a P past the envelope (ADAM_MAX_BLOCKS
-    co-resident blocks)."""
-    blocks = -(-P // ADAM_SLICE)
-    if P <= 0 or blocks > ADAM_MAX_BLOCKS:
-        raise ValueError(f"K4 takes 1 to {ADAM_MAX_BLOCKS * ADAM_SLICE} "
-                         f"parameters, got {P}")
-    return blocks
+    """K4's blocks for a buffer of P floats, min(ceil(P / ADAM_SLICE),
+    ADAM_MAX_BLOCKS): a function of P alone, so the order of the gradient
+    norm's sums never depends on the card. Raises for P outside 1 ..
+    ADAM_MAX_P."""
+    if P <= 0 or P > ADAM_MAX_P:
+        raise ValueError(f"K4 takes 1 to {ADAM_MAX_P} parameters, got {P}")
+    return min(-(-P // ADAM_SLICE), ADAM_MAX_BLOCKS)
 
 
 def adam_slices(P: int) -> list[tuple[int, int]]:
-    """The slice [start, stop) of the buffer each of K4's blocks owns."""
-    return [(b * ADAM_SLICE, min(P, (b + 1) * ADAM_SLICE))
-            for b in range(adam_blocks(P))]
+    """The slices [start, stop) of the buffer in order; block b of K4's
+    adam_blocks(P) owns the slices b, b + blocks, b + 2 blocks, ... (one
+    each up to ADAM_MAX_BLOCKS * ADAM_SLICE floats) and sums their squares
+    in that order."""
+    adam_blocks(P)
+    return [(start, min(P, start + ADAM_SLICE))
+            for start in range(0, P, ADAM_SLICE)]
 
 
 def fused_adam_kernel(theta, grads, mu, nu, count, ac: AdamConsts,

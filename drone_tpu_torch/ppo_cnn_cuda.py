@@ -122,7 +122,8 @@ def make_cnn_train_step(env, cfg: PPOConfig, permutations=None,
         runner2 = RunnerState(params=model, opt_state=(count, mu, nu),
                               env_state=final, last_obs=last_obs,
                               generator=runner.generator,
-                              update_idx=runner.update_idx + 1)
+                              update_idx=runner.update_idx + 1,
+                              noise_generator=runner.noise_generator)
         mark("end")
         return runner2, metrics
 

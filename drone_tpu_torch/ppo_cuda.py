@@ -36,7 +36,6 @@ from __future__ import annotations
 import torch
 
 from drone_tpu_torch import env as env_mod
-from drone_tpu_torch.dynamics import sqrt_rn
 from drone_tpu_torch.models.mlp import kernel_order, tensor_sizes
 from drone_tpu_torch.ops.cuda_acting_traj import (
     HALF_LOG_2PI,
@@ -59,11 +58,14 @@ from drone_tpu_torch.ops.cuda_update import (
     fused_adam_cuda,
     ppo_update_cuda,
 )
-from drone_tpu_torch.ppo import PPOConfig, RunnerState, compute_gae
-
-METRIC_KEYS = ("loss", "reward_mean", "episodes", "ep_return_mean",
-               "ep_length_mean", "pg_loss", "v_loss", "entropy", "approx_kl",
-               "clipfrac")
+from drone_tpu_torch.ppo import (  # noqa: F401 (METRIC_KEYS re-exported)
+    METRIC_KEYS,
+    PPOConfig,
+    RunnerState,
+    compute_gae,
+    make_optimizer,
+    normalize_advantages,
+)
 
 
 def kernel_tensors(model):
@@ -106,10 +108,7 @@ def plan_minibatch_geometry(cfg: PPOConfig, local_envs: int):
 def make_fused_lr(cfg: PPOConfig) -> LrSchedule:
     """lr schedule of the fused optimizer: ppo.make_optimizer's linear
     anneal over all optimizer steps of the run."""
-    return LrSchedule(lr=cfg.lr,
-                      total_steps=cfg.total_updates * cfg.epochs
-                      * cfg.num_minibatches,
-                      anneal=cfg.anneal_lr)
+    return make_optimizer(cfg)[1]
 
 
 def normalized_advret(planes, last_value, cfg: PPOConfig):
@@ -119,10 +118,7 @@ def normalized_advret(planes, last_value, cfg: PPOConfig):
     adv, ret = compute_gae(planes[:, TP_REW], planes[:, TP_VAL],
                            planes[:, TP_DONE], last_value, cfg.gamma,
                            cfg.gae_lambda)
-    mean = torch.mean(adv)
-    var = torch.var(adv, correction=0)
-    adv = (adv - mean) / sqrt_rn(var + 1e-8)
-    return torch.stack([adv, ret])
+    return torch.stack([normalize_advantages(adv), ret])
 
 
 def make_losses(cfg: PPOConfig, co: UpdateConsts):
@@ -262,7 +258,8 @@ def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None):
         runner2 = RunnerState(params=runner.params, opt_state=(count, mu, nu),
                               env_state=final, last_obs=last_obs,
                               generator=runner.generator,
-                              update_idx=runner.update_idx + 1)
+                              update_idx=runner.update_idx + 1,
+                              noise_generator=runner.noise_generator)
         mark("end")
         return runner2, metrics
 

@@ -55,17 +55,7 @@ from drone_tpu_torch.ppo_cuda import (
     trainer_metrics,
     update_permutations,
 )
-from drone_tpu_torch.ppo_rnn import RecurrentRunnerState
-
-
-def bptt_of(cfg: PPOConfig) -> int:
-    """The truncated-BPTT segment length: train.bptt_horizon, or the whole
-    horizon when it is 0."""
-    bptt = cfg.bptt_horizon or cfg.horizon
-    if cfg.horizon % bptt:
-        raise ValueError(f"horizon ({cfg.horizon}) must be a multiple of "
-                         f"bptt_horizon ({bptt})")
-    return bptt
+from drone_tpu_torch.ppo_rnn import RecurrentRunnerState, bptt_of
 
 
 def make_rnn_train_step(env, cfg: PPOConfig, permutations=None,
@@ -132,7 +122,8 @@ def make_rnn_train_step(env, cfg: PPOConfig, permutations=None,
         runner2 = RecurrentRunnerState(
             params=model, opt_state=(count, mu, nu), env_state=final,
             last_obs=last_obs, generator=runner.generator,
-            update_idx=runner.update_idx + 1, carry=last_carry)
+            update_idx=runner.update_idx + 1, carry=last_carry,
+            noise_generator=runner.noise_generator)
         mark("end")
         return runner2, metrics
 

@@ -1,16 +1,24 @@
 """Training and evaluation entry points (counterpart of `drone_tpu/train.py`).
 
-`train` is the outer loop around the megakernel train step
-(`ppo_cuda.make_train_step` for run.policy=mlp,
-`ppo_rnn_cuda.make_rnn_train_step` for run.policy=lstm and cnn_lstm,
-`ppo_cnn_cuda.make_cnn_train_step` for run.policy=cnn): config -> env ->
-policy -> loop { rollout + update on the device } with metrics, periodic
-checkpoints and exact resume. The host reads scalar metrics back only every
-log_interval updates. `evaluate` restores a policy and rolls it out through
-the acting kernel (K5 for the MLP, K8 for both recurrent families, K11 for
-the CNN) when the kernel takes the policy, as the kernel's own envelope
-check says, and through the module otherwise, as the reference serves
-every policy it builds.
+`train` is the outer loop around a train step: config -> env -> policy ->
+loop { rollout + update on the device } with metrics, periodic checkpoints
+and exact resume. The host reads scalar metrics back only every
+log_interval updates. `build` picks the trainer as the reference does
+(`trainer_kind`, asking the kernels' own envelope checks): the megakernel
+trainers (`ppo_cuda.make_train_step` for run.policy=mlp,
+`ppo_cnn_cuda.make_cnn_train_step` for cnn,
+`ppo_rnn_cuda.make_rnn_train_step` for lstm and cnn_lstm) where their
+kernels take the run; for the recurrent families the hybrid tier (K6's
+rollout, an autograd update, `ppo_rnn.make_recurrent_train_step(rollout=
+"pallas")`) where K6 takes it and K7 does not; and the scan trainers
+(`ppo.make_train_step`, `ppo_rnn.make_recurrent_train_step`) for
+run.rollout=scan, for run.policy=cnn_overlap and for every run no kernel
+tier takes. Every trainer keeps one optimizer state, so a checkpoint of any
+of them resumes under any other. `evaluate` restores a policy and rolls it
+out through the acting kernel (K5 for the MLP, K8 for both recurrent
+families, K11 for the CNN) when the kernel takes the policy, as the
+kernel's own envelope check says, and through the module otherwise, as the
+reference serves every policy it builds.
 """
 
 from __future__ import annotations
@@ -23,19 +31,21 @@ from pathlib import Path
 import torch
 from torch import nn
 
-from drone_tpu_torch import ppo_cnn_cuda, ppo_cuda, ppo_rnn_cuda
+from drone_tpu_torch import ppo, ppo_cnn_cuda, ppo_cuda, ppo_rnn, ppo_rnn_cuda
 from drone_tpu_torch.env import DroneEnv
 from drone_tpu_torch.models import (
     ActorCritic,
     CNNLSTMActorCritic,
     LSTMActorCritic,
     PatchCNNActorCritic,
+    PixelActorCritic,
 )
 from drone_tpu_torch.models.cnn import check_cnn_checkpoint_layout
 from drone_tpu_torch.ops import (
     act_rollout_cuda,
     cnn_act_rollout_cuda,
     cuda_acting,
+    cuda_acting_cnn,
     cuda_acting_traj,
     cuda_update,
     lstm_act_rollout_cuda,
@@ -55,12 +65,7 @@ from drone_tpu_torch.utils.metrics import (
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_UNPORTED_POLICIES = {
-    "cnn_overlap": "the scan trainer (cnn_overlap, the overlapping-conv "
-                   "PixelActorCritic, trains on it only)",
-}
 _RECURRENT = ("lstm", "cnn_lstm")
-_SCAN_TRAINER = "ROADMAP.md, module queue: the scan trainer"
 
 
 def build_env_and_model(cfg: Config, device="cuda"):
@@ -69,10 +74,6 @@ def build_env_and_model(cfg: Config, device="cuda"):
     statics, params = cfg.env.build()
     env = DroneEnv(task=statics.task, integrator=statics.integrator,
                    params=params, device=device)
-    if cfg.run.policy in _UNPORTED_POLICIES:
-        raise NotImplementedError(
-            f"run.policy={cfg.run.policy!r} is not ported yet (ROADMAP.md, "
-            f"module queue: {_UNPORTED_POLICIES[cfg.run.policy]})")
     # initialised on the CPU from the run's seed (the card and the CPU start
     # from the same weights), then moved
     generator = torch.Generator().manual_seed(cfg.run.seed)
@@ -89,6 +90,10 @@ def build_env_and_model(cfg: Config, device="cuda"):
     elif cfg.run.policy == "cnn":
         # the reference always builds the default PatchCNNActorCritic
         model = PatchCNNActorCritic(generator=generator)
+    elif cfg.run.policy == "cnn_overlap":
+        # the overlapping-conv pixel CNN: no kernel takes its windows, so it
+        # trains on the scan trainer only
+        model = PixelActorCritic(generator=generator)
     elif cfg.run.policy == "mlp":
         model = ActorCritic(hidden=tuple(cfg.run.hidden),
                             dtype=_DTYPES[cfg.run.compute_dtype],
@@ -109,41 +114,86 @@ def restore_dir(cfg: Config) -> Path:
 
 def build(cfg: Config, device="cuda"):
     """Config -> (env, model, runner, step_fn, cfg with train.total_updates
-    synced from run.total_updates). The megakernel trainers take
-    run.rollout 'auto' and 'pallas'; the scan trainer, bfloat16 training
-    and run.profile_dir are still to port and raise NotImplementedError."""
+    synced from run.total_updates), the trainer picked by trainer_kind.
+    bfloat16 training and run.profile_dir are still to port and raise
+    NotImplementedError."""
     # run.total_updates is the run's length; the lr anneal spans it
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, total_updates=cfg.run.total_updates))
     env, model = build_env_and_model(cfg, device)
     _check_options(cfg)
-    eligible = cfg.train.num_envs % (128 * cfg.train.num_minibatches) == 0
+    kind = trainer_kind(cfg, model)
     if cfg.run.policy in _RECURRENT:
-        return _build_recurrent(cfg, env, model, eligible)
-    if cfg.run.rollout == "scan" or (cfg.run.rollout == "auto"
-                                     and not eligible):
-        raise NotImplementedError(
-            f"the scan trainer (autograd, optax-shaped state) is not ported "
-            f"yet ({_SCAN_TRAINER}); the megakernel trainer needs num_envs "
-            f"divisible by 128 * num_minibatches")
-    if cfg.run.policy == "mlp":
-        # the towers K2 and K3 take; the reference trains the others on its
-        # scan trainer
-        outside = _outside(cuda_acting_traj.traj_layout, model.hidden) \
-            or _outside(cuda_update.update_layout, model.hidden)
-        if outside:
-            raise NotImplementedError(
-                f"the scan trainer is not ported yet ({_SCAN_TRAINER}); the "
-                f"MLP megakernel trainer cannot take this run: {outside}")
-    if cfg.run.rollout == "pallas" and not eligible:
-        raise ValueError(
-            f"run.rollout='pallas' needs num_envs divisible by "
-            f"128*num_minibatches, got num_envs={cfg.train.num_envs}, "
-            f"num_minibatches={cfg.train.num_minibatches}")
+        runner = init_recurrent_runner(model, env, cfg.train,
+                                       seed=cfg.run.seed)
+        if kind == "megakernel":
+            step = ppo_rnn_cuda.make_rnn_train_step(env, cfg.train)
+        else:
+            step = ppo_rnn.make_recurrent_train_step(
+                runner.params, env, cfg.train,
+                rollout="pallas" if kind == "hybrid" else "scan")
+        return env, runner.params, runner, step, cfg
     runner = init_runner(model, env, cfg.train, seed=cfg.run.seed)
-    maker = (ppo_cnn_cuda.make_cnn_train_step if cfg.run.policy == "cnn"
-             else ppo_cuda.make_train_step)
-    return env, runner.params, runner, maker(env, cfg.train), cfg
+    if kind == "scan":
+        step = ppo.make_train_step(runner.params, env, cfg.train)
+    elif cfg.run.policy == "cnn":
+        step = ppo_cnn_cuda.make_cnn_train_step(env, cfg.train)
+    else:
+        step = ppo_cuda.make_train_step(env, cfg.train)
+    return env, runner.params, runner, step, cfg
+
+
+def trainer_kind(cfg: Config, model) -> str:
+    """The trainer build() runs: "megakernel", "hybrid" (the recurrent
+    families' K6 rollout with an autograd update) or "scan", as the
+    reference picks it (drone_tpu/train.py build) with the port's own
+    envelope checks. run.rollout=scan always takes the scan trainer;
+    run.rollout=pallas raises ValueError for a run no kernel tier takes."""
+    tc = cfg.train
+    rows = tc.num_envs % (128 * tc.num_minibatches) == 0
+    split = (None if rows else
+             f"num_envs={tc.num_envs} does not split into "
+             f"{tc.num_minibatches} minibatches of 128-lane rows (num_envs "
+             f"divisible by 128*num_minibatches)")
+    if cfg.run.policy == "cnn_overlap":
+        if cfg.run.rollout == "pallas":
+            raise ValueError(
+                "run.rollout='pallas' has no megakernel for "
+                "run.policy='cnn_overlap' (its conv windows overlap); it "
+                "trains on the scan trainer (run.rollout=scan or auto)")
+        return "scan"
+    if cfg.run.policy in _RECURRENT:
+        ppo_rnn.bptt_of(tc)  # the horizon splits into segments
+        k7 = _outside(check_envelope, model.hidden, model.encoder) or split
+        k6 = _outside(check_act_envelope, model.hidden, model.encoder) or (
+            None if tc.num_envs % tc.num_minibatches == 0 else
+            f"num_envs={tc.num_envs} does not split into "
+            f"{tc.num_minibatches} minibatches")
+        if cfg.run.rollout == "scan":
+            return "scan"
+        if not k7:
+            return "megakernel"
+        if not k6:
+            return "hybrid"
+        if cfg.run.rollout == "pallas":
+            raise ValueError(f"run.rollout='pallas': neither the recurrent "
+                             f"megakernel trainer ({k7}) nor the hybrid tier "
+                             f"({k6}) takes this run")
+        return "scan"
+    if cfg.run.policy == "mlp":
+        outside = (_outside(cuda_acting_traj.traj_layout, model.hidden)
+                   or _outside(cuda_update.update_layout, model.hidden))
+    else:
+        outside = _outside(cuda_acting_cnn.check_envelope, model.arch)
+    outside = outside or split
+    if cfg.run.rollout == "scan":
+        return "scan"
+    if not outside:
+        return "megakernel"
+    if cfg.run.rollout == "pallas":
+        raise ValueError(f"run.rollout='pallas': the megakernel trainer "
+                         f"cannot take this run: {outside}")
+    return "scan"
 
 
 def _check_cnn_checkpoint_layout(cfg: Config, raw_params):
@@ -177,26 +227,6 @@ def _outside(check, *args) -> str | None:
     except ValueError as e:
         return str(e)
     return None
-
-
-def _build_recurrent(cfg: Config, env, model, eligible: bool):
-    """build() for run.policy=lstm and cnn_lstm: the recurrent megakernel
-    trainer (K6, K7, K4). The reference's other tiers (the scan trainer,
-    and its hybrid of the kernel rollout with a segmented_forward update
-    for shapes the update kernel does not take) are still to port."""
-    ppo_rnn_cuda.bptt_of(cfg.train)  # the horizon splits into segments
-    outside = _outside(check_envelope, model.hidden, model.encoder)
-    if cfg.run.rollout == "scan" or not eligible or outside:
-        why = ("run.rollout=scan" if cfg.run.rollout == "scan" else outside
-               or f"num_envs={cfg.train.num_envs} does not split into "
-                  f"{cfg.train.num_minibatches} minibatches of 128-lane rows")
-        raise NotImplementedError(
-            f"the recurrent scan trainer and the segmented_forward update are "
-            f"not ported yet ({_SCAN_TRAINER}); the LSTM megakernel trainer "
-            f"cannot take this run: {why}")
-    runner = init_recurrent_runner(model, env, cfg.train, seed=cfg.run.seed)
-    step = ppo_rnn_cuda.make_rnn_train_step(env, cfg.train)
-    return env, runner.params, runner, step, cfg
 
 
 def train(cfg: Config, on_update=None, device="cuda"):
@@ -295,15 +325,21 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
     each when its kernel's envelope check takes the policy; the rest
     through the module."""
     env, model = build_env_and_model(cfg, device)
+    given = None
     if runner is None:
         raw, _ = Checkpointer(restore_dir(cfg)).restore_raw()
         params = raw["params"]
     else:
         params = runner.params
     if isinstance(params, nn.Module):
-        params = params.state_dict()
+        given, params = params, params.state_dict()
     _check_cnn_checkpoint_layout(cfg, params)
-    model.load_state_dict(params)
+    if given is not None and next(given.parameters()).device == env.device:
+        # the module as given: also one no config builds (an LSTM over an
+        # encoder module)
+        model = given
+    else:
+        model.load_state_dict(params)
     model.eval()
 
     n = episodes
@@ -324,6 +360,8 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
             deterministic=deterministic)
         return _stats_of(out)
 
+    if cfg.run.policy == "cnn_overlap":
+        return _module_rollout(model, env, state, horizon, deterministic)
     if cfg.run.policy == "cnn" and deterministic:
         _, stats = cnn_act_rollout_cuda(state, model.flat_params(),
                                         model.arch, env.params, env.statics,
@@ -337,7 +375,12 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
         _, stats = act_rollout_cuda(state, model, env.params, env.statics,
                                     horizon)
         return _episode_stats(stats)
+    return _module_rollout(model, env, state, horizon, deterministic)
 
+
+def _module_rollout(model, env, state, horizon, deterministic) -> dict:
+    """Episode statistics of a feed-forward policy rolled out through the
+    module."""
     def policy(obs, generator):
         mean, log_std, _ = model(obs)
         if deterministic:

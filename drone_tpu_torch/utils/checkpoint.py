@@ -4,8 +4,11 @@
 Counterpart of `drone_tpu/utils/checkpoint.py`. A policy checkpoint holds
 {"params": state_dict}; a training checkpoint holds the whole runner for an
 exact resume: params, the fused optimizer state (count, mu, nu), the env
-state, the permutation generator's state and update_idx, and for the
-recurrent trainer the LSTM carry (c, h). Either kind
+state, the permutation generator's and the noise generator's states and
+update_idx, and for the recurrent trainers the LSTM carry (c, h). Every
+trainer keeps the same state (the flat moments K4 updates), so a
+checkpoint of the scan trainer resumes under the megakernel trainer and
+the reverse, with no conversion. Either kind
 serves `restore_raw()["params"]`, which is all evaluation needs. The
 newest `max_to_keep` steps are kept.
 """
@@ -52,6 +55,7 @@ class Checkpointer:
                 "env_state": {f.name: _cpu(getattr(obj.env_state, f.name))
                               for f in dataclasses.fields(EnvState)},
                 "generator": obj.generator.get_state(),
+                "noise_generator": obj.noise_generator.get_state(),
                 "update_idx": int(obj.update_idx),
             }
             if isinstance(obj, RecurrentRunnerState):
@@ -118,9 +122,12 @@ class Checkpointer:
         env_state = EnvState(**{k: v.to(dev) for k, v in saved_env.items()})
         gen = torch.Generator()
         gen.set_state(raw["generator"])
+        noise = torch.Generator(device=dev)
+        noise.set_state(raw["noise_generator"])
         fields = dict(params=params, opt_state=(count, mu, nu),
                       env_state=env_state, last_obs=env_mod.observe(env_state),
-                      generator=gen, update_idx=int(raw["update_idx"]))
+                      generator=gen, update_idx=int(raw["update_idx"]),
+                      noise_generator=noise)
         if not isinstance(template, RecurrentRunnerState):
             return RunnerState(**fields), step
         if "carry" not in raw:

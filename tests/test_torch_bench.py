@@ -22,15 +22,26 @@ from drone_tpu_torch.utils import profiling
 ROOT = Path(__file__).resolve().parents[1]
 HOVER = ROOT / "configs" / "hover.toml"
 TINY = dict(N=64, T=4, iters=1)
-# the trainers take lanes in rows of 128 a minibatch: the train phases' 4
-# minibatches need 512
+# the megakernel trainers take lanes in rows of 128 a minibatch: their 4
+# minibatches need 512; the scan trainers take any lanes that split in 4
 TINY_TRAIN = dict(N=512, T=4, iters=1)
+TINY_SCAN = dict(N=32, T=2, iters=1)
 
 
 @pytest.fixture(autouse=True)
 def one_repeat(monkeypatch):
     """Each phase timed once: the CPU runs its plain versions."""
     monkeypatch.setattr(bench, "REPEATS", 1)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _reference_keys():
@@ -61,6 +72,10 @@ def _reference_keys():
     (bench.bench_train_rnn, dict(TINY_TRAIN, bptt=2)),
     (bench.bench_train_rnn, dict(TINY_TRAIN, bptt=2, policy="cnn_lstm")),
     (bench.bench_train_cnn, TINY_TRAIN),
+    (bench.bench_train_scan, TINY_SCAN),
+    (bench.bench_train_rnn_scan, dict(TINY_SCAN, bptt=2)),
+    (bench.bench_train_cnn_scan, TINY_SCAN),
+    (bench.bench_train_cnn_overlap_scan, dict(TINY_SCAN, grad_accum=2)),
 ], ids=lambda v: getattr(v, "__name__", None) or v.get("policy", "kwargs"))
 def test_phase_on_cpu_gives_positive_rates(phase, kwargs):
     launches = rollout_cuda.launches
@@ -75,18 +90,16 @@ def test_json_has_the_reference_keys_and_device():
     env = DroneEnv(device="cpu")
     phases = bench.phases(env)
     assert [k for k, _ in phases] == secondary
-    assert {k for k, fn in phases if fn is None} == set(bench.UNPORTED)
-    assert all(k.startswith("scan_") for k in bench.UNPORTED)
-    rates = {k: None if fn is None else [3.0, 1.0, 2.0] for k, fn in phases}
+    assert all(callable(fn) for _, fn in phases)
+    rates = {k: [3.0, 1.0, 2.0] for k, _ in phases}
     out = json.loads(json.dumps(bench.result("hover", "cpu", 8e6, 0.25,
                                              rates)))
     assert list(out) == [*headline, "device"]
     assert list(out["secondary"]) == secondary
     assert list(out["spread"]) == ["headline", *secondary]
     for key in secondary:
-        expect = None if key in bench.UNPORTED else 2.0
-        assert out["secondary"][key] == expect
-        assert out["spread"][key] == (None if expect is None else 1.0)
+        assert out["secondary"][key] == 2.0
+        assert out["spread"][key] == 1.0
     assert out["metric"] == "env_steps_per_s_batched_hover_1chip"
     assert out["vs_baseline"] == round(8e6 / 6.25e6, 3)
     assert out["repeats"] == bench.REPEATS and out["device"] == "cpu"
@@ -138,12 +151,13 @@ def test_cli_bench_on_cpu_prints_one_json_line(monkeypatch, capsys):
         fn = getattr(bench, name)
         monkeypatch.setattr(bench, name,
                             lambda env, fn=fn: fn(env, N=64, T=2, iters=1))
-    for name in ("bench_train", "bench_train_rnn", "bench_train_cnn"):
+    for name in ("bench_train", "bench_train_rnn", "bench_train_cnn",
+                 "bench_train_scan", "bench_train_rnn_scan",
+                 "bench_train_cnn_scan", "bench_train_cnn_overlap_scan"):
         monkeypatch.setattr(bench, name, lambda env, **k: [1.0])
     assert cli.main(["bench", str(HOVER), "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     out = json.loads(lines[-1])
     assert len(lines) == 1 and out["device"] == "cpu"
     assert out["value"] > 0 and out["repeats"] == bench.REPEATS
-    assert all(v > 0 for k, v in out["secondary"].items()
-               if k not in bench.UNPORTED)
+    assert all(v > 0 for v in out["secondary"].values())

@@ -554,16 +554,3 @@ def test_evaluate_routes_what_the_kernel_cannot_take_to_the_module(
     stats = train.evaluate(cfg, runner=types.SimpleNamespace(params=model),
                            episodes=16, device="cpu")
     assert stats["episodes"] == 16 and np.isfinite(stats["ep_return_mean"])
-
-
-@pytest.mark.parametrize("override", ["run.hidden=256,256",
-                                      "run.hidden=32,32,32,32,32,32,32,32,32"])
-def test_build_refuses_mlp_towers_past_the_training_kernels(tmp_path,
-                                                            override):
-    """F5: an MLP that K2 or K3 cannot take is refused by build() with the
-    scan trainer's NotImplementedError, not at its first update."""
-    cfg = Config.default().with_overrides([
-        override, "train.num_envs=256", "train.num_minibatches=2",
-        f"run.checkpoint_dir={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="scan trainer"):
-        train.build(cfg, device="cpu")

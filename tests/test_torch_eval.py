@@ -117,12 +117,6 @@ def test_evaluate_defaults_to_cuda():
         train.evaluate(Config.from_toml(HOVER))
 
 
-def test_unported_policies_name_their_roadmap_item():
-    cfg = Config.default().with_overrides(["run.policy=cnn_overlap"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.build_env_and_model(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("name", ["hover", "waypoint", "racing",
                                   "sweep_hover"])
 def test_configs_load_as_in_the_reference(name):

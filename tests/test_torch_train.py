@@ -147,7 +147,8 @@ def test_checkpointer_keeps_the_newest_three(tmp_path):
     assert ckpt.steps() == [3, 4, 5]
     raw, step = ckpt.restore_raw()
     assert step == 5 and set(raw) == {"params", "opt_state", "env_state",
-                                      "generator", "update_idx"}
+                                      "generator", "noise_generator",
+                                      "update_idx"}
     assert float(raw["opt_state"]["count"]) == 5 * 2 * 2
 
 
@@ -172,8 +173,9 @@ def test_cli_train_then_evaluate_on_cpu(tmp_path, capsys):
                      "env.params.horizon=10"]) == 0
 
 
+# run.rollout=scan trains on the scan trainer: test_torch_scan.py
+# test_build_picks_the_trainer
 @pytest.mark.parametrize("override,match", [
-    ("run.rollout=scan", "scan trainer"),
     ("run.compute_dtype=bfloat16", "bf16 training"),
     ("run.profile_dir=prof", "torch.profiler"),
 ])

@@ -343,12 +343,18 @@ def test_adam_grid_is_fixed_by_the_buffer_length(family):
 
 
 def test_adam_refuses_a_buffer_past_its_envelope():
-    most = cuda_update.ADAM_MAX_BLOCKS * cuda_update.ADAM_SLICE
+    """K4 takes up to ADAM_MAX_P floats: past ADAM_MAX_BLOCKS slices its
+    blocks own several each (one each up to 524,288 floats)."""
+    one_each = cuda_update.ADAM_MAX_BLOCKS * cuda_update.ADAM_SLICE
+    assert cuda_update.adam_blocks(one_each) == cuda_update.ADAM_MAX_BLOCKS
+    assert cuda_update.adam_blocks(one_each - 1) == cuda_update.ADAM_MAX_BLOCKS
+    assert cuda_update.adam_blocks(one_each + 1) == cuda_update.ADAM_MAX_BLOCKS
+    most = cuda_update.ADAM_MAX_P
     assert cuda_update.adam_blocks(most) == cuda_update.ADAM_MAX_BLOCKS
     for P in (0, most + 1):
         with pytest.raises(ValueError, match="K4 takes"):
             cuda_update.adam_blocks(P)
-    z = torch.zeros(most + 1)
+    z = torch.zeros(1).expand(most + 1)
     with pytest.raises(ValueError, match="K4 takes"):
         cuda_update.fused_adam_kernel(z, z, z, z, torch.tensor(0.0),
                                       cuda_update.AdamConsts(),

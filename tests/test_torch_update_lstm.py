@@ -384,10 +384,9 @@ def test_cli_train_then_eval_lstm_on_cpu(tmp_path, capsys):
     assert '"episodes"' in capsys.readouterr().out
 
 
+# run.rollout=scan, train.num_envs=384 (the hybrid tier) and
+# run.lstm_hidden=256 train: test_torch_scan.py test_build_picks_the_trainer
 @pytest.mark.parametrize("override,match", [
-    ("run.rollout=scan", "scan trainer"),
-    ("train.num_envs=384", "scan trainer"),
-    ("run.lstm_hidden=256", "scan trainer"),
     ("run.compute_dtype=bfloat16", "bf16 training"),
 ])
 def test_unported_lstm_training_options_name_their_roadmap_item(
