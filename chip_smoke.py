@@ -6,13 +6,15 @@ library's registers and spills, and those of the tensor-core kernels of
 K10, K7 (both arms' walk and its products), K11/K9, both arms of K8/K6, K3
 (its weights and running sums on chip, and off it), K5 and K2 with their
 shared memory and their HMMA instructions, the SASS of mma.sync, which
-each must hold), holds each against
+each must hold; and the bf16 arms of K2, K3, K9/K11 and K10 beside their
+fp32 arms: fewer HMMA, a third of them where the loops are the same, and
+bf16 roundings, F2FP.BF16, which the fp32 arms lack), holds each against
 its plain PyTorch version on the card's inputs, drives the port's paths
 through the entry points a user calls (the megakernel trainers, the scan
 trainers and the hybrid recurrent tier), checks what comes out, and times
 each kernel beside its plain version and its bound. Exits nonzero, printing
 no result, when there is no CUDA device or a phase fails; a learning gate
-that fails (phases 10, 17, 24, 31, 38) stops no later phase, and the script
+that fails (phases 10, 17, 24, 31, 38, 46) stops no later phase, and the script
 then exits nonzero after them, its kernels line printed and its last line
 not.
 
@@ -275,10 +277,47 @@ Phases:
      CNN arms of K6, K7 and K8 must each launch; its JSON line must hold
      the reference's keys and "device", every phase (the four scan_*
      training phases, the scan trainers at the reference's shapes, among
-     them) a positive finite rate. Its seconds are printed.
+     them) a positive finite rate. Its seconds are printed. One timed
+     repeat a phase after the warm-up (`cli bench` itself takes three).
+ 41. K2's bf16 arm (run.compute_dtype=bfloat16: every product's operands
+     rounded to bf16 once, cvt.rn.bf16x2.f32, one TF32 product a k-step,
+     sums in fp32) against its bf16 plain version on the card by H12's
+     rule (BF16_*: at least 98% of the T = 3 planes and final state within
+     rtol 2e-5 / atol 2e-6, every value within 0.02, the planes' mean
+     difference under a tenth of the kernel's to the fp32 plain version),
+     episodes equal, each T = 3 case launched twice, bitwise equal: hover
+     [64, 64] at 65,536 lanes in both action modes and T = 64
+     statistically, waypoint/rk4 over a ragged last block, [128, 128]
+     and a linear policy.
+ 42. K3's bf16 arm by H12's rule for updates (each gradient tensor and the
+     stat sums within 1e-2 of the tensor's max, the mean gradient
+     difference under a tenth of the fp32 plain version's), two launches
+     bitwise equal: hover.toml's minibatch on K2 bf16's planes at their
+     weights (no ratio outside 1 +- clip_eps) and off them (every branch
+     taken); [128, 128] off chip.
+ 43. K9's bf16 arm at 65,536 lanes (T = 3 both action modes by H12's rule,
+     T = 32 statistically) and K11's, the same instantiation, at T = 3.
+ 44. K10's bf16 arm as 42, on K9 bf16's planes at the CNN geometry's
+     full-width minibatch, at their weights and off them.
+ 45. The bf16 paths: `cli train` under run.compute_dtype=bfloat16 on
+     hover.toml (3 updates: K2 = 3, K3 = K4 = 96) and at the CNN geometry
+     (2 updates: K9 = 2, K10 = K4 = 32), each launch of K2, K3, K9 and K10
+     their bf16 arm's (`bf16_launches`), none an fp32 arm's; `cli eval` of
+     each checkpoint through the module, as the reference serves a bf16
+     policy (no acting kernel).
+ 46. The bf16 learning gates by the fp32 gates' rules (the MLP's one run,
+     phase 10's; the CNN's four, phase 24's); train(4) == train(2) +
+     resume(2) bitwise under bfloat16, MLP and CNN.
+ 47. Times of the bf16 arms beside their fp32 arms' in the same call, their
+     bf16 plain versions and bounds (the products at the bf16 rate, 989
+     TFLOP/s, the rest at the fp32 rate); one bf16 MLP and one bf16 CNN
+     update split and traced as in 11.
+ 48. run.profile_dir: `cli train` under bfloat16 for 6 updates writes the
+     trace of updates 3-5, which must hold K3's 96 launches.
 
 Launch counts: each wrapper counts its launches; the recurrent wrappers
-(K6, K7, K8) also count their CNN arm's alone (`cnn_launches`).
+(K6, K7, K8) also count their CNN arm's alone (`cnn_launches`), and K2,
+K3, K9, K10 and K11 their bf16 arm's (`bf16_launches`).
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
@@ -846,6 +885,8 @@ def _wrappers() -> dict:
 
 
 ARMS = ("K6", "K7", "K8")  # the recurrent kernels, with a CNN arm each
+# the kernels with a bf16 operand arm, whose launches they count apart too
+BF16_ARMS = ("K2", "K3", "K9", "K10", "K11")
 
 
 def zero_counts():
@@ -854,12 +895,15 @@ def zero_counts():
         fn.launches = 0
     for k in ARMS:
         w[k].cnn_launches = 0
+    for k in BF16_ARMS:
+        w[k].bf16_launches = 0
 
 
 def counts() -> dict:
     w = _wrappers()
     c = {k: fn.launches for k, fn in w.items()}
     c.update({f"{k} cnn": w[k].cnn_launches for k in ARMS})
+    c.update({f"{k} bf16": w[k].bf16_launches for k in BF16_ARMS})
     return c
 
 
@@ -940,9 +984,10 @@ def phase_k2(cases=K2_CASES) -> float:
     return max_err
 
 
-def hover_minibatch(cfg, model, env):
-    """hover.toml's update inputs on the card: K2's planes at full width,
-    their normalized advantages, a minibatch's row blocks."""
+def hover_minibatch(cfg, model, env, compute_dtype="float32"):
+    """hover.toml's update inputs on the card: K2's planes at full width
+    (its compute_dtype arm), their normalized advantages, a minibatch's row
+    blocks."""
     import torch
 
     from drone_tpu_torch import ppo_cuda
@@ -955,10 +1000,12 @@ def hover_minibatch(cfg, model, env):
     state = env.init_batch(7, tc.num_envs)
     final, planes, _ = K2.traj_rollout_kernel(state, model.flat, model.hidden,
                                               env.params, env.statics,
-                                              tc.horizon)
+                                              tc.horizon,
+                                              compute_dtype=compute_dtype)
     _, critic, _ = K2.tower_weights(model.flat, model.hidden)
     with torch.no_grad():
-        last_value = K2.tower_forward(observe(final), critic)[:, 0]
+        last_value = K2.tower_forward(observe(final), critic,
+                                      compute_dtype)[:, 0]
     advret = ppo_cuda.normalized_advret(planes, last_value, tc)
     perm = torch.randperm(n_rb, generator=torch.Generator().manual_seed(3))
     perm_mb = perm[:mb_rb].to(device="cuda", dtype=torch.int32)
@@ -1196,10 +1243,10 @@ MLP_GATE_REWARD = 0.3
 MLP_GATE_UPDATES = 120
 
 
-def mlp_gate_run(seed):
+def mlp_gate_run(seed, compute_dtype="float32"):
     """The MLP learning gate's training (8,192 envs, horizon 32, [32, 32],
-    4 epochs x 4 minibatches, lr 3e-3, no entropy bonus), the model and the
-    runner from one seed, until the mean reward of the last 5 updates
+    4 epochs x 4 minibatches, lr 3e-3, no entropy bonus; its compute_dtype
+    arms), the model and the runner from one seed, until the mean reward of the last 5 updates
     passes MLP_GATE_REWARD or MLP_GATE_UPDATES updates have run: (updates
     run, the last 5's mean reward, the first 5's, parameters finite)."""
     import torch
@@ -1215,7 +1262,7 @@ def mlp_gate_run(seed):
     model = ActorCritic((32, 32),
                         generator=torch.Generator().manual_seed(seed))
     runner = init_runner(model, env, cfg, seed=seed)
-    step = ppo_cuda.make_train_step(env, cfg)
+    step = ppo_cuda.make_train_step(env, cfg, compute_dtype=compute_dtype)
     rewards = []
     for u in range(MLP_GATE_UPDATES):
         runner, m = step(runner)
@@ -1384,7 +1431,9 @@ def split_update(cfg):
         ev.record()
         marks.append((name, ev, time.perf_counter()))
 
-    step = maker(env, tc, on_phase=mark)
+    dtype = bcfg.run.compute_dtype
+    step = maker(env, tc, on_phase=mark,
+                 **({} if dtype == "float32" else {"compute_dtype": dtype}))
     runner, m = step(runner)  # warm-up
     float(m["loss"])
     marks.clear()
@@ -1410,8 +1459,8 @@ def split_update(cfg):
     for (name, e0, h0), (_, e1, h1) in zip(marks, marks[1:]):
         split[f"{name}_device_ms"] = e0.elapsed_time(e1)
         split[f"{name}_host_ms"] = (h1 - h0) * 1e3
-    print(f"one {cfg.run.policy} update at hover.toml's shape (no host sync "
-          f"inside): {split}", flush=True)
+    print(f"one {cfg.run.policy} {dtype} update at hover.toml's shape (no "
+          f"host sync inside): {split}", flush=True)
     print(f"the same update traced: "
           f"{trace_update(step, runner, cfg.run.policy)}", flush=True)
     return split
@@ -2366,23 +2415,32 @@ def phase_k9() -> float:
     return max_err
 
 
-def cnn_minibatch(cfg, model, env):
-    """The CNN update's inputs at full width on the card: K9's planes, their
-    normalized advantages, a minibatch's row blocks."""
+def cnn_minibatch(cfg, model, env, compute_dtype="float32"):
+    """The CNN update's inputs at full width on the card: K9's planes (its
+    compute_dtype arm), their normalized advantages, a minibatch's row
+    blocks."""
     import torch
 
     from drone_tpu_torch import ppo_cuda
     from drone_tpu_torch.env import observe
     from drone_tpu_torch.ops import cuda_acting_cnn as K9
+    from drone_tpu_torch.pixels import patch_grid
 
     tc = cfg.train
     _, _, rbu, n_rb, mb_rb, co = ppo_cuda.plan_minibatch_geometry(
         tc, tc.num_envs)
     state = env.init_batch(7, tc.num_envs)
     final, planes, _ = K9.traj_cnn_rollout_kernel(
-        state, model.flat, model.arch, env.params, env.statics, tc.horizon)
+        state, model.flat, model.arch, env.params, env.statics, tc.horizon,
+        compute_dtype=compute_dtype)
     with torch.no_grad():
-        last_value = model(observe(final))[2]
+        if compute_dtype == "float32":
+            last_value = model(observe(final))[2]
+        else:  # the trainer's: the plane-space forward, bf16 operands
+            last_value = K9.cnn_forward(
+                observe(final), K9.cnn_all_weights(model.flat, model.arch),
+                *patch_grid(model.arch.res, model.arch.p0, "cuda"),
+                model.arch.geom, compute_dtype=compute_dtype)[1]
     advret = ppo_cuda.normalized_advret(planes, last_value, tc)
     perm = torch.randperm(n_rb, generator=torch.Generator().manual_seed(3))
     perm_mb = perm[:mb_rb].to(device="cuda", dtype=torch.int32)
@@ -2593,10 +2651,11 @@ def gate_verdict(runs, fall, rise):
 GATE_SEEDS = range(4)
 
 
-def cnn_gate_run(seed):
+def cnn_gate_run(seed, compute_dtype="float32"):
     """The CNN learning gate's training (4,096 envs, horizon 32, 2 epochs x
-    2 minibatches, lr 1e-3, no entropy bonus, 150 updates), the model and
-    the runner from one seed: gate_readings over 10-update windows."""
+    2 minibatches, lr 1e-3, no entropy bonus, 150 updates; its
+    compute_dtype arms), the model and the runner from one seed:
+    gate_readings over 10-update windows."""
     import torch
 
     from drone_tpu_torch import ppo_cnn_cuda
@@ -2609,8 +2668,27 @@ def cnn_gate_run(seed):
                     lr=1e-3, ent_coef=0.0)
     model = PatchCNNActorCritic(generator=torch.Generator().manual_seed(seed))
     runner = init_runner(model, env, cfg, seed=seed)
-    return gate_readings(ppo_cnn_cuda.make_cnn_train_step(env, cfg), runner,
-                         150, 10)
+    return gate_readings(ppo_cnn_cuda.make_cnn_train_step(
+        env, cfg, compute_dtype=compute_dtype), runner, 150, 10)
+
+
+def cnn_gate(seeds, compute_dtype="float32"):
+    """The CNN learning gate's runs from each seed, one after another
+    (cnn_gate_run; in processes of their own at once they took 29.4 s
+    against 18-19.5 s on an H100, PERF.md), each printed: (passed, the mean
+    reward rise), gate_verdict with GATES["cnn"]."""
+    runs = []
+    for seed in seeds:
+        t0 = time.time()
+        runs.append(cnn_gate_run(seed, compute_dtype))
+        early, lowest, last, r_first, r_last, finite = runs[-1]
+        print(f"{compute_dtype} CNN learning gate (150 updates, seed {seed}): "
+              f"value loss of updates 3-12 {early:.5g}, its lowest 10-update "
+              f"mean {lowest:.5g}, of the last 10 {last:.5g}; mean reward of "
+              f"the first 10 {r_first:.4f}, of the last 10 {r_last:.4f} (rise "
+              f"{r_last - r_first:.4f}); parameters finite {finite} "
+              f"({time.time() - t0:.1f} s)", flush=True)
+    return gate_verdict(runs, *GATES["cnn"][1:])
 
 
 def phase_cnn_learning_and_resume(tmp):
@@ -2627,18 +2705,7 @@ def phase_cnn_learning_and_resume(tmp):
     from drone_tpu_torch.train import train
     from drone_tpu_torch.utils.config import Config
 
-    runs = []
-    for seed in GATE_SEEDS:
-        t0 = time.time()
-        runs.append(cnn_gate_run(seed))
-        early, lowest, last, r_first, r_last, finite = runs[-1]
-        print(f"CNN learning gate (150 updates, seed {seed}): value loss of "
-              f"updates 3-12 {early:.5g}, its lowest 10-update mean "
-              f"{lowest:.5g}, of the last 10 {last:.5g}; mean reward of the "
-              f"first 10 {r_first:.4f}, of the last 10 {r_last:.4f} (rise "
-              f"{r_last - r_first:.4f}); parameters finite {finite} "
-              f"({time.time() - t0:.1f} s)", flush=True)
-    learned, rise = gate_verdict(runs, *GATES["cnn"][1:])
+    learned, rise = cnn_gate(GATE_SEEDS)
     print(f"CNN learning gate: mean reward rise over seeds "
           f"{list(GATE_SEEDS)} {rise:.4f}", flush=True)
 
@@ -2970,11 +3037,21 @@ def path_bench(cfg_path):
 
     from drone_tpu_torch import cli
 
+    from drone_tpu_torch import bench
+
     zero_counts()
     out = io.StringIO()
     t0 = time.time()
-    with contextlib.redirect_stdout(out):
-        rc = cli.main(["bench", str(cfg_path)])
+    # one timed repeat after the warm-up where `cli bench` takes three (the
+    # median; PERF.md section 2): this path shows that every phase runs
+    # through its kernels, and its rates are read beside their spread from
+    # cli bench itself
+    repeats, bench.REPEATS = bench.REPEATS, 1
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["bench", str(cfg_path)])
+    finally:
+        bench.REPEATS = repeats
     torch.cuda.synchronize()
     seconds = time.time() - t0
     bench_counts = counts()
@@ -2982,7 +3059,9 @@ def path_bench(cfg_path):
     print(f"bench path: cli bench rc={rc} in {seconds:.1f} s, launches "
           f"{bench_counts}\n{line}", flush=True)
     res = json.loads(line)
-    missing = [k for k, v in bench_counts.items() if v < 1]
+    # the bench runs in float32: every kernel but the bf16 arms
+    missing = [k for k, v in bench_counts.items()
+               if v < 1 and not k.endswith(" bf16")]
     if rc != 0 or missing:
         raise AssertionError(f"the bench path did not launch {missing}")
     if (tuple(res) != BENCH_KEYS
@@ -3508,6 +3587,618 @@ def phase_trainer_equivalence(tmp):
                              f"{failures}")
 
 
+# ---------------------------------------------------------------------------
+# The bf16 slice: the bf16 operand arms of K2, K3, K9 (K11's is the same
+# instantiation) and K10, bfloat16 training and run.profile_dir
+# ---------------------------------------------------------------------------
+
+BF16 = "bfloat16"
+# The bf16 products on the tensor cores (989 TFLOP/s dense bf16: a bf16 arm
+# takes one product of the rounded operands, at the TF32 instruction's
+# 495, but the function is a bf16 product and is bounded at the bf16 rate)
+MMA_BF16_OPS_PER_S = 989e12
+# H12: a bf16 arm against its bf16 plain version. Both round the same
+# operands, but a value that lies within the kernel's and the plain
+# version's few-ulp disagreement of a bf16 rounding boundary rounds to
+# neighbouring bf16 values on the two sides: one term of a sum then moves
+# by 2^-8 of its size. So most outputs agree as closely as the fp32 arms'
+# (the fp32 check's rtol 2e-5 / atol 2e-6, BF16_CLOSE), a few do not. A bf16
+# arm passes when at least BF16_MIN_SHARE of its outputs agree so, its
+# largest difference is within BF16_MAX_ERR, and its mean difference is
+# under BF16_SEPARATION of its mean difference to the fp32 plain version
+# (a kernel that quietly stayed fp32 fails there); an update's gradients
+# each within BF16_GRAD_REL of the tensor's largest value, and their mean
+# difference under BF16_SEPARATION of the fp32 plain version's. Measured
+# (the first chip run of these checks, NVIDIA H100 80GB HBM3, 700 W): the
+# shares 0.9935-1.0 (K9's planes the least), the largest differences
+# 4.8e-7 to 4.4e-3 (K2's planes the most), the mean differences 3e-4 to
+# 6e-3 of the fp32 plain version's, the gradients within 6e-6 to 1.9e-3
+# of their tensors' max (K3's [128, 128] minibatch the most); the limits
+# leave a margin of 2x to 5x on each.
+BF16_CLOSE = (2e-5, 2e-6)
+BF16_MIN_SHARE = 0.98
+BF16_MAX_ERR = 0.02
+BF16_GRAD_REL = 1e-2
+BF16_SEPARATION = 0.1
+
+
+def close_share(a, b) -> float:
+    """The share of the elements of a within BF16_CLOSE of b's."""
+    rtol, atol = BF16_CLOSE
+    return float(((a - b).abs() <= atol + rtol * b.abs()).double().mean())
+
+
+def bf16_verdict(name, k, p16, p32=None) -> float:
+    """A bf16 arm's outputs k (one tensor) against its bf16 plain version's
+    p16 and, when given, the fp32 plain version's p32 (H12's rule); returns
+    the largest difference to p16."""
+    err = float((k - p16).abs().max())
+    mean16 = float((k - p16).abs().double().mean())
+    share = close_share(k, p16)
+    line = (f"{name}: max|err| {err:.3g}, mean {mean16:.3g}; within rtol "
+            f"{BF16_CLOSE[0]} / atol {BF16_CLOSE[1]}: {share:.6f} of the "
+            f"values")
+    apart = True
+    if p32 is not None:
+        mean32 = float((k - p32).abs().double().mean())
+        apart = mean16 <= BF16_SEPARATION * mean32
+        line += (f" (the fp32 plain version's: mean {mean32:.3g}, "
+                 f"{close_share(k, p32):.6f} within)")
+    print(line, flush=True)
+    if not (share >= BF16_MIN_SHARE and err <= BF16_MAX_ERR and apart):
+        raise AssertionError(f"{name} disagrees with its bf16 plain version "
+                             f"(H12's rule)")
+    return err
+
+
+def bf16_grads_verdict(name, kg, ks, pg, ps, fg, fs, order) -> float:
+    """An update's bf16 arm (gradients kg, stat sums ks) against its bf16
+    plain version (pg, ps) and the fp32 one (fg, fs): each tensor of order
+    and the stat sums within BF16_GRAD_REL x the tensor's max |value|, the
+    gradients' mean difference under BF16_SEPARATION of the fp32 plain
+    version's. Returns the largest difference."""
+    worst, off, max_err = 0.0, 0, 0.0
+    for tname, shape in [*order, ("stats", (8,))]:
+        n = math.prod(shape)
+        if tname == "stats":
+            a, b = ks, ps
+        else:
+            a, b = kg[off:off + n], pg[off:off + n]
+            off += n
+        scale = float(b.abs().max())
+        e = float((a - b).abs().max())
+        max_err = max(max_err, e)
+        worst = max(worst, e / scale if scale > 0 else e)
+    mean16 = float((kg - pg).abs().double().mean())
+    mean32 = float((kg - fg).abs().double().mean())
+    print(f"{name}: max|err| {max_err:.3g}, at most {worst:.3g} of a "
+          f"tensor's max|value|; mean gradient difference {mean16:.3g} (to "
+          f"the fp32 plain version {mean32:.3g}); stats kernel "
+          f"{ks.tolist()} plain {ps.tolist()} fp32 plain {fs.tolist()}",
+          flush=True)
+    if not (worst <= BF16_GRAD_REL and mean16 <= BF16_SEPARATION * mean32):
+        raise AssertionError(f"{name} disagrees with its bf16 plain version "
+                             f"(H12's rule)")
+    return max_err
+
+
+# K2's bf16 checks: (task, integrator, hidden, lanes, T cases) as K2_CASES
+K2_BF16_CASES = (
+    ("hover", "euler", (64, 64), 65536, ((3, 2), (64, 40))),
+    ("waypoint", "rk4", (64, 64), 8192 + 40, ((3, 2),)),  # a ragged block
+    ("hover", "euler", (128, 128), 8192, ((3, 2),)),  # off chip, through L1
+    ("racing", "euler", (), 8192, ((3, 2),)),  # linear: fragments staged
+)
+
+
+def phase_k2_bf16() -> float:
+    """K2's bf16 arm against its bf16 plain version on the card (H12's
+    rule on the T = 3 planes and final state, episodes equal; T = 64
+    statistically), each T = 3 case launched twice, bitwise equal."""
+    import torch
+
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.ops import cuda_acting_traj as K2
+    from drone_tpu_torch.types import default_params
+
+    max_err = 0.0
+    for task, integ, hidden, n, runs in K2_BF16_CASES:
+        model = flat_policy(hidden)
+        for T, horizon in runs:
+            env = DroneEnv(task, integ, default_params(task, horizon=horizon),
+                           device="cuda")
+            state = env.init_batch(5, n)
+            for sto in ((False, True) if T == 3 else (True,)):
+                args = (state, model.flat, model.hidden, env.params,
+                        env.statics, T, sto)
+                kf, kp, ks = K2.traj_rollout_kernel(*args, compute_dtype=BF16)
+                pf, pp, ps = K2.traj_rollout_plain(*args, compute_dtype=BF16)
+                fp = K2.traj_rollout_plain(*args)[1] if T == 3 else None
+                torch.cuda.synchronize()
+                k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
+                k_r = float(ks[0].sum()) / (n * T)
+                p_r = float(ps[0].sum()) / (n * T)
+                what = (f"K2 bf16 {task}/{integ} {list(hidden)} n={n} T={T} "
+                        f"stochastic={sto}")
+                print(f"{what}: episodes {k_ep:.0f} vs {p_ep:.0f}, mean "
+                      f"reward {k_r:.6f} vs {p_r:.6f}", flush=True)
+                if T == 3:
+                    max_err = max(max_err, bf16_verdict(
+                        f"{what} planes", kp, pp, fp))
+                    bf16_verdict(f"{what} final state", kf.fstate(),
+                                 pf.fstate())
+                    if k_ep != p_ep or k_ep < n:
+                        raise AssertionError("K2 bf16 episode counts differ "
+                                             "at T=3")
+                    kf2, kp2, ks2 = K2.traj_rollout_kernel(
+                        *args, compute_dtype=BF16)
+                    check_repeat("K2 bf16", (kf.fstate(), kp, ks),
+                                 (kf2.fstate(), kp2, ks2))
+                elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
+                    raise AssertionError("K2 bf16 episode statistics disagree")
+    return max_err
+
+
+def check_k3_bf16(planes, advret, perm_mb, theta, hidden, co, rbl,
+                  ent_coef) -> float:
+    """K3's bf16 arm against its bf16 plain version on one minibatch
+    (bf16_grads_verdict), two launches bitwise equal."""
+    import torch
+
+    from drone_tpu_torch.models import kernel_order
+    from drone_tpu_torch.ops import cuda_update as K3
+
+    args = (planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef)
+    kg, ks = K3.ppo_update_kernel(*args, compute_dtype=BF16)
+    pg, ps = K3.ppo_update_plain(*args, compute_dtype=BF16)
+    fg, fs = K3.ppo_update_plain(*args)
+    torch.cuda.synchronize()
+    check_repeat("K3 bf16", (kg, ks),
+                 K3.ppo_update_kernel(*args, compute_dtype=BF16))
+    return bf16_grads_verdict(
+        f"K3 bf16 minibatch ({perm_mb.numel()} row blocks of {rbl} lanes x "
+        f"{planes.shape[0]} steps; two launches bitwise equal)",
+        kg, ks, pg, ps, fg, fs, kernel_order(hidden))
+
+
+def phase_k3_bf16(cfg, env):
+    """K3's bf16 arm at hover.toml's minibatch, the planes written by K2's
+    bf16 arm: at their weights (ratio 1: no sample's ratio leaves 1 +-
+    clip_eps, as the reference rebuilds logp from the stored action) and
+    off them (every branch of the head's subgradients taken); then [128,
+    128] off chip. Returns (the largest difference, inputs for timing)."""
+    from drone_tpu_torch.models import kernel_order
+    from drone_tpu_torch.ops import cuda_update as K3
+
+    model = flat_policy()
+    planes, advret, perm_mb, co, rbl = hover_minibatch(cfg, model, env, BF16)
+    ent = cfg.train.ent_coef
+    n = K3.head_branch_counts(planes, advret, perm_mb, model.flat,
+                              model.hidden, co, rbl, compute_dtype=BF16)
+    print(f"K3 bf16 at the planes' weights: {n}", flush=True)
+    if n["ratio_out"] != 0:
+        raise AssertionError("the bf16 ratio left 1 +- clip_eps at the "
+                             "weights that wrote the planes")
+    err = check_k3_bf16(planes, advret, perm_mb, model.flat, model.hidden,
+                        co, rbl, ent)
+    theta = off_policy(model.flat, kernel_order(model.hidden))
+    check_branches("K3 bf16", K3.head_branch_counts(
+        planes, advret, perm_mb, theta, model.hidden, co, rbl,
+        compute_dtype=BF16))
+    err = max(err, check_k3_bf16(planes, advret, perm_mb, theta, model.hidden,
+                                 co, rbl, ent))
+    big = flat_policy((128, 128))
+    small = hover_minibatch(
+        cfg.with_overrides(["train.num_envs=8192", "train.horizon=16"]),
+        big, env, BF16)
+    err = max(err, check_k3_bf16(*small[:3], off_policy(big.flat, kernel_order(
+        big.hidden)), big.hidden, *small[3:], ent))
+    return err, (model, planes, advret, perm_mb, co, rbl)
+
+
+def phase_k9_bf16() -> float:
+    """K9's bf16 arm against its bf16 plain version at 65,536 lanes (T = 3
+    in both action modes by H12's rule, two launches bitwise equal; T = 32
+    statistically), and K11's, the same instantiation, at T = 3 (the final
+    state and the per-lane statistics)."""
+    import torch
+
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.ops import cuda_acting_cnn as K9
+    from drone_tpu_torch.types import default_params
+
+    n = 65536
+    model = cnn_policy()
+    max_err = 0.0
+    for T, horizon, modes in ((3, 2, (False, True)), (32, 40, (True,))):
+        env = DroneEnv("hover", "euler", default_params("hover",
+                                                         horizon=horizon),
+                       device="cuda")
+        state = env.init_batch(5, n)
+        for sto in modes:
+            args = (state, model.flat, model.arch, env.params, env.statics, T,
+                    sto)
+            kf, kp, ks = K9.traj_cnn_rollout_kernel(*args, compute_dtype=BF16)
+            pf, pp, ps = K9.traj_cnn_rollout_plain(*args, compute_dtype=BF16)
+            torch.cuda.synchronize()
+            k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
+            k_r, p_r = float(ks[0].sum()) / (n * T), float(ps[0].sum()) / (n * T)
+            what = f"K9 bf16 hover n={n} T={T} stochastic={sto}"
+            print(f"{what}: episodes {k_ep:.0f} vs {p_ep:.0f}, mean reward "
+                  f"{k_r:.6f} vs {p_r:.6f}", flush=True)
+            if T == 3:
+                fp = K9.traj_cnn_rollout_plain(*args)[1]
+                max_err = max(max_err, bf16_verdict(f"{what} planes", kp, pp,
+                                                    fp))
+                bf16_verdict(f"{what} final state", kf.fstate(), pf.fstate())
+                if k_ep != p_ep or k_ep < n:
+                    raise AssertionError("K9 bf16 episode counts differ at "
+                                         "T=3")
+                again = K9.traj_cnn_rollout_kernel(*args, compute_dtype=BF16)
+                check_repeat("K9 bf16", (kf.fstate(), kp, ks),
+                             (again[0].fstate(), *again[1:]))
+            elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
+                raise AssertionError("K9 bf16 episode statistics disagree")
+    env = DroneEnv("hover", "euler", default_params("hover", horizon=2),
+                   device="cuda")
+    state = env.init_batch(6, n)
+    args = (state, model.flat, model.arch, env.params, env.statics, 3)
+    kf, ks = K9.cnn_act_rollout_kernel(*args, compute_dtype=BF16)
+    pf, ps = K9.cnn_act_rollout_plain(*args, compute_dtype=BF16)
+    ff, fs = K9.cnn_act_rollout_plain(*args)
+    torch.cuda.synchronize()
+    max_err = max(max_err, bf16_verdict(
+        f"K11 bf16 (K9's instantiation) hover n={n} T=3 final state",
+        kf.fstate(), pf.fstate(), ff.fstate()))
+    bf16_verdict("K11 bf16 per-lane statistics", ks, ps)
+    again = K9.cnn_act_rollout_kernel(*args, compute_dtype=BF16)
+    check_repeat("K11 bf16", (kf.fstate(), ks), (again[0].fstate(), again[1]))
+    return max_err
+
+
+def check_k10_bf16(args, order) -> float:
+    """K10's bf16 arm against its bf16 plain version on one minibatch
+    (bf16_grads_verdict), two launches bitwise equal."""
+    import torch
+
+    from drone_tpu_torch.ops import cuda_update_cnn as K10
+
+    kg, ks = K10.ppo_cnn_update_kernel(*args, compute_dtype=BF16)
+    kg2, ks2 = K10.ppo_cnn_update_kernel(*args, compute_dtype=BF16)
+    pg, ps = K10.ppo_cnn_update_plain(*args, compute_dtype=BF16)
+    fg, fs = K10.ppo_cnn_update_plain(*args)
+    torch.cuda.synchronize()
+    check_repeat("K10 bf16", (kg, ks), (kg2, ks2))
+    planes, perm_mb, rbl = args[0], args[2], args[6]
+    return bf16_grads_verdict(
+        f"K10 bf16 minibatch ({perm_mb.numel()} row blocks of {rbl} lanes x "
+        f"{planes.shape[0]} steps; two launches bitwise equal)",
+        kg, ks, pg, ps, fg, fs, order)
+
+
+def phase_k10_bf16(cfg, env):
+    """K10's bf16 arm at the CNN geometry's full-width minibatch, the
+    planes written by K9's bf16 arm: at their weights (no ratio outside 1
+    +- clip_eps) and off them (every branch taken). Returns (the largest
+    difference, inputs for timing)."""
+    from drone_tpu_torch.ops import cuda_update_cnn as K10
+
+    model = cnn_policy()
+    order = model.kernel_order()
+    planes, advret, perm_mb, co, rbl = cnn_minibatch(cfg, model, env, BF16)
+    args = (planes, advret, perm_mb, model.flat, model.arch, co, rbl,
+            cfg.train.ent_coef)
+    n = K10.cnn_head_branch_counts(*args[:7], compute_dtype=BF16)
+    print(f"K10 bf16 at the planes' weights: {n}", flush=True)
+    if n["ratio_out"] != 0:
+        raise AssertionError("the bf16 ratio left 1 +- clip_eps at the "
+                             "weights that wrote the planes")
+    err = check_k10_bf16(args, order)
+    for critic_scale in (16.0, 64.0, 256.0):
+        theta = off_policy(model.flat, order, critic_scale=critic_scale)
+        n = K10.cnn_head_branch_counts(planes, advret, perm_mb, theta,
+                                       model.arch, co, rbl,
+                                       compute_dtype=BF16)
+        try:
+            check_branches(f"K10 bf16 (critic noise {critic_scale})", n)
+            break
+        except AssertionError:
+            if critic_scale == 256.0:
+                raise
+    err = max(err, check_k10_bf16((*args[:3], theta, *args[4:]), order))
+    return err, args
+
+
+# The bf16 instantiations beside their fp32 ones (hover/euler, stochastic
+# for K2): (library, fp32 label, bf16 label, whether the bf16 one holds a
+# third of the fp32 one's HMMA); the labels are kernel_label keys of the
+# build report. K3's db keeps its two products with ones a window (an fp32
+# sum), and its bf16 loops unroll otherwise than its fp32 ones: 36 HMMA
+# against 52 in the first build.
+BF16_PAIRS = (
+    ("acting_traj", "traj_kernelILi0ELi0ELb1ELb0E",
+     "traj_kernelILi0ELi0ELb1ELb1E", True),
+    ("update", "update_kernelILb1ELb0E", "update_kernelILb1ELb1E", False),
+    ("update", "update_kernelILb0ELb0E", "update_kernelILb0ELb1E", False),
+    ("acting_cnn", "cnn_act_kernelILi0ELi0ELb0E",
+     "cnn_act_kernelILi0ELi0ELb1E", True),
+    ("update_cnn", "cnn_fwd_kernelILb0E", "cnn_fwd_kernelILb1E", True),
+    ("update_cnn", "tower_bwd_kernelILb0E", "tower_bwd_kernelILb1E", True),
+)
+
+
+def sass_counts(lib, keys, opcodes) -> dict:
+    """{kernel: {opcode: instructions}} in a library's machine code
+    (cuobjdump -sass), for the entry functions kernel_label names; an
+    opcode counts the instructions whose mnemonic starts with it."""
+    from drone_tpu_torch.ops import cuda_build
+
+    tool = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, entry = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            entry = kernel_label(line.split("Function :")[1].strip(), keys)
+            if entry:
+                out[entry] = dict.fromkeys(opcodes, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                      line)
+        if entry and m:
+            for op in opcodes:
+                if m.group(1).startswith(op):
+                    out[entry][op] += 1
+    return out
+
+
+def bf16_build_report(libs) -> list:
+    """Each bf16 instantiation's tensor-core products (HMMA) and bf16
+    roundings (F2FP.BF16, cvt.rn.bf16x2) beside its fp32 one's: the bf16
+    arm must hold HMMA instructions and round to bf16, the fp32 one not;
+    the bf16 arm must hold fewer HMMA, and where its loops are the fp32
+    arm's (BF16_PAIRS) exactly a third: one product a k-step where 3xTF32
+    takes three. Returns the failures."""
+    failures = []
+    keys = [k for _, a, b, _ in BF16_PAIRS for k in (a, b)]
+    for name in dict.fromkeys(lib for lib, _, _, _ in BF16_PAIRS):
+        c = sass_counts(libs[name], keys, ("HMMA", "F2FP.BF16"))
+        for lib, fp32, bf16, third in BF16_PAIRS:
+            if lib != name:
+                continue
+            a, b = c.get(fp32, {}), c.get(bf16, {})
+            print(f"  {name} bf16 arm {bf16}: {b.get('HMMA')} HMMA, "
+                  f"{b.get('F2FP.BF16')} F2FP.BF16; its fp32 arm {fp32}: "
+                  f"{a.get('HMMA')} HMMA, {a.get('F2FP.BF16')} F2FP.BF16",
+                  flush=True)
+            if not (b.get("HMMA") and b.get("F2FP.BF16") and a.get("HMMA")
+                    and b["HMMA"] < a["HMMA"] and a.get("F2FP.BF16") == 0
+                    and (not third or 3 * b["HMMA"] == a["HMMA"])):
+                failures.append(f"{bf16}: {b} against {fp32}: {a}")
+    return failures
+
+
+def path_bf16_training(cfg_path, tmp) -> dict:
+    """cli train under run.compute_dtype=bfloat16 on hover.toml (3
+    updates: K2 = 3, K3 = K4 = 96) and at the CNN geometry (2 updates: K9 =
+    2, K10 = K4 = 32), every launch of K2, K3, K9 and K10 their bf16 arm's;
+    then cli eval of each checkpoint, which serves a bf16 policy through
+    the module as the reference does (no acting kernel launches). Returns
+    {family: launch counts of its cli train}."""
+    import torch
+
+    from drone_tpu_torch import cli
+
+    out = {}
+    for family, over, updates, want in (
+            ("mlp", [], 3, {"K2": 3, "K3": 96, "K4": 96}),
+            ("cnn", list(CNN_OVERRIDES), 2, {"K9": 2, "K10": 32, "K4": 32})):
+        zero_counts()
+        t0 = time.time()
+        rc = cli.main(["train", str(cfg_path), *over,
+                       f"run.compute_dtype={BF16}",
+                       f"run.total_updates={updates}",
+                       f"run.checkpoint_dir={tmp}", f"run.run_name={family}16"])
+        torch.cuda.synchronize()
+        c = counts()
+        t_train = time.time() - t0
+        zero_counts()
+        rc2 = cli.main(["eval", str(cfg_path), *over[:1],
+                        f"run.compute_dtype={BF16}",
+                        f"run.resume_from={tmp}/{family}16/checkpoints"])
+        torch.cuda.synchronize()
+        e = counts()
+        print(f"bf16 {family} path: cli train ({updates} updates) rc={rc} in "
+              f"{t_train:.1f} s, launches {c}; cli eval rc={rc2}, launches "
+              f"{e}", flush=True)
+        if (rc, rc2) != (0, 0) or any(c[k] != v for k, v in want.items()):
+            raise AssertionError(f"the bf16 {family} path launched {c}, "
+                                 f"expected {want}")
+        if any(c[k] != c[f"{k} bf16"] for k in BF16_ARMS):
+            raise AssertionError(f"the bf16 {family} path ran an fp32 arm: "
+                                 f"{c}")
+        if any(e[k] for k in ("K5", "K11")):
+            raise AssertionError(f"cli eval served a bf16 {family} policy "
+                                 f"through an fp32 acting kernel: {e}")
+        out[family] = c
+    return out
+
+
+def phase_bf16_learning_and_resume(tmp):
+    """The bf16 learning gates under the fp32 gates' rules (the MLP's one
+    run from seed 0, mlp_gate_run; the CNN's four runs from seeds 0-3,
+    cnn_gate); and resume under bfloat16: train(4) == train(2) +
+    resume(2) bitwise, for the MLP and the CNN. A failed gate is raised
+    after the resume checks have run."""
+    import torch
+
+    from drone_tpu_torch.train import train
+    from drone_tpu_torch.utils.config import Config
+
+    t0 = time.time()
+    updates, mean5, first5, finite = mlp_gate_run(0, BF16)
+    print(f"bf16 MLP learning gate: mean reward of the last 5 updates "
+          f"{mean5:.4f} after {updates} updates ({time.time() - t0:.1f} s); "
+          f"first 5 {first5:.4f}; parameters finite {finite}", flush=True)
+    mlp_ok = mean5 > MLP_GATE_REWARD and finite
+    cnn_ok, rise = cnn_gate(GATE_SEEDS, BF16)
+    print(f"bf16 CNN learning gate: mean reward rise over seeds "
+          f"{list(GATE_SEEDS)} {rise:.4f}", flush=True)
+
+    for family, over in (("mlp", ["run.hidden=32,32", "train.num_envs=4096"]),
+                         ("cnn", ["run.policy=cnn", "train.num_envs=1024"])):
+        def cfg_for(name, total, extra=()):
+            return Config.default().with_overrides([
+                *over, f"run.compute_dtype={BF16}", "train.horizon=16",
+                "train.epochs=2", "train.num_minibatches=2",
+                "run.log_interval=2", f"run.total_updates={total}",
+                f"run.run_name={family}16_{name}",
+                f"run.checkpoint_dir={tmp}", *extra])
+
+        full, _ = train(cfg_for("full", 4))
+        train(cfg_for("half", 2))
+        resumed, _ = train(cfg_for("resumed", 4, [
+            f"run.resume_from={tmp}/{family}16_half/checkpoints"]))
+        torch.cuda.synchronize()
+
+        def tensors(r):
+            return [*r.params.state_dict().values(), *r.opt_state,
+                    r.env_state.fstate(), r.env_state.step]
+
+        ok = all(bitwise_equal(a, b) for a, b in zip(tensors(full),
+                                                     tensors(resumed)))
+        print(f"bf16 {family} resume on the card: train(4) == train(2) + "
+              f"resume(2) bitwise: {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"bf16 {family} resume is not bitwise")
+    if not (mlp_ok and cnn_ok):
+        raise AssertionError(f"a bf16 learning gate failed on the card (MLP "
+                             f"{mlp_ok}, CNN {cnn_ok})")
+
+
+def path_profile(cfg_path, tmp) -> int:
+    """cli train on hover.toml under bfloat16 with run.profile_dir for 6
+    updates: the trace of updates 3 to 5 must be written and hold K3's
+    launches (update_kernel, 32 an update). Returns their count."""
+    from drone_tpu_torch import cli
+
+    prof = Path(tmp) / "prof"
+    rc = cli.main(["train", str(cfg_path), f"run.compute_dtype={BF16}",
+                   "run.total_updates=6", f"run.profile_dir={prof}",
+                   f"run.checkpoint_dir={tmp}", "run.run_name=prof"])
+    path = prof / "trace" / "trace.json"
+    events = json.loads(path.read_text())["traceEvents"] if path.exists() else []
+    k3 = sum(1 for e in events if e.get("cat") == "kernel"
+             and "drone::update_kernel" in e.get("name", ""))
+    print(f"profile path: cli train run.profile_dir rc={rc}: {path} "
+          f"({path.stat().st_size if path.exists() else 0} bytes) holds "
+          f"{len(events)} events, {k3} launches of K3's update_kernel",
+          flush=True)
+    if rc != 0 or k3 != 3 * 32:
+        raise AssertionError(f"the run.profile_dir trace holds {k3} launches "
+                             f"of K3, expected 96")
+    return k3
+
+
+def time_bf16(cfg, env, k3_inputs, k10_args) -> dict:
+    """Times of the bf16 arms of K2 (hover.toml's rollout, 65,536 x 64), K3
+    (its minibatch), K9 (65,536 x 128) and K10 (the CNN geometry's
+    minibatch) by CUDA events, beside their fp32 arms' in this call, their
+    bf16 plain versions and their bounds (the products at the bf16 rate,
+    the rest at the fp32 rate); and one bf16 MLP and CNN update split and
+    traced as in 11. Returns {name: (ms, plain_ms, bound_ms, bound_by,
+    library_ms)}."""
+    import torch
+
+    from drone_tpu_torch.ops import cuda_acting_cnn as K9
+    from drone_tpu_torch.ops import cuda_acting_traj as K2
+    from drone_tpu_torch.ops import cuda_update as K3
+    from drone_tpu_torch.ops import cuda_update_cnn as K10
+
+    def bf16_bound(mma, other, nbytes):
+        t_ops = mma / MMA_BF16_OPS_PER_S + other / FP32_OPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    out, fp32_ms = {}, {}
+    model, planes, advret, perm_mb, co, rbl = k3_inputs
+    tc = cfg.train
+    n, T, hidden, P = tc.num_envs, tc.horizon, model.hidden, model.flat.numel()
+    state = env.init_batch(9, n)
+    args = (state, model.flat, hidden, env.params, env.statics, T)
+    _, _, lane = K2.traj_rollout_kernel(*args, compute_dtype=BF16)
+    episodes = float(lane[1].sum())
+    ms = cuda_ms(lambda: K2.traj_rollout_kernel(*args, compute_dtype=BF16),
+                 reps=5)
+    fp32_ms["K2"] = cuda_ms(lambda: K2.traj_rollout_kernel(*args), reps=5)
+    t0 = time.time()
+    K2.traj_rollout_plain(*args, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    plain = (time.time() - t0) * 1e3
+    ops = (n * T * (OPS_STEP + OPS_OBS + tower_ops(hidden, 4)
+                    + tower_ops(hidden, 1) + OPS_NOISE_LOGP)
+           + episodes * OPS_RESET)
+    mma = n * T * (tower_mma_ops(hidden, 4) + tower_mma_ops(hidden, 1))
+    nbytes = n * (2 * 25 * 4 + 5 * 4) + T * 21 * n * 4 + P * 4
+    out["K2"] = (ms, plain, *bf16_bound(mma, ops - mma, nbytes), None)
+
+    args3 = (planes, advret, perm_mb, model.flat, hidden, co, rbl,
+             tc.ent_coef)
+    samples = perm_mb.numel() * rbl * planes.shape[0]
+    ms = cuda_ms(lambda: K3.ppo_update_kernel(*args3, compute_dtype=BF16),
+                 reps=10)
+    fp32_ms["K3"] = cuda_ms(lambda: K3.ppo_update_kernel(*args3), reps=10)
+    plain = cuda_ms(lambda: K3.ppo_update_plain(*args3, compute_dtype=BF16),
+                    reps=2)
+    ops, mma = samples * update_ops(hidden), samples * update_mma_ops(hidden)
+    out["K3"] = (ms, plain, *bf16_bound(
+        mma, ops - mma, samples * 21 * 4 + P * 4 + (P + 8) * 4), None)
+
+    cnn = cnn_policy(seed=2, log_std=0.0)
+    cfg_cnn = cfg.with_overrides(list(CNN_OVERRIDES))
+    Tc, Pc = cfg_cnn.train.horizon, cnn.flat.numel()
+    state = env.init_batch(9, n)
+    args9 = (state, cnn.flat, cnn.arch, env.params, env.statics, Tc)
+    _, _, lane = K9.traj_cnn_rollout_kernel(*args9, compute_dtype=BF16)
+    episodes = float(lane[1].sum())
+    ms = cuda_ms(lambda: K9.traj_cnn_rollout_kernel(*args9,
+                                                    compute_dtype=BF16),
+                 reps=3, warm_up=False)
+    fp32_ms["K9"] = cuda_ms(lambda: K9.traj_cnn_rollout_kernel(*args9),
+                            reps=3)
+    plain = host_ms(lambda d: K9.traj_cnn_rollout_plain(
+        *args9[:-1], d, compute_dtype=BF16), 32, Tc)
+    ops = (n * Tc * (OPS_STEP + OPS_OBS + cnn_ops(True) + OPS_NOISE_LOGP)
+           + episodes * OPS_RESET)
+    out["K9"] = (ms, plain, *bf16_bound(
+        n * Tc * 2 * CNN_MACS, ops - n * Tc * 2 * CNN_MACS,
+        n * (2 * 25 * 4 + 5 * 4) + Pc * 4 + Tc * 21 * n * 4), None)
+
+    planes, perm_mb, rbl = k10_args[0], k10_args[2], k10_args[6]
+    samples = perm_mb.numel() * rbl * planes.shape[0]
+    ms = cuda_ms(lambda: K10.ppo_cnn_update_kernel(*k10_args,
+                                                   compute_dtype=BF16),
+                 reps=2, warm_up=False)
+    fp32_ms["K10"] = cuda_ms(lambda: K10.ppo_cnn_update_kernel(*k10_args),
+                             reps=2)
+    plain = cuda_ms(lambda: K10.ppo_cnn_update_plain(*k10_args,
+                                                     compute_dtype=BF16),
+                    reps=1, warm_up=False)
+    ops, mma = samples * cnn_update_ops(), samples * cnn_tower_mma_ops()
+    out["K10"] = (ms, plain, *bf16_bound(
+        mma, ops - mma, samples * 23 * 4 + Pc * 4 + (Pc + 8) * 4), None)
+
+    for name, (ms, plain, bms, by, _) in out.items():
+        print(f"{name} bf16: kernel {ms:.4f} ms (its fp32 arm in this call "
+              f"{fp32_ms[name]:.4f} ms), plain {plain:.2f} ms, bound "
+              f"{bms:.4f} ms ({by}; products at {MMA_BF16_OPS_PER_S:.3g} "
+              f"op/s)", flush=True)
+    split_update(cfg.with_overrides([f"run.compute_dtype={BF16}"]))
+    split_update(cfg_cnn.with_overrides([f"run.compute_dtype={BF16}"]))
+    return out
+
+
 class Laps:
     """Host-clock seconds of each phase of the script: lap(name) closes the
     phase that ends there."""
@@ -3578,23 +4269,30 @@ def main() -> int:
     from drone_tpu_torch.ops import cuda_update_lstm as K7
     from drone_tpu_torch.ops.cuda_acting_cnn import KERNEL_ARCH
 
-    smem = {"cnn_fwd_kernel": K10.TOWER_FWD_SMEM,
+    smem = {"cnn_fwd_kernelILb0E": K10.TOWER_FWD_SMEM,
+            "cnn_fwd_kernelILb1E": K10.TOWER_FWD_SMEM,
             "tower_fwd_kernel": K10.TOWER_FWD_SMEM,
-            "tower_bwd_kernel": K10.TOWER_BWD_SMEM, "pack_tower_kernel": 0,
+            "tower_bwd_kernelILb0E": K10.TOWER_BWD_SMEM,
+            "tower_bwd_kernelILb1E": K10.TOWER_BWD_SMEM,
+            "pack_tower_kernel": 0,
             "bptt_kernel<cnn>": K7.bptt_smem_bytes(128, KERNEL_ARCH),
             "bptt_kernel<dense>": K7.bptt_smem_bytes(128, (64,)),
             "grad_mma_kernel": K7.PRODUCT_SMEM,
-            "cnn_act_kernelILi0ELi0E": K10.TOWER_FWD_SMEM,
+            "cnn_act_kernelILi0ELi0ELb0E": K10.TOWER_FWD_SMEM,
+            "cnn_act_kernelILi0ELi0ELb1E": K10.TOWER_FWD_SMEM,
             "lstm_act_kernel<cnn>": K8.act_smem_bytes(128, KERNEL_ARCH),
             "lstm_act_kernel<dense>": K8.act_smem_bytes(128, (64,)),
             "pack_gates_kernel": 0, "pack_gates_t_kernel": 0,
-            "update_kernelILb1E": K3.mma_layout((64, 64))["smem"],
-            "update_kernelILb0E": K3.mma_layout((128, 128))["smem"],
+            "update_kernelILb1ELb0E": K3.mma_layout((64, 64))["smem"],
+            "update_kernelILb1ELb1E": K3.mma_layout((64, 64))["smem"],
+            "update_kernelILb0ELb0E": K3.mma_layout((128, 128))["smem"],
+            "update_kernelILb0ELb1E": K3.mma_layout((128, 128))["smem"],
             "pack_planes_kernel": 0,
             "act_kernelILi0ELi0ELb0E": cuda_acting.act_layout((64, 64))["smem"],
             "act_kernelILi0ELi0ELb1E": cuda_acting.act_layout((64, 64))["smem"],
-            "traj_kernelILi0ELi0ELb0E": K2.traj_layout((64, 64))["smem"],
-            "traj_kernelILi0ELi0ELb1E": K2.traj_layout((64, 64))["smem"],
+            "traj_kernelILi0ELi0ELb0ELb0E": K2.traj_layout((64, 64))["smem"],
+            "traj_kernelILi0ELi0ELb1ELb0E": K2.traj_layout((64, 64))["smem"],
+            "traj_kernelILi0ELi0ELb1ELb1E": K2.traj_layout((64, 64))["smem"],
             "pack_traj_kernel": 0}
     # every one of them but the packing runs mma.sync: its SASS must hold
     # HMMA instructions
@@ -3627,6 +4325,11 @@ def main() -> int:
     if no_mma:
         failed.append(f"no HMMA instruction in {no_mma}")
         print(f"FAILED: no HMMA instruction in {no_mma}", flush=True)
+    bf16_failures = bf16_build_report(libs)
+    if bf16_failures:
+        failed.append(f"bf16 arms: {bf16_failures}")
+        print(f"FAILED: bf16 arms without one product a k-step: "
+              f"{bf16_failures}", flush=True)
     lap("build")
 
     k1_err = phase_k1()
@@ -3834,6 +4537,25 @@ def main() -> int:
     lap("bench shapes check")
     path_bench(cfg_path)
     lap("bench path")
+    # -- the bf16 slice: the bf16 operand arms of K2, K3, K9 (K11) and K10,
+    # bfloat16 training and run.profile_dir --------------------------------
+    k2b_err = phase_k2_bf16()
+    lap("K2 bf16 check")
+    k3b_err, k3b_inputs = phase_k3_bf16(cfg, env)
+    lap("K3 bf16 check")
+    k9b_err = phase_k9_bf16()
+    lap("K9, K11 bf16 checks")
+    k10b_err, k10b_args = phase_k10_bf16(cfg_cnn, env)
+    lap("K10 bf16 check")
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_counts = path_bf16_training(cfg_path, tmp)
+        lap("bf16 MLP and CNN paths")
+        gate(phase_bf16_learning_and_resume, tmp)
+        lap("bf16 learning gates, resume")
+        bf16_times = time_bf16(cfg, env, k3b_inputs, k10b_args)
+        lap("bf16 times, updates")
+        path_profile(cfg_path, tmp)
+        lap("profile path")
     print(f"phase seconds: {lap.seconds}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
@@ -3904,6 +4626,21 @@ def main() -> int:
               "drone_tpu/ops/pallas_acting_lstm.py:186",
               cl_serve_counts["K8 cnn"], max(k8c_err, bench_err["K8 cnn"]),
               *cl_times["K8"]),
+        entry("K2 trajectory rollout, bf16 arm",
+              "drone_tpu_torch/csrc/acting_traj.cu",
+              "drone_tpu/ops/pallas_acting_traj.py:120",
+              bf16_counts["mlp"]["K2 bf16"], k2b_err, *bf16_times["K2"]),
+        entry("K3 PPO update, bf16 arm", "drone_tpu_torch/csrc/update.cu",
+              "drone_tpu/ops/pallas_update.py:206",
+              bf16_counts["mlp"]["K3 bf16"], k3b_err, *bf16_times["K3"]),
+        entry("K9 CNN trajectory rollout, bf16 arm",
+              "drone_tpu_torch/csrc/acting_cnn.cu",
+              "drone_tpu/ops/pallas_acting_cnn.py:271",
+              bf16_counts["cnn"]["K9 bf16"], k9b_err, *bf16_times["K9"]),
+        entry("K10 CNN PPO update, bf16 arm",
+              "drone_tpu_torch/csrc/update_cnn.cu",
+              "drone_tpu/ops/pallas_update_cnn.py:151",
+              bf16_counts["cnn"]["K10 bf16"], k10b_err, *bf16_times["K10"]),
     ]
     print(dev, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

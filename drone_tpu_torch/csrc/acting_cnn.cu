@@ -23,6 +23,14 @@
 // render overlaps the other's products. A ragged last tile computes on
 // zeros for its lanes past n and stores nothing for them.
 //
+// The bf16 arm (compute_dtype="bfloat16", the reference's bf16 operand
+// arm of _cnn_traj_kernel and _cnn_act_kernel: cnn_forward's _dot32 rounds
+// both operands of every product, the rendered pixels among them): the
+// BF16 template parameter, K9's and K11's one instantiation
+// (cnn_act_kernel<task, integrator, true>): pack_tower_kernel<true> packs
+// the weights rounded, tower_fwd_tile<true> runs one product a k-step, and
+// the heads round W and h (cnn.cuh cnn_heads<true>).
+//
 // What bounds it on an H100: ~369k multiply-adds of the tower per
 // lane-step (conv0 147,456, conv1 147,456, trunk 73,728) at the 3xTF32
 // rate (165 TFLOP/s of fp32-accurate products), and 2,304 expf, the heads'
@@ -47,7 +55,7 @@ struct CnnIO {
   int T, stochastic;
 };
 
-template <int TASK, int INTEG>
+template <int TASK, int INTEG, bool BF16>
 __global__ void __launch_bounds__(TM_THREADS, 2)
 cnn_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
                Planes pl, CnnIO io) {
@@ -95,12 +103,13 @@ cnn_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
     }
     __syncthreads();
 
-    tower_fwd_tile(sm, io.theta, io.pk, io.grid, [](int, const float*) {});
+    tower_fwd_tile<BF16>(sm, io.theta, io.pk, io.grid,
+                         [](int, const float*) {});
     __syncthreads();
 
     if (lane_thread) {
       float m[4], v, a[4];
-      cnn_heads(h, S, tid, io.theta, m, v);
+      cnn_heads<BF16>(h, S, tid, io.theta, m, v);
       if (out) {
         float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         if (io.stochastic) gauss4(cr.k0, cr.k1, cr.rc, cr.stp, z);
@@ -135,18 +144,18 @@ cnn_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
   if (lane_thread) write_back(pl, i, cr, acc);
 }
 
-template <int TASK, int INTEG>
+template <int TASK, int INTEG, bool BF16>
 cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
                    const CnnIO& io, float4* pk, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      cnn_act_kernel<TASK, INTEG>,
+      cnn_act_kernel<TASK, INTEG, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
   if (err != cudaSuccess) return err;
-  pack_tower_kernel<<<(PK_FWD + 255) / 256, 256, 0, stream>>>(io.theta, pk,
-                                                               PK_FWD);
+  pack_tower_kernel<BF16><<<(PK_FWD + 255) / 256, 256, 0, stream>>>(
+      io.theta, pk, PK_FWD);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cnn_act_kernel<TASK, INTEG>
+  cnn_act_kernel<TASK, INTEG, BF16>
       <<<(pl.n + TM_L - 1) / TM_L, TM_THREADS, TF_SMEM, stream>>>(pf, pi, pl,
                                                                    io);
   return cudaGetLastError();
@@ -160,23 +169,25 @@ cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
 // the stream before the kernel reads them; grid: the pixel coordinates (2,
 // 576); traj: the (T, 21, n) planes to train (K9), or null to serve (K11);
 // smem: the block's shared bytes as the wrapper counts them (refused unless
-// TF_SMEM).
+// TF_SMEM); bf16: 1 for the bf16 operand arm, 0 for 3xTF32.
 extern "C" int drone_cnn_act_rollout(
     const float* pf, const int* pi, const float* fs, const uint32_t* us,
     const int* st, float* ofs, uint32_t* ous, int* ost, float* stats,
     const float* theta, float* pk, const float* grid, float* traj,
-    int stochastic, int smem, int n, int T, int task, int integrator,
-    void* stream) {
+    int stochastic, int smem, int bf16, int n, int T, int task,
+    int integrator, void* stream) {
   using namespace drone;
-  if (n <= 0 || T < 0 || smem != TF_SMEM || pk == nullptr)
+  if (n <= 0 || T < 0 || smem != TF_SMEM || pk == nullptr || bf16 < 0 ||
+      bf16 > 1)
     return (int)cudaErrorInvalidValue;
   float4* pk4 = reinterpret_cast<float4*>(pk);
   const CnnIO io{theta, pk4, grid, traj, T, stochastic};
   const Planes pl{fs, us, st, ofs, ous, ost, stats, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DRONE_CNN_CASE(TK, IG) \
-  if (task == TK && integrator == IG) \
-    return (int)launch<TK, IG>(pf, pi, pl, io, pk4, s);
+#define DRONE_CNN_CASE(TK, IG)                                         \
+  if (task == TK && integrator == IG)                                  \
+    return bf16 ? (int)launch<TK, IG, true>(pf, pi, pl, io, pk4, s)    \
+                : (int)launch<TK, IG, false>(pf, pi, pl, io, pk4, s);
   DRONE_CNN_CASE(TASK_HOVER, INTEG_EULER)
   DRONE_CNN_CASE(TASK_HOVER, INTEG_RK4)
   DRONE_CNN_CASE(TASK_WAYPOINT, INTEG_EULER)

@@ -341,7 +341,8 @@ extern "C" int drone_lstm_act_rollout(
   const int nf = gate_frags(net.E, net.H);
   pack_gates_kernel<<<(nf + 255) / 256, 256, 0, s>>>(wp, net.E, net.H, pg4);
   if (encoder == ENC_CNN)
-    pack_tower_kernel<<<(PK_FWD + 255) / 256, 256, 0, s>>>(theta, pk4, PK_FWD);
+    pack_tower_kernel<false><<<(PK_FWD + 255) / 256, 256, 0, s>>>(theta, pk4,
+                                                                  PK_FWD);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 #define DRONE_LSTM_CASE(TK, IG)                                             \

@@ -43,11 +43,20 @@
 // fragments in shared memory; else the fragments are read through L1 from
 // L2.
 //
+// The bf16 arm (compute_dtype="bfloat16", the reference's bf16 operand
+// arm of _traj_kernel: _tower's _dot32 rounds both operands of every
+// product): the BF16 template parameter. pack_traj_kernel<true> packs the
+// weights rounded to bf16, and each k-step is one product of the rounded
+// operands (mma.cuh split_op, mma_op): the obs, each hidden layer's tanh
+// and the head's inputs are rounded as their fragments load. The biases,
+// the tanh and everything after the heads stay fp32.
+//
 // What bounds it on an H100: both towers' products (10,368 multiply-adds
-// a lane-step at [64, 64]) at the 3xTF32 rate beside the env step and the
-// 256 tanhf a lane-step; its 21 planes are 84 bytes per lane-step, far
-// below the memory rate. What holds it, as K5: the mma.sync TF32 rate,
-// the operands' split and the tanhf on the CUDA cores.
+// a lane-step at [64, 64]) at the 3xTF32 rate (the bf16 arm: at the bf16
+// rate) beside the env step and the 256 tanhf a lane-step; its 21 planes
+// are 84 bytes per lane-step, far below the memory rate. What holds it,
+// as K5: the mma.sync TF32 rate, the operands' split and the tanhf on the
+// CUDA cores.
 
 #include <cuda_runtime.h>
 
@@ -125,7 +134,9 @@ inline size_t traj_smem(const TLayout& lo) {
 // the fragments (tower e / f4), the next 2 nb threads a bias each. A head
 // after hidden layers is packed in pair order (regs_mma), the linear
 // policy's (L = 0) in the read order of warp_mma; the critic's value sits
-// in column TRAJ_VALUE_COL. Padding is zero.
+// in column TRAJ_VALUE_COL. Padding is zero. BF16: big is the weight
+// rounded to bf16, small 0 (unread).
+template <bool BF16>
 __global__ void pack_traj_kernel(const float* __restrict__ theta, TLayout lo,
                                  TSrc src, float4* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -161,8 +172,8 @@ __global__ void pack_traj_kernel(const float* __restrict__ theta, TLayout lo,
     if (k1 < y.nin) v1 = W[o * y.nin + k1];
   }
   uint32_t b0, s0, b1, s1;
-  split_tf32(v0, b0, s0);
-  split_tf32(v1, b1, s1);
+  split_op<BF16>(v0, b0, s0);
+  split_op<BF16>(v1, b1, s1);
   out[e] = make_float4(__uint_as_float(b0), __uint_as_float(b1),
                        __uint_as_float(s0), __uint_as_float(s1));
 }
@@ -170,6 +181,7 @@ __global__ void pack_traj_kernel(const float* __restrict__ theta, TLayout lo,
 // One tower for the warp's 32 lanes, the obs rows written (then a
 // __syncwarp): hacc += its head's products. act: the warp's first column
 // of the rows. Ends with a __syncwarp: its rows are read.
+template <bool BF16>
 __device__ __forceinline__ void traj_tower(const TLayout& lo, const float4* W,
                                            const float* bias, float* act,
                                            float (&hacc)[2][1][4]) {
@@ -183,8 +195,8 @@ __device__ __forceinline__ void traj_tower(const TLayout& lo, const float4* W,
       const int nv = min(TRAJ_NT, NT - nt0);
       float acc[2][TRAJ_NT][4];
       zero_frags(acc);
-      warp_mma(act + in_row * as, as, act_up8(y.nin), W + y.fo, NT, nt0, nv,
-               acc);
+      warp_mma<TRAJ_NT, BF16>(act + in_row * as, as, act_up8(y.nin),
+                              W + y.fo, NT, nt0, nv, acc);
       store_tanh(acc, nv, nt0, out_row + 8 * nt0, bias + y.bo, act, as);
     }
     __syncwarp();
@@ -197,18 +209,18 @@ __device__ __forceinline__ void traj_tower(const TLayout& lo, const float4* W,
       const int nv = min(TRAJ_FOLD_NT, NT - nt0);
       float acc[2][TRAJ_FOLD_NT][4];
       zero_frags(acc);
-      warp_mma(act + in_row * as, as, act_up8(y.nin), W + y.fo, NT, nt0, nv,
-               acc);
+      warp_mma<TRAJ_FOLD_NT, BF16>(act + in_row * as, as, act_up8(y.nin),
+                                   W + y.fo, NT, nt0, nv, acc);
       tanh_regs(acc, nv, nt0, bias + y.bo);
-      regs_mma(acc, nv, W + hd.fo + nt0 * 32, hacc);
+      regs_mma<TRAJ_FOLD_NT, BF16>(acc, nv, W + hd.fo + nt0 * 32, hacc);
     }
   } else {
-    warp_mma(act, as, TOWER_OBS_ROWS, W + hd.fo, 1, 0, 1, hacc);
+    warp_mma<1, BF16>(act, as, TOWER_OBS_ROWS, W + hd.fo, 1, 0, 1, hacc);
   }
   __syncwarp();
 }
 
-template <int TASK, int INTEG, bool STOCH>
+template <int TASK, int INTEG, bool STOCH, bool BF16>
 __global__ void __launch_bounds__(TRAJ_MAX_LANES, 1)
 traj_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
             Planes pl, float* __restrict__ traj, TLayout lo,
@@ -255,8 +267,8 @@ traj_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
     __syncwarp();
     float hacc[2][1][4];
     zero_frags(hacc);
-    traj_tower(lo, W, ba, act, hacc);
-    traj_tower(lo, W + lo.f4, ba + lo.nb, act, hacc);
+    traj_tower<BF16>(lo, W, ba, act, hacc);
+    traj_tower<BF16>(lo, W + lo.f4, ba + lo.nb, act, hacc);
     // the means and the value (head columns 0..4) over obs rows 0..4
     if (t < 3)
 #pragma unroll
@@ -296,32 +308,32 @@ traj_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
   if (live) write_back(pl, i, c, acc);
 }
 
-template <int TASK, int INTEG, bool STOCH>
+template <int TASK, int INTEG, bool STOCH, bool BF16>
 cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
                    float* traj, const TLayout& lo, const float4* packed,
                    const float* theta, int ls_off, int T,
                    cudaStream_t stream) {
   const size_t smem = traj_smem(lo);
   cudaError_t err = cudaFuncSetAttribute(
-      traj_kernel<TASK, INTEG, STOCH>,
+      traj_kernel<TASK, INTEG, STOCH, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (pl.n + lo.bl - 1) / lo.bl;
-  traj_kernel<TASK, INTEG, STOCH><<<blocks, lo.bl, smem, stream>>>(
+  traj_kernel<TASK, INTEG, STOCH, BF16><<<blocks, lo.bl, smem, stream>>>(
       pf, pi, pl, traj, lo, packed, theta, ls_off, T);
   return cudaGetLastError();
 }
 
-template <int TASK, int INTEG>
+template <int TASK, int INTEG, bool BF16>
 cudaError_t launch_mode(const float* pf, const int* pi, const Planes& pl,
                         float* traj, const TLayout& lo, const float4* packed,
                         const float* theta, int ls_off, int T,
                         bool stochastic, cudaStream_t stream) {
   return stochastic
-             ? launch<TASK, INTEG, true>(pf, pi, pl, traj, lo, packed, theta,
-                                         ls_off, T, stream)
-             : launch<TASK, INTEG, false>(pf, pi, pl, traj, lo, packed, theta,
-                                          ls_off, T, stream);
+             ? launch<TASK, INTEG, true, BF16>(pf, pi, pl, traj, lo, packed,
+                                               theta, ls_off, T, stream)
+             : launch<TASK, INTEG, false, BF16>(pf, pi, pl, traj, lo, packed,
+                                                theta, ls_off, T, stream);
 }
 
 }  // namespace drone
@@ -334,19 +346,20 @@ cudaError_t launch_mode(const float* pf, const int* pi, const Planes& pl,
 // width[MAX_HIDDEN], the actor's layer offsets into
 // theta[MAX_HIDDEN + 1], the critic's[MAX_HIDDEN + 1], log_std's offset],
 // the shared memory and wfl the kernel's own (ops/cuda_acting_traj.py
-// traj_layout).
+// traj_layout); bf16: 1 for the bf16 operand arm, 0 for 3xTF32.
 extern "C" int drone_traj_rollout(const float* pf, const int* pi,
                                   const float* fs, const uint32_t* us,
                                   const int* st, float* ofs, uint32_t* ous,
                                   int* ost, float* stats, float* traj,
                                   const float* theta, float* packed,
-                                  const int* layout, int stochastic, int n,
-                                  int T, int task, int integrator,
+                                  const int* layout, int stochastic, int bf16,
+                                  int n, int T, int task, int integrator,
                                   void* stream) {
   using namespace drone;
   const int L = layout[0], bl = layout[1], wsm = layout[2];
   if (n <= 0 || T < 0 || L < 0 || L > MAX_HIDDEN || bl < 32 ||
-      bl > TRAJ_MAX_LANES || bl % 32 != 0 || wsm < 0 || wsm > 1)
+      bl > TRAJ_MAX_LANES || bl % 32 != 0 || wsm < 0 || wsm > 1 ||
+      bf16 < 0 || bf16 > 1)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < L; ++l)
     if (layout[5 + l] <= 0 || layout[5 + l] > MAX_WIDTH)
@@ -365,15 +378,23 @@ extern "C" int drone_traj_rollout(const float* pf, const int* pi,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float4* pk = reinterpret_cast<float4*>(packed);
   const int threads = 2 * lo.f4 + 2 * lo.nb;
-  pack_traj_kernel<<<(threads + 255) / 256, 256, 0, s>>>(theta, lo, src, pk);
+  if (bf16)
+    pack_traj_kernel<true><<<(threads + 255) / 256, 256, 0, s>>>(theta, lo,
+                                                                src, pk);
+  else
+    pack_traj_kernel<false><<<(threads + 255) / 256, 256, 0, s>>>(theta, lo,
+                                                                 src, pk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Planes pl{fs, us, st, ofs, ous, ost, stats, n};
   const bool sto = stochastic != 0;
 #define DRONE_TRAJ_CASE(TK, IG)                                            \
   if (task == TK && integrator == IG)                                      \
-    return (int)launch_mode<TK, IG>(pf, pi, pl, traj, lo, pk, theta,       \
-                                    src.ls, T, sto, s);
+    return bf16 ? (int)launch_mode<TK, IG, true>(pf, pi, pl, traj, lo, pk, \
+                                                 theta, src.ls, T, sto, s) \
+                : (int)launch_mode<TK, IG, false>(pf, pi, pl, traj, lo,    \
+                                                  pk, theta, src.ls, T,    \
+                                                  sto, s);
   DRONE_TRAJ_CASE(TASK_HOVER, INTEG_EULER)
   DRONE_TRAJ_CASE(TASK_HOVER, INTEG_RK4)
   DRONE_TRAJ_CASE(TASK_WAYPOINT, INTEG_EULER)

@@ -26,6 +26,7 @@
 
 #include <cuda_runtime.h>
 
+#include "mma.cuh"
 #include "policy.cuh"
 
 namespace drone {
@@ -131,16 +132,19 @@ __device__ __forceinline__ void render_patch(int p, const float* sp,
 }
 
 // The action means and the value at lane l of h ([128][S]): dot(W, h) + b.
+// BF16: W and h rounded to bf16 (mma.cuh op_value; each product exact).
+template <bool BF16 = false>
 __device__ __forceinline__ void cnn_heads(const float* h, int S, int l,
                                           const float* __restrict__ theta,
                                           float m[4], float& v) {
   float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int u = 0; u < CNN_H; ++u) {
-    const float hv = h[u * S + l];
+    const float hv = op_value<BF16>(h[u * S + l]);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      acc[k] = __fmaf_rn(__ldg(theta + OFF_HW + k * CNN_H + u), hv, acc[k]);
-    acc[4] = __fmaf_rn(__ldg(theta + OFF_VW + u), hv, acc[4]);
+      acc[k] = __fmaf_rn(op_value<BF16>(__ldg(theta + OFF_HW + k * CNN_H + u)),
+                         hv, acc[k]);
+    acc[4] = __fmaf_rn(op_value<BF16>(__ldg(theta + OFF_VW + u)), hv, acc[4]);
   }
 #pragma unroll
   for (int k = 0; k < 4; ++k) m[k] = acc[k] + __ldg(theta + OFF_HB + k);

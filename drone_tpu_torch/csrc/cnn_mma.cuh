@@ -33,6 +33,15 @@
 // gradient tensor's max), the acting kernels at the serving one (rtol 2e-5,
 // atol 2e-6 over 3 steps). Plain TF32 or bf16 would not hold them.
 //
+// The bf16 arm (compute_dtype="bfloat16", the reference's cnn_encode,
+// cnn_forward and cnn_encoder_bwd with _dot32 rounding both operands of
+// every product): the BF16 template parameter of the loaders, the
+// products, tower_fwd_tile, tower_bwd_tile and the packing (mma.cuh
+// split_op, mma_op). The packed fragments hold the weights rounded to bf16
+// (small 0, unread), an activation, a rendered pixel or a gradient is
+// rounded as its fragment loads, and each k-step is one product. K11, K9
+// and K10 take it; the CNN arms of K8, K6 and K7 run BF16 = false.
+//
 // Weights: pack_tower_kernel splits the tower's weights once per call into
 // (big, small) fragments in the order a warp reads them (a float4 a lane a
 // k x n tile: 512 contiguous bytes). The forward stages W0's 32 KB in each
@@ -119,39 +128,43 @@ constexpr int TB_DZ1 = TB_Y0 + CNN_K1;
 constexpr int TB_ROWS = TB_DZ1 + CNN_C1;                       // 716
 constexpr int TB_SMEM = TB_ROWS * TM_S * 4;                    // 206,208
 
-// Fragment loads from rows of a tile ([row][sample], stride TM_S), split.
+// Fragment loads from rows of a tile ([row][sample], stride TM_S), split
+// (BF16: rounded).
 // An A fragment with M = samples m0.. and K = rows k0..
+template <bool BF16 = false>
 __device__ __forceinline__ void frag_a_rows(const float* X, int k0, int m0,
                                             uint32_t (&ab)[4],
                                             uint32_t (&as)[4]) {
   const int lane = threadIdx.x & 31;
   const float* p = X + (k0 + (lane & 3)) * TM_S + m0 + (lane >> 2);
-  split_tf32(p[0], ab[0], as[0]);
-  split_tf32(p[8], ab[1], as[1]);
-  split_tf32(p[4 * TM_S], ab[2], as[2]);
-  split_tf32(p[4 * TM_S + 8], ab[3], as[3]);
+  split_op<BF16>(p[0], ab[0], as[0]);
+  split_op<BF16>(p[8], ab[1], as[1]);
+  split_op<BF16>(p[4 * TM_S], ab[2], as[2]);
+  split_op<BF16>(p[4 * TM_S + 8], ab[3], as[3]);
 }
 
 // An A fragment with M = rows m0.. and K = samples k0..
+template <bool BF16 = false>
 __device__ __forceinline__ void frag_a_samples(const float* X, int m0, int k0,
                                                uint32_t (&ab)[4],
                                                uint32_t (&as)[4]) {
   const int lane = threadIdx.x & 31;
   const float* p = X + (m0 + (lane >> 2)) * TM_S + k0 + (lane & 3);
-  split_tf32(p[0], ab[0], as[0]);
-  split_tf32(p[8 * TM_S], ab[1], as[1]);
-  split_tf32(p[4], ab[2], as[2]);
-  split_tf32(p[8 * TM_S + 4], ab[3], as[3]);
+  split_op<BF16>(p[0], ab[0], as[0]);
+  split_op<BF16>(p[8 * TM_S], ab[1], as[1]);
+  split_op<BF16>(p[4], ab[2], as[2]);
+  split_op<BF16>(p[8 * TM_S + 4], ab[3], as[3]);
 }
 
 // A B fragment with K = samples k0.. and N = rows n0..
+template <bool BF16 = false>
 __device__ __forceinline__ void frag_b_samples(const float* X, int n0, int k0,
                                                uint32_t (&bb)[2],
                                                uint32_t (&bs)[2]) {
   const int lane = threadIdx.x & 31;
   const float* p = X + (n0 + (lane >> 2)) * TM_S + k0 + (lane & 3);
-  split_tf32(p[0], bb[0], bs[0]);
-  split_tf32(p[4], bb[1], bs[1]);
+  split_op<BF16>(p[0], bb[0], bs[0]);
+  split_op<BF16>(p[4], bb[1], bs[1]);
 }
 
 // A packed fragment: from L2 and L1 (__ldg), or from shared memory (SB).
@@ -167,8 +180,8 @@ __device__ __forceinline__ float4 ld_frag(const float4* p) {
 // of X of X[k][sample] B[kt0 * 8 + k][n], B packed (NT n-tiles a k-tile),
 // in device memory or, with SB, in shared memory. The weights of the next
 // PF k-steps load while one multiplies (from L2; PF = 2 where a kernel has
-// the registers). K is a multiple of 8 PF.
-template <int PF, bool SB = false, int MI, int NI>
+// the registers). K is a multiple of 8 PF. BF16: one product a k-step.
+template <int PF, bool SB = false, bool BF16 = false, int MI, int NI>
 __device__ __forceinline__ void mma_rows_packed(const float* X, int K, int m0,
                                                 const float4* __restrict__ B,
                                                 int NT, int kt0, int nt0,
@@ -200,8 +213,9 @@ __device__ __forceinline__ void mma_rows_packed(const float* X, int K, int m0,
       }
       uint32_t ab[MI][4], as[MI][4];
 #pragma unroll
-      for (int i = 0; i < MI; ++i) frag_a_rows(X, kk, m0 + 16 * i, ab[i], as[i]);
-      mma3(acc, ab, as, bb, bs);
+      for (int i = 0; i < MI; ++i)
+        frag_a_rows<BF16>(X, kk, m0 + 16 * i, ab[i], as[i]);
+      mma_op<BF16>(acc, ab, as, bb, bs);
     }
   }
 }
@@ -232,7 +246,7 @@ __device__ __forceinline__ void store_relu(const float (&acc)[MI][NI][4],
 // out rows (64) = relu(X W^T + b) over the tile: X K rows, W packed (8
 // n-tiles; in shared memory with SB). Warp w takes samples 16 (w % 4) ..
 // and columns 32 (w / 4) ..
-template <int PF, bool SB = false>
+template <int PF, bool SB = false, bool BF16 = false>
 __device__ __forceinline__ void conv_mma(const float* X, int K,
                                          const float4* __restrict__ B,
                                          const float* __restrict__ bias,
@@ -241,7 +255,7 @@ __device__ __forceinline__ void conv_mma(const float* X, int K,
   const int m0 = 16 * CMI * (w % CMW), nt0 = CNI * (w / CMW);
   float acc[CMI][CNI][4];
   zero_frags(acc);
-  mma_rows_packed<PF, SB>(X, K, m0, B, 8, 0, nt0, acc);
+  mma_rows_packed<PF, SB, BF16>(X, K, m0, B, 8, 0, nt0, acc);
   store_relu(acc, m0, nt0, bias, out);
 }
 
@@ -271,8 +285,9 @@ __device__ __forceinline__ float* tf_rows(float* sm) { return sm + TF_W0F; }
 // samples 32 (w & 1) .., units 32 (w >> 1) ..) and on_window(q1, y1) sees
 // y1 (X2 rows q1 * 64 ..); a barrier ends the window. Then h = relu(trunk +
 // bt) into rows TF_Y0 .. TF_Y0 + 127; the caller needs a barrier before it
-// reads h. All threads.
-template <class OnWindow>
+// reads h. All threads. BF16: the bf16 arm (pk packed by
+// pack_tower_kernel<true>).
+template <bool BF16 = false, class OnWindow>
 __device__ __forceinline__ void tower_fwd_tile(
     float* sm, const float* __restrict__ theta, const float4* __restrict__ pk,
     const float* __restrict__ grid, const OnWindow& on_window) {
@@ -298,17 +313,17 @@ __device__ __forceinline__ void tower_fwd_tile(
     const int pn = window_patch((j + 1) / CNN_WIN, (j + 1) % CNN_WIN);
     float* xn = xr + ((j + 1) & 1) * CNN_K0 * TM_S;
     if (j + 1 < NP) render_patch<TM_L, TM_S>(pn, sp, grid, xn);
-    conv_mma<1, true>(xb, CNN_K0, w0, theta + OFF_B0, yb);
+    conv_mma<1, true, BF16>(xb, CNN_K0, w0, theta + OFF_B0, yb);
     __syncthreads();
-    mma_rows_packed<1>(yb, CNN_C0, mc, pk + PK_W1, CNN_C1 / 8,
-                       k * (CNN_C0 / 8), ntc, c1);
+    mma_rows_packed<1, false, BF16>(yb, CNN_C0, mc, pk + PK_W1, CNN_C1 / 8,
+                                    k * (CNN_C0 / 8), ntc, c1);
     if (k == CNN_WIN - 1) {
       float* y1 = xb;
       store_relu(c1, mc, ntc, theta + OFF_B1, y1);
       zero_frags(c1);
       __syncthreads();
-      mma_rows_packed<1>(y1, CNN_C1, m0, pk + PK_WT, CNN_H / 8,
-                         q1 * (CNN_C1 / 8), nt0, tacc);
+      mma_rows_packed<1, false, BF16>(y1, CNN_C1, m0, pk + PK_WT, CNN_H / 8,
+                                      q1 * (CNN_C1 / 8), nt0, tacc);
       on_window(q1, y1);
       __syncthreads();  // patch j + 2 renders over y1
     }
@@ -343,7 +358,9 @@ struct TowerGrads {
 // tile's conv1 output in device memory (x2[(q1 * 64 + o) * NL + sample]).
 // Per window: re-render the four patches and re-run conv0; dz1 = (dzt Wt)
 // masked by X2 > 0; gW1 += dz1 X1^T; dz0 = (dz1 W1) masked by Y0 > 0, over
-// y0; gW0 += dz0 X0^T. Ends with a barrier. All threads.
+// y0; gW0 += dz0 X0^T. Ends with a barrier. All threads. BF16: the bf16
+// arm, every product's operands rounded (the row sums stay fp32).
+template <bool BF16 = false>
 __device__ __forceinline__ void tower_bwd_tile(
     float* sm, const float* __restrict__ theta, const float4* __restrict__ pk,
     const float* __restrict__ grid, const float* __restrict__ x2, int NL,
@@ -362,15 +379,16 @@ __device__ __forceinline__ void tower_bwd_tile(
                                xr + k * CNN_K0 * TM_S);
     __syncthreads();
     for (int k = 0; k < CNN_WIN; ++k)
-      conv_mma<2>(xr + k * CNN_K0 * TM_S, CNN_K0, pk + PK_W0, theta + OFF_B0,
-               y0 + k * CNN_C0 * TM_S);
+      conv_mma<2, false, BF16>(xr + k * CNN_K0 * TM_S, CNN_K0, pk + PK_W0,
+                               theta + OFF_B0, y0 + k * CNN_C0 * TM_S);
     {
       // dz1 = (dzt Wt[:, window]) * (X2 > 0)
       const int mc = 16 * CMI * (w % CMW), ntc = CNI * (w / CMW);
       float acc[CMI][CNI][4];
       zero_frags(acc);
-      mma_rows_packed<2>(dzt, CNN_H, mc, pk + PK_WTB, CNN_X2 / 8,
-                         0, q1 * (CNN_C1 / 8) + ntc, acc);
+      mma_rows_packed<2, false, BF16>(dzt, CNN_H, mc, pk + PK_WTB,
+                                      CNN_X2 / 8, 0,
+                                      q1 * (CNN_C1 / 8) + ntc, acc);
 #pragma unroll
       for (int j = 0; j < CNI; ++j) {
         const int n = (ntc + j) * 8 + 2 * t;
@@ -400,11 +418,12 @@ __device__ __forceinline__ void tower_bwd_tile(
         uint32_t ab[2][4], as[2][4], bb[4][2], bs[4][2];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          frag_a_samples(dz1, m0 + 16 * i, s0, ab[i], as[i]);
+          frag_a_samples<BF16>(dz1, m0 + 16 * i, s0, ab[i], as[i]);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          frag_b_samples(y0, 64 * wq + 32 * hf + 8 * j, s0, bb[j], bs[j]);
-        mma3(acc, ab, as, bb, bs);
+          frag_b_samples<BF16>(y0, 64 * wq + 32 * hf + 8 * j, s0, bb[j],
+                               bs[j]);
+        mma_op<BF16>(acc, ab, as, bb, bs);
       }
       fold(gr.w1, hf, acc);
     }
@@ -420,8 +439,8 @@ __device__ __forceinline__ void tower_bwd_tile(
       float acc[2][4][4];
       zero_frags(acc);
       const int nt0 = hf * 16 + 4 * wq;
-      mma_rows_packed<2>(dz1, CNN_C1, m0, pk + PK_W1B, CNN_K1 / 8, 0, nt0,
-                         acc);
+      mma_rows_packed<2, false, BF16>(dz1, CNN_C1, m0, pk + PK_W1B,
+                                      CNN_K1 / 8, 0, nt0, acc);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int n = (nt0 + j) * 8 + 2 * t;
@@ -451,11 +470,11 @@ __device__ __forceinline__ void tower_bwd_tile(
           uint32_t ab[2][4], as[2][4], bb[2][2], bs[2][2];
 #pragma unroll
           for (int i = 0; i < 2; ++i)
-            frag_a_samples(d, m0 + 16 * i, s0, ab[i], as[i]);
+            frag_a_samples<BF16>(d, m0 + 16 * i, s0, ab[i], as[i]);
 #pragma unroll
           for (int j = 0; j < 2; ++j)
-            frag_b_samples(x, 16 * wq + 8 * j, s0, bb[j], bs[j]);
-          mma3(acc, ab, as, bb, bs);
+            frag_b_samples<BF16>(x, 16 * wq + 8 * j, s0, bb[j], bs[j]);
+          mma_op<BF16>(acc, ab, as, bb, bs);
         }
       }
       fold(gr.w0, 0, acc);
@@ -528,6 +547,7 @@ struct TowerBwdArgs {
   int ptot, row0, NL, n_tiles;
 };
 
+template <bool BF16>
 __global__ void __launch_bounds__(TM_THREADS, 1)
 tower_bwd_kernel(TowerBwdArgs A) {
   extern __shared__ float4 smem4[];
@@ -560,8 +580,8 @@ tower_bwd_kernel(TowerBwdArgs A) {
       dzt[u * TM_S + l] = dzs[(size_t)u * NL + l];
     }
     __syncthreads();
-    tower_bwd_tile(sm, A.theta, A.pk, A.grid,
-                   A.x2s + (size_t)tl * CNN_X2 * NL + ml0, NL, gr);
+    tower_bwd_tile<BF16>(sm, A.theta, A.pk, A.grid,
+                         A.x2s + (size_t)tl * CNN_X2 * NL + ml0, NL, gr);
   }
   tower_grads_out(gr, sm, A.partial + (size_t)(A.row0 + blockIdx.x) * A.ptot);
 }
@@ -570,7 +590,9 @@ tower_bwd_kernel(TowerBwdArgs A) {
 // first `count` float4s (PK_TOTAL, or the forward's PK_FWD): float4 i of a
 // product's K x N matrix B is lane (i % 32) of tile (kt, nt) = (i /
 // 32 / NT, i / 32 % NT): {big, big, small, small} of B[8 kt + t][8 nt + g]
-// and B[8 kt + t + 4][8 nt + g], g = lane / 4, t = lane % 4.
+// and B[8 kt + t + 4][8 nt + g], g = lane / 4, t = lane % 4. BF16: big is
+// B rounded to bf16, small 0.
+template <bool BF16>
 __global__ void pack_tower_kernel(const float* __restrict__ theta,
                                   float4* __restrict__ pk, int count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -591,8 +613,8 @@ __global__ void pack_tower_kernel(const float* __restrict__ theta,
   const int NT = N / 8, kt = tile / NT, nt = tile % NT;
   const int n = 8 * nt + lane / 4, k = 8 * kt + lane % 4;
   uint32_t b0, s0, b1, s1;
-  split_tf32(theta[off + n * sn + k * sk], b0, s0);
-  split_tf32(theta[off + n * sn + (k + 4) * sk], b1, s1);
+  split_op<BF16>(theta[off + n * sn + k * sk], b0, s0);
+  split_op<BF16>(theta[off + n * sn + (k + 4) * sk], b1, s1);
   pk[i] = make_float4(__uint_as_float(b0), __uint_as_float(b1),
                       __uint_as_float(s0), __uint_as_float(s1));
 }

@@ -11,6 +11,17 @@
 // accumulators. The error of a product is ~2^-21 of its size, against
 // fp32's 2^-24; a sum over many samples starts each window of 64 from zero
 // and is added to its running total with IEEE adds (fold).
+//
+// The bf16 arm (compute_dtype="bfloat16": the reference's _dot32 casts both
+// operands of a product to bfloat16 and accumulates in fp32,
+// drone_tpu/ops/pallas_acting.py): each operand is rounded once to bf16 by
+// cvt.rn.bf16x2.f32 (round to nearest even, as XLA's convert rounds; not
+// cvt.rna.tf32, which rounds ties away at 10 bits) and widened back. A bf16
+// value is a TF32 value (8 significant bits of TF32's 11) and the product
+// of two is exact in fp32, so one TF32 product of the rounded operands
+// computes _dot32's product: one product a k-step where 3xTF32 takes three,
+// and no split. The kernels take the precision as a template parameter,
+// BF16 (split_op, mma_op); the folds of long sums stay.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +42,27 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = tf32_rna(x) & 0xffffe000u;
   small = tf32_rna(x - __uint_as_float(big));
+}
+
+// x rounded to bf16 (nearest even), widened to its fp32 bits: the upper
+// half of a bf16x2 pair whose lower half is bf16(0) = 0.
+__device__ __forceinline__ uint32_t bf16_rn(float x) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(x), "f"(0.0f));
+  return r;
+}
+
+// An operand of a product: 3xTF32's (big, small) split, or with BF16 the
+// bf16 rounding as big and no small (mma_op reads only big).
+template <bool BF16>
+__device__ __forceinline__ void split_op(float x, uint32_t& big,
+                                         uint32_t& small) {
+  if constexpr (BF16) {
+    big = bf16_rn(x);
+    small = 0u;
+  } else {
+    split_tf32(x, big, small);
+  }
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -61,6 +93,34 @@ __device__ __forceinline__ void mma3(float (&acc)[MI][NI][4],
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NI; ++j) mma_tf32(acc[i][j], ab[i], bb[j]);
+}
+
+// acc[i][j] += A_i B_j: mma3 in 3xTF32, or with BF16 the one product of
+// the rounded operands.
+template <bool BF16, int MI, int NI>
+__device__ __forceinline__ void mma_op(float (&acc)[MI][NI][4],
+                                       const uint32_t (&ab)[MI][4],
+                                       const uint32_t (&as)[MI][4],
+                                       const uint32_t (&bb)[NI][2],
+                                       const uint32_t (&bs)[NI][2]) {
+  if constexpr (BF16) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j) mma_tf32(acc[i][j], ab[i], bb[j]);
+  } else {
+    mma3(acc, ab, as, bb, bs);
+  }
+}
+
+// x as the bf16 arm's CUDA-core products take an operand (rounded to bf16
+// and widened), or x itself.
+template <bool BF16>
+__device__ __forceinline__ float op_value(float x) {
+  if constexpr (BF16)
+    return __uint_as_float(bf16_rn(x));
+  else
+    return x;
 }
 
 template <int MI, int NI>

@@ -10,7 +10,7 @@
 // the order a warp reads its fragments: a float4 a lane a k x n tile, tiles
 // k-major, lane 4 g + t of tile (kt, nt) holding big B[k][n], big B[k +
 // 4][n], small B[k][n], small B[k + 4][n] with k = 8 kt + t, n = 8 nt + g
-// (cnn_mma.cuh's layout).
+// (cnn_mma.cuh's layout); in K2's bf16 arm big is B rounded to bf16.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,8 +39,10 @@ struct ALayer {
 // tensor cores' own accumulation over the k-steps (not fp32's
 // round-to-nearest) put the serving check's T = 3 states 2-3e-6 off the
 // fp32 plain version at [64, 64] and [128, 128], over its atol at the
-// latter; with the adds, 1.0-1.4e-6, at 2% of the time (PERF.md).
-template <int NI>
+// latter; with the adds, 1.0-1.4e-6, at 2% of the time (PERF.md). With
+// BF16 each k-step is the one product of the bf16-rounded operands (K2's
+// bf16 arm; the weights packed rounded, their small halves unread).
+template <int NI, bool BF16 = false>
 __device__ __forceinline__ void warp_mma(const float* X, int as, int K,
                                          const float4* B, int NT, int nt0,
                                          int nv, float (&acc)[2][NI][4]) {
@@ -62,21 +64,23 @@ __device__ __forceinline__ void warp_mma(const float* X, int as, int K,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float* p = X + (k0 + t) * as + 16 * i + g;
-      split_tf32(p[0], ab[i][0], as_[i][0]);
-      split_tf32(p[8], ab[i][1], as_[i][1]);
-      split_tf32(p[4 * as], ab[i][2], as_[i][2]);
-      split_tf32(p[4 * as + 8], ab[i][3], as_[i][3]);
+      split_op<BF16>(p[0], ab[i][0], as_[i][0]);
+      split_op<BF16>(p[8], ab[i][1], as_[i][1]);
+      split_op<BF16>(p[4 * as], ab[i][2], as_[i][2]);
+      split_op<BF16>(p[4 * as + 8], ab[i][3], as_[i][3]);
     }
+    if constexpr (!BF16) {
 #pragma unroll
-    for (int j = 0; j < NI; ++j)
-      if (j < nv)
+      for (int j = 0; j < NI; ++j)
+        if (j < nv)
 #pragma unroll
-        for (int i = 0; i < 2; ++i) mma_tf32(part[i][j], as_[i], bb[j]);
+          for (int i = 0; i < 2; ++i) mma_tf32(part[i][j], as_[i], bb[j]);
 #pragma unroll
-    for (int j = 0; j < NI; ++j)
-      if (j < nv)
+      for (int j = 0; j < NI; ++j)
+        if (j < nv)
 #pragma unroll
-        for (int i = 0; i < 2; ++i) mma_tf32(part[i][j], ab[i], bs[j]);
+          for (int i = 0; i < 2; ++i) mma_tf32(part[i][j], ab[i], bs[j]);
+    }
 #pragma unroll
     for (int j = 0; j < NI; ++j)
       if (j < nv)
@@ -137,8 +141,8 @@ __device__ __forceinline__ void tanh_regs(float (&acc)[2][NI][4], int nv,
 // whose k-tile holds unit 2 t at k = t and unit 2 t + 1 at k = t + 4, so
 // B is packed in that order ("pair" order: lane 4 g + t of k-tile kt holds
 // B[8 kt + 2 t][n] and B[8 kt + 2 t + 1][n]) and X never leaves the
-// registers. IEEE adds a k-step, as warp_mma.
-template <int NI>
+// registers. IEEE adds a k-step, as warp_mma; BF16 as there.
+template <int NI, bool BF16 = false>
 __device__ __forceinline__ void regs_mma(const float (&x)[2][NI][4], int nv,
                                          const float4* B,
                                          float (&acc)[2][1][4]) {
@@ -152,14 +156,14 @@ __device__ __forceinline__ void regs_mma(const float (&x)[2][NI][4], int nv,
     uint32_t ab[2][4], as_[2][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      split_tf32(x[i][j][0], ab[i][0], as_[i][0]);
-      split_tf32(x[i][j][2], ab[i][1], as_[i][1]);
-      split_tf32(x[i][j][1], ab[i][2], as_[i][2]);
-      split_tf32(x[i][j][3], ab[i][3], as_[i][3]);
+      split_op<BF16>(x[i][j][0], ab[i][0], as_[i][0]);
+      split_op<BF16>(x[i][j][2], ab[i][1], as_[i][1]);
+      split_op<BF16>(x[i][j][1], ab[i][2], as_[i][2]);
+      split_op<BF16>(x[i][j][3], ab[i][3], as_[i][3]);
     }
     float part[2][1][4];
     zero_frags(part);
-    mma3(part, ab, as_, bb, bs);
+    mma_op<BF16>(part, ab, as_, bb, bs);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll

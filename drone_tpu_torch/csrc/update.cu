@@ -55,6 +55,16 @@
 // result does not depend on launch order: training on the card is
 // deterministic and a resumed run repeats an uninterrupted one bit for bit.
 //
+// The bf16 arm (compute_dtype="bfloat16", the reference's bf16 operand
+// arm of _update_kernel: _tower_fwd's and _tower_bwd's _dot32 round both
+// operands of every product): the BF16 template parameter. The weight
+// planes hold the weights rounded to bf16 (pack_planes_kernel<true>, the
+// small plane unread and not staged), and the forward, dW and dX products
+// are one product a k-step of operands rounded as their fragments load
+// (mma.cuh split_op, mma_op). db stays the fp32 sum of dY, as the
+// reference's jnp.sum: its product with ones takes dY's 3xTF32 split. The
+// stored activations, the tanh, its derivative and the head stay fp32.
+//
 // What bounds K3 on an H100: at [64, 64] 29,125 multiply-adds a sample
 // (the towers forward, dW and db, dX), 0.19 ms a minibatch at the 3xTF32
 // rate, against 84 bytes of input a sample. What holds it: the mma.sync
@@ -197,12 +207,13 @@ __device__ __forceinline__ RowsA rows_a(int r0, int m0) {
   const int r = r0 + t, m = m0 + g;
   return RowsA{{ai(r, m), ai(r, m + 8), ai(r + 4, m), ai(r + 4, m + 8)}};
 }
+template <bool BF16>
 __device__ __forceinline__ void load_rows_a(const float* act, const RowsA& f,
                                             int k0, uint32_t (&ab)[4],
                                             uint32_t (&as)[4]) {
   const float* p = act + k0 * TILE;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) split_tf32(p[f.o[q]], ab[q], as[q]);
+  for (int q = 0; q < 4; ++q) split_op<BF16>(p[f.o[q]], ab[q], as[q]);
 }
 
 // A with M = rows r0.., K = samples; B with K = samples, N = rows r0..:
@@ -223,21 +234,23 @@ __device__ __forceinline__ SamplesA samples_a(int r0) {
   }
   return f;
 }
+template <bool BF16>
 __device__ __forceinline__ void load_samples_a(const float* act,
                                                const SamplesA& f, int s0,
                                                uint32_t (&ab)[4],
                                                uint32_t (&as)[4]) {
-  split_tf32(act[f.base[0] + (s0 ^ f.x[0][0])], ab[0], as[0]);
-  split_tf32(act[f.base[1] + (s0 ^ f.x[1][0])], ab[1], as[1]);
-  split_tf32(act[f.base[0] + (s0 ^ f.x[0][1])], ab[2], as[2]);
-  split_tf32(act[f.base[1] + (s0 ^ f.x[1][1])], ab[3], as[3]);
+  split_op<BF16>(act[f.base[0] + (s0 ^ f.x[0][0])], ab[0], as[0]);
+  split_op<BF16>(act[f.base[1] + (s0 ^ f.x[1][0])], ab[1], as[1]);
+  split_op<BF16>(act[f.base[0] + (s0 ^ f.x[0][1])], ab[2], as[2]);
+  split_op<BF16>(act[f.base[1] + (s0 ^ f.x[1][1])], ab[3], as[3]);
 }
+template <bool BF16>
 __device__ __forceinline__ void load_samples_b(const float* act,
                                                const SamplesA& f, int s0,
                                                uint32_t (&bb)[2],
                                                uint32_t (&bs)[2]) {
-  split_tf32(act[f.base[0] + (s0 ^ f.x[0][0])], bb[0], bs[0]);
-  split_tf32(act[f.base[0] + (s0 ^ f.x[0][1])], bb[1], bs[1]);
+  split_op<BF16>(act[f.base[0] + (s0 ^ f.x[0][0])], bb[0], bs[0]);
+  split_op<BF16>(act[f.base[0] + (s0 ^ f.x[0][1])], bb[1], bs[1]);
 }
 
 // B from a layer's weight planes. The forward reads W^T: B[k][n] = W[n][k]
@@ -262,8 +275,8 @@ __device__ __forceinline__ WeightB weight_b_dx(const MLayer& y, int n0) {
                  {0, 0}};
 }
 // the fragment at k-step k0: the forward's at base + (k0 ^ x), the input
-// gradient's at o + k0 sw
-template <bool FWD>
+// gradient's at o + k0 sw (BF16: the big plane, already rounded, alone)
+template <bool FWD, bool BF16>
 __device__ __forceinline__ void load_weight_b(const float* wb,
                                               const float* ws,
                                               const WeightB& f, int k0,
@@ -273,29 +286,32 @@ __device__ __forceinline__ void load_weight_b(const float* wb,
   for (int h = 0; h < 2; ++h) {
     const int e = FWD ? f.o[h] + (k0 ^ f.x[h]) : f.o[h] + k0 * sw;
     bb[h] = __float_as_uint(wb[e]);
-    bs[h] = __float_as_uint(ws[e]);
+    bs[h] = BF16 ? 0u : __float_as_uint(ws[e]);
   }
 }
 
-// acc[i][j] += A_i B_j in 3xTF32 for the unit's valid tiles (i < mv, j <
-// nv; the same in every lane).
-template <int MI, int NI>
+// acc[i][j] += A_i B_j in 3xTF32 (BF16: the one product of the rounded
+// operands) for the unit's valid tiles (i < mv, j < nv; the same in every
+// lane).
+template <bool BF16, int MI, int NI>
 __device__ __forceinline__ void mma3_valid(float (&acc)[MI][NI][4],
                                            const uint32_t (&ab)[MI][4],
                                            const uint32_t (&as)[MI][4],
                                            const uint32_t (&bb)[NI][2],
                                            const uint32_t (&bs)[NI][2],
                                            int mv, int nv) {
+  if constexpr (!BF16) {
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < NI; ++j)
-      if (i < mv && j < nv) mma_tf32(acc[i][j], as[i], bb[j]);
+      for (int j = 0; j < NI; ++j)
+        if (i < mv && j < nv) mma_tf32(acc[i][j], as[i], bb[j]);
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < NI; ++j)
-      if (i < mv && j < nv) mma_tf32(acc[i][j], ab[i], bs[j]);
+      for (int j = 0; j < NI; ++j)
+        if (i < mv && j < nv) mma_tf32(acc[i][j], ab[i], bs[j]);
+  }
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -323,7 +339,7 @@ __device__ __forceinline__ int groups(int n) { return (up8(n) / 8 + UNI - 1) / U
 // rows from r0 of the activations times a layer's weights, B read as W^T
 // (FWD) or W. (Loading the next k-step's weights while one multiplies
 // was 2% slower, PERF.md.)
-template <bool FWD>
+template <bool FWD, bool BF16>
 __device__ __forceinline__ void rows_times_weights(
     const float* act, int r0, int K, const Unit& un, const MLayer& y,
     int nt0, int nv, const float* wb, const float* ws,
@@ -339,15 +355,18 @@ __device__ __forceinline__ void rows_times_weights(
     uint32_t ab[UMI][4], as[UMI][4], bb[UNI][2], bs[UNI][2];
 #pragma unroll
     for (int j = 0; j < UNI; ++j)
-      if (j < nv) load_weight_b<FWD>(wb, ws, fb[j], k0, y.sw, bb[j], bs[j]);
+      if (j < nv)
+        load_weight_b<FWD, BF16>(wb, ws, fb[j], k0, y.sw, bb[j], bs[j]);
 #pragma unroll
-    for (int i = 0; i < UMI; ++i) load_rows_a(act, fa[i], k0, ab[i], as[i]);
-    mma3_valid(acc, ab, as, bb, bs, UMI, nv);
+    for (int i = 0; i < UMI; ++i)
+      load_rows_a<BF16>(act, fa[i], k0, ab[i], as[i]);
+    mma3_valid<BF16>(acc, ab, as, bb, bs, UMI, nv);
   }
 }
 
 // The forward of layer l over the tile: out rows = tanh(X W^T + b), or X
 // W^T + b for the head. All threads; no barrier.
+template <bool BF16>
 __device__ __forceinline__ void layer_fwd(float* act, const MLayout& lo,
                                           int l, const float* __restrict__ theta,
                                           const float* wb, const float* ws) {
@@ -360,8 +379,8 @@ __device__ __forceinline__ void layer_fwd(float* act, const MLayout& lo,
     const int nt0 = UNI * un.ng, nv = min(UNI, up8(y.nout) / 8 - nt0);
     float acc[UMI][UNI][4];
     zero_frags(acc);
-    rows_times_weights<true>(act, y.in_row, up8(y.nin), un, y, nt0, nv, wb,
-                             ws, acc);
+    rows_times_weights<true, BF16>(act, y.in_row, up8(y.nin), un, y, nt0, nv,
+                                   wb, ws, acc);
     const float* bias = theta + y.w + y.nout * y.nin;
 #pragma unroll
     for (int j = 0; j < UNI; ++j)
@@ -381,6 +400,7 @@ __device__ __forceinline__ void layer_fwd(float* act, const MLayout& lo,
 
 // The input gradient of layer l >= 1: X rows (its input) = (dY W) * (1 -
 // X^2), dY its output rows. All threads; no barrier.
+template <bool BF16>
 __device__ __forceinline__ void layer_dx(float* act, const MLayout& lo, int l,
                                          const float* wb, const float* ws) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -391,8 +411,8 @@ __device__ __forceinline__ void layer_dx(float* act, const MLayout& lo, int l,
     const int nt0 = UNI * un.ng, nv = min(UNI, up8(y.nin) / 8 - nt0);
     float acc[UMI][UNI][4];
     zero_frags(acc);
-    rows_times_weights<false>(act, y.out_row, up8(y.nout), un, y, nt0, nv,
-                              wb, ws, acc);
+    rows_times_weights<false, BF16>(act, y.out_row, up8(y.nout), un, y, nt0,
+                                    nv, wb, ws, acc);
 #pragma unroll
     for (int j = 0; j < UNI; ++j)
 #pragma unroll
@@ -411,8 +431,10 @@ __device__ __forceinline__ void layer_dx(float* act, const MLayout& lo, int l,
 
 // The weight and bias gradients of layer l over the tile's window of 64
 // samples, folded into the running sums: dW (nout, nin) = dY^T X, db = dY^T
-// 1 (the n-group 0 units, a product with a B of ones: big 1, small 0).
-// All threads; no barrier.
+// 1 (the n-group 0 units, a product with a B of ones: big 1, small 0; dY
+// split in 3xTF32 there in the bf16 arm too, db being an fp32 sum). All
+// threads; no barrier.
+template <bool BF16>
 __device__ __forceinline__ void layer_dw(const float* act, const MLayout& lo,
                                          int l, float* sums) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -441,17 +463,27 @@ __device__ __forceinline__ void layer_dw(const float* act, const MLayout& lo,
       uint32_t ab[UMI][4], as[UMI][4], bb[UNI][2], bs[UNI][2];
 #pragma unroll
       for (int i = 0; i < UMI; ++i)
-        if (i < mv) load_samples_a(act, fa[i], s0, ab[i], as[i]);
+        if (i < mv) load_samples_a<BF16>(act, fa[i], s0, ab[i], as[i]);
 #pragma unroll
       for (int j = 0; j < UNI; ++j)
-        if (j < nv) load_samples_b(act, fb[j], s0, bb[j], bs[j]);
-      mma3_valid(acc, ab, as, bb, bs, mv, nv);
+        if (j < nv) load_samples_b<BF16>(act, fb[j], s0, bb[j], bs[j]);
+      mma3_valid<BF16>(acc, ab, as, bb, bs, mv, nv);
       if (bias) {
 #pragma unroll
         for (int i = 0; i < UMI; ++i)
           if (i < mv) {
-            mma_tf32(accb[i], as[i], ones);
-            mma_tf32(accb[i], ab[i], ones);
+            uint32_t db[4], ds[4];
+            if constexpr (BF16) {
+              load_samples_a<false>(act, fa[i], s0, db, ds);
+            } else {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                db[q] = ab[i][q];
+                ds[q] = as[i][q];
+              }
+            }
+            mma_tf32(accb[i], ds, ones);
+            mma_tf32(accb[i], db, ones);
           }
       }
     }
@@ -491,7 +523,7 @@ struct UArgs {
   int n, T, rbl, n_tiles, P, ls_off;
 };
 
-template <bool ONCHIP>
+template <bool ONCHIP, bool BF16>
 __global__ void __launch_bounds__(UPD_THREADS, 1)
 update_kernel(UArgs A, MLayout lo, UConsts co) {
   extern __shared__ float4 smem4[];
@@ -505,7 +537,9 @@ update_kernel(UArgs A, MLayout lo, UConsts co) {
     float* wsm = act + lo.rows * TILE;
     const float4* src = reinterpret_cast<const float4*>(A.wplanes);
     float4* dst = reinterpret_cast<float4*>(wsm);
-    for (int i = tid; i < lo.wf / 2; i += UPD_THREADS) dst[i] = __ldg(src + i);
+    // both planes, or the bf16 arm's one (its small plane is never read)
+    for (int i = tid; i < (BF16 ? lo.wf / 4 : lo.wf / 2); i += UPD_THREADS)
+      dst[i] = __ldg(src + i);
     wb = wsm;
     ws = wsm + lo.wf;
     sums = wsm + 2 * lo.wf;
@@ -539,7 +573,7 @@ update_kernel(UArgs A, MLayout lo, UConsts co) {
         head_thread ? A.advret[((size_t)A.T + tt) * A.n + lane0 + hs] : 0.0f;
     __syncthreads();
     for (int l = 0; l <= lo.L; ++l) {
-      layer_fwd(act, lo, l, A.theta, wb, ws);
+      layer_fwd<BF16>(act, lo, l, A.theta, wb, ws);
       __syncthreads();
     }
 
@@ -594,10 +628,10 @@ update_kernel(UArgs A, MLayout lo, UConsts co) {
       st_acc = st_acc + tile_sum;
     }
     for (int l = lo.L; l >= 0; --l) {
-      layer_dw(act, lo, l, sums);
+      layer_dw<BF16>(act, lo, l, sums);
       __syncthreads();
       if (l == 0) break;
-      layer_dx(act, lo, l, wb, ws);
+      layer_dx<BF16>(act, lo, l, wb, ws);
       __syncthreads();
     }
   }
@@ -623,7 +657,9 @@ update_kernel(UArgs A, MLayout lo, UConsts co) {
 
 // The big and the small TF32 planes of the towers' weights (MLayout's wp,
 // sw, swzl): element e of a layer's plane is W[o][i] (o = e / sw, i = the
-// column e % sw unswizzled), 0 past nout or nin.
+// column e % sw unswizzled), 0 past nout or nin. BF16: the big plane
+// holds W rounded to bf16, the small one 0.
+template <bool BF16>
 __global__ void pack_planes_kernel(const float* __restrict__ theta,
                                    MLayout lo, float* __restrict__ planes) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -639,7 +675,7 @@ __global__ void pack_planes_kernel(const float* __restrict__ theta,
       if (o < y.nout && i < y.nin) v = theta[y.w + o * y.nin + i];
     }
   uint32_t b, s;
-  split_tf32(v, b, s);
+  split_op<BF16>(v, b, s);
   planes[e] = __uint_as_float(b);
   planes[lo.wf + e] = __uint_as_float(s);
 }
@@ -849,18 +885,19 @@ adam_kernel(float* __restrict__ theta, const float* __restrict__ grads,
 // ls_off]; consts floats [inv_m, clip_lo, clip_hi, clip_eps, vf_clip,
 // half_vf_coef, ent_coef]; dims ints [dynamic shared memory bytes, on chip
 // (0 or 1), wf, sf], which must be the kernel's own (ops/cuda_update.py
-// mma_layout). Returns the cudaError_t of the launches.
+// mma_layout); bf16: 1 for the bf16 operand arm, 0 for 3xTF32. Returns
+// the cudaError_t of the launches.
 extern "C" int drone_ppo_update(const float* planes, const float* advret,
                                 const int* perm, const float* theta,
                                 float* wplanes, float* scratch,
                                 float* partial, float* grads, float* stats,
                                 const int* layout, const float* consts,
                                 const int* dims, int n, int T, int rbl,
-                                int n_sel, int G, void* stream) {
+                                int n_sel, int G, int bf16, void* stream) {
   using namespace drone;
   const int L = layout[0];
   if (n <= 0 || T <= 0 || n_sel <= 0 || rbl % TILE != 0 || L < 0 ||
-      L > UPD_HIDDEN)
+      L > UPD_HIDDEN || bf16 < 0 || bf16 > 1)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < L; ++l)
     if (layout[1 + l] <= 0) return (int)cudaErrorInvalidValue;
@@ -879,10 +916,18 @@ extern "C" int drone_ppo_update(const float* planes, const float* advret,
   const UConsts co{consts[0], consts[1], consts[2], consts[3],
                    consts[4], consts[5], consts[6]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pack_planes_kernel<<<(lo.wf + 255) / 256, 256, 0, s>>>(theta, lo, wplanes);
+  if (bf16)
+    pack_planes_kernel<true><<<(lo.wf + 255) / 256, 256, 0, s>>>(theta, lo,
+                                                                wplanes);
+  else
+    pack_planes_kernel<false><<<(lo.wf + 255) / 256, 256, 0, s>>>(theta, lo,
+                                                                 wplanes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  auto kernel = onchip ? update_kernel<true> : update_kernel<false>;
+  auto kernel = bf16 ? (onchip ? update_kernel<true, true>
+                               : update_kernel<false, true>)
+                     : (onchip ? update_kernel<true, false>
+                               : update_kernel<false, false>);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);

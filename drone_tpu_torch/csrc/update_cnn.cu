@@ -34,6 +34,15 @@
 // two launches on the same inputs give the same bits, so training on the
 // card is deterministic and a resume repeats a run (H6).
 //
+// The bf16 arm (compute_dtype="bfloat16", the reference's bf16 operand
+// arm of _cnn_update_kernel: every _dot32 of cnn_forward, the heads'
+// gradients and cnn_encoder_bwd rounds both operands): the BF16 template
+// parameter of the three kernels and the packing. The tower's products run
+// one product a k-step (cnn_mma.cuh), and the CUDA-core products (the
+// heads, their gradients, dh, and gWt in cnn_gemm_kernel) round both
+// operands (mma.cuh op_value; each product exact in fp32). The bias sums
+// (gbt, gb1, gb0, the heads' b) stay fp32 sums of fp32 values.
+//
 // What bounds it on an H100: per sample ~958k matrix multiply-adds of the
 // tower (the forward 369k, the weight gradients 369k, dX2 74k and dX1 147k;
 // the kernels add conv0's re-run, 147k) at the 3xTF32 rate (3 TF32
@@ -77,6 +86,7 @@ struct UpdArgs {
   int n, T, rbl, NL, tch, chunk, n_tiles;
 };
 
+template <bool BF16>
 __global__ void __launch_bounds__(TM_THREADS, 2)
 cnn_fwd_kernel(UpdArgs A, UConsts co) {
   constexpr int L = TM_L, S = TM_S;
@@ -120,7 +130,8 @@ cnn_fwd_kernel(UpdArgs A, UConsts co) {
     __syncthreads();
 
     // ---- the tower's forward, X2 to the scratch -------------------------
-    tower_fwd_tile(sm, A.theta, A.pk, A.grid, [&](int q1, const float* y1) {
+    tower_fwd_tile<BF16>(sm, A.theta, A.pk, A.grid, [&](int q1,
+                                                        const float* y1) {
       for (int e = tid; e < CNN_C1 * L; e += blockDim.x) {
         const int o = e / L, l = e % L;
         x2s[(size_t)(q1 * CNN_C1 + o) * NL + l] = y1[o * S + l];
@@ -131,7 +142,7 @@ cnn_fwd_kernel(UpdArgs A, UConsts co) {
     // ---- the heads and the PPO surrogate's gradients (K3's _head_grads) ---
     if (tid < L) {
       float m[4], v, a[4], dm[4], g_v, st[N_UPSTATS];
-      cnn_heads(hh, S, tid, A.theta, m, v);
+      cnn_heads<BF16>(hh, S, tid, A.theta, m, v);
 #pragma unroll
       for (int k = 0; k < 4; ++k) a[k] = pt[(size_t)(TP_ACT0 + k) * n + tid];
       const float* ar = A.advret + (size_t)t * n + lane0 + tid;
@@ -154,7 +165,9 @@ cnn_fwd_kernel(UpdArgs A, UConsts co) {
       const int r = e / (CNN_H + 1), u = e % (CNN_H + 1);
       float s = 0.0f;
       if (u < CNN_H) {
-        for (int l = 0; l < L; ++l) s = __fmaf_rn(dmv[r * S + l], hh[u * S + l], s);
+        for (int l = 0; l < L; ++l)
+          s = __fmaf_rn(op_value<BF16>(dmv[r * S + l]),
+                        op_value<BF16>(hh[u * S + l]), s);
       } else {
         for (int l = 0; l < L; ++l) s = s + dmv[r * S + l];
       }
@@ -163,11 +176,14 @@ cnn_fwd_kernel(UpdArgs A, UConsts co) {
     // dzt = (Hw^T dm + Vw^T g_v) * (h > 0), to the scratch
     for (int e = tid; e < CNN_H * L; e += blockDim.x) {
       const int u = e / L, l = e % L;
-      float d = __ldg(A.theta + OFF_HW + u) * dmv[l];
+      float d = op_value<BF16>(__ldg(A.theta + OFF_HW + u)) *
+                op_value<BF16>(dmv[l]);
 #pragma unroll
       for (int k = 1; k < 4; ++k)
-        d = __fmaf_rn(__ldg(A.theta + OFF_HW + k * CNN_H + u), dmv[k * S + l], d);
-      d = d + __ldg(A.theta + OFF_VW + u) * dmv[4 * S + l];
+        d = __fmaf_rn(op_value<BF16>(__ldg(A.theta + OFF_HW + k * CNN_H + u)),
+                      op_value<BF16>(dmv[k * S + l]), d);
+      d = d + op_value<BF16>(__ldg(A.theta + OFF_VW + u)) *
+                  op_value<BF16>(dmv[4 * S + l]);
       dzs[(size_t)u * NL + l] = d * (hh[u * S + l] > 0.0f ? 1.0f : 0.0f);
     }
   }
@@ -200,7 +216,8 @@ cnn_fwd_kernel(UpdArgs A, UConsts co) {
 // K7's split-K product (update_lstm.cu): C (M x N) = sum_s A[m][s] B[n][s]
 // with the bias sums sum_s A[m][s] as column N, over the chunk's samples
 // (s = t * NL + lane); block (i, j, kc) takes the 64 x 64 tile (i, j) over
-// CK lanes of one step and writes its own partial row (row0 + kc).
+// CK lanes of one step and writes its own partial row (row0 + kc). BF16:
+// the products' operands rounded to bf16, the bias sums not.
 struct GemmPair {
   const float* a;
   int ra, M;
@@ -208,6 +225,7 @@ struct GemmPair {
   int rb, N;
 };
 
+template <bool BF16>
 __global__ void __launch_bounds__(256)
 cnn_gemm_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
                  int ptot, int row0) {
@@ -253,11 +271,13 @@ cnn_gemm_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
       const float4 av = *reinterpret_cast<const float4*>(&As[buf][kk][4 * tm]);
       const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][kk][4 * tn]);
       const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+      const float br[4] = {op_value<BF16>(bv.x), op_value<BF16>(bv.y),
+                           op_value<BF16>(bv.z), op_value<BF16>(bv.w)};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
+        const float ai = op_value<BF16>(ar[i]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(ar[i], br[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(ai, br[j], acc[i][j]);
         if (bias) bsum[i] = bsum[i] + ar[i];
       }
     }
@@ -322,7 +342,8 @@ __global__ void cnn_reduce_kernel(const float* __restrict__ bpart, int RB,
 // 576, NL) and dzs (tch, 128, NL), the partial rows fpart (n_chunks * Gf,
 // FP_W), bpart (n_chunks * Gb, OFF_WT) and gpart (n_chunks * tch * NL / CK,
 // 128 * 577). dims: [n, T, rbl, NL, tch, CK, Gf, Gb, the forward's and the
-// backward's shared bytes as the wrapper counts them]. consts: [inv_m,
+// backward's shared bytes as the wrapper counts them, bf16: 1 for the bf16
+// operand arm, 0 for 3xTF32]. consts: [inv_m,
 // clip_lo, clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the
 // cudaError_t of the launches.
 extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
@@ -333,8 +354,10 @@ extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
   if (n <= 0 || T <= 0 || tch <= 0 || T % tch != 0 || rbl % 128 != 0 ||
       NL % rbl != 0 || NL % TM_L != 0 || CK % GK != 0 || NL % CK != 0 ||
       Gf <= 0 || Gf > FWD_BLOCKS || Gb <= 0 || Gb > BWD_BLOCKS ||
-      dims[8] != TF_SMEM || dims[9] != TB_SMEM)
+      dims[8] != TF_SMEM || dims[9] != TB_SMEM || dims[10] < 0 ||
+      dims[10] > 1)
     return (int)cudaErrorInvalidValue;
+  const bool bf16 = dims[10] != 0;
   const float** ptr = reinterpret_cast<const float**>(const_cast<uint64_t*>(ptrs));
   UpdArgs A;
   A.planes = ptr[0];
@@ -361,14 +384,21 @@ extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
   const UConsts co{consts[0], consts[1], consts[2], consts[3],
                    consts[4], consts[5], consts[6]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto fwd = bf16 ? cnn_fwd_kernel<true> : cnn_fwd_kernel<false>;
+  auto bwd = bf16 ? tower_bwd_kernel<true> : tower_bwd_kernel<false>;
+  auto gemm = bf16 ? cnn_gemm_kernel<true> : cnn_gemm_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      cnn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+      fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
-      tower_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TB_SMEM);
+      bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, TB_SMEM);
   if (err != cudaSuccess) return (int)err;
-  pack_tower_kernel<<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(A.theta, pk,
-                                                         PK_TOTAL);
+  if (bf16)
+    pack_tower_kernel<true><<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(
+        A.theta, pk, PK_TOTAL);
+  else
+    pack_tower_kernel<false><<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(
+        A.theta, pk, PK_TOTAL);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n_chunks = T / tch, nk = tch * (NL / CK);
@@ -392,15 +422,15 @@ extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
   for (int c = 0; c < n_chunks; ++c) {
     A.chunk = c;
     A.fpart = fpart + (size_t)c * Gf * FP_W;
-    cnn_fwd_kernel<<<Gf, TM_THREADS, TF_SMEM, s>>>(A, co);
+    fwd<<<Gf, TM_THREADS, TF_SMEM, s>>>(A, co);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     B.t0 = c * tch;
     B.row0 = c * Gb;
-    tower_bwd_kernel<<<Gb, TM_THREADS, TB_SMEM, s>>>(B);
+    bwd<<<Gb, TM_THREADS, TB_SMEM, s>>>(B);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    cnn_gemm_kernel<<<grid, 256, 0, s>>>(gp, NL, CK, gpart, GPT, c * nk);
+    gemm<<<grid, 256, 0, s>>>(gp, NL, CK, gpart, GPT, c * nk);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -806,12 +806,12 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                TF_SMEM);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(tower_bwd_kernel,
+    err = cudaFuncSetAttribute(tower_bwd_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                TB_SMEM);
     if (err != cudaSuccess) return (int)err;
-    pack_tower_kernel<<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(A.theta, pk,
-                                                             PK_TOTAL);
+    pack_tower_kernel<false><<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(
+        A.theta, pk, PK_TOTAL);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -830,7 +830,7 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
     if (cnn) {
       // one block per product row of the segment (nk <= the tiles)
       tb.row0 = seg * nk;
-      tower_bwd_kernel<<<nk, TM_THREADS, TB_SMEM, s>>>(tb);
+      tower_bwd_kernel<false><<<nk, TM_THREADS, TB_SMEM, s>>>(tb);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

@@ -22,6 +22,12 @@ cores in 3xTF32, the updates' forward (`tower_linear` is the hook an
 emulation of those takes). The wrappers take the plain version for CPU
 tensors only; on a CUDA tensor they launch the kernel, which takes the
 default architecture only (`check_envelope`).
+
+`compute_dtype="bfloat16"` is the reference's bf16 operand arm: every
+product of the tower and the heads takes its operands rounded to bfloat16
+(`cuda_acting_traj.operand`; the rendered pixels are conv0's operand) and
+sums in float32. K9's and K11's bf16 arm is one instantiation of the
+kernel (one product a k-step of the rounded operands).
 """
 
 from __future__ import annotations
@@ -42,7 +48,12 @@ from drone_tpu_torch.models.cnn import (  # noqa: F401 (re-exported)
 )
 from drone_tpu_torch.ops import cuda_build
 from drone_tpu_torch.ops.cuda_acting import gauss4
-from drone_tpu_torch.ops.cuda_acting_traj import N_TRAJ, sample_logp
+from drone_tpu_torch.ops.cuda_acting_traj import (
+    N_TRAJ,
+    bf16_flag,
+    operand,
+    sample_logp,
+)
 from drone_tpu_torch.ops.cuda_rollout import (
     N_STATS,
     accumulate,
@@ -177,38 +188,49 @@ def tower_linear(x, w, b):
     return F.linear(x, w, b)
 
 
-def cnn_encode(X, enc_weights, gx, gy, geom: CnnGeom, want_acts=False):
+def cnn_encode(X, enc_weights, gx, gy, geom: CnnGeom, want_acts=False,
+               compute_dtype: str = "float32"):
     """The patchify-CNN encoder in the kernels' formulation: X (N, 13) ->
     trunk features h (N, hidden) [, acts = (sp, X0 (N, n_q0, C p0^2), Y0
-    (N, n_q0, c0), Y1 (N, n_q1, c1), X2 (N, n_q1 c1), h)]."""
+    (N, n_q0, c0), Y1 (N, n_q1, c1), X2 (N, n_q1 c1), h)], each product's
+    operands as `operand` takes them."""
     W0, b0, W1, b1, Wt, bt = enc_weights
     n = X.shape[0]
+
+    def layer(x, w, b):
+        return torch.relu(tower_linear(operand(x, compute_dtype),
+                                       operand(w, compute_dtype), b))
+
     sp = splat_planes(X)
     X0 = render_patches(sp, gx, gy, geom)
-    Y0 = torch.relu(tower_linear(X0, W0, b0))
+    Y0 = layer(X0, W0, b0)
     X1 = Y0[:, window_index(geom, X.device)].reshape(n, geom.n_q1, -1)
-    Y1 = torch.relu(tower_linear(X1, W1, b1))
+    Y1 = layer(X1, W1, b1)
     X2 = Y1.reshape(n, -1)
-    h = torch.relu(tower_linear(X2, Wt, bt))
+    h = layer(X2, Wt, bt)
     if want_acts:
         return h, (sp, X0, Y0, Y1, X2, h)
     return h
 
 
-def cnn_forward(X, weights, gx, gy, geom: CnnGeom, want_acts=False):
+def cnn_forward(X, weights, gx, gy, geom: CnnGeom, want_acts=False,
+                compute_dtype: str = "float32"):
     """cnn_encode plus the heads: X (N, 13) -> (means (N, 4), values (N,)[,
     acts])."""
     W0, b0, W1, b1, Wt, bt, (hw, hb), (vw, vb), _ = weights
-    h, acts = cnn_encode(X, (W0, b0, W1, b1, Wt, bt), gx, gy, geom, True)
-    m = F.linear(h, hw, hb)
-    v = F.linear(h, vw, vb)[:, 0]
+    h, acts = cnn_encode(X, (W0, b0, W1, b1, Wt, bt), gx, gy, geom, True,
+                         compute_dtype)
+    hr = operand(h, compute_dtype)
+    m = F.linear(hr, operand(hw, compute_dtype), hb)
+    v = F.linear(hr, operand(vw, compute_dtype), vb)[:, 0]
     return (m, v, acts) if want_acts else (m, v)
 
 
 @torch.no_grad()
 def cnn_act_rollout_plain(state: EnvState, theta, arch, env_params: EnvParams,
                           statics: EnvStatics, T: int,
-                          stochastic: bool = False):
+                          stochastic: bool = False,
+                          compute_dtype: str = "float32"):
     """Plain PyTorch version of K11. Returns (final EnvState, per-lane
     statistics (N_STATS, N))."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -217,7 +239,8 @@ def cnn_act_rollout_plain(state: EnvState, theta, arch, env_params: EnvParams,
     gx, gy = patch_grid(arch.res, arch.p0, state.pos.device)
     acc = torch.zeros(N_STATS, state.n, device=state.pos.device)
     for _ in range(T):
-        m, _ = cnn_forward(env_mod.observe(state), weights, gx, gy, arch.geom)
+        m, _ = cnn_forward(env_mod.observe(state), weights, gx, gy, arch.geom,
+                           compute_dtype=compute_dtype)
         a = m
         if stochastic:
             a, _ = sample_logp(m, gauss4(state), weights[-1], True)
@@ -229,7 +252,8 @@ def cnn_act_rollout_plain(state: EnvState, theta, arch, env_params: EnvParams,
 @torch.no_grad()
 def traj_cnn_rollout_plain(state: EnvState, theta, arch,
                            env_params: EnvParams, statics: EnvStatics, T: int,
-                           stochastic: bool = True):
+                           stochastic: bool = True,
+                           compute_dtype: str = "float32"):
     """Plain PyTorch version of K9 (traj_cnn_rollout_reference). Returns
     (final EnvState, planes (T, N_TRAJ, N), per-lane statistics)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -241,7 +265,8 @@ def traj_cnn_rollout_plain(state: EnvState, theta, arch,
     acc = torch.zeros(N_STATS, state.n, device=dev)
     for t in range(T):
         obs = env_mod.observe(state)
-        m, v = cnn_forward(obs, weights, gx, gy, arch.geom)
+        m, v = cnn_forward(obs, weights, gx, gy, arch.geom,
+                           compute_dtype=compute_dtype)
         z = gauss4(state) if stochastic else torch.zeros_like(m)
         a, logp = sample_logp(m, z, weights[-1], stochastic)
         state, out = env_mod.step(state, a, env_params, statics)
@@ -253,10 +278,10 @@ def traj_cnn_rollout_plain(state: EnvState, theta, arch,
 
 
 def _launch(state, theta, arch, env_params, statics, T, traj: bool,
-            stochastic: bool):
+            stochastic: bool, bf16: int):
     """Launch csrc/acting_cnn.cu: serving (K11) when traj is False, else the
-    training rollout (K9). Returns (final EnvState, planes or None, per-lane
-    statistics)."""
+    training rollout (K9); its bf16 arm when bf16 is 1. Returns (final
+    EnvState, planes or None, per-lane statistics)."""
     check_cuda_state(state)
     arch = CnnArch(*arch)
     check_envelope(arch)
@@ -270,35 +295,40 @@ def _launch(state, theta, arch, env_params, statics, T, traj: bool,
     grid = grid_table(arch.res, arch.p0, dev)
     planes = torch.empty(T, N_TRAJ, state.n, device=dev) if traj else None
     fn = cuda_build.load("acting_cnn").drone_cnn_act_rollout
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     final, lane_stats = launch_planes(
         fn, state, env_params, statics, T, theta.data_ptr(), pk.data_ptr(),
         grid.data_ptr(), None if planes is None else planes.data_ptr(),
-        int(stochastic), TOWER_FWD_SMEM)
+        int(stochastic), TOWER_FWD_SMEM, bf16)
     return final, planes, lane_stats
 
 
 def cnn_act_rollout_kernel(state, theta, arch, env_params, statics, T,
-                           stochastic=False):
+                           stochastic=False, compute_dtype="float32"):
     """Launch K11. Same contract as cnn_act_rollout_plain."""
+    bf16 = bf16_flag(compute_dtype)
     final, _, lane_stats = _launch(state, theta, arch, env_params, statics, T,
-                                   False, stochastic)
+                                   False, stochastic, bf16)
     cnn_act_rollout_cuda.launches += 1
+    cnn_act_rollout_cuda.bf16_launches += bf16
     return final, lane_stats
 
 
 def traj_cnn_rollout_kernel(state, theta, arch, env_params, statics, T,
-                            stochastic=True):
+                            stochastic=True, compute_dtype="float32"):
     """Launch K9. Same contract as traj_cnn_rollout_plain."""
+    bf16 = bf16_flag(compute_dtype)
     out = _launch(state, theta, arch, env_params, statics, T, True,
-                  stochastic)
+                  stochastic, bf16)
     traj_cnn_rollout_cuda.launches += 1
+    traj_cnn_rollout_cuda.bf16_launches += bf16
     return out
 
 
 def cnn_act_rollout_cuda(state: EnvState, theta, arch, env_params: EnvParams,
                          statics: EnvStatics, T: int,
-                         stochastic: bool = False):
+                         stochastic: bool = False,
+                         compute_dtype: str = "float32"):
     """T CNN-policy + env steps per lane, statistics only: the kernel on a
     CUDA state, the plain version on a CPU state. theta: the flat buffer of
     a PatchCNNActorCritic of architecture `arch`. Returns (final EnvState,
@@ -306,24 +336,27 @@ def cnn_act_rollout_cuda(state: EnvState, theta, arch, env_params: EnvParams,
     run = (cnn_act_rollout_plain if state.pos.device.type == "cpu"
            else cnn_act_rollout_kernel)
     final, lane_stats = run(state, theta, arch, env_params, statics, T,
-                            stochastic)
+                            stochastic, compute_dtype)
     return final, stats_dict(lane_stats)
 
 
 cnn_act_rollout_cuda.launches = 0
+cnn_act_rollout_cuda.bf16_launches = 0  # of them, the bf16 arm's
 
 
 def traj_cnn_rollout_cuda(state: EnvState, theta, arch,
                           env_params: EnvParams, statics: EnvStatics, T: int,
-                          stochastic: bool = True):
+                          stochastic: bool = True,
+                          compute_dtype: str = "float32"):
     """T CNN-policy + env steps per lane emitting the PPO training planes:
     the kernel on a CUDA state, the plain version on a CPU state. Returns
     (final EnvState, planes (T, N_TRAJ, N), stats dict)."""
     run = (traj_cnn_rollout_plain if state.pos.device.type == "cpu"
            else traj_cnn_rollout_kernel)
     final, planes, lane_stats = run(state, theta, arch, env_params, statics,
-                                    T, stochastic)
+                                    T, stochastic, compute_dtype)
     return final, planes, stats_dict(lane_stats)
 
 
 traj_cnn_rollout_cuda.launches = 0
+traj_cnn_rollout_cuda.bf16_launches = 0  # of them, the bf16 arm's

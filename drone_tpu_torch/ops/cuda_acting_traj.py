@@ -22,11 +22,18 @@ weights split on the device from the flat buffer, `traj_layout`) and takes
 tanh, exp, log, sin and cos from CUDA's libdevice, so it agrees with the
 plain version to a tolerance, not bitwise; the env step inside stays
 bitwise. Its envelope is the fp32 kernel's it replaced (`check_envelope`).
+
+`compute_dtype="bfloat16"` is the reference's bf16 operand arm: every
+product of the towers takes its operands rounded to bfloat16 (`operand`,
+the reference's `_dot32`) and sums in float32, so the outputs stay
+float32. The kernel's bf16 arm runs one tensor-core product a k-step of
+the rounded operands; the plain version rounds the same operands.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -66,6 +73,26 @@ TRAJ_MAX_LANES = 512       # the kernel's lanes a block at most
 _MAX_SMEM = 232448 - 256
 
 HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def bf16_flag(compute_dtype: str) -> int:
+    """1 for the kernels' bf16 operand arm, 0 for float32 (3xTF32); raises
+    ValueError for another compute dtype."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype!r}")
+    return int(compute_dtype == "bfloat16")
+
+
+def operand(x, compute_dtype: str = "float32"):
+    """An operand of a tower product as the reference's `_dot32` takes it:
+    under bfloat16 rounded to bfloat16 (nearest even) and widened back to
+    float32, so the product is exact and sums in float32 (a bfloat16 matmul
+    would round its output too); under float32 x itself."""
+    if bf16_flag(compute_dtype):
+        return x.to(torch.bfloat16).to(torch.float32)
+    return x
 
 
 def tower_weights(theta: torch.Tensor, hidden):
@@ -92,10 +119,11 @@ def tower_weights(theta: torch.Tensor, hidden):
     return towers[0], towers[1], ls
 
 
-def tower_forward(x, weights):
-    """(S, in) -> (S, out): tanh hidden layers, linear head (_tower)."""
+def tower_forward(x, weights, compute_dtype: str = "float32"):
+    """(S, in) -> (S, out): tanh hidden layers, linear head (_tower), each
+    product's operands as `operand` takes them."""
     for li, (w, b) in enumerate(weights):
-        x = F.linear(x, w, b)
+        x = F.linear(operand(x, compute_dtype), operand(w, compute_dtype), b)
         if li < len(weights) - 1:
             x = torch.tanh(x)
     return x
@@ -115,20 +143,25 @@ def sample_logp(m, z, ls, stochastic: bool):
 @torch.no_grad()
 def traj_rollout_plain(state: EnvState, theta: torch.Tensor, hidden,
                        env_params: EnvParams, statics: EnvStatics, T: int,
-                       stochastic: bool = True):
+                       stochastic: bool = True,
+                       compute_dtype: str = "float32"):
     """Plain PyTorch version of the kernel. Returns (final EnvState, planes
     (T, N_TRAJ, N), per-lane statistics (N_STATS, N))."""
     # full float32 matmuls on the card (the default, stated: TF32 would
     # differ from the kernel by far more than its tolerance)
     torch.backends.cuda.matmul.allow_tf32 = False
     actor, critic, ls = tower_weights(theta, hidden)
+    # under float32 the module's tower_forward as it is: the hook an
+    # emulation of the kernel's 3xTF32 products takes
+    towers = (functools.partial(tower_forward, compute_dtype=compute_dtype)
+              if bf16_flag(compute_dtype) else tower_forward)
     dev = state.pos.device
     planes = torch.empty(T, N_TRAJ, state.n, device=dev)
     acc = torch.zeros(N_STATS, state.n, device=dev)
     for t in range(T):
         obs = env_mod.observe(state)
-        m = tower_forward(obs, actor)
-        v = tower_forward(obs, critic)[:, 0]
+        m = towers(obs, actor)
+        v = towers(obs, critic)[:, 0]
         z = gauss4(state) if stochastic else torch.zeros_like(m)
         a, logp = sample_logp(m, z, ls, stochastic)
         state, out = env_mod.step(state, a, env_params, statics)
@@ -224,8 +257,11 @@ def traj_layout(hidden) -> dict:
 
 def traj_rollout_kernel(state: EnvState, theta: torch.Tensor, hidden,
                         env_params: EnvParams, statics: EnvStatics, T: int,
-                        stochastic: bool = True):
-    """Launch csrc/acting_traj.cu. Same contract as traj_rollout_plain."""
+                        stochastic: bool = True,
+                        compute_dtype: str = "float32"):
+    """Launch csrc/acting_traj.cu (its bf16 arm under bfloat16). Same
+    contract as traj_rollout_plain."""
+    bf16 = bf16_flag(compute_dtype)
     check_cuda_state(state)
     tower_weights(theta, hidden)  # checks the buffer's length
     if (theta.device != state.pos.device or theta.dtype != torch.float32
@@ -237,26 +273,29 @@ def traj_rollout_kernel(state: EnvState, theta: torch.Tensor, hidden,
     planes = torch.empty(T, N_TRAJ, state.n, device=dev)
     packed = torch.empty(lay["wfl"], device=dev)
     fn = cuda_build.load("acting_traj").drone_traj_rollout
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     final, lane_stats = launch_planes(
         fn, state, env_params, statics, T, planes.data_ptr(),
         theta.data_ptr(), packed.data_ptr(), lay["ints"].ctypes.data,
-        int(stochastic))
+        int(stochastic), bf16)
     traj_rollout_cuda.launches += 1
+    traj_rollout_cuda.bf16_launches += bf16
     return final, planes, lane_stats
 
 
 def traj_rollout_cuda(state: EnvState, theta: torch.Tensor, hidden,
                       env_params: EnvParams, statics: EnvStatics, T: int,
-                      stochastic: bool = True):
+                      stochastic: bool = True,
+                      compute_dtype: str = "float32"):
     """T policy+env steps per lane emitting the PPO training planes: the
     kernel on a CUDA state, the plain version on a CPU state. Returns
     (final EnvState, planes (T, N_TRAJ, N), stats dict)."""
     run = (traj_rollout_plain if state.pos.device.type == "cpu"
            else traj_rollout_kernel)
     final, planes, lane_stats = run(state, theta, hidden, env_params, statics,
-                                    T, stochastic)
+                                    T, stochastic, compute_dtype)
     return final, planes, stats_dict(lane_stats)
 
 
 traj_rollout_cuda.launches = 0
+traj_rollout_cuda.bf16_launches = 0  # of them, the bf16 arm's

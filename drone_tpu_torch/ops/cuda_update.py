@@ -21,6 +21,11 @@ Gradient conventions (CleanRL/PuffeRL clipped PPO, as the reference):
   vl    = max((v-ret)^2, (v_old+clip(v-v_old, +-vf_clip)-ret)^2)
 max/clip subgradients: the first branch wins ties; clip passes gradient
 inside the closed interval.
+
+`compute_dtype="bfloat16"` is the reference's bf16 operand arm of K3: the
+forward's, dW's and dX's products take their operands rounded to bfloat16
+(`cuda_acting_traj.operand`, the reference's `_dot32`) and sum in float32;
+db, the stored activations, the tanh and the head stay float32.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from drone_tpu_torch.ops.cuda_acting_traj import (
     TP_LOGP,
     TP_OBS0,
     TP_VAL,
+    bf16_flag,
+    operand,
     tower_weights,
 )
 from drone_tpu_torch.types import OBS_DIM
@@ -156,25 +163,29 @@ def tower_mm(a, b):
     return a @ b
 
 
-def _tower_fwd(x, weights):
+def _tower_fwd(x, weights, compute_dtype="float32"):
     acts = [x]
     for li, (w, b) in enumerate(weights):
-        x = tower_mm(x, w.t()) + b
+        x = tower_mm(operand(x, compute_dtype),
+                     operand(w, compute_dtype).t()) + b
         if li < len(weights) - 1:
             x = torch.tanh(x)
         acts.append(x)
     return x, acts
 
 
-def _tower_bwd(weights, acts, dy):
+def _tower_bwd(weights, acts, dy, compute_dtype="float32"):
     """dy (S, out) of the head -> [(dW (out, in), db (out,)), ...]."""
+    def op(x):
+        return operand(x, compute_dtype)
+
     grads = [None] * len(weights)
     for li in range(len(weights) - 1, -1, -1):
         w, _ = weights[li]
-        grads[li] = (tower_mm(dy.t(), acts[li]), dy.sum(0))
+        grads[li] = (tower_mm(op(dy).t(), op(acts[li])), dy.sum(0))
         if li > 0:
             y = acts[li]
-            dy = tower_mm(dy, w) * (1.0 - y * y)
+            dy = tower_mm(op(dy), op(w)) * (1.0 - y * y)
     return grads
 
 
@@ -191,21 +202,23 @@ def gather_minibatch(planes, advret, perm_mb, rbl):
 
 
 def ppo_update_plain(planes, advret, perm_mb, theta, hidden,
-                     co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
+                     co: UpdateConsts, rbl: int, ent_coef: float = 0.0,
+                     compute_dtype: str = "float32"):
     """Plain PyTorch version of K3 (_block_grads over the whole minibatch).
     Returns (grads (P,) in kernel order, stat sums (N_UPSTATS,)). Gradients
     are sums scaled by inv_m; log_std's is its stat sums minus ent_coef."""
+    bf16_flag(compute_dtype)
     torch.backends.cuda.matmul.allow_tf32 = False
     actor, critic, ls = tower_weights(theta, hidden)
     X, a, logp_old, v_old, adv, ret = gather_minibatch(planes, advret,
                                                        perm_mb, rbl)
     with torch.no_grad():
-        m, acts_a = _tower_fwd(X, actor)
-        vx, acts_c = _tower_fwd(X, critic)
+        m, acts_a = _tower_fwd(X, actor, compute_dtype)
+        vx, acts_c = _tower_fwd(X, critic, compute_dtype)
         dm, g_v, stats = head_grads(m, vx[:, 0], a, logp_old, v_old, adv, ret,
                                     ls, co)
-        ga = _tower_bwd(actor, acts_a, dm)
-        gc = _tower_bwd(critic, acts_c, g_v[:, None])
+        ga = _tower_bwd(actor, acts_a, dm, compute_dtype)
+        gc = _tower_bwd(critic, acts_c, g_v[:, None], compute_dtype)
         st = stats.sum(0)
         offs, total = kernel_offsets(hidden)
         grads = torch.empty(total, device=theta.device)
@@ -218,7 +231,8 @@ def ppo_update_plain(planes, advret, perm_mb, theta, hidden,
 
 @torch.no_grad()
 def head_branch_counts(planes, advret, perm_mb, theta, hidden,
-                       co: UpdateConsts, rbl: int) -> dict:
+                       co: UpdateConsts, rbl: int,
+                       compute_dtype: str = "float32") -> dict:
     """How many samples of a minibatch take each branch of the head's
     subgradients at theta: the ratio outside 1 +- clip_eps, of which the
     clipped surrogate wins (policy gradient 0), and v - v_old outside
@@ -227,8 +241,8 @@ def head_branch_counts(planes, advret, perm_mb, theta, hidden,
     actor, critic, ls = tower_weights(theta, hidden)
     X, a, logp_old, v_old, adv, ret = gather_minibatch(planes, advret,
                                                        perm_mb, rbl)
-    m, _ = _tower_fwd(X, actor)
-    v = _tower_fwd(X, critic)[0][:, 0]
+    m, _ = _tower_fwd(X, actor, compute_dtype)
+    v = _tower_fwd(X, critic, compute_dtype)[0][:, 0]
     return branch_counts(m, v, a, logp_old, v_old, adv, ret, ls, co)
 
 
@@ -332,8 +346,11 @@ def check_cuda_tensor(name, t, dtype, shape=None):
 
 
 def ppo_update_kernel(planes, advret, perm_mb, theta, hidden,
-                      co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
-    """Launch K3 (csrc/update.cu). Same contract as ppo_update_plain."""
+                      co: UpdateConsts, rbl: int, ent_coef: float = 0.0,
+                      compute_dtype: str = "float32"):
+    """Launch K3 (csrc/update.cu; its bf16 arm under bfloat16). Same
+    contract as ppo_update_plain."""
+    bf16 = bf16_flag(compute_dtype)
     T, _, n = planes.shape
     layout = update_layout(hidden)
     P = int(layout[3 + 3 * UPD_HIDDEN])
@@ -359,34 +376,39 @@ def ppo_update_kernel(planes, advret, perm_mb, theta, hidden,
     dims = np.array([mm["smem"], int(mm["onchip"]), mm["wf"], mm["sf"]],
                     np.int32)
     fn = cuda_build.load("update").drone_ppo_update
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(planes.data_ptr(), advret.data_ptr(), perm_mb.data_ptr(),
                  theta.data_ptr(), wplanes.data_ptr(), scratch.data_ptr(),
                  partial.data_ptr(), grads.data_ptr(), stats.data_ptr(),
                  layout.ctypes.data, consts.ctypes.data, dims.ctypes.data, n,
-                 T, rbl, perm_mb.numel(), G,
+                 T, rbl, perm_mb.numel(), G, bf16,
                  torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "drone_ppo_update")
     ppo_update_cuda.launches += 1
+    ppo_update_cuda.bf16_launches += bf16
     return grads, stats
 
 
 def ppo_update_cuda(planes, advret, perm_mb, theta, hidden,
-                    co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
+                    co: UpdateConsts, rbl: int, ent_coef: float = 0.0,
+                    compute_dtype: str = "float32"):
     """One PPO minibatch gradient pass over the trajectory planes: the
     kernel on CUDA tensors, the plain version on CPU tensors.
 
     planes: (T, N_TRAJ, N) from the trajectory rollout; advret: (2, T, N)
     (normalized advantage, return); perm_mb: (n_sel,) int32 row-block
     indices, block i covering lanes [i*rbl, (i+1)*rbl); theta: the flat
-    parameters of towers `hidden`. Returns (grads (P,), stat sums (8,))."""
+    parameters of towers `hidden`; compute_dtype "float32" or "bfloat16"
+    (the bf16 operand arm). Returns (grads (P,), stat sums (8,))."""
     run = ppo_update_plain if planes.device.type == "cpu" else ppo_update_kernel
-    return run(planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef)
+    return run(planes, advret, perm_mb, theta, hidden, co, rbl, ent_coef,
+               compute_dtype)
 
 
 ppo_update_cuda.launches = 0
+ppo_update_cuda.bf16_launches = 0  # of them, the bf16 arm's
 
 
 @torch.no_grad()

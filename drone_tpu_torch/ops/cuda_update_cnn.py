@@ -22,6 +22,11 @@ swapped for to see what the precision costs the plain version.
 Returns (grads (P,) in the flat kernel order, stat sums (N_UPSTATS,)) as
 `cuda_update.ppo_update_cuda`: gradients are sums scaled by inv_m, and
 log_std's is its stat sums ST_DLS* minus ent_coef.
+
+`compute_dtype="bfloat16"` is the reference's bf16 operand arm of K10:
+every product (the forward, the heads' gradients, dh, gWt, dX2, gW1, dX1,
+gW0) takes its operands rounded to bfloat16 (`cuda_acting_traj.operand`,
+the reference's `_dot32`) and sums in float32; the bias sums stay float32.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from drone_tpu_torch.ops.cuda_acting_cnn import (
     cnn_forward,
     window_index,
 )
-from drone_tpu_torch.ops.cuda_acting_traj import N_TRAJ
+from drone_tpu_torch.ops.cuda_acting_traj import N_TRAJ, bf16_flag, operand
 from drone_tpu_torch.ops.cuda_update import (
     N_UPSTATS,
     ST_DLS0,
@@ -104,47 +109,61 @@ def tower_mm(a, b):
     return a @ b
 
 
-def cnn_encoder_bwd(dh, acts, enc_weights, geom: CnnGeom):
+def cnn_encoder_bwd(dh, acts, enc_weights, geom: CnnGeom,
+                    compute_dtype: str = "float32"):
     """Hand-written backward of `cnn_encode`: dh (N, hidden) = d loss / d
     trunk output -> [gW0, gb0, gW1, gb1, gWt, gbt]. acts from
     cnn_encode(want_acts=True)."""
+    def op(x):
+        return operand(x, compute_dtype)
+
     W0, b0, W1, b1, Wt, bt = enc_weights
     _, X0, Y0, Y1, X2, h = acts
     n, c0, c1 = dh.shape[0], W0.shape[0], W1.shape[0]
     dzt = dh * (h > 0.0).to(dh.dtype)
-    gWt = dzt.t() @ X2
+    gWt = op(dzt).t() @ op(X2)
     gbt = dzt.sum(0)
     # conv1: un-concat dX2, relu-mask, the weight gradient against the
     # windows' conv0 outputs, and the input gradient routed back to the
     # feeding conv0 patches (patchify convs: each patch feeds one window)
-    dz1 = tower_mm(dzt, Wt).view(n, geom.n_q1, c1) * (Y1 > 0.0).to(dh.dtype)
+    dz1 = (tower_mm(op(dzt), op(Wt)).view(n, geom.n_q1, c1)
+           * (Y1 > 0.0).to(dh.dtype))
     idx = window_index(geom, dh.device)
     X1 = Y0[:, idx].reshape(n, geom.n_q1, -1)
-    gW1 = tower_mm(dz1.reshape(-1, c1).t(), X1.reshape(-1, X1.shape[-1]))
+    gW1 = tower_mm(op(dz1).reshape(-1, c1).t(),
+                   op(X1).reshape(-1, X1.shape[-1]))
     gb1 = dz1.sum((0, 1))
-    dX1 = tower_mm(dz1, W1).view(n, -1, c0)
+    dX1 = tower_mm(op(dz1), op(W1)).view(n, -1, c0)
     dY0 = torch.empty_like(Y0)
     dY0[:, idx.reshape(-1)] = dX1
     # conv0 against the rendered patches
     dz0 = dY0 * (Y0 > 0.0).to(dh.dtype)
-    gW0 = tower_mm(dz0.reshape(-1, c0).t(), X0.reshape(-1, X0.shape[-1]))
+    gW0 = tower_mm(op(dz0).reshape(-1, c0).t(),
+                   op(X0).reshape(-1, X0.shape[-1]))
     gb0 = dz0.sum((0, 1))
     return [gW0, gb0, gW1, gb1, gWt, gbt]
 
 
 def cnn_block_grads(X, a, logp_old, v_old, adv, ret, weights, gx, gy,
-                    geom: CnnGeom, co: UpdateConsts):
+                    geom: CnnGeom, co: UpdateConsts,
+                    compute_dtype: str = "float32"):
     """Forward + hand-written backward over a batch of samples (the
     reference's _cnn_block_grads). Returns (the 10 gradient tensors in
     kernel order without log_std, stats (S, 8))."""
+    def op(x):
+        return operand(x, compute_dtype)
+
     hw, vw = weights[6][0], weights[7][0]
-    m, v, acts = cnn_forward(X, weights, gx, gy, geom, want_acts=True)
+    m, v, acts = cnn_forward(X, weights, gx, gy, geom, want_acts=True,
+                             compute_dtype=compute_dtype)
     h = acts[-1]
     dm, g_v, stats = head_grads(m, v, a, logp_old, v_old, adv, ret,
                                 weights[8], co)
-    heads = [dm.t() @ h, dm.sum(0), g_v[None] @ h, g_v.sum(0, keepdim=True)]
-    dh = dm @ hw + g_v[:, None] @ vw
-    return cnn_encoder_bwd(dh, acts, weights[:6], geom) + heads, stats
+    heads = [op(dm).t() @ op(h), dm.sum(0), op(g_v)[None] @ op(h),
+             g_v.sum(0, keepdim=True)]
+    dh = op(dm) @ op(hw) + op(g_v)[:, None] @ op(vw)
+    return (cnn_encoder_bwd(dh, acts, weights[:6], geom, compute_dtype)
+            + heads), stats
 
 
 def _chunks(samples, chunk):
@@ -154,10 +173,12 @@ def _chunks(samples, chunk):
 
 @torch.no_grad()
 def ppo_cnn_update_plain(planes, advret, perm_mb, theta, arch,
-                         co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
+                         co: UpdateConsts, rbl: int, ent_coef: float = 0.0,
+                         compute_dtype: str = "float32"):
     """Plain PyTorch version of K10. planes (T, N_TRAJ, N) from the CNN
     rollout; advret (2, T, N); perm_mb the minibatch's row blocks of rbl
     lanes; theta the flat parameters of arch."""
+    bf16_flag(compute_dtype)
     torch.backends.cuda.matmul.allow_tf32 = False
     arch = CnnArch(*arch)
     weights = cnn_all_weights(theta, arch)
@@ -169,7 +190,7 @@ def ppo_cnn_update_plain(planes, advret, perm_mb, theta, arch,
     st = torch.zeros(N_UPSTATS, device=theta.device)
     for X, a, logp_old, v_old, adv, ret in _chunks(samples, PLAIN_CHUNK):
         g, stats = cnn_block_grads(X, a, logp_old, v_old, adv, ret, weights,
-                                   gx, gy, arch.geom, co)
+                                   gx, gy, arch.geom, co, compute_dtype)
         for dst, src in zip(g_views, g):
             dst += src.reshape(dst.shape)
         st += stats.sum(0)
@@ -179,7 +200,8 @@ def ppo_cnn_update_plain(planes, advret, perm_mb, theta, arch,
 
 @torch.no_grad()
 def cnn_head_branch_counts(planes, advret, perm_mb, theta, arch,
-                           co: UpdateConsts, rbl: int) -> dict:
+                           co: UpdateConsts, rbl: int,
+                           compute_dtype: str = "float32") -> dict:
     """cuda_update.head_branch_counts for the CNN: how many samples of a
     minibatch take each branch of the head's subgradients at theta."""
     arch = CnnArch(*arch)
@@ -188,7 +210,8 @@ def cnn_head_branch_counts(planes, advret, perm_mb, theta, arch,
     samples = gather_minibatch(planes, advret, perm_mb, rbl)
     m, v = [], []
     for X, *_ in _chunks(samples, PLAIN_CHUNK):
-        mc, vc = cnn_forward(X, weights, gx, gy, arch.geom)
+        mc, vc = cnn_forward(X, weights, gx, gy, arch.geom,
+                             compute_dtype=compute_dtype)
         m.append(mc)
         v.append(vc)
     _, a, logp_old, v_old, adv, ret = samples
@@ -215,9 +238,11 @@ def chunk_lanes(NL: int) -> int:
 
 
 def ppo_cnn_update_kernel(planes, advret, perm_mb, theta, arch,
-                          co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
-    """Launch K10 (csrc/update_cnn.cu). Same contract as
-    ppo_cnn_update_plain."""
+                          co: UpdateConsts, rbl: int, ent_coef: float = 0.0,
+                          compute_dtype: str = "float32"):
+    """Launch K10 (csrc/update_cnn.cu; its bf16 arm under bfloat16). Same
+    contract as ppo_cnn_update_plain."""
+    bf16 = bf16_flag(compute_dtype)
     arch = CnnArch(*arch)
     check_envelope(arch)
     T, _, n = planes.shape
@@ -249,7 +274,7 @@ def ppo_cnn_update_kernel(planes, advret, perm_mb, theta, arch,
         planes, advret, perm_mb, theta, pk, grid, x2s, dzs, fpart, bpart,
         gpart, grads, stats)], np.uint64)
     dims = np.array([n, T, rbl, NL, tch, CK, Gf, Gb, TOWER_FWD_SMEM,
-                     TOWER_BWD_SMEM], np.int32)
+                     TOWER_BWD_SMEM, bf16], np.int32)
     consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
                        co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
                       np.float32)
@@ -261,18 +286,22 @@ def ppo_cnn_update_kernel(planes, advret, perm_mb, theta, arch,
                  torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "drone_cnn_update")
     ppo_cnn_update_cuda.launches += 1
+    ppo_cnn_update_cuda.bf16_launches += bf16
     return grads, stats
 
 
 def ppo_cnn_update_cuda(planes, advret, perm_mb, theta, arch,
-                        co: UpdateConsts, rbl: int, ent_coef: float = 0.0):
+                        co: UpdateConsts, rbl: int, ent_coef: float = 0.0,
+                        compute_dtype: str = "float32"):
     """One CNN PPO minibatch gradient pass over the trajectory planes: the
     kernels on CUDA tensors, the plain version on CPU tensors. perm_mb:
     (n_sel,) int32 row-block indices, block i covering lanes [i*rbl,
     (i+1)*rbl). Returns (grads (P,), stat sums (8,))."""
     run = (ppo_cnn_update_plain if planes.device.type == "cpu"
            else ppo_cnn_update_kernel)
-    return run(planes, advret, perm_mb, theta, arch, co, rbl, ent_coef)
+    return run(planes, advret, perm_mb, theta, arch, co, rbl, ent_coef,
+               compute_dtype)
 
 
 ppo_cnn_update_cuda.launches = 0
+ppo_cnn_update_cuda.bf16_launches = 0  # of them, the bf16 arm's

@@ -8,8 +8,10 @@ Counterpart of `drone_tpu/ppo_cnn_pallas.py` with the fused optimizer
               the MLP trainer: the pixels are re-rendered in the kernel from
               the observation and never stored;
   GAE       - ppo_cuda's, with the bootstrap value of the last obs from the
-              module's own forward on the device (the reference takes it
-              through XLA, outside any kernel);
+              module's own forward on the device in float32, and under
+              bfloat16 from the plane-space forward with bf16 operands
+              (`cuda_acting_cnn.cnn_forward`, the rollout's value function;
+              the reference takes it through XLA, outside any kernel);
   update    - K10 (ops/cuda_update_cnn.py) per minibatch: row blocks of
               whole lanes, the conv forward and hand-written backward with
               the patches re-rendered from the stored obs planes;
@@ -20,6 +22,8 @@ losses from the stat sums, the epoch loop, the metrics, the permutations)
 is ppo_cuda's. As there, the one deliberate change from the reference: the
 permutations come from the runner's CPU `torch.Generator`. The update runs
 in place on the runner's buffers and waits for the host nowhere.
+`compute_dtype` "bfloat16" runs the bf16 operand arms of K9 and K10
+(ppo_cnn_pallas.py:129-189).
 """
 
 from __future__ import annotations
@@ -29,13 +33,17 @@ import torch
 from drone_tpu_torch import env as env_mod
 from drone_tpu_torch.models.cnn import CnnGeom, cnn_all_weights
 from drone_tpu_torch.models.mlp import tensor_sizes
-from drone_tpu_torch.ops.cuda_acting_cnn import traj_cnn_rollout_cuda
+from drone_tpu_torch.ops.cuda_acting_cnn import (
+    cnn_forward,
+    traj_cnn_rollout_cuda,
+)
 from drone_tpu_torch.ops.cuda_update import (
     N_UPSTATS,
     AdamConsts,
     fused_adam_cuda,
 )
 from drone_tpu_torch.ops.cuda_update_cnn import ppo_cnn_update_cuda
+from drone_tpu_torch.pixels import patch_grid
 from drone_tpu_torch.ppo import PPOConfig, RunnerState
 from drone_tpu_torch.ppo_cuda import (
     entropies,
@@ -65,10 +73,11 @@ def cnn_kernel_tensors(model):
 
 
 def make_cnn_train_step(env, cfg: PPOConfig, permutations=None,
-                        on_phase=None):
+                        on_phase=None, compute_dtype: str = "float32"):
     """Build the CNN megakernel train step: RunnerState (params a
     PatchCNNActorCritic) -> (RunnerState, metrics), with the env's params
-    and device. permutations and on_phase as in ppo_cuda.make_train_step."""
+    and device. permutations, on_phase and compute_dtype as in
+    ppo_cuda.make_train_step."""
     _, _, rbu, n_rb, mb_rb, co = plan_minibatch_geometry(cfg, cfg.num_envs)
     rbl = rbu * 128
     ac = AdamConsts(clip_norm=cfg.max_grad_norm)
@@ -92,13 +101,20 @@ def make_cnn_train_step(env, cfg: PPOConfig, permutations=None,
         # --- rollout: trajectory planes (T, 21, N) ------------------------
         final, planes, stats = traj_cnn_rollout_cuda(
             runner.env_state, theta, arch, env.params, env.statics,
-            cfg.horizon)
+            cfg.horizon, compute_dtype=compute_dtype)
         last_obs = env_mod.observe(final)
 
         # --- GAE on the planes ---------------------------------------------
         mark("gae")
         with torch.no_grad():
-            last_value = model(last_obs)[2]
+            if compute_dtype == "float32":
+                last_value = model(last_obs)[2]
+            else:
+                # the rollout's value function, bf16 operands
+                last_value = cnn_forward(
+                    last_obs, cnn_all_weights(theta, arch),
+                    *patch_grid(arch.res, arch.p0, dev), arch.geom,
+                    compute_dtype=compute_dtype)[1]
         advret = normalized_advret(planes, last_value, cfg)
 
         # --- epochs x minibatches through K10 and K4 -----------------------
@@ -111,7 +127,8 @@ def make_cnn_train_step(env, cfg: PPOConfig, permutations=None,
             # the entropy at the pre-update log_std (state-independent)
             ls_all[i] = ls
             grads, st = ppo_cnn_update_cuda(planes, advret, perm_mb, theta,
-                                            arch, co, rbl, cfg.ent_coef)
+                                            arch, co, rbl, cfg.ent_coef,
+                                            compute_dtype)
             st_all[i] = st
             fused_adam_cuda(theta, grads, mu, nu, count, ac, sched, sizes)
 

@@ -20,7 +20,9 @@ Semantics kept from the reference (ppo_pallas.py:26-33): exploration noise
 comes from the env's counter streams, not from the permutation generator;
 minibatches are shuffled at row-block granularity (`pick_row_block`: 1,024
 lanes when a minibatch has 8 or more rows of 128); the optimizer state is
-the fused (count, mu, nu) in `_kernel_tensors` order. The one deliberate
+the fused (count, mu, nu) in `_kernel_tensors` order; `compute_dtype`
+"bfloat16" runs the bf16 operand arms of K2 and K3 and takes GAE's last
+value with bf16 operands too (ppo_pallas.py:366-405). The one deliberate
 change: the permutations come from `torch.randperm` with the runner's CPU
 `torch.Generator`, where the reference splits a JAX key.
 
@@ -194,9 +196,12 @@ def entropies(ls_all):
     return torch.sum(ls_all + 0.5 * (1.0 + 2.0 * HALF_LOG_2PI), dim=1)
 
 
-def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None):
+def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None,
+                    compute_dtype: str = "float32"):
     """Build the megakernel train step: RunnerState -> (RunnerState,
-    metrics), with the env's params and device.
+    metrics), with the env's params and device. compute_dtype: "float32",
+    or "bfloat16" for the bf16 operand arms of K2 and K3 (their products'
+    operands rounded to bfloat16, sums in float32).
 
     permutations: optional callable runner -> (epochs, n_rb) row-block
     permutations, to replay another trainer's shuffling (the tests feed in
@@ -227,14 +232,15 @@ def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None):
         # --- rollout: trajectory planes (T, 21, N) ------------------------
         final, planes, stats = traj_rollout_cuda(
             runner.env_state, theta, hidden, env.params, env.statics,
-            cfg.horizon)
+            cfg.horizon, compute_dtype=compute_dtype)
         last_obs = env_mod.observe(final)
 
         # --- GAE on the planes ---------------------------------------------
         mark("gae")
         _, critic, ls = tower_weights(theta, hidden)
         with torch.no_grad():
-            last_value = tower_forward(last_obs, critic)[:, 0]
+            # the rollout's value function: bf16 operands under bfloat16
+            last_value = tower_forward(last_obs, critic, compute_dtype)[:, 0]
         advret = normalized_advret(planes, last_value, cfg)
 
         # --- epochs x minibatches through K3 and K4 ------------------------
@@ -246,7 +252,8 @@ def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None):
             # the entropy at the pre-update log_std (state-independent)
             ls_all[i] = ls
             grads, st = ppo_update_cuda(planes, advret, perm_mb, theta,
-                                        hidden, co, rbl, cfg.ent_coef)
+                                        hidden, co, rbl, cfg.ent_coef,
+                                        compute_dtype)
             st_all[i] = st
             fused_adam_cuda(theta, grads, mu, nu, count, ac, sched, sizes)
 

@@ -14,15 +14,20 @@ rollout, an autograd update, `ppo_rnn.make_recurrent_train_step(rollout=
 (`ppo.make_train_step`, `ppo_rnn.make_recurrent_train_step`) for
 run.rollout=scan, for run.policy=cnn_overlap and for every run no kernel
 tier takes. Every trainer keeps one optimizer state, so a checkpoint of any
-of them resumes under any other. `evaluate` restores a policy and rolls it
-out through the acting kernel (K5 for the MLP, K8 for both recurrent
-families, K11 for the CNN) when the kernel takes the policy, as the
-kernel's own envelope check says, and through the module otherwise, as the
-reference serves every policy it builds.
+of them resumes under any other. run.compute_dtype=bfloat16 runs the bf16
+operand arms of the megakernel trainers' kernels (K2 and K3, K9 and K10)
+and trains `ActorCritic(dtype=bfloat16)` on the MLP's scan tier, as the
+reference does; the recurrent megakernel trainer has no bf16 arm yet (K7's)
+and refuses it. run.profile_dir traces updates start + 2 to start + 4.
+`evaluate` restores a policy and rolls it out through the acting kernel
+(K5 for a float32 MLP, K8 for both recurrent families, K11 for a float32
+CNN) when the kernel's own envelope check takes the policy, and through
+the module otherwise, as the reference serves every policy it builds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -63,6 +68,7 @@ from drone_tpu_torch.utils.metrics import (
     RichDashboard,
     dashboard_line,
 )
+from drone_tpu_torch.utils.profiling import trace
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _RECURRENT = ("lstm", "cnn_lstm")
@@ -115,14 +121,22 @@ def restore_dir(cfg: Config) -> Path:
 def build(cfg: Config, device="cuda"):
     """Config -> (env, model, runner, step_fn, cfg with train.total_updates
     synced from run.total_updates), the trainer picked by trainer_kind.
-    bfloat16 training and run.profile_dir are still to port and raise
-    NotImplementedError."""
+    bfloat16 on the recurrent megakernel trainer is still to port (K7's
+    bf16 arm) and raises NotImplementedError."""
     # run.total_updates is the run's length; the lr anneal spans it
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, total_updates=cfg.run.total_updates))
-    env, model = build_env_and_model(cfg, device)
     _check_options(cfg)
+    env, model = build_env_and_model(cfg, device)
     kind = trainer_kind(cfg, model)
+    if (kind == "megakernel" and cfg.run.policy in _RECURRENT
+            and cfg.run.compute_dtype != "float32"):
+        raise NotImplementedError(
+            f"bf16 training of run.policy={cfg.run.policy!r} needs K7's bf16 "
+            f"arm, not ported yet (ROADMAP.md, kernel queue 2a); "
+            f"run.rollout=scan trains it as the reference's scan tier does, "
+            f"in float32")
+    dtype = cfg.run.compute_dtype
     if cfg.run.policy in _RECURRENT:
         runner = init_recurrent_runner(model, env, cfg.train,
                                        seed=cfg.run.seed)
@@ -137,9 +151,10 @@ def build(cfg: Config, device="cuda"):
     if kind == "scan":
         step = ppo.make_train_step(runner.params, env, cfg.train)
     elif cfg.run.policy == "cnn":
-        step = ppo_cnn_cuda.make_cnn_train_step(env, cfg.train)
+        step = ppo_cnn_cuda.make_cnn_train_step(env, cfg.train,
+                                                compute_dtype=dtype)
     else:
-        step = ppo_cuda.make_train_step(env, cfg.train)
+        step = ppo_cuda.make_train_step(env, cfg.train, compute_dtype=dtype)
     return env, runner.params, runner, step, cfg
 
 
@@ -205,18 +220,13 @@ def _check_cnn_checkpoint_layout(cfg: Config, raw_params):
 
 
 def _check_options(cfg: Config):
-    """The options no trainer of the port takes yet, for either family."""
+    """The run options every trainer reads."""
     if cfg.run.rollout not in ("auto", "pallas", "scan"):
         raise ValueError(f"run.rollout must be 'scan', 'pallas' or 'auto', "
                          f"got {cfg.run.rollout!r}")
-    if cfg.run.profile_dir:
-        raise NotImplementedError(
-            "run.profile_dir is not ported yet (ROADMAP.md, module queue: "
-            "run.profile_dir through torch.profiler)")
-    if cfg.run.compute_dtype != "float32":
-        raise NotImplementedError(
-            "bfloat16 training is not ported yet (ROADMAP.md, module queue: "
-            "bf16 training)")
+    if cfg.run.compute_dtype not in _DTYPES:
+        raise ValueError(f"run.compute_dtype must be one of {list(_DTYPES)}, "
+                         f"got {cfg.run.compute_dtype!r}")
 
 
 def _outside(check, *args) -> str | None:
@@ -264,9 +274,17 @@ def train(cfg: Config, on_update=None, device="cuda"):
     last = None
     t_last = time.time()
     u_last = start_update
+    profiling = contextlib.ExitStack()
     try:
         for u in range(start_update, cfg.run.total_updates):
+            if cfg.run.profile_dir and u == start_update + 2:
+                # a trace of warmed-up updates (the reference's XProf trace)
+                profiling.enter_context(
+                    trace(str(Path(cfg.run.profile_dir) / "trace")))
             runner, m = step(runner)
+            if cfg.run.profile_dir and u == start_update + 4:
+                float(m["loss"])  # the card's queue drains into the trace
+                profiling.close()
             if ((u + 1) % cfg.run.log_interval == 0
                     or u == cfg.run.total_updates - 1):
                 # reading the loss waits for the device, so the clock below
@@ -296,6 +314,7 @@ def train(cfg: Config, on_update=None, device="cuda"):
         if cfg.run.save_final:
             ckpt.save(cfg.run.total_updates, runner)
     finally:
+        profiling.close()
         logger.close()
         if rich_dash is not None:
             rich_dash.close()
@@ -360,7 +379,11 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
             deterministic=deterministic)
         return _stats_of(out)
 
-    if cfg.run.policy == "cnn_overlap":
+    # the kernels serve in float32: a bf16-trained policy is a slightly
+    # different function, so it goes through the module, the MLP's with
+    # its dtype (the CNN's module computes in float32, as the reference's)
+    if (cfg.run.policy == "cnn_overlap"
+            or (cfg.run.policy == "cnn" and cfg.run.compute_dtype != "float32")):
         return _module_rollout(model, env, state, horizon, deterministic)
     if cfg.run.policy == "cnn" and deterministic:
         _, stats = cnn_act_rollout_cuda(state, model.flat_params(),
@@ -368,8 +391,6 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
                                         horizon)
         return _episode_stats(stats)
 
-    # the kernel computes in float32: a bf16-trained policy is a slightly
-    # different function, so it goes through the module with its dtype
     if (deterministic and cfg.run.compute_dtype == "float32"
             and not _outside(cuda_acting.check_envelope, model.hidden)):
         _, stats = act_rollout_cuda(state, model, env.params, env.statics,

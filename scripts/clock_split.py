@@ -86,6 +86,21 @@ SPLITS = {
              "      CLK(6 + l);\n"),
             ("      layer_dx(act, lo, l, wb, ws);\n      __syncthreads();\n",
              "      CLK(8 + l);\n")]),
+        # the same phases, the kernel templated on its bf16 arm
+        (("load", "fwd 0", "fwd 1", "fwd head", "head grads", "stat sums",
+          "dW 0", "dW 1", "dW head", "dX 1", "dX head"), [
+            ("  float st_acc = 0.0f;\n  __syncthreads();\n",
+             "  CLK_START\n"),
+            (": 0.0f;\n    __syncthreads();\n", "    CLK(0);\n"),
+            ("      layer_fwd<BF16>(act, lo, l, A.theta, wb, ws);\n"
+             "      __syncthreads();\n", "      CLK(1 + l);\n"),
+            ("stat_part[w][4 + lane] = sv[4];\n    }\n    __syncthreads();\n",
+             "    CLK(4);\n"),
+            ("      st_acc = st_acc + tile_sum;\n    }\n", "    CLK(5);\n"),
+            ("      layer_dw<BF16>(act, lo, l, sums);\n      __syncthreads();\n",
+             "      CLK(6 + l);\n"),
+            ("      layer_dx<BF16>(act, lo, l, wb, ws);\n      __syncthreads();\n",
+             "      CLK(8 + l);\n")]),
     ],
     "acting": [
         (("observe", "tower", "noise", "env step", "statistics"), [

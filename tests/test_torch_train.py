@@ -29,6 +29,7 @@ from drone_tpu_torch.models import (
     fused_opt_state_to_flax,
     params_from_flax,
 )
+from drone_tpu_torch.ops import ppo_update_cuda
 from drone_tpu_torch.ppo import PPOConfig, init_runner
 from drone_tpu_torch.utils.checkpoint import Checkpointer
 from drone_tpu_torch.utils.config import Config
@@ -174,16 +175,40 @@ def test_cli_train_then_evaluate_on_cpu(tmp_path, capsys):
 
 
 # run.rollout=scan trains on the scan trainer: test_torch_scan.py
-# test_build_picks_the_trainer
+# test_build_picks_the_trainer. bf16 training and run.profile_dir (the
+# second item: what the option runs through) build on the megakernel
+# trainer and train an update; the trace itself:
+# test_profile_dir_writes_a_trace
 @pytest.mark.parametrize("override,match", [
     ("run.compute_dtype=bfloat16", "bf16 training"),
     ("run.profile_dir=prof", "torch.profiler"),
 ])
 def test_unported_training_options_name_their_roadmap_item(tmp_path,
                                                           override, match):
+    del match
     cfg = _cfg(tmp_path, "x", 1, [override])
-    with pytest.raises(NotImplementedError, match=match):
-        train.build(cfg, device="cpu")
+    env, model, runner, step, cfg = train.build(cfg, device="cpu")
+    assert train.trainer_kind(cfg, model) == "megakernel"
+    launches = ppo_update_cuda.bf16_launches
+    runner, m = step(runner)
+    assert runner.update_idx == 1 and np.isfinite(float(m["loss"]))
+    assert ppo_update_cuda.bf16_launches == launches  # CPU: plain versions
+    if cfg.run.compute_dtype == "bfloat16":
+        assert model.dtype == torch.bfloat16
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    """run.profile_dir traces updates 3 to 5 (the reference's start + 2 to
+    start + 4) into <profile_dir>/trace/trace.json, a Chrome trace."""
+    prof = tmp_path / "prof"
+    train.train(_cfg(tmp_path, "p", 6, [f"run.profile_dir={prof}"]),
+                device="cpu")
+    events = json.loads((prof / "trace" / "trace.json").read_text())
+    assert events["traceEvents"]
+    # a run that ends inside the window writes its trace as it ends
+    train.train(_cfg(tmp_path, "q", 3, [f"run.profile_dir={tmp_path}/q3"]),
+                device="cpu")
+    assert (tmp_path / "q3" / "trace" / "trace.json").exists()
 
 
 def test_train_defaults_to_cuda(tmp_path):

@@ -376,11 +376,24 @@ def test_cli_train_then_eval_cnn_on_cpu(tmp_path, capsys):
 
 
 # run.rollout=scan and train.num_envs=384 train on the scan trainer:
-# test_torch_scan.py test_build_picks_the_trainer
+# test_torch_scan.py test_build_picks_the_trainer. bf16 training builds on
+# the CNN megakernel trainer (K9's and K10's bf16 arms, their plain
+# versions here) and trains an update; held to the reference's in
+# test_torch_bf16.py
 @pytest.mark.parametrize("override,match", [
     ("run.compute_dtype=bfloat16", "bf16 training"),
 ])
 def test_unported_cnn_training_options_name_their_roadmap_item(
         tmp_path, override, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train.build(_cfg(tmp_path, "x", 1, [override]), device="cpu")
+    del match
+    env, model, runner, step, cfg = train.build(
+        _cfg(tmp_path, "x", 1, [override]), device="cpu")
+    assert train.trainer_kind(cfg, model) == "megakernel"
+    theta = model.flat.clone()
+    runner, m = step(runner)
+    assert runner.update_idx == 1 and np.isfinite(float(m["loss"]))
+    assert not torch.equal(theta, model.flat)
+    # evaluate serves a bf16 CNN through the module, as the reference does
+    stats = train.evaluate(cfg.with_overrides(["env.params.horizon=4"]),
+                           runner=runner, episodes=128, device="cpu")
+    assert stats["episodes"] >= 128

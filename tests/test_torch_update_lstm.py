@@ -391,8 +391,9 @@ def test_cli_train_then_eval_lstm_on_cpu(tmp_path, capsys):
 ])
 def test_unported_lstm_training_options_name_their_roadmap_item(
         tmp_path, override, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as e:
         train.build(_cfg(tmp_path, "x", 1, [override]), device="cpu")
+    assert "K7's bf16 arm" in str(e.value)
 
 
 def test_lstm_train_refuses_a_horizon_that_does_not_split(tmp_path):
