@@ -6,17 +6,18 @@ library's registers and spills, and those of the tensor-core kernels of
 K10, K7 (both arms' walk and its products), K11/K9, both arms of K8/K6, K3
 (its weights and running sums on chip, and off it), K5 and K2 with their
 shared memory and their HMMA instructions, the SASS of mma.sync, which
-each must hold; and the bf16 arms of K2, K3, K9/K11 and K10 beside their
-fp32 arms: fewer HMMA, a third of them where the loops are the same, and
-bf16 roundings, F2FP.BF16, which the fp32 arms lack), holds each against
+each must hold; and the bf16 arms of K2, K3, K9/K11, K10 and K7 (its walk,
+both arms, its products and its tower kernels) beside their fp32 arms:
+fewer HMMA, a third of them where the loops are the same, and bf16
+roundings, F2FP.BF16, which the fp32 arms lack), holds each against
 its plain PyTorch version on the card's inputs, drives the port's paths
 through the entry points a user calls (the megakernel trainers, the scan
 trainers and the hybrid recurrent tier), checks what comes out, and times
 each kernel beside its plain version and its bound. Exits nonzero, printing
 no result, when there is no CUDA device or a phase fails; a learning gate
-that fails (phases 10, 17, 24, 31, 38, 46) stops no later phase, and the script
-then exits nonzero after them, its kernels line printed and its last line
-not.
+that fails (phases 10, 17, 24, 31, 38, 46, 51) stops no later phase, and the
+script then exits nonzero after them, its kernels line printed and its last
+line not.
 
 Phases:
   1. K1 (csrc/rollout.cu; the auto-reset computed by the warp for its
@@ -314,10 +315,33 @@ Phases:
      update split and traced as in 11.
  48. run.profile_dir: `cli train` under bfloat16 for 6 updates writes the
      trace of updates 3-5, which must hold K3's 96 launches.
+ 49. K7's bf16 arm (run.compute_dtype=bfloat16 on the recurrent trainer:
+     every product's operands rounded to bf16, the gate block, [dx; dh],
+     the weight products and the CNN arm's tower one TF32 product a
+     k-step, the dense encoder, the heads and dh' on the fp32 cores with
+     the weights rounded once a call) against its bf16 plain version by
+     H12's rule for updates (as 42: each gradient tensor and the stat sums
+     within 1e-2 of the tensor's max, the mean difference under a tenth of
+     the fp32 plain version's), two launches bitwise equal, on the
+     full-width minibatch of the recurrent geometry (planes and anchors
+     from K6 in fp32, as the path writes them): at their weights and off
+     them (every branch taken); the dense arm, then the CNN arm.
+ 50. The bf16 recurrent paths: `cli train` under run.compute_dtype=bfloat16
+     of run.policy=lstm and cnn_lstm at the recurrent geometry (2 updates
+     each: K6 = 2 in fp32, K7 = K4 = 32, every K7 launch the bf16 arm's),
+     `cli eval` of each checkpoint through K8 (fp32, as the reference).
+ 51. The bf16 recurrent learning gates by the fp32 gates' rules (the
+     LSTM's one run, phase 17's; the cnn_lstm's four, phase 31's);
+     train(4) == train(2) + resume(2) bitwise under bfloat16, carry
+     included, LSTM and CNN-LSTM.
+ 52. Times of K7's bf16 arm, both encoders, beside its fp32 arm's in the
+     same call, its bf16 plain version and its bound (the products at the
+     bf16 rate); one bf16 LSTM and one bf16 cnn_lstm update split and
+     traced as in 11.
 
 Launch counts: each wrapper counts its launches; the recurrent wrappers
 (K6, K7, K8) also count their CNN arm's alone (`cnn_launches`), and K2,
-K3, K9, K10 and K11 their bf16 arm's (`bf16_launches`).
+K3, K7, K9, K10 and K11 their bf16 arm's (`bf16_launches`).
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
@@ -628,15 +652,17 @@ def tensor_bound(mma_ops, other_ops, nbytes):
 def kernel_label(name, keys):
     """The label of the mangled entry function `name`: the first of keys it
     holds, or None. The encoder arm of a template whose last parameter is
-    it (bptt_kernel, lstm_act_kernel) is named <dense> or <cnn>; a key
-    holding a template's first arguments picks one instance (the acting
-    kernels' "ILi0ELi0E": hover, euler)."""
+    it (lstm_act_kernel), or whose last but one is it before the bf16 flag
+    (bptt_kernel), is named <dense> or <cnn>, and the walk's bf16 arm <dense,
+    bf16> or <cnn, bf16>; a key holding a template's first arguments picks
+    one instance (the acting kernels' "ILi0ELi0E": hover, euler)."""
     entry = next((k for k in keys if k in name), None)
-    arm = re.search(r"Li(\d+)EEEv", name)
+    arm = re.search(r"Li(\d+)E(?:Lb([01])E)?EEv", name)
     if entry and arm and ("bptt_kernel" in entry
                           or "lstm_act_kernel" in entry):
         label = entry.split("I")[0] if "ILi" in entry else entry
-        entry = f"{label}<{'cnn' if arm.group(1) == '1' else 'dense'}>"
+        enc = "cnn" if arm.group(1) == "1" else "dense"
+        entry = f"{label}<{enc}{', bf16' if arm.group(2) == '1' else ''}>"
     return entry
 
 
@@ -886,7 +912,7 @@ def _wrappers() -> dict:
 
 ARMS = ("K6", "K7", "K8")  # the recurrent kernels, with a CNN arm each
 # the kernels with a bf16 operand arm, whose launches they count apart too
-BF16_ARMS = ("K2", "K3", "K9", "K10", "K11")
+BF16_ARMS = ("K2", "K3", "K7", "K9", "K10", "K11")
 
 
 def zero_counts():
@@ -1432,8 +1458,7 @@ def split_update(cfg):
         marks.append((name, ev, time.perf_counter()))
 
     dtype = bcfg.run.compute_dtype
-    step = maker(env, tc, on_phase=mark,
-                 **({} if dtype == "float32" else {"compute_dtype": dtype}))
+    step = maker(env, tc, on_phase=mark, **dtype_kwargs(dtype))
     runner, m = step(runner)  # warm-up
     float(m["loss"])
     marks.clear()
@@ -2031,11 +2056,18 @@ def path_lstm_training(cfg_path, tmp, overrides=LSTM_OVERRIDES):
     return train_counts, cfg
 
 
-def lstm_gate_run(seed):
+def dtype_kwargs(compute_dtype) -> dict:
+    """A trainer's compute_dtype argument, none for float32 (so that
+    scripts/gate_seeds.py trains a checkout whose trainer takes none)."""
+    return {} if compute_dtype == "float32" else {
+        "compute_dtype": compute_dtype}
+
+
+def lstm_gate_run(seed, compute_dtype="float32"):
     """The LSTM learning gate's training (H 32, encoder (32,), 256 envs,
     horizon 32, bptt 16, 4 epochs x 2 minibatches, lr 5e-3, no entropy
-    bonus, 100 updates), the model and the runner from one seed:
-    gate_readings over 5-update windows."""
+    bonus, 100 updates; its compute_dtype arm of K7), the model and the
+    runner from one seed: gate_readings over 5-update windows."""
     import torch
 
     from drone_tpu_torch import ppo_rnn_cuda
@@ -2050,8 +2082,8 @@ def lstm_gate_run(seed):
     model = LSTMActorCritic(32, (32,),
                             generator=torch.Generator().manual_seed(seed))
     runner = init_recurrent_runner(model, env, cfg, seed=seed)
-    return gate_readings(ppo_rnn_cuda.make_rnn_train_step(env, cfg), runner,
-                         100, 5)
+    return gate_readings(ppo_rnn_cuda.make_rnn_train_step(
+        env, cfg, **dtype_kwargs(compute_dtype)), runner, 100, 5)
 
 
 def phase_lstm_learning_and_resume(tmp):
@@ -2875,11 +2907,11 @@ def phase_f5(cfg_path):
                              f"{step.__module__}, not the scan trainer")
 
 
-def cnn_lstm_gate_run(seed):
+def cnn_lstm_gate_run(seed, compute_dtype="float32"):
     """The cnn_lstm learning gate's training (2,048 envs, horizon 32, bptt
     16, 2 epochs x 2 minibatches, lr 2e-3, no entropy bonus, GATE_UPDATES
-    updates), the model and the runner from one seed: gate_readings over
-    10-update windows."""
+    updates; its compute_dtype arm of K7), the model and the runner from
+    one seed: gate_readings over 10-update windows."""
     import torch
 
     from drone_tpu_torch import ppo_rnn_cuda
@@ -2894,8 +2926,27 @@ def cnn_lstm_gate_run(seed):
     model = CNNLSTMActorCritic(
         generator=torch.Generator().manual_seed(seed))
     runner = init_recurrent_runner(model, env, cfg, seed=seed)
-    return gate_readings(ppo_rnn_cuda.make_rnn_train_step(env, cfg), runner,
-                         GATE_UPDATES, 10)
+    return gate_readings(ppo_rnn_cuda.make_rnn_train_step(
+        env, cfg, **dtype_kwargs(compute_dtype)), runner, GATE_UPDATES, 10)
+
+
+def cnn_lstm_gate(seeds, compute_dtype="float32"):
+    """The cnn_lstm learning gate's runs from each seed, one after another
+    (cnn_lstm_gate_run), each printed: (passed, the mean reward rise),
+    gate_verdict with GATES["cnn_lstm"]."""
+    runs = []
+    for seed in seeds:
+        t0 = time.time()
+        runs.append(cnn_lstm_gate_run(seed, compute_dtype))
+        early, lowest, last, r_first, r_last, finite = runs[-1]
+        print(f"{compute_dtype} cnn_lstm learning gate ({GATE_UPDATES} "
+              f"updates, seed {seed}): value loss of updates 3-12 "
+              f"{early:.5g}, its lowest 10-update mean {lowest:.5g}, of the "
+              f"last 10 {last:.5g}; mean reward of the first 10 "
+              f"{r_first:.4f}, of the last 10 {r_last:.4f} (rise "
+              f"{r_last - r_first:.4f}); parameters finite {finite} "
+              f"({time.time() - t0:.1f} s)", flush=True)
+    return gate_verdict(runs, *GATES["cnn_lstm"][1:])
 
 
 # each learning gate but the MLP's (mlp_gate_run, a threshold within a
@@ -2921,18 +2972,7 @@ def phase_cnn_lstm_learning_and_resume(tmp):
     from drone_tpu_torch.train import train
     from drone_tpu_torch.utils.config import Config
 
-    runs = []
-    for seed in GATE_SEEDS:
-        t0 = time.time()
-        runs.append(cnn_lstm_gate_run(seed))
-        early, lowest, last, r_first, r_last, finite = runs[-1]
-        print(f"cnn_lstm learning gate ({GATE_UPDATES} updates, seed {seed}): "
-              f"value loss of updates 3-12 {early:.5g}, its lowest 10-update "
-              f"mean {lowest:.5g}, of the last 10 {last:.5g}; mean reward of "
-              f"the first 10 {r_first:.4f}, of the last 10 {r_last:.4f} (rise "
-              f"{r_last - r_first:.4f}); parameters finite {finite} "
-              f"({time.time() - t0:.1f} s)", flush=True)
-    learned, rise = gate_verdict(runs, *GATES["cnn_lstm"][1:])
+    learned, rise = cnn_lstm_gate(GATE_SEEDS)
     print(f"cnn_lstm learning gate: mean reward rise over seeds "
           f"{list(GATE_SEEDS)} {rise:.4f}", flush=True)
 
@@ -3911,10 +3951,11 @@ def phase_k10_bf16(cfg, env):
 
 # The bf16 instantiations beside their fp32 ones (hover/euler, stochastic
 # for K2): (library, fp32 label, bf16 label, whether the bf16 one holds a
-# third of the fp32 one's HMMA); the labels are kernel_label keys of the
+# third of the fp32 one's HMMA); the labels are kernel_label's of the
 # build report. K3's db keeps its two products with ones a window (an fp32
 # sum), and its bf16 loops unroll otherwise than its fp32 ones: 36 HMMA
-# against 52 in the first build.
+# against 52 in the first build. K7's: the walk (both arms; 224 HMMA against
+# 672 in the first build), its products and the CNN arm's tower kernels.
 BF16_PAIRS = (
     ("acting_traj", "traj_kernelILi0ELi0ELb1ELb0E",
      "traj_kernelILi0ELi0ELb1ELb1E", True),
@@ -3924,6 +3965,11 @@ BF16_PAIRS = (
      "cnn_act_kernelILi0ELi0ELb1E", True),
     ("update_cnn", "cnn_fwd_kernelILb0E", "cnn_fwd_kernelILb1E", True),
     ("update_cnn", "tower_bwd_kernelILb0E", "tower_bwd_kernelILb1E", True),
+    ("update_lstm", "bptt_kernel<dense>", "bptt_kernel<dense, bf16>", True),
+    ("update_lstm", "bptt_kernel<cnn>", "bptt_kernel<cnn, bf16>", True),
+    ("update_lstm", "grad_mma_kernelILb0E", "grad_mma_kernelILb1E", True),
+    ("update_lstm", "tower_fwd_kernelILb0E", "tower_fwd_kernelILb1E", True),
+    ("update_lstm", "tower_bwd_kernelILb0E", "tower_bwd_kernelILb1E", True),
 )
 
 
@@ -3960,7 +4006,8 @@ def bf16_build_report(libs) -> list:
     arm's (BF16_PAIRS) exactly a third: one product a k-step where 3xTF32
     takes three. Returns the failures."""
     failures = []
-    keys = [k for _, a, b, _ in BF16_PAIRS for k in (a, b)]
+    keys = list(dict.fromkeys(k.split("<")[0] for _, a, b, _ in BF16_PAIRS
+                              for k in (a, b)))
     for name in dict.fromkeys(lib for lib, _, _, _ in BF16_PAIRS):
         c = sass_counts(libs[name], keys, ("HMMA", "F2FP.BF16"))
         for lib, fp32, bf16, third in BF16_PAIRS:
@@ -4100,6 +4147,16 @@ def path_profile(cfg_path, tmp) -> int:
     return k3
 
 
+def bf16_bound(mma, other, nbytes):
+    """The bound of a bf16 arm: (the least time in ms, what sets it), the
+    larger of its products at the bf16 rate plus the rest at the fp32 rate,
+    and the bytes over the HBM rate."""
+    t_ops = mma / MMA_BF16_OPS_PER_S + other / FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def time_bf16(cfg, env, k3_inputs, k10_args) -> dict:
     """Times of the bf16 arms of K2 (hover.toml's rollout, 65,536 x 64), K3
     (its minibatch), K9 (65,536 x 128) and K10 (the CNN geometry's
@@ -4114,12 +4171,6 @@ def time_bf16(cfg, env, k3_inputs, k10_args) -> dict:
     from drone_tpu_torch.ops import cuda_acting_traj as K2
     from drone_tpu_torch.ops import cuda_update as K3
     from drone_tpu_torch.ops import cuda_update_cnn as K10
-
-    def bf16_bound(mma, other, nbytes):
-        t_ops = mma / MMA_BF16_OPS_PER_S + other / FP32_OPS_PER_S
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        return (max(t_ops, t_bytes) * 1e3,
-                "operations" if t_ops >= t_bytes else "bytes")
 
     out, fp32_ms = {}, {}
     model, planes, advret, perm_mb, co, rbl = k3_inputs
@@ -4199,6 +4250,215 @@ def time_bf16(cfg, env, k3_inputs, k10_args) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The bf16 recurrent slice: K7's bf16 operand arm, both encoders
+# ---------------------------------------------------------------------------
+
+def check_k7_bf16(args, order) -> float:
+    """K7's bf16 arm against its bf16 plain version on one minibatch
+    (bf16_grads_verdict, the fp32 plain version beside it), two launches
+    bitwise equal."""
+    import torch
+
+    from drone_tpu_torch.ops import cuda_update_lstm as K7
+
+    kg, ks = K7.lstm_update_kernel(*args, compute_dtype=BF16)
+    kg2, ks2 = K7.lstm_update_kernel(*args, compute_dtype=BF16)
+    pg, ps = K7.lstm_update_plain(*args, compute_dtype=BF16)
+    fg, fs = K7.lstm_update_plain(*args)
+    torch.cuda.synchronize()
+    check_repeat("K7 bf16", (kg, ks), (kg2, ks2))
+    planes, perm_mb, rbl, bptt = args[0], args[3], args[7], args[8]
+    return bf16_grads_verdict(
+        f"K7 bf16 enc={enc_label(args[5][1])} minibatch ({perm_mb.numel()} "
+        f"row blocks of {rbl} lanes x {planes.shape[0]} steps, bptt {bptt}; "
+        f"two launches bitwise equal)", kg, ks, pg, ps, fg, fs, order)
+
+
+def phase_k7_bf16(cfg, env, model=None, critic_scales=(2.0,)):
+    """K7's bf16 arm (or its CNN arm's, for a CNN-LSTM model) against its
+    bf16 plain version at the recurrent path's full-width minibatch, the
+    planes and anchors written by K6 in fp32 as the path writes them: at
+    their weights (K7's bf16 forward moves the ratios off 1 there, as the
+    reference's does: the branches are printed) and off them, every branch
+    of the head's subgradients taken at the first of critic_scales that
+    takes them (lstm_head_branch_counts at bf16). Returns (the largest
+    difference, the on-policy inputs for timing)."""
+    from drone_tpu_torch.ops import cuda_update_lstm as K7
+
+    model = model or lstm_policy()
+    arch = (model.hidden, model.encoder)
+    order = model.kernel_order()
+    planes, advret, snap, perm_mb, co, rbl, bptt = lstm_minibatch(cfg, model,
+                                                                  env)
+    args = (planes, advret, snap, perm_mb, model.flat, arch, co, rbl, bptt,
+            cfg.train.ent_coef)
+    label = f"K7 bf16 enc={enc_label(model.encoder)}"
+    n = K7.lstm_head_branch_counts(*args[:9], compute_dtype=BF16)
+    print(f"{label} at the planes' weights (K6's fp32 rollout, K7's bf16 "
+          f"forward): {n}", flush=True)
+    err = check_k7_bf16(args, order)
+    for critic_scale in critic_scales:
+        theta = off_policy(model.flat, order, critic_scale=critic_scale)
+        try:
+            check_branches(f"{label} (critic noise {critic_scale})",
+                           K7.lstm_head_branch_counts(
+                               planes, advret, snap, perm_mb, theta, arch, co,
+                               rbl, bptt, compute_dtype=BF16))
+            break
+        except AssertionError:
+            if critic_scale == critic_scales[-1]:
+                raise
+    err = max(err, check_k7_bf16((*args[:4], theta, *args[5:]), order))
+    return err, args
+
+
+def path_bf16_lstm_training(cfg_path, tmp) -> dict:
+    """cli train under run.compute_dtype=bfloat16 of run.policy=lstm and
+    cnn_lstm at the recurrent geometry, 2 updates each: K6 = 2 (fp32, as
+    the reference rolls out), K7 = K4 = 32, every K7 launch its bf16 arm's
+    (the CNN arm's for cnn_lstm); then cli eval of each checkpoint, which
+    serves the bf16-trained policy through K8 in fp32 as the reference
+    does. Returns {family: launch counts of its cli train}."""
+    import torch
+
+    from drone_tpu_torch import cli
+
+    out = {}
+    for family, over in (("lstm", LSTM_OVERRIDES),
+                         ("cnn_lstm", CNN_LSTM_OVERRIDES)):
+        sfx = " cnn" if family == "cnn_lstm" else ""
+        want = {"K6" + sfx: 2, "K7" + sfx: 32, "K7 bf16": 32, "K7": 32,
+                "K4": 32}
+        zero_counts()
+        t0 = time.time()
+        rc = cli.main(["train", str(cfg_path), *over,
+                       f"run.compute_dtype={BF16}", "run.total_updates=2",
+                       f"run.checkpoint_dir={tmp}",
+                       f"run.run_name={family}16"])
+        torch.cuda.synchronize()
+        c = counts()
+        t_train = time.time() - t0
+        zero_counts()
+        rc2 = cli.main(["eval", str(cfg_path), over[0],
+                        f"run.compute_dtype={BF16}",
+                        f"run.resume_from={tmp}/{family}16/checkpoints"])
+        torch.cuda.synchronize()
+        e = counts()
+        print(f"bf16 {family} path: cli train (2 updates) rc={rc} in "
+              f"{t_train:.1f} s, launches {c}; cli eval rc={rc2}, launches "
+              f"{e}", flush=True)
+        if (rc, rc2) != (0, 0) or any(c[k] != v for k, v in want.items()):
+            raise AssertionError(f"the bf16 {family} path launched {c}, "
+                                 f"expected {want}")
+        if e["K8" + sfx] != 1:
+            raise AssertionError(f"cli eval did not serve the bf16 {family} "
+                                 f"policy through K8: {e}")
+        out[family] = c
+    return out
+
+
+def phase_bf16_lstm_learning_and_resume(tmp):
+    """The bf16 recurrent learning gates under the fp32 gates' rules (the
+    LSTM's one run from seed 0, lstm_gate_run; the cnn_lstm's four runs
+    from seeds 0-3, cnn_lstm_gate); and resume under bfloat16: train(4) ==
+    train(2) + resume(2) bitwise, carry included, for both families. A
+    failed gate is raised after the resume checks have run."""
+    import torch
+
+    from drone_tpu_torch.train import train
+    from drone_tpu_torch.utils.config import Config
+
+    t0 = time.time()
+    run = lstm_gate_run(0, BF16)
+    _, _, _, first, last5, finite = run
+    lstm_ok = gate_passes(run, *GATES["lstm"][1:])
+    print(f"bf16 LSTM learning gate: mean reward of the first 5 of 100 "
+          f"updates {first:.4f}, of the last 5 {last5:.4f}; parameters finite "
+          f"{finite} ({time.time() - t0:.1f} s): {lstm_ok}", flush=True)
+    cl_ok, rise = cnn_lstm_gate(GATE_SEEDS, BF16)
+    print(f"bf16 cnn_lstm learning gate: mean reward rise over seeds "
+          f"{list(GATE_SEEDS)} {rise:.4f}: {cl_ok}", flush=True)
+
+    for family, over in (("lstm", ["run.policy=lstm", "run.lstm_hidden=32",
+                                   "run.hidden=32,32"]),
+                         ("cnn_lstm", ["run.policy=cnn_lstm"])):
+        def cfg_for(name, total, extra=()):
+            return Config.default().with_overrides([
+                *over, f"run.compute_dtype={BF16}", "train.num_envs=1024",
+                "train.horizon=16", "train.bptt_horizon=8", "train.epochs=2",
+                "train.num_minibatches=2", "run.log_interval=2",
+                f"run.total_updates={total}",
+                f"run.run_name={family}16_{name}",
+                f"run.checkpoint_dir={tmp}", *extra])
+
+        full, _ = train(cfg_for("full", 4))
+        train(cfg_for("half", 2))
+        resumed, _ = train(cfg_for("resumed", 4, [
+            f"run.resume_from={tmp}/{family}16_half/checkpoints"]))
+        torch.cuda.synchronize()
+
+        def tensors(r):
+            return [*r.params.state_dict().values(), *r.opt_state,
+                    r.env_state.fstate(), r.env_state.step, *r.carry]
+
+        ok = all(bitwise_equal(a, b) for a, b in zip(tensors(full),
+                                                     tensors(resumed)))
+        print(f"bf16 {family} resume on the card: train(4) == train(2) + "
+              f"resume(2) bitwise: {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"bf16 {family} resume is not bitwise")
+    if not (lstm_ok and cl_ok):
+        raise AssertionError(f"a bf16 recurrent learning gate failed on the "
+                             f"card (LSTM {lstm_ok}, cnn_lstm {cl_ok})")
+
+
+def time_bf16_lstm(cfg_lstm, cfg_cl, k7_args, k7c_args) -> dict:
+    """Times of K7's bf16 arm, dense and CNN, on the full-width minibatches
+    of phase_k7_bf16 by CUDA events, beside its fp32 arm's on the same
+    inputs in this call, its bf16 plain version and its bound (the
+    products at the bf16 rate, the rest at the fp32 rate; the scratch's
+    bytes beside it); and one bf16 LSTM and one bf16 cnn_lstm update split
+    and traced as in 11. Returns {name: (ms, plain_ms, bound_ms, bound_by,
+    library_ms)}."""
+    from drone_tpu_torch.models.lstm import is_cnn
+    from drone_tpu_torch.ops import cuda_update_lstm as K7
+
+    out = {}
+    for name, args in (("K7", k7_args), ("K7 cnn", k7c_args)):
+        planes, perm_mb, theta, (H, enc), rbl, bptt = (
+            args[0], args[3], args[4], args[5], args[7], args[8])
+        cnn = is_cnn(enc)
+        T, P = planes.shape[0], theta.numel()
+        samples = perm_mb.numel() * rbl * T
+        reps = 2 if cnn else 3
+        ms = cuda_ms(lambda: K7.lstm_update_kernel(*args, compute_dtype=BF16),
+                     reps=reps, warm_up=False)
+        fp32 = cuda_ms(lambda: K7.lstm_update_kernel(*args), reps=reps)
+        plain = cuda_ms(lambda: K7.lstm_update_plain(*args,
+                                                     compute_dtype=BF16),
+                        reps=1, warm_up=False)
+        nbytes = (samples * 23 * 4 + (T // bptt) * 2 * H * perm_mb.numel()
+                  * rbl * 4 + P * 4 + (P + 8) * 4)
+        ops = samples * bptt_ops(H, enc)
+        mma = samples * (k7_mma_ops(H, enc)
+                         + (cnn_tower_mma_ops() if cnn else 0))
+        bms, by = bf16_bound(mma, ops - mma, nbytes)
+        scratch = samples * 4 * k7_scratch_floats(H, enc)
+        with_scratch = max(
+            (mma / MMA_BF16_OPS_PER_S + (ops - mma) / FP32_OPS_PER_S) * 1e3,
+            (nbytes + scratch) / HBM_BYTES_PER_S * 1e3)
+        out[name] = (ms, plain, bms, by, None)
+        print(f"{name} bf16: kernel {ms:.4f} ms (its fp32 arm in this call "
+              f"{fp32:.4f} ms), plain {plain:.2f} ms, bound {bms:.4f} ms "
+              f"({by}; products at {MMA_BF16_OPS_PER_S:.3g} op/s), "
+              f"{with_scratch:.4f} ms with the scratch's {scratch:.4g} "
+              f"bytes", flush=True)
+    split_update(cfg_lstm.with_overrides([f"run.compute_dtype={BF16}"]))
+    split_update(cfg_cl.with_overrides([f"run.compute_dtype={BF16}"]))
+    return out
+
+
 class Laps:
     """Host-clock seconds of each phase of the script: lap(name) closes the
     phase that ends there."""
@@ -4271,13 +4531,17 @@ def main() -> int:
 
     smem = {"cnn_fwd_kernelILb0E": K10.TOWER_FWD_SMEM,
             "cnn_fwd_kernelILb1E": K10.TOWER_FWD_SMEM,
-            "tower_fwd_kernel": K10.TOWER_FWD_SMEM,
+            "tower_fwd_kernelILb0E": K10.TOWER_FWD_SMEM,
+            "tower_fwd_kernelILb1E": K10.TOWER_FWD_SMEM,
             "tower_bwd_kernelILb0E": K10.TOWER_BWD_SMEM,
             "tower_bwd_kernelILb1E": K10.TOWER_BWD_SMEM,
             "pack_tower_kernel": 0,
             "bptt_kernel<cnn>": K7.bptt_smem_bytes(128, KERNEL_ARCH),
             "bptt_kernel<dense>": K7.bptt_smem_bytes(128, (64,)),
-            "grad_mma_kernel": K7.PRODUCT_SMEM,
+            "bptt_kernel<cnn, bf16>": K7.bptt_smem_bytes(128, KERNEL_ARCH),
+            "bptt_kernel<dense, bf16>": K7.bptt_smem_bytes(128, (64,)),
+            "grad_mma_kernelILb0E": K7.PRODUCT_SMEM,
+            "grad_mma_kernelILb1E": K7.PRODUCT_SMEM,
             "cnn_act_kernelILi0ELi0ELb0E": K10.TOWER_FWD_SMEM,
             "cnn_act_kernelILi0ELi0ELb1E": K10.TOWER_FWD_SMEM,
             "lstm_act_kernel<cnn>": K8.act_smem_bytes(128, KERNEL_ARCH),
@@ -4556,6 +4820,20 @@ def main() -> int:
         lap("bf16 times, updates")
         path_profile(cfg_path, tmp)
         lap("profile path")
+    # -- the bf16 recurrent slice: K7's bf16 arm, both encoders -----------
+    k7b_err, k7b_args = phase_k7_bf16(cfg_lstm, env)
+    lap("K7 bf16 check")
+    k7bc_err, k7bc_args = phase_k7_bf16(cfg_cl, env, cnn_lstm_policy(),
+                                        critic_scales=(2.0, 16.0, 64.0,
+                                                       256.0))
+    lap("K7 bf16 cnn check")
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_rnn_counts = path_bf16_lstm_training(cfg_path, tmp)
+        lap("bf16 lstm and cnn_lstm paths")
+        gate(phase_bf16_lstm_learning_and_resume, tmp)
+        lap("bf16 recurrent learning gates, resume")
+    bf16_rnn_times = time_bf16_lstm(cfg_lstm, cfg_cl, k7b_args, k7bc_args)
+    lap("K7 bf16 times, updates")
     print(f"phase seconds: {lap.seconds}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
@@ -4641,6 +4919,16 @@ def main() -> int:
               "drone_tpu_torch/csrc/update_cnn.cu",
               "drone_tpu/ops/pallas_update_cnn.py:151",
               bf16_counts["cnn"]["K10 bf16"], k10b_err, *bf16_times["K10"]),
+        entry("K7 LSTM truncated-BPTT update, bf16 arm",
+              "drone_tpu_torch/csrc/update_lstm.cu",
+              "drone_tpu/ops/pallas_update_lstm.py:270",
+              bf16_rnn_counts["lstm"]["K7 bf16"], k7b_err,
+              *bf16_rnn_times["K7"]),
+        entry("K7 LSTM truncated-BPTT update, CNN-encoder bf16 arm",
+              "drone_tpu_torch/csrc/update_lstm.cu",
+              "drone_tpu/ops/pallas_update_lstm.py:270",
+              bf16_rnn_counts["cnn_lstm"]["K7 bf16"], k7bc_err,
+              *bf16_rnn_times["K7 cnn"]),
     ]
     print(dev, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,11 +28,20 @@
 // only, whose six tensors open the flat buffer at cnn.cuh's offsets
 // (OFF_W0 .. OFF_BT): the cnn_lstm buffer's first 94,464 floats are laid
 // out as PatchCNNActorCritic's.
+//
+// The bf16 arm (K7's compute_dtype="bfloat16"): the BF16 template
+// parameter of the encoder and the heads rounds the activation operand of
+// each multiply-add to bf16 (mma.cuh op_value) as it loads; the weight
+// operand comes rounded already, the caller passing a copy of the flat
+// buffer whose weights it rounded once (update_lstm.cu
+// round_weights_kernel; its biases as they are). Each product of two bf16
+// values is exact in fp32 and sums in fp32, as the reference's _dot32.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "cnn.cuh"
+#include "mma.cuh"
 #include "policy.cuh"
 
 namespace drone {
@@ -109,8 +118,8 @@ __device__ __forceinline__ float sigmoidf(float x) {
 // One encoder layer over the tile: out[j] = tanh(W[j] . in + b[j]) for
 // nout rows from nin input rows (LANES lanes; input rows SI floats apart,
 // output rows SO). Every thread of the block takes part; no barrier at the
-// end.
-template <int LANES, int SI, int SO>
+// end. BF16: the inputs rounded as they load (W rounded by the caller).
+template <int LANES, int SI, int SO, bool BF16 = false>
 __device__ __forceinline__ void dense_tanh(const float* __restrict__ W,
                                            int nout, int nin, const float* in,
                                            float* out) {
@@ -125,7 +134,13 @@ __device__ __forceinline__ void dense_tanh(const float* __restrict__ W,
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
     for (int k = 0; k < nin; ++k) {
-      const float4 x = *reinterpret_cast<const float4*>(in + k * SI + l0);
+      float4 x = *reinterpret_cast<const float4*>(in + k * SI + l0);
+      if constexpr (BF16) {
+        x.x = op_value<true>(x.x);
+        x.y = op_value<true>(x.y);
+        x.z = op_value<true>(x.z);
+        x.w = op_value<true>(x.w);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float w = j0 + i < nout ? __ldg(W + (j0 + i) * nin + k) : 0.0f;
@@ -154,7 +169,8 @@ __device__ __forceinline__ void dense_tanh(const float* __restrict__ W,
 // obs and those buffers have rows SB floats apart, x rows SX apart. After
 // each layer (and its barrier) on_layer(i, out, stride) sees its output
 // rows. With no encoder layer the caller writes the obs straight into x.
-template <int LANES, int SB, int SX, class OnLayer>
+// BF16: dense_tanh's bf16 arm (theta's weights rounded by the caller).
+template <int LANES, int SB, int SX, bool BF16 = false, class OnLayer>
 __device__ __forceinline__ void lstm_encoder(const float* obs, float* buf0,
                                              float* buf1, float* x,
                                              const float* __restrict__ theta,
@@ -165,12 +181,12 @@ __device__ __forceinline__ void lstm_encoder(const float* obs, float* buf0,
   for (int i = 0; i < net.n_enc; ++i) {
     const float* W = theta + net.enc_off[i];
     if (i == net.n_enc - 1) {
-      dense_tanh<LANES, SB, SX>(W, net.enc_w[i], nin, in, x);
+      dense_tanh<LANES, SB, SX, BF16>(W, net.enc_w[i], nin, in, x);
       __syncthreads();
       on_layer(i, x, SX);
     } else {
       float* out = i & 1 ? buf1 : buf0;
-      dense_tanh<LANES, SB, SB>(W, net.enc_w[i], nin, in, out);
+      dense_tanh<LANES, SB, SB, BF16>(W, net.enc_w[i], nin, in, out);
       __syncthreads();
       on_layer(i, out, SB);
       in = out;
@@ -184,6 +200,8 @@ __device__ __forceinline__ void lstm_encoder(const float* obs, float* buf0,
 // block's threads 4 l .. 4 l + 3 share lane l, thread q summing units q, q
 // + 4, ...; a butterfly adds the four partial sums, so each of the four
 // ends with the same m and v. Each thread reads only the units it sums.
+// BF16: h' rounded as it loads (the heads' W rounded by the caller).
+template <bool BF16 = false>
 __device__ __forceinline__ void lstm_heads4(const float* h, int stride,
                                             const float* __restrict__ theta,
                                             const LstmNet& net, float m[4],
@@ -194,7 +212,7 @@ __device__ __forceinline__ void lstm_heads4(const float* h, int stride,
   float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 4
   for (int u = threadIdx.x & 3; u < H; u += 4) {
-    const float hv = h[u * stride + l];
+    const float hv = op_value<BF16>(h[u * stride + l]);
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[k] = __fmaf_rn(__ldg(hw + k * H + u), hv, acc[k]);
     acc[4] = __fmaf_rn(__ldg(vw + u), hv, acc[4]);

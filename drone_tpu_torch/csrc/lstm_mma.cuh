@@ -45,6 +45,13 @@
 // size; K8 and K6 are held to their fp32 plain versions at the serving
 // tolerance (rtol 2e-5, atol 2e-6 over 3 steps), K7 at the update's (1e-4
 // of each gradient tensor's max).
+//
+// The bf16 arm (K7's compute_dtype="bfloat16": the reference's lstm_gates
+// and _segment_grads with _dot32 rounding both operands): the BF16
+// template parameter of the packers and the products (mma.cuh split_op,
+// mma_op). The packers write each weight rounded to bf16 as big (small 0,
+// unread), x, h and dz are rounded as their fragments load, and each
+// k-step is one TF32 product, exact in fp32. K8 and K6 run BF16 = false.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -88,11 +95,12 @@ __device__ __forceinline__ int gate_row(int k, int E, int H) {
 }
 
 // One packed float4 (cnn_mma.cuh pack_tower_kernel's layout) of B[k][n] and
-// B[k + 4][n], v holding them.
+// B[k + 4][n], v holding them (BF16: rounded, small 0).
+template <bool BF16>
 __device__ __forceinline__ float4 pack_pair(const float (&v)[2]) {
   uint32_t b0, s0, b1, s1;
-  split_tf32(v[0], b0, s0);
-  split_tf32(v[1], b1, s1);
+  split_op<BF16>(v[0], b0, s0);
+  split_op<BF16>(v[1], b1, s1);
   return make_float4(__uint_as_float(b0), __uint_as_float(b1),
                      __uint_as_float(s0), __uint_as_float(s1));
 }
@@ -100,6 +108,7 @@ __device__ __forceinline__ float4 pack_pair(const float (&v)[2]) {
 // The (big, small) fragments of the gate weights (gate_frags float4s) from
 // WP (E + H, H, 4): B[k][n], n = 32 ug + 8 gate + j, is WP[gate_row(k)][8 ug
 // + j][gate], 0 for a padded unit or row.
+template <bool BF16>
 __global__ void pack_gates_kernel(const float* __restrict__ wp, int E, int H,
                                   float4* __restrict__ pg) {
   const int NT = gate_units(H) / 2;
@@ -114,12 +123,13 @@ __global__ void pack_gates_kernel(const float* __restrict__ wp, int E, int H,
     const int row = gate_row(k + 4 * r, E, H);
     v[r] = u < H && row >= 0 ? wp[((size_t)row * H + u) * 4 + gate] : 0.0f;
   }
-  pg[i] = pack_pair(v);
+  pg[i] = pack_pair<BF16>(v);
 }
 
 // The transposed fragments (gate_t_frags float4s) for dz [Wi; Wh]^T: B[k][n]
 // with k = 32 ug + 8 gate + j (the forward's column order: unit 8 ug + j)
 // and n the gate block's input row (x's Ep, then h's Hp).
+template <bool BF16>
 __global__ void pack_gates_t_kernel(const float* __restrict__ wp, int E,
                                     int H, float4* __restrict__ pgt) {
   const int NT = gate_t_ntiles(E, H);
@@ -135,7 +145,7 @@ __global__ void pack_gates_t_kernel(const float* __restrict__ wp, int E,
     const int u = 8 * (kk / 32) + kk % 8, gate = (kk / 8) % 4;
     v[r] = u < H && row >= 0 ? wp[((size_t)row * H + u) * 4 + gate] : 0.0f;
   }
-  pgt[i] = pack_pair(v);
+  pgt[i] = pack_pair<BF16>(v);
 }
 
 // The acting kernels' cell update of lstm_gates_mma: c in shared memory
@@ -169,8 +179,9 @@ __device__ __forceinline__ int owned_unit(int p, int r) {
 // a barrier h' goes over h. Warp w takes unit groups w, w + 8, ...; the
 // next k-step's fragments load while one multiplies (48 products a k-step;
 // two ahead was slower, PERF.md). The caller needs a barrier before it
-// reads h'. All threads.
-template <class Cell>
+// reads h'. All threads. BF16: PG packed by pack_gates_kernel<true>, x and
+// h rounded as they load.
+template <bool BF16 = false, class Cell>
 __device__ __forceinline__ void lstm_gates_mma(const float* x, float* h,
                                                int E, int H,
                                                const float4* __restrict__ PG,
@@ -186,8 +197,8 @@ __device__ __forceinline__ void lstm_gates_mma(const float* x, float* h,
     if (ug >= UG) continue;
     float acc[4][4][4];  // [m-tile][gate][fragment]
     zero_frags(acc);
-    mma_rows_packed<1>(x, Ep, 0, PG, NT, 0, 4 * ug, acc);
-    mma_rows_packed<1>(h, Hp, 0, PG, NT, Ep / 8, 4 * ug, acc);
+    mma_rows_packed<1, false, BF16>(x, Ep, 0, PG, NT, 0, 4 * ug, acc);
+    mma_rows_packed<1, false, BF16>(h, Hp, 0, PG, NT, Ep / 8, 4 * ug, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -217,8 +228,9 @@ __device__ __forceinline__ void lstm_gates_mma(const float* x, float* h,
 // acc[i][j] (lanes m0 + 16 i .., n-tile nt[j]) += sum over the K rows of X
 // of X[k][lane] B[k][n], B packed (NT n-tiles a k-tile): mma_rows_packed
 // for n-tiles that need not be side by side, so that one A fragment serves
-// them all. The next k-step's fragments load while one multiplies.
-template <int MI, int NI>
+// them all. The next k-step's fragments load while one multiplies. BF16:
+// one product a k-step of X rounded and B packed rounded.
+template <bool BF16 = false, int MI, int NI>
 __device__ __forceinline__ void mma_rows_tiles(const float* X, int K, int m0,
                                                const float4* __restrict__ B,
                                                int NT, const int (&nt)[NI],
@@ -247,8 +259,9 @@ __device__ __forceinline__ void mma_rows_tiles(const float* X, int K, int m0,
     }
     uint32_t ab[MI][4], as[MI][4];
 #pragma unroll
-    for (int i = 0; i < MI; ++i) frag_a_rows(X, k, m0 + 16 * i, ab[i], as[i]);
-    mma3(acc, ab, as, bb, bs);
+    for (int i = 0; i < MI; ++i)
+      frag_a_rows<BF16>(X, k, m0 + 16 * i, ab[i], as[i]);
+    mma_op<BF16>(acc, ab, as, bb, bs);
   }
 }
 
@@ -259,7 +272,9 @@ __device__ __forceinline__ void mma_rows_tiles(const float* X, int K, int m0,
 // pairs are never used); with want_dx, dx's Ep rows go to dx ([row][lane],
 // stride TM_S), warp w taking n-tiles w, w + 8, ...: the first beside dh's
 // in one pass over dz (one A fragment for three n-tiles), any others
-// alone. All threads; no barrier.
+// alone. All threads; no barrier. BF16: PGT packed by
+// pack_gates_t_kernel<true>, dz rounded as it loads.
+template <bool BF16 = false>
 __device__ __forceinline__ void gates_bwd_mma(
     const float* dz, int E, int H, const float4* __restrict__ PGT,
     bool want_dx, float* dx, float (&dh)[GATE_PASSES][4][4]) {
@@ -285,7 +300,7 @@ __device__ __forceinline__ void gates_bwd_mma(
   nt[GATE_PASSES] = want_dx && w < NX ? w : nt[0];
   float acc[4][GATE_PASSES + 1][4];
   zero_frags(acc);
-  mma_rows_tiles(dz, K, 0, PGT, NT, nt, acc);
+  mma_rows_tiles<BF16>(dz, K, 0, PGT, NT, nt, acc);
 #pragma unroll
   for (int p = 0; p < GATE_PASSES; ++p)
 #pragma unroll
@@ -298,7 +313,7 @@ __device__ __forceinline__ void gates_bwd_mma(
     const int n1[1] = {d};
     float a1[4][1][4];
     zero_frags(a1);
-    mma_rows_tiles(dz, K, 0, PGT, NT, n1, a1);
+    mma_rows_tiles<BF16>(dz, K, 0, PGT, NT, n1, a1);
     store_dx(d, a1, 0);
   }
 }

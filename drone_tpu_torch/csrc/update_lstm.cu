@@ -90,6 +90,22 @@
 // forward tower 369k, conv0 again 147k, dX2 74k, gW1 147k, dX1 147k, gW0
 // 147k, gWt 74k, all on the tensor cores; one segment's scratch is ~1.9 GB
 // at 16,384 lanes x 16 steps, H 128.
+//
+// The bf16 arm (compute_dtype="bfloat16", both encoders: the reference's
+// _segment_grads with _dot32 rounding both operands of every product): the
+// BF16 template parameter of the walk, the tower's kernels, the products
+// and the packing, not a copy of them. Per call round_weights_kernel writes
+// a copy of the flat buffer whose weights the walk reads on the fp32 cores
+// (the dense encoder's and the heads') are rounded to bf16, its biases and
+// log_std as they are; the walk reads that copy. The packers round the gate
+// weights and the tower's (lstm_mma.cuh, cnn_mma.cuh); the tensor-core
+// products round their other operand as its fragments load, one TF32
+// product a k-step; on the fp32 cores the encoder and the heads round
+// their activations as they load (lstm.cuh), and the walk stores [dm; g_v]
+// and the dense layers' dpre rounded in shared memory for dh' and the
+// layer input gradient. The bias sums, the cell's elementwise math, the
+// head's subgradients, the stored activations (the scratch) and the folds
+// of the products' windows stay fp32. The shared memory is the fp32 arm's.
 
 #include <cuda_runtime.h>
 
@@ -207,7 +223,8 @@ __host__ __device__ inline int bptt_smem_floats(const LstmNet& net,
   return fwd > bwd ? fwd : bwd;
 }
 
-template <int ENC>
+// A.theta: under BF16 round_weights_kernel's copy.
+template <int ENC, bool BF16>
 __global__ void __launch_bounds__(LSTM_THREADS, 1)
 bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
   constexpr bool CNN = ENC == ENC_CNN;
@@ -292,7 +309,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
     }
     __syncthreads();
     if constexpr (!CNN) {
-      lstm_encoder<L, L, S>(obs, buf0, buf1, x, A.theta, net,
+      lstm_encoder<L, L, S, BF16>(obs, buf0, buf1, x, A.theta, net,
                             [&](int i, const float* out, int os) {
                               int r0 = OBS_DIM;
                               for (int j = 0; j < i; ++j) r0 += net.enc_w[j];
@@ -305,7 +322,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
     }
     float* gfs = A.s[GF] + (size_t)t * 6 * Hp * NL + (size_t)ml0 * 6 * Hp;
     float* h2s = A.s[H2S] + (size_t)t * H * NL + ml0;
-    lstm_gates_mma(x, h, E, H, A.PG, A.BP,
+    lstm_gates_mma<BF16>(x, h, E, H, A.PG, A.BP,
                    [&](int p, int i, int r, int u, int l, float gi, float gf,
                        float gg, float go) {
                      const float cin = cr[p][i][r];
@@ -326,7 +343,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
     const float* done = pt + (size_t)TP_DONE * n;
     {
       float m[4], v;
-      lstm_heads4(h, S, A.theta, net, m, v);
+      lstm_heads4<BF16>(h, S, A.theta, net, m, v);
       const int l = tid >> 2;
       if ((tid & 3) == 0) {
         float* mvs = A.s[DMV] + (size_t)t * 5 * NL + ml0 + l;
@@ -389,10 +406,10 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
       for (int k = 0; k < N_UPSTATS; ++k) stv[k] = stv[k] + st[k];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        dmv[k * S + tid] = dm[k];
+        dmv[k * S + tid] = op_value<BF16>(dm[k]);  // dh2's operand
         dmvs[(size_t)k * NL] = dm[k];
       }
-      dmv[4 * S + tid] = g_v;
+      dmv[4 * S + tid] = op_value<BF16>(g_v);
       dmvs[(size_t)4 * NL] = g_v;
       keep_s[tid] = 1.0f - pt[(size_t)TP_DONE * n + tid];
     }
@@ -446,7 +463,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
     // [dx; dh] = dz [Wi; Wh]^T: dh into this thread's registers; beside it
     // dz's rows to the GZ scratch (natural order: gate g of unit u at row
     // g H + u), 256 contiguous bytes a row
-    gates_bwd_mma(dz, E, H, A.PGT, want_dx, dx, dh);
+    gates_bwd_mma<BF16>(dz, E, H, A.PGT, want_dx, dx, dh);
     for (int e = tid; e < 4 * H * (L / 4); e += blockDim.x) {
       const int row = e / (L / 4), l4 = 4 * (e % (L / 4));
       const int g = row / H, u = row % H;
@@ -478,7 +495,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
         const int k = e / L, l = e % L;
         const float y = xs[(size_t)(OBS_DIM + r0 + k) * NL + l];
         const float dp = d[k * S + l] * (1.0f - y * y);
-        d[k * S + l] = dp;
+        d[k * S + l] = op_value<BF16>(dp);  // dense_t's operand
         dps[(size_t)k * NL + l] = dp;
       }
       __syncthreads();
@@ -522,6 +539,7 @@ struct TowerFwdArgs {
   int n, rbl, t0, RX, NL, n_tiles;
 };
 
+template <bool BF16>
 __global__ void __launch_bounds__(TM_THREADS, 2)
 tower_fwd_kernel(TowerFwdArgs A) {
   constexpr int L = TM_L, S = TM_S;
@@ -550,7 +568,8 @@ tower_fwd_kernel(TowerFwdArgs A) {
       for (int k = 0; k < 12; ++k) sp[k * S + tid] = s12[k];
     }
     __syncthreads();
-    tower_fwd_tile(sm, A.theta, A.pk, A.grid, [&](int q1, const float* y1) {
+    tower_fwd_tile<BF16>(sm, A.theta, A.pk, A.grid,
+                         [&](int q1, const float* y1) {
       for (int e = tid; e < CNN_C1 * L; e += blockDim.x) {
         const int o = e / L, l = e % L;
         x2s[(size_t)(q1 * CNN_C1 + o) * NL + l] = y1[o * S + l];
@@ -570,7 +589,9 @@ tower_fwd_kernel(TowerFwdArgs A) {
 // are scratch buffers (bptt, rows, NL) from rows a0 / b0; sample s = t * NL
 // + lane. Block (i, j, kc) takes the 64 x 64 tile (i, j) over chunk kc of
 // CK lanes of one step and writes its own partial row (row0 + kc) of the
-// (rows, ptot) buffer at out_off, the block (M, N + 1) row-major.
+// (rows, ptot) buffer at out_off, the block (M, N + 1) row-major. BF16:
+// each operand rounded as its fragment loads, one product a k-step; the
+// bias sums of the operands as they are.
 struct GemmPair {
   const float* a;
   int ra, a0, M;
@@ -579,6 +600,7 @@ struct GemmPair {
   int out_off;
 };
 
+template <bool BF16>
 __global__ void __launch_bounds__(256, 2)
 grad_mma_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
                 int ptot, int row0) {
@@ -640,18 +662,18 @@ grad_mma_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float* pa = As + (wm + 16 * i + g) * GM_S + k0 + tq;
-        split_tf32(pa[0], ab[i][0], as[i][0]);
-        split_tf32(pa[8 * GM_S], ab[i][1], as[i][1]);
-        split_tf32(pa[4], ab[i][2], as[i][2]);
-        split_tf32(pa[8 * GM_S + 4], ab[i][3], as[i][3]);
+        split_op<BF16>(pa[0], ab[i][0], as[i][0]);
+        split_op<BF16>(pa[8 * GM_S], ab[i][1], as[i][1]);
+        split_op<BF16>(pa[4], ab[i][2], as[i][2]);
+        split_op<BF16>(pa[8 * GM_S + 4], ab[i][3], as[i][3]);
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const float* pb = Bs + (wn + 8 * j + g) * GM_S + k0 + tq;
-        split_tf32(pb[0], bb[j][0], bs[j][0]);
-        split_tf32(pb[4], bb[j][1], bs[j][1]);
+        split_op<BF16>(pb[0], bb[j][0], bs[j][0]);
+        split_op<BF16>(pb[4], bb[j][1], bs[j][1]);
       }
-      mma3(acc, ab, as, bb, bs);
+      mma_op<BF16>(acc, ab, as, bb, bs);
     }
     fold(sum, 0, acc);
     if (bias) {
@@ -677,6 +699,26 @@ grad_mma_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
       }
   if (bias && lane < 8 && m0 + 8 * w + lane < p.M)
     out[(size_t)(m0 + 8 * w + lane) * W + p.N] = bsum;
+}
+
+// The bf16 arm's copy of the flat buffer (P floats): the weights the walk
+// reads on the fp32 cores, each dense encoder layer's W and the heads' W,
+// rounded to bf16 (nearest even); every other float (the biases, log_std,
+// the gate and tower weights, which the packers round) as it is.
+__global__ void round_weights_kernel(const float* __restrict__ theta,
+                                     LstmNet net, int P,
+                                     float* __restrict__ out) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= P) return;
+  bool w = (q >= net.head_off && q < net.head_off + 4 * net.H) ||
+           (q >= net.vhead_off && q < net.vhead_off + net.H);
+  int nin = OBS_DIM;
+  for (int i = 0; i < net.n_enc; ++i) {
+    w = w || (q >= net.enc_off[i] && q < net.enc_off[i] + net.enc_w[i] * nin);
+    nin = net.enc_w[i];
+  }
+  const float v = theta[q];
+  out[q] = w ? op_value<true>(v) : v;
 }
 
 // grads[q] = the sum over the R partial rows of entry map[q] (fixed order);
@@ -709,15 +751,17 @@ __global__ void lstm_reduce_kernel(const float* __restrict__ partial, int R,
 
 // C interface (ctypes). ptrs: host array of device pointers [planes,
 // advret, snap, perm, theta, wp, bp, the 7 scratch buffers (XS, GZ, GF, H2,
-// DMV, DP, X2S), partial, stat_part, map, grads, stats, pk, grid, pg, pgt];
-// X2S, the packed tower weights pk (PK_TOTAL float4s) and grid are the CNN
-// arm's (null for the dense one); pg and pgt room for the gate weights'
-// forward and transposed fragments (gate_frags and gate_t_frags float4s),
-// written here on the stream. layout: lstm.cuh's NET_INTS; encoder:
-// ENC_DENSE or ENC_CNN. dims: [n, T, bptt, rbl, NL, CK, P, ptot, n_pairs,
-// the 7 scratch row counts, then the shared bytes of a block of the walk,
-// the CNN arm's tower forward and backward (0 for the dense arm) and the
-// products, as the wrapper counts them]. pairs: n_pairs x [A buffer, A
+// DMV, DP, X2S), partial, stat_part, map, grads, stats, pk, grid, pg, pgt,
+// theta16]; X2S, the packed tower weights pk (PK_TOTAL float4s) and grid
+// are the CNN arm's (null for the dense one); pg and pgt room for the gate
+// weights' forward and transposed fragments (gate_frags and gate_t_frags
+// float4s), written here on the stream; theta16 room for the bf16 arm's
+// copy of theta (P floats; null for the fp32 arm). layout: lstm.cuh's
+// NET_INTS; encoder: ENC_DENSE or ENC_CNN. dims: [n, T, bptt, rbl, NL, CK,
+// P, ptot, n_pairs, the 7 scratch row counts, then the shared bytes of a
+// block of the walk, the CNN arm's tower forward and backward (0 for the
+// dense arm) and the products, as the wrapper counts them, then bf16: 1 for
+// the bf16 operand arm, 0 for 3xTF32]. pairs: n_pairs x [A buffer, A
 // row0, M, B buffer, B row0, N, out offset]. consts: [inv_m, clip_lo,
 // clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the
 // cudaError_t of the launches.
@@ -733,14 +777,16 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const int n_pairs = dims[8];
   const int* rows = dims + 9;
   const int* smem_bytes = dims + 9 + N_BUFS;
-  const bool cnn = encoder == ENC_CNN;
+  const int bf16_flag = smem_bytes[4];
+  const bool cnn = encoder == ENC_CNN, bf16 = bf16_flag == 1;
   const size_t smem = sizeof(float) * (size_t)bptt_smem_floats(net, encoder);
   if (n <= 0 || bptt <= 0 || T % bptt != 0 || rbl % 128 != 0 ||
       NL % BP_LANES != 0 || CK % GM_T != 0 || NL % CK != 0 || n_pairs <= 0 ||
       smem_bytes[0] != (int)smem || smem_bytes[3] != GM_SMEM ||
       rows[GF] != 6 * gate_units(net.H) ||
       smem_bytes[1] != (cnn ? TF_SMEM : 0) ||
-      smem_bytes[2] != (cnn ? TB_SMEM : 0) ||
+      smem_bytes[2] != (cnn ? TB_SMEM : 0) || bf16_flag < 0 ||
+      bf16_flag > 1 ||
       (cnn && (NL % TM_L != 0 || ptot < OFF_WT ||
                rows[XS] != OBS_DIM + CNN_H + net.H || rows[DP] != CNN_H ||
                rows[X2S] != CNN_X2)))
@@ -766,7 +812,8 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const float* grid = ptr[20];
   float4* pg = reinterpret_cast<float4*>(const_cast<float*>(ptr[21]));
   float4* pgt = reinterpret_cast<float4*>(const_cast<float*>(ptr[22]));
-  if (pg == nullptr || pgt == nullptr ||
+  float* theta16 = const_cast<float*>(ptr[23]);
+  if (pg == nullptr || pgt == nullptr || (bf16 && theta16 == nullptr) ||
       (cnn && (pk == nullptr || grid == nullptr || bufs[X2S] == nullptr)))
     return (int)cudaErrorInvalidValue;
   A.PG = pg;
@@ -779,11 +826,17 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const UConsts co{consts[0], consts[1], consts[2], consts[3],
                    consts[4], consts[5], consts[6]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* walk = cnn ? bptt_kernel<ENC_CNN> : bptt_kernel<ENC_DENSE>;
+  auto* walk = cnn ? (bf16 ? bptt_kernel<ENC_CNN, true>
+                          : bptt_kernel<ENC_CNN, false>)
+                   : (bf16 ? bptt_kernel<ENC_DENSE, true>
+                           : bptt_kernel<ENC_DENSE, false>);
+  auto* gemm = bf16 ? grad_mma_kernel<true> : grad_mma_kernel<false>;
+  auto* tfwd = bf16 ? tower_fwd_kernel<true> : tower_fwd_kernel<false>;
+  auto* tbwd = bf16 ? tower_bwd_kernel<true> : tower_bwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(grad_mma_kernel,
+  err = cudaFuncSetAttribute(gemm,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              GM_SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -796,31 +849,48 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
                   NL, n_tiles};
   const int tf_blocks = n_tiles < TOWER_FWD_BLOCKS ? n_tiles : TOWER_FWD_BLOCKS;
   const int nf = gate_frags(net.E, net.H), nft = gate_t_frags(net.E, net.H);
-  pack_gates_kernel<<<(nf + 255) / 256, 256, 0, s>>>(wp, net.E, net.H, pg);
-  pack_gates_t_kernel<<<(nft + 255) / 256, 256, 0, s>>>(wp, net.E, net.H,
-                                                        pgt);
+  if (bf16) {
+    pack_gates_kernel<true><<<(nf + 255) / 256, 256, 0, s>>>(wp, net.E,
+                                                             net.H, pg);
+    pack_gates_t_kernel<true><<<(nft + 255) / 256, 256, 0, s>>>(wp, net.E,
+                                                                net.H, pgt);
+    round_weights_kernel<<<(P + 255) / 256, 256, 0, s>>>(A.theta, net, P,
+                                                         theta16);
+  } else {
+    pack_gates_kernel<false><<<(nf + 255) / 256, 256, 0, s>>>(wp, net.E,
+                                                              net.H, pg);
+    pack_gates_t_kernel<false><<<(nft + 255) / 256, 256, 0, s>>>(wp, net.E,
+                                                                 net.H, pgt);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (cnn) {
-    err = cudaFuncSetAttribute(tower_fwd_kernel,
+    err = cudaFuncSetAttribute(tfwd,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                TF_SMEM);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(tower_bwd_kernel<false>,
+    err = cudaFuncSetAttribute(tbwd,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                TB_SMEM);
     if (err != cudaSuccess) return (int)err;
-    pack_tower_kernel<false><<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(
-        A.theta, pk, PK_TOTAL);
+    if (bf16)
+      pack_tower_kernel<true><<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(
+          A.theta, pk, PK_TOTAL);
+    else
+      pack_tower_kernel<false><<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(
+          A.theta, pk, PK_TOTAL);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  // the walk reads the weights it multiplies on the fp32 cores rounded (the
+  // tower's kernels read theta's biases alone)
+  if (bf16) A.theta = theta16;
   for (int seg = 0; seg < S; ++seg) {
     A.seg = seg;
     A.stat_part = stat_part + (size_t)seg * nblk * N_UPSTATS;
     if (cnn) {
       tf.t0 = seg * bptt;
-      tower_fwd_kernel<<<tf_blocks, TM_THREADS, TF_SMEM, s>>>(tf);
+      tfwd<<<tf_blocks, TM_THREADS, TF_SMEM, s>>>(tf);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -830,7 +900,7 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
     if (cnn) {
       // one block per product row of the segment (nk <= the tiles)
       tb.row0 = seg * nk;
-      tower_bwd_kernel<false><<<nk, TM_THREADS, TB_SMEM, s>>>(tb);
+      tbwd<<<nk, TM_THREADS, TB_SMEM, s>>>(tb);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -839,8 +909,7 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
       const GemmPair gp{bufs[d[0]], rows[d[0]], d[1], d[2],
                         bufs[d[3]], rows[d[3]], d[4], d[5], d[6]};
       const dim3 grid((gp.M + GM_T - 1) / GM_T, (gp.N + GM_T - 1) / GM_T, nk);
-      grad_mma_kernel<<<grid, 256, GM_SMEM, s>>>(gp, NL, CK, partial, ptot,
-                                                 seg * nk);
+      gemm<<<grid, 256, GM_SMEM, s>>>(gp, NL, CK, partial, ptot, seg * nk);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

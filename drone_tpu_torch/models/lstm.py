@@ -163,12 +163,22 @@ def lstm_weights(theta: torch.Tensor, hidden: int, encoder):
             (v["critic_value.weight"], v["critic_value.bias"]), v["log_std"])
 
 
-def dense_encode(obs, enc):
+def _operand(x, compute_dtype):
+    # imported here: drone_tpu_torch.ops imports this module
+    from drone_tpu_torch.ops.cuda_acting_traj import operand
+
+    return operand(x, compute_dtype)
+
+
+def dense_encode(obs, enc, compute_dtype: str = "float32"):
     """The tanh dense tower: obs (N, 13) -> activations [obs, enc_1, ...,
-    x]."""
+    x]. Under bfloat16 each layer's product takes its operands rounded to
+    bfloat16 (the reference's `_dot32`); the bias adds and tanh stay
+    float32."""
     acts = [obs]
     for w, b in enc:
-        acts.append(torch.tanh(F.linear(acts[-1], w, b)))
+        acts.append(torch.tanh(F.linear(_operand(acts[-1], compute_dtype),
+                                        _operand(w, compute_dtype), b)))
     return acts
 
 
@@ -180,16 +190,22 @@ def gate_linear(x, h, wi, wh):
     return F.linear(x, wi) + F.linear(h, wh)
 
 
-def lstm_step(obs, c, h, weights, encode=dense_encode):
+def lstm_step(obs, c, h, weights, encode=dense_encode,
+              compute_dtype: str = "float32"):
     """One encoder + LSTM step, batch-major: obs (N, 13), c/h (N, H) ->
     (encoder activations, gates (i, f, g, o), c', tanh(c'), h').
     encode(obs, enc) gives the activations, the last of them x (the dense
-    tower's [obs, enc_1, ..., x] by default). The gate pre-activation is (x
-    Wi^T + h Wh^T) + b, the reference's dot(wi, x) + dot(wh, h) + bh."""
+    tower's [obs, enc_1, ..., x] by default; it rounds its own products).
+    The gate pre-activation is (x Wi^T + h Wh^T) + b, the reference's
+    dot(wi, x) + dot(wh, h) + bh; under bfloat16 x, h and the gate weights
+    enter gate_linear rounded to bfloat16, and the bias, the cell and the
+    activations stay float32."""
     enc, wi, wh, bh = weights[:4]
     acts = encode(obs, enc)
-    x = acts[-1]
-    pre = [gate_linear(x, h, wi[k], wh[k]) + bh[k] for k in range(4)]
+    x, hr = _operand(acts[-1], compute_dtype), _operand(h, compute_dtype)
+    pre = [gate_linear(x, hr, _operand(wi[k], compute_dtype),
+                       _operand(wh[k], compute_dtype)) + bh[k]
+           for k in range(4)]
     gi, gf, go = (torch.sigmoid(pre[k]) for k in (0, 1, 3))
     gg = torch.tanh(pre[2])
     c2 = gf * c + gi * gg

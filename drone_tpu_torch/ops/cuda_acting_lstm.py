@@ -41,6 +41,7 @@ on the launch's stream.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -92,18 +93,20 @@ def enc_flat(enc):
     return tuple(t for pair in enc for t in pair)
 
 
-def encode_features(encoder, device):
+def encode_features(encoder, device, compute_dtype: str = "float32"):
     """The encoder of `lstm_step` for this encoder kind (the reference's
     encode_features; its lstm_encoder_kind is `models.lstm.is_cnn` of the
     arch's encoder): (obs (N, 13), enc pairs) -> activations whose last is
     the LSTM input. The CNN's are cnn_encode's (sp, X0, Y0, Y1, X2, h),
-    rendered on the host-built pixel grid."""
+    rendered on the host-built pixel grid. compute_dtype: the products'
+    operands (bfloat16: K7's bf16 arm)."""
     if not is_cnn(encoder):
-        return dense_encode
+        return functools.partial(dense_encode, compute_dtype=compute_dtype)
     gx, gy = patch_grid(encoder.res, encoder.p0, device)
 
     def encode(obs, enc):
-        return cnn_encode(obs, enc_flat(enc), gx, gy, encoder.geom, True)[1]
+        return cnn_encode(obs, enc_flat(enc), gx, gy, encoder.geom, True,
+                          compute_dtype)[1]
 
     return encode
 

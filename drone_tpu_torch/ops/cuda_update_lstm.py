@@ -47,6 +47,16 @@ with K10), so the walk reads x as the dense arm reads its encoder's output
 Returns (grads (P,) in the flat kernel order, stat sums (N_UPSTATS,)) as
 `cuda_update.ppo_update_cuda`: gradients are sums scaled by inv_m, and
 log_std's is its stat sums ST_DLS* minus ent_coef.
+
+`compute_dtype="bfloat16"` is the reference's bf16 operand arm of K7
+(`_segment_grads` with `_dot32` at bfloat16), both encoders: every
+product takes its operands rounded to bfloat16 (`cuda_acting_traj.operand`)
+and sums in float32: the encoder's layers (or the CNN tower), the 8 gate
+products, the heads, their weight gradients, dh' from the heads, the gate
+weights' gradients and [dx; dh], and the encoder's backward (the CNN's by
+`cnn_encoder_bwd`). The bias sums, the cell's elementwise math, the head's
+subgradients and the stored activations stay float32. The kernels take it
+as the `BF16` template parameter of the same kernels (update_lstm.cu).
 """
 
 from __future__ import annotations
@@ -86,6 +96,8 @@ from drone_tpu_torch.ops.cuda_acting_traj import (
     TP_LOGP,
     TP_OBS0,
     TP_VAL,
+    bf16_flag,
+    operand,
 )
 from drone_tpu_torch.ops.cuda_update import (
     N_UPSTATS,
@@ -115,13 +127,13 @@ PRODUCT_SMEM = 2 * 2 * 64 * 68 * 4
 _MAX_SMEM = 232448
 
 
-def _forward_encode(encoder, device):
+def _forward_encode(encoder, device, compute_dtype):
     """The encoder of the plain version's forward: the dense tower's
     activations, or for the CNN only its output x, run PLAIN_CHUNK samples
     at a time (the backward re-runs the tower)."""
+    full = encode_features(encoder, device, compute_dtype)
     if not is_cnn(encoder):
-        return encode_features(encoder, device)
-    full = encode_features(encoder, device)
+        return full
 
     def encode(obs, enc):
         return [torch.cat([full(o, enc)[-1] for o in obs.split(PLAIN_CHUNK)])]
@@ -138,12 +150,12 @@ def _segments(x, S, bptt):
 
 
 def _segment_forward(planes, advret, snap, perm_mb, weights, arch, rbl,
-                     bptt):
+                     bptt, compute_dtype):
     """The minibatch's segments run forward from their anchors, folded into
     the batch. Returns (planes (bptt, 21, B), advret (bptt, 2, B), per step
     (encoder activations, gates, c_in, h_in, tanh(c'), h', keep))."""
     hidden, encoder = int(arch[0]), encoder_of(arch[1])
-    encode = _forward_encode(encoder, planes.device)
+    encode = _forward_encode(encoder, planes.device, compute_dtype)
     T = planes.shape[0]
     if bptt <= 0 or T % bptt:
         raise ValueError(f"the horizon {T} must be a multiple of bptt {bptt}")
@@ -158,7 +170,8 @@ def _segment_forward(planes, advret, snap, perm_mb, weights, arch, rbl,
     for t in range(bptt):
         pt = blk[t]
         acts, gates, c2, th, h2 = lstm_step(pt[TP_OBS0:TP_OBS0 + OBS_DIM].t(),
-                                            c, h, weights, encode)
+                                            c, h, weights, encode,
+                                            compute_dtype)
         keep = (1.0 - pt[TP_DONE])[:, None]
         steps.append((acts, gates, c, h, th, h2, keep))
         c, h = c2 * keep, h2 * keep
@@ -167,14 +180,18 @@ def _segment_forward(planes, advret, snap, perm_mb, weights, arch, rbl,
 
 @torch.no_grad()
 def lstm_head_branch_counts(planes, advret, snap, perm_mb, theta, arch,
-                            co: UpdateConsts, rbl: int, bptt: int) -> dict:
+                            co: UpdateConsts, rbl: int, bptt: int,
+                            compute_dtype: str = "float32") -> dict:
     """cuda_update.head_branch_counts for the LSTM: how many samples of a
-    minibatch take each branch of the head's subgradients at theta."""
+    minibatch take each branch of the head's subgradients at theta (the
+    forward of compute_dtype's arm)."""
+    bf16_flag(compute_dtype)
     weights = lstm_weights(theta, *arch)
     (hw, hb), (vw, vb), ls = weights[4:]
     blk, ar, steps = _segment_forward(planes, advret, snap, perm_mb, weights,
-                                      arch, rbl, bptt)
-    h2 = torch.cat([s[5] for s in steps])
+                                      arch, rbl, bptt, compute_dtype)
+    h2 = operand(torch.cat([s[5] for s in steps]), compute_dtype)
+    hw, vw = operand(hw, compute_dtype), operand(vw, compute_dtype)
     pt = blk.permute(1, 0, 2).reshape(N_TRAJ, -1)
     arf = ar.permute(1, 0, 2).reshape(2, -1)
     return branch_counts(F.linear(h2, hw, hb), F.linear(h2, vw, vb)[:, 0],
@@ -192,18 +209,26 @@ def gate_mm(a, b):
 @torch.no_grad()
 def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
                       co: UpdateConsts, rbl: int, bptt: int,
-                      ent_coef: float = 0.0):
+                      ent_coef: float = 0.0, compute_dtype: str = "float32"):
     """Plain PyTorch version of K7. planes (T, N_TRAJ, N) and anchors (T //
     bptt, 2, H, N) from the LSTM rollout; advret (2, T, N); perm_mb the
     minibatch's row blocks of rbl lanes; theta the flat parameters of arch
-    = (hidden, encoder widths or CnnArch)."""
+    = (hidden, encoder widths or CnnArch); compute_dtype the products'
+    operands."""
+    bf16_flag(compute_dtype)
     torch.backends.cuda.matmul.allow_tf32 = False
+
+    def op(x):
+        return operand(x, compute_dtype)
+
     hidden, encoder = int(arch[0]), encoder_of(arch[1])
     weights = lstm_weights(theta, hidden, encoder)
     enc, wi, wh, bh, (hw, hb), (vw, vb), ls = weights
     blk, ar, steps = _segment_forward(planes, advret, snap, perm_mb, weights,
-                                      arch, rbl, bptt)
-    full_encode = encode_features(encoder, theta.device)
+                                      arch, rbl, bptt, compute_dtype)
+    full_encode = encode_features(encoder, theta.device, compute_dtype)
+    hw_r, vw_r = op(hw), op(vw)
+    wi_r, wh_r = [op(w) for w in wi], [op(w) for w in wh]
     c = steps[0][2]
     grads = torch.zeros_like(theta)
     g_enc, g_wi, g_wh, g_bh, (g_hw, g_hb), (g_vw, g_vb), _ = lstm_weights(
@@ -214,17 +239,19 @@ def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
     for t in range(bptt - 1, -1, -1):
         acts, (gi, gf, gg, go), c_in, h_in, th, h2, keep = steps[t]
         pt = blk[t]
-        m = F.linear(h2, hw, hb)
-        v = F.linear(h2, vw, vb)[:, 0]
+        h2r = op(h2)
+        m = F.linear(h2r, hw_r, hb)
+        v = F.linear(h2r, vw_r, vb)[:, 0]
         dm, g_v, stats = head_grads(
             m, v, pt[TP_ACT0:TP_ACT0 + 4].t(), pt[TP_LOGP], pt[TP_VAL],
             ar[t, 0], ar[t, 1], ls, co)
         st += stats.sum(0)
-        g_hw += gate_mm(dm.t(), h2)
+        dmr, g_vr = op(dm), op(g_v)
+        g_hw += gate_mm(dmr.t(), h2r)
         g_hb += dm.sum(0)
-        g_vw += gate_mm(g_v[None], h2)
+        g_vw += gate_mm(g_vr[None], h2r)
         g_vb += g_v.sum(0, keepdim=True)
-        dh2 = dm @ hw + g_v[:, None] @ vw + dh * keep
+        dh2 = dmr @ hw_r + g_vr[:, None] @ vw_r + dh * keep
         dc2 = dc * keep + dh2 * go * (1.0 - th * th)
         dgo = dh2 * th
         dgi = dc2 * gg
@@ -233,32 +260,34 @@ def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
         dc = dc2 * gf
         dz = (dgi * (gi * (1.0 - gi)), dgf * (gf * (1.0 - gf)),
               dgg * (1.0 - gg * gg), dgo * (go * (1.0 - go)))
-        x = acts[-1]
+        x, h_inr = op(acts[-1]), op(h_in)
         dh = torch.zeros_like(dh)
         dx = torch.zeros_like(x)
         for k in range(4):
-            g_wi[k] += gate_mm(dz[k].t(), x)
-            g_wh[k] += gate_mm(dz[k].t(), h_in)
+            dzr = op(dz[k])
+            g_wi[k] += gate_mm(dzr.t(), x)
+            g_wh[k] += gate_mm(dzr.t(), h_inr)
             g_bh[k] += dz[k].sum(0)
-            dh = dh + gate_mm(dz[k], wh[k])
-            dx = dx + gate_mm(dz[k], wi[k])
+            dh = dh + gate_mm(dzr, wh_r[k])
+            dx = dx + gate_mm(dzr, wi_r[k])
         if is_cnn(encoder):
             # the tower re-run a chunk at a time, and its backward
             obs = pt[TP_OBS0:TP_OBS0 + OBS_DIM].t()
             for s0 in range(0, obs.shape[0], PLAIN_CHUNK):
                 sl = slice(s0, s0 + PLAIN_CHUNK)
                 g = cnn_encoder_bwd(dx[sl], full_encode(obs[sl], enc),
-                                    enc_flat(enc), encoder.geom)
+                                    enc_flat(enc), encoder.geom,
+                                    compute_dtype)
                 for dst, src in zip(enc_flat(g_enc), g):
                     dst += src
             continue
         for li in range(len(enc) - 1, -1, -1):
             y = acts[li + 1]
             dpre = dx * (1.0 - y * y)
-            g_enc[li][0].add_(gate_mm(dpre.t(), acts[li]))
+            g_enc[li][0].add_(gate_mm(op(dpre).t(), op(acts[li])))
             g_enc[li][1].add_(dpre.sum(0))
             if li > 0:
-                dx = dpre @ enc[li][0]
+                dx = op(dpre) @ op(enc[li][0])
     offs, _ = lstm_kernel_offsets(hidden, encoder)
     grads[offs["log_std"]:offs["log_std"] + 4] = st[ST_DLS0:] - ent_coef
     return grads, st
@@ -438,9 +467,10 @@ def _device_map(hidden, encoder, device):
 
 def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
                        co: UpdateConsts, rbl: int, bptt: int,
-                       ent_coef: float = 0.0):
-    """Launch K7 (csrc/update_lstm.cu). Same contract as lstm_update_plain.
-    """
+                       ent_coef: float = 0.0, compute_dtype: str = "float32"):
+    """Launch K7 (csrc/update_lstm.cu; its bf16 arm under bfloat16). Same
+    contract as lstm_update_plain."""
+    bf16 = bf16_flag(compute_dtype)
     hidden, encoder = int(arch[0]), encoder_of(arch[1])
     T, _, n = planes.shape
     layout = net_layout(hidden, encoder)
@@ -477,13 +507,16 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
     # the gate weights' fragments, written by the call on its stream
     pg = torch.empty(gate_packed_floats(hidden, encoder), device=dev)
     pgt = torch.empty(gate_t_packed_floats(hidden, encoder), device=dev)
+    # the bf16 arm's copy of theta with the walk's weights rounded
+    theta16 = torch.empty(P, device=dev) if bf16 else None
     ptrs = np.array([t.data_ptr() for t in (
         planes, advret, snap, perm_mb, theta, wp, bp, *scratch, partial,
         stat_part, mp, grads, stats)]
         + ([pk.data_ptr(), grid.data_ptr()] if cnn else [0, 0])
-        + [pg.data_ptr(), pgt.data_ptr()], np.uint64)
+        + [pg.data_ptr(), pgt.data_ptr(),
+           theta16.data_ptr() if bf16 else 0], np.uint64)
     dims = np.array([n, T, bptt, rbl, NL, CK, P, ptot, len(pairs), *rows,
-                     *kernel_smem_bytes(hidden, encoder)], np.int32)
+                     *kernel_smem_bytes(hidden, encoder), bf16], np.int32)
     consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
                        co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
                       np.float32)
@@ -498,21 +531,24 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
     cuda_build.check(err, "drone_lstm_update")
     lstm_update_cuda.launches += 1
     lstm_update_cuda.cnn_launches += cnn
+    lstm_update_cuda.bf16_launches += bf16
     return grads, stats
 
 
 def lstm_update_cuda(planes, advret, snap, perm_mb, theta, arch,
                      co: UpdateConsts, rbl: int, bptt: int,
-                     ent_coef: float = 0.0):
+                     ent_coef: float = 0.0, compute_dtype: str = "float32"):
     """One recurrent PPO minibatch gradient pass (truncated BPTT): the
     kernels on CUDA tensors, the plain version on CPU tensors. perm_mb:
     (n_sel,) int32 row-block indices, block i covering lanes [i*rbl,
-    (i+1)*rbl). Returns (grads (P,), stat sums (8,))."""
+    (i+1)*rbl). compute_dtype: "float32" or "bfloat16" (the bf16 operand
+    arm); ValueError for another. Returns (grads (P,), stat sums (8,))."""
     run = lstm_update_plain if planes.device.type == "cpu" else lstm_update_kernel
     return run(planes, advret, snap, perm_mb, theta, arch, co, rbl, bptt,
-               ent_coef)
+               ent_coef, compute_dtype)
 
 
-# launches of either arm, and of the CNN arm alone
+# launches of any arm; of the CNN arm alone; of the bf16 arms alone
 lstm_update_cuda.launches = 0
 lstm_update_cuda.cnn_launches = 0
+lstm_update_cuda.bf16_launches = 0

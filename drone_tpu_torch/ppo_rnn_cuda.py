@@ -20,6 +20,12 @@ the encoder kind, the dense widths (run.policy=lstm) or the patch-CNN
 tower's CnnArch (run.policy=cnn_lstm, whose flat buffer holds 23 tensors),
 and K6, K7 and the last value take the matching arm.
 
+`compute_dtype` "bfloat16" runs K7's bf16 operand arm, and K7's only, as
+the reference's `make_pallas_rnn_train_step` applies it to the update
+kernel alone: K6 rolls out in float32 (`ppo_rnn_pallas.py:191-193`) and
+GAE's last value is the float32 forward (its `_lstm_value` takes no
+dtype), so the first minibatch's ratios already differ from 1.
+
 The trainer scaffolding (minibatch geometry, advantage normalization, the
 losses from the stat sums, the epoch loop, the metrics, the permutations)
 is ppo_cuda's. As there, the one deliberate change from the reference: the
@@ -38,6 +44,7 @@ from drone_tpu_torch.ops.cuda_acting_lstm import (
     lstm_value,
     traj_lstm_rollout_cuda,
 )
+from drone_tpu_torch.ops.cuda_acting_traj import bf16_flag
 from drone_tpu_torch.ops.cuda_update import (
     N_UPSTATS,
     AdamConsts,
@@ -59,10 +66,13 @@ from drone_tpu_torch.ppo_rnn import RecurrentRunnerState, bptt_of
 
 
 def make_rnn_train_step(env, cfg: PPOConfig, permutations=None,
-                        on_phase=None):
+                        on_phase=None, compute_dtype: str = "float32"):
     """Build the recurrent megakernel train step: RecurrentRunnerState ->
     (RecurrentRunnerState, metrics), with the env's params and device.
-    permutations and on_phase as in ppo_cuda.make_train_step."""
+    permutations and on_phase as in ppo_cuda.make_train_step;
+    compute_dtype ("float32" or "bfloat16", ValueError for another) the
+    update kernel's products."""
+    bf16_flag(compute_dtype)
     bptt = bptt_of(cfg)
     _, _, rbu, n_rb, mb_rb, co = plan_minibatch_geometry(cfg, cfg.num_envs)
     rbl = rbu * 128
@@ -95,7 +105,7 @@ def make_rnn_train_step(env, cfg: PPOConfig, permutations=None,
             env.statics, cfg.horizon, bptt)
         last_obs = env_mod.observe(final)
 
-        # --- GAE on the planes ---------------------------------------------
+        # --- GAE on the planes (the last value in float32 under both dtypes)
         mark("gae")
         with torch.no_grad():
             last_value = lstm_value(last_obs, last_carry, theta, *arch)
@@ -111,7 +121,8 @@ def make_rnn_train_step(env, cfg: PPOConfig, permutations=None,
             # the entropy at the pre-update log_std (state-independent)
             ls_all[i] = ls
             grads, st = lstm_update_cuda(planes, advret, snap, perm_mb, theta,
-                                         arch, co, rbl, bptt, cfg.ent_coef)
+                                         arch, co, rbl, bptt, cfg.ent_coef,
+                                         compute_dtype)
             st_all[i] = st
             fused_adam_cuda(theta, grads, mu, nu, count, ac, sched, sizes)
 

@@ -15,10 +15,12 @@ rollout, an autograd update, `ppo_rnn.make_recurrent_train_step(rollout=
 run.rollout=scan, for run.policy=cnn_overlap and for every run no kernel
 tier takes. Every trainer keeps one optimizer state, so a checkpoint of any
 of them resumes under any other. run.compute_dtype=bfloat16 runs the bf16
-operand arms of the megakernel trainers' kernels (K2 and K3, K9 and K10)
-and trains `ActorCritic(dtype=bfloat16)` on the MLP's scan tier, as the
-reference does; the recurrent megakernel trainer has no bf16 arm yet (K7's)
-and refuses it. run.profile_dir traces updates start + 2 to start + 4.
+operand arms of the megakernel trainers' kernels (K2 and K3, K9 and K10,
+and K7 for both recurrent families, whose rollout K6 and last value stay
+float32) and trains `ActorCritic(dtype=bfloat16)` on the MLP's scan tier,
+as the reference does; the recurrent hybrid and scan tiers train float32,
+as the reference's do. run.profile_dir traces updates start + 2 to
+start + 4.
 `evaluate` restores a policy and rolls it out through the acting kernel
 (K5 for a float32 MLP, K8 for both recurrent families, K11 for a float32
 CNN) when the kernel's own envelope check takes the policy, and through
@@ -121,27 +123,21 @@ def restore_dir(cfg: Config) -> Path:
 def build(cfg: Config, device="cuda"):
     """Config -> (env, model, runner, step_fn, cfg with train.total_updates
     synced from run.total_updates), the trainer picked by trainer_kind.
-    bfloat16 on the recurrent megakernel trainer is still to port (K7's
-    bf16 arm) and raises NotImplementedError."""
+    run.compute_dtype reaches the megakernel trainers; the recurrent hybrid
+    and scan tiers take none (float32), as the reference's."""
     # run.total_updates is the run's length; the lr anneal spans it
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, total_updates=cfg.run.total_updates))
     _check_options(cfg)
     env, model = build_env_and_model(cfg, device)
     kind = trainer_kind(cfg, model)
-    if (kind == "megakernel" and cfg.run.policy in _RECURRENT
-            and cfg.run.compute_dtype != "float32"):
-        raise NotImplementedError(
-            f"bf16 training of run.policy={cfg.run.policy!r} needs K7's bf16 "
-            f"arm, not ported yet (ROADMAP.md, kernel queue 2a); "
-            f"run.rollout=scan trains it as the reference's scan tier does, "
-            f"in float32")
     dtype = cfg.run.compute_dtype
     if cfg.run.policy in _RECURRENT:
         runner = init_recurrent_runner(model, env, cfg.train,
                                        seed=cfg.run.seed)
         if kind == "megakernel":
-            step = ppo_rnn_cuda.make_rnn_train_step(env, cfg.train)
+            step = ppo_rnn_cuda.make_rnn_train_step(env, cfg.train,
+                                                    compute_dtype=dtype)
         else:
             step = ppo_rnn.make_recurrent_train_step(
                 runner.params, env, cfg.train,

@@ -15,15 +15,17 @@ device"), then K1 on hover.toml's env (65,536 x 1,001 and 131,072 x
 K5 (65,536 x 1,001; after the short MLP kernels, which its seconds of
 load would slow), K8 and K6 (dense encoder and CNN arm) and K11
 and K9 at their paths' shapes, and K7 (both arms) and K10 on one
-full-width minibatch, by CUDA events, then one warm MLP update of
-hover.toml split into its phases (chip_smoke.split_update, which also
-prints its profiler trace), and prints one JSON line with the ptxas
-register count of every kernel. K7
+full-width minibatch, by CUDA events (and, where the checkout has it, K7's
+bf16 arm on the same minibatches: "K7 bf16", "K7 cnn bf16"), then one warm
+MLP update of hover.toml split into its phases (chip_smoke.split_update,
+which also prints its profiler trace), and prints one JSON line with the
+ptxas register count of every kernel. K7
 dense is read first and again last, on the same inputs ("K7" and "K7
 end"), so a drift of the card within one run shows beside the others. To
 compare two commits, copy the script into a second checkout (git archive)
 and run both in one call, in turns (parent, change, change, parent).
 """
+import inspect
 import json
 import sys
 
@@ -115,6 +117,11 @@ planes, advret, snap, perm_mb, co, rbl, bptt = cs.lstm_minibatch(
 k7_args = (planes, advret, snap, perm_mb, lm.flat, (lm.hidden, lm.encoder),
            co, rbl, bptt, 0.001)
 t["K7"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(*k7_args), 5)
+# K7's bf16 arm, where this checkout has one
+bf16 = "compute_dtype" in inspect.signature(K7.lstm_update_kernel).parameters
+if bf16:
+    t["K7 bf16"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(
+        *k7_args, compute_dtype="bfloat16"), 5)
 model = cs.lstm_policy(seed=2, log_std=0.0)
 arch = (model.hidden, model.encoder)
 state, s9 = env.init_batch(1, n), env.init_batch(9, n)
@@ -146,6 +153,9 @@ planes, advret, snap, perm_mb, co, rbl, bptt = cs.lstm_minibatch(
 args = (planes, advret, snap, perm_mb, clm.flat, (clm.hidden, clm.encoder),
         co, rbl, bptt, 0.001)
 t["K7 cnn"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(*args), 3)
+if bf16:
+    t["K7 cnn bf16"] = cs.cuda_ms(lambda: K7.lstm_update_kernel(
+        *args, compute_dtype="bfloat16"), 3)
 del planes, advret, snap, args
 adam = [clm.flat.clone(), 0.05 * torch.ones_like(clm.flat),
         torch.zeros_like(clm.flat), torch.zeros_like(clm.flat),

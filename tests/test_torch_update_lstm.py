@@ -384,18 +384,6 @@ def test_cli_train_then_eval_lstm_on_cpu(tmp_path, capsys):
     assert '"episodes"' in capsys.readouterr().out
 
 
-# run.rollout=scan, train.num_envs=384 (the hybrid tier) and
-# run.lstm_hidden=256 train: test_torch_scan.py test_build_picks_the_trainer
-@pytest.mark.parametrize("override,match", [
-    ("run.compute_dtype=bfloat16", "bf16 training"),
-])
-def test_unported_lstm_training_options_name_their_roadmap_item(
-        tmp_path, override, match):
-    with pytest.raises(NotImplementedError, match=match) as e:
-        train.build(_cfg(tmp_path, "x", 1, [override]), device="cpu")
-    assert "K7's bf16 arm" in str(e.value)
-
-
 def test_lstm_train_refuses_a_horizon_that_does_not_split(tmp_path):
     with pytest.raises(ValueError, match="bptt"):
         train.build(_cfg(tmp_path, "y", 1, ["train.bptt_horizon=3"]),
