@@ -12,7 +12,8 @@ fewer HMMA, a third of them where the loops are the same, and bf16
 roundings, F2FP.BF16, which the fp32 arms lack), holds each against
 its plain PyTorch version on the card's inputs, drives the port's paths
 through the entry points a user calls (the megakernel trainers, the scan
-trainers and the hybrid recurrent tier), checks what comes out, and times
+trainers and the hybrid recurrent tier, the env adapters, and the export
+to the C runtime), checks what comes out, and times
 each kernel beside its plain version and its bound. Exits nonzero, printing
 no result, when there is no CUDA device or a phase fails; a learning gate
 that fails (phases 10, 17, 24, 31, 38, 46, 51) stops no later phase, and the
@@ -338,6 +339,30 @@ Phases:
      same call, its bf16 plain version and its bound (the products at the
      bf16 rate); one bf16 LSTM and one bf16 cnn_lstm update split and
      traced as in 11.
+ 53. The env adapters (the plain env on the card; no kernel): each of
+     VecDrone (backend jit, and the partial-batch protocol at 2
+     sub-batches), DroneVectorGymnasium, DroneSwarmParallel and
+     DroneGymnasium (one lane) on the card and on the CPU from the same
+     seed and numpy action stream, bitwise: hover/euler at 4,096 lanes,
+     waypoint/rk4 and racing/rk4 at 256, 64 steps over episodes of at most
+     24; both backends at 8 lanes x 32 steps, bitwise to each other. It prints
+     whether gymnasium's classes or the fallbacks ran. send() is queued
+     under torch's host-sync check (sync and partial batch), and VecDrone's
+     steps/s at 65,536 lanes is printed beside the card's name and power
+     limit.
+ 54. Export to the C runtime: native/libdronenet.so and native/drone_demo
+     built with cc and native/Makefile's CFLAGS into build/native/; one
+     checkpoint of each family (MLP [64, 64], LSTM 128 / (64,), the default
+     patch CNN and CNN-LSTM) exported to DRNW and run by the C forward
+     (ctypes) against the module's forward on the card at the reference
+     tests' tolerances (rtol 1e-5 / atol 1e-6 feed-forward, 2e-5 / 2e-6
+     LSTM, 2e-5 / 2e-5 CNN-LSTM over 12 steps that carry the state).
+ 55. Racing end to end: `cli train configs/racing.toml
+     run.total_updates=2` (racing/rk4, 16,384 envs; K2 = 2, K3 = K4 = 64,
+     finite losses), `cli export`, and the C demo for one racing/rk4
+     episode (exit 0, a finite trajectory.csv that ends its episode, the
+     four gates read back from the .params file equal to
+     default_params("racing")'s).
 
 Launch counts: each wrapper counts its launches; the recurrent wrappers
 (K6, K7, K8) also count their CNN arm's alone (`cnn_launches`), and K2,
@@ -4459,6 +4484,417 @@ def time_bf16_lstm(cfg_lstm, cfg_cl, k7_args, k7c_args) -> dict:
     return out
 
 
+# -- the env adapters, the C-runtime export and racing through cli train ----
+# phase 53's cases: (task, integrator, lanes), each 64 steps of a seeded
+# action stream over episodes of at most 24 steps (crashes and truncations
+# both end them, and auto-resets run)
+ADAPTER_CASES = (("hover", "euler", 4096), ("waypoint", "rk4", 256),
+                 ("racing", "rk4", 256))
+ADAPTER_STEPS = 64
+ADAPTER_HORIZON = 24
+SERIAL_LANES = 8
+SERIAL_STEPS = 32   # a loop of one-lane steps: 8 env steps a step
+PARTIAL_SUBS = 2
+SPS_LANES = 65536
+
+
+def same_trace(a, b) -> bool:
+    """Two traces (lists of numpy arrays) equal bit for bit."""
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and np.array_equal(np.ascontiguousarray(x).view(np.uint8),
+                           np.ascontiguousarray(y).view(np.uint8))
+        for x, y in zip(a, b))
+
+
+def _step_record(o, r, te, tr, infos) -> list:
+    import numpy as np
+
+    return [np.array(o), np.array(r), np.array(te), np.array(tr),
+            *(np.array(infos[k]) for k in sorted(infos))]
+
+
+def vec_trace(v, acts) -> list:
+    """A VecDrone's reset and sync steps through `acts`."""
+    import numpy as np
+
+    out = [np.array(v.reset()[0])]
+    for a in acts:
+        out += _step_record(*v.step(a))
+    return out
+
+
+def partial_trace(v, acts) -> list:
+    """A partial-batch VecDrone through `acts`: every recv() of the async
+    protocol (each sub-batch's reset and steps, FIFO), its env_ids among
+    the infos. Each sub-batch's last send is never received."""
+    out = []
+    v.async_reset()
+    sent = [0] * (v.num_envs // v.batch_size)
+    for _ in range(len(sent) * (len(acts) + 1)):
+        o, r, te, tr, infos = v.recv()
+        out += _step_record(o, r, te, tr, infos)
+        ids = infos["env_ids"]
+        i = int(ids[0]) // v.batch_size
+        v.send(acts[min(sent[i], len(acts) - 1)][ids])
+        sent[i] += 1
+    return out
+
+
+def gym_trace(env, seed, acts) -> list:
+    """A DroneGymnasium from reset(seed) through `acts`, reset after every
+    episode's end."""
+    import numpy as np
+
+    out = [env.reset(seed=seed)[0]]
+    for a in acts:
+        obs, r, term, trunc, info = env.step(a)
+        ep = info.get("episode", {"r": 0.0, "l": 0})
+        out += [obs, np.float32([r, ep["r"]]), np.int32([term, trunc, ep["l"]])]
+        if term or trunc:
+            out.append(env.reset()[0])
+    return out
+
+
+def vector_gym_trace(env, seed, acts) -> list:
+    import numpy as np
+
+    out = [env.reset(seed=seed)[0]]
+    for a in acts:
+        out += _step_record(*env.step(a))
+    out.append(env.reset()[0])  # the unseeded reset's next episodes
+    return out
+
+
+def swarm_trace(env, seed, acts) -> list:
+    """A DroneSwarmParallel from reset(seed) until its roster is empty (or
+    `acts` ends): each step's live agents, their outputs and episodes."""
+    import numpy as np
+
+    obs, _ = env.reset(seed=seed)
+    out = [np.stack([obs[a] for a in env.possible_agents])]
+    index = {a: i for i, a in enumerate(env.possible_agents)}
+    for a in acts:
+        if not env.agents:
+            break
+        obs, rew, term, trunc, infos = env.step(
+            {name: a[index[name]] for name in env.agents})
+        names = list(obs)
+        ep = [infos[n].get("episode", {"r": 0.0, "l": 0}) for n in names]
+        out += [np.int32([index[n] for n in names]),
+                np.stack([obs[n] for n in names]),
+                np.float32([rew[n] for n in names]),
+                np.int32([[term[n], trunc[n], e["l"]]
+                          for n, e in zip(names, ep)]),
+                np.float32([e["r"] for e in ep]),
+                np.int32([index[n] for n in env.agents])]
+    return out
+
+
+def phase_adapters() -> dict:
+    """Phase 53: every env adapter on the card against the same adapter on
+    the CPU (the same seed and numpy action stream), bitwise; send() queued
+    under torch's host-sync check; VecDrone steps/s at 65,536 lanes.
+    Returns the seconds and the steps/s."""
+    import torch
+
+    from drone_tpu_torch import emulation, multiagent, spaces, vector
+    from drone_tpu_torch.prng import action_stream_np
+    from drone_tpu_torch.types import default_params
+
+    t0 = time.time()
+    bases = [f"{c.__name__} over {c.__mro__[1].__module__}."
+             f"{c.__mro__[1].__name__}"
+             for c in (emulation.DroneGymnasium,
+                       emulation.DroneVectorGymnasium,
+                       multiagent.DroneSwarmParallel)]
+    fallback = emulation.DroneGymnasium.__mro__[1] is object
+    print(f"adapters: {'; '.join(bases)}; spaces "
+          f"{type(spaces.action_space()).__module__}."
+          f"{type(spaces.action_space()).__name__} "
+          f"({'the fallback classes' if fallback else 'gymnasium'})",
+          flush=True)
+    checked = []
+    for task, integ, n in ADAPTER_CASES:
+        p = default_params(task, horizon=ADAPTER_HORIZON)
+        kw = dict(task=task, integrator=integ, params=p)
+        acts = action_stream_np(ADAPTER_STEPS, n, seed=3)
+        runs = {
+            "VecDrone jit": lambda d: vec_trace(
+                vector.make(num_envs=n, seed=1, device=d, **kw), acts),
+            "VecDrone partial batch": lambda d: partial_trace(
+                vector.make(num_envs=n, seed=1, device=d,
+                            batch_size=n // PARTIAL_SUBS, **kw), acts),
+            "DroneVectorGymnasium": lambda d: vector_gym_trace(
+                emulation.make_vector(n, seed=0, device=d, **kw), 2, acts),
+            "DroneSwarmParallel": lambda d: swarm_trace(
+                multiagent.make_swarm(n, seed=0, device=d, **kw), 2, acts),
+            "DroneGymnasium": lambda d: gym_trace(
+                emulation.make_gymnasium(device=d, **kw), 4, acts[:, 0]),
+        }
+        serial = acts[:SERIAL_STEPS, :SERIAL_LANES]
+        for backend in vector.BACKENDS:
+            runs[f"VecDrone {backend}, {SERIAL_LANES} lanes"] = (
+                lambda d, b=backend: vec_trace(vector.make(
+                    num_envs=SERIAL_LANES, seed=1, backend=b, device=d,
+                    **kw), serial))
+        traces = {}
+        for name, run in runs.items():
+            t1 = time.time()
+            card = run("cuda")
+            t2 = time.time()
+            cpu = run("cpu")
+            if not same_trace(card, cpu):
+                raise AssertionError(f"{name} on {task}/{integ}: the card "
+                                     f"and the CPU differ")
+            traces[name] = card
+            checked.append(f"{name} {task}/{integ} ({t2 - t1:.1f} s card, "
+                           f"{time.time() - t2:.1f} s CPU)")
+        if not same_trace(*(traces[f"VecDrone {b}, {SERIAL_LANES} lanes"]
+                            for b in vector.BACKENDS)):
+            raise AssertionError(f"the jit and serial backends differ on "
+                                 f"{task}/{integ}")
+    print(f"adapters bitwise on the card and the CPU: {'; '.join(checked)}",
+          flush=True)
+
+    # send() queues the step without a host sync, sync and partial batch
+    acts = action_stream_np(2, 4096, seed=5)
+    for bs in (None, 1024):
+        v = vector.make("hover", num_envs=4096, batch_size=bs, device="cuda")
+        if bs is None:
+            v.reset()
+            v.step(acts[0])
+        else:
+            v.async_reset()
+            v.send(acts[0][v.recv()[4]["env_ids"]])
+            ids = v.recv()[4]["env_ids"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            v.send(acts[1] if bs is None else acts[1][ids])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        v.recv()
+    print("send() queued without a host sync (sync and partial batch)",
+          flush=True)
+
+    v = vector.make("hover", num_envs=SPS_LANES, seed=0, device="cuda")
+    v.reset()
+    a = action_stream_np(1, SPS_LANES, seed=7)[0]
+    for _ in range(3):
+        v.step(a)
+    reps = 30
+    t1 = time.time()
+    for _ in range(reps):
+        v.step(a)
+    sps = SPS_LANES * reps / (time.time() - t1)
+    seconds = time.time() - t0
+    print(f"VecDrone hover/euler {SPS_LANES} lanes (backend jit, sync "
+          f"step with its numpy buffers): {sps:.6g} steps/s on "
+          f"{device_line()}; phase 53 {seconds:.1f} s", flush=True)
+    return {"steps_per_s": sps, "seconds": seconds}
+
+
+def build_native() -> Path:
+    """native/libdronenet.so and native/drone_demo built from native/ and
+    oracle/ with cc and the Makefile's CFLAGS, into build/native/."""
+    mk = (ROOT / "native" / "Makefile").read_text()
+    flags = re.search(r"^CFLAGS\s*=\s*(.+)$", mk, re.M).group(1).split()
+    out = ROOT / "build" / "native"
+    out.mkdir(parents=True, exist_ok=True)
+    nat, orc = ROOT / "native", ROOT / "oracle"
+    jobs = [subprocess.Popen(
+                ["cc", *flags, "-o", str(out / "drone_demo"),
+                 str(nat / "demo.c"), str(nat / "dronenet.c"),
+                 str(orc / "drone_oracle.c"), "-lm"]),
+            subprocess.Popen(
+                ["cc", *flags, "-shared", "-fPIC", "-o",
+                 str(out / "libdronenet.so"), str(nat / "dronenet.c"),
+                 "-lm"])]
+    if any(j.wait(timeout=120) != 0 for j in jobs):
+        raise AssertionError("the C runtime did not build")
+    return out
+
+
+class CNet:
+    """A DRNW file loaded by libdronenet (ctypes)."""
+
+    def __init__(self, lib_path, drnw):
+        import ctypes as ct
+
+        lib = ct.CDLL(str(lib_path))
+        lib.dronenet_load.argtypes = [ct.c_void_p, ct.c_char_p]
+        lib.dronenet_load.restype = ct.c_int
+        lib.dronenet_scratch_size.argtypes = [ct.c_void_p]
+        lib.dronenet_scratch_size.restype = ct.c_int
+        fp = ct.POINTER(ct.c_float)
+        lib.dronenet_forward.argtypes = [ct.c_void_p, fp, fp, fp, fp]
+        lib.dronenet_forward.restype = None
+        lib.dronenet_free.argtypes = [ct.c_void_p]
+        lib.dronenet_free.restype = None
+        self.lib = lib
+        self.net = ct.create_string_buffer(16 * 1024)  # > sizeof(DroneNet)
+        if lib.dronenet_load(self.net, str(drnw).encode()) != 0:
+            raise AssertionError(f"libdronenet could not load {drnw}")
+
+    def forward(self, obs, state=None):
+        import ctypes as ct
+
+        import numpy as np
+
+        fp = ct.POINTER(ct.c_float)
+        scratch = np.zeros(self.lib.dronenet_scratch_size(self.net),
+                           np.float32)
+        out = np.zeros(4, np.float32)
+        obs = np.ascontiguousarray(obs, np.float32)
+        self.lib.dronenet_forward(
+            self.net, obs.ctypes.data_as(fp), out.ctypes.data_as(fp),
+            scratch.ctypes.data_as(fp),
+            state.ctypes.data_as(fp) if state is not None else None)
+        return out
+
+    def close(self):
+        self.lib.dronenet_free(self.net)
+
+
+def unit_quat_obs(n, seed):
+    import numpy as np
+
+    obs = np.random.RandomState(seed).randn(n, 13).astype(np.float32)
+    obs[:, 3:7] /= np.linalg.norm(obs[:, 3:7], axis=1, keepdims=True)
+    return obs
+
+
+def phase_export_c(tmp, native) -> float:
+    """Phase 54: a checkpoint of each family (MLP [64, 64], LSTM 128 /
+    (64,), the default patch CNN, the default CNN-LSTM; seeded, actions of
+    order 1) exported to DRNW and run by the C forward (ctypes), held to
+    the module's forward on the card at the reference tests' tolerances
+    (tests/test_framework.py): the feed-forward families on 8 observations,
+    the recurrent ones over 12 steps that carry the state, reset at step 6.
+    Returns the seconds."""
+    import numpy as np
+    import torch
+
+    from drone_tpu_torch.models import export_flat_weights
+    from drone_tpu_torch.utils.checkpoint import Checkpointer
+
+    t0 = time.time()
+    families = {
+        "mlp": (seeded_policy(seed=4, head_gain=1.0).cuda(), 1e-5, 1e-6),
+        "lstm": (lstm_policy(seed=4), 2e-5, 2e-6),
+        "cnn": (cnn_policy(seed=4), 1e-5, 1e-6),
+        "cnn_lstm": (cnn_lstm_policy(seed=4), 2e-5, 2e-5),
+    }
+    for name, (model, rtol, atol) in families.items():
+        ckpt = Checkpointer(Path(tmp) / f"export_{name}")
+        ckpt.save(1, model)
+        raw, _ = ckpt.restore_raw()
+        drnw = Path(tmp) / f"{name}.drnw"
+        export_flat_weights(raw["params"], str(drnw), model=model)
+        net = CNet(native / "libdronenet.so", drnw)
+        recurrent = name in ("lstm", "cnn_lstm")
+        obs = unit_quat_obs(12 if recurrent else 8, seed=len(name))
+        worst = 0.0
+        with torch.no_grad():
+            if recurrent:
+                state = np.zeros(2 * model.hidden, np.float32)
+                carry = model.initial_carry(1, "cuda")
+                card, c_out = [], []
+                for t in range(len(obs)):
+                    if t == 6:  # an episode boundary on both sides
+                        state[:] = 0.0
+                        carry = model.initial_carry(1, "cuda")
+                    mean, _, _, carry = model(
+                        torch.from_numpy(obs[t:t + 1]).cuda(), carry)
+                    card.append(mean[0].cpu().numpy())
+                    c_out.append(net.forward(obs[t], state))
+            else:
+                mean, _, _ = model(torch.from_numpy(obs).cuda())
+                card = list(mean.cpu().numpy())
+                c_out = [net.forward(o) for o in obs]
+        net.close()
+        card, c_out = np.stack(card), np.stack(c_out)
+        worst = float(np.max(np.abs(c_out - card)
+                             / (atol + rtol * np.abs(card))))
+        print(f"export {name}: DRNW {drnw.stat().st_size} bytes, C forward "
+              f"against the module on the card: max |diff| "
+              f"{float(np.abs(c_out - card).max()):.3g}, {worst:.3g} of the "
+              f"tolerance (rtol {rtol}, atol {atol}); |mean| up to "
+              f"{float(np.abs(card).max()):.3g}", flush=True)
+        if not np.isfinite(card).all() or worst > 1.0:
+            raise AssertionError(f"the C forward of the {name} export "
+                                 f"disagrees with the module on the card")
+    seconds = time.time() - t0
+    print(f"phase 54 {seconds:.1f} s", flush=True)
+    return seconds
+
+
+def path_racing(tmp, native) -> dict:
+    """Phase 55: `cli train configs/racing.toml run.total_updates=2` on the
+    card (K2, K3 and K4 each launched, the losses finite), then `cli
+    export` and the C demo for one racing/rk4 episode. Returns the launch
+    counts and the seconds."""
+    import ctypes as ct
+
+    import numpy as np
+    import torch
+
+    from drone_tpu_torch import cli
+    from drone_tpu_torch.models.export import CParams
+    from drone_tpu_torch.types import default_params
+
+    t0 = time.time()
+    cfg_path = str(ROOT / "configs" / "racing.toml")
+    where = [f"run.checkpoint_dir={tmp}", "run.log_interval=1"]
+    zero_counts()
+    rc = cli.main(["train", cfg_path, "run.total_updates=2", *where])
+    torch.cuda.synchronize()
+    c = counts()
+    recs = [json.loads(line) for line in
+            (Path(tmp) / "racing" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs]
+    print(f"racing path: cli train configs/racing.toml (2 updates) rc={rc}; "
+          f"launches {c}; losses {losses}", flush=True)
+    # 2 updates of 4 epochs x 8 minibatches
+    want = {"K2": 2, "K3": 64, "K4": 64}
+    if rc != 0 or any(c[k] != v for k, v in want.items()):
+        raise AssertionError(f"cli train of racing.toml launched {c}, "
+                             f"expected {want}")
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"racing losses {losses}")
+
+    out = Path(tmp) / "racing.drnw"
+    rc = cli.main(["export", cfg_path, *where, "--out", str(out)])
+    if rc != 0:
+        raise AssertionError("cli export of the racing checkpoint failed")
+    demo = subprocess.run(
+        [str(native / "drone_demo"), str(out), f"{out}.params", "1", "2",
+         "0", "1"], capture_output=True, text=True, cwd=tmp, timeout=120)
+    print(f"C demo (1 racing/rk4 episode): rc={demo.returncode} "
+          f"{demo.stdout.strip().splitlines()[-1:]}", flush=True)
+    if demo.returncode != 0:
+        raise AssertionError(f"the C demo failed: {demo.stderr[-2000:]}")
+    rows = np.loadtxt(Path(tmp) / "trajectory.csv", delimiter=",",
+                      skiprows=1, ndmin=2)
+    if not (len(rows) and np.isfinite(rows).all() and rows[-1, 8] == 1):
+        raise AssertionError("trajectory.csv is empty, not finite or does "
+                             "not end its episode")
+    data = Path(f"{out}.params").read_bytes()
+    cp = CParams.from_buffer_copy(data[12:12 + ct.sizeof(CParams)])
+    want = default_params("racing")
+    gates = np.array(cp.gates, np.float32).reshape(-1, 3)[:cp.n_gates]
+    if cp.n_gates != int(want.n_gates) or not np.array_equal(
+            gates, want.gates.numpy()[:int(want.n_gates)]):
+        raise AssertionError(f"the .params gates {gates} are not racing's")
+    seconds = time.time() - t0
+    print(f"racing path: {len(rows)} C demo steps, the {cp.n_gates} gates "
+          f"read back; phase 55 {seconds:.1f} s", flush=True)
+    return {"counts": c, "seconds": seconds}
+
+
 class Laps:
     """Host-clock seconds of each phase of the script: lap(name) closes the
     phase that ends there."""
@@ -4834,6 +5270,17 @@ def main() -> int:
         lap("bf16 recurrent learning gates, resume")
     bf16_rnn_times = time_bf16_lstm(cfg_lstm, cfg_cl, k7b_args, k7bc_args)
     lap("K7 bf16 times, updates")
+    # -- the env adapters, the C-runtime export, racing through cli train --
+    adapters = phase_adapters()
+    lap("adapters, card against CPU")
+    native = build_native()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_export_c(tmp, native)
+        lap("export against the C runtime")
+        path_racing(tmp, native)
+        lap("racing cli train, export, C demo")
+    print(f"VecDrone steps/s at {SPS_LANES} lanes: "
+          f"{adapters['steps_per_s']:.6g} ({dev})", flush=True)
     print(f"phase seconds: {lap.seconds}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 

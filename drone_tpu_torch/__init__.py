@@ -11,6 +11,9 @@ Module map (same names as `drone_tpu`):
   types, prng, mixing, dynamics, tasks, randomize, env   the env, bitwise
                                                           to the C oracle
   rollout                 batched Python-loop rollouts
+  spaces, vector, emulation, multiagent
+                          the env adapters: Box spaces, the vecenv, the
+                          Gymnasium envs, the PettingZoo swarm
   ops.cuda_rollout        env megakernel (K1) + its plain version
   ops.cuda_acting         MLP acting megakernel (K5) + its plain version
   ops.cuda_acting_traj    trajectory rollout kernel (K2) + its plain version
@@ -25,13 +28,14 @@ Module map (same names as `drone_tpu`):
                           PatchCNNActorCritic, PatchCNNEncoder (flat
                           parameter buffers) and the flax weight and
                           optimizer-state converters
+  models.export           DRNW export for the C runtime (native/dronenet.c)
   pixels                  the splat render and the pixel-grid table
   ppo, ppo_cuda           GAE, RunnerState; the MLP megakernel PPO trainer
   ppo_rnn, ppo_rnn_cuda   RecurrentRunnerState; the recurrent megakernel
                           trainer (lstm and cnn_lstm)
   ppo_cnn_cuda            the patch-CNN megakernel trainer
   utils.config, utils.checkpoint, utils.metrics, train (train, evaluate),
-  cli (train, eval)
+  cli (train, eval, bench, export)
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
-"""CLI: `python -m drone_tpu_torch.cli {train,eval,bench} [config.toml]
-[section.key=value ...] [--device cuda|cpu]`.
+"""CLI: `python -m drone_tpu_torch.cli {train,eval,bench,export}
+[config.toml] [section.key=value ...] [--device cuda|cpu] [--out PATH]`.
 
 Counterpart of `drone_tpu/cli.py`, with the same subcommands and argument
-handling. `train`, `eval` and `bench` are ported; the others exit with
-status 2 and name the ROADMAP.md item that ports them.
+handling. `train`, `eval`, `bench` and `export` are ported; the others exit
+with status 2 and name the ROADMAP.md item that ports them. `export` reads
+the latest checkpoint and launches nothing, so it takes no --device.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from drone_tpu_torch.utils.config import Config
 
 _UNPORTED = {
     "sweep": "outer surfaces",
-    "export": "outer surfaces",
     "autotune": "outer surfaces",
     "watch": "outer surfaces",
 }
@@ -56,6 +56,8 @@ def main(argv=None) -> int:
         if name in ("train", "eval", "bench"):
             p.add_argument("--device", default="cuda",
                            help="cuda (default) or cpu for the plain versions")
+        if name == "export":
+            p.add_argument("--out", default="policy.drnw")
     args = parser.parse_args(argv)
 
     if args.cmd in _UNPORTED:
@@ -69,6 +71,9 @@ def main(argv=None) -> int:
 
         bench.main(cfg, device=args.device)
         return 0
+    if args.cmd == "export":
+        _export(cfg, args.out)
+        return 0
     if args.cmd == "train":
         from drone_tpu_torch.train import train
 
@@ -79,6 +84,24 @@ def main(argv=None) -> int:
     stats = evaluate(cfg, device=args.device)
     print(json.dumps(stats, indent=2))
     return 0
+
+
+def _export(cfg: Config, out: str) -> None:
+    """The latest checkpoint's actor as DRNW at `out`, and the env params
+    for the C demo at `out`.params."""
+    from drone_tpu_torch.models.export import export_flat_weights, export_params
+    from drone_tpu_torch.train import build_env_and_model, restore_dir
+    from drone_tpu_torch.utils.checkpoint import Checkpointer
+
+    raw, _ = Checkpointer(restore_dir(cfg)).restore_raw()
+    # the model carries the authoritative conv geometry (strides are not
+    # recorded in params — see export_flat_weights)
+    _, model = build_env_and_model(cfg, device="cpu")
+    export_flat_weights(raw["params"], out, hidden=tuple(cfg.run.hidden),
+                        model=model)
+    _, env_params = cfg.env.build()
+    export_params(env_params, out + ".params")
+    print(f"wrote {out} and {out}.params")
 
 
 if __name__ == "__main__":

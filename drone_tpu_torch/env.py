@@ -135,13 +135,9 @@ def _step_continued(state: EnvState, action, p: EnvParams, statics: EnvStatics):
     return continued, r, crashed, truncated, done
 
 
-def step(state: EnvState, action, p: EnvParams, statics: EnvStatics):
-    """One env step for every lane. Returns (next_state, StepOut).
-
-    Branch-free: the auto-reset state is always computed (counter-based RNG
-    makes this side-effect free) and selected per lane."""
-    continued, r, crashed, truncated, done = _step_continued(
-        state, action, p, statics)
+def _finish_step(continued, r, crashed, truncated, done, p, statics):
+    """Auto-reset select + StepOut packing (shared by step and
+    step_terminal)."""
     fresh = reset_state(continued.key0, continued.key1,
                         prng.to_u32(continued.reset_count) + 1, p, statics)
     next_state = fresh.select(done, continued)
@@ -156,8 +152,28 @@ def step(state: EnvState, action, p: EnvParams, statics: EnvStatics):
     return next_state, out
 
 
+def step(state: EnvState, action, p: EnvParams, statics: EnvStatics):
+    """One env step for every lane. Returns (next_state, StepOut).
+
+    Branch-free: the auto-reset state is always computed (counter-based RNG
+    makes this side-effect free) and selected per lane."""
+    return _finish_step(*_step_continued(state, action, p, statics), p,
+                        statics)
+
+
+def step_terminal(state: EnvState, action, p: EnvParams, statics: EnvStatics):
+    """Like `step`, and also returns the observation of the terminal
+    (pre-auto-reset) state, what Gymnasium calls the final observation:
+    (next_state, StepOut, terminal_obs). The adapters of `emulation` and
+    `multiagent` use it."""
+    continued, *rest = _step_continued(state, action, p, statics)
+    next_state, out = _finish_step(continued, *rest, p, statics)
+    return next_state, out, observe(continued)
+
+
 class DroneEnv:
-    """Statics + params on one device, with batched helpers."""
+    """Statics + params on one device, with single-lane helpers (a batch of
+    one lane) and batched ones."""
 
     def __init__(self, task: str = "hover", integrator: str = "euler",
                  params: EnvParams | None = None, device="cuda"):
@@ -166,6 +182,22 @@ class DroneEnv:
         self.params = (params if params is not None
                        else default_params(task)).to(self.device)
 
+    # single-lane API: a batch of one lane ------------------------------------
+    def init(self, seed, lane=0, params: EnvParams | None = None) -> EnvState:
+        p = self.params if params is None else params
+        lanes = torch.tensor([lane], dtype=torch.int64, device=self.device)
+        return init_state(seed, lanes, p, self.statics)
+
+    def step(self, state: EnvState, action, params: EnvParams | None = None):
+        p = self.params if params is None else params
+        action = torch.as_tensor(action, dtype=torch.float32,
+                                 device=self.device).reshape(state.n, ACT_DIM)
+        return step(state, action, p, self.statics)
+
+    def observe(self, state: EnvState) -> torch.Tensor:
+        return observe(state)
+
+    # batched API --------------------------------------------------------------
     def init_batch(self, seed, n: int, params: EnvParams | None = None,
                    episode: int = 0) -> EnvState:
         p = self.params if params is None else params

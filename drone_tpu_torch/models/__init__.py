@@ -1,5 +1,6 @@
 """Policies: counterpart of `drone_tpu.models` (the MLP, LSTM, patch-CNN,
-overlapping-conv CNN and pixel-recurrent CNN-LSTM families)."""
+overlapping-conv CNN and pixel-recurrent CNN-LSTM families, and the DRNW
+export for the C runtime)."""
 
 from drone_tpu_torch.models.mlp import (  # noqa: F401
     ActorCritic,
@@ -29,4 +30,8 @@ from drone_tpu_torch.models.cnn import (  # noqa: F401
     cnn_kernel_order,
     conv_params_from_flax,
     conv_params_to_flax,
+)
+from drone_tpu_torch.models.export import (  # noqa: F401
+    export_flat_weights,
+    load_flat_weights,
 )

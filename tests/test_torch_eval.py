@@ -104,7 +104,7 @@ def test_cli_eval_on_cpu(tmp_path, capsys):
                           "ep_length_mean"}
 
 
-@pytest.mark.parametrize("cmd", ["sweep", "export", "autotune", "watch"])
+@pytest.mark.parametrize("cmd", ["sweep", "autotune", "watch"])
 def test_cli_unported_subcommands_exit_nonzero(cmd, capsys):
     assert cli.main([cmd, str(HOVER)]) != 0
     assert "ROADMAP.md" in capsys.readouterr().err
