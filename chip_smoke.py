@@ -12,8 +12,10 @@ fewer HMMA, a third of them where the loops are the same, and bf16
 roundings, F2FP.BF16, which the fp32 arms lack), holds each against
 its plain PyTorch version on the card's inputs, drives the port's paths
 through the entry points a user calls (the megakernel trainers, the scan
-trainers and the hybrid recurrent tier, the env adapters, and the export
-to the C runtime), checks what comes out, and times
+trainers and the hybrid recurrent tier, the env adapters, the export
+to the C runtime, the sweep, the autotuner, the watch rollout and the
+data-parallel trainers over torch.distributed), checks what comes out, and
+times
 each kernel beside its plain version and its bound. Exits nonzero, printing
 no result, when there is no CUDA device or a phase fails; a learning gate
 that fails (phases 10, 17, 24, 31, 38, 46, 51) stops no later phase, and the
@@ -363,11 +365,51 @@ Phases:
      episode (exit 0, a finite trajectory.csv that ends its episode, the
      four gates read back from the .params file equal to
      default_params("racing")'s).
+ 56. The sweep: `cli sweep configs/sweep_hover.toml --device cuda` in full
+     (8 trials of 60 updates, the best 4 for 200 more; 4,096 envs, MLP
+     [32, 32], the megakernel trainer): every trial's score finite (a
+     caught failure scores -inf), each trial's launches zeroed before it
+     and read after it (K2 once an update, K3 and K4 once an SGD step);
+     `--resume` on the finished journal trains nothing; a 2-trial sweep of
+     one 10-update rung under suggester="random" gives bitwise the same
+     scores with workers=2 (spawned processes on the card) as with
+     workers=1.
+ 57. The autotuner: `cli autotune configs/hover.toml --device cuda --iters
+     1`: every candidate of candidate_shapes measured (15 shapes, 16,384
+     to 262,144 envs x 2, 4 or 8 minibatches), none failed, each on the
+     megakernel trainer (K2 twice a candidate); the ranked list printed.
+ 58. The watch rollout (`viewer.watch_rollout`, `cli watch` without its
+     render) on the card, 200 steps: mlp on racing/rk4 (its four gates),
+     lstm and cnn_lstm on hover with episodes of 60 steps. Finite CSVs with
+     the reference's header; the recurrent rows equal to the evaluation
+     path's (the carry zeroed at each done); the first 40 rows against a
+     CPU watch rollout of the same checkpoint (done equal, positions within
+     1e-3). A PNG when matplotlib imports.
+ 59. A NCCL process group of one rank on the card: two sharded updates
+     (parallel.make_sharded_train_step: advantage moments, each SGD step's
+     gradient and the metrics through all_reduce) bitwise equal to two
+     undistributed updates in parameters, optimizer state, env state and
+     metrics, for the MLP megakernel trainer at hover.toml, the CNN (8,192
+     envs x 32) and LSTM (16,384 x 32, bptt 16) megakernel trainers, the
+     hybrid tier (16,256 lanes) and the scan trainer (8,192 x 32); one
+     more sharded MLP update queued under set_sync_debug_mode("error").
+ 60. Two ranks sharing the card over Gloo (NCCL refuses two ranks on one
+     device): `python -m drone_tpu_torch.parallel._smoke_worker` twice,
+     through train.build on hover.toml's widths and horizon at 16,384 lanes
+     a rank. Two updates of its geometry: the same loss and approx-KL bit
+     for bit, each rank on the megakernel trainer with K2 2, K3 and K4 64
+     launches. One update of one epoch of one minibatch with the clip off:
+     each rank's parameters, optimizer state and metrics allclose (rtol
+     2e-5, atol 1e-7; metrics 1e-6) to one undistributed update of the
+     32,768-lane global batch on the card, the lanes bitwise.
+ 61. ops.sharded's K1 and K5 in the group of phase 59 (65,536 lanes x 256
+     steps): bitwise the unsharded kernels in final state and statistics.
 
 Launch counts: each wrapper counts its launches; the recurrent wrappers
 (K6, K7, K8) also count their CNN arm's alone (`cnn_launches`), and K2,
 K3, K7, K9, K10 and K11 their bf16 arm's (`bf16_launches`).
 
+The kernels JSON's launches add phases 56-61's to each kernel's count.
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
 
@@ -4895,6 +4937,545 @@ def path_racing(tmp, native) -> dict:
     return {"counts": c, "seconds": seconds}
 
 
+SWEEP_SPAWN_UPDATES = 10  # the workers=2 against workers=1 sweep's one rung
+
+
+def path_sweep(tmp) -> dict:
+    """Phase 56: `cli sweep configs/sweep_hover.toml --device cuda` in full
+    (8 trials of 60 updates, the best 4 for 200 more; 4,096 envs, MLP [32,
+    32]): every trial's score finite (a caught failure scores -inf), K2, K3
+    and K4 launched by every trial (K2 once an update, K3 and K4 once an SGD
+    step); `--resume` on the finished journal trains nothing; and a 2-trial
+    sweep of one rung under suggester="random" gives bitwise the same scores
+    with workers=2 (spawned processes on the card) as with workers=1.
+    Returns the launch counts of the sweep and the seconds."""
+    import contextlib
+    import io
+
+    import torch
+
+    from drone_tpu_torch import cli, sweep
+    from drone_tpu_torch.utils.config import Config
+
+    t0 = time.time()
+    cfg_path = ROOT / "configs" / "sweep_hover.toml"
+    cfg = Config.from_toml(cfg_path)
+    sgd = cfg.train.epochs * cfg.train.num_minibatches
+    out = Path(tmp) / "sweep" / "results.json"
+    where = [f"run.checkpoint_dir={Path(tmp) / 'sweep'}"]
+    trials = []
+    real = sweep._default_train_fn
+
+    def counted(c, device="cuda"):
+        # one trial's launches: zeroed before it, read after it
+        zero_counts()
+        try:
+            return real(c, device=device)
+        finally:
+            torch.cuda.synchronize()
+            trials.append((c.run.run_name, c.run.total_updates, counts()))
+
+    sweep._default_train_fn = counted
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            rc = cli.main(["sweep", str(cfg_path), *where, "--device", "cuda",
+                           "--out", str(out)])
+        t_sweep = time.time() - t0
+        print("\n".join(line for line in log.getvalue().splitlines()
+                        if not line.startswith("upd ")), flush=True)
+        n_trained = len(trials)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_resume = cli.main(["sweep", str(cfg_path), *where, "--device",
+                                  "cuda", "--out", str(out), "--resume"])
+    finally:
+        sweep._default_train_fn = real
+    results = json.loads(out.read_text())
+    journal = [json.loads(line) for line in
+               Path(f"{out}.jsonl").read_text().splitlines()]
+    total = collections.Counter()
+    for name, updates, c in trials[:n_trained]:
+        total.update(c)
+        want = {"K2": updates, "K3": updates * sgd, "K4": updates * sgd}
+        if any(c[k] != v for k, v in want.items()):
+            raise AssertionError(f"sweep trial {name} launched {c}, "
+                                 f"expected {want}")
+    scores = [r["score"] for r in journal]
+    print(f"sweep path: cli sweep rc={rc} in {t_sweep:.1f} s, {n_trained} "
+          f"trainings ({sum(u for _, u, _ in trials)} updates); journal "
+          f"scores {scores}; launches {nonzero(total)}; --resume "
+          f"rc={rc_resume} "
+          f"trained {len(trials) - n_trained}", flush=True)
+    rungs = cfg.sweep["rungs"]
+    n_want = cfg.sweep["trials"] + int(cfg.sweep["trials"] * cfg.sweep["keep"])
+    if rc != 0 or n_trained != n_want or len(journal) != n_want:
+        raise AssertionError(f"the sweep trained {n_trained} trials and "
+                             f"journaled {len(journal)}, expected {n_want}")
+    if not all(math.isfinite(s) for s in scores):
+        raise AssertionError(f"a sweep trial failed (score -inf): {scores}")
+    if rc_resume != 0 or len(trials) != n_trained or json.loads(
+            out.read_text()) != results:
+        raise AssertionError("--resume on the finished journal trained again "
+                             "or changed the results")
+    if [r["rungs_completed"] for r in results[:4]] != [len(rungs)] * 4:
+        raise AssertionError(f"ranking {results}")
+
+    spawn = {}
+    for workers in (2, 1):
+        c = cfg.with_overrides([f"run.checkpoint_dir={tmp}/spawn{workers}"])
+        c.sweep = dict(c.sweep, trials=2, rungs=[SWEEP_SPAWN_UPDATES],
+                       suggester="random")
+        t1 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = sweep.run_sweep(c, workers=workers, device="cuda")
+        spawn[workers] = (sorted((json.dumps(r["point"], sort_keys=True),
+                                  r["score"]) for r in res),
+                          time.time() - t1)
+    print(f"sweep workers=2 (spawned) {spawn[2][0]} in {spawn[2][1]:.1f} s; "
+          f"workers=1 {spawn[1][0]} in {spawn[1][1]:.1f} s", flush=True)
+    if spawn[2][0] != spawn[1][0] or not all(
+            math.isfinite(s) for _, s in spawn[1][0]):
+        raise AssertionError("the spawned sweep's scores differ from the "
+                             "sequential sweep's")
+    seconds = time.time() - t0
+    updates = sum(u for _, u, _ in trials)
+    return {"counts": dict(total), "seconds": seconds, "sweep_s": t_sweep,
+            "updates": updates,
+            "samples": updates * cfg.train.num_envs * cfg.train.horizon}
+
+
+def path_autotune() -> dict:
+    """Phase 57: `cli autotune configs/hover.toml --device cuda --iters 1`:
+    every candidate of candidate_shapes measured (a warm-up and one timed
+    update each), none failed, each on the megakernel trainer, K2, K3 and K4
+    launched (K2 twice a candidate). Prints the ranked list. Returns the
+    launch counts, the results and the seconds."""
+    import contextlib
+    import io
+
+    import torch
+
+    from drone_tpu_torch import cli
+    from drone_tpu_torch.autotune import candidate_shapes
+    from drone_tpu_torch.utils.config import Config
+
+    cfg_path = ROOT / "configs" / "hover.toml"
+    cands = candidate_shapes(Config.from_toml(cfg_path))
+    t0 = time.time()
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        rc = cli.main(["autotune", str(cfg_path), "--device", "cuda",
+                       "--iters", "1"])
+    torch.cuda.synchronize()
+    c = counts()
+    seconds = time.time() - t0
+    lines = log.getvalue().splitlines()
+    print("\n".join(line for line in lines if not line.startswith("[")),
+          flush=True)
+    results = json.loads(next(line for line in lines
+                              if line.startswith("[{")))
+    print(f"autotune path: rc={rc}, {len(results)} of {len(cands)} "
+          f"candidates measured in {seconds:.1f} s; launches {nonzero(c)}",
+          flush=True)
+    for r in results:
+        print(f"  {r['num_envs']:>7} envs x {r['num_minibatches']} "
+              f"minibatches: {r['sps'] / 1e6:.3f} M samples/s "
+              f"({r['trainer']})", flush=True)
+    if rc != 0 or len(results) != len(cands) or any(
+            "failed" in line for line in lines):
+        raise AssertionError(f"autotune measured {len(results)} of "
+                             f"{len(cands)} candidates")
+    if any(r["trainer"] != "megakernel" for r in results):
+        raise AssertionError("an autotune candidate left the megakernel "
+                             "trainer")
+    if c["K2"] != 2 * len(cands) or c["K3"] < c["K2"] or c["K4"] != c["K3"]:
+        raise AssertionError(f"autotune launched {c}")
+    return {"counts": c, "results": results, "seconds": seconds}
+
+
+WATCH_STEPS = 200
+WATCH_CPU_ROWS = 40
+WATCH_CASES = (("mlp", ["env.task=racing", "env.integrator=rk4"]),
+               ("lstm", ["run.policy=lstm", "env.params.horizon=60"]),
+               ("cnn_lstm", ["run.policy=cnn_lstm", "env.params.horizon=60"]))
+
+
+def phase_watch(tmp) -> dict:
+    """Phase 58: the watch rollout (`viewer.watch_rollout`, what `cli
+    watch` writes before it renders) on the card for 200 steps: mlp on
+    racing/rk4 and lstm and cnn_lstm on hover (episodes of 60 steps), each
+    from a seeded checkpoint. The CSV has the reference's header and finite
+    values; the recurrent families' rows are those of the evaluation path
+    (ppo_rnn.rollout_recurrent on the card, the carry zeroed at each done);
+    the first 40 rows match a CPU watch rollout of the same checkpoint
+    (done equal, positions within 1e-3). Renders a PNG when matplotlib
+    imports. Returns the seconds of each rollout."""
+    import numpy as np
+    import torch
+
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.ppo_rnn import rollout_recurrent
+    from drone_tpu_torch.utils.checkpoint import Checkpointer
+    from drone_tpu_torch.utils.config import Config
+    from drone_tpu_torch.viewer import CSV_HEADER, watch_rollout
+
+    def rows_of(path):
+        text = Path(path).read_text()
+        if not text.startswith(CSV_HEADER):
+            raise AssertionError(f"{path}: header {text.splitlines()[0]!r}")
+        return np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+
+    try:
+        from viz.viewer import load_csv, render
+    except ImportError:
+        render = None
+    seconds = {}
+    for policy, overrides in WATCH_CASES:
+        if policy == "mlp":
+            model = seeded_policy(seed=3, head_gain=1.0)
+        elif policy == "lstm":
+            model = lstm_policy(seed=3)
+        else:
+            model = cnn_lstm_policy(seed=3)
+        ckpt = Path(tmp) / f"watch-{policy}"
+        Checkpointer(ckpt).save(0, model)
+        cfg = Config.default().with_overrides(
+            [*overrides, f"run.resume_from={ckpt}"])
+        csv_path = Path(tmp) / f"watch-{policy}.csv"
+        zero_counts()
+        t0 = time.time()
+        gates = watch_rollout(cfg, str(csv_path), WATCH_STEPS, device="cuda")
+        seconds[policy] = time.time() - t0
+        rows = rows_of(csv_path)
+        cpu_path = Path(tmp) / f"watch-{policy}-cpu.csv"
+        watch_rollout(cfg, str(cpu_path), WATCH_CPU_ROWS, device="cpu")
+        cpu = rows_of(cpu_path)
+        dones = int(rows[:, 8].sum())
+        if rows.shape != (WATCH_STEPS, 9) or not np.isfinite(rows).all():
+            raise AssertionError(f"watch {policy}: rows {rows.shape}, finite "
+                                 f"{np.isfinite(rows).all()}")
+        head = rows[:WATCH_CPU_ROWS]
+        pos_err = float(np.abs(head[:, 1:7] - cpu[:, 1:7]).max())
+        if not np.array_equal(head[:, 8], cpu[:, 8]) or pos_err > 1e-3:
+            raise AssertionError(f"watch {policy}: the card's first "
+                                 f"{WATCH_CPU_ROWS} rows differ from the "
+                                 f"CPU's by {pos_err:.3g}")
+        note = ""
+        if policy != "mlp":
+            statics, params = cfg.env.build()
+            env = DroneEnv(statics.task, statics.integrator, params,
+                           device="cuda")
+            model.eval()
+            _, _, out = rollout_recurrent(model, env, env.init_batch(0, 1),
+                                          model.initial_carry(1, env.device),
+                                          WATCH_STEPS)
+            done = (out.terminated | out.truncated)[:, 0].float().cpu().numpy()
+            rel = out.obs[:, 0, :3].cpu().numpy()
+            carry_err = float(np.abs(rows[:, 4:7] - rows[:, 1:4] - rel).max())
+            if dones < 2 or not np.array_equal(rows[:, 8], done) \
+                    or carry_err > 1e-3:
+                raise AssertionError(
+                    f"watch {policy}: {dones} episode ends, the rollout "
+                    f"differs from the evaluation path's (its carry zeroed "
+                    f"at each done) by {carry_err:.3g}")
+            note = (f", the evaluation path's rows within {carry_err:.2g} "
+                    f"(carry zeroed at each of the {dones} dones)")
+        if policy == "mlp" and len(gates or ()) != 4:
+            raise AssertionError(f"watch racing gates {gates}")
+        rendered = "the render was not run (matplotlib does not import)"
+        if render is not None:
+            try:
+                png = render(load_csv(csv_path),
+                             str(csv_path.with_suffix(".png")), gates=gates)
+                rendered = f"rendered {Path(png).stat().st_size} bytes"
+            except ImportError:
+                pass
+        print(f"watch {policy}: {WATCH_STEPS} steps on the card in "
+              f"{seconds[policy]:.2f} s, {dones} dones, the CPU's first "
+              f"{WATCH_CPU_ROWS} rows within {pos_err:.2g}{note}; gates "
+              f"{gates}; {rendered}; launches {nonzero(counts())}", flush=True)
+    return seconds
+
+
+def _dist_tier_updates(overrides, mesh, depth=2):
+    """`depth` updates of hover.toml with `overrides` on the card through
+    make_sharded_train_step (mesh None: the undistributed trainer). Returns
+    (trainer kind, runner, metrics, step)."""
+    import dataclasses
+
+    from drone_tpu_torch import train
+    from drone_tpu_torch.parallel import make_sharded_train_step
+    from drone_tpu_torch.utils.config import Config
+
+    cfg = Config.from_toml(ROOT / "configs" / "hover.toml").with_overrides(
+        list(overrides))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, total_updates=cfg.run.total_updates))
+    env, model = train.build_env_and_model(cfg, "cuda")
+    kind = train.trainer_kind(cfg, model)
+    recurrent = cfg.run.policy in ("lstm", "cnn_lstm")
+    init = train.init_recurrent_runner if recurrent else train.init_runner
+    runner = init(model, env, cfg.train, seed=cfg.run.seed)
+    step = make_sharded_train_step(
+        runner.params, env, cfg.train, mesh, trainer=train._TRAINERS[kind],
+        recurrent=recurrent, policy=cfg.run.policy,
+        compute_dtype=cfg.run.compute_dtype)
+    m = None
+    for _ in range(depth):
+        runner, m = step(runner)
+    return kind, runner, m, step
+
+
+# the five tiers of phase 59, the later ones at a smaller depth than the
+# reference's shapes
+DIST_TIERS = (
+    ("MLP megakernel", "megakernel", ()),
+    ("CNN megakernel", "megakernel",
+     ("run.policy=cnn", "train.num_envs=8192", "train.horizon=32",
+      "train.num_minibatches=4")),
+    ("LSTM megakernel", "megakernel",
+     ("run.policy=lstm", "train.num_envs=16384", "train.horizon=32",
+      "train.bptt_horizon=16", "train.num_minibatches=4")),
+    ("hybrid", "hybrid",
+     ("run.policy=lstm", "train.num_envs=16256", "train.horizon=32",
+      "train.bptt_horizon=16", "train.num_minibatches=4")),
+    ("scan", "scan",
+     ("run.rollout=scan", "train.num_envs=8192", "train.horizon=32")),
+)
+
+
+def phase_world_of_one(port) -> dict:
+    """Phases 59 and 61 in a NCCL process group of one rank on the card.
+
+    59: two sharded updates (parallel.make_sharded_train_step: the advantage
+    moments, each SGD step's gradient and the metrics through NCCL's
+    all_reduce) of each tier bitwise equal to two undistributed updates in
+    parameters, optimizer state, env state and metrics: the MLP megakernel
+    trainer at hover.toml, the CNN and LSTM megakernel trainers, the
+    recurrent hybrid tier and the scan trainer (smaller depths); then one
+    more MLP update queued under torch.cuda.set_sync_debug_mode("error").
+    61: ops.sharded's K1 and K5 on the rank's lanes (65,536, hover) bitwise
+    equal to the unsharded kernels in final state and statistics.
+    Returns the launch counts of the sharded runs, per tier, and the
+    seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from drone_tpu_torch.env import DroneEnv
+    from drone_tpu_torch.ops import act_rollout_cuda, rollout_cuda
+    from drone_tpu_torch.ops.sharded import (
+        sharded_act_rollout_cuda,
+        sharded_rollout_cuda,
+    )
+    from drone_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh("cuda")
+        tiers = {}
+        for name, want_kind, overrides in DIST_TIERS:
+            t1 = time.time()
+            kind, a, ma, _ = _dist_tier_updates(overrides, None)
+            zero_counts()
+            _, b, mb, step = _dist_tier_updates(overrides, mesh)
+            torch.cuda.synchronize()
+            c = counts()
+            same = (bitwise_equal(a.params.flat, b.params.flat)
+                    and all(bitwise_equal(x, y)
+                            for x, y in zip(a.opt_state, b.opt_state))
+                    and bitwise_equal(a.env_state.fstate(),
+                                      b.env_state.fstate())
+                    and set(ma) == set(mb)
+                    and all(bitwise_equal(ma[k], mb[k]) for k in ma))
+            print(f"world of 1 over NCCL, {name} ({kind}): 2 sharded updates "
+                  f"bitwise the undistributed: {same}; loss "
+                  f"{float(mb['loss'])!r}; launches {nonzero(c)}; "
+                  f"{time.time() - t1:.1f} s", flush=True)
+            if kind != want_kind or not same:
+                raise AssertionError(f"world of 1, {name}: kind {kind}, "
+                                     f"bitwise {same}")
+            tiers[name] = c
+            if name == "MLP megakernel":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    b, m = step(b)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                print(f"  a third sharded MLP update queued with no host "
+                      f"sync; loss {float(m['loss'])!r}", flush=True)
+
+        env = DroneEnv(device="cuda")
+        n, T = 65536, 256
+        state = env.init_batch(0, n)
+        policy = seeded_policy(seed=1).cuda()
+        zero_counts()
+        k1 = sharded_rollout_cuda(mesh, state, env.params, env.statics, T)
+        k5 = sharded_act_rollout_cuda(mesh, state, policy, env.params,
+                                      env.statics, T)
+        torch.cuda.synchronize()
+        sharded_counts = counts()
+        w1 = rollout_cuda(state, env.params, env.statics, T)
+        w5 = act_rollout_cuda(state, policy, env.params, env.statics, T)
+        same = {k: bitwise_equal(g[0].fstate(), w[0].fstate())
+                and all(bitwise_equal(g[1][s], w[1][s]) for s in w[1])
+                for k, g, w in (("K1", k1, w1), ("K5", k5, w5))}
+        print(f"world of 1: sharded K1 and K5 ({n} lanes x {T} steps) "
+              f"bitwise the unsharded kernels {same}; episodes "
+              f"{float(k1[1]['episodes']):.0f}, "
+              f"{float(k5[1]['episodes']):.0f}; "
+              f"launches {nonzero(sharded_counts)}", flush=True)
+        if not all(same.values()) or sharded_counts["K1"] != 1 \
+                or sharded_counts["K5"] != 1:
+            raise AssertionError(f"sharded K1/K5 {same}, {sharded_counts}")
+        tiers["sharded K1, K5"] = sharded_counts
+    finally:
+        dist.destroy_process_group()
+    return {"counts": tiers, "seconds": time.time() - t0}
+
+
+GLOO_LANES = 16384  # a rank's lanes in phase 60
+
+
+def smoke_ranks(*args) -> list:
+    """`python -m drone_tpu_torch.parallel._smoke_worker` as ranks 0 and 1
+    of a Gloo group on a free port, the MLP megakernel trainer on the card,
+    hover.toml at GLOO_LANES lanes a rank with `args` after it. Returns
+    each rank's SMOKE_OK fields ({"loss": ..., "launches": [K2, K3, K4],
+    ...})."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "drone_tpu_torch.parallel._smoke_worker",
+         str(port), "2", str(pid), "pallas", "cuda", "gloo",
+         "--config", str(ROOT / "configs" / "hover.toml"),
+         f"train.num_envs={2 * GLOO_LANES}", *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for pid in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        outs.append(out)
+        if p.returncode != 0:
+            raise AssertionError(f"smoke worker failed: {out[-3000:]}")
+    lines = [line for o in outs for line in o.splitlines()
+             if line.startswith("SMOKE_OK")]
+    print("\n".join(lines), flush=True)
+    if len(lines) != 2:
+        raise AssertionError(f"two smoke workers printed {lines}")
+    ranks = []
+    for line in lines:
+        f = dict(kv.split("=", 1) for kv in line.split()[1:])
+        f["launches"] = [int(x) for x in f["launches"].split(",")]
+        ranks.append(f)
+    return ranks
+
+
+def phase_gloo_ranks(tmp) -> dict:
+    """Phase 60: two ranks sharing the card over Gloo (NCCL refuses two ranks
+    on one device), each `python -m drone_tpu_torch.parallel._smoke_worker`
+    through train.build on hover.toml's widths and horizon at 16,384 lanes
+    a rank.
+
+    Its own geometry, two updates: both ranks print the same loss and
+    approx-KL bit for bit, on the megakernel trainer, each with K2 2, K3
+    and K4 2 x epochs x minibatches launches. Then one update of one epoch
+    of one minibatch with the clip off (the ranks' permutations only
+    reorder the sums; the first moment is the averaged gradient): each
+    rank's parameters, optimizer state and metrics against one
+    undistributed update of the 32,768-lane global batch on the card,
+    allclose at rtol 2e-5 / atol 1e-7 (metrics atol 1e-6: means of
+    order-one terms), the ranks' lanes bitwise the global run's. Returns
+    the launch counts summed over the ranks and the seconds."""
+    import numpy as np
+    import torch
+
+    from drone_tpu_torch import train
+    from drone_tpu_torch.utils.config import Config
+
+    t0 = time.time()
+    hover = Config.from_toml(ROOT / "configs" / "hover.toml")
+    sgd = hover.train.epochs * hover.train.num_minibatches
+    ranks = smoke_ranks("run.total_updates=2")
+    same = (len({r["loss"] for r in ranks}) == 1
+            and len({r["kl"] for r in ranks}) == 1)
+    want = [2, 2 * sgd, 2 * sgd]
+    if not same or any(r["kind"] != "megakernel" or r["launches"] != want
+                       for r in ranks):
+        raise AssertionError(f"two Gloo ranks: bitwise {same}, want "
+                             f"megakernel launches {want}: {ranks}")
+    total = collections.Counter(
+        {k: sum(r["launches"][i] for r in ranks)
+         for i, k in enumerate(("K2", "K3", "K4"))})
+    print(f"two Gloo ranks on the card, hover.toml at {GLOO_LANES} lanes a "
+          f"rank: loss {ranks[0]['loss']} on both; launches {want} a rank; "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    t1 = time.time()
+    one = ["train.epochs=1", "train.num_minibatches=1",
+           "train.max_grad_norm=1e9", "run.total_updates=1"]
+    dump = Path(tmp) / "gloo_dump"
+    dump.mkdir()
+    ranks = smoke_ranks(*one, "--dump", str(dump))
+    if any(r["launches"] != [1, 1, 1] for r in ranks):
+        raise AssertionError(f"one update, launches {ranks}")
+    total.update({k: 2 for k in ("K2", "K3", "K4")})
+    cfg = hover.with_overrides([f"train.num_envs={2 * GLOO_LANES}"] + one)
+    env, model, runner, step, cfg = train.build(cfg, "cuda")
+    if step.mesh is not None or step.kind != "megakernel":
+        raise AssertionError(f"the global run: {step.mesh}, {step.kind}")
+    runner, m = step(runner)
+    got = [torch.load(dump / f"rank{r}.pt", map_location="cuda")
+           for r in range(2)]
+    worst = 0.0
+
+    def close(a, b, atol=1e-7):
+        nonlocal worst
+        a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+        worst = max(worst, float(np.max(np.abs(a - b) / (atol + 2e-5
+                                                         * np.abs(b)))))
+        return bool(np.allclose(a, b, rtol=2e-5, atol=atol))
+
+    ok = all(
+        close(g["params"], runner.params.flat)
+        and all(close(x, y) for x, y in zip(g["opt_state"],
+                                            runner.opt_state))
+        and set(g["metrics"]) == set(m)
+        and all(close(g["metrics"][k], m[k], 1e-6) for k in m)
+        for g in got)
+    lanes = bitwise_equal(torch.cat([g["env_state"] for g in got]),
+                          runner.env_state.fstate())
+    replicated = bitwise_equal(got[0]["params"], got[1]["params"])
+    print(f"two Gloo ranks x {GLOO_LANES} lanes against one update of the "
+          f"{2 * GLOO_LANES}-lane global batch (one epoch, one minibatch, "
+          f"no clip): allclose {ok} (worst |diff| / (atol + rtol |want|) "
+          f"{worst:.3g}), lanes bitwise {lanes}, parameters replicated "
+          f"{replicated}; loss {float(m['loss'])!r}; "
+          f"{time.time() - t1:.1f} s", flush=True)
+    if not (ok and lanes and replicated):
+        raise AssertionError("two Gloo ranks differ from the global batch")
+    seconds = time.time() - t0
+    return {"counts": dict(total), "seconds": seconds}
+
+
+def nonzero(c) -> dict:
+    """The launch counts that are not 0."""
+    return {k: v for k, v in c.items() if v}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 class Laps:
     """Host-clock seconds of each phase of the script: lap(name) closes the
     phase that ends there."""
@@ -5279,8 +5860,36 @@ def main() -> int:
         lap("export against the C runtime")
         path_racing(tmp, native)
         lap("racing cli train, export, C demo")
+    # -- the outer surfaces (sweep, autotune, watch), then distribution ---
+    with tempfile.TemporaryDirectory() as tmp:
+        swept = path_sweep(tmp)
+        lap("sweep path")
+        tuned = path_autotune()
+        lap("autotune path")
+        watched = phase_watch(tmp)
+        lap("watch rollouts")
+    one = phase_world_of_one(free_port())
+    lap("world of 1 over NCCL, sharded K1 and K5")
+    with tempfile.TemporaryDirectory() as tmp:
+        gloo = phase_gloo_ranks(tmp)
+    lap("two Gloo ranks on the card")
+    # the new paths' launches, added to each kernel's count below
+    extra = collections.Counter(swept["counts"])
+    extra.update(tuned["counts"])
+    for c in one["counts"].values():
+        extra.update(c)
+    extra.update(gloo["counts"])
+    best = tuned["results"][0]
     print(f"VecDrone steps/s at {SPS_LANES} lanes: "
           f"{adapters['steps_per_s']:.6g} ({dev})", flush=True)
+    print(f"sweep: {swept['updates']} updates in {swept['sweep_s']:.1f} s, "
+          f"{swept['samples'] / swept['sweep_s']:.6g} "
+          f"samples/s end to end ({dev})", flush=True)
+    print(f"autotune: best {best['overrides']} {best['sps']:.6g} samples/s, "
+          f"{len(tuned['results'])} candidates in {tuned['seconds']:.1f} s "
+          f"({dev})", flush=True)
+    print(f"watch seconds {watched}; world of 1 {one['seconds']:.1f} s; two "
+          f"Gloo ranks {gloo['seconds']:.1f} s", flush=True)
     print(f"phase seconds: {lap.seconds}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
@@ -5297,32 +5906,39 @@ def main() -> int:
 
     kernels = [
         entry("K1 env rollout", "drone_tpu_torch/csrc/rollout.cu",
-              "drone_tpu/ops/pallas_rollout.py:460", engine_counts["K1"],
+              "drone_tpu/ops/pallas_rollout.py:460",
+              engine_counts["K1"] + extra["K1"],
               max(k1_err, bench_err["K1"]), k1_ms, k1_plain_ms, k1_bound,
               "bytes" if k1_by == "bytes" else "operations", None),
         entry("K2 trajectory rollout",
               "drone_tpu_torch/csrc/acting_traj.cu",
-              "drone_tpu/ops/pallas_acting_traj.py:120", train_counts["K2"],
+              "drone_tpu/ops/pallas_acting_traj.py:120",
+              train_counts["K2"] + extra["K2"],
               max(k2_err, bench_err["K2"]), *times["K2"]),
         entry("K3 PPO update", "drone_tpu_torch/csrc/update.cu",
-              "drone_tpu/ops/pallas_update.py:206", train_counts["K3"],
+              "drone_tpu/ops/pallas_update.py:206",
+              train_counts["K3"] + extra["K3"],
               max(k3_err, bench_err["K3"]), *times["K3"]),
         entry("K4 fused clip+adam", "drone_tpu_torch/csrc/update.cu",
-              "drone_tpu/ops/pallas_update.py:456", train_counts["K4"],
+              "drone_tpu/ops/pallas_update.py:456",
+              train_counts["K4"] + extra["K4"],
               max(k4_err, k4_lstm_err, k4_cnn_err, k4_cl_err, k4_wide_err,
                   bench_err["K4"]), *times["K4"]),
         entry("K5 MLP acting", "drone_tpu_torch/csrc/acting.cu",
-              "drone_tpu/ops/pallas_acting.py:109", serve_counts["K5"],
+              "drone_tpu/ops/pallas_acting.py:109",
+              serve_counts["K5"] + extra["K5"],
               max(k5_err, bench_err["K5"]), k5_ms, k5_plain_ms, k5_bound,
               k5_by, None),
         entry("K6 LSTM trajectory rollout",
               "drone_tpu_torch/csrc/acting_lstm.cu",
               "drone_tpu/ops/pallas_acting_lstm.py:335",
-              lstm_train_counts["K6"], k6_err, *lstm_times["K6"]),
+              lstm_train_counts["K6"] + extra["K6"], k6_err,
+              *lstm_times["K6"]),
         entry("K7 LSTM truncated-BPTT update",
               "drone_tpu_torch/csrc/update_lstm.cu",
               "drone_tpu/ops/pallas_update_lstm.py:270",
-              lstm_train_counts["K7"], k7_err, *lstm_times["K7"]),
+              lstm_train_counts["K7"] + extra["K7"], k7_err,
+              *lstm_times["K7"]),
         entry("K8 LSTM acting", "drone_tpu_torch/csrc/acting_lstm.cu",
               "drone_tpu/ops/pallas_acting_lstm.py:186",
               lstm_serve_counts["K8"], max(k8_err, bench_err["K8"]),
@@ -5330,10 +5946,12 @@ def main() -> int:
         entry("K9 CNN trajectory rollout",
               "drone_tpu_torch/csrc/acting_cnn.cu",
               "drone_tpu/ops/pallas_acting_cnn.py:271",
-              cnn_train_counts["K9"], k9_err, *cnn_times["K9"]),
+              cnn_train_counts["K9"] + extra["K9"], k9_err,
+              *cnn_times["K9"]),
         entry("K10 CNN PPO update", "drone_tpu_torch/csrc/update_cnn.cu",
               "drone_tpu/ops/pallas_update_cnn.py:151",
-              cnn_train_counts["K10"], k10_err, *cnn_times["K10"]),
+              cnn_train_counts["K10"] + extra["K10"], k10_err,
+              *cnn_times["K10"]),
         entry("K11 CNN acting", "drone_tpu_torch/csrc/acting_cnn.cu",
               "drone_tpu/ops/pallas_acting_cnn.py:434",
               cnn_serve_counts["K11"], max(k11_err, bench_err["K11"]),

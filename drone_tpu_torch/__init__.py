@@ -34,8 +34,14 @@ Module map (same names as `drone_tpu`):
   ppo_rnn, ppo_rnn_cuda   RecurrentRunnerState; the recurrent megakernel
                           trainer (lstm and cnn_lstm)
   ppo_cnn_cuda            the patch-CNN megakernel trainer
+  sweep, autotune         the hyperparameter sweep, the batch-shape tuner
+  viewer                  `cli watch`'s one-lane rollout to CSV
+  parallel                torch.distributed: lane shards over a process
+                          group, the sharded train step of every trainer,
+                          torchrun bootstrap, weak scaling
+  ops.sharded             K1 and K5 on a rank's lanes
   utils.config, utils.checkpoint, utils.metrics, train (train, evaluate),
-  cli (train, eval, bench, export)
+  cli (train, eval, bench, sweep, export, autotune, watch)
 """
 
 __version__ = "0.1.0"

@@ -199,9 +199,12 @@ class DroneEnv:
 
     # batched API --------------------------------------------------------------
     def init_batch(self, seed, n: int, params: EnvParams | None = None,
-                   episode: int = 0) -> EnvState:
+                   episode: int = 0, first_lane: int = 0) -> EnvState:
+        """Lanes first_lane .. first_lane + n - 1 of the batch under `seed`:
+        a rank's shard of a larger batch is bitwise those lanes of it."""
         p = self.params if params is None else params
-        lanes = torch.arange(n, dtype=torch.int64, device=self.device)
+        lanes = torch.arange(first_lane, first_lane + n, dtype=torch.int64,
+                             device=self.device)
         return init_state(seed, lanes, p, self.statics, episode)
 
     def step_batch(self, state: EnvState, actions,

@@ -42,6 +42,7 @@ import torch
 from drone_tpu_torch import env as env_mod
 from drone_tpu_torch.dynamics import sqrt_rn
 from drone_tpu_torch.models.mlp import tensor_sizes
+from drone_tpu_torch.parallel.mesh import all_mean, all_sum
 from drone_tpu_torch.types import EnvState
 
 METRIC_KEYS = ("loss", "reward_mean", "episodes", "ep_return_mean",
@@ -103,11 +104,15 @@ def compute_gae(rewards, values, dones, last_value, gamma, lam):
     return adv, adv + values
 
 
-def normalize_advantages(adv):
+def normalize_advantages(adv, mesh=None):
     """(adv - mean) / sqrt(var + 1e-8) over the whole batch, the variance
-    the population one (jnp.var)."""
-    mean = torch.mean(adv)
-    var = torch.var(adv, correction=0)
+    the population one, the mean of the squared deviations (jnp.var's
+    formula). With a mesh (parallel.mesh.Mesh) over every rank's batch:
+    the global mean, then the global mean of the squared deviations from
+    it, as the reference's pmeans (ppo.py:275-277); on a world of one that
+    is the same arithmetic bit for bit."""
+    mean = all_mean(mesh, torch.mean(adv))
+    var = all_mean(mesh, torch.mean((adv - mean) ** 2))
     return (adv - mean) / sqrt_rn(var + 1e-8)
 
 
@@ -143,14 +148,15 @@ def noise_generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def init_runner(model, env, cfg: PPOConfig, seed: int = 0) -> RunnerState:
+def init_runner(model, env, cfg: PPOConfig, seed: int = 0,
+                first_lane: int = 0) -> RunnerState:
     """Fresh RunnerState: the model moved to the env's device and
     flattened, a zero optimizer state, cfg.num_envs lanes of episode 0
-    under `seed`, and the permutation and noise generators seeded with
-    `seed`."""
+    under `seed` from lane first_lane on, and the permutation and noise
+    generators seeded with `seed`."""
     model = model.to(env.device)
     flat = model.flatten_()
-    env_state = env.init_batch(seed, cfg.num_envs)
+    env_state = env.init_batch(seed, cfg.num_envs, first_lane=first_lane)
     return RunnerState(
         params=model,
         opt_state=init_fused_opt_state(flat),
@@ -236,11 +242,12 @@ def scan_permutations(runner, permutations, cfg: PPOConfig, n: int, device):
     return perms.to(device, non_blocking=True)
 
 
-def gae_normalized(traj: Transition, last_value, cfg: PPOConfig):
-    """(normalized advantages, returns), each (T, N)."""
+def gae_normalized(traj: Transition, last_value, cfg: PPOConfig, mesh=None):
+    """(normalized advantages, returns), each (T, N); normalized over every
+    rank's batch with a mesh."""
     adv, ret = compute_gae(traj.reward, traj.value, traj.done, last_value,
                            cfg.gamma, cfg.gae_lambda)
-    return normalize_advantages(adv), ret
+    return normalize_advantages(adv, mesh), ret
 
 
 def ppo_loss(cfg: PPOConfig, mean, log_std, value, mb: dict):
@@ -269,10 +276,12 @@ class Optimizer:
     """One SGD step of the scan trainers: autograd's gradient of the mean
     loss over the module's parameters, written into one flat buffer in the
     flat order, then K4 on it (clip_by_global_norm + adam, in place on the
-    runner's buffers)."""
+    runner's buffers). With a mesh the gradient is averaged over the ranks
+    before K4, so K4 clips the averaged gradient."""
 
-    def __init__(self, cfg: PPOConfig):
+    def __init__(self, cfg: PPOConfig, mesh=None):
         self.ac, self.sched = make_optimizer(cfg)
+        self.mesh = mesh
 
     def step(self, runner, loss_fn, chunks) -> torch.Tensor:
         """loss_fn(chunk) -> (loss, [aux]); the gradients of the chunks are
@@ -300,17 +309,20 @@ class Optimizer:
             inv = 1.0 / len(chunks)
             grads *= inv
             total = total * inv
+        all_mean(self.mesh, grads)
         count, mu, nu = runner.opt_state
         fused_adam_cuda(theta, grads, mu, nu, count, self.ac, self.sched,
                         tensor_sizes(model.kernel_order()))
         return total
 
 
-def scan_metrics(traj: Transition, stats, per_step, device):
+def scan_metrics(traj: Transition, stats, per_step, device, mesh=None):
     """The metrics of one update on the device, under METRIC_KEYS. stats:
     None to count the episodes from the trajectory, else the rollout
     kernel's sums (episodes, ep_return_sum, ep_length_sum); per_step:
-    (steps, 6) [loss, *AUX_KEYS] of each SGD step."""
+    (steps, 6) [loss, *AUX_KEYS] of each SGD step. With a mesh the episode
+    sums are summed over the ranks and the means averaged (ppo.py's psum
+    and pmean)."""
     if stats is None:
         n_done = torch.sum(traj.done).to(torch.float32)
         ep_ret_sum = torch.sum(traj.ep_return)
@@ -319,10 +331,15 @@ def scan_metrics(traj: Transition, stats, per_step, device):
         n_done, ep_ret_sum, ep_len_sum = (
             stats["episodes"], stats["ep_return_sum"], stats["ep_length_sum"])
     one = torch.ones((), device=device)
-    means = torch.mean(per_step, dim=0)
+    means = torch.cat([torch.mean(per_step, dim=0),
+                       torch.mean(traj.reward)[None]])
+    if mesh is not None:
+        n_done, ep_ret_sum, ep_len_sum = all_sum(
+            mesh, torch.stack([n_done, ep_ret_sum, ep_len_sum]))
+        all_mean(mesh, means)
     return dict(
         loss=means[0],
-        reward_mean=torch.mean(traj.reward),
+        reward_mean=means[-1],
         episodes=n_done,
         ep_return_mean=ep_ret_sum / torch.maximum(n_done, one),
         ep_length_mean=ep_len_sum / torch.maximum(n_done, one),
@@ -386,7 +403,7 @@ def _check_geometry(cfg: PPOConfig):
 
 
 def make_train_step(model, env, cfg: PPOConfig, permutations=None,
-                    noise=None, on_phase=None):
+                    noise=None, on_phase=None, mesh=None):
     """Build the scan train step for `model`'s family (a feed-forward
     policy: obs -> (mean, log_std, value)): RunnerState -> (RunnerState,
     metrics), with the env's params and device. The runner's module is
@@ -398,11 +415,13 @@ def make_train_step(model, env, cfg: PPOConfig, permutations=None,
     to replay another trainer's draws (the tests feed in the reference's);
     by default they come from the runner's generators. on_phase as in
     ppo_cuda.make_train_step ("rollout", "gae", "update", "metrics",
-    "end")."""
+    "end"). mesh: None, or the parallel.mesh.Mesh whose ranks each train
+    this step on their lanes (cfg.num_envs of them), averaging gradients
+    and metrics (parallel.train_sharded)."""
     del model
     mb_size, mb_lanes = _check_geometry(cfg)
     batch = cfg.horizon * cfg.num_envs
-    opt = Optimizer(cfg)
+    opt = Optimizer(cfg, mesh)
     n_steps = cfg.epochs * cfg.num_minibatches
     mark = on_phase or (lambda name: None)
     cs = mb_size // cfg.grad_accum
@@ -427,7 +446,7 @@ def make_train_step(model, env, cfg: PPOConfig, permutations=None,
             mark("gae")
             with torch.no_grad():
                 last_value = module(last_obs)[2]
-            adv, ret = gae_normalized(traj, last_value, cfg)
+            adv, ret = gae_normalized(traj, last_value, cfg, mesh)
             full = dict(obs=traj.obs, action=traj.action, logp=traj.logp,
                         value=traj.value, adv=adv, ret=ret)
             if mb_lanes is None:
@@ -456,7 +475,7 @@ def make_train_step(model, env, cfg: PPOConfig, permutations=None,
                     per_step[i] = opt.step(runner, loss_fn, chunks)
                     i += 1
         mark("metrics")
-        metrics = scan_metrics(traj, None, per_step, dev)
+        metrics = scan_metrics(traj, None, per_step, dev, mesh)
         runner2 = dataclasses.replace(runner, env_state=final,
                                       last_obs=last_obs,
                                       update_idx=runner.update_idx + 1)

@@ -43,6 +43,7 @@ from drone_tpu_torch.ops.cuda_update import (
     fused_adam_cuda,
 )
 from drone_tpu_torch.ops.cuda_update_cnn import ppo_cnn_update_cuda
+from drone_tpu_torch.parallel.mesh import all_mean
 from drone_tpu_torch.pixels import patch_grid
 from drone_tpu_torch.ppo import PPOConfig, RunnerState
 from drone_tpu_torch.ppo_cuda import (
@@ -73,10 +74,11 @@ def cnn_kernel_tensors(model):
 
 
 def make_cnn_train_step(env, cfg: PPOConfig, permutations=None,
-                        on_phase=None, compute_dtype: str = "float32"):
+                        on_phase=None, compute_dtype: str = "float32",
+                        mesh=None):
     """Build the CNN megakernel train step: RunnerState (params a
     PatchCNNActorCritic) -> (RunnerState, metrics), with the env's params
-    and device. permutations, on_phase and compute_dtype as in
+    and device. permutations, on_phase, compute_dtype and mesh as in
     ppo_cuda.make_train_step."""
     _, _, rbu, n_rb, mb_rb, co = plan_minibatch_geometry(cfg, cfg.num_envs)
     rbl = rbu * 128
@@ -115,7 +117,7 @@ def make_cnn_train_step(env, cfg: PPOConfig, permutations=None,
                     last_obs, cnn_all_weights(theta, arch),
                     *patch_grid(arch.res, arch.p0, dev), arch.geom,
                     compute_dtype=compute_dtype)[1]
-        advret = normalized_advret(planes, last_value, cfg)
+        advret = normalized_advret(planes, last_value, cfg, mesh)
 
         # --- epochs x minibatches through K10 and K4 -----------------------
         mark("update")
@@ -130,12 +132,14 @@ def make_cnn_train_step(env, cfg: PPOConfig, permutations=None,
                                             arch, co, rbl, cfg.ent_coef,
                                             compute_dtype)
             st_all[i] = st
+            all_mean(mesh, grads)
             fused_adam_cuda(theta, grads, mu, nu, count, ac, sched, sizes)
 
         run_epoch_scans(sgd_step, perms, cfg, mb_rb)
         mark("metrics")
         losses, auxes = losses_fn(st_all, entropies(ls_all))
-        metrics = trainer_metrics(stats, losses, auxes, cfg, cfg.num_envs)
+        metrics = trainer_metrics(stats, losses, auxes, cfg, cfg.num_envs,
+                                  mesh)
         runner2 = RunnerState(params=model, opt_state=(count, mu, nu),
                               env_state=final, last_obs=last_obs,
                               generator=runner.generator,

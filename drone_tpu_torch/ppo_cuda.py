@@ -60,6 +60,7 @@ from drone_tpu_torch.ops.cuda_update import (
     fused_adam_cuda,
     ppo_update_cuda,
 )
+from drone_tpu_torch.parallel.mesh import all_mean, all_sum
 from drone_tpu_torch.ppo import (  # noqa: F401 (METRIC_KEYS re-exported)
     METRIC_KEYS,
     PPOConfig,
@@ -113,14 +114,14 @@ def make_fused_lr(cfg: PPOConfig) -> LrSchedule:
     return make_optimizer(cfg)[1]
 
 
-def normalized_advret(planes, last_value, cfg: PPOConfig):
+def normalized_advret(planes, last_value, cfg: PPOConfig, mesh=None):
     """GAE on the time-major planes + advantage normalization over the
-    batch -> stacked (2, T, N) [adv, ret]. The variance is the population
-    variance, as jnp.var."""
+    batch (every rank's with a mesh) -> stacked (2, T, N) [adv, ret]. The
+    variance is the population variance, as jnp.var."""
     adv, ret = compute_gae(planes[:, TP_REW], planes[:, TP_VAL],
                            planes[:, TP_DONE], last_value, cfg.gamma,
                            cfg.gae_lambda)
-    return torch.stack([normalize_advantages(adv), ret])
+    return torch.stack([normalize_advantages(adv, mesh), ret])
 
 
 def make_losses(cfg: PPOConfig, co: UpdateConsts):
@@ -149,23 +150,34 @@ def run_epoch_scans(step_fn, perms, cfg: PPOConfig, mb_rb: int):
             i += 1
 
 
-def trainer_metrics(stats, losses, auxes, cfg: PPOConfig, local_envs: int):
+def trainer_metrics(stats, losses, auxes, cfg: PPOConfig, local_envs: int,
+                    mesh=None):
     """The metrics of one update, on the device (keys match the
-    reference's)."""
-    n_done = stats["episodes"]
+    reference's). With a mesh the episode statistics are summed over the
+    ranks and the loss terms averaged (ppo_pallas.py:298-320)."""
+    sums = torch.stack([stats[k] for k in ("episodes", "reward_sum",
+                                           "ep_return_sum", "ep_length_sum")])
+    means = torch.stack([torch.mean(losses),
+                         *(torch.mean(v) for v in auxes.values())])
+    world = 1
+    if mesh is not None:
+        all_sum(mesh, sums)
+        all_mean(mesh, means)
+        world = mesh.world
+    n_done, reward_sum, ep_return_sum, ep_length_sum = sums
     # a tensor divisor: on CUDA, torch divides by a Python scalar through
     # its reciprocal. torch.full is a fill on the device; torch.tensor would
     # copy from the host and wait for the update's kernels.
-    denom = torch.full((), float(cfg.horizon * local_envs),
+    denom = torch.full((), float(cfg.horizon * local_envs * world),
                        device=n_done.device)
     one = torch.ones((), device=n_done.device)
     return dict(
-        loss=torch.mean(losses),
-        reward_mean=stats["reward_sum"] / denom,
+        loss=means[0],
+        reward_mean=reward_sum / denom,
         episodes=n_done,
-        ep_return_mean=stats["ep_return_sum"] / torch.maximum(n_done, one),
-        ep_length_mean=stats["ep_length_sum"] / torch.maximum(n_done, one),
-        **{k: torch.mean(v) for k, v in auxes.items()},
+        ep_return_mean=ep_return_sum / torch.maximum(n_done, one),
+        ep_length_mean=ep_length_sum / torch.maximum(n_done, one),
+        **{k: means[1 + i] for i, k in enumerate(auxes)},
     )
 
 
@@ -197,7 +209,7 @@ def entropies(ls_all):
 
 
 def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None,
-                    compute_dtype: str = "float32"):
+                    compute_dtype: str = "float32", mesh=None):
     """Build the megakernel train step: RunnerState -> (RunnerState,
     metrics), with the env's params and device. compute_dtype: "float32",
     or "bfloat16" for the bf16 operand arms of K2 and K3 (their products'
@@ -209,7 +221,11 @@ def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None,
     on_phase: optional callable(name), called on the host as the step
     starts to queue each phase ("rollout", "gae", "update", "metrics") and
     once more ("end") before it returns. A caller that records a CUDA event
-    in it gets each phase's time on the device (chip_smoke.py does)."""
+    in it gets each phase's time on the device (chip_smoke.py does).
+    mesh: None, or the parallel.mesh.Mesh whose ranks each train this step
+    on their cfg.num_envs lanes: advantages normalized over every rank's,
+    each SGD step's gradient averaged before K4, the metrics reduced
+    (parallel.train_sharded)."""
     _, _, rbu, n_rb, mb_rb, co = plan_minibatch_geometry(cfg, cfg.num_envs)
     rbl = rbu * 128
     ac = AdamConsts(clip_norm=cfg.max_grad_norm)
@@ -241,7 +257,7 @@ def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None,
         with torch.no_grad():
             # the rollout's value function: bf16 operands under bfloat16
             last_value = tower_forward(last_obs, critic, compute_dtype)[:, 0]
-        advret = normalized_advret(planes, last_value, cfg)
+        advret = normalized_advret(planes, last_value, cfg, mesh)
 
         # --- epochs x minibatches through K3 and K4 ------------------------
         mark("update")
@@ -255,13 +271,15 @@ def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None,
                                         hidden, co, rbl, cfg.ent_coef,
                                         compute_dtype)
             st_all[i] = st
+            all_mean(mesh, grads)
             fused_adam_cuda(theta, grads, mu, nu, count, ac, sched, sizes)
 
         run_epoch_scans(sgd_step, perms, cfg, mb_rb)
         mark("metrics")
         ent = entropies(ls_all)
         losses, auxes = losses_fn(st_all, ent)
-        metrics = trainer_metrics(stats, losses, auxes, cfg, cfg.num_envs)
+        metrics = trainer_metrics(stats, losses, auxes, cfg, cfg.num_envs,
+                                  mesh)
         runner2 = RunnerState(params=runner.params, opt_state=(count, mu, nu),
                               env_state=final, last_obs=last_obs,
                               generator=runner.generator,

@@ -65,16 +65,16 @@ def mask_carry(carry, done):
     return tuple(t * keep for t in carry)
 
 
-def init_recurrent_runner(model, env, cfg: PPOConfig,
-                          seed: int = 0) -> RecurrentRunnerState:
+def init_recurrent_runner(model, env, cfg: PPOConfig, seed: int = 0,
+                          first_lane: int = 0) -> RecurrentRunnerState:
     """Fresh RecurrentRunnerState: the LSTMActorCritic (or
     CNNLSTMActorCritic) moved to the env's device and flattened, a zero
-    fused optimizer state, cfg.num_envs lanes of episode 0 under `seed`, a
-    zero carry, and the permutation and noise generators seeded with
-    `seed`."""
+    fused optimizer state, cfg.num_envs lanes of episode 0 under `seed`
+    from lane first_lane on, a zero carry, and the permutation and noise
+    generators seeded with `seed`."""
     model = model.to(env.device)
     flat = model.flatten_()
-    env_state = env.init_batch(seed, cfg.num_envs)
+    env_state = env.init_batch(seed, cfg.num_envs, first_lane=first_lane)
     return RecurrentRunnerState(
         params=model,
         opt_state=init_fused_opt_state(flat),
@@ -216,13 +216,13 @@ def planes_to_traj(planes) -> Transition:
 
 def make_recurrent_train_step(model, env, cfg: PPOConfig,
                               rollout: str = "scan", permutations=None,
-                              noise=None, on_phase=None):
+                              noise=None, on_phase=None, mesh=None):
     """Build the recurrent scan train step (rollout="scan") or its hybrid
     tier (rollout="pallas", K6's rollout): RecurrentRunnerState ->
     (RecurrentRunnerState, metrics). permutations: optional callable
     runner -> (epochs, num_envs) lane permutations; noise: optional
     callable runner -> (T, N, 4) standard-normal noise (the scan rollout
-    only); on_phase as in ppo.make_train_step."""
+    only); on_phase and mesh as in ppo.make_train_step."""
     del model
     if rollout not in ("scan", "pallas"):
         raise ValueError(f"rollout must be 'scan' or 'pallas', got "
@@ -233,7 +233,7 @@ def make_recurrent_train_step(model, env, cfg: PPOConfig,
                          f"minibatches whole lanes)")
     bptt = bptt_of(cfg)
     mb_lanes = cfg.num_envs // cfg.num_minibatches
-    opt = Optimizer(cfg)
+    opt = Optimizer(cfg, mesh)
     n_steps = cfg.epochs * cfg.num_minibatches
     mark = on_phase or (lambda name: None)
 
@@ -276,7 +276,7 @@ def make_recurrent_train_step(model, env, cfg: PPOConfig,
             mark("gae")
             with torch.no_grad():
                 last_value = module(last_obs, last_carry)[2]
-            adv, ret = gae_normalized(traj, last_value, cfg)
+            adv, ret = gae_normalized(traj, last_value, cfg, mesh)
             full = dict(obs=traj.obs, action=traj.action, logp=traj.logp,
                         value=traj.value, done=traj.done, adv=adv, ret=ret)
 
@@ -296,7 +296,7 @@ def make_recurrent_train_step(model, env, cfg: PPOConfig,
                     per_step[i] = opt.step(runner, loss_fn, [mb])
                     i += 1
         mark("metrics")
-        metrics = scan_metrics(traj, stats, per_step, dev)
+        metrics = scan_metrics(traj, stats, per_step, dev, mesh)
         runner2 = dataclasses.replace(runner, env_state=final,
                                       last_obs=last_obs, carry=last_carry,
                                       update_idx=runner.update_idx + 1)

@@ -51,6 +51,7 @@ from drone_tpu_torch.ops.cuda_update import (
     fused_adam_cuda,
 )
 from drone_tpu_torch.ops.cuda_update_lstm import lstm_update_cuda
+from drone_tpu_torch.parallel.mesh import all_mean
 from drone_tpu_torch.ppo import PPOConfig
 from drone_tpu_torch.ppo_cuda import (
     entropies,
@@ -66,10 +67,11 @@ from drone_tpu_torch.ppo_rnn import RecurrentRunnerState, bptt_of
 
 
 def make_rnn_train_step(env, cfg: PPOConfig, permutations=None,
-                        on_phase=None, compute_dtype: str = "float32"):
+                        on_phase=None, compute_dtype: str = "float32",
+                        mesh=None):
     """Build the recurrent megakernel train step: RecurrentRunnerState ->
     (RecurrentRunnerState, metrics), with the env's params and device.
-    permutations and on_phase as in ppo_cuda.make_train_step;
+    permutations, on_phase and mesh as in ppo_cuda.make_train_step;
     compute_dtype ("float32" or "bfloat16", ValueError for another) the
     update kernel's products."""
     bf16_flag(compute_dtype)
@@ -109,7 +111,7 @@ def make_rnn_train_step(env, cfg: PPOConfig, permutations=None,
         mark("gae")
         with torch.no_grad():
             last_value = lstm_value(last_obs, last_carry, theta, *arch)
-        advret = normalized_advret(planes, last_value, cfg)
+        advret = normalized_advret(planes, last_value, cfg, mesh)
 
         # --- epochs x minibatches through K7 and K4 ------------------------
         mark("update")
@@ -124,12 +126,14 @@ def make_rnn_train_step(env, cfg: PPOConfig, permutations=None,
                                          arch, co, rbl, bptt, cfg.ent_coef,
                                          compute_dtype)
             st_all[i] = st
+            all_mean(mesh, grads)
             fused_adam_cuda(theta, grads, mu, nu, count, ac, sched, sizes)
 
         run_epoch_scans(sgd_step, perms, cfg, mb_rb)
         mark("metrics")
         losses, auxes = losses_fn(st_all, entropies(ls_all))
-        metrics = trainer_metrics(stats, losses, auxes, cfg, cfg.num_envs)
+        metrics = trainer_metrics(stats, losses, auxes, cfg, cfg.num_envs,
+                                  mesh)
         runner2 = RecurrentRunnerState(
             params=model, opt_state=(count, mu, nu), env_state=final,
             last_obs=last_obs, generator=runner.generator,

@@ -20,7 +20,12 @@ and K7 for both recurrent families, whose rollout K6 and last value stay
 float32) and trains `ActorCritic(dtype=bfloat16)` on the MLP's scan tier,
 as the reference does; the recurrent hybrid and scan tiers train float32,
 as the reference's do. run.profile_dir traces updates start + 2 to
-start + 4.
+start + 4. With run.mesh set and a process group of more than one rank up
+(torchrun, `parallel.multihost.initialize_multihost`) whose world size
+divides train.num_envs, `build` shards the run: each rank trains its lanes
+through `parallel.make_sharded_train_step`, the trainer picked for its
+local lane count; only rank 0 logs and writes checkpoints, which hold the
+global runner.
 `evaluate` restores a policy and rolls it out through the acting kernel
 (K5 for a float32 MLP, K8 for both recurrent families, K11 for a float32
 CNN) when the kernel's own envelope check takes the policy, and through
@@ -38,7 +43,7 @@ from pathlib import Path
 import torch
 from torch import nn
 
-from drone_tpu_torch import ppo, ppo_cnn_cuda, ppo_cuda, ppo_rnn, ppo_rnn_cuda
+from drone_tpu_torch import ppo_rnn
 from drone_tpu_torch.env import DroneEnv
 from drone_tpu_torch.models import (
     ActorCritic,
@@ -59,6 +64,14 @@ from drone_tpu_torch.ops import (
 )
 from drone_tpu_torch.ops.cuda_acting_lstm import check_act_envelope
 from drone_tpu_torch.ops.cuda_update_lstm import check_envelope
+from drone_tpu_torch.parallel import make_sharded_train_step
+from drone_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_runner,
+    make_mesh,
+    world_size,
+)
+from drone_tpu_torch.parallel.multihost import global_init_runner
 from drone_tpu_torch.ppo import init_runner
 from drone_tpu_torch.ppo_rnn import init_recurrent_runner, rollout_recurrent
 from drone_tpu_torch.rollout import rollout_policy
@@ -74,6 +87,10 @@ from drone_tpu_torch.utils.profiling import trace
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _RECURRENT = ("lstm", "cnn_lstm")
+# trainer_kind -> make_sharded_train_step's trainer, as the reference names
+# its tiers
+_TRAINERS = {"megakernel": "pallas", "hybrid": "pallas_rollout",
+             "scan": "scan"}
 
 
 def build_env_and_model(cfg: Config, device="cuda"):
@@ -120,37 +137,56 @@ def restore_dir(cfg: Config) -> Path:
     return Path(cfg.run.checkpoint_dir) / cfg.run.run_name / "checkpoints"
 
 
+def train_mesh(cfg: Config, device="cuda") -> Mesh | None:
+    """The mesh build() shards a run over: run.mesh set, a process group of
+    more than one rank, and train.num_envs dividing by its world size
+    (drone_tpu/train.py:105-108); else None."""
+    world = world_size()
+    if cfg.run.mesh and world > 1 and cfg.train.num_envs % world == 0:
+        return make_mesh(device)
+    return None
+
+
+def local_config(cfg: Config, mesh: Mesh | None) -> Config:
+    """cfg with train.num_envs the lanes of one rank of `mesh`."""
+    if mesh is None:
+        return cfg
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_envs=cfg.train.num_envs // mesh.world))
+
+
 def build(cfg: Config, device="cuda"):
     """Config -> (env, model, runner, step_fn, cfg with train.total_updates
     synced from run.total_updates), the trainer picked by trainer_kind.
     run.compute_dtype reaches the megakernel trainers; the recurrent hybrid
-    and scan tiers take none (float32), as the reference's."""
+    and scan tiers take none (float32), as the reference's. Sharded over
+    train_mesh(cfg) when there is one: the runner holds the rank's lanes,
+    and trainer_kind sees their count. The step carries its choices:
+    step.mesh (None when unsharded) and step.kind (trainer_kind's)."""
     # run.total_updates is the run's length; the lr anneal spans it
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, total_updates=cfg.run.total_updates))
     _check_options(cfg)
     env, model = build_env_and_model(cfg, device)
-    kind = trainer_kind(cfg, model)
-    dtype = cfg.run.compute_dtype
-    if cfg.run.policy in _RECURRENT:
-        runner = init_recurrent_runner(model, env, cfg.train,
-                                       seed=cfg.run.seed)
-        if kind == "megakernel":
-            step = ppo_rnn_cuda.make_rnn_train_step(env, cfg.train,
-                                                    compute_dtype=dtype)
-        else:
-            step = ppo_rnn.make_recurrent_train_step(
-                runner.params, env, cfg.train,
-                rollout="pallas" if kind == "hybrid" else "scan")
-        return env, runner.params, runner, step, cfg
-    runner = init_runner(model, env, cfg.train, seed=cfg.run.seed)
-    if kind == "scan":
-        step = ppo.make_train_step(runner.params, env, cfg.train)
-    elif cfg.run.policy == "cnn":
-        step = ppo_cnn_cuda.make_cnn_train_step(env, cfg.train,
-                                                compute_dtype=dtype)
+    mesh = train_mesh(cfg, env.device)
+    kind = trainer_kind(local_config(cfg, mesh), model)
+    recurrent = cfg.run.policy in _RECURRENT
+    init = init_recurrent_runner if recurrent else init_runner
+
+    def init_fn(first_lane, num_envs):
+        return init(model, env, dataclasses.replace(cfg.train,
+                                                    num_envs=num_envs),
+                    seed=cfg.run.seed, first_lane=first_lane)
+
+    if mesh is None:
+        runner = init_fn(0, cfg.train.num_envs)
     else:
-        step = ppo_cuda.make_train_step(env, cfg.train, compute_dtype=dtype)
+        runner = global_init_runner(init_fn, mesh, cfg.train.num_envs)
+    step = make_sharded_train_step(
+        runner.params, env, cfg.train, mesh, trainer=_TRAINERS[kind],
+        recurrent=recurrent, policy=cfg.run.policy,
+        compute_dtype=cfg.run.compute_dtype)
+    step.mesh, step.kind = mesh, kind
     return env, runner.params, runner, step, cfg
 
 
@@ -237,8 +273,13 @@ def _outside(check, *args) -> str | None:
 
 def train(cfg: Config, on_update=None, device="cuda"):
     """Run cfg.run.total_updates updates on `device`. Returns (runner, the
-    last logged metrics record)."""
+    last logged metrics record). In a sharded run (train_mesh) every rank
+    trains its lanes; rank 0 alone logs, calls on_update and writes the
+    checkpoints (the global runner, gathered from every rank), and the
+    other ranks return None for the record."""
     env, model, runner, step, cfg = build(cfg, device)
+    mesh = step.mesh
+    lead = mesh is None or mesh.rank == 0
 
     run_dir = Path(cfg.run.checkpoint_dir) / cfg.run.run_name
     ckpt = Checkpointer(run_dir / "checkpoints")
@@ -257,14 +298,27 @@ def train(cfg: Config, on_update=None, device="cuda"):
     if cfg.run.resume_from:
         resume = Checkpointer(cfg.run.resume_from)
         _check_cnn_checkpoint_layout(cfg, resume.restore_raw()[0]["params"])
-        runner, start_update = resume.restore(runner)
-        print(f"resumed from {cfg.run.resume_from} at update {start_update}")
+        runner, start_update = resume.restore(runner, mesh=mesh)
+        if lead:
+            print(f"resumed from {cfg.run.resume_from} at update "
+                  f"{start_update}")
 
-    metrics_path = cfg.run.metrics_path or (run_dir / "metrics.jsonl")
-    logger = MetricsLogger(metrics_path,
-                           tb_dir=(run_dir / "tb") if cfg.run.tensorboard else None)
-    rich_dash = (RichDashboard(cfg.run.total_updates)
-                 if cfg.run.dashboard == "rich" else None)
+    def save(u):
+        if mesh is None:
+            ckpt.save(u, runner)
+            return
+        full, rank_generators = gather_runner(mesh, runner)
+        if lead:
+            ckpt.save(u, full, rank_generators)
+
+    logger = rich_dash = None
+    if lead:
+        metrics_path = cfg.run.metrics_path or (run_dir / "metrics.jsonl")
+        logger = MetricsLogger(
+            metrics_path,
+            tb_dir=(run_dir / "tb") if cfg.run.tensorboard else None)
+        rich_dash = (RichDashboard(cfg.run.total_updates)
+                     if cfg.run.dashboard == "rich" else None)
 
     steps_per_update = cfg.train.horizon * cfg.train.num_envs
     last = None
@@ -273,12 +327,12 @@ def train(cfg: Config, on_update=None, device="cuda"):
     profiling = contextlib.ExitStack()
     try:
         for u in range(start_update, cfg.run.total_updates):
-            if cfg.run.profile_dir and u == start_update + 2:
+            if lead and cfg.run.profile_dir and u == start_update + 2:
                 # a trace of warmed-up updates (the reference's XProf trace)
                 profiling.enter_context(
                     trace(str(Path(cfg.run.profile_dir) / "trace")))
             runner, m = step(runner)
-            if cfg.run.profile_dir and u == start_update + 4:
+            if lead and cfg.run.profile_dir and u == start_update + 4:
                 float(m["loss"])  # the card's queue drains into the trace
                 profiling.close()
             if ((u + 1) % cfg.run.log_interval == 0
@@ -296,25 +350,33 @@ def train(cfg: Config, on_update=None, device="cuda"):
                 sps = steps_per_update * (u + 1 - u_last) / (now - t_last)
                 t_last = now
                 u_last = u + 1
-                rec = logger.log((u + 1) * steps_per_update, m, sps=sps)
-                if rich_dash is not None:
-                    rich_dash.update(u + 1, rec)
-                else:
-                    print(dashboard_line(u + 1, cfg.run.total_updates, rec),
-                          flush=True)
-                last = rec
-                if on_update is not None:
-                    on_update(u + 1, rec)
+                if lead:
+                    last = _log(logger, rich_dash, on_update, u + 1, cfg,
+                                steps_per_update, m, sps)
             if (u + 1) % cfg.run.checkpoint_interval == 0:
-                ckpt.save(u + 1, runner)
+                save(u + 1)
         if cfg.run.save_final:
-            ckpt.save(cfg.run.total_updates, runner)
+            save(cfg.run.total_updates)
     finally:
         profiling.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
         if rich_dash is not None:
             rich_dash.close()
     return runner, last
+
+
+def _log(logger, rich_dash, on_update, u, cfg, steps_per_update, m, sps):
+    """Log update u's metrics: the record, on the dashboard and to
+    on_update. Returns the record."""
+    rec = logger.log(u * steps_per_update, m, sps=sps)
+    if rich_dash is not None:
+        rich_dash.update(u, rec)
+    else:
+        print(dashboard_line(u, cfg.run.total_updates, rec), flush=True)
+    if on_update is not None:
+        on_update(u, rec)
+    return rec
 
 
 def _episode_stats(stats) -> dict:

@@ -11,6 +11,11 @@ checkpoint of the scan trainer resumes under the megakernel trainer and
 the reverse, with no conversion. Either kind
 serves `restore_raw()["params"]`, which is all evaluation needs. The
 newest `max_to_keep` steps are kept.
+
+A data-parallel run saves its global runner: every rank's lanes gathered
+in rank order (`parallel.mesh.gather_runner`), rank 0's generators, and
+the other ranks' generator states beside them; restored with its mesh,
+each rank takes its own lanes and generators back.
 """
 
 from __future__ import annotations
@@ -42,9 +47,11 @@ class Checkpointer:
         self.dir = Path(directory).resolve()
         self.max_to_keep = max_to_keep
 
-    def save(self, step: int, obj) -> Path:
+    def save(self, step: int, obj, rank_generators=None) -> Path:
         """Save a RunnerState (the whole runner), or an nn.Module's or a
-        state dict's tensors (the policy alone), as step `step`."""
+        state dict's tensors (the policy alone), as step `step`.
+        rank_generators: the (permutation, noise) generator states of ranks
+        1 .. world - 1 of a data-parallel run."""
         if isinstance(obj, RunnerState):
             count, mu, nu = obj.opt_state
             data = {
@@ -61,6 +68,8 @@ class Checkpointer:
             if isinstance(obj, RecurrentRunnerState):
                 data["carry"] = {"c": _cpu(obj.carry[0]),
                                  "h": _cpu(obj.carry[1])}
+            if rank_generators:
+                data["rank_generators"] = list(rank_generators)
         else:
             params = obj.state_dict() if isinstance(obj, nn.Module) else obj
             data = {"params": {k: _cpu(v) for k, v in params.items()}}
@@ -95,10 +104,14 @@ class Checkpointer:
                          weights_only=True)
         return raw, step
 
-    def restore(self, template: RunnerState, step: int | None = None):
+    def restore(self, template: RunnerState, step: int | None = None,
+                mesh=None):
         """Restore a training checkpoint into the buffers of `template`
         (same model widths and lane count), in place. Returns (runner,
-        step)."""
+        step). mesh: a data-parallel run's parallel.mesh.Mesh; the
+        template holds the rank's lanes, and the rank takes its lanes of
+        the saved global runner and its own generators. The checkpoint must
+        come from a run of the same world size (RuntimeError otherwise)."""
         raw, step = self.restore_raw(step)
         if "opt_state" not in raw:
             raise RuntimeError(f"checkpoint {self.dir}/{step} holds a policy "
@@ -112,6 +125,21 @@ class Checkpointer:
                 f"(different policy or hidden sizes?)") from e
         count, mu, nu = template.opt_state
         saved_env = raw["env_state"]
+        saved_carry = raw.get("carry")
+        gen_states = (raw["generator"], raw["noise_generator"])
+        ranks = raw.get("rank_generators", [])
+        world = 1 if mesh is None else mesh.world
+        if len(ranks) != world - 1:
+            raise RuntimeError(
+                f"checkpoint at {self.dir} was saved by {len(ranks) + 1} "
+                f"rank(s); this run has {world}")
+        if world > 1:
+            sl = mesh.lanes(saved_env["pos"].shape[0])
+            saved_env = {k: v[sl] for k, v in saved_env.items()}
+            if saved_carry is not None:
+                saved_carry = {k: v[sl] for k, v in saved_carry.items()}
+            if mesh.rank > 0:
+                gen_states = ranks[mesh.rank - 1]
         if saved_env["pos"].shape != template.env_state.pos.shape:
             raise RuntimeError(
                 f"checkpoint at {self.dir} holds {saved_env['pos'].shape[0]} "
@@ -121,19 +149,19 @@ class Checkpointer:
         dev = template.env_state.pos.device
         env_state = EnvState(**{k: v.to(dev) for k, v in saved_env.items()})
         gen = torch.Generator()
-        gen.set_state(raw["generator"])
+        gen.set_state(gen_states[0])
         noise = torch.Generator(device=dev)
-        noise.set_state(raw["noise_generator"])
+        noise.set_state(gen_states[1])
         fields = dict(params=params, opt_state=(count, mu, nu),
                       env_state=env_state, last_obs=env_mod.observe(env_state),
                       generator=gen, update_idx=int(raw["update_idx"]),
                       noise_generator=noise)
         if not isinstance(template, RecurrentRunnerState):
             return RunnerState(**fields), step
-        if "carry" not in raw:
+        if saved_carry is None:
             raise RuntimeError(f"checkpoint at {self.dir} holds no LSTM carry "
                                f"(a feed-forward run?)")
-        carry = tuple(raw["carry"][k].to(dev) for k in ("c", "h"))
+        carry = tuple(saved_carry[k].to(dev) for k in ("c", "h"))
         if carry[0].shape != template.carry[0].shape:
             raise RuntimeError(f"checkpoint at {self.dir} holds a carry of "
                                f"shape {tuple(carry[0].shape)}, this run "

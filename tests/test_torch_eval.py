@@ -104,12 +104,6 @@ def test_cli_eval_on_cpu(tmp_path, capsys):
                           "ep_length_mean"}
 
 
-@pytest.mark.parametrize("cmd", ["sweep", "autotune", "watch"])
-def test_cli_unported_subcommands_exit_nonzero(cmd, capsys):
-    assert cli.main([cmd, str(HOVER)]) != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
-
-
 def test_evaluate_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
