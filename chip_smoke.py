@@ -1608,7 +1608,8 @@ def trace_update(step, runner, policy) -> dict:
                "K7": ("drone::pack_gates", "drone::tower_fwd_kernel",
                       "drone::bptt_kernel",
                       *(() if policy == "cnn" else tower),
-                      "drone::grad_mma_kernel", "drone::lstm_reduce_kernel"),
+                      "drone::grad_mma_kernel", "drone::grad_rounded_kernel",
+                      "drone::lstm_reduce_kernel"),
                "K9": ("drone::cnn_act_kernel",),
                "K10": ("drone::cnn_fwd_kernel",
                        *(tower if policy == "cnn" else ()),
@@ -4017,27 +4018,39 @@ def phase_k10_bf16(cfg, env):
 
 
 # The bf16 instantiations beside their fp32 ones (hover/euler, stochastic
-# for K2): (library, fp32 label, bf16 label, whether the bf16 one holds a
-# third of the fp32 one's HMMA); the labels are kernel_label's of the
-# build report. K3's db keeps its two products with ones a window (an fp32
-# sum), and its bf16 loops unroll otherwise than its fp32 ones: 36 HMMA
-# against 52 in the first build. K7's: the walk (both arms; 224 HMMA against
-# 672 in the first build), its products and the CNN arm's tower kernels.
+# for K2): (library, fp32 label, bf16 label, rule); the labels are
+# kernel_label's of the build report. Rule "third": one TF32 product a
+# k-step of the rounded operands where 3xTF32 takes three, so exactly a
+# third of the fp32 arm's HMMA (K2's tower and K7's walk, both arms: 224
+# HMMA against 672 in the first build; K7's dense arm's products,
+# grad_rounded_kernel, 32 against 96); "fewer": fewer HMMA than the fp32
+# arm (K3: its db keeps two products with ones a window, an fp32 sum, and
+# its bf16 loops unroll otherwise than its fp32 ones: 36 against 52 in the
+# first build); "bf16": the bf16 tensor cores' own product, m16n8k16
+# (HMMA.16816.F32.BF16) and no TF32 HMMA at all (the patch-CNN tower's bf16
+# design in K9/K11, K10 and K7's CNN arm, and the bf16 weight products of
+# K10 (gWt, whose fp32 arm runs on the fp32 cores) and K7's CNN arm).
 BF16_PAIRS = (
     ("acting_traj", "traj_kernelILi0ELi0ELb1ELb0E",
-     "traj_kernelILi0ELi0ELb1ELb1E", True),
-    ("update", "update_kernelILb1ELb0E", "update_kernelILb1ELb1E", False),
-    ("update", "update_kernelILb0ELb0E", "update_kernelILb0ELb1E", False),
+     "traj_kernelILi0ELi0ELb1ELb1E", "third"),
+    ("update", "update_kernelILb1ELb0E", "update_kernelILb1ELb1E", "fewer"),
+    ("update", "update_kernelILb0ELb0E", "update_kernelILb0ELb1E", "fewer"),
     ("acting_cnn", "cnn_act_kernelILi0ELi0ELb0E",
-     "cnn_act_kernelILi0ELi0ELb1E", True),
-    ("update_cnn", "cnn_fwd_kernelILb0E", "cnn_fwd_kernelILb1E", True),
-    ("update_cnn", "tower_bwd_kernelILb0E", "tower_bwd_kernelILb1E", True),
-    ("update_lstm", "bptt_kernel<dense>", "bptt_kernel<dense, bf16>", True),
-    ("update_lstm", "bptt_kernel<cnn>", "bptt_kernel<cnn, bf16>", True),
-    ("update_lstm", "grad_mma_kernelILb0E", "grad_mma_kernelILb1E", True),
-    ("update_lstm", "tower_fwd_kernelILb0E", "tower_fwd_kernelILb1E", True),
-    ("update_lstm", "tower_bwd_kernelILb0E", "tower_bwd_kernelILb1E", True),
+     "cnn_act_kernelILi0ELi0ELb1E", "bf16"),
+    ("update_cnn", "cnn_fwd_kernelILb0E", "cnn_fwd_kernelILb1E", "bf16"),
+    ("update_cnn", "tower_bwd_kernelILb0E", "tower_bwd_kernelILb1E", "bf16"),
+    ("update_cnn", "cnn_gemm_kernelILb0E", "cnn_gemm_kernelILb1E", "bf16"),
+    ("update_lstm", "bptt_kernel<dense>", "bptt_kernel<dense, bf16>",
+     "third"),
+    ("update_lstm", "bptt_kernel<cnn>", "bptt_kernel<cnn, bf16>", "third"),
+    ("update_lstm", "grad_mma_kernelILb0E", "grad_mma_kernelILb1E", "bf16"),
+    ("update_lstm", "grad_mma_kernelILb0E", "grad_rounded_kernel", "third"),
+    ("update_lstm", "tower_fwd_kernelILb0E", "tower_fwd_kernelILb1E", "bf16"),
+    ("update_lstm", "tower_bwd_kernelILb0E", "tower_bwd_kernelILb1E", "bf16"),
 )
+# SASS mnemonics of the bf16 tensor cores' product and of TF32's
+HMMA_BF16 = "HMMA.16816.F32.BF16"
+HMMA_TF32 = "HMMA.1688.F32.TF32"
 
 
 def sass_counts(lib, keys, opcodes) -> dict:
@@ -4066,29 +4079,38 @@ def sass_counts(lib, keys, opcodes) -> dict:
 
 
 def bf16_build_report(libs) -> list:
-    """Each bf16 instantiation's tensor-core products (HMMA) and bf16
-    roundings (F2FP.BF16, cvt.rn.bf16x2) beside its fp32 one's: the bf16
-    arm must hold HMMA instructions and round to bf16, the fp32 one not;
-    the bf16 arm must hold fewer HMMA, and where its loops are the fp32
-    arm's (BF16_PAIRS) exactly a third: one product a k-step where 3xTF32
-    takes three. Returns the failures."""
+    """Each bf16 instantiation's tensor-core products (HMMA, of them the
+    bf16 m16n8k16 ones and the TF32 ones) and bf16 roundings (F2FP.BF16,
+    cvt.rn.bf16x2) beside its fp32 one's: the bf16 arm must round to bf16
+    and the fp32 one not; then its pair's rule (BF16_PAIRS): "third" and
+    "fewer" hold TF32 HMMA, exactly a third of the fp32 arm's or fewer;
+    "bf16" holds HMMA.16816.F32.BF16 and no other HMMA. Returns the
+    failures."""
     failures = []
     keys = list(dict.fromkeys(k.split("<")[0] for _, a, b, _ in BF16_PAIRS
                               for k in (a, b)))
+    ops = ("HMMA", HMMA_BF16, HMMA_TF32, "F2FP.BF16")
     for name in dict.fromkeys(lib for lib, _, _, _ in BF16_PAIRS):
-        c = sass_counts(libs[name], keys, ("HMMA", "F2FP.BF16"))
-        for lib, fp32, bf16, third in BF16_PAIRS:
+        c = sass_counts(libs[name], keys, ops)
+        for lib, fp32, bf16, rule in BF16_PAIRS:
             if lib != name:
                 continue
             a, b = c.get(fp32, {}), c.get(bf16, {})
-            print(f"  {name} bf16 arm {bf16}: {b.get('HMMA')} HMMA, "
-                  f"{b.get('F2FP.BF16')} F2FP.BF16; its fp32 arm {fp32}: "
-                  f"{a.get('HMMA')} HMMA, {a.get('F2FP.BF16')} F2FP.BF16",
-                  flush=True)
-            if not (b.get("HMMA") and b.get("F2FP.BF16") and a.get("HMMA")
-                    and b["HMMA"] < a["HMMA"] and a.get("F2FP.BF16") == 0
-                    and (not third or 3 * b["HMMA"] == a["HMMA"])):
-                failures.append(f"{bf16}: {b} against {fp32}: {a}")
+            print(f"  {name} bf16 arm {bf16} ({rule}): {b.get('HMMA')} HMMA "
+                  f"({b.get(HMMA_BF16)} {HMMA_BF16}, {b.get(HMMA_TF32)} "
+                  f"{HMMA_TF32}), {b.get('F2FP.BF16')} F2FP.BF16; its fp32 "
+                  f"arm {fp32}: {a.get('HMMA')} HMMA, {a.get('F2FP.BF16')} "
+                  f"F2FP.BF16", flush=True)
+            ok = bool(a and b.get("F2FP.BF16") and a.get("F2FP.BF16") == 0)
+            if rule == "bf16":
+                ok = ok and b.get(HMMA_BF16, 0) > 0 \
+                    and b["HMMA"] == b[HMMA_BF16]
+            else:
+                ok = ok and bool(b.get("HMMA")) and a["HMMA"] > b["HMMA"] \
+                    and b[HMMA_BF16] == 0 \
+                    and (rule != "third" or 3 * b["HMMA"] == a["HMMA"])
+            if not ok:
+                failures.append(f"{bf16} ({rule}): {b} against {fp32}: {a}")
     return failures
 
 
@@ -5535,9 +5557,10 @@ def main() -> int:
     # the tensor-core kernels (K10, K7's both arms and its products, K11/K9
     # and both arms of K8/K6 on hover/euler, K3 on chip and off it, K5 and
     # K2 on hover/euler), with their dynamic shared memory at the main
-    # paths' shapes (cnn_mma.cuh TF_SMEM, TB_SMEM; the walk's, the acting
-    # arms' and the products' are the wrappers' bptt_smem_bytes,
-    # act_smem_bytes and PRODUCT_SMEM; K3's mma_layout, off chip at [128,
+    # paths' shapes (cnn_mma.cuh TF_SMEM, TB_SMEM, the bf16 arm's TFB_SMEM,
+    # TBB_SMEM; the walk's, the acting arms' and the products' are the
+    # wrappers' bptt_smem_bytes, act_smem_bytes and PRODUCT_SMEM(_BF16);
+    # the bf16 gWt product's mma.cuh GB_SMEM; K3's mma_layout, off chip at [128,
     # 128]; K5's act_layout; K2's traj_layout)
     from drone_tpu_torch.ops import cuda_acting_lstm as K8
     from drone_tpu_torch.ops import cuda_acting_traj as K2
@@ -5547,20 +5570,22 @@ def main() -> int:
     from drone_tpu_torch.ops.cuda_acting_cnn import KERNEL_ARCH
 
     smem = {"cnn_fwd_kernelILb0E": K10.TOWER_FWD_SMEM,
-            "cnn_fwd_kernelILb1E": K10.TOWER_FWD_SMEM,
+            "cnn_fwd_kernelILb1E": K10.TOWER_FWD_SMEM_BF16,
             "tower_fwd_kernelILb0E": K10.TOWER_FWD_SMEM,
-            "tower_fwd_kernelILb1E": K10.TOWER_FWD_SMEM,
+            "tower_fwd_kernelILb1E": K10.TOWER_FWD_SMEM_BF16,
             "tower_bwd_kernelILb0E": K10.TOWER_BWD_SMEM,
-            "tower_bwd_kernelILb1E": K10.TOWER_BWD_SMEM,
+            "tower_bwd_kernelILb1E": K10.TOWER_BWD_SMEM_BF16,
+            "cnn_gemm_kernelILb1E": K7.PRODUCT_SMEM_BF16,
             "pack_tower_kernel": 0,
             "bptt_kernel<cnn>": K7.bptt_smem_bytes(128, KERNEL_ARCH),
             "bptt_kernel<dense>": K7.bptt_smem_bytes(128, (64,)),
             "bptt_kernel<cnn, bf16>": K7.bptt_smem_bytes(128, KERNEL_ARCH),
             "bptt_kernel<dense, bf16>": K7.bptt_smem_bytes(128, (64,)),
             "grad_mma_kernelILb0E": K7.PRODUCT_SMEM,
-            "grad_mma_kernelILb1E": K7.PRODUCT_SMEM,
+            "grad_mma_kernelILb1E": K7.PRODUCT_SMEM_BF16,
+            "grad_rounded_kernel": K7.PRODUCT_SMEM,
             "cnn_act_kernelILi0ELi0ELb0E": K10.TOWER_FWD_SMEM,
-            "cnn_act_kernelILi0ELi0ELb1E": K10.TOWER_FWD_SMEM,
+            "cnn_act_kernelILi0ELi0ELb1E": K10.TOWER_FWD_SMEM_BF16,
             "lstm_act_kernel<cnn>": K8.act_smem_bytes(128, KERNEL_ARCH),
             "lstm_act_kernel<dense>": K8.act_smem_bytes(128, (64,)),
             "pack_gates_kernel": 0, "pack_gates_t_kernel": 0,
@@ -5609,7 +5634,7 @@ def main() -> int:
     bf16_failures = bf16_build_report(libs)
     if bf16_failures:
         failed.append(f"bf16 arms: {bf16_failures}")
-        print(f"FAILED: bf16 arms without one product a k-step: "
+        print(f"FAILED: bf16 arms that are not what they say: "
               f"{bf16_failures}", flush=True)
     lap("build")
 

@@ -28,8 +28,11 @@
 // both operands of every product, the rendered pixels among them): the
 // BF16 template parameter, K9's and K11's one instantiation
 // (cnn_act_kernel<task, integrator, true>): pack_tower_kernel<true> packs
-// the weights rounded, tower_fwd_tile<true> runs one product a k-step, and
-// the heads round W and h (cnn.cuh cnn_heads<true>).
+// the weights as bf16 fragments, the tower runs the bf16 design on the bf16
+// tensor cores (cnn_mma.cuh tower_fwd_b16: operand rows stored once as
+// bf16, m16n8k16 products, W0's and W1's fragments in shared memory;
+// 108,928 bytes, two blocks an SM), and the heads round W and h (cnn.cuh
+// cnn_heads<true>).
 //
 // What bounds it on an H100: ~369k multiply-adds of the tower per
 // lane-step (conv0 147,456, conv1 147,456, trunk 73,728) at the 3xTF32
@@ -63,12 +66,12 @@ cnn_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
   extern __shared__ float4 smem4[];
   __shared__ EnvP P;
   float* sm = reinterpret_cast<float*>(smem4);
-  float* sp = tf_rows(sm) + TF_SP * S;
-  const float* h = tf_rows(sm) + TF_Y0 * S;  // the tower's output
+  float* sp = tf_rows<BF16>(sm) + TF_SP * S;  // TFB_SP too
+  const float* h = tf_h<BF16>(sm);             // the tower's output
   const int n = pl.n;
   const int tid = threadIdx.x;
   const int i = blockIdx.x * L + tid;
-  tower_load_w0(sm, io.pk);
+  tower_load_w0<BF16>(sm, io.pk);
   load_params(pf, pi, P);  // ends with a barrier
 
   const bool lane_thread = tid < L && i < n;
@@ -103,8 +106,8 @@ cnn_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
     }
     __syncthreads();
 
-    tower_fwd_tile<BF16>(sm, io.theta, io.pk, io.grid,
-                         [](int, const float*) {});
+    tower_forward<BF16>(sm, io.theta, io.pk, io.grid,
+                        [](int, const float*) {});
     __syncthreads();
 
     if (lane_thread) {
@@ -147,17 +150,18 @@ cnn_act_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
 template <int TASK, int INTEG, bool BF16>
 cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
                    const CnnIO& io, float4* pk, cudaStream_t stream) {
+  constexpr int smem = tf_smem(BF16), count = BF16 ? PKB_FWD : PK_FWD;
   cudaError_t err = cudaFuncSetAttribute(
       cnn_act_kernel<TASK, INTEG, BF16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  pack_tower_kernel<BF16><<<(PK_FWD + 255) / 256, 256, 0, stream>>>(
-      io.theta, pk, PK_FWD);
+  pack_tower_kernel<BF16><<<(count + 255) / 256, 256, 0, stream>>>(
+      io.theta, pk, count);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cnn_act_kernel<TASK, INTEG, BF16>
-      <<<(pl.n + TM_L - 1) / TM_L, TM_THREADS, TF_SMEM, stream>>>(pf, pi, pl,
-                                                                   io);
+      <<<(pl.n + TM_L - 1) / TM_L, TM_THREADS, smem, stream>>>(pf, pi, pl,
+                                                                io);
   return cudaGetLastError();
 }
 
@@ -165,11 +169,12 @@ cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
 
 // C interface (ctypes). pf/pi: device env params; fs..stats: the state and
 // statistic planes of rollout.cu; theta: the flat parameters (95,113); pk:
-// room for the forward's packed fragments (PK_FWD float4s), written here on
-// the stream before the kernel reads them; grid: the pixel coordinates (2,
-// 576); traj: the (T, 21, n) planes to train (K9), or null to serve (K11);
-// smem: the block's shared bytes as the wrapper counts them (refused unless
-// TF_SMEM); bf16: 1 for the bf16 operand arm, 0 for 3xTF32.
+// room for the forward's packed fragments (PK_FWD float4s; the bf16 arm's
+// PKB_FWD uint4s), written here on the stream before the kernel reads them;
+// grid: the pixel coordinates (2, 576); traj: the (T, 21, n) planes to
+// train (K9), or null to serve (K11); smem: the block's shared bytes as the
+// wrapper counts them (refused unless tf_smem of the arm); bf16: 1 for the
+// bf16 operand arm, 0 for 3xTF32.
 extern "C" int drone_cnn_act_rollout(
     const float* pf, const int* pi, const float* fs, const uint32_t* us,
     const int* st, float* ofs, uint32_t* ous, int* ost, float* stats,
@@ -177,8 +182,8 @@ extern "C" int drone_cnn_act_rollout(
     int stochastic, int smem, int bf16, int n, int T, int task,
     int integrator, void* stream) {
   using namespace drone;
-  if (n <= 0 || T < 0 || smem != TF_SMEM || pk == nullptr || bf16 < 0 ||
-      bf16 > 1)
+  if (n <= 0 || T < 0 || pk == nullptr || bf16 < 0 || bf16 > 1 ||
+      smem != tf_smem(bf16 != 0))
     return (int)cudaErrorInvalidValue;
   float4* pk4 = reinterpret_cast<float4*>(pk);
   const CnnIO io{theta, pk4, grid, traj, T, stochastic};

@@ -2,7 +2,9 @@
 // functions over a tile of lanes: its architecture and flat-buffer
 // offsets, the render, the splat scalars and the heads, on the CUDA cores.
 // The tower's products run on the tensor cores in 3xTF32 (cnn_mma.cuh's
-// tower_fwd_tile and tower_bwd_tile), in every kernel that runs the tower:
+// tower_fwd_tile and tower_bwd_tile; the bf16 arm's tower_fwd_b16 and
+// tower_bwd_b16 on the bf16 tensor cores, render_patch_b16 rendering into
+// its bf16 rows), in every kernel that runs the tower:
 // the acting kernels (acting_cnn.cu: K11 and K9; the CNN arms of
 // acting_lstm.cu: K8 and K6) and the updates (update_cnn.cu: K10;
 // update_lstm.cu: K7's CNN arm).
@@ -25,6 +27,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "mma.cuh"
 #include "policy.cuh"
@@ -128,6 +132,41 @@ __device__ __forceinline__ void render_patch(int p, const float* sp,
     const float b = gy - sp[(3 * c + 1) * S + l];
     const float d2 = a * a + b * b;
     out[r * S + l] = sp[(3 * c + 2) * S + l] * expf(-d2 * RENDER_INV);
+  }
+}
+
+// render_patch's values for a tile of 64 lanes (sp rows 72 floats apart)
+// rounded into bf16 rows (72 bf16 apart; the bf16 arm's, cnn_mma.cuh TMB):
+// a thread takes one channel, two lanes and 8 of the patch's 16 pixels, so
+// it loads its splat scalars once and a warp reads each pixel's coordinates
+// at once; a warp writes 128 contiguous bytes of a row a pixel. The values
+// are render_patch's bits before rounding (the same expression).
+__device__ __forceinline__ void render_patch_b16(int p, const float* sp,
+                                                 const float* __restrict__ grid,
+                                                 uint16_t* out) {
+  constexpr int L = 64, S = 72, LP = L / 2, HALF = CNN_PP / 2;
+  for (int e = threadIdx.x; e < CNN_K0 * L / (2 * HALF); e += blockDim.x) {
+    const int lp = e % LP, c = (e / LP) % 4, s0 = HALF * (e / (4 * LP));
+    const int l = 2 * lp;
+    const float* su = sp + (3 * c) * S + l;
+    const float u0[2] = {su[0], su[1]}, u1[2] = {su[S], su[S + 1]};
+    const float amp[2] = {su[2 * S], su[2 * S + 1]};
+    uint32_t* o = reinterpret_cast<uint32_t*>(out) + (c * CNN_PP + s0) *
+                  (S / 2) + lp;
+#pragma unroll
+    for (int s = 0; s < HALF; ++s) {
+      const float gx = __ldg(grid + p * CNN_PP + s0 + s);
+      const float gy = __ldg(grid + CNN_RES * CNN_RES + p * CNN_PP + s0 + s);
+      float v[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float a = gx - u0[q];
+        const float b = gy - u1[q];
+        const float d2 = a * a + b * b;
+        v[q] = amp[q] * expf(-d2 * RENDER_INV);
+      }
+      o[s * (S / 2)] = bf16x2(v[0], v[1]);
+    }
   }
 }
 

@@ -37,19 +37,24 @@
 // The bf16 arm (compute_dtype="bfloat16", the reference's bf16 operand
 // arm of _cnn_update_kernel: every _dot32 of cnn_forward, the heads'
 // gradients and cnn_encoder_bwd rounds both operands): the BF16 template
-// parameter of the three kernels and the packing. The tower's products run
-// one product a k-step (cnn_mma.cuh), and the CUDA-core products (the
-// heads, their gradients, dh, and gWt in cnn_gemm_kernel) round both
-// operands (mma.cuh op_value; each product exact in fp32). The bias sums
-// (gbt, gb1, gb0, the heads' b) stay fp32 sums of fp32 values.
+// parameter of the three kernels and the packing. The tower runs its bf16
+// design on the bf16 tensor cores (cnn_mma.cuh tower_fwd_b16,
+// tower_bwd_b16: operand rows stored once as bf16, m16n8k16 products; the
+// backward BWD_BLOCKS_B16 blocks, TBB_PER_SM an SM), gWt and gbt too
+// (cnn_gemm_kernel<true>: mma.cuh grad_b16_tile, windows of 64 samples
+// folded with IEEE adds); the heads, their gradients and dh stay on the
+// CUDA cores and round both operands (mma.cuh op_value; each product exact
+// in fp32). The bias sums (gbt, gb1, gb0, the heads' b) stay fp32 sums of
+// fp32 values.
 //
 // What bounds it on an H100: per sample ~958k matrix multiply-adds of the
 // tower (the forward 369k, the weight gradients 369k, dX2 74k and dX1 147k;
 // the kernels add conv0's re-run, 147k) at the 3xTF32 rate (3 TF32
-// products at 495 TFLOP/s: 165 TFLOP/s of fp32-accurate products), and the
-// rest (the render's 2 x 2,304 expf, the heads, gWt's 74k multiply-adds on
-// the fp32 cores) at 67 TFLOP/s; the planes and the scratch's traffic are
-// far below the memory rate's share.
+// products at 495 TFLOP/s: 165 TFLOP/s of fp32-accurate products; the bf16
+// arm's at 989), and the rest (the render's 2 x 2,304 expf, the heads,
+// the fp32 arm's gWt, 74k multiply-adds, on the fp32 cores) at 67 TFLOP/s;
+// the planes and the scratch's traffic are far below the memory rate's
+// share.
 
 #include <cuda_runtime.h>
 
@@ -64,6 +69,7 @@ constexpr int N_UPSTATS = 8;
 // card. The forward takes two blocks an SM of an H100, the backward one.
 constexpr int FWD_BLOCKS = 264;
 constexpr int BWD_BLOCKS = 132;
+constexpr int BWD_BLOCKS_B16 = 132 * TBB_PER_SM;  // the bf16 arm's
 // a forward block's partial row: [head W, head b, value W, value b | the 8
 // stats]; a backward block's: [W0 b0 W1 b1] (OFF_WT floats)
 constexpr int N_HEADS = OFF_LS - OFF_HW;                    // 645
@@ -92,12 +98,13 @@ cnn_fwd_kernel(UpdArgs A, UConsts co) {
   constexpr int L = TM_L, S = TM_S;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* rows = tf_rows(sm);
-  float* sp = rows + TF_SP * S;
-  float* hh = rows + TF_Y0 * S;   // h, over the conv0 output rows
+  float* rows = tf_rows<BF16>(sm);
+  float* sp = rows + TF_SP * S;   // TFB_SP too
+  float* hh = tf_h<BF16>(sm);     // h, over the conv0 output rows
   float* dmv = rows + TF_XR * S;  // dm, g_v [5][S], over the patch rows
+                                  // (TFB_XR too)
   const int tid = threadIdx.x, n = A.n, NL = A.NL;
-  tower_load_w0(sm, A.pk);  // before the first tile's barriers
+  tower_load_w0<BF16>(sm, A.pk);  // before the first tile's barriers
   float ls[4], stdv[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -130,11 +137,20 @@ cnn_fwd_kernel(UpdArgs A, UConsts co) {
     __syncthreads();
 
     // ---- the tower's forward, X2 to the scratch -------------------------
-    tower_fwd_tile<BF16>(sm, A.theta, A.pk, A.grid, [&](int q1,
-                                                        const float* y1) {
-      for (int e = tid; e < CNN_C1 * L; e += blockDim.x) {
-        const int o = e / L, l = e % L;
-        x2s[(size_t)(q1 * CNN_C1 + o) * NL + l] = y1[o * S + l];
+    tower_forward<BF16>(sm, A.theta, A.pk, A.grid, [&](int q1,
+                                                       const float* y1) {
+      if constexpr (BF16) {  // a float4 a thread
+        for (int e = tid; e < CNN_C1 * L / 4; e += blockDim.x) {
+          const int o = e / (L / 4), l = 4 * (e % (L / 4));
+          *reinterpret_cast<float4*>(x2s + (size_t)(q1 * CNN_C1 + o) * NL +
+                                     l) =
+              *reinterpret_cast<const float4*>(y1 + o * S + l);
+        }
+      } else {
+        for (int e = tid; e < CNN_C1 * L; e += blockDim.x) {
+          const int o = e / L, l = e % L;
+          x2s[(size_t)(q1 * CNN_C1 + o) * NL + l] = y1[o * S + l];
+        }
       }
     });
     __syncthreads();
@@ -213,11 +229,13 @@ cnn_fwd_kernel(UpdArgs A, UConsts co) {
   }
 }
 
-// K7's split-K product (update_lstm.cu): C (M x N) = sum_s A[m][s] B[n][s]
+// The split-K product of gWt and gbt: C (M x N) = sum_s A[m][s] B[n][s]
 // with the bias sums sum_s A[m][s] as column N, over the chunk's samples
 // (s = t * NL + lane); block (i, j, kc) takes the 64 x 64 tile (i, j) over
-// CK lanes of one step and writes its own partial row (row0 + kc). BF16:
-// the products' operands rounded to bf16, the bias sums not.
+// CK lanes of one step and writes its own partial row (row0 + kc). fp32:
+// on the fp32 cores. BF16: on the bf16 tensor cores (mma.cuh grad_b16_tile:
+// each window of 64 samples from zero, folded with IEEE adds; GB_SMEM
+// bytes of dynamic shared memory), the bias sums of the fp32 values.
 struct GemmPair {
   const float* a;
   int ra, M;
@@ -229,72 +247,82 @@ template <bool BF16>
 __global__ void __launch_bounds__(256)
 cnn_gemm_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
                  int ptot, int row0) {
-  __shared__ __align__(16) float As[2][GK][GT + 4];
-  __shared__ __align__(16) float Bs[2][GK][GT + 4];
-  const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
-  const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT, kc = blockIdx.z;
-  const int per_t = NL / CK;
-  const int t = kc / per_t, lane0 = (kc % per_t) * CK;
-  const float* a = p.a + (size_t)t * p.ra * NL + lane0;
-  const float* b = p.b + (size_t)t * p.rb * NL + lane0;
-  const bool bias = blockIdx.y == 0 && tn == 0;
-  float acc[4][4], bsum[4];
+  if constexpr (BF16) {
+    extern __shared__ float4 smem4[];
+    const int kc = blockIdx.z, per_t = NL / CK;
+    const int t = kc / per_t, lane0 = (kc % per_t) * CK;
+    grad_b16_tile(p.a + (size_t)t * p.ra * NL + lane0,
+                  p.b + (size_t)t * p.rb * NL + lane0, p.M, p.N, NL, CK,
+                  blockIdx.x * GB_T, blockIdx.y * GB_T, blockIdx.y == 0,
+                  reinterpret_cast<uint16_t*>(smem4),
+                  partial + (size_t)(row0 + kc) * ptot, p.N + 1);
+  } else {
+    __shared__ __align__(16) float As[2][GK][GT + 4];
+    __shared__ __align__(16) float Bs[2][GK][GT + 4];
+    const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
+    const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT, kc = blockIdx.z;
+    const int per_t = NL / CK;
+    const int t = kc / per_t, lane0 = (kc % per_t) * CK;
+    const float* a = p.a + (size_t)t * p.ra * NL + lane0;
+    const float* b = p.b + (size_t)t * p.rb * NL + lane0;
+    const bool bias = blockIdx.y == 0 && tn == 0;
+    float acc[4][4], bsum[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    bsum[i] = 0.0f;
+    for (int i = 0; i < 4; ++i) {
+      bsum[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-  const int li = tid / 4, lk = 4 * (tid % 4);
-  const bool a_ok = m0 + li < p.M, b_ok = n0 + li < p.N;
-  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const float4* pa = reinterpret_cast<const float4*>(a + (size_t)(m0 + li) * NL + lk);
-  const float4* pb = reinterpret_cast<const float4*>(b + (size_t)(n0 + li) * NL + lk);
-  float4 ra = a_ok ? __ldg(pa) : zero4, rb = b_ok ? __ldg(pb) : zero4;
-  int buf = 0;
-  for (int k0 = 0; k0 < CK; k0 += GK) {
-    As[buf][lk + 0][li] = ra.x;
-    As[buf][lk + 1][li] = ra.y;
-    As[buf][lk + 2][li] = ra.z;
-    As[buf][lk + 3][li] = ra.w;
-    Bs[buf][lk + 0][li] = rb.x;
-    Bs[buf][lk + 1][li] = rb.y;
-    Bs[buf][lk + 2][li] = rb.z;
-    Bs[buf][lk + 3][li] = rb.w;
-    __syncthreads();
-    if (k0 + GK < CK) {
-      ra = a_ok ? __ldg(pa + (k0 + GK) / 4) : zero4;
-      rb = b_ok ? __ldg(pb + (k0 + GK) / 4) : zero4;
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
     }
-#pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[buf][kk][4 * tm]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][kk][4 * tn]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {op_value<BF16>(bv.x), op_value<BF16>(bv.y),
-                           op_value<BF16>(bv.z), op_value<BF16>(bv.w)};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = op_value<BF16>(ar[i]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(ai, br[j], acc[i][j]);
-        if (bias) bsum[i] = bsum[i] + ar[i];
+    const int li = tid / 4, lk = 4 * (tid % 4);
+    const bool a_ok = m0 + li < p.M, b_ok = n0 + li < p.N;
+    const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4* pa = reinterpret_cast<const float4*>(a + (size_t)(m0 + li) * NL + lk);
+    const float4* pb = reinterpret_cast<const float4*>(b + (size_t)(n0 + li) * NL + lk);
+    float4 ra = a_ok ? __ldg(pa) : zero4, rb = b_ok ? __ldg(pb) : zero4;
+    int buf = 0;
+    for (int k0 = 0; k0 < CK; k0 += GK) {
+      As[buf][lk + 0][li] = ra.x;
+      As[buf][lk + 1][li] = ra.y;
+      As[buf][lk + 2][li] = ra.z;
+      As[buf][lk + 3][li] = ra.w;
+      Bs[buf][lk + 0][li] = rb.x;
+      Bs[buf][lk + 1][li] = rb.y;
+      Bs[buf][lk + 2][li] = rb.z;
+      Bs[buf][lk + 3][li] = rb.w;
+      __syncthreads();
+      if (k0 + GK < CK) {
+        ra = a_ok ? __ldg(pa + (k0 + GK) / 4) : zero4;
+        rb = b_ok ? __ldg(pb + (k0 + GK) / 4) : zero4;
       }
-    }
-    buf ^= 1;
-  }
-  float* out = partial + (size_t)(row0 + kc) * ptot;
-  const int W = p.N + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * tm + i;
-    if (m >= p.M) break;
+      for (int kk = 0; kk < GK; ++kk) {
+        const float4 av = *reinterpret_cast<const float4*>(&As[buf][kk][4 * tm]);
+        const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][kk][4 * tn]);
+        const float ar[4] = {av.x, av.y, av.z, av.w};
+        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + 4 * tn + j;
-      if (c < p.N) out[(size_t)m * W + c] = acc[i][j];
+        for (int i = 0; i < 4; ++i) {
+          const float ai = ar[i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(ai, br[j], acc[i][j]);
+          if (bias) bsum[i] = bsum[i] + ar[i];
+        }
+      }
+      buf ^= 1;
     }
-    if (bias) out[(size_t)m * W + p.N] = bsum[i];
+    float* out = partial + (size_t)(row0 + kc) * ptot;
+    const int W = p.N + 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + 4 * tm + i;
+      if (m >= p.M) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = n0 + 4 * tn + j;
+        if (c < p.N) out[(size_t)m * W + c] = acc[i][j];
+      }
+      if (bias) out[(size_t)m * W + p.N] = bsum[i];
+    }
   }
 }
 
@@ -338,12 +366,14 @@ __global__ void cnn_reduce_kernel(const float* __restrict__ bpart, int RB,
 
 // C interface (ctypes). ptrs: host array of device pointers [planes,
 // advret, perm, theta, pk, grid, x2s, dzs, fpart, bpart, gpart, grads,
-// stats]; the packed weights pk (PK_TOTAL float4s), the scratch x2s (tch,
-// 576, NL) and dzs (tch, 128, NL), the partial rows fpart (n_chunks * Gf,
-// FP_W), bpart (n_chunks * Gb, OFF_WT) and gpart (n_chunks * tch * NL / CK,
-// 128 * 577). dims: [n, T, rbl, NL, tch, CK, Gf, Gb, the forward's and the
-// backward's shared bytes as the wrapper counts them, bf16: 1 for the bf16
-// operand arm, 0 for 3xTF32]. consts: [inv_m,
+// stats]; the packed weights pk (PK_TOTAL float4s; the bf16 arm PKB_TOTAL
+// uint4s), the scratch x2s (tch, 576, NL) and dzs (tch, 128, NL), the
+// partial rows fpart (n_chunks * Gf, FP_W), bpart (n_chunks * Gb, OFF_WT)
+// and gpart (n_chunks * tch * NL / CK, 128 * 577). dims: [n, T, rbl, NL,
+// tch, CK, Gf, Gb (up to BWD_BLOCKS; the bf16 arm's BWD_BLOCKS_B16), the
+// forward's and the backward's shared bytes as the wrapper counts them
+// (tf_smem, tb_smem of the arm), bf16: 1 for the bf16 operand arm, 0 for
+// 3xTF32]. consts: [inv_m,
 // clip_lo, clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the
 // cudaError_t of the launches.
 extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
@@ -351,13 +381,14 @@ extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
   using namespace drone;
   const int n = dims[0], T = dims[1], rbl = dims[2], NL = dims[3];
   const int tch = dims[4], CK = dims[5], Gf = dims[6], Gb = dims[7];
-  if (n <= 0 || T <= 0 || tch <= 0 || T % tch != 0 || rbl % 128 != 0 ||
-      NL % rbl != 0 || NL % TM_L != 0 || CK % GK != 0 || NL % CK != 0 ||
-      Gf <= 0 || Gf > FWD_BLOCKS || Gb <= 0 || Gb > BWD_BLOCKS ||
-      dims[8] != TF_SMEM || dims[9] != TB_SMEM || dims[10] < 0 ||
-      dims[10] > 1)
-    return (int)cudaErrorInvalidValue;
+  if (dims[10] < 0 || dims[10] > 1) return (int)cudaErrorInvalidValue;
   const bool bf16 = dims[10] != 0;
+  if (n <= 0 || T <= 0 || tch <= 0 || T % tch != 0 || rbl % 128 != 0 ||
+      NL % rbl != 0 || NL % TM_L != 0 || CK % (bf16 ? GB_T : GK) != 0 ||
+      NL % CK != 0 || Gf <= 0 || Gf > FWD_BLOCKS || Gb <= 0 ||
+      Gb > (bf16 ? BWD_BLOCKS_B16 : BWD_BLOCKS) || dims[8] != tf_smem(bf16) ||
+      dims[9] != tb_smem(bf16))
+    return (int)cudaErrorInvalidValue;
   const float** ptr = reinterpret_cast<const float**>(const_cast<uint64_t*>(ptrs));
   UpdArgs A;
   A.planes = ptr[0];
@@ -387,15 +418,17 @@ extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
   auto fwd = bf16 ? cnn_fwd_kernel<true> : cnn_fwd_kernel<false>;
   auto bwd = bf16 ? tower_bwd_kernel<true> : tower_bwd_kernel<false>;
   auto gemm = bf16 ? cnn_gemm_kernel<true> : cnn_gemm_kernel<false>;
+  const int fsm = tf_smem(bf16), bsm = tb_smem(bf16);
+  const int gsm = bf16 ? GB_SMEM : 0;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+      fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, fsm);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
-      bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, TB_SMEM);
+      bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, bsm);
   if (err != cudaSuccess) return (int)err;
   if (bf16)
-    pack_tower_kernel<true><<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(
-        A.theta, pk, PK_TOTAL);
+    pack_tower_kernel<true><<<(PKB_TOTAL + 255) / 256, 256, 0, s>>>(
+        A.theta, pk, PKB_TOTAL);
   else
     pack_tower_kernel<false><<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(
         A.theta, pk, PK_TOTAL);
@@ -422,15 +455,15 @@ extern "C" int drone_cnn_update(const uint64_t* ptrs, const int* dims,
   for (int c = 0; c < n_chunks; ++c) {
     A.chunk = c;
     A.fpart = fpart + (size_t)c * Gf * FP_W;
-    fwd<<<Gf, TM_THREADS, TF_SMEM, s>>>(A, co);
+    fwd<<<Gf, TM_THREADS, fsm, s>>>(A, co);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     B.t0 = c * tch;
     B.row0 = c * Gb;
-    bwd<<<Gb, TM_THREADS, TB_SMEM, s>>>(B);
+    bwd<<<Gb, TM_THREADS, bsm, s>>>(B);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    gemm<<<grid, 256, 0, s>>>(gp, NL, CK, gpart, GPT, c * nk);
+    gemm<<<grid, 256, gsm, s>>>(gp, NL, CK, gpart, GPT, c * nk);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

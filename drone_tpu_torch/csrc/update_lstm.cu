@@ -97,20 +97,30 @@
 // and the packing, not a copy of them. Per call round_weights_kernel writes
 // a copy of the flat buffer whose weights the walk reads on the fp32 cores
 // (the dense encoder's and the heads') are rounded to bf16, its biases and
-// log_std as they are; the walk reads that copy. The packers round the gate
-// weights and the tower's (lstm_mma.cuh, cnn_mma.cuh); the tensor-core
+// log_std as they are; the walk reads that copy. The CNN arm's weight
+// products (grad_mma_kernel<true>: mma.cuh grad_b16_tile) and tower kernels
+// (cnn_mma.cuh tower_fwd_b16, tower_bwd_b16, the weights packed by
+// pack_tower_kernel<true>) run on the bf16 tensor cores, m16n8k16 products
+// of operands stored once as bf16 rows. The walk and the dense arm's
+// weight products (grad_rounded_kernel) keep the first bf16 design: the
+// gate packers round the gate weights (lstm_mma.cuh), the tensor-core
 // products round their other operand as its fragments load, one TF32
-// product a k-step; on the fp32 cores the encoder and the heads round
-// their activations as they load (lstm.cuh), and the walk stores [dm; g_v]
-// and the dense layers' dpre rounded in shared memory for dh' and the
+// product a k-step; on the fp32 cores the encoder and the heads
+// round their activations as they load (lstm.cuh), and the walk stores [dm;
+// g_v] and the dense layers' dpre rounded in shared memory for dh' and the
 // layer input gradient. The bias sums, the cell's elementwise math, the
 // head's subgradients, the stored activations (the scratch) and the folds
-// of the products' windows stay fp32. The shared memory is the fp32 arm's.
+// of the products' windows stay fp32. The walk's and the dense arm's
+// products' shared memory is the fp32 arm's; the CNN arm's products' and
+// tower kernels' are the bf16 designs' (GB_SMEM, TFB_SMEM, TBB_SMEM).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+// the bf16 tower backward takes one block an SM here: K7 launches one a
+// product row (cnn_mma.cuh TBB_PER_SM)
+#define DRONE_TBB_PER_SM 1
 #include "cnn_mma.cuh"
 #include "lstm.cuh"
 #include "lstm_mma.cuh"
@@ -545,10 +555,10 @@ tower_fwd_kernel(TowerFwdArgs A) {
   constexpr int L = TM_L, S = TM_S;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* sp = tf_rows(sm) + TF_SP * S;
-  const float* hh = tf_rows(sm) + TF_Y0 * S;
+  float* sp = tf_rows<BF16>(sm) + TF_SP * S;  // TFB_SP too
+  const float* hh = tf_h<BF16>(sm);
   const int tid = threadIdx.x, n = A.n, NL = A.NL, per_t = NL / L;
-  tower_load_w0(sm, A.pk);  // before the first tile's barriers
+  tower_load_w0<BF16>(sm, A.pk);  // before the first tile's barriers
   for (int tau = blockIdx.x; tau < A.n_tiles; tau += gridDim.x) {
     const int tl = tau / per_t, ml0 = (tau % per_t) * L;
     const int lane0 = A.perm[ml0 / A.rbl] * A.rbl + ml0 % A.rbl;
@@ -568,11 +578,20 @@ tower_fwd_kernel(TowerFwdArgs A) {
       for (int k = 0; k < 12; ++k) sp[k * S + tid] = s12[k];
     }
     __syncthreads();
-    tower_fwd_tile<BF16>(sm, A.theta, A.pk, A.grid,
-                         [&](int q1, const float* y1) {
-      for (int e = tid; e < CNN_C1 * L; e += blockDim.x) {
-        const int o = e / L, l = e % L;
-        x2s[(size_t)(q1 * CNN_C1 + o) * NL + l] = y1[o * S + l];
+    tower_forward<BF16>(sm, A.theta, A.pk, A.grid,
+                        [&](int q1, const float* y1) {
+      if constexpr (BF16) {  // a float4 a thread
+        for (int e = tid; e < CNN_C1 * L / 4; e += blockDim.x) {
+          const int o = e / (L / 4), l = 4 * (e % (L / 4));
+          *reinterpret_cast<float4*>(x2s + (size_t)(q1 * CNN_C1 + o) * NL +
+                                     l) =
+              *reinterpret_cast<const float4*>(y1 + o * S + l);
+        }
+      } else {
+        for (int e = tid; e < CNN_C1 * L; e += blockDim.x) {
+          const int o = e / L, l = e % L;
+          x2s[(size_t)(q1 * CNN_C1 + o) * NL + l] = y1[o * S + l];
+        }
       }
     });
     __syncthreads();
@@ -589,9 +608,10 @@ tower_fwd_kernel(TowerFwdArgs A) {
 // are scratch buffers (bptt, rows, NL) from rows a0 / b0; sample s = t * NL
 // + lane. Block (i, j, kc) takes the 64 x 64 tile (i, j) over chunk kc of
 // CK lanes of one step and writes its own partial row (row0 + kc) of the
-// (rows, ptot) buffer at out_off, the block (M, N + 1) row-major. BF16:
-// each operand rounded as its fragment loads, one product a k-step; the
-// bias sums of the operands as they are.
+// (rows, ptot) buffer at out_off, the block (M, N + 1) row-major. BF16: on
+// the bf16 tensor cores (mma.cuh grad_b16_tile: each window's operands
+// rounded once into bf16 rows, m16n8k16 products, GB_SMEM bytes); the bias
+// sums of the operands as they are.
 struct GemmPair {
   const float* a;
   int ra, a0, M;
@@ -600,10 +620,15 @@ struct GemmPair {
   int out_off;
 };
 
+// The products' tile on the TF32 instruction: 3xTF32, or with BF16 one
+// TF32 product a k-step of the operands rounded to bf16 as their fragments
+// load (K7's first bf16 design, which the dense arm's products keep:
+// grad_rounded_kernel).
 template <bool BF16>
-__global__ void __launch_bounds__(256, 2)
-grad_mma_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
-                int ptot, int row0) {
+__device__ __forceinline__ void grad_tf32_tile(const GemmPair& p, int NL,
+                                               int CK,
+                                               float* __restrict__ partial,
+                                               int ptot, int row0) {
   // Per window of 64 samples each thread stores the float4s of A and B it
   // loaded during the last window into one of two buffers, so one barrier
   // a window. Warp w takes rows 32 (w & 1) .., columns 16 (w >> 1) .. of
@@ -701,6 +726,36 @@ grad_mma_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
     out[(size_t)(m0 + 8 * w + lane) * W + p.N] = bsum;
 }
 
+
+template <bool BF16>
+__global__ void __launch_bounds__(256, 2)
+grad_mma_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
+                int ptot, int row0) {
+  if constexpr (BF16) {
+    extern __shared__ float4 smem4[];
+    const int kc = blockIdx.z, per_t = NL / CK;
+    const int t = kc / per_t, lane0 = (kc % per_t) * CK;
+    grad_b16_tile(p.a + ((size_t)t * p.ra + p.a0) * NL + lane0,
+                  p.b + ((size_t)t * p.rb + p.b0) * NL + lane0, p.M, p.N, NL,
+                  CK, blockIdx.x * GM_T, blockIdx.y * GM_T, blockIdx.y == 0,
+                  reinterpret_cast<uint16_t*>(smem4),
+                  partial + (size_t)(row0 + kc) * ptot + p.out_off, p.N + 1);
+  } else {
+    grad_tf32_tile<false>(p, NL, CK, partial, ptot, row0);
+  }
+}
+
+// The dense arm's bf16 products: the first bf16 design (grad_tf32_tile
+// <true>, GM_SMEM bytes). Their m16n8k16 form (grad_mma_kernel<true>)
+// held H12 as closely, but moved the one-run bf16 LSTM learning gate's
+// seed-0 run below its rise (ROADMAP H11), so the dense arm keeps this
+// design, bit for bit, until the walk's redesign.
+__global__ void __launch_bounds__(256, 2)
+grad_rounded_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
+                    int ptot, int row0) {
+  grad_tf32_tile<true>(p, NL, CK, partial, ptot, row0);
+}
+
 // The bf16 arm's copy of the flat buffer (P floats): the weights the walk
 // reads on the fp32 cores, each dense encoder layer's W and the heads' W,
 // rounded to bf16 (nearest even); every other float (the biases, log_std,
@@ -752,7 +807,8 @@ __global__ void lstm_reduce_kernel(const float* __restrict__ partial, int R,
 // C interface (ctypes). ptrs: host array of device pointers [planes,
 // advret, snap, perm, theta, wp, bp, the 7 scratch buffers (XS, GZ, GF, H2,
 // DMV, DP, X2S), partial, stat_part, map, grads, stats, pk, grid, pg, pgt,
-// theta16]; X2S, the packed tower weights pk (PK_TOTAL float4s) and grid
+// theta16]; X2S, the packed tower weights pk (PK_TOTAL float4s, the bf16
+// arm's PKB_TOTAL uint4s) and grid
 // are the CNN arm's (null for the dense one); pg and pgt room for the gate
 // weights' forward and transposed fragments (gate_frags and gate_t_frags
 // float4s), written here on the stream; theta16 room for the bf16 arm's
@@ -760,7 +816,8 @@ __global__ void lstm_reduce_kernel(const float* __restrict__ partial, int R,
 // NET_INTS; encoder: ENC_DENSE or ENC_CNN. dims: [n, T, bptt, rbl, NL, CK,
 // P, ptot, n_pairs, the 7 scratch row counts, then the shared bytes of a
 // block of the walk, the CNN arm's tower forward and backward (0 for the
-// dense arm) and the products, as the wrapper counts them, then bf16: 1 for
+// dense arm) and the products (tf_smem, tb_smem and GM_SMEM, or GB_SMEM
+// in the CNN arm under bf16), as the wrapper counts them, then bf16: 1 for
 // the bf16 operand arm, 0 for 3xTF32]. pairs: n_pairs x [A buffer, A
 // row0, M, B buffer, B row0, N, out offset]. consts: [inv_m, clip_lo,
 // clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the
@@ -782,11 +839,12 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const size_t smem = sizeof(float) * (size_t)bptt_smem_floats(net, encoder);
   if (n <= 0 || bptt <= 0 || T % bptt != 0 || rbl % 128 != 0 ||
       NL % BP_LANES != 0 || CK % GM_T != 0 || NL % CK != 0 || n_pairs <= 0 ||
-      smem_bytes[0] != (int)smem || smem_bytes[3] != GM_SMEM ||
+      smem_bytes[0] != (int)smem ||
+      smem_bytes[3] != (bf16 && cnn ? GB_SMEM : GM_SMEM) ||
       rows[GF] != 6 * gate_units(net.H) ||
-      smem_bytes[1] != (cnn ? TF_SMEM : 0) ||
-      smem_bytes[2] != (cnn ? TB_SMEM : 0) || bf16_flag < 0 ||
-      bf16_flag > 1 ||
+      smem_bytes[1] != (cnn ? tf_smem(bf16) : 0) ||
+      smem_bytes[2] != (cnn ? tb_smem(bf16) : 0) || bf16_flag < 0 ||
+      bf16_flag > 1 || (bf16 && CK % GB_T != 0) ||
       (cnn && (NL % TM_L != 0 || ptot < OFF_WT ||
                rows[XS] != OBS_DIM + CNN_H + net.H || rows[DP] != CNN_H ||
                rows[X2S] != CNN_X2)))
@@ -830,15 +888,20 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
                           : bptt_kernel<ENC_CNN, false>)
                    : (bf16 ? bptt_kernel<ENC_DENSE, true>
                            : bptt_kernel<ENC_DENSE, false>);
-  auto* gemm = bf16 ? grad_mma_kernel<true> : grad_mma_kernel<false>;
+  // the bf16 products: the CNN arm's on the bf16 tensor cores, the dense
+  // arm's on the first bf16 design (grad_rounded_kernel)
+  auto* gemm = !bf16 ? grad_mma_kernel<false>
+                     : (cnn ? grad_mma_kernel<true> : grad_rounded_kernel);
   auto* tfwd = bf16 ? tower_fwd_kernel<true> : tower_fwd_kernel<false>;
   auto* tbwd = bf16 ? tower_bwd_kernel<true> : tower_bwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const int gsm = bf16 && cnn ? GB_SMEM : GM_SMEM;
+  const int fsm = tf_smem(bf16), bsm = tb_smem(bf16);
   err = cudaFuncSetAttribute(gemm,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             GM_SMEM);
+                             gsm);
   if (err != cudaSuccess) return (int)err;
   const int S = T / bptt, nblk = NL / BP_LANES, nk = bptt * (NL / CK);
   const int n_tiles = bptt * (NL / TM_L);
@@ -867,15 +930,15 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   if (cnn) {
     err = cudaFuncSetAttribute(tfwd,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               TF_SMEM);
+                               fsm);
     if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(tbwd,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               TB_SMEM);
+                               bsm);
     if (err != cudaSuccess) return (int)err;
     if (bf16)
-      pack_tower_kernel<true><<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(
-          A.theta, pk, PK_TOTAL);
+      pack_tower_kernel<true><<<(PKB_TOTAL + 255) / 256, 256, 0, s>>>(
+          A.theta, pk, PKB_TOTAL);
     else
       pack_tower_kernel<false><<<(PK_TOTAL + 255) / 256, 256, 0, s>>>(
           A.theta, pk, PK_TOTAL);
@@ -890,7 +953,7 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
     A.stat_part = stat_part + (size_t)seg * nblk * N_UPSTATS;
     if (cnn) {
       tf.t0 = seg * bptt;
-      tfwd<<<tf_blocks, TM_THREADS, TF_SMEM, s>>>(tf);
+      tfwd<<<tf_blocks, TM_THREADS, fsm, s>>>(tf);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -900,7 +963,7 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
     if (cnn) {
       // one block per product row of the segment (nk <= the tiles)
       tb.row0 = seg * nk;
-      tbwd<<<nk, TM_THREADS, TB_SMEM, s>>>(tb);
+      tbwd<<<nk, TM_THREADS, bsm, s>>>(tb);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -909,7 +972,7 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
       const GemmPair gp{bufs[d[0]], rows[d[0]], d[1], d[2],
                         bufs[d[3]], rows[d[3]], d[4], d[5], d[6]};
       const dim3 grid((gp.M + GM_T - 1) / GM_T, (gp.N + GM_T - 1) / GM_T, nk);
-      gemm<<<grid, 256, GM_SMEM, s>>>(gp, NL, CK, partial, ptot, seg * nk);
+      gemm<<<grid, 256, gsm, s>>>(gp, NL, CK, partial, ptot, seg * nk);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

@@ -86,6 +86,16 @@ TOWER_FWD_SMEM = 4 * (W0_FRAG_FLOATS + ROW_STRIDE * TOWER_FWD_ROWS)  # 109,952
 # the forward's packed (big, small) fragments of W0, W1 and Wt, which the
 # acting kernels' calls write (cnn_mma.cuh PK_FWD float4s)
 FWD_PACKED_FLOATS = 2 * (64 * 64 + 256 * 64 + 576 * 128)   # 188,416
+# The bf16 arm's forward tile (cnn_mma.cuh TFB_*): W0's and W1's bf16
+# fragments, then the splat scalars (12 fp32 rows), two rendered patches and
+# two patches' conv0 outputs (bf16 rows, half a row's floats each: 64 + 64),
+# the window's conv1 output as fp32 rows (64) and as bf16 rows (32); its
+# packed fragments are bf16 pairs (PKB_FWD uint4s).
+W01_FRAG_FLOATS_BF16 = (64 * 64 + 256 * 64) // 2          # 10,240
+TOWER_FWD_ROWS_BF16 = 12 + 64 + 64 + 64 + 32
+TOWER_FWD_SMEM_BF16 = 4 * (W01_FRAG_FLOATS_BF16
+                           + ROW_STRIDE * TOWER_FWD_ROWS_BF16)  # 108,928
+FWD_PACKED_FLOATS_BF16 = (64 * 64 + 256 * 64 + 576 * 128) // 2  # 47,104
 # float32(1 / (2 * SPLAT_SIGMA^2)): computed in double, then rounded, as the
 # reference's render_patch does
 RENDER_INV = float(np.float32(1.0 / (2.0 * SPLAT_SIGMA * SPLAT_SIGMA)))
@@ -291,7 +301,8 @@ def _launch(state, theta, arch, env_params, statics, T, traj: bool,
             or not theta.is_contiguous()):
         raise ValueError("theta must be a contiguous float32 buffer on the "
                          "state's device")
-    pk = torch.empty(FWD_PACKED_FLOATS, device=dev)  # packed by the call
+    pk = torch.empty(FWD_PACKED_FLOATS_BF16 if bf16 else FWD_PACKED_FLOATS,
+                     device=dev)  # packed by the call
     grid = grid_table(arch.res, arch.p0, dev)
     planes = torch.empty(T, N_TRAJ, state.n, device=dev) if traj else None
     fn = cuda_build.load("acting_cnn").drone_cnn_act_rollout
@@ -299,7 +310,8 @@ def _launch(state, theta, arch, env_params, statics, T, traj: bool,
     final, lane_stats = launch_planes(
         fn, state, env_params, statics, T, theta.data_ptr(), pk.data_ptr(),
         grid.data_ptr(), None if planes is None else planes.data_ptr(),
-        int(stochastic), TOWER_FWD_SMEM, bf16)
+        int(stochastic), TOWER_FWD_SMEM_BF16 if bf16 else TOWER_FWD_SMEM,
+        bf16)
     return final, planes, lane_stats
 
 

@@ -27,6 +27,8 @@ log_std's is its stat sums ST_DLS* minus ent_coef.
 every product (the forward, the heads' gradients, dh, gWt, dX2, gW1, dX1,
 gW0) takes its operands rounded to bfloat16 (`cuda_acting_traj.operand`,
 the reference's `_dot32`) and sums in float32; the bias sums stay float32.
+The kernels' bf16 arm runs the tower's products (and gWt) on the bf16
+tensor cores, 16 products summed in a group (`mm_bf16_k16` emulates it).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from drone_tpu_torch.ops.cuda_acting_cnn import (
     ROW_STRIDE,
     TILE,
     TOWER_FWD_SMEM,
+    TOWER_FWD_SMEM_BF16,
     check_envelope,
     cnn_forward,
     window_index,
@@ -69,6 +72,7 @@ PLAIN_CHUNK = 16384
 # kernel limits (csrc/update_cnn.cu, csrc/cnn_mma.cuh)
 FWD_BLOCKS = 264          # the forward's blocks (two an SM)
 BWD_BLOCKS = 132          # the tower backward's blocks (one an SM)
+BWD_BLOCKS_BF16 = 264     # the bf16 arm's (cnn_mma.cuh TBB_PER_SM an SM)
 MAX_CHUNK = 4096          # lanes of one split-K chunk of the trunk's product
 MAX_SCRATCH = 262144      # samples of one chunk of steps (~0.7 GB scratch)
 FP_W = 645 + N_UPSTATS    # a forward block's partial row: heads, stats
@@ -80,6 +84,24 @@ PACKED_FLOATS = 4 * 92160  # the tower's packed (big, small) weights
 # forward tile's are cuda_acting_cnn's (TOWER_FWD_SMEM)
 TOWER_BWD_ROWS = 12 + 128 + 256 + 256 + 64
 TOWER_BWD_SMEM = 4 * ROW_STRIDE * TOWER_BWD_ROWS   # 206,208
+# The bf16 arm (cnn_mma.cuh PKB_*, TBB_*): the packed weights as bf16 pairs;
+# the backward tile's splat scalars in fp32 rows, dzt, the patches, conv0's
+# outputs and dz1 in bf16 rows (half a row's floats each), then the row sums
+# of dz1 (4 x 64 floats) and of dz0 (2 x 256)
+PACKED_FLOATS_BF16 = (64 * 64 + 2 * 256 * 64 + 2 * 576 * 128) // 2  # 92,160
+TOWER_BWD_SMEM_BF16 = 4 * (ROW_STRIDE * (12 + (128 + 256 + 256 + 64) // 2)
+                           + 4 * 64 + 2 * 256)                 # 107,904
+
+
+def tower_layout(compute_dtype: str = "float32") -> tuple[int, int, int,
+                                                          int]:
+    """An arm's tower kernels as the C entry points check them: (the
+    forward tile's shared bytes, the backward tile's, the packed weights'
+    floats, K10's backward blocks)."""
+    if bf16_flag(compute_dtype):
+        return (TOWER_FWD_SMEM_BF16, TOWER_BWD_SMEM_BF16, PACKED_FLOATS_BF16,
+                BWD_BLOCKS_BF16)
+    return TOWER_FWD_SMEM, TOWER_BWD_SMEM, PACKED_FLOATS, BWD_BLOCKS
 
 
 def tf32_split(x):
@@ -101,6 +123,20 @@ def mm_3xtf32(a, b):
     ab, a_s = tf32_split(a)
     bb, bs = tf32_split(b)
     return (a_s @ bb + ab @ bs) + ab @ bb
+
+
+def mm_bf16_k16(a, b):
+    """a (..., K) @ b (K, N) as the bf16 tensor cores' m16n8k16 product
+    computes it: both operands rounded to bfloat16 (nearest even), each
+    product exact, each group of 16 k-terms summed (here exactly, in
+    float64) before it joins the float32 accumulator, group after group."""
+    a16 = operand(a, "bfloat16").double()
+    b16 = operand(b, "bfloat16").double()
+    acc = None
+    for k0 in range(0, a.shape[-1], 16):
+        part = (a16[..., k0:k0 + 16] @ b16[k0:k0 + 16]).float()
+        acc = part if acc is None else acc + part
+    return acc
 
 
 def tower_mm(a, b):
@@ -259,9 +295,10 @@ def ppo_cnn_update_kernel(planes, advret, perm_mb, theta, arch,
     tch = pick_chunk_steps(T, NL)
     CK = chunk_lanes(NL)
     n_tiles = tch * NL // TILE
-    Gf, Gb = min(FWD_BLOCKS, n_tiles), min(BWD_BLOCKS, n_tiles)
+    fwd_smem, bwd_smem, packed, bwd_blocks = tower_layout(compute_dtype)
+    Gf, Gb = min(FWD_BLOCKS, n_tiles), min(bwd_blocks, n_tiles)
     n_chunks, nk = T // tch, tch * NL // CK
-    pk = torch.empty(PACKED_FLOATS, device=dev)
+    pk = torch.empty(packed, device=dev)
     grid = grid_table(arch.res, arch.p0, dev)
     x2s = torch.empty(tch * 576 * NL, device=dev)
     dzs = torch.empty(tch * 128 * NL, device=dev)
@@ -273,8 +310,8 @@ def ppo_cnn_update_kernel(planes, advret, perm_mb, theta, arch,
     ptrs = np.array([t.data_ptr() for t in (
         planes, advret, perm_mb, theta, pk, grid, x2s, dzs, fpart, bpart,
         gpart, grads, stats)], np.uint64)
-    dims = np.array([n, T, rbl, NL, tch, CK, Gf, Gb, TOWER_FWD_SMEM,
-                     TOWER_BWD_SMEM, bf16], np.int32)
+    dims = np.array([n, T, rbl, NL, tch, CK, Gf, Gb, fwd_smem, bwd_smem,
+                     bf16], np.int32)
     consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
                        co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
                       np.float32)

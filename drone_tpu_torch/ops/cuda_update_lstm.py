@@ -109,11 +109,9 @@ from drone_tpu_torch.ops.cuda_update import (
     minibatch_lanes,
 )
 from drone_tpu_torch.ops.cuda_update_cnn import (
-    PACKED_FLOATS,
     PLAIN_CHUNK,
-    TOWER_BWD_SMEM,
-    TOWER_FWD_SMEM,
     cnn_encoder_bwd,
+    tower_layout,
 )
 from drone_tpu_torch.pixels import grid_table
 from drone_tpu_torch.types import OBS_DIM
@@ -122,8 +120,10 @@ from drone_tpu_torch.types import OBS_DIM
 BP_LANES = TILE           # lanes of a through-time tile
 MAX_CHUNK = 2048          # samples of one split-K chunk of the gradient products
 # the products' operand tiles: A and B, 64 rows of 64 samples at a stride of
-# 68 floats, double-buffered
+# 68 floats, double-buffered; the CNN arm's bf16 products' as bf16 rows of
+# 72 (csrc/mma.cuh GB_SMEM)
 PRODUCT_SMEM = 2 * 2 * 64 * 68 * 4
+PRODUCT_SMEM_BF16 = 2 * 2 * 64 * 72 * 2
 _MAX_SMEM = 232448
 
 
@@ -405,15 +405,20 @@ def bptt_smem_bytes(hidden: int, encoder) -> int:
     return max(fwd, bwd)
 
 
-def kernel_smem_bytes(hidden: int, encoder) -> list[int]:
+def kernel_smem_bytes(hidden: int, encoder,
+                      compute_dtype: str = "float32") -> list[int]:
     """Shared bytes of a block of each kernel the C entry point launches
     with dynamic shared memory, as it checks them: the walk through time,
     the CNN arm's tower forward and backward (0 for the dense arm), and the
-    products."""
+    products; under bfloat16 the CNN arm's tower and products are the bf16
+    designs' (the walk's and the dense arm's products' are the fp32
+    arm's)."""
     cnn = is_cnn(encoder_of(encoder))
+    fwd, bwd, _, _ = tower_layout(compute_dtype)
+    bf16_products = cnn and bf16_flag(compute_dtype)
     return [bptt_smem_bytes(hidden, encoder),
-            TOWER_FWD_SMEM if cnn else 0, TOWER_BWD_SMEM if cnn else 0,
-            PRODUCT_SMEM]
+            fwd if cnn else 0, bwd if cnn else 0,
+            PRODUCT_SMEM_BF16 if bf16_products else PRODUCT_SMEM]
 
 
 def gate_t_packed_floats(hidden: int, encoder) -> int:
@@ -502,7 +507,7 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
     stats = torch.empty(N_UPSTATS, device=dev)
     cnn = is_cnn(encoder)
     if cnn:
-        pk = torch.empty(PACKED_FLOATS, device=dev)
+        pk = torch.empty(tower_layout(compute_dtype)[2], device=dev)
         grid = grid_table(encoder.res, encoder.p0, dev)
     # the gate weights' fragments, written by the call on its stream
     pg = torch.empty(gate_packed_floats(hidden, encoder), device=dev)
@@ -516,7 +521,8 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
         + [pg.data_ptr(), pgt.data_ptr(),
            theta16.data_ptr() if bf16 else 0], np.uint64)
     dims = np.array([n, T, bptt, rbl, NL, CK, P, ptot, len(pairs), *rows,
-                     *kernel_smem_bytes(hidden, encoder), bf16], np.int32)
+                     *kernel_smem_bytes(hidden, encoder, compute_dtype),
+                     bf16], np.int32)
     consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
                        co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
                       np.float32)

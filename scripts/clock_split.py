@@ -1,20 +1,27 @@
-"""Where K3 and K5 spend their time: each phase's clock64 cycles in block 0.
+"""Where the kernels spend their time: each phase's clock64 cycles in block 0.
 
 Run from the root of a checkout on a machine with an H100:
 
-    python3 scripts/clock_split.py <label> [checkout]
+    python3 scripts/clock_split.py <label> [checkout] [mlp|tower]
 
 It copies the csrc/ of `checkout` (by default the one it runs from; give a
 second checkout, e.g. a git archive of a parent commit, to split that
 one's kernels) into a temporary directory and inserts a probe after each
-phase of update.cu's K3 and acting.cu's K5: thread 0 of block 0 adds the
-clock64 cycles since its last probe to that phase's counter. It builds
-both copies with that checkout's nvcc flags, runs K3 once on hover.toml's
-full-width minibatch and K5 once at 65,536 lanes x 1,001 steps (hover,
-[64, 64]) through that checkout's wrappers, after one warm-up launch each,
-and prints each phase's cycles and share of block 0's total, one JSON
-line. The probes are anchored on lines of the sources, per kernel design
-the script knows (the fp32 kernels and the tensor-core ones): a source in
+phase of the kernels it splits: thread 0 of block 0 adds the clock64
+cycles since its last probe to that phase's counter. `mlp` (the default)
+splits update.cu's K3 and acting.cu's K5, run once on hover.toml's
+full-width minibatch and once at 65,536 lanes x 1,001 steps (hover,
+[64, 64]); `tower` splits the bf16 arms' patch-CNN tower tiles
+(cnn_mma.cuh tower_fwd_tile<true> and tower_bwd_tile<true>: the render,
+conv0 (and its re-run), conv1, the trunk, the X2 copy, dX2, gW1, dX1, gW0
+and the barriers) inside K10's bf16 update (update_cnn.cu: cnn_fwd_kernel,
+tower_bwd_kernel) and K7's CNN arm's (update_lstm.cu: tower_fwd_kernel,
+tower_bwd_kernel), each on one full-width minibatch of its path, with each
+kernel's whole time in block 0 beside its tile's phases. It builds the
+copies with that checkout's nvcc flags, runs each once after one warm-up
+launch through that checkout's wrappers, and prints each phase's cycles
+and share of its kernel's total, one JSON line. The probes are anchored
+on lines of the sources, per kernel design the script knows: a source in
 which no design's anchors are each found once fails. The probed copies
 run slower than the kernels; the shares are what the split is for.
 """
@@ -28,6 +35,9 @@ from pathlib import Path
 
 label = sys.argv[1]
 checkout = Path(sys.argv[2] if len(sys.argv) > 2 else ".").resolve()
+which = sys.argv[3] if len(sys.argv) > 3 else "mlp"
+if which not in ("mlp", "tower"):
+    raise SystemExit(f"the third argument is mlp or tower, got {which}")
 sys.path.insert(0, str(checkout))
 sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
 
@@ -36,7 +46,7 @@ from drone_tpu_torch.ops import cuda_build  # noqa: E402
 
 PROBES = r"""
 #include <cuda_runtime.h>
-__device__ unsigned long long drone_clk[16];
+__device__ unsigned long long drone_clk[32];
 #define CLK_START long long drone_t0 = clock64();
 #define CLK(k) do { if (blockIdx.x == 0 && threadIdx.x == 0) { \
   const long long drone_t1 = clock64(); \
@@ -46,7 +56,7 @@ extern "C" int drone_clk_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, drone_clk, sizeof(drone_clk));
 }
 extern "C" int drone_clk_zero() {
-  const unsigned long long z[16] = {0};
+  const unsigned long long z[32] = {0};
   return (int)cudaMemcpyToSymbol(drone_clk, z, sizeof(z));
 }
 """
@@ -127,14 +137,123 @@ SPLITS = {
 }
 
 
+# The bf16 tower tiles (cnn_mma.cuh) and the kernels around them. A
+# design's anchors may hold "<@>" marks: each takes the next of its probe
+# texts. Counters 0-5 split tower_fwd_tile, 7 is its kernel's whole time in
+# block 0 (K10's cnn_fwd_kernel, K7's tower_fwd_kernel); 8-14 split
+# tower_bwd_tile, 15 is tower_bwd_kernel's whole time.
+TOWER_NAMES = {0: "fwd render", 1: "fwd conv0", 2: "fwd conv1",
+               3: "fwd trunk", 4: "fwd X2 out", 5: "fwd barriers",
+               7: "fwd kernel", 8: "bwd render", 9: "bwd conv0", 10: "dX2",
+               11: "gW1", 12: "dX1", 13: "gW0", 14: "bwd barriers",
+               15: "bwd kernel"}
+TOWER_TILES = [
+    # the parent's design: fp32 rows, one TF32 product a k-step
+    (TOWER_NAMES, [
+        ("  zero_frags(tacc);\n<@>  render_patch<TM_L, TM_S>(window_patch(0, "
+         "0), sp, grid, xr);\n<@>  __syncthreads();\n<@>",
+         ("  CLK_START\n", "  CLK(0);\n", "  CLK(5);\n")),
+        ("xn);\n<@>    conv_mma<1, true, BF16>(xb, CNN_K0, w0, theta + "
+         "OFF_B0, yb);\n<@>    __syncthreads();\n<@>",
+         ("    CLK(0);\n", "    CLK(1);\n", "    CLK(5);\n")),
+        ("k * (CNN_C0 / 8), ntc, c1);\n<@>", ("    CLK(2);\n",)),
+        ("      zero_frags(c1);\n<@>      __syncthreads();\n<@>",
+         ("      CLK(2);\n", "      CLK(5);\n")),
+        ("nt0, tacc);\n<@>      on_window(q1, y1);\n<@>      __syncthreads();"
+         "  // patch j + 2 renders over y1\n<@>",
+         ("      CLK(3);\n", "      CLK(4);\n", "      CLK(5);\n")),
+        ("  store_relu(tacc, m0, nt0, theta + OFF_BT, y0);\n<@>",
+         ("  CLK(3);\n",)),
+        ("wq = w >> 1;\n<@>  for (int q1 = 0; q1 < CNN_NQ1; ++q1) {\n"
+         "    for (int k = 0; k < CNN_WIN; ++k)\n      render_patch",
+         ("  CLK_START\n",)),
+        ("                               xr + k * CNN_K0 * TM_S);\n<@>"
+         "    __syncthreads();\n<@>", ("    CLK(8);\n", "    CLK(14);\n")),
+        ("y0 + k * CNN_C0 * TM_S);\n<@>", ("    CLK(9);\n",)),
+        ("(xa[NL + m + 8] > 0.0f ? 1.0f : 0.0f);\n        }\n      }\n    }\n"
+         "<@>    __syncthreads();\n<@>", ("    CLK(10);\n", "    CLK(14);\n")),
+        ("      if (lane == r) gr.b1 = gr.b1 + v;\n    }\n<@>"
+         "    __syncthreads();\n<@>", ("    CLK(11);\n", "    CLK(14);\n")),
+        ("(y[TM_S + 8] > 0.0f ? 1.0f : 0.0f);\n        }\n      }\n    }\n"
+         "<@>    __syncthreads();\n<@>", ("    CLK(12);\n", "    CLK(14);\n")),
+        ("      if (lane == r) gr.b0 = gr.b0 + v;\n    }\n<@>    "
+         "__syncthreads();  // the next window renders over xr and y0\n<@>",
+         ("    CLK(13);\n", "    CLK(14);\n")),
+        ("  gr.b0 = 0.0f;\n<@>", ("  CLK_START\n",)),
+        ("  tower_grads_out(gr, sm, A.partial + (size_t)(A.row0 + blockIdx.x)"
+         " * A.ptot);\n<@>", ("  CLK(15);\n",))]),
+    # the bf16 design: bf16 rows, m16n8k16 products (tower_fwd_b16,
+    # tower_bwd_b16); gW1's and gW0's phases hold gb1's and gb0's adds
+    (TOWER_NAMES, [
+        ("<@>  render_patch_b16(window_patch(0, 0), sp, grid, xr);\n<@>"
+         "  __syncthreads();\n<@>",
+         ("  CLK_START\n", "  CLK(0);\n", "  CLK(5);\n")),
+        ("grid, xr + ((j + 1) & 1) * CNN_K0 * TMB);\n<@>", ("    CLK(0);\n",)),
+        ("      store_relu_b16(acc, mc, ntc, theta + OFF_B0, yb);\n    }\n<@>"
+         "    __syncthreads();\n<@>", ("    CLK(1);\n", "    CLK(5);\n")),
+        ("k * (CNN_C0 / 16),\n                          ntc, c1);\n<@>",
+         ("    CLK(2);\n",)),
+        ("      store_relu_both(c1, mc, ntc, theta + OFF_B1, y1, y1b);\n"
+         "      zero_frags(c1);\n<@>      __syncthreads();\n<@>",
+         ("      CLK(2);\n", "      CLK(5);\n")),
+        ("q1 * (CNN_C1 / 16), nt0, tacc);\n<@>      on_window(q1, "
+         "static_cast<const float*>(y1));\n<@>",
+         ("      CLK(3);\n", "      CLK(4);\n")),
+        ("  __syncthreads();  // h goes over y0 and y1\n<@>  store_relu(tacc, "
+         "m0, nt0, theta + OFF_BT, rows + TFB_H);\n<@>",
+         ("  CLK(5);\n", "  CLK(3);\n")),
+        ("  const int mc = 16 * CMI * (w % CMW), ntc = CNI * (w / CMW);\n<@>"
+         "  for (int q1 = 0; q1 < CNN_NQ1; ++q1) {\n"
+         "    for (int k = 0; k < CNN_WIN; ++k)\n      render_patch_b16",
+         ("  CLK_START\n",)),
+        ("render_patch_b16(window_patch(q1, k), sp, grid, xr + k * CNN_K0 * "
+         "TMB);\n<@>    __syncthreads();\n<@>",
+         ("    CLK(8);\n", "    CLK(14);\n")),
+        ("      store_relu_b16(acc, mc, ntc, theta + OFF_B0, y0 + k * CNN_C0 * "
+         "TMB);\n    }\n<@>", ("    CLK(9);\n",)),
+        ("          rs1[(w % CMW) * CNN_C1 + n + 1] = s1;\n        }\n      }\n"
+         "    }\n<@>    __syncthreads();\n<@>",
+         ("    CLK(10);\n", "    CLK(14);\n")),
+        ("      fold(gr.w1, qq, acc);\n    }\n<@>    __syncthreads();\n<@>",
+         ("    CLK(11);\n", "    CLK(14);\n")),
+        ("          rs0[(w & 1) * CNN_K1 + n + 1] = s1;\n        }\n      }\n"
+         "    }\n<@>    __syncthreads();\n<@>",
+         ("    CLK(12);\n", "    CLK(14);\n")),
+        ("      fold(gr.w0, 0, acc);\n    }\n<@>    __syncthreads();  // the "
+         "next window renders over xr and y0\n<@>",
+         ("    CLK(13);\n", "    CLK(14);\n")),
+        ("  gr.b0 = 0.0f;\n<@>", ("  CLK_START\n",)),
+        ("  tower_grads_out(gr, sm, A.partial + (size_t)(A.row0 + blockIdx.x)"
+         " * A.ptot);\n<@>", ("  CLK(15);\n",))]),
+]
+TOWER_KERNELS = {
+    name: [({}, [(f"  tower_load_w0{arm}(sm, A.pk);  // before the first "
+                  f"tile's barriers\n<@>", ("  CLK_START\n",)), end])
+           for arm in ("", "<BF16>")]
+    for name, end in (
+        ("update_cnn", ("    part[N_HEADS + tid] = s;\n  }\n<@>",
+                        ("  CLK(7);\n",))),
+        ("update_lstm", ("      xs[(size_t)(OBS_DIM + k) * NL + l] = "
+                         "hh[k * S + l];\n    }\n  }\n<@>",
+                         ("  CLK(7);\n",))))
+}
+
+
 def probe(src: str, trees):
-    """The source with its probes, and the phase names of its tree."""
+    """The source with its probes, and the phase names of its tree: a dict
+    {counter: name} (a list of names counts from 0)."""
     for names, anchors in trees:
-        if any(src.count(anchor) != 1 for anchor, _ in anchors):
+        pieces = [(anchor.split("<@>"), (text,) if "<@>" not in anchor
+                   else text) for anchor, text in anchors]
+        if any(src.count("".join(p)) != 1 for p, _ in pieces):
             continue
-        for anchor, text in anchors:
-            src = src.replace(anchor, anchor + text)
-        return src, names
+        for p, texts in pieces:
+            marked = p[0] + "".join(t + q for t, q in zip(texts, p[1:]))
+            if len(p) == 1:
+                marked = p[0] + texts[0]
+            src = src.replace("".join(p), marked)
+        return src, (names if isinstance(names, dict)
+                     else dict(enumerate(names)))
     raise SystemExit("no known tree's anchors are each in the source once")
 
 
@@ -142,9 +261,16 @@ tmp = Path(tempfile.mkdtemp())
 shutil.copytree(checkout / "drone_tpu_torch" / "csrc", tmp / "csrc")
 (tmp / "probes.cuh").write_text(PROBES)
 names, libs = {}, {}
-for name, trees in SPLITS.items():
+splits = SPLITS if which == "mlp" else TOWER_KERNELS
+if which == "tower":
+    header = tmp / "csrc" / "cnn_mma.cuh"
+    text, tile_names = probe(header.read_text(), TOWER_TILES)
+    header.write_text(text)
+for name, trees in splits.items():
     path = tmp / "csrc" / f"{name}.cu"
     text, names[name] = probe(path.read_text(), trees)
+    if which == "tower":
+        names[name] = {**tile_names, **names[name]}
     path.write_text(text)
     lib = tmp / f"{name}.so"
     subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
@@ -157,22 +283,41 @@ import torch  # noqa: E402
 
 from drone_tpu_torch.env import DroneEnv  # noqa: E402
 from drone_tpu_torch.ops import cuda_acting, cuda_update  # noqa: E402
+from drone_tpu_torch.ops import cuda_update_cnn as K10  # noqa: E402
+from drone_tpu_torch.ops import cuda_update_lstm as K7  # noqa: E402
 from drone_tpu_torch.utils.config import Config  # noqa: E402
 
 cfg = Config.from_toml(str(checkout / "configs" / "hover.toml"))
 statics, params = cfg.env.build()
 env = DroneEnv(statics.task, statics.integrator, params, device="cuda")
-model = cs.flat_policy()
-planes, advret, perm_mb, co, rbl = cs.hover_minibatch(cfg, model, env)
-policy = cs.seeded_policy(seed=1).cuda()
-state = env.init_batch(2, 65536)
-runs = {
-    "update": lambda: cuda_update.ppo_update_kernel(
-        planes, advret, perm_mb, model.flat, model.hidden, co, rbl, 0.001),
-    "acting": lambda: cuda_acting.act_rollout_kernel(
-        state, policy, env.params, env.statics,
-        int(env.params.horizon) + 1),
-}
+if which == "mlp":
+    model = cs.flat_policy()
+    planes, advret, perm_mb, co, rbl = cs.hover_minibatch(cfg, model, env)
+    policy = cs.seeded_policy(seed=1).cuda()
+    state = env.init_batch(2, 65536)
+    runs = {
+        "update": lambda: cuda_update.ppo_update_kernel(
+            planes, advret, perm_mb, model.flat, model.hidden, co, rbl,
+            0.001),
+        "acting": lambda: cuda_acting.act_rollout_kernel(
+            state, policy, env.params, env.statics,
+            int(env.params.horizon) + 1),
+    }
+else:  # each bf16 update on one full-width minibatch of its path
+    cm = cs.cnn_policy(seed=2, log_std=0.0)
+    k10 = cs.cnn_minibatch(cfg.with_overrides(list(cs.CNN_OVERRIDES)), cm,
+                           env, cs.BF16)
+    clm = cs.cnn_lstm_policy()
+    k7 = cs.lstm_minibatch(cfg.with_overrides(list(cs.CNN_LSTM_OVERRIDES)),
+                           clm, env)
+    runs = {
+        "update_cnn": lambda: K10.ppo_cnn_update_kernel(
+            *k10[:3], cm.flat, cm.arch, *k10[3:], 0.001,
+            compute_dtype=cs.BF16),
+        "update_lstm": lambda: K7.lstm_update_kernel(
+            *k7[:4], clm.flat, (clm.hidden, clm.encoder), *k7[4:], 0.001,
+            compute_dtype=cs.BF16),
+    }
 out = {}
 for name, run in runs.items():
     lib = libs[name]
@@ -181,13 +326,24 @@ for name, run in runs.items():
     lib.drone_clk_zero()
     run()
     torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * 16)()
+    buf = (ctypes.c_ulonglong * 32)()
     if lib.drone_clk_read(buf) != 0:
         raise SystemExit(f"{name}: reading the counters failed")
-    cycles = {n: int(buf[i]) for i, n in enumerate(names[name])}
-    total = sum(cycles.values())
-    out[name] = {"cycles": cycles, "total": total,
-                 "share": {n: c / total for n, c in cycles.items()}}
+    cycles = {n: int(buf[i]) for i, n in names[name].items()}
+    if which == "mlp":
+        total = sum(cycles.values())
+        out[name] = {"cycles": cycles, "total": total,
+                     "share": {n: c / total for n, c in cycles.items()}}
+    else:  # each tile's phases as shares of its kernel's whole time
+        out[name] = {}
+        for part, lo, hi in (("fwd", 0, 7), ("bwd", 8, 15)):
+            total = int(buf[hi])
+            ph = {names[name][i]: int(buf[i]) for i in range(lo, hi)
+                  if i in names[name]}
+            ph[f"{part} outside the tile"] = total - sum(ph.values())
+            out[name][part] = {"cycles": ph, "total": total,
+                               "share": {n: c / total if total else 0.0
+                                         for n, c in ph.items()}}
     print(f"{label} {name}: {out[name]}", flush=True)
 print(json.dumps({"tree": label, "device": cs.device_line(), "split": out}),
       flush=True)

@@ -15,8 +15,9 @@ device"), then K1 on hover.toml's env (65,536 x 1,001 and 131,072 x
 K5 (65,536 x 1,001; after the short MLP kernels, which its seconds of
 load would slow), K8 and K6 (dense encoder and CNN arm) and K11
 and K9 at their paths' shapes, and K7 (both arms) and K10 on one
-full-width minibatch, by CUDA events (and, where the checkout has it, K7's
-bf16 arm on the same minibatches: "K7 bf16", "K7 cnn bf16"), then one warm
+full-width minibatch, by CUDA events (and, where the checkout has them, the
+bf16 arms on the same inputs: "K7 bf16", "K7 cnn bf16", "K9 bf16", "K10
+bf16"), then one warm
 MLP update of hover.toml split into its phases (chip_smoke.split_update,
 which also prints its profiler trace), and prints one JSON line with the
 ptxas register count of every kernel. K7
@@ -135,10 +136,21 @@ t["K11"] = cs.cuda_ms(lambda: K11.cnn_act_rollout_kernel(
     state, cm.flat, cm.arch, env.params, env.statics, horizon), 1)
 t["K9"] = cs.cuda_ms(lambda: K11.traj_cnn_rollout_kernel(
     s9, cm.flat, cm.arch, env.params, env.statics, 128), 3)
+# the bf16 arms of the CNN kernels, where this checkout has them
+cnn_bf16 = "compute_dtype" in inspect.signature(
+    K10.ppo_cnn_update_kernel).parameters
+if cnn_bf16:
+    t["K9 bf16"] = cs.cuda_ms(lambda: K11.traj_cnn_rollout_kernel(
+        s9, cm.flat, cm.arch, env.params, env.statics, 128,
+        compute_dtype=cs.BF16), 3)
 planes, advret, perm_mb, co, rbl = cs.cnn_minibatch(
     cfg.with_overrides(list(cs.CNN_OVERRIDES)), cm, env)
 t["K10"] = cs.cuda_ms(lambda: K10.ppo_cnn_update_kernel(
     planes, advret, perm_mb, cm.flat, cm.arch, co, rbl, 0.001), 3)
+if cnn_bf16:
+    t["K10 bf16"] = cs.cuda_ms(lambda: K10.ppo_cnn_update_kernel(
+        planes, advret, perm_mb, cm.flat, cm.arch, co, rbl, 0.001,
+        compute_dtype=cs.BF16), 3)
 del planes, advret
 clm = cs.cnn_lstm_policy(seed=2, log_std=0.0)
 arch = (clm.hidden, clm.encoder)
