@@ -1707,20 +1707,21 @@ def k7_mma_ops(hidden, encoder) -> int:
     return 2 * macs
 
 
-def k7_scratch_floats(hidden, encoder) -> int:
+def k7_scratch_floats(hidden, encoder, compute_dtype="float32") -> int:
     """Floats of K7's scratch traffic on one sample: the forward writes
     [obs, the encoder's outputs, h_in], the gate block's [gi, gf, gg, go,
-    c_in, tanh(c')] over its padded units, h' and the heads' outputs; the
-    walk back reads the heads' outputs, the gate block's six and the
-    encoder's outputs and writes dz, [dm; g_v] and dpre (the CNN arm: it
-    reads x and writes dzt); each product reads its two operands once (the
-    CNN arm's tower kernels' own traffic, X2 among it, not counted)."""
+    c_in, tanh(c')] over its padded units (the bf16 walk's first five:
+    cuda_update_lstm.scratch_rows), h' and the heads' outputs; the walk back
+    reads the heads' outputs, the gate block's quantities and the encoder's
+    outputs and writes dz, [dm; g_v] and dpre (the CNN arm: it reads x and
+    writes dzt); each product reads its two operands once (the CNN arm's
+    tower kernels' own traffic, X2 among it, not counted)."""
     from drone_tpu_torch.models.lstm import encoder_width, is_cnn
-    from drone_tpu_torch.ops.cuda_acting_lstm import gate_units
+    from drone_tpu_torch.ops.cuda_update_lstm import GF, scratch_rows
 
     E, H = encoder_width(encoder), hidden
     enc_rows = E if is_cnn(encoder) else sum(encoder)
-    gf = 6 * gate_units(H)
+    gf = scratch_rows(H, encoder, compute_dtype)[GF]
     fwd = (13 + enc_rows + H) + gf + H + 5
     back = (5 + gf + enc_rows) + (4 * H + 5 + enc_rows)
     prods = (4 * H + E + H) + (5 + H)
@@ -1730,18 +1731,18 @@ def k7_scratch_floats(hidden, encoder) -> int:
     return fwd + back + prods
 
 
-def gate_l2_bytes(hidden, encoder, transposed=False) -> float:
-    """Bytes a lane-step of the gate weights' (big, small) fragments, which
-    a tile (cuda_acting_cnn.TILE lanes) reads from L2 each step
-    (csrc/lstm_mma.cuh gate_frags; K7's walk reads the transposed ones
-    too)."""
-    from drone_tpu_torch.ops import cuda_acting_lstm as K8
+def gate_l2_bytes(hidden, encoder, transposed=False,
+                  compute_dtype="float32") -> float:
+    """Bytes a lane-step of the gate weights' fragments, which a tile
+    (cuda_acting_cnn.TILE lanes) reads from L2 each step: the (big, small)
+    float4s (csrc/lstm_mma.cuh gate_frags), or K7's bf16 walk's bf16x2
+    words (cuda_update_lstm.gate_fragment_bytes); K7's walk reads the
+    transposed ones too."""
     from drone_tpu_torch.ops import cuda_update_lstm as K7
     from drone_tpu_torch.ops.cuda_acting_cnn import TILE
 
-    nbytes = 4 * K8.gate_packed_floats(hidden, encoder)
-    return (nbytes + (4 * K7.gate_t_packed_floats(hidden, encoder)
-                      if transposed else 0)) / TILE
+    fwd, bwd = K7.gate_fragment_bytes(hidden, encoder, compute_dtype)
+    return (fwd + (bwd if transposed else 0)) / TILE
 
 
 def lstm_policy(hidden=128, encoder=(64,), seed=1, log_std=-0.5):
@@ -4021,15 +4022,15 @@ def phase_k10_bf16(cfg, env):
 # for K2): (library, fp32 label, bf16 label, rule); the labels are
 # kernel_label's of the build report. Rule "third": one TF32 product a
 # k-step of the rounded operands where 3xTF32 takes three, so exactly a
-# third of the fp32 arm's HMMA (K2's tower and K7's walk, both arms: 224
-# HMMA against 672 in the first build; K7's dense arm's products,
-# grad_rounded_kernel, 32 against 96); "fewer": fewer HMMA than the fp32
-# arm (K3: its db keeps two products with ones a window, an fp32 sum, and
-# its bf16 loops unroll otherwise than its fp32 ones: 36 against 52 in the
-# first build); "bf16": the bf16 tensor cores' own product, m16n8k16
-# (HMMA.16816.F32.BF16) and no TF32 HMMA at all (the patch-CNN tower's bf16
-# design in K9/K11, K10 and K7's CNN arm, and the bf16 weight products of
-# K10 (gWt, whose fp32 arm runs on the fp32 cores) and K7's CNN arm).
+# third of the fp32 arm's HMMA (K2's tower: 40 against 120; K7's dense
+# arm's products, grad_rounded_kernel, 32 against 96); "fewer": fewer HMMA
+# than the fp32 arm (K3: its db keeps two products with ones a window, an
+# fp32 sum, and its bf16 loops unroll otherwise than its fp32 ones: 36
+# against 52 in the first build); "bf16": the bf16 tensor cores' own
+# product, m16n8k16 (HMMA.16816.F32.BF16) and no TF32 HMMA at all (the
+# patch-CNN tower's bf16 design in K9/K11, K10 and K7's CNN arm, the bf16
+# weight products of K10 (gWt, whose fp32 arm runs on the fp32 cores) and
+# K7's CNN arm, and K7's walk, both arms).
 BF16_PAIRS = (
     ("acting_traj", "traj_kernelILi0ELi0ELb1ELb0E",
      "traj_kernelILi0ELi0ELb1ELb1E", "third"),
@@ -4041,8 +4042,8 @@ BF16_PAIRS = (
     ("update_cnn", "tower_bwd_kernelILb0E", "tower_bwd_kernelILb1E", "bf16"),
     ("update_cnn", "cnn_gemm_kernelILb0E", "cnn_gemm_kernelILb1E", "bf16"),
     ("update_lstm", "bptt_kernel<dense>", "bptt_kernel<dense, bf16>",
-     "third"),
-    ("update_lstm", "bptt_kernel<cnn>", "bptt_kernel<cnn, bf16>", "third"),
+     "bf16"),
+    ("update_lstm", "bptt_kernel<cnn>", "bptt_kernel<cnn, bf16>", "bf16"),
     ("update_lstm", "grad_mma_kernelILb0E", "grad_mma_kernelILb1E", "bf16"),
     ("update_lstm", "grad_mma_kernelILb0E", "grad_rounded_kernel", "third"),
     ("update_lstm", "tower_fwd_kernelILb0E", "tower_fwd_kernelILb1E", "bf16"),
@@ -4533,16 +4534,19 @@ def time_bf16_lstm(cfg_lstm, cfg_cl, k7_args, k7c_args) -> dict:
         mma = samples * (k7_mma_ops(H, enc)
                          + (cnn_tower_mma_ops() if cnn else 0))
         bms, by = bf16_bound(mma, ops - mma, nbytes)
-        scratch = samples * 4 * k7_scratch_floats(H, enc)
+        # the bf16 walk's own scratch and bf16x2 fragments
+        scratch = samples * 4 * k7_scratch_floats(H, enc, BF16)
         with_scratch = max(
             (mma / MMA_BF16_OPS_PER_S + (ops - mma) / FP32_OPS_PER_S) * 1e3,
             (nbytes + scratch) / HBM_BYTES_PER_S * 1e3)
+        l2 = samples * gate_l2_bytes(H, enc, True, BF16)
         out[name] = (ms, plain, bms, by, None)
         print(f"{name} bf16: kernel {ms:.4f} ms (its fp32 arm in this call "
               f"{fp32:.4f} ms), plain {plain:.2f} ms, bound {bms:.4f} ms "
               f"({by}; products at {MMA_BF16_OPS_PER_S:.3g} op/s), "
               f"{with_scratch:.4f} ms with the scratch's {scratch:.4g} "
-              f"bytes", flush=True)
+              f"bytes; the walk's gate fragments {l2:.4g} L2 bytes",
+              flush=True)
     split_update(cfg_lstm.with_overrides([f"run.compute_dtype={BF16}"]))
     split_update(cfg_cl.with_overrides([f"run.compute_dtype={BF16}"]))
     return out
@@ -5559,7 +5563,8 @@ def main() -> int:
     # K2 on hover/euler), with their dynamic shared memory at the main
     # paths' shapes (cnn_mma.cuh TF_SMEM, TB_SMEM, the bf16 arm's TFB_SMEM,
     # TBB_SMEM; the walk's, the acting arms' and the products' are the
-    # wrappers' bptt_smem_bytes, act_smem_bytes and PRODUCT_SMEM(_BF16);
+    # wrappers' bptt_smem_bytes, act_smem_bytes and PRODUCT_SMEM(_BF16,
+    # _ROUNDED);
     # the bf16 gWt product's mma.cuh GB_SMEM; K3's mma_layout, off chip at [128,
     # 128]; K5's act_layout; K2's traj_layout)
     from drone_tpu_torch.ops import cuda_acting_lstm as K8
@@ -5579,11 +5584,12 @@ def main() -> int:
             "pack_tower_kernel": 0,
             "bptt_kernel<cnn>": K7.bptt_smem_bytes(128, KERNEL_ARCH),
             "bptt_kernel<dense>": K7.bptt_smem_bytes(128, (64,)),
-            "bptt_kernel<cnn, bf16>": K7.bptt_smem_bytes(128, KERNEL_ARCH),
-            "bptt_kernel<dense, bf16>": K7.bptt_smem_bytes(128, (64,)),
+            "bptt_kernel<cnn, bf16>": K7.bptt_smem_bytes(128, KERNEL_ARCH,
+                                                         BF16),
+            "bptt_kernel<dense, bf16>": K7.bptt_smem_bytes(128, (64,), BF16),
             "grad_mma_kernelILb0E": K7.PRODUCT_SMEM,
             "grad_mma_kernelILb1E": K7.PRODUCT_SMEM_BF16,
-            "grad_rounded_kernel": K7.PRODUCT_SMEM,
+            "grad_rounded_kernel": K7.PRODUCT_SMEM_ROUNDED,
             "cnn_act_kernelILi0ELi0ELb0E": K10.TOWER_FWD_SMEM,
             "cnn_act_kernelILi0ELi0ELb1E": K10.TOWER_FWD_SMEM_BF16,
             "lstm_act_kernel<cnn>": K8.act_smem_bytes(128, KERNEL_ARCH),

@@ -339,8 +339,7 @@ extern "C" int drone_lstm_act_rollout(
   const Frags fr{pg4, pk4, grid};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nf = gate_frags(net.E, net.H);
-  pack_gates_kernel<false><<<(nf + 255) / 256, 256, 0, s>>>(wp, net.E, net.H,
-                                                          pg4);
+  pack_gates_kernel<<<(nf + 255) / 256, 256, 0, s>>>(wp, net.E, net.H, pg4);
   if (encoder == ENC_CNN)
     pack_tower_kernel<false><<<(PK_FWD + 255) / 256, 256, 0, s>>>(theta, pk4,
                                                                   PK_FWD);

@@ -8,7 +8,8 @@
 //
 // Per call pack_gates_kernel and pack_gates_t_kernel split the gate
 // weights once into their (big, small) tensor-core fragments, the
-// forward's and the backward's (lstm_mma.cuh). Then, for each bptt segment
+// forward's and the backward's (lstm_mma.cuh; the bf16 arm's packers below
+// write bf16x2 words). Then, for each bptt segment
 // of the minibatch in turn:
 //   bptt_kernel (the walk): a block of 256 threads owns 64 lanes of the
 //     minibatch. It runs the segment forward from its (c, h) anchor (the
@@ -93,26 +94,35 @@
 //
 // The bf16 arm (compute_dtype="bfloat16", both encoders: the reference's
 // _segment_grads with _dot32 rounding both operands of every product): the
-// BF16 template parameter of the walk, the tower's kernels, the products
-// and the packing, not a copy of them. Per call round_weights_kernel writes
-// a copy of the flat buffer whose weights the walk reads on the fp32 cores
-// (the dense encoder's and the heads') are rounded to bf16, its biases and
-// log_std as they are; the walk reads that copy. The CNN arm's weight
-// products (grad_mma_kernel<true>: mma.cuh grad_b16_tile) and tower kernels
-// (cnn_mma.cuh tower_fwd_b16, tower_bwd_b16, the weights packed by
-// pack_tower_kernel<true>) run on the bf16 tensor cores, m16n8k16 products
-// of operands stored once as bf16 rows. The walk and the dense arm's
-// weight products (grad_rounded_kernel) keep the first bf16 design: the
-// gate packers round the gate weights (lstm_mma.cuh), the tensor-core
-// products round their other operand as its fragments load, one TF32
-// product a k-step; on the fp32 cores the encoder and the heads
-// round their activations as they load (lstm.cuh), and the walk stores [dm;
-// g_v] and the dense layers' dpre rounded in shared memory for dh' and the
-// layer input gradient. The bias sums, the cell's elementwise math, the
-// head's subgradients, the stored activations (the scratch) and the folds
-// of the products' windows stay fp32. The walk's and the dense arm's
-// products' shared memory is the fp32 arm's; the CNN arm's products' and
-// tower kernels' are the bf16 designs' (GB_SMEM, TFB_SMEM, TBB_SMEM).
+// BF16 template parameter of the walk, the tower's kernels and the
+// products. Per call round_weights_kernel writes a copy of the flat buffer
+// whose weights the walk reads on the fp32 cores (the dense encoder's and
+// the heads') are rounded to bf16, its biases and log_std as they are; the
+// walk reads that copy. The CNN arm's weight products (grad_mma_kernel
+// <true>: mma.cuh grad_b16_tile) and tower kernels (cnn_mma.cuh
+// tower_fwd_b16, tower_bwd_b16, the weights packed by pack_tower_kernel
+// <true>) run on the bf16 tensor cores, m16n8k16 products of operands
+// stored once as bf16 rows, and so does the walk's gate block and [dx; dh]
+// in both arms (bptt_walk_b16: lstm_mma.cuh lstm_gates_b16, gates_bwd_b16;
+// x, h and dz as bf16 rows of the tile, the gate weights as bf16x2
+// fragments, pack_gates_b16_kernel and pack_gates_t_b16_kernel, which reach
+// each warp through a ring in shared memory that cp.async fills three
+// k-tiles ahead: L2's latency, not its bytes, set the first bf16 design's
+// products). The dense arm's weight products (grad_rounded_kernel) keep
+// one TF32 product a k-step of bf16 values, bit for bit the first bf16
+// design's, from each window's operands rounded once into bf16x2 rows
+// (their m16n8k16 form moved the one-run bf16 LSTM gate, ROADMAP H11). On
+// the fp32 cores the encoder and the heads round their activations as
+// they load (lstm.cuh), and the walk stores [dm; g_v] and the
+// dense layers' dpre rounded in shared memory for dh' and the layer input
+// gradient. The bias sums, the cell's elementwise math, the head's
+// subgradients, the stored activations (the scratch) and the folds of the
+// products' windows stay fp32; the walk's GF keeps five of the six
+// quantities and recomputes tanh(c') from them, bit for bit. Shared
+// memory: the bf16 walk's 126,656 bytes at H 128 / E 64, 145,088 in the
+// CNN arm (one block an SM); the dense arm's products' GR_SMEM; the CNN
+// arm's products' and tower kernels' the bf16 designs' (GB_SMEM, TFB_SMEM,
+// TBB_SMEM).
 
 #include <cuda_runtime.h>
 
@@ -137,10 +147,11 @@ constexpr int GM_S = 68;
 constexpr int GM_SMEM = 2 * 2 * GM_T * GM_S * 4;  // 69,632
 // scratch buffers, each (bptt, rows, NL): X2S only in the CNN arm, DP the
 // dense encoder's dpre or the CNN arm's dzt. GF holds the gate block's
-// gi, gf, gg, go, c_in and tanh(c') (6 Hp rows a step) in its threads'
-// order: a tile's 6 Hp x 64 floats as [unit group][m-tile][quantity]
-// [fragment][lane of the warp], so the forward writes and the walk back
-// reads 128 contiguous bytes a warp instruction (gf_at).
+// gi, gf, gg, go, c_in and tanh(c') (6 Hp rows a step; the bf16 walk's the
+// first five, GF_B16 Hp rows, tanh(c') recomputed from them bit for bit) in
+// its threads' order: a tile's GF_Q Hp x 64 floats as [unit group][m-tile]
+// [quantity][fragment][lane of the warp], so the forward writes and the
+// walk back reads 128 contiguous bytes a warp instruction (gf_at).
 enum { XS = 0, GZ = 1, GF = 2, H2S = 3, DMV = 4, DP = 5, N_SCRATCH = 6,
        X2S = 6, N_BUFS = 7 };
 // the tower's forward takes two blocks an SM; its block count is a
@@ -196,11 +207,24 @@ __device__ __forceinline__ void dense_t(const float* __restrict__ W, int nout,
   }
 }
 
-// The offset in a tile's GF chunk of quantity q of the pair this thread
-// owns as fragment r of m-tile i in pass p.
+// The offset in a tile's GF chunk (NQ quantities) of quantity q of the
+// pair this thread owns as fragment r of m-tile i in pass p.
+constexpr int GF_B16 = 5;
+template <int NQ = 6>
 __device__ __forceinline__ int gf_at(int p, int i, int q, int r) {
   const int ug = (threadIdx.x >> 5) + GATE_WARPS * p;
-  return (((ug * 4 + i) * 6 + q) * 4 + r) * 32 + (threadIdx.x & 31);
+  return (((ug * 4 + i) * NQ + q) * 4 + r) * 32 + (threadIdx.x & 31);
+}
+
+// The bf16 walk's forward product runs K = Ep + Hp rows in k-tiles of 16,
+// zero rows after h's up to a multiple of 16.
+__host__ __device__ constexpr int gate_k16(int E, int H) {
+  return (gate_inputs(E) + gate_units(H) + 15) / 16 * 16;
+}
+// ... and its gate fragments' words: gate_k16 rows x 4 Hp columns, two
+// bf16 a word.
+__host__ __device__ constexpr int gate_b16_words(int E, int H) {
+  return gate_k16(E, H) * gate_units(H) * 2;
 }
 
 // The widest dense encoder layer (the CNN arm: its E).
@@ -219,24 +243,506 @@ __host__ __device__ inline int dx_rows(const LstmNet& net, int encoder) {
   return maxe > Ep ? maxe : Ep;
 }
 
+// the bf16 walk's warps' fragment rings (lstm_mma.cuh)
+constexpr int WALK_RING_FLOATS = GATE_WARPS * B16_RING_BYTES / 4;
+
 // The walk's shared floats: the larger of the forward's (the obs and the
 // encoder's buffers at stride 64, x and h at TM_S) and the backward's (dz,
-// dx, [dm; g_v] and keep at TM_S).
+// dx, [dm; g_v] and keep at TM_S). bf16 (bptt_walk_b16): x and h as bf16
+// rows (TMB; zero rows up to a multiple of 16), the dense arm's last layer
+// in fp32 rows of 64 beside the obs and buffers; dz as bf16 rows, a region
+// that the dense encoder's
+// backward reuses for fp32 rows of its layers before the last; the CNN
+// arm's next x in fp32 rows; the warps' fragment rings (after x and h over
+// the dense encoder's rows, which the gate block no longer reads; after
+// dz's rows, under the rows the dense encoder's backward reuses).
 __host__ __device__ inline int bptt_smem_floats(const LstmNet& net,
-                                                int encoder) {
+                                                int encoder, bool bf16) {
   int maxw, nbuf;
   enc_buffers(net, maxw, nbuf);
   const int Ep = gate_inputs(net.E), Hp = gate_units(net.H);
+  const int rows = dx_rows(net, encoder) + 6;  // dx, [dm; g_v], keep
+  if (bf16) {
+    const int R = WALK_RING_FLOATS;
+    int fwd = gate_k16(net.E, net.H) * TMB / 2;
+    if (encoder == ENC_CNN) {
+      fwd += BP_LANES * CNN_H + R;
+    } else {
+      const int enc = BP_LANES * (OBS_DIM + nbuf * maxw + (net.n_enc ? net.E : 0));
+      fwd += enc > R ? enc : R;
+    }
+    const int dz = 4 * Hp * TMB / 2 + R, d2 = maxw * TM_S;
+    const int bwd = (dz > d2 ? dz : d2) + TM_S * rows;
+    return fwd > bwd ? fwd : bwd;
+  }
   int fwd = TM_S * (Ep + Hp);
   if (encoder != ENC_CNN) fwd += BP_LANES * (OBS_DIM + nbuf * maxw);
-  const int bwd = TM_S * (4 * Hp + dx_rows(net, encoder) + 6);
+  const int bwd = TM_S * (4 * Hp + rows);
   return fwd > bwd ? fwd : bwd;
+}
+
+// The transposed fragments (gate_t_frags float4s) for dz [Wi; Wh]^T (the
+// walk's backward product; lstm_mma.cuh gates_bwd_mma): B[k][n]
+// with k = 32 ug + 8 gate + j (the forward's column order: unit 8 ug + j)
+// and n the gate block's input row (x's Ep, then h's Hp).
+__global__ void pack_gates_t_kernel(const float* __restrict__ wp, int E,
+                                    int H, float4* __restrict__ pgt) {
+  const int NT = gate_t_ntiles(E, H);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= gate_t_frags(E, H)) return;
+  const int lane = i % 32, tile = i / 32, kt = tile / NT, nt = tile % NT;
+  const int n = 8 * nt + lane / 4, k = 8 * kt + lane % 4;
+  const int row = gate_row(n, E, H);
+  float v[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kk = k + 4 * r;
+    const int u = 8 * (kk / 32) + kk % 8, gate = (kk / 8) % 4;
+    v[r] = u < H && row >= 0 ? wp[((size_t)row * H + u) * 4 + gate] : 0.0f;
+  }
+  pgt[i] = pack_pair(v);
+}
+
+// The gate weights' bf16x2 fragments of m16n8k16 (gate_b16_words uint32s,
+// two uint4s a lane of each k-tile of 16 and unit group, [k-tile][ug][lane]):
+// word c of the lane's eight is pair c % 2 of n-tile 4 ug + c / 2 (gate c /
+// 2 of the unit group), {bf16(B[k][n]), bf16(B[k + 1][n])} at k = 16 kt + 2
+// t + 8 (c % 2), n = 8 (4 ug + c / 2) + g (mma.cuh mma_bf16's b0, b1), with B
+// as pack_gates_kernel's; rows past Ep + Hp zero.
+__global__ void pack_gates_b16_kernel(const float* __restrict__ wp, int E,
+                                      int H, uint32_t* __restrict__ pg) {
+  const int UG = gate_units(H) / 8;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= gate_b16_words(E, H)) return;
+  const int c = i % 8, lane = (i / 8) % 32, ug = (i / 256) % UG;
+  const int kt = i / (256 * UG), q = c / 2;
+  const int k = 16 * kt + 2 * (lane % 4) + 8 * (c % 2), u = 8 * ug + lane / 4;
+  float v[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = gate_row(k + r, E, H);
+    v[r] = u < H && row >= 0 ? wp[((size_t)row * H + u) * 4 + q] : 0.0f;
+  }
+  pg[i] = bf16x2(v[0], v[1]);
+}
+
+// The transposed fragments of m16n8k16 (gate_t_frags uint32s, a uint2 a
+// lane of each k-tile of 16 and n-tile, [k-tile][n-tile][lane]): word c of
+// the pair {bf16(B[k][n]), bf16(B[k + 1][n])} at k = 16 kt + 2 t + 8 c, n = 8
+// nt + g, with B, k and n as pack_gates_t_kernel's.
+__global__ void pack_gates_t_b16_kernel(const float* __restrict__ wp, int E,
+                                        int H, uint32_t* __restrict__ pgt) {
+  const int NT = gate_t_ntiles(E, H);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= gate_t_frags(E, H)) return;
+  const int c = i % 2, lane = (i / 2) % 32, tile = i / 64;
+  const int kt = tile / NT, nt = tile % NT;
+  const int n = 8 * nt + lane / 4, k = 16 * kt + 2 * (lane % 4) + 8 * c;
+  const int row = gate_row(n, E, H);
+  float v[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kk = k + r;
+    const int u = 8 * (kk / 32) + kk % 8, gate = (kk / 8) % 4;
+    v[r] = u < H && row >= 0 ? wp[((size_t)row * H + u) * 4 + gate] : 0.0f;
+  }
+  pgt[i] = bf16x2(v[0], v[1]);
+}
+
+// The heads (lstm_heads4<true>) at h' in bf16 rows: the same sums of the
+// same rounded values.
+__device__ __forceinline__ void heads4_b16(const uint16_t* h,
+                                           const float* __restrict__ theta,
+                                           const LstmNet& net, float m[4],
+                                           float& v) {
+  const int H = net.H, c = threadIdx.x >> 2;
+  const float* hw = theta + net.head_off;
+  const float* vw = theta + net.vhead_off;
+  float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+  for (int u = threadIdx.x & 3; u < H; u += 4) {
+    const float hv = b16_value(h[u * TMB + c]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = __fmaf_rn(__ldg(hw + k * H + u), hv, acc[k]);
+    acc[4] = __fmaf_rn(__ldg(vw + u), hv, acc[4]);
+  }
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    acc[k] = acc[k] + __shfl_xor_sync(0xffffffffu, acc[k], 1);
+    acc[k] = acc[k] + __shfl_xor_sync(0xffffffffu, acc[k], 2);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) m[k] = acc[k] + __ldg(hw + 4 * H + k);
+  v = acc[4] + __ldg(vw + H);
+}
+
+// The bf16 arm's walk (bptt_kernel<ENC, true>): the fp32 walk's steps and
+// ownership, its products from operands stored once as bf16 (lstm_mma.cuh
+// lstm_gates_b16, gates_bwd_b16). Forward: x and h as bf16 rows; the dense
+// arm's obs, encoder buffers and last layer in fp32 rows of L floats (the
+// last layer goes to XS in fp32 and to x in bf16). Backward: dz as bf16
+// rows, its fp32 values straight from the cell's registers to the GZ
+// scratch; dx, [dm; g_v] and keep as the fp32 walk's. Every fp32 reader
+// keeps its value: XS's encoder outputs ((1 - y^2)), GZ (the bias sums),
+// the CNN arm's x (its relu mask, read from XS). h is read only rounded
+// (the products, the heads, XS's h_in, which the products round, and the
+// carry mask by 0 or 1 give the same bits from bf16(h)): it is kept as
+// bf16 alone.
+template <int ENC>
+__device__ __forceinline__ void bptt_walk_b16(const BpttArgs& A,
+                                              const LstmNet& net,
+                                              const UConsts& co) {
+  constexpr bool CNN = ENC == ENC_CNN;
+  constexpr int L = BP_LANES, S = TM_S;
+  extern __shared__ float4 smem4[];
+  const int H = net.H, E = net.E, n = A.n, NL = A.NL, tid = threadIdx.x;
+  const int Hp = gate_units(H), Ep = gate_inputs(E), UG = Hp / 8;
+  const int w = tid >> 5;
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int ring_at = w * B16_RING_BYTES / 4;  // a warp's ring, in words
+  const int ml0 = blockIdx.x * L;  // the tile's first minibatch lane
+  const int lane0 = A.perm[ml0 / A.rbl] * A.rbl + ml0 % A.rbl;
+  const int x_rows = CNN ? CNN_H : net.enc_rows;
+  const int RX = OBS_DIM + x_rows + H;  // rows of the XS scratch
+  const int h_row = OBS_DIM + x_rows;   // h_in's first row there
+  const uint4* PG = reinterpret_cast<const uint4*>(A.PG);
+  const uint2* PGT = reinterpret_cast<const uint2*>(A.PGT);
+  int maxw, nbuf;
+  enc_buffers(net, maxw, nbuf);
+  float ls[4], stdv[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    ls[k] = A.theta[net.ls_off + k];
+    stdv[k] = expf(ls[k]);
+  }
+
+  // ---- forward ------------------------------------------------------------
+  uint16_t* xb = reinterpret_cast<uint16_t*>(sm);
+  uint16_t* hb = xb + Ep * TMB;
+  const int Kp = gate_k16(E, H);  // x's and h's rows, then zero rows
+  float* obs = sm + Kp * TMB / 2;  // the dense arm's fp32 rows
+  float* buf0 = obs + OBS_DIM * L;
+  float* buf1 = buf0 + maxw * L;
+  float* xf = buf0 + nbuf * maxw * L;
+  // the CNN arm's next x, copied (cp.async) while a step runs
+  float* xn = sm + Kp * TMB / 2;
+  uint32_t* ring =
+      reinterpret_cast<uint32_t*>(CNN ? xn + CNN_H * L : obs) + ring_at;
+  auto copy_x = [&](int t) {
+    const float* xs = A.s[XS] + ((size_t)t * RX + OBS_DIM) * NL + ml0;
+    for (int e = tid; e < CNN_H * L / 4; e += blockDim.x) {
+      const int k = e / (L / 4), l = 4 * (e % (L / 4));
+      cp_async16(xn + k * L + l, xs + (size_t)k * NL + l);
+    }
+    cp_async_commit();
+  };
+  if constexpr (CNN) copy_x(0);
+  float cr[GATE_PASSES][4][4];
+  const float* anc = A.snap + (size_t)A.seg * 2 * H * n + lane0;
+#pragma unroll
+  for (int p = 0; p < GATE_PASSES; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int u = owned_unit(p, r);
+        cr[p][i][r] = u < H ? anc[(size_t)u * n + owned_lane(i, r)] : 0.0f;
+      }
+  for (int e = tid; e < Hp * L; e += blockDim.x) {
+    const int u = e / L, l = e % L;
+    hb[u * TMB + l] = u < H ? bf16_bits(anc[(size_t)(H + u) * n + l]) : 0;
+  }
+  for (int e = tid; e < (Ep - E) * L; e += blockDim.x)
+    xb[(E + e / L) * TMB + e % L] = 0;  // x's padded rows
+  for (int e = tid; e < (Kp - Ep - Hp) * L; e += blockDim.x)
+    hb[(Hp + e / L) * TMB + e % L] = 0;  // K's, to a multiple of 16
+  cp_async_wait<0>();  // the CNN arm's first x
+  __syncthreads();
+  for (int t = 0; t < A.bptt; ++t) {
+    const float* pt = A.planes + (size_t)(A.seg * A.bptt + t) * N_TRAJ * n + lane0;
+    float* xs = A.s[XS] + (size_t)t * RX * NL + ml0;
+    if constexpr (CNN) {
+      // x, the tower's output, copied from the scratch during the last step
+#pragma unroll 8
+      for (int e = tid; e < CNN_H * L; e += blockDim.x) {
+        const int k = e / L, l = e % L;
+        xb[k * TMB + l] = bf16_bits(xn[k * L + l]);
+      }
+    } else {
+      // with no encoder the obs are x's rows
+      for (int e = tid; e < OBS_DIM * L; e += blockDim.x) {
+        const int k = e / L, l = e % L;
+        const float v = pt[(size_t)(TP_OBS0 + k) * n + l];
+        xs[(size_t)k * NL + l] = v;
+        if (net.n_enc)
+          obs[k * L + l] = v;
+        else
+          xb[k * TMB + l] = bf16_bits(v);
+      }
+    }
+    for (int e = tid; e < H * L; e += blockDim.x) {
+      const int u = e / L, l = e % L;
+      xs[(size_t)(h_row + u) * NL + l] = b16_value(hb[u * TMB + l]);
+    }
+    __syncthreads();
+    if (CNN && t + 1 < A.bptt) copy_x(t + 1);
+    if (!CNN && net.n_enc) {
+      lstm_encoder<L, L, L, true>(
+          obs, buf0, buf1, xf, A.theta, net,
+          [&](int i, const float* out, int os) {
+            int r0 = OBS_DIM;
+            for (int j = 0; j < i; ++j) r0 += net.enc_w[j];
+            const bool last = i == net.n_enc - 1;
+            for (int e = tid; e < net.enc_w[i] * L; e += blockDim.x) {
+              const int k = e / L, l = e % L;
+              const float v = out[k * os + l];
+              xs[(size_t)(r0 + k) * NL + l] = v;
+              if (last) xb[k * TMB + l] = bf16_bits(v);
+            }
+          });
+      __syncthreads();
+    }
+    float* gfs = A.s[GF] + (size_t)t * GF_B16 * Hp * NL +
+                 (size_t)ml0 * GF_B16 * Hp;
+    float* h2s = A.s[H2S] + (size_t)t * H * NL + ml0;
+    lstm_gates_b16(xb, hb, E, H, PG, A.BP, reinterpret_cast<uint4*>(ring),
+                   [&](int p, int i, int r, int u, int l, float gi, float gf,
+                       float gg, float go) {
+                     const float cin = cr[p][i][r];
+                     const float c2 = gf * cin + gi * gg;
+                     cr[p][i][r] = c2;
+                     const float h2 = go * tanhf(c2);
+                     const float q5[GF_B16] = {gi, gf, gg, go, cin};
+#pragma unroll
+                     for (int q = 0; q < GF_B16; ++q)
+                       gfs[gf_at<GF_B16>(p, i, q, r)] = q5[q];
+                     if (u < H) h2s[(size_t)u * NL + l] = h2;
+                     return h2;
+                   });
+    __syncthreads();
+    // the heads at h' (to the DMV scratch), then _mask_carry
+    const float* done = pt + (size_t)TP_DONE * n;
+    {
+      float m[4], v;
+      heads4_b16(hb, A.theta, net, m, v);
+      const int l = tid >> 2;
+      if ((tid & 3) == 0) {
+        float* mvs = A.s[DMV] + (size_t)t * 5 * NL + ml0 + l;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) mvs[(size_t)k * NL] = m[k];
+        mvs[(size_t)4 * NL] = v;
+      }
+      const float keep = 1.0f - done[l];
+      for (int u = tid & 3; u < H; u += 4) {
+        uint16_t* hv = hb + u * TMB + l;
+        *hv = bf16_bits(b16_value(*hv) * keep);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < GATE_PASSES; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          cr[p][i][r] = cr[p][i][r] * (1.0f - done[owned_lane(i, r)]);
+    cp_async_wait<0>();  // the CNN arm's next x
+    __syncthreads();
+  }
+
+  // ---- backward through time ---------------------------------------------
+  uint16_t* dzb = reinterpret_cast<uint16_t*>(sm);  // 4 Hp bf16 rows
+  ring = reinterpret_cast<uint32_t*>(sm + 4 * Hp * TMB / 2) + ring_at;
+  const int dz_end = 4 * Hp * TMB / 2 + WALK_RING_FLOATS;
+  const int dz_floats = dz_end > maxw * S ? dz_end : maxw * S;
+  float* dx = sm + dz_floats;
+  float* dmv = dx + dx_rows(net, ENC) * S;
+  float* keep_s = dmv + 5 * S;
+  float dh[GATE_PASSES][4][4], dc[GATE_PASSES][4][4];
+  zero_frags(dh);
+  zero_frags(dc);
+  float stv[N_UPSTATS];
+#pragma unroll
+  for (int k = 0; k < N_UPSTATS; ++k) stv[k] = 0.0f;
+  const float* hw = A.theta + net.head_off;
+  const float* vw = A.theta + net.vhead_off;
+  const bool want_dx = CNN || net.n_enc;
+  for (int t = A.bptt - 1; t >= 0; --t) {
+    const int ts = A.seg * A.bptt + t;
+    const float* pt = A.planes + (size_t)ts * N_TRAJ * n + lane0;
+    const float* xs = A.s[XS] + (size_t)t * RX * NL + ml0;
+    float* gs = A.s[GZ] + (size_t)t * 4 * H * NL + ml0;
+    const float* gfs = A.s[GF] + (size_t)t * GF_B16 * Hp * NL +
+                       (size_t)ml0 * GF_B16 * Hp;
+    if (tid < L) {
+      float m[4], a[4], dm[4], g_v, st[N_UPSTATS];
+      float* dmvs = A.s[DMV] + (size_t)t * 5 * NL + ml0 + tid;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        m[k] = dmvs[(size_t)k * NL];
+        a[k] = pt[(size_t)(TP_ACT0 + k) * n + tid];
+      }
+      const float v = dmvs[(size_t)4 * NL];
+      const float* ar = A.advret + (size_t)ts * n + lane0 + tid;
+      head_grads(m, v, a, pt[(size_t)TP_LOGP * n + tid],
+                 pt[(size_t)TP_VAL * n + tid], ar[0],
+                 ar[(size_t)A.T * n], ls, stdv, co, dm, g_v, st);
+#pragma unroll
+      for (int k = 0; k < N_UPSTATS; ++k) stv[k] = stv[k] + st[k];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        dmv[k * S + tid] = op_value<true>(dm[k]);  // dh2's operand
+        dmvs[(size_t)k * NL] = dm[k];
+      }
+      dmv[4 * S + tid] = op_value<true>(g_v);
+      dmvs[(size_t)4 * NL] = g_v;
+      keep_s[tid] = 1.0f - pt[(size_t)TP_DONE * n + tid];
+    }
+    __syncthreads();
+    // through the cell, on the pairs this thread owns: dz to the GZ scratch
+    // (gate g of unit u at row g H + u) and as bf16 rows
+#pragma unroll
+    for (int p = 0; p < GATE_PASSES; ++p) {
+      const int ug = w + GATE_WARPS * p;
+      if (ug >= UG) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float st5[GF_B16][4], z[4][4];
+#pragma unroll
+        for (int q = 0; q < GF_B16; ++q)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) st5[q][r] = gfs[gf_at<GF_B16>(p, i, q, r)];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int u = owned_unit(p, r), l = owned_lane(i, r);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) z[r][g] = 0.0f;
+          if (u < H) {
+            const float keep = keep_s[l];
+            float hd = __ldg(hw + u) * dmv[l];
+#pragma unroll
+            for (int k = 1; k < 4; ++k)
+              hd = __fmaf_rn(__ldg(hw + k * H + u), dmv[k * S + l], hd);
+            const float dh2 =
+                (hd + __ldg(vw + u) * dmv[4 * S + l]) + dh[p][i][r] * keep;
+            const float gi = st5[0][r], gf = st5[1][r], gg = st5[2][r];
+            const float go = st5[3][r], cin = st5[4][r];
+            const float th = tanhf(gf * cin + gi * gg);  // the forward's
+            const float dc2 = dc[p][i][r] * keep + dh2 * go * (1.0f - th * th);
+            const float dgo = dh2 * th;
+            const float dgi = dc2 * gg;
+            const float dgf = dc2 * cin;
+            const float dgg = dc2 * gi;
+            dc[p][i][r] = dc2 * gf;
+            z[r][0] = dgi * (gi * (1.0f - gi));
+            z[r][1] = dgf * (gf * (1.0f - gf));
+            z[r][2] = dgg * (1.0f - gg * gg);
+            z[r][3] = dgo * (go * (1.0f - go));
+#pragma unroll
+            for (int g = 0; g < 4; ++g) gs[(size_t)(g * H + u) * NL + l] = z[r][g];
+          }
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            dzb[(32 * ug + 8 * g + u % 8) * TMB + l] = bf16_bits(z[r][g]);
+        }
+      }
+    }
+    __syncthreads();
+    // [dx; dh] = dz [Wi; Wh]^T: dh into this thread's registers
+    gates_bwd_b16(dzb, E, H, PGT, want_dx, dx, reinterpret_cast<uint2*>(ring),
+                  dh);
+    __syncthreads();
+    if constexpr (CNN) {
+      // the trunk's relu: dzt = dx * (x > 0) to the scratch, four lanes a
+      // thread, every x loaded before any store
+      float* dzs = A.s[DP] + (size_t)t * E * NL + ml0;
+      constexpr int PER = CNN_H * L / 4 / LSTM_THREADS;
+      float4 xv[PER];
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int e = tid + LSTM_THREADS * j;
+        xv[j] = *reinterpret_cast<const float4*>(
+            xs + (size_t)(OBS_DIM + e / (L / 4)) * NL + 4 * (e % (L / 4)));
+      }
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int e = tid + LSTM_THREADS * j, k = e / (L / 4);
+        const int l = 4 * (e % (L / 4));
+        const float4 dv = *reinterpret_cast<const float4*>(dx + k * S + l);
+        *reinterpret_cast<float4*>(dzs + (size_t)k * NL + l) = make_float4(
+            dv.x * (xv[j].x > 0.0f ? 1.0f : 0.0f),
+            dv.y * (xv[j].y > 0.0f ? 1.0f : 0.0f),
+            dv.z * (xv[j].z > 0.0f ? 1.0f : 0.0f),
+            dv.w * (xv[j].w > 0.0f ? 1.0f : 0.0f));
+      }
+      continue;
+    }
+    // the encoder backward: dpre = dx (1 - y^2), then dx of the layer below
+    float* d = dx;
+    for (int i = net.n_enc - 1; i >= 0; --i) {
+      int r0 = 0;
+      for (int j = 0; j < i; ++j) r0 += net.enc_w[j];
+      float* dps = A.s[DP] + ((size_t)t * net.enc_rows + r0) * NL + ml0;
+      // four lanes a thread, four float4s of y loaded before any store
+      const int n4 = net.enc_w[i] * (L / 4);
+      for (int e0 = tid; e0 < n4; e0 += 4 * LSTM_THREADS) {
+        float4 yv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = e0 + LSTM_THREADS * j;
+          if (e < n4)
+            yv[j] = *reinterpret_cast<const float4*>(
+                xs + (size_t)(OBS_DIM + r0 + e / (L / 4)) * NL +
+                4 * (e % (L / 4)));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = e0 + LSTM_THREADS * j, k = e / (L / 4);
+          const int l = 4 * (e % (L / 4));
+          if (e >= n4) break;
+          const float4 dv = *reinterpret_cast<const float4*>(d + k * S + l);
+          const float4 dp = make_float4(dv.x * (1.0f - yv[j].x * yv[j].x),
+                                        dv.y * (1.0f - yv[j].y * yv[j].y),
+                                        dv.z * (1.0f - yv[j].z * yv[j].z),
+                                        dv.w * (1.0f - yv[j].w * yv[j].w));
+          // dense_t's operand
+          *reinterpret_cast<float4*>(d + k * S + l) = make_float4(
+              op_value<true>(dp.x), op_value<true>(dp.y),
+              op_value<true>(dp.z), op_value<true>(dp.w));
+          *reinterpret_cast<float4*>(dps + (size_t)k * NL + l) = dp;
+        }
+      }
+      __syncthreads();
+      if (i > 0) {
+        float* d2 = d == dx ? sm : dx;  // dz's rows are free once the product ran
+        dense_t<L, S>(A.theta + net.enc_off[i], net.enc_w[i], net.enc_w[i - 1],
+                      d, d2);
+        __syncthreads();
+        d = d2;
+      }
+    }
+  }
+
+  // this block's 8 stat sums, lanes in order
+  float* red = sm;
+  if (tid < L)
+#pragma unroll
+    for (int k = 0; k < N_UPSTATS; ++k) red[k * L + tid] = stv[k];
+  __syncthreads();
+  if (tid < N_UPSTATS) {
+    float s = 0.0f;
+    for (int l = 0; l < L; ++l) s = s + red[tid * L + l];
+    A.stat_part[(size_t)blockIdx.x * N_UPSTATS + tid] = s;
+  }
 }
 
 // A.theta: under BF16 round_weights_kernel's copy.
 template <int ENC, bool BF16>
 __global__ void __launch_bounds__(LSTM_THREADS, 1)
 bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
+  if constexpr (BF16) {
+    bptt_walk_b16<ENC>(A, net, co);
+    return;
+  }
   constexpr bool CNN = ENC == ENC_CNN;
   constexpr int L = BP_LANES, S = TM_S;
   extern __shared__ float4 smem4[];
@@ -319,7 +825,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
     }
     __syncthreads();
     if constexpr (!CNN) {
-      lstm_encoder<L, L, S, BF16>(obs, buf0, buf1, x, A.theta, net,
+      lstm_encoder<L, L, S>(obs, buf0, buf1, x, A.theta, net,
                             [&](int i, const float* out, int os) {
                               int r0 = OBS_DIM;
                               for (int j = 0; j < i; ++j) r0 += net.enc_w[j];
@@ -332,7 +838,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
     }
     float* gfs = A.s[GF] + (size_t)t * 6 * Hp * NL + (size_t)ml0 * 6 * Hp;
     float* h2s = A.s[H2S] + (size_t)t * H * NL + ml0;
-    lstm_gates_mma<BF16>(x, h, E, H, A.PG, A.BP,
+    lstm_gates_mma(x, h, E, H, A.PG, A.BP,
                    [&](int p, int i, int r, int u, int l, float gi, float gf,
                        float gg, float go) {
                      const float cin = cr[p][i][r];
@@ -353,7 +859,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
     const float* done = pt + (size_t)TP_DONE * n;
     {
       float m[4], v;
-      lstm_heads4<BF16>(h, S, A.theta, net, m, v);
+      lstm_heads4(h, S, A.theta, net, m, v);
       const int l = tid >> 2;
       if ((tid & 3) == 0) {
         float* mvs = A.s[DMV] + (size_t)t * 5 * NL + ml0 + l;
@@ -416,10 +922,10 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
       for (int k = 0; k < N_UPSTATS; ++k) stv[k] = stv[k] + st[k];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        dmv[k * S + tid] = op_value<BF16>(dm[k]);  // dh2's operand
+        dmv[k * S + tid] = dm[k];
         dmvs[(size_t)k * NL] = dm[k];
       }
-      dmv[4 * S + tid] = op_value<BF16>(g_v);
+      dmv[4 * S + tid] = g_v;
       dmvs[(size_t)4 * NL] = g_v;
       keep_s[tid] = 1.0f - pt[(size_t)TP_DONE * n + tid];
     }
@@ -473,7 +979,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
     // [dx; dh] = dz [Wi; Wh]^T: dh into this thread's registers; beside it
     // dz's rows to the GZ scratch (natural order: gate g of unit u at row
     // g H + u), 256 contiguous bytes a row
-    gates_bwd_mma<BF16>(dz, E, H, A.PGT, want_dx, dx, dh);
+    gates_bwd_mma(dz, E, H, A.PGT, want_dx, dx, dh);
     for (int e = tid; e < 4 * H * (L / 4); e += blockDim.x) {
       const int row = e / (L / 4), l4 = 4 * (e % (L / 4));
       const int g = row / H, u = row % H;
@@ -505,7 +1011,7 @@ bptt_kernel(BpttArgs A, LstmNet net, UConsts co) {
         const int k = e / L, l = e % L;
         const float y = xs[(size_t)(OBS_DIM + r0 + k) * NL + l];
         const float dp = d[k * S + l] * (1.0f - y * y);
-        d[k * S + l] = op_value<BF16>(dp);  // dense_t's operand
+        d[k * S + l] = dp;
         dps[(size_t)k * NL + l] = dp;
       }
       __syncthreads();
@@ -620,11 +1126,7 @@ struct GemmPair {
   int out_off;
 };
 
-// The products' tile on the TF32 instruction: 3xTF32, or with BF16 one
-// TF32 product a k-step of the operands rounded to bf16 as their fragments
-// load (K7's first bf16 design, which the dense arm's products keep:
-// grad_rounded_kernel).
-template <bool BF16>
+// The fp32 products' tile on the TF32 instruction in 3xTF32.
 __device__ __forceinline__ void grad_tf32_tile(const GemmPair& p, int NL,
                                                int CK,
                                                float* __restrict__ partial,
@@ -687,18 +1189,18 @@ __device__ __forceinline__ void grad_tf32_tile(const GemmPair& p, int NL,
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float* pa = As + (wm + 16 * i + g) * GM_S + k0 + tq;
-        split_op<BF16>(pa[0], ab[i][0], as[i][0]);
-        split_op<BF16>(pa[8 * GM_S], ab[i][1], as[i][1]);
-        split_op<BF16>(pa[4], ab[i][2], as[i][2]);
-        split_op<BF16>(pa[8 * GM_S + 4], ab[i][3], as[i][3]);
+        split_tf32(pa[0], ab[i][0], as[i][0]);
+        split_tf32(pa[8 * GM_S], ab[i][1], as[i][1]);
+        split_tf32(pa[4], ab[i][2], as[i][2]);
+        split_tf32(pa[8 * GM_S + 4], ab[i][3], as[i][3]);
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const float* pb = Bs + (wn + 8 * j + g) * GM_S + k0 + tq;
-        split_op<BF16>(pb[0], bb[j][0], bs[j][0]);
-        split_op<BF16>(pb[4], bb[j][1], bs[j][1]);
+        split_tf32(pb[0], bb[j][0], bs[j][0]);
+        split_tf32(pb[4], bb[j][1], bs[j][1]);
       }
-      mma_op<BF16>(acc, ab, as, bb, bs);
+      mma3(acc, ab, as, bb, bs);
     }
     fold(sum, 0, acc);
     if (bias) {
@@ -741,19 +1243,161 @@ grad_mma_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
                   reinterpret_cast<uint16_t*>(smem4),
                   partial + (size_t)(row0 + kc) * ptot + p.out_off, p.N + 1);
   } else {
-    grad_tf32_tile<false>(p, NL, CK, partial, ptot, row0);
+    grad_tf32_tile(p, NL, CK, partial, ptot, row0);
   }
 }
 
-// The dense arm's bf16 products: the first bf16 design (grad_tf32_tile
-// <true>, GM_SMEM bytes). Their m16n8k16 form (grad_mma_kernel<true>)
-// held H12 as closely, but moved the one-run bf16 LSTM learning gate's
-// seed-0 run below its rise (ROADMAP H11), so the dense arm keeps this
-// design, bit for bit, until the walk's redesign.
+// The dense arm's bf16 products (grad_rounded_kernel): grad_tf32_tile
+// <true>'s products and folds, bit for bit (one TF32 product a k-step of
+// the operands rounded to bf16; their m16n8k16 form, grad_mma_kernel<true>,
+// held H12 as closely but moved the one-run bf16 LSTM learning gate's seed-0
+// run below its rise, ROADMAP H11), from operands rounded once a window
+// into bf16 rows of shared memory. A row holds a window's 64 samples as
+// bf16x2 words {s, s + 4} (s % 8 < 4), the word of k-step s / 8 and pair t
+// = s % 8 at 8 t + s / 8, GR_S words apart: a thread's eight k-steps are 32
+// contiguous bytes, and a quarter warp's 16-byte loads (two rows, four t)
+// hit distinct banks. The bias sums read the window's fp32 rows of A, as
+// grad_tf32_tile's. GR_SMEM bytes: two windows of A and B, and of A's fp32
+// rows.
+constexpr int GR_S = 36;
+// the fp32 bits of the lower and of the upper bf16 of a bf16x2 word
+__device__ __forceinline__ uint32_t b16_lo(uint32_t w) { return w << 16; }
+__device__ __forceinline__ uint32_t b16_hi(uint32_t w) {
+  return w & 0xffff0000u;
+}
+constexpr int GR_SMEM = 2 * 2 * GM_T * GR_S * 4 + 2 * GM_T * GM_S * 4;  // 71,680
+
 __global__ void __launch_bounds__(256, 2)
 grad_rounded_kernel(GemmPair p, int NL, int CK, float* __restrict__ partial,
                     int ptot, int row0) {
-  grad_tf32_tile<true>(p, NL, CK, partial, ptot, row0);
+  extern __shared__ float4 smem4[];
+  uint32_t* sw = reinterpret_cast<uint32_t*>(smem4);
+  float* af = reinterpret_cast<float*>(sw + 2 * 2 * GM_T * GR_S);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.x * GM_T, n0 = blockIdx.y * GM_T, kc = blockIdx.z;
+  const int per_t = NL / CK;
+  const int t = kc / per_t, lane0 = (kc % per_t) * CK;
+  const float* a = p.a + ((size_t)t * p.ra + p.a0) * NL + lane0;
+  const float* b = p.b + ((size_t)t * p.rb + p.b0) * NL + lane0;
+  const bool bias = blockIdx.y == 0;
+  const int wm = 32 * (w & 1), wn = 16 * (w >> 1);
+  float sum[2][2][4], bsum = 0.0f;
+  zero_frags(sum);
+  // this thread's groups of 8 samples of a window: group e = tid + 256 q,
+  // row e / 8, k-step e % 8
+  constexpr int NG = GM_T * GM_T / 8 / 256;
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 ra[NG][2], rb[NG][2];
+  auto load = [&](int s0) {
+#pragma unroll
+    for (int q = 0; q < NG; ++q) {
+      const int e = tid + 256 * q, row = e / 8, col = 8 * (e % 8);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ra[q][h] = m0 + row < p.M
+                       ? __ldg(reinterpret_cast<const float4*>(
+                             a + (size_t)(m0 + row) * NL + s0 + col + 4 * h))
+                       : zero4;
+        rb[q][h] = n0 + row < p.N
+                       ? __ldg(reinterpret_cast<const float4*>(
+                             b + (size_t)(n0 + row) * NL + s0 + col + 4 * h))
+                       : zero4;
+      }
+    }
+  };
+  load(0);
+  int buf = 0;
+  for (int s0 = 0; s0 < CK; s0 += GM_T) {
+    uint32_t* As = sw + buf * 2 * GM_T * GR_S;
+    uint32_t* Bs = As + GM_T * GR_S;
+    float* Af = af + buf * GM_T * GM_S;
+#pragma unroll
+    for (int q = 0; q < NG; ++q) {
+      const int e = tid + 256 * q, row = e / 8, ks = e % 8;
+      uint32_t* pa = As + row * GR_S + ks;
+      uint32_t* pb = Bs + row * GR_S + ks;
+      pa[0] = bf16x2(ra[q][0].x, ra[q][1].x);
+      pa[8] = bf16x2(ra[q][0].y, ra[q][1].y);
+      pa[16] = bf16x2(ra[q][0].z, ra[q][1].z);
+      pa[24] = bf16x2(ra[q][0].w, ra[q][1].w);
+      pb[0] = bf16x2(rb[q][0].x, rb[q][1].x);
+      pb[8] = bf16x2(rb[q][0].y, rb[q][1].y);
+      pb[16] = bf16x2(rb[q][0].z, rb[q][1].z);
+      pb[24] = bf16x2(rb[q][0].w, rb[q][1].w);
+      if (bias) {
+        *reinterpret_cast<float4*>(Af + row * GM_S + 8 * ks) = ra[q][0];
+        *reinterpret_cast<float4*>(Af + row * GM_S + 8 * ks + 4) = ra[q][1];
+      }
+    }
+    __syncthreads();
+    if (s0 + GM_T < CK) load(s0 + GM_T);
+    // the window's sums in fresh accumulators, folded into the chunk's;
+    // k-steps 4 half + c, the words of rows wm + 16 i + g (+ 8) and wn + 8
+    // j + g
+    float acc[2][2][4];
+    zero_frags(acc);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint4 wa[2][2], wb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wa[i][h] = *reinterpret_cast<const uint4*>(
+              As + (wm + 16 * i + g + 8 * h) * GR_S + 8 * tq + 4 * half);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wb[j] = *reinterpret_cast<const uint4*>(
+            Bs + (wn + 8 * j + g) * GR_S + 8 * tq + 4 * half);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        uint32_t fa[2][4], fb[2][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t x0 = reinterpret_cast<const uint32_t*>(&wa[i][0])[c];
+          const uint32_t x1 = reinterpret_cast<const uint32_t*>(&wa[i][1])[c];
+          fa[i][0] = b16_lo(x0);
+          fa[i][1] = b16_lo(x1);
+          fa[i][2] = b16_hi(x0);
+          fa[i][3] = b16_hi(x1);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t y = reinterpret_cast<const uint32_t*>(&wb[j])[c];
+          fb[j][0] = b16_lo(y);
+          fb[j][1] = b16_hi(y);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) mma_tf32(acc[i][j], fa[i], fb[j]);
+      }
+    }
+    fold(sum, 0, acc);
+    if (bias) {
+#pragma unroll 1
+      for (int r = 0; r < 8; ++r) {
+        const float v = row_sum(Af + (8 * w + r) * GM_S);
+        if (lane == r) bsum = bsum + v;
+      }
+    }
+    buf ^= 1;  // the other buffer's last readers passed this window's barrier
+  }
+  float* out = partial + (size_t)(row0 + kc) * ptot + p.out_off;
+  const int W = p.N + 1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + wm + 16 * i + g + (r & 2 ? 8 : 0);
+        const int c = n0 + wn + 8 * j + 2 * tq + (r & 1);
+        if (m < p.M && c < p.N) out[(size_t)m * W + c] = sum[i][j][r];
+      }
+  if (bias && lane < 8 && m0 + 8 * w + lane < p.M)
+    out[(size_t)(m0 + 8 * w + lane) * W + p.N] = bsum;
 }
 
 // The bf16 arm's copy of the flat buffer (P floats): the weights the walk
@@ -811,13 +1455,14 @@ __global__ void lstm_reduce_kernel(const float* __restrict__ partial, int R,
 // arm's PKB_TOTAL uint4s) and grid
 // are the CNN arm's (null for the dense one); pg and pgt room for the gate
 // weights' forward and transposed fragments (gate_frags and gate_t_frags
-// float4s), written here on the stream; theta16 room for the bf16 arm's
-// copy of theta (P floats; null for the fp32 arm). layout: lstm.cuh's
-// NET_INTS; encoder: ENC_DENSE or ENC_CNN. dims: [n, T, bptt, rbl, NL, CK,
-// P, ptot, n_pairs, the 7 scratch row counts, then the shared bytes of a
-// block of the walk, the CNN arm's tower forward and backward (0 for the
-// dense arm) and the products (tf_smem, tb_smem and GM_SMEM, or GB_SMEM
-// in the CNN arm under bf16), as the wrapper counts them, then bf16: 1 for
+// float4s, the bf16 arm's as many uint32s), written here on the stream;
+// theta16 room for the bf16 arm's copy of theta (P floats; null for the
+// fp32 arm). layout: lstm.cuh's NET_INTS; encoder: ENC_DENSE or ENC_CNN.
+// dims: [n, T, bptt, rbl, NL, CK, P, ptot, n_pairs, the 7 scratch row
+// counts, then the shared bytes of a block of the walk, the CNN arm's
+// tower forward and backward (0 for the dense arm) and the products
+// (tf_smem, tb_smem and GM_SMEM; under bf16 GB_SMEM in the CNN arm,
+// GR_SMEM in the dense one), as the wrapper counts them, then bf16: 1 for
 // the bf16 operand arm, 0 for 3xTF32]. pairs: n_pairs x [A buffer, A
 // row0, M, B buffer, B row0, N, out offset]. consts: [inv_m, clip_lo,
 // clip_hi, clip_eps, vf_clip, half_vf_coef, ent_coef]. Returns the
@@ -836,12 +1481,14 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const int* smem_bytes = dims + 9 + N_BUFS;
   const int bf16_flag = smem_bytes[4];
   const bool cnn = encoder == ENC_CNN, bf16 = bf16_flag == 1;
-  const size_t smem = sizeof(float) * (size_t)bptt_smem_floats(net, encoder);
+  const size_t smem =
+      sizeof(float) * (size_t)bptt_smem_floats(net, encoder, bf16);
+  const int gsm = !bf16 ? GM_SMEM : (cnn ? GB_SMEM : GR_SMEM);
   if (n <= 0 || bptt <= 0 || T % bptt != 0 || rbl % 128 != 0 ||
       NL % BP_LANES != 0 || CK % GM_T != 0 || NL % CK != 0 || n_pairs <= 0 ||
       smem_bytes[0] != (int)smem ||
-      smem_bytes[3] != (bf16 && cnn ? GB_SMEM : GM_SMEM) ||
-      rows[GF] != 6 * gate_units(net.H) ||
+      smem_bytes[3] != gsm ||
+      rows[GF] != (bf16 ? GF_B16 : 6) * gate_units(net.H) ||
       smem_bytes[1] != (cnn ? tf_smem(bf16) : 0) ||
       smem_bytes[2] != (cnn ? tb_smem(bf16) : 0) || bf16_flag < 0 ||
       bf16_flag > 1 || (bf16 && CK % GB_T != 0) ||
@@ -897,7 +1544,6 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   cudaError_t err = cudaFuncSetAttribute(
       walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int gsm = bf16 && cnn ? GB_SMEM : GM_SMEM;
   const int fsm = tf_smem(bf16), bsm = tb_smem(bf16);
   err = cudaFuncSetAttribute(gemm,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -913,17 +1559,18 @@ extern "C" int drone_lstm_update(const uint64_t* ptrs, const int* layout,
   const int tf_blocks = n_tiles < TOWER_FWD_BLOCKS ? n_tiles : TOWER_FWD_BLOCKS;
   const int nf = gate_frags(net.E, net.H), nft = gate_t_frags(net.E, net.H);
   if (bf16) {
-    pack_gates_kernel<true><<<(nf + 255) / 256, 256, 0, s>>>(wp, net.E,
-                                                             net.H, pg);
-    pack_gates_t_kernel<true><<<(nft + 255) / 256, 256, 0, s>>>(wp, net.E,
-                                                                net.H, pgt);
+    const int nw = gate_b16_words(net.E, net.H);
+    pack_gates_b16_kernel<<<(nw + 255) / 256, 256, 0, s>>>(
+        wp, net.E, net.H, reinterpret_cast<uint32_t*>(pg));
+    pack_gates_t_b16_kernel<<<(nft + 255) / 256, 256, 0, s>>>(
+        wp, net.E, net.H, reinterpret_cast<uint32_t*>(pgt));
     round_weights_kernel<<<(P + 255) / 256, 256, 0, s>>>(A.theta, net, P,
                                                          theta16);
   } else {
-    pack_gates_kernel<false><<<(nf + 255) / 256, 256, 0, s>>>(wp, net.E,
-                                                              net.H, pg);
-    pack_gates_t_kernel<false><<<(nft + 255) / 256, 256, 0, s>>>(wp, net.E,
-                                                                 net.H, pgt);
+    pack_gates_kernel<<<(nf + 255) / 256, 256, 0, s>>>(wp, net.E, net.H,
+                                                       pg);
+    pack_gates_t_kernel<<<(nft + 255) / 256, 256, 0, s>>>(wp, net.E, net.H,
+                                                          pgt);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -121,9 +121,17 @@ BP_LANES = TILE           # lanes of a through-time tile
 MAX_CHUNK = 2048          # samples of one split-K chunk of the gradient products
 # the products' operand tiles: A and B, 64 rows of 64 samples at a stride of
 # 68 floats, double-buffered; the CNN arm's bf16 products' as bf16 rows of
-# 72 (csrc/mma.cuh GB_SMEM)
+# 72 (csrc/mma.cuh GB_SMEM); the dense arm's bf16 products' as rows of 36
+# bf16x2 words beside A's fp32 rows for the bias sums (update_lstm.cu
+# GR_SMEM)
 PRODUCT_SMEM = 2 * 2 * 64 * 68 * 4
 PRODUCT_SMEM_BF16 = 2 * 2 * 64 * 72 * 2
+PRODUCT_SMEM_ROUNDED = 2 * 2 * 64 * 36 * 4 + 2 * 64 * 68 * 4
+# the bf16 walk's operand rows: bf16 a row (csrc/cnn_mma.cuh TMB); its
+# warps' rings of gate fragments, 4 k-tiles of 32 bytes a lane
+# (csrc/lstm_mma.cuh B16_RING_BYTES)
+B16_ROW = 72
+WALK_RING_BYTES = 8 * (4 * 32 * 32)
 _MAX_SMEM = 232448
 
 
@@ -295,7 +303,8 @@ def lstm_update_plain(planes, advret, snap, perm_mb, theta, arch,
 
 # scratch buffers of one segment, each (bptt, rows, NL): the forward's
 # activations [X, encoder outputs, h_in], dz, the gate block's [gi, gf, gg,
-# go, c_in, tanh(c')] over its padded units (in its threads' order), h',
+# go, c_in, tanh(c')] over its padded units (in its threads' order; the bf16
+# walk's without tanh(c')), h',
 # the heads' outputs (then their gradients [dm, g_v]), the dense encoder's
 # dpre or the CNN arm's dzt, and the CNN arm's trunk inputs X2
 XS, GZ, GF, H2, DMV, DP, X2S = range(7)
@@ -369,10 +378,13 @@ def _x2_rows(arch) -> int:
     return arch.geom.n_q1 * arch.c1
 
 
-def scratch_rows(hidden: int, encoder) -> list[int]:
-    """Rows per step of each scratch buffer (XS, GZ, GF, H2, DMV, DP, X2S)."""
+def scratch_rows(hidden: int, encoder,
+                 compute_dtype: str = "float32") -> list[int]:
+    """Rows per step of each scratch buffer (XS, GZ, GF, H2, DMV, DP, X2S);
+    the bf16 walk keeps five of GF's six quantities, recomputing tanh(c')
+    (update_lstm.cu GF_B16)."""
     encoder = encoder_of(encoder)
-    gf = 6 * gate_units(hidden)
+    gf = (5 if bf16_flag(compute_dtype) else 6) * gate_units(hidden)
     if is_cnn(encoder):
         E = encoder.hidden
         return [OBS_DIM + E + hidden, 4 * hidden, gf, hidden, 5, E,
@@ -382,27 +394,38 @@ def scratch_rows(hidden: int, encoder) -> list[int]:
             0]
 
 
-def bptt_smem_bytes(hidden: int, encoder) -> int:
+def bptt_smem_bytes(hidden: int, encoder,
+                    compute_dtype: str = "float32") -> int:
     """Shared memory of one through-time block (update_lstm.cu
     bptt_smem_floats): the larger of the forward's (the dense arm's obs and
     encoder buffers at 64 floats a row, x (Ep rows) and h (Hp rows) at the
     tensor-core tiles' stride; the CNN arm reads x from the scratch) and
     the backward's (dz (4 Hp rows), dx (the larger of Ep and the widest
     layer), [dm; g_v] and keep at that stride). c, dh and dc live in
-    registers."""
+    registers. The bf16 walk keeps x, h and dz as bf16 rows of B16_ROW
+    (x's and h's rows padded with zero rows to a multiple of 16; the dense
+    arm's last encoder layer also in fp32 rows of 64, the CNN arm's next x
+    too, and dz's region at least the fp32 rows of the layers before the
+    last), and its warps' fragment rings (WALK_RING_BYTES) after x and h
+    (over the dense encoder's rows) and after dz."""
     encoder = encoder_of(encoder)
     E = encoder_width(encoder)
     ep, hp = gate_inputs(E), gate_units(hidden)
-    fwd = 4 * ROW_STRIDE * (ep + hp)
-    if is_cnn(encoder):
-        maxe = E
-    else:
-        mid = encoder[:-1]
-        fwd += 4 * BP_LANES * (OBS_DIM + min(len(mid), 2)
-                               * max(mid, default=0))
-        maxe = max(encoder, default=0)
-    bwd = 4 * ROW_STRIDE * (4 * hp + max(ep, maxe) + 6)
-    return max(fwd, bwd)
+    mid = () if is_cnn(encoder) else encoder[:-1]
+    maxw = max(mid, default=0)
+    maxe = E if is_cnn(encoder) else max(encoder, default=0)
+    rows = 4 * ROW_STRIDE * (max(ep, maxe) + 6)  # dx, [dm; g_v], keep
+    dense = 0 if is_cnn(encoder) else 4 * BP_LANES * (
+        OBS_DIM + min(len(mid), 2) * maxw)
+    if bf16_flag(compute_dtype):
+        ring = WALK_RING_BYTES
+        x_h = 2 * B16_ROW * gate_k16(hidden, encoder)
+        fwd = x_h + (4 * BP_LANES * E + ring if is_cnn(encoder) else max(
+            dense + (4 * BP_LANES * E if encoder else 0), ring))
+        return max(fwd, max(2 * B16_ROW * 4 * hp + ring,
+                            4 * ROW_STRIDE * maxw) + rows)
+    return max(4 * ROW_STRIDE * (ep + hp) + dense,
+               4 * ROW_STRIDE * 4 * hp + rows)
 
 
 def kernel_smem_bytes(hidden: int, encoder,
@@ -410,15 +433,14 @@ def kernel_smem_bytes(hidden: int, encoder,
     """Shared bytes of a block of each kernel the C entry point launches
     with dynamic shared memory, as it checks them: the walk through time,
     the CNN arm's tower forward and backward (0 for the dense arm), and the
-    products; under bfloat16 the CNN arm's tower and products are the bf16
-    designs' (the walk's and the dense arm's products' are the fp32
-    arm's)."""
+    products; under bfloat16 each is its bf16 design's."""
     cnn = is_cnn(encoder_of(encoder))
     fwd, bwd, _, _ = tower_layout(compute_dtype)
-    bf16_products = cnn and bf16_flag(compute_dtype)
-    return [bptt_smem_bytes(hidden, encoder),
-            fwd if cnn else 0, bwd if cnn else 0,
-            PRODUCT_SMEM_BF16 if bf16_products else PRODUCT_SMEM]
+    products = PRODUCT_SMEM
+    if bf16_flag(compute_dtype):
+        products = PRODUCT_SMEM_BF16 if cnn else PRODUCT_SMEM_ROUNDED
+    return [bptt_smem_bytes(hidden, encoder, compute_dtype),
+            fwd if cnn else 0, bwd if cnn else 0, products]
 
 
 def gate_t_packed_floats(hidden: int, encoder) -> int:
@@ -429,18 +451,41 @@ def gate_t_packed_floats(hidden: int, encoder) -> int:
     return 2 * 4 * hp * (gate_inputs(encoder_width(encoder_of(encoder))) + hp)
 
 
-def check_envelope(hidden: int, encoder) -> None:
+def gate_k16(hidden: int, encoder) -> int:
+    """The bf16 walk's forward product's rows: Ep + Hp rounded up to a
+    multiple of 16 (update_lstm.cu gate_k16)."""
+    ep = gate_inputs(encoder_width(encoder_of(encoder)))
+    return -(-(ep + gate_units(hidden)) // 16) * 16
+
+
+def gate_fragment_bytes(hidden: int, encoder,
+                        compute_dtype: str = "float32") -> tuple[int, int]:
+    """Bytes of the walk's forward and transposed gate fragments: the fp32
+    arm's (big, small) float4s, or the bf16 arm's bf16x2 words, each weight
+    once as bf16 (a quarter; the forward's zero rows to a multiple of 16
+    beside them: update_lstm.cu pack_gates_b16_kernel,
+    pack_gates_t_b16_kernel)."""
+    if bf16_flag(compute_dtype):
+        hp = gate_units(hidden)
+        return 2 * gate_k16(hidden, encoder) * 4 * hp, \
+            gate_t_packed_floats(hidden, encoder)
+    return (4 * gate_packed_floats(hidden, encoder),
+            4 * gate_t_packed_floats(hidden, encoder))
+
+
+def check_envelope(hidden: int, encoder,
+                   compute_dtype: str = "float32") -> None:
     """Raise ValueError for an LSTM that K6, K7 or K8 cannot take: at most
     MAX_ENC encoder layers none wider than 4 x hidden (or the CNN arm's one
     tower), a hidden width <= MAX_HIDDEN that is a multiple of 4, and the
-    shared memory of a block."""
+    shared memory of a block (K7's compute_dtype arm's)."""
     encoder = encoder_of(encoder)
     check_act_envelope(hidden, encoder)
     if not is_cnn(encoder) and max(encoder, default=0) > 4 * hidden:
         raise ValueError(f"encoder widths above 4 x hidden ({4 * hidden}) do "
                          f"not fit the update kernel's buffers, got "
                          f"{list(encoder)}")
-    if max(kernel_smem_bytes(hidden, encoder)) > _MAX_SMEM:
+    if max(kernel_smem_bytes(hidden, encoder, compute_dtype)) > _MAX_SMEM:
         raise ValueError(f"an LSTM of hidden {hidden} and encoder "
                          f"{encoder} needs more shared memory per block "
                          f"than an H100 has")
@@ -484,7 +529,7 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
     if rbl % 128 or n % rbl:
         raise ValueError(f"row blocks of {rbl} lanes: the kernel needs a "
                          f"multiple of 128 that divides {n}")
-    check_envelope(hidden, encoder)
+    check_envelope(hidden, encoder, compute_dtype)
     S = T // bptt
     _, P = lstm_kernel_offsets(hidden, encoder)
     check_cuda_tensor("planes", planes, torch.float32, (T, N_TRAJ, n))
@@ -499,7 +544,7 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
     nblk = NL // BP_LANES
     pairs, ptot, mp = _device_map(hidden, encoder, dev)
     wp, bp = pack_gates(theta, hidden, encoder)
-    rows = scratch_rows(hidden, encoder)
+    rows = scratch_rows(hidden, encoder, compute_dtype)
     scratch = [torch.empty(max(r, 1) * bptt * NL, device=dev) for r in rows]
     partial = torch.empty(S * nk, ptot, device=dev)
     stat_part = torch.empty(S * nblk, N_UPSTATS, device=dev)
@@ -510,8 +555,8 @@ def lstm_update_kernel(planes, advret, snap, perm_mb, theta, arch,
         pk = torch.empty(tower_layout(compute_dtype)[2], device=dev)
         grid = grid_table(encoder.res, encoder.p0, dev)
     # the gate weights' fragments, written by the call on its stream
-    pg = torch.empty(gate_packed_floats(hidden, encoder), device=dev)
-    pgt = torch.empty(gate_t_packed_floats(hidden, encoder), device=dev)
+    pg, pgt = (torch.empty(b // 4, device=dev) for b in
+               gate_fragment_bytes(hidden, encoder, compute_dtype))
     # the bf16 arm's copy of theta with the walk's weights rounded
     theta16 = torch.empty(P, device=dev) if bf16 else None
     ptrs = np.array([t.data_ptr() for t in (

@@ -211,7 +211,8 @@ def trainer_kind(cfg: Config, model) -> str:
         return "scan"
     if cfg.run.policy in _RECURRENT:
         ppo_rnn.bptt_of(tc)  # the horizon splits into segments
-        k7 = _outside(check_envelope, model.hidden, model.encoder) or split
+        k7 = _outside(check_envelope, model.hidden, model.encoder,
+                      cfg.run.compute_dtype) or split
         k6 = _outside(check_act_envelope, model.hidden, model.encoder) or (
             None if tc.num_envs % tc.num_minibatches == 0 else
             f"num_envs={tc.num_envs} does not split into "

@@ -2,7 +2,7 @@
 
 Run from the root of a checkout on a machine with an H100:
 
-    python3 scripts/clock_split.py <label> [checkout] [mlp|tower]
+    python3 scripts/clock_split.py <label> [checkout] [mlp|tower|walk]
 
 It copies the csrc/ of `checkout` (by default the one it runs from; give a
 second checkout, e.g. a git archive of a parent commit, to split that
@@ -17,7 +17,15 @@ conv0 (and its re-run), conv1, the trunk, the X2 copy, dX2, gW1, dX1, gW0
 and the barriers) inside K10's bf16 update (update_cnn.cu: cnn_fwd_kernel,
 tower_bwd_kernel) and K7's CNN arm's (update_lstm.cu: tower_fwd_kernel,
 tower_bwd_kernel), each on one full-width minibatch of its path, with each
-kernel's whole time in block 0 beside its tile's phases. It builds the
+kernel's whole time in block 0 beside its tile's phases; `walk` splits
+K7's bf16 walk through time (update_lstm.cu bptt_kernel<ENC, true>), the
+dense arm and the CNN arm each on one full-width minibatch of its path
+(65,536 envs x 128 steps, bptt 16, a quarter of the lanes): the forward's
+x in, h_in to the XS scratch, the dense encoder, the gate block's products,
+the cell with its GF and H2S writes, h' and the heads with the carry mask;
+the backward's heads' gradients, the GF reads with the cell's backward,
+[dx; dh] (gates_bwd_mma), the GZ copy and the encoder's backward (dense)
+or dzt (CNN); each barrier apart. It builds the
 copies with that checkout's nvcc flags, runs each once after one warm-up
 launch through that checkout's wrappers, and prints each phase's cycles
 and share of its kernel's total, one JSON line. The probes are anchored
@@ -36,8 +44,9 @@ from pathlib import Path
 label = sys.argv[1]
 checkout = Path(sys.argv[2] if len(sys.argv) > 2 else ".").resolve()
 which = sys.argv[3] if len(sys.argv) > 3 else "mlp"
-if which not in ("mlp", "tower"):
-    raise SystemExit(f"the third argument is mlp or tower, got {which}")
+if which not in ("mlp", "tower", "walk"):
+    raise SystemExit(f"the third argument is mlp, tower or walk, got "
+                     f"{which}")
 sys.path.insert(0, str(checkout))
 sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
 
@@ -238,6 +247,92 @@ TOWER_KERNELS = {
                          ("  CLK(7);\n",))))
 }
 
+# K7's bf16 walk through time (update_lstm.cu), its phases per step in
+# block 0's thread 0, summed over the minibatch's segments; the probes in
+# the cell's callback split the gate block: its products run up to the
+# callback's first call in each pass.
+WALK_NAMES = {16: "anchors in", 0: "fwd x in", 1: "fwd h_in to XS",
+              2: "fwd encoder", 3: "fwd gate products",
+              4: "fwd cell, GF and H2S writes", 5: "fwd h' and barrier",
+              6: "fwd heads and mask", 7: "fwd barrier",
+              8: "bwd heads' gradients", 9: "bwd barrier 1",
+              10: "bwd GF reads and cell", 11: "bwd barrier 2",
+              12: "bwd [dx; dh] product", 13: "bwd GZ copy",
+              14: "bwd encoder or dzt", 15: "stat sums"}
+WALK = [
+    # the parent's design: fp32 rows, the operands rounded as they load
+    (WALK_NAMES, [
+        ("  float ls[4], stdv[4];\n<@>", ("  CLK_START\n",)),
+        ("    x[(E + e / L) * S + e % L] = 0.0f;  // x's padded rows\n"
+         "  __syncthreads();\n<@>", ("  CLK(16);\n",)),
+        ("        xs[(size_t)k * NL + l] = v;\n      }\n    }\n<@>",
+         ("    CLK(0);\n",)),
+        ("      xs[(size_t)(h_row + u) * NL + l] = h[u * S + l];\n    }\n"
+         "    __syncthreads();\n<@>", ("    CLK(1);\n",)),
+        ("<@>    float* gfs = A.s[GF] + (size_t)t * 6 * Hp * NL + (size_t)ml0 "
+         "* 6 * Hp;\n", ("    CLK(2);\n",)),
+        ("float gg, float go) {\n<@>                     const float cin = "
+         "cr[p][i][r];\n", ("                     CLK(3);\n",)),
+        ("                     if (u < H) h2s[(size_t)u * NL + l] = h2;\n<@>"
+         "                     return h2;\n",
+         ("                     CLK(4);\n",)),
+        ("                   });\n    __syncthreads();\n<@>    // the heads "
+         "at h'", ("    CLK(5);\n",)),
+        ("          cr[p][i][r] = cr[p][i][r] * (1.0f - done[owned_lane(i, "
+         "r)]);\n<@>    __syncthreads();\n<@>  }\n",
+         ("    CLK(6);\n", "    CLK(7);\n")),
+        ("      keep_s[tid] = 1.0f - pt[(size_t)TP_DONE * n + tid];\n    }\n"
+         "<@>    __syncthreads();\n<@>", ("    CLK(8);\n", "    CLK(9);\n")),
+        ("            dz[(32 * ug + 8 * g + u % 8) * S + l] = z[g];\n"
+         "        }\n      }\n    }\n<@>    __syncthreads();\n<@>",
+         ("    CLK(10);\n", "    CLK(11);\n")),
+        ("    gates_bwd_mma<BF16>(dz, E, H, A.PGT, want_dx, dx, dh);\n<@>",
+         ("    CLK(12);\n",)),
+        ("              dz + (32 * (u / 8) + 8 * g + u % 8) * S + l4);\n"
+         "    }\n    __syncthreads();\n<@>", ("    CLK(13);\n",)),
+        ("(xv > 0.0f ? 1.0f : 0.0f);\n      }\n<@>      continue;\n",
+         ("      CLK(14);\n",)),
+        ("        d = d2;\n      }\n    }\n<@>  }\n", ("    CLK(14);\n",)),
+        ("    A.stat_part[(size_t)blockIdx.x * N_UPSTATS + tid] = s;\n  }\n"
+         "<@>}\n", ("  CLK(15);\n",))]),
+    # the bf16 tensor cores' design (bptt_walk_b16): dz to GZ from the
+    # cell's registers, so counter 13 is the barrier after [dx; dh] alone
+    ({**WALK_NAMES, 13: "bwd barrier 3"}, [
+        ("  const uint2* PGT = reinterpret_cast<const uint2*>(A.PGT);\n<@>",
+         ("  CLK_START\n",)),
+        ("    hb[(Hp + e / L) * TMB + e % L] = 0;  // K's, to a multiple of 16\n"
+         "  cp_async_wait<0>();  // the CNN arm's first x\n"
+         "  __syncthreads();\n<@>", ("  CLK(16);\n",)),
+        ("          xb[k * TMB + l] = bf16_bits(v);\n      }\n    }\n<@>",
+         ("    CLK(0);\n",)),
+        ("      xs[(size_t)(h_row + u) * NL + l] = b16_value(hb[u * TMB + l]);"
+         "\n    }\n    __syncthreads();\n<@>", ("    CLK(1);\n",)),
+        ("<@>    float* gfs = A.s[GF] + (size_t)t * GF_B16 * Hp * NL +\n",
+         ("    CLK(2);\n",)),
+        ("float gg, float go) {\n<@>                     const float cin = "
+         "cr[p][i][r];\n", ("                     CLK(3);\n",)),
+        ("                     if (u < H) h2s[(size_t)u * NL + l] = h2;\n<@>"
+         "                     return h2;\n",
+         ("                     CLK(4);\n",)),
+        ("                   });\n    __syncthreads();\n<@>    // the heads "
+         "at h' (to the DMV scratch)", ("    CLK(5);\n",)),
+        ("          cr[p][i][r] = cr[p][i][r] * (1.0f - done[owned_lane(i, "
+         "r)]);\n<@>    cp_async_wait<0>();  // the CNN arm's next x\n"
+         "    __syncthreads();\n<@>  }\n", ("    CLK(6);\n", "    CLK(7);\n")),
+        ("      keep_s[tid] = 1.0f - pt[(size_t)TP_DONE * n + tid];\n    }\n"
+         "<@>    __syncthreads();\n<@>", ("    CLK(8);\n", "    CLK(9);\n")),
+        ("            dzb[(32 * ug + 8 * g + u % 8) * TMB + l] = bf16_bits(z[r]"
+         "[g]);\n        }\n      }\n    }\n<@>    __syncthreads();\n<@>",
+         ("    CLK(10);\n", "    CLK(11);\n")),
+        ("                  dh);\n<@>    __syncthreads();\n<@>",
+         ("    CLK(12);\n", "    CLK(13);\n")),
+        ("(xv[j].w > 0.0f ? 1.0f : 0.0f));\n      }\n<@>      continue;\n",
+         ("      CLK(14);\n",)),
+        ("        d = d2;\n      }\n    }\n<@>  }\n", ("    CLK(14);\n",)),
+        ("    A.stat_part[(size_t)blockIdx.x * N_UPSTATS + tid] = s;\n  }\n"
+         "<@>}\n", ("  CLK(15);\n",))]),
+]
+
 
 def probe(src: str, trees):
     """The source with its probes, and the phase names of its tree: a dict
@@ -261,7 +356,8 @@ tmp = Path(tempfile.mkdtemp())
 shutil.copytree(checkout / "drone_tpu_torch" / "csrc", tmp / "csrc")
 (tmp / "probes.cuh").write_text(PROBES)
 names, libs = {}, {}
-splits = SPLITS if which == "mlp" else TOWER_KERNELS
+splits = {"mlp": SPLITS, "tower": TOWER_KERNELS,
+          "walk": {"update_lstm": WALK}}[which]
 if which == "tower":
     header = tmp / "csrc" / "cnn_mma.cuh"
     text, tile_names = probe(header.read_text(), TOWER_TILES)
@@ -303,7 +399,7 @@ if which == "mlp":
             state, policy, env.params, env.statics,
             int(env.params.horizon) + 1),
     }
-else:  # each bf16 update on one full-width minibatch of its path
+elif which == "tower":  # each bf16 update on one full-width minibatch
     cm = cs.cnn_policy(seed=2, log_std=0.0)
     k10 = cs.cnn_minibatch(cfg.with_overrides(list(cs.CNN_OVERRIDES)), cm,
                            env, cs.BF16)
@@ -318,9 +414,19 @@ else:  # each bf16 update on one full-width minibatch of its path
             *k7[:4], clm.flat, (clm.hidden, clm.encoder), *k7[4:], 0.001,
             compute_dtype=cs.BF16),
     }
+else:  # K7's bf16 arms, each on one full-width minibatch of its path
+    runs = {}
+    for arm, m, over in (
+            ("dense", cs.lstm_policy(), cs.LSTM_OVERRIDES),
+            ("cnn", cs.cnn_lstm_policy(), cs.CNN_LSTM_OVERRIDES)):
+        mb = cs.lstm_minibatch(cfg.with_overrides(list(over)), m, env)
+        runs[arm] = (lambda mb=mb, m=m: K7.lstm_update_kernel(
+            *mb[:4], m.flat, (m.hidden, m.encoder), *mb[4:], 0.001,
+            compute_dtype=cs.BF16))
 out = {}
 for name, run in runs.items():
-    lib = libs[name]
+    lib_name = "update_lstm" if which == "walk" else name
+    lib = libs[lib_name]
     run()
     torch.cuda.synchronize()
     lib.drone_clk_zero()
@@ -329,8 +435,8 @@ for name, run in runs.items():
     buf = (ctypes.c_ulonglong * 32)()
     if lib.drone_clk_read(buf) != 0:
         raise SystemExit(f"{name}: reading the counters failed")
-    cycles = {n: int(buf[i]) for i, n in names[name].items()}
-    if which == "mlp":
+    cycles = {n: int(buf[i]) for i, n in names[lib_name].items()}
+    if which != "tower":
         total = sum(cycles.values())
         out[name] = {"cycles": cycles, "total": total,
                      "share": {n: c / total for n, c in cycles.items()}}

@@ -1,5 +1,5 @@
-"""K7's fp32 output digests, both encoder arms, and the build report of the
-recurrent kernels, on one card.
+"""K7's output digests, fp32 and bf16, both encoder arms, and the build
+report of the recurrent kernels, on one card.
 
 Run from the root of a checkout on a machine with an H100:
 
@@ -12,9 +12,11 @@ prints each kernel's registers, spills and tensor-core instructions (HMMA,
 from cuobjdump -sass); then the sha256 of K7's fp32 gradients and stat
 sums on numpy-seeded inputs at the recurrent path's shape (65,536 lanes x
 128 steps, bptt 16, a minibatch of 16 row blocks of 1,024 lanes, H 128),
-for the dense encoder (64,) and the CNN arm, each launched twice; and one
-JSON line. Two checkouts whose fp32 K7 computes the same bits print the
-same digests; their fp32 instantiations the same registers and HMMA.
+for the dense encoder (64,) and the CNN arm, each launched twice, and the
+same of its bf16 arm (compute_dtype="bfloat16", "dense bf16" and "cnn
+bf16"); and one JSON line. Two checkouts whose K7 arm computes the same
+bits print the same digests; their fp32 instantiations the same registers
+and HMMA.
 """
 import hashlib
 import json
@@ -107,13 +109,14 @@ for arm, encoder, seed in (("dense", (64,), 1), ("cnn", KERNEL_ARCH, 2)):
     planes, advret, snap, perm, theta = inputs(encoder, seed)
     args = (planes, advret, snap, perm, theta, (H, encoder), co, RBL, BPTT,
             0.001)
-    g, st = K7.lstm_update_kernel(*args)
-    g2, st2 = K7.lstm_update_kernel(*args)
-    torch.cuda.synchronize()
-    digests[arm] = [digest(g, st), digest(g2, st2)]
-    print(f"{label} K7 fp32 {arm}: digests {digests[arm]}; grads finite "
-          f"{bool(torch.isfinite(g).all())}, |max| {float(g.abs().max()):.4g}",
-          flush=True)
+    for dtype, key in (("float32", arm), ("bfloat16", f"{arm} bf16")):
+        g, st = K7.lstm_update_kernel(*args, compute_dtype=dtype)
+        g2, st2 = K7.lstm_update_kernel(*args, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        digests[key] = [digest(g, st), digest(g2, st2)]
+        print(f"{label} K7 {dtype} {arm}: digests {digests[key]}; grads "
+              f"finite {bool(torch.isfinite(g).all())}, |max| "
+              f"{float(g.abs().max()):.4g}", flush=True)
     del planes, advret, snap, args
 print(json.dumps({"tree": label, "device": cs.device_line(),
                   "digests": digests, "build": report}), flush=True)

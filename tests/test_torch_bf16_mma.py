@@ -227,10 +227,15 @@ def test_bf16_tower_kernels_shared_memory_and_packing():
     walk, f7, b7, prod = U.kernel_smem_bytes(128, KERNEL_ARCH, BF16)
     assert (f7, b7) == (fwd, bwd)
     assert prod == U.PRODUCT_SMEM_BF16 == 2 * 2 * 64 * TMB * 2 == 36864
-    assert walk == U.bptt_smem_bytes(128, KERNEL_ARCH)
+    # the bf16 walk's own rows (tests/test_torch_bf16_walk.py)
+    assert walk == U.bptt_smem_bytes(128, KERNEL_ARCH, BF16) == 145088
     assert max(walk, f7, b7, prod) <= MAX_SMEM
-    # the dense arm's bf16 products keep the first design's tiles
-    assert U.kernel_smem_bytes(128, (64,), BF16)[1:] == [0, 0, 69632]
+    # the dense arm's bf16 products: bf16x2 rows of 36 words beside A's
+    # fp32 rows (update_lstm.cu GR_SMEM)
+    assert U.kernel_smem_bytes(128, (64,), BF16)[1:] == [
+        0, 0, U.PRODUCT_SMEM_ROUNDED]
+    assert U.PRODUCT_SMEM_ROUNDED == 2 * 2 * 64 * 36 * 4 + 2 * 64 * 68 * 4 \
+        == 71680
     # the fp32 arm's, as before
     assert C.tower_layout() == (109952, 206208, 4 * 92160, 132)
     assert A.TOWER_FWD_SMEM == 109952
