@@ -8,8 +8,10 @@ K10, K7 (both arms' walk and its products), K11/K9, both arms of K8/K6, K3
 shared memory and their HMMA instructions, the SASS of mma.sync, which
 each must hold; and the bf16 arms of K2, K3, K9/K11, K10 and K7 (its walk,
 both arms, its products and its tower kernels) beside their fp32 arms:
-fewer HMMA, a third of them where the loops are the same, and bf16
-roundings, F2FP.BF16, which the fp32 arms lack), holds each against
+the bf16 tensor cores' product (HMMA.16816.F32.BF16) and no TF32 HMMA,
+or a third of the fp32 arm's TF32 HMMA where one TF32 product of rounded
+operands stands for 3xTF32's three, and bf16 roundings, F2FP.BF16, which
+the fp32 arms lack), holds each against
 its plain PyTorch version on the card's inputs, drives the port's paths
 through the entry points a user calls (the megakernel trainers, the scan
 trainers and the hybrid recurrent tier, the env adapters, the export
@@ -284,21 +286,24 @@ Phases:
      them) a positive finite rate. Its seconds are printed. One timed
      repeat a phase after the warm-up (`cli bench` itself takes three).
  41. K2's bf16 arm (run.compute_dtype=bfloat16: every product's operands
-     rounded to bf16 once, cvt.rn.bf16x2.f32, one TF32 product a k-step,
-     sums in fp32) against its bf16 plain version on the card by H12's
+     rounded to bf16 once, cvt.rn.bf16x2.f32, m16n8k16 products of bf16
+     rows and bf16x2 weight fragments, sums in fp32) against its bf16
+     plain version on the card by H12's
      rule (BF16_*: at least 98% of the T = 3 planes and final state within
      rtol 2e-5 / atol 2e-6, every value within 0.02, the planes' mean
      difference under a tenth of the kernel's to the fp32 plain version),
      episodes equal, each T = 3 case launched twice, bitwise equal: hover
      [64, 64] at 65,536 lanes in both action modes and T = 64
-     statistically, waypoint/rk4 over a ragged last block, [128, 128]
-     and a linear policy.
- 42. K3's bf16 arm by H12's rule for updates (each gradient tensor and the
-     stat sums within 1e-2 of the tensor's max, the mean gradient
+     statistically, waypoint/rk4 over a ragged last block and at [32, 48,
+     20] (three layers, widths padded to 16), [128, 128] with its
+     fragments staged and read through L1, and a linear policy.
+ 42. K3's bf16 arm (m16n8k16 products of operands stored once as bf16, db
+     the fp32 sum of dY) by H12's rule for updates (each gradient tensor
+     and the stat sums within 1e-2 of the tensor's max, the mean gradient
      difference under a tenth of the fp32 plain version's), two launches
      bitwise equal: hover.toml's minibatch on K2 bf16's planes at their
      weights (no ratio outside 1 +- clip_eps) and off them (every branch
-     taken); [128, 128] off chip.
+     taken), on chip; [128, 128] off chip.
  43. K9's bf16 arm at 65,536 lanes (T = 3 both action modes by H12's rule,
      T = 32 statistically) and K11's, the same instantiation, at T = 3.
  44. K10's bf16 arm as 42, on K9 bf16's planes at the CNN geometry's
@@ -1600,9 +1605,9 @@ def trace_update(step, runner, policy) -> dict:
     # the port's kernels live in namespace drone (torch has reduce_kernels
     # of its own)
     tower = ("drone::pack_tower_kernel", "drone::tower_bwd_kernel")
-    classes = {"K2": ("drone::pack_traj_kernel", "drone::traj_kernel"),
-               "K3": ("drone::pack_planes_kernel", "drone::update_kernel",
-                      "drone::reduce_kernel"),
+    classes = {"K2": ("drone::pack_traj", "drone::traj_kernel"),
+               "K3": ("drone::pack_planes_kernel", "drone::pack_b16_kernel",
+                      "drone::update_kernel", "drone::reduce_kernel"),
                "K4": ("drone::adam_kernel",),
                "K6": ("drone::lstm_act_kernel",),
                "K7": ("drone::pack_gates", "drone::tower_fwd_kernel",
@@ -3791,60 +3796,83 @@ def bf16_grads_verdict(name, kg, ks, pg, ps, fg, fs, order) -> float:
     return max_err
 
 
-# K2's bf16 checks: (task, integrator, hidden, lanes, T cases) as K2_CASES
+# K2's bf16 checks: (task, integrator, hidden, lanes, T cases) as K2_CASES,
+# then the layout (lanes a block, fragments staged) when not traj_layout's
 K2_BF16_CASES = (
-    ("hover", "euler", (64, 64), 65536, ((3, 2), (64, 40))),
-    ("waypoint", "rk4", (64, 64), 8192 + 40, ((3, 2),)),  # a ragged block
-    ("hover", "euler", (128, 128), 8192, ((3, 2),)),  # off chip, through L1
-    ("racing", "euler", (), 8192, ((3, 2),)),  # linear: fragments staged
+    ("hover", "euler", (64, 64), 65536, ((3, 2), (64, 40)), None),
+    ("waypoint", "rk4", (64, 64), 8192 + 40, ((3, 2),), None),  # ragged
+    # three layers (ping-pong rows), widths padded to 16, a fold chunk of
+    # one n-tile
+    ("waypoint", "rk4", (32, 48, 20), 8192, ((3, 2),), None),
+    ("hover", "euler", (128, 128), 8192, ((3, 2),), None),  # the widest
+    ("hover", "euler", (128, 128), 8192, ((3, 2),), (512, 0)),  # through L1
+    ("racing", "euler", (), 8192, ((3, 2),), None),  # linear
 )
 
 
-def phase_k2_bf16() -> float:
-    """K2's bf16 arm against its bf16 plain version on the card (H12's
-    rule on the T = 3 planes and final state, episodes equal; T = 64
-    statistically), each T = 3 case launched twice, bitwise equal."""
+def k2_bf16_case(task, integ, hidden, n, runs) -> float:
+    """One case of phase_k2_bf16 under the layout traj_layout gives;
+    returns the largest difference of its T = 3 planes."""
     import torch
 
     from drone_tpu_torch.env import DroneEnv
     from drone_tpu_torch.ops import cuda_acting_traj as K2
     from drone_tpu_torch.types import default_params
 
+    model = flat_policy(hidden)
     max_err = 0.0
-    for task, integ, hidden, n, runs in K2_BF16_CASES:
-        model = flat_policy(hidden)
-        for T, horizon in runs:
-            env = DroneEnv(task, integ, default_params(task, horizon=horizon),
-                           device="cuda")
-            state = env.init_batch(5, n)
-            for sto in ((False, True) if T == 3 else (True,)):
-                args = (state, model.flat, model.hidden, env.params,
-                        env.statics, T, sto)
-                kf, kp, ks = K2.traj_rollout_kernel(*args, compute_dtype=BF16)
-                pf, pp, ps = K2.traj_rollout_plain(*args, compute_dtype=BF16)
-                fp = K2.traj_rollout_plain(*args)[1] if T == 3 else None
-                torch.cuda.synchronize()
-                k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
-                k_r = float(ks[0].sum()) / (n * T)
-                p_r = float(ps[0].sum()) / (n * T)
-                what = (f"K2 bf16 {task}/{integ} {list(hidden)} n={n} T={T} "
-                        f"stochastic={sto}")
-                print(f"{what}: episodes {k_ep:.0f} vs {p_ep:.0f}, mean "
-                      f"reward {k_r:.6f} vs {p_r:.6f}", flush=True)
-                if T == 3:
-                    max_err = max(max_err, bf16_verdict(
-                        f"{what} planes", kp, pp, fp))
-                    bf16_verdict(f"{what} final state", kf.fstate(),
-                                 pf.fstate())
-                    if k_ep != p_ep or k_ep < n:
-                        raise AssertionError("K2 bf16 episode counts differ "
-                                             "at T=3")
-                    kf2, kp2, ks2 = K2.traj_rollout_kernel(
-                        *args, compute_dtype=BF16)
-                    check_repeat("K2 bf16", (kf.fstate(), kp, ks),
-                                 (kf2.fstate(), kp2, ks2))
-                elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
-                    raise AssertionError("K2 bf16 episode statistics disagree")
+    for T, horizon in runs:
+        env = DroneEnv(task, integ, default_params(task, horizon=horizon),
+                       device="cuda")
+        state = env.init_batch(5, n)
+        for sto in ((False, True) if T == 3 else (True,)):
+            args = (state, model.flat, model.hidden, env.params, env.statics,
+                    T, sto)
+            kf, kp, ks = K2.traj_rollout_kernel(*args, compute_dtype=BF16)
+            pf, pp, ps = K2.traj_rollout_plain(*args, compute_dtype=BF16)
+            fp = K2.traj_rollout_plain(*args)[1] if T == 3 else None
+            torch.cuda.synchronize()
+            k_ep, p_ep = float(ks[1].sum()), float(ps[1].sum())
+            k_r = float(ks[0].sum()) / (n * T)
+            p_r = float(ps[0].sum()) / (n * T)
+            what = (f"K2 bf16 {task}/{integ} {list(hidden)} n={n} T={T} "
+                    f"stochastic={sto} ({K2.traj_layout(hidden, BF16)['bl']} "
+                    f"lanes a block, fragments staged "
+                    f"{K2.traj_layout(hidden, BF16)['wsm']})")
+            print(f"{what}: episodes {k_ep:.0f} vs {p_ep:.0f}, mean reward "
+                  f"{k_r:.6f} vs {p_r:.6f}", flush=True)
+            if T == 3:
+                max_err = max(max_err, bf16_verdict(f"{what} planes", kp, pp,
+                                                    fp))
+                bf16_verdict(f"{what} final state", kf.fstate(), pf.fstate())
+                if k_ep != p_ep or k_ep < n:
+                    raise AssertionError("K2 bf16 episode counts differ at "
+                                         "T=3")
+                kf2, kp2, ks2 = K2.traj_rollout_kernel(*args,
+                                                       compute_dtype=BF16)
+                check_repeat("K2 bf16", (kf.fstate(), kp, ks),
+                             (kf2.fstate(), kp2, ks2))
+            elif abs(k_ep - p_ep) > 0.02 * p_ep or abs(k_r - p_r) > 0.01:
+                raise AssertionError("K2 bf16 episode statistics disagree")
+    return max_err
+
+
+def phase_k2_bf16() -> float:
+    """K2's bf16 arm against its bf16 plain version on the card (H12's
+    rule on the T = 3 planes and final state, episodes equal; T = 64
+    statistically), each T = 3 case launched twice, bitwise equal; a case
+    with a layout of its own runs under it (traj_layout replaced by
+    layout_at)."""
+    from drone_tpu_torch.ops import cuda_acting_traj as K2
+
+    max_err, rule = 0.0, K2.traj_layout
+    try:
+        for *case, at in K2_BF16_CASES:
+            K2.traj_layout = rule if at is None else (
+                lambda h, d, at=at: K2.layout_at(h, *at, bf16=True))
+            max_err = max(max_err, k2_bf16_case(*case))
+    finally:
+        K2.traj_layout = rule
     return max_err
 
 
@@ -3875,7 +3903,8 @@ def phase_k3_bf16(cfg, env):
     bf16 arm: at their weights (ratio 1: no sample's ratio leaves 1 +-
     clip_eps, as the reference rebuilds logp from the stored action) and
     off them (every branch of the head's subgradients taken); then [128,
-    128] off chip. Returns (the largest difference, inputs for timing)."""
+    128] off chip (its tanh rows, fragments and running sums in device
+    memory). Returns (the largest difference, inputs for timing)."""
     from drone_tpu_torch.models import kernel_order
     from drone_tpu_torch.ops import cuda_update as K3
 
@@ -3896,7 +3925,13 @@ def phase_k3_bf16(cfg, env):
         compute_dtype=BF16))
     err = max(err, check_k3_bf16(planes, advret, perm_mb, theta, model.hidden,
                                  co, rbl, ent))
+    # the fp32 tanh rows, fragments and running sums of [64, 64] in shared
+    # memory (update_kernel<true, true>), [128, 128]'s in device memory
     big = flat_policy((128, 128))
+    if not K3.b16_layout(model.hidden)["onchip"] or K3.b16_layout(
+            big.hidden)["onchip"]:
+        raise AssertionError("the bf16 arm was to run [64, 64] on chip and "
+                             "[128, 128] off it")
     small = hover_minibatch(
         cfg.with_overrides(["train.num_envs=8192", "train.horizon=16"]),
         big, env, BF16)
@@ -4022,20 +4057,20 @@ def phase_k10_bf16(cfg, env):
 # for K2): (library, fp32 label, bf16 label, rule); the labels are
 # kernel_label's of the build report. Rule "third": one TF32 product a
 # k-step of the rounded operands where 3xTF32 takes three, so exactly a
-# third of the fp32 arm's HMMA (K2's tower: 40 against 120; K7's dense
-# arm's products, grad_rounded_kernel, 32 against 96); "fewer": fewer HMMA
-# than the fp32 arm (K3: its db keeps two products with ones a window, an
-# fp32 sum, and its bf16 loops unroll otherwise than its fp32 ones: 36
-# against 52 in the first build); "bf16": the bf16 tensor cores' own
-# product, m16n8k16 (HMMA.16816.F32.BF16) and no TF32 HMMA at all (the
-# patch-CNN tower's bf16 design in K9/K11, K10 and K7's CNN arm, the bf16
-# weight products of K10 (gWt, whose fp32 arm runs on the fp32 cores) and
-# K7's CNN arm, and K7's walk, both arms).
+# third of the fp32 arm's HMMA (K7's dense arm's products,
+# grad_rounded_kernel, 32 against 96); "bf16": the bf16
+# tensor cores' own product, m16n8k16 (HMMA.16816.F32.BF16) and no TF32
+# HMMA at all (the patch-CNN tower's bf16 design in K9/K11, K10 and K7's
+# CNN arm, the bf16 weight products of K10 (gWt, whose fp32 arm runs on the
+# fp32 cores) and K7's CNN arm, K7's walk, both arms, and since their
+# redesigns K2's bf16 arm and K3's, on chip and off it (its db became an
+# fp32 sum on the CUDA cores, so the products with ones that kept TF32 HMMA
+# there are gone).
 BF16_PAIRS = (
     ("acting_traj", "traj_kernelILi0ELi0ELb1ELb0E",
-     "traj_kernelILi0ELi0ELb1ELb1E", "third"),
-    ("update", "update_kernelILb1ELb0E", "update_kernelILb1ELb1E", "fewer"),
-    ("update", "update_kernelILb0ELb0E", "update_kernelILb0ELb1E", "fewer"),
+     "traj_kernelILi0ELi0ELb1ELb1E", "bf16"),
+    ("update", "update_kernelILb1ELb0E", "update_kernelILb1ELb1E", "bf16"),
+    ("update", "update_kernelILb0ELb0E", "update_kernelILb0ELb1E", "bf16"),
     ("acting_cnn", "cnn_act_kernelILi0ELi0ELb0E",
      "cnn_act_kernelILi0ELi0ELb1E", "bf16"),
     ("update_cnn", "cnn_fwd_kernelILb0E", "cnn_fwd_kernelILb1E", "bf16"),
@@ -4083,10 +4118,9 @@ def bf16_build_report(libs) -> list:
     """Each bf16 instantiation's tensor-core products (HMMA, of them the
     bf16 m16n8k16 ones and the TF32 ones) and bf16 roundings (F2FP.BF16,
     cvt.rn.bf16x2) beside its fp32 one's: the bf16 arm must round to bf16
-    and the fp32 one not; then its pair's rule (BF16_PAIRS): "third" and
-    "fewer" hold TF32 HMMA, exactly a third of the fp32 arm's or fewer;
-    "bf16" holds HMMA.16816.F32.BF16 and no other HMMA. Returns the
-    failures."""
+    and the fp32 one not; then its pair's rule (BF16_PAIRS): "third"
+    holds TF32 HMMA, exactly a third of the fp32 arm's; "bf16" holds
+    HMMA.16816.F32.BF16 and no other HMMA. Returns the failures."""
     failures = []
     keys = list(dict.fromkeys(k.split("<")[0] for _, a, b, _ in BF16_PAIRS
                               for k in (a, b)))
@@ -4107,9 +4141,8 @@ def bf16_build_report(libs) -> list:
                 ok = ok and b.get(HMMA_BF16, 0) > 0 \
                     and b["HMMA"] == b[HMMA_BF16]
             else:
-                ok = ok and bool(b.get("HMMA")) and a["HMMA"] > b["HMMA"] \
-                    and b[HMMA_BF16] == 0 \
-                    and (rule != "third" or 3 * b["HMMA"] == a["HMMA"])
+                ok = ok and bool(b.get("HMMA")) and b[HMMA_BF16] == 0 \
+                    and 3 * b["HMMA"] == a["HMMA"]
             if not ok:
                 failures.append(f"{bf16} ({rule}): {b} against {fp32}: {a}")
     return failures
@@ -5565,8 +5598,9 @@ def main() -> int:
     # TBB_SMEM; the walk's, the acting arms' and the products' are the
     # wrappers' bptt_smem_bytes, act_smem_bytes and PRODUCT_SMEM(_BF16,
     # _ROUNDED);
-    # the bf16 gWt product's mma.cuh GB_SMEM; K3's mma_layout, off chip at [128,
-    # 128]; K5's act_layout; K2's traj_layout)
+    # the bf16 gWt product's mma.cuh GB_SMEM; K3's mma_layout and its bf16
+    # arm's b16_layout, off chip at [128, 128]; K5's act_layout; K2's
+    # traj_layout)
     from drone_tpu_torch.ops import cuda_acting_lstm as K8
     from drone_tpu_torch.ops import cuda_acting_traj as K2
     from drone_tpu_torch.ops import cuda_update as K3
@@ -5596,16 +5630,17 @@ def main() -> int:
             "lstm_act_kernel<dense>": K8.act_smem_bytes(128, (64,)),
             "pack_gates_kernel": 0, "pack_gates_t_kernel": 0,
             "update_kernelILb1ELb0E": K3.mma_layout((64, 64))["smem"],
-            "update_kernelILb1ELb1E": K3.mma_layout((64, 64))["smem"],
+            "update_kernelILb1ELb1E": K3.b16_layout((64, 64))["smem"],
             "update_kernelILb0ELb0E": K3.mma_layout((128, 128))["smem"],
-            "update_kernelILb0ELb1E": K3.mma_layout((128, 128))["smem"],
-            "pack_planes_kernel": 0,
+            "update_kernelILb0ELb1E": K3.b16_layout((128, 128))["smem"],
+            "pack_planes_kernel": 0, "pack_b16_kernel": 0,
             "act_kernelILi0ELi0ELb0E": cuda_acting.act_layout((64, 64))["smem"],
             "act_kernelILi0ELi0ELb1E": cuda_acting.act_layout((64, 64))["smem"],
             "traj_kernelILi0ELi0ELb0ELb0E": K2.traj_layout((64, 64))["smem"],
             "traj_kernelILi0ELi0ELb1ELb0E": K2.traj_layout((64, 64))["smem"],
-            "traj_kernelILi0ELi0ELb1ELb1E": K2.traj_layout((64, 64))["smem"],
-            "pack_traj_kernel": 0}
+            "traj_kernelILi0ELi0ELb1ELb1E": K2.traj_layout((64, 64),
+                                                           BF16)["smem"],
+            "pack_traj_kernel": 0, "pack_traj_b16_kernel": 0}
     # every one of them but the packing runs mma.sync: its SASS must hold
     # HMMA instructions
     keys = list(dict.fromkeys(k.split("<")[0] for k in smem))

@@ -45,18 +45,23 @@
 //
 // The bf16 arm (compute_dtype="bfloat16", the reference's bf16 operand
 // arm of _traj_kernel: _tower's _dot32 rounds both operands of every
-// product): the BF16 template parameter. pack_traj_kernel<true> packs the
-// weights rounded to bf16, and each k-step is one product of the rounded
-// operands (mma.cuh split_op, mma_op): the obs, each hidden layer's tanh
-// and the head's inputs are rounded as their fragments load. The biases,
-// the tanh and everything after the heads stay fp32.
+// product): the BF16 template parameter, on the bf16 tensor cores
+// (tower_mma.cuh's _b16 forms, m16n8k16). The warp's rows are stored once
+// as bf16 (the obs by its store, each stored hidden layer by
+// store_tanh_b16), read by ldmatrix; pack_traj_b16_kernel packs the
+// weights as bf16x2 fragments (a uint2 a lane a 16 x 8 tile), staged in
+// shared memory where they fit (traj_layout's rule, half the rows' bytes);
+// the last hidden layer feeds the head from its accumulators, two bf16x2
+// packs a register. Each k-step of 16 joins its sum by an IEEE add (H10).
+// The biases, the tanh and everything after the heads stay fp32 (the
+// heads' outputs pass through the obs rows as floats).
 //
 // What bounds it on an H100: both towers' products (10,368 multiply-adds
 // a lane-step at [64, 64]) at the 3xTF32 rate (the bf16 arm: at the bf16
 // rate) beside the env step and the 256 tanhf a lane-step; its 21 planes
 // are 84 bytes per lane-step, far below the memory rate. What holds it,
 // as K5: the mma.sync TF32 rate, the operands' split and the tanhf on the
-// CUDA cores.
+// CUDA cores (the bf16 arm: the tanhf and the env step).
 
 #include <cuda_runtime.h>
 
@@ -97,8 +102,11 @@ struct TSrc {
   int ls;
 };
 
+// bf16 (the bf16 arm): the fragments are uint2s, fo counts them, f4 the
+// 16-byte units a tower's take; each stored layer's rows are padded to 16
+// (bf16 rows, half the bytes).
 inline void make_traj_layout(int L, const int* width, int bl, int wsm,
-                             TLayout& lo) {
+                             bool bf16, TLayout& lo) {
   lo.L = L;
   lo.bl = bl;
   lo.as = bl + 8;
@@ -110,33 +118,34 @@ inline void make_traj_layout(int L, const int* width, int bl, int wsm,
     y.nout = l < L ? width[l] : 8;
     y.fo = fo;
     y.bo = bo;
-    fo += act_up8(nin) * act_up8(y.nout) / 2;  // a float4 holds 2 of B
+    // a float4 holds 2 of B; a uint2 4 (bf16)
+    fo += bf16 ? act_up16(nin) * act_up8(y.nout) / 4
+               : act_up8(nin) * act_up8(y.nout) / 2;
     bo += act_up8(y.nout);
-    if (l + 2 <= L && act_up8(y.nout) > mw) mw = act_up8(y.nout);
+    const int rw = bf16 ? act_up16(y.nout) : act_up8(y.nout);
+    if (l + 2 <= L && rw > mw) mw = rw;
     nin = y.nout;
   }
-  lo.f4 = fo;
+  lo.f4 = bf16 ? fo / 2 : fo;
   lo.nb = bo;
-  lo.wfl = (8 * fo + 2 * bo + 3) & ~3;
+  lo.wfl = (8 * lo.f4 + 2 * bo + 3) & ~3;
   lo.hf = (8 + 2 * bo + 3) & ~3;
   lo.ha = TOWER_OBS_ROWS;
   lo.hb = lo.ha + (L >= 3 ? mw : 0);
   lo.rows = TOWER_OBS_ROWS + (L >= 2 ? mw : 0) + (L >= 3 ? mw : 0);
 }
 
-// Dynamic shared memory of a block.
-inline size_t traj_smem(const TLayout& lo) {
-  return sizeof(float) * ((size_t)lo.hf + (size_t)lo.wsm * 8 * lo.f4 +
-                          (size_t)lo.rows * lo.as);
+// Dynamic shared memory of a block (bf16: its rows are bf16).
+inline size_t traj_smem(const TLayout& lo, bool bf16) {
+  return sizeof(float) * ((size_t)lo.hf + (size_t)lo.wsm * 8 * lo.f4) +
+         (bf16 ? 2 : 4) * (size_t)lo.rows * lo.as;
 }
 
 // The packed buffer from the flat one: thread e < 2 f4 writes float4 e of
 // the fragments (tower e / f4), the next 2 nb threads a bias each. A head
 // after hidden layers is packed in pair order (regs_mma), the linear
 // policy's (L = 0) in the read order of warp_mma; the critic's value sits
-// in column TRAJ_VALUE_COL. Padding is zero. BF16: big is the weight
-// rounded to bf16, small 0 (unread).
-template <bool BF16>
+// in column TRAJ_VALUE_COL. Padding is zero.
 __global__ void pack_traj_kernel(const float* __restrict__ theta, TLayout lo,
                                  TSrc src, float4* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -172,16 +181,52 @@ __global__ void pack_traj_kernel(const float* __restrict__ theta, TLayout lo,
     if (k1 < y.nin) v1 = W[o * y.nin + k1];
   }
   uint32_t b0, s0, b1, s1;
-  split_op<BF16>(v0, b0, s0);
-  split_op<BF16>(v1, b1, s1);
+  split_tf32(v0, b0, s0);
+  split_tf32(v1, b1, s1);
   out[e] = make_float4(__uint_as_float(b0), __uint_as_float(b1),
                        __uint_as_float(s0), __uint_as_float(s1));
+}
+
+// The bf16 arm's packed buffer (make_traj_layout with bf16): thread e < 4
+// f4 writes uint2 e of the fragments (tower e / (2 f4); tower_mma.cuh's
+// m16n8k16 B, W^T rounded to bf16, every layer the head too in that order),
+// the next 2 nb threads a bias each (at float 8 f4, as the fp32 arm's).
+__global__ void pack_traj_b16_kernel(const float* __restrict__ theta,
+                                     TLayout lo, TSrc src,
+                                     uint2* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nfrag = 4 * lo.f4;
+  const bool frag = e < nfrag;
+  const int q = frag ? e : e - nfrag;
+  const int per = frag ? 2 * lo.f4 : lo.nb;
+  if (!frag && q >= 2 * lo.nb) return;
+  const int tw = q / per, p = q % per;
+  int l = 0;
+  while (l < lo.L && p >= (frag ? lo.ly[l + 1].fo : lo.ly[l + 1].bo)) ++l;
+  const ALayer& y = lo.ly[l];
+  const bool head = l == lo.L;
+  const int nout = head ? (tw ? 1 : 4) : y.nout;
+  const int hc = head && tw ? TRAJ_VALUE_COL : 0;
+  const float* W = theta + src.w[tw][l];
+  if (!frag) {
+    const int o = p - y.bo - hc;
+    reinterpret_cast<float*>(out)[2 * nfrag + q] =
+        o >= 0 && o < nout ? W[nout * y.nin + o] : 0.0f;
+    return;
+  }
+  const int f = p - y.fo, NT = act_up8(y.nout) / 8;
+  const int kt = (f >> 5) / NT, nt = (f >> 5) % NT;
+  const int g = (f & 31) >> 2, t = f & 3;
+  const int k = 16 * kt + 2 * t, o = 8 * nt + g - hc;
+  auto w = [&](int kk) {
+    return o >= 0 && o < nout && kk < y.nin ? W[o * y.nin + kk] : 0.0f;
+  };
+  out[e] = make_uint2(bf16x2(w(k), w(k + 1)), bf16x2(w(k + 8), w(k + 9)));
 }
 
 // One tower for the warp's 32 lanes, the obs rows written (then a
 // __syncwarp): hacc += its head's products. act: the warp's first column
 // of the rows. Ends with a __syncwarp: its rows are read.
-template <bool BF16>
 __device__ __forceinline__ void traj_tower(const TLayout& lo, const float4* W,
                                            const float* bias, float* act,
                                            float (&hacc)[2][1][4]) {
@@ -195,8 +240,8 @@ __device__ __forceinline__ void traj_tower(const TLayout& lo, const float4* W,
       const int nv = min(TRAJ_NT, NT - nt0);
       float acc[2][TRAJ_NT][4];
       zero_frags(acc);
-      warp_mma<TRAJ_NT, BF16>(act + in_row * as, as, act_up8(y.nin),
-                              W + y.fo, NT, nt0, nv, acc);
+      warp_mma<TRAJ_NT>(act + in_row * as, as, act_up8(y.nin), W + y.fo, NT,
+                        nt0, nv, acc);
       store_tanh(acc, nv, nt0, out_row + 8 * nt0, bias + y.bo, act, as);
     }
     __syncwarp();
@@ -209,13 +254,57 @@ __device__ __forceinline__ void traj_tower(const TLayout& lo, const float4* W,
       const int nv = min(TRAJ_FOLD_NT, NT - nt0);
       float acc[2][TRAJ_FOLD_NT][4];
       zero_frags(acc);
-      warp_mma<TRAJ_FOLD_NT, BF16>(act + in_row * as, as, act_up8(y.nin),
-                                   W + y.fo, NT, nt0, nv, acc);
+      warp_mma<TRAJ_FOLD_NT>(act + in_row * as, as, act_up8(y.nin),
+                             W + y.fo, NT, nt0, nv, acc);
       tanh_regs(acc, nv, nt0, bias + y.bo);
-      regs_mma<TRAJ_FOLD_NT, BF16>(acc, nv, W + hd.fo + nt0 * 32, hacc);
+      regs_mma<TRAJ_FOLD_NT>(acc, nv, W + hd.fo + nt0 * 32, hacc);
     }
   } else {
-    warp_mma<1, BF16>(act, as, TOWER_OBS_ROWS, W + hd.fo, 1, 0, 1, hacc);
+    warp_mma<1>(act, as, TOWER_OBS_ROWS, W + hd.fo, 1, 0, 1, hacc);
+  }
+  __syncwarp();
+}
+
+// traj_tower's bf16 arm: bf16 rows (act), m16n8k16 fragments (W, uint2s);
+// each stored layer's K padded to 16, the last hidden layer folded into
+// the head a k-tile of 16 (TRAJ_FOLD_NT n-tiles) at a time.
+__device__ __forceinline__ void traj_tower_b16(const TLayout& lo,
+                                               const uint2* W,
+                                               const float* bias,
+                                               uint16_t* act,
+                                               float (&hacc)[2][1][4]) {
+  static_assert(TRAJ_FOLD_NT == 2, "a fold chunk is one k-tile of 16");
+  const int as = lo.as, L = lo.L;
+  const ALayer& hd = lo.ly[L];
+  int in_row = 0;
+  for (int l = 0; l + 1 < L; ++l) {  // the layers before the last hidden
+    const ALayer& y = lo.ly[l];
+    const int out_row = (l & 1) ? lo.hb : lo.ha, NT = act_up8(y.nout) / 8;
+    for (int nt0 = 0; nt0 < NT; nt0 += TRAJ_NT) {
+      const int nv = min(TRAJ_NT, NT - nt0);
+      float acc[2][TRAJ_NT][4];
+      zero_frags(acc);
+      warp_mma_b16<TRAJ_NT>(act + in_row * as, as, act_up16(y.nin), W + y.fo,
+                            NT, nt0, nv, acc);
+      store_tanh_b16(acc, nv, nt0, out_row + 8 * nt0, bias + y.bo, act, as);
+    }
+    __syncwarp();
+    in_row = out_row;
+  }
+  if (L > 0) {  // the last hidden layer, folded into the head by chunks
+    const ALayer& y = lo.ly[L - 1];
+    const int NT = act_up8(y.nout) / 8;
+    for (int nt0 = 0; nt0 < NT; nt0 += TRAJ_FOLD_NT) {
+      const int nv = min(TRAJ_FOLD_NT, NT - nt0);
+      float acc[2][TRAJ_FOLD_NT][4];
+      zero_frags(acc);
+      warp_mma_b16<TRAJ_FOLD_NT>(act + in_row * as, as, act_up16(y.nin),
+                                 W + y.fo, NT, nt0, nv, acc);
+      tanh_regs(acc, nv, nt0, bias + y.bo);
+      regs_mma_b16(acc, nv, W + hd.fo + nt0 / 2 * 32, hacc);
+    }
+  } else {
+    warp_mma_b16<1>(act, as, TOWER_OBS_ROWS, W + hd.fo, 1, 0, 1, hacc);
   }
   __syncwarp();
 }
@@ -243,8 +332,22 @@ traj_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
   const float* ba = sm + 8;
   const int lane = threadIdx.x & 31;
   float* act = sm + lo.hf + lo.wsm * 8 * lo.f4 + (threadIdx.x - lane);
-  for (int r = OBS_DIM; r < TOWER_OBS_ROWS; ++r)  // the obs' k padding
-    act[r * lo.as + lane] = 0.0f;
+  // the bf16 arm's rows (the heads' outputs go through its obs rows 0..9 as
+  // floats, hx)
+  uint16_t* actb =
+      reinterpret_cast<uint16_t*>(sm + lo.hf + lo.wsm * 8 * lo.f4) +
+      (threadIdx.x - lane);
+  auto hx = [&](int col, int m) -> float& {
+    float* row = reinterpret_cast<float*>(actb + (2 * col + (m >> 4)) * lo.as);
+    return row[m & 15];
+  };
+  if constexpr (BF16) {
+    for (int r = 0; r < lo.rows; ++r)  // K's padding of every layer
+      actb[r * lo.as + lane] = 0;
+  } else {
+    for (int r = OBS_DIM; r < TOWER_OBS_ROWS; ++r)  // the obs' k padding
+      act[r * lo.as + lane] = 0.0f;
+  }
   load_params(pf, pi, P);  // ends with the barrier every copy needs
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < pl.n;
@@ -261,31 +364,47 @@ traj_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
     observe(c, o);
 #pragma unroll
     for (int k = 0; k < OBS_DIM; ++k) {
-      act[k * lo.as + lane] = live ? o[k] : 0.0f;
+      if constexpr (BF16)
+        actb[k * lo.as + lane] = bf16_bits(live ? o[k] : 0.0f);
+      else
+        act[k * lo.as + lane] = live ? o[k] : 0.0f;
       if (live) out[(size_t)k * n] = o[k];
     }
     __syncwarp();
     float hacc[2][1][4];
     zero_frags(hacc);
-    traj_tower<BF16>(lo, W, ba, act, hacc);
-    traj_tower<BF16>(lo, W + lo.f4, ba + lo.nb, act, hacc);
-    // the means and the value (head columns 0..4) over obs rows 0..4
+    if constexpr (BF16) {
+      const uint2* Wb = reinterpret_cast<const uint2*>(W);
+      traj_tower_b16(lo, Wb, ba, actb, hacc);
+      traj_tower_b16(lo, Wb + 2 * lo.f4, ba + lo.nb, actb, hacc);
+    } else {
+      traj_tower(lo, W, ba, act, hacc);
+      traj_tower(lo, W + lo.f4, ba + lo.nb, act, hacc);
+    }
+    // the means and the value (head columns 0..4) over obs rows 0..4 (the
+    // bf16 arm's: rows 0..9 as floats)
     if (t < 3)
 #pragma unroll
       for (int ii = 0; ii < 2; ++ii)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int col = 2 * t + (r & 1), m = 16 * ii + g + (r & 2 ? 8 : 0);
-          if (col < TRAJ_HEAD_OUT)
-            act[col * lo.as + m] =
-                hacc[ii][0][r] +
-                ba[(col < 4 ? 0 : lo.nb) + hd.bo + col];
+          if (col < TRAJ_HEAD_OUT) {
+            const float hv =
+                hacc[ii][0][r] + ba[(col < 4 ? 0 : lo.nb) + hd.bo + col];
+            if constexpr (BF16)
+              hx(col, m) = hv;
+            else
+              act[col * lo.as + m] = hv;
+          }
         }
     __syncwarp();
     float m[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) m[k] = act[k * lo.as + lane];
-    const float v = act[TRAJ_VALUE_COL * lo.as + lane];
+    for (int k = 0; k < 4; ++k)
+      m[k] = BF16 ? hx(k, lane) : act[k * lo.as + lane];
+    const float v = BF16 ? hx(TRAJ_VALUE_COL, lane)
+                         : act[TRAJ_VALUE_COL * lo.as + lane];
     if (!live) continue;
     float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (STOCH) gauss4(c.k0, c.k1, c.rc, c.stp, z);
@@ -313,7 +432,7 @@ cudaError_t launch(const float* pf, const int* pi, const Planes& pl,
                    float* traj, const TLayout& lo, const float4* packed,
                    const float* theta, int ls_off, int T,
                    cudaStream_t stream) {
-  const size_t smem = traj_smem(lo);
+  const size_t smem = traj_smem(lo, BF16);
   cudaError_t err = cudaFuncSetAttribute(
       traj_kernel<TASK, INTEG, STOCH, BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -365,9 +484,9 @@ extern "C" int drone_traj_rollout(const float* pf, const int* pi,
     if (layout[5 + l] <= 0 || layout[5 + l] > MAX_WIDTH)
       return (int)cudaErrorInvalidValue;
   TLayout lo;
-  make_traj_layout(L, layout + 5, bl, wsm, lo);
-  if ((size_t)layout[3] != traj_smem(lo) || layout[4] != lo.wfl ||
-      traj_smem(lo) > (size_t)TRAJ_MAX_SMEM)
+  make_traj_layout(L, layout + 5, bl, wsm, bf16 != 0, lo);
+  if ((size_t)layout[3] != traj_smem(lo, bf16 != 0) || layout[4] != lo.wfl ||
+      traj_smem(lo, bf16 != 0) > (size_t)TRAJ_MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   TSrc src;
   const int* offs = layout + 5 + MAX_HIDDEN;
@@ -377,13 +496,13 @@ extern "C" int drone_traj_rollout(const float* pf, const int* pi,
   src.ls = offs[2 * (MAX_HIDDEN + 1)];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float4* pk = reinterpret_cast<float4*>(packed);
-  const int threads = 2 * lo.f4 + 2 * lo.nb;
+  const int threads = (bf16 ? 4 : 2) * lo.f4 + 2 * lo.nb;
   if (bf16)
-    pack_traj_kernel<true><<<(threads + 255) / 256, 256, 0, s>>>(theta, lo,
-                                                                src, pk);
+    pack_traj_b16_kernel<<<(threads + 255) / 256, 256, 0, s>>>(
+        theta, lo, src, reinterpret_cast<uint2*>(packed));
   else
-    pack_traj_kernel<false><<<(threads + 255) / 256, 256, 0, s>>>(theta, lo,
-                                                                 src, pk);
+    pack_traj_kernel<<<(threads + 255) / 256, 256, 0, s>>>(theta, lo, src,
+                                                           pk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Planes pl{fs, us, st, ofs, ous, ost, stats, n};

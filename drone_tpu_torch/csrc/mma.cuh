@@ -1,7 +1,7 @@
 // mma.cuh — the tensor cores' 3xTF32 product, the primitives every
 // tensor-core kernel of the port builds on (cnn_mma.cuh: the patch-CNN
-// tower; lstm_mma.cuh: the LSTM gate block; update.cu and acting.cu: the
-// MLP towers of K3 and K5).
+// tower; lstm_mma.cuh: the LSTM gate block; update.cu, acting.cu and
+// tower_mma.cuh: the MLP towers of K3, K5 and K2).
 //
 // Instruction: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (a warp
 // multiplies a 16 x 8 tile by an 8 x 8 one). Precision, 3xTF32: each fp32
@@ -20,8 +20,7 @@
 //   - one TF32 product of the rounded operands widened back (split_op,
 //     mma_op with BF16): a bf16 value is a TF32 value and the product of
 //     two is exact in fp32, so one product a k-step of 8 where 3xTF32 takes
-//     three. The kernels whose operands stay fp32 rows take it (K2, K3,
-//     K7's walk and K7's dense arm's weight products).
+//     three. K7's dense arm's weight products take it (bf16x2 rows).
 //   - the bf16 tensor cores' own product, mma.sync.aligned.m16n8k16.row.
 //     col.f32.bf16.bf16.f32 (mma_bf16): a warp multiplies a 16 x 16 tile by
 //     a 16 x 8 one, at twice the TF32 instruction's rate, from operands
@@ -31,8 +30,9 @@
 //     product of two bf16 values is exact in fp32 under either
 //     instruction; this one adds 16 products in a group where the other
 //     added 8: the same class of non-IEEE accumulation (ROADMAP H10, H12).
-//     The patch-CNN tower's bf16 arm (cnn_mma.cuh) and the bf16 weight
-//     products of K10 and K7's CNN arm (grad_b16_tile) take it.
+//     The patch-CNN tower's bf16 arm (cnn_mma.cuh), the bf16 weight
+//     products of K10 and K7's CNN arm (grad_b16_tile), K7's walk and the
+//     bf16 arms of K3 (update.cu) and K2 (tower_mma.cuh) take it.
 // The folds of long sums stay in both.
 #pragma once
 

@@ -26,8 +26,10 @@ bitwise. Its envelope is the fp32 kernel's it replaced (`check_envelope`).
 `compute_dtype="bfloat16"` is the reference's bf16 operand arm: every
 product of the towers takes its operands rounded to bfloat16 (`operand`,
 the reference's `_dot32`) and sums in float32, so the outputs stay
-float32. The kernel's bf16 arm runs one tensor-core product a k-step of
-the rounded operands; the plain version rounds the same operands.
+float32. The kernel's bf16 arm stores its rows once as bf16 and runs the
+bf16 tensor cores' m16n8k16 product on them and on bf16x2 weight
+fragments (`layout_at(..., bf16=True)`); the plain version rounds the
+same operands.
 """
 
 from __future__ import annotations
@@ -190,7 +192,11 @@ def _up8(w: int) -> int:
     return -(-w // 8) * 8
 
 
-def layout_at(hidden, lanes: int, wsm: int) -> dict | None:
+def _up16(w: int) -> int:
+    return -(-w // 16) * 16
+
+
+def layout_at(hidden, lanes: int, wsm: int, bf16: bool = False) -> dict | None:
     """csrc/acting_traj.cu's `make_traj_layout` and `traj_smem` for towers
     of hidden `hidden` at `lanes` a block (`bl`, a multiple of 32 up to
     TRAJ_MAX_LANES), both towers' fragments staged in shared memory (`wsm`
@@ -204,22 +210,27 @@ def layout_at(hidden, lanes: int, wsm: int) -> dict | None:
     memory `smem`. `ints` are the kernel's layout ints [n_hidden, bl, wsm,
     smem, wfl, width[MAX_HIDDEN], the actor's layer offsets into the flat
     buffer[MAX_HIDDEN + 1], the critic's[MAX_HIDDEN + 1], log_std's
-    offset]."""
+    offset]. With bf16 the bf16 arm's: `fo` counts uint2 fragments of
+    m16n8k16 (a layer's inputs padded to 16), `f4` the 16-byte units a
+    tower's take, the stored layers' rows are padded to 16 and hold
+    bf16."""
     hidden = tuple(int(h) for h in hidden)
     L = len(hidden)
     layers, fo, bo, nin, mw = [], 0, 0, OBS_DIM, 0
     for li in range(L + 1):
         nout = hidden[li] if li < L else 8
         layers.append({"nin": nin, "nout": nout, "fo": fo, "bo": bo})
-        fo += _up8(nin) * _up8(nout) // 2
+        fo += (_up16(nin) * _up8(nout) // 4 if bf16
+               else _up8(nin) * _up8(nout) // 2)
         bo += _up8(nout)
         if li + 2 <= L:
-            mw = max(mw, _up8(nout))
+            mw = max(mw, _up16(nout) if bf16 else _up8(nout))
         nin = nout
-    wfl = -(-(8 * fo + 2 * bo) // 4) * 4
+    f4 = fo // 2 if bf16 else fo
+    wfl = -(-(8 * f4 + 2 * bo) // 4) * 4
     hf = -(-(8 + 2 * bo) // 4) * 4
     rows = ACT_OBS_ROWS + (mw if L >= 2 else 0) + (mw if L >= 3 else 0)
-    smem = 4 * (hf + wsm * 8 * fo + rows * (lanes + 8))
+    smem = 4 * (hf + wsm * 8 * f4) + (2 if bf16 else 4) * rows * (lanes + 8)
     if (smem > _MAX_SMEM or lanes % 32 or not 32 <= lanes <= TRAJ_MAX_LANES
             or wsm not in (0, 1)):
         return None
@@ -233,23 +244,25 @@ def layout_at(hidden, lanes: int, wsm: int) -> dict | None:
         at = 5 + MAX_HIDDEN + t * (MAX_HIDDEN + 1)
         ints[at:at + L + 1] = [offs[f"{name}.weight"] for name in names]
     ints[-1] = offs["log_std"]
-    return {"ints": ints, "layers": layers, "f4": fo, "nb": bo, "wfl": wfl,
+    return {"ints": ints, "layers": layers, "f4": f4, "nb": bo, "wfl": wfl,
             "hf": hf, "ha": ACT_OBS_ROWS, "hb": ACT_OBS_ROWS + (
                 mw if L >= 3 else 0), "rows": rows, "bl": lanes, "wsm": wsm,
             "smem": smem}
 
 
-def traj_layout(hidden) -> dict:
-    """K2's layout (`layout_at`) for towers of hidden `hidden`: the most
-    lanes a block whose rows fit, the fragments staged when they fit beside
-    them. At [64, 64] that is 512 lanes, one wave of 65,536 lanes, the
-    fragments through L1: staging them leaves room for 256 lanes, two
-    waves, 20% slower (PERF.md). Raises for towers the kernel cannot
-    take."""
+def traj_layout(hidden, compute_dtype: str = "float32") -> dict:
+    """K2's layout (`layout_at`; its bf16 arm's under bfloat16) for towers
+    of hidden `hidden`: the most lanes a block whose rows fit, the
+    fragments staged when they fit beside them. At [64, 64] that is 512
+    lanes, one wave of 65,536 lanes, the fragments through L1 (the bf16
+    arm's rows, half the bytes, leave room to stage them): staging them
+    leaves room for 256 lanes, two waves, 20% slower (PERF.md). Raises for
+    towers the kernel cannot take."""
     check_envelope(hidden)
+    bf16 = bool(bf16_flag(compute_dtype))
     for lanes in range(TRAJ_MAX_LANES, 31, -32):
         for wsm in (1, 0):
-            lay = layout_at(hidden, lanes, wsm)
+            lay = layout_at(hidden, lanes, wsm, bf16)
             if lay is not None:
                 return lay
     raise ValueError(f"towers {list(hidden)}: no block of 32 lanes fits")
@@ -268,7 +281,7 @@ def traj_rollout_kernel(state: EnvState, theta: torch.Tensor, hidden,
             or not theta.is_contiguous()):
         raise ValueError("theta must be a contiguous float32 buffer on the "
                          "state's device")
-    lay = traj_layout(hidden)
+    lay = traj_layout(hidden, compute_dtype)
     dev = state.pos.device
     planes = torch.empty(T, N_TRAJ, state.n, device=dev)
     packed = torch.empty(lay["wfl"], device=dev)

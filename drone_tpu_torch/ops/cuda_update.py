@@ -25,7 +25,9 @@ inside the closed interval.
 `compute_dtype="bfloat16"` is the reference's bf16 operand arm of K3: the
 forward's, dW's and dX's products take their operands rounded to bfloat16
 (`cuda_acting_traj.operand`, the reference's `_dot32`) and sum in float32;
-db, the stored activations, the tanh and the head stay float32.
+db, the tanh, its derivative and the head stay float32. The kernel's bf16
+arm is its own design (`b16_layout`): m16n8k16 bf16 products of operands
+stored once as bf16.
 """
 
 from __future__ import annotations
@@ -67,6 +69,11 @@ _MAX_SMEM = 232448     # bytes of shared memory one H100 block can use
 W0_STRIDE = 20         # layer 0's weight-plane rows
 SLACK_ROWS = 16        # activation rows past the head's value
 STAT_PART_BYTES = 8 * 8 * 4  # the static stat partials of 8 warps
+B16_S = TILE + 8       # the bf16 arm's activation rows (bf16 a row)
+B16_MAX_BLOCKS = 132   # its blocks: one an SM of an H100
+# its static shared memory: the BLayout (5 + 2 x 9 layers of 10 ints) and
+# the head's 8 warps' 13 sums
+B16_STATIC_BYTES = 4 * (5 + 2 * (UPD_HIDDEN + 1) * 10) + 8 * 13 * 4
 ADAM_SLICE = 2048      # K4: floats a slice, one slice a block up to
 ADAM_MAX_BLOCKS = 256  # K4: blocks a launch, all co-resident on an H100
 ADAM_MAX_P = 1 << 30   # K4: the largest buffer (slice offsets within int)
@@ -304,6 +311,48 @@ def mma_layout(hidden) -> dict:
                 onchip=onchip, smem=act + (4 * (2 * wp + sb) if onchip else 0))
 
 
+def b16_layout(hidden) -> dict:
+    """csrc/update.cu's `make_layout_b16` and `layout_smem_b16` for towers
+    `hidden` (K3's bf16 arm): per tower and layer (the head last) its
+    widths, the offsets of its A fragments `fa` (W) and `ta` (W^T, layers
+    past the first) in uint4s, its running sums' `sb` and row stride `ss`,
+    its bf16 rows `in_row`, `out_row` and its output's fp32 rows `y32`; the
+    uint4s of the fragments `wq`, the floats of the running sums `sf`, the
+    bf16 rows and the fp32 tanh rows, whether the tanh rows, the fragments
+    and the running sums fit in a block's shared memory (`onchip`), its
+    dynamic shared memory in bytes, and the floats of a block's scratch row
+    off chip (0 on chip)."""
+    hidden = tuple(int(h) for h in hidden)
+    L, h = len(hidden), sum(hidden)
+    h16 = sum(_up(w, 16) for w in hidden)
+    rows = 16 + 2 * h16 + 2 * 16
+    layers, q, sb = [[], []], 0, 0
+    for t in (0, 1):
+        row, yrow, nin, in_row = 16 + t * h16, t * h, OBS_DIM, 0
+        for li in range(L + 1):
+            nout = hidden[li] if li < L else (4, 1)[t]
+            fa = q
+            q += _up(nout, 16) // 16 * (_up(nin, 16) // 16) * 32
+            ta = q
+            if li:
+                q += _up(nin, 16) // 16 * (_up(nout, 16) // 16) * 32
+            out_row = row if li < L else 16 + 2 * h16 + 16 * t
+            layers[t].append(dict(nin=nin, nout=nout, fa=fa, ta=ta, sb=sb,
+                                  ss=sums_stride(nin), in_row=in_row,
+                                  out_row=out_row,
+                                  y32=yrow if li < L else 4 * t))
+            sb += nout * sums_stride(nin)
+            if li < L:
+                row, yrow = row + _up(nout, 16), yrow + nout
+            in_row, nin = out_row, nout
+    base = 2 * rows * B16_S + 4 * 8 * TILE
+    full = base + 4 * 2 * h * TILE + 16 * q + 4 * sb
+    onchip = full + B16_STATIC_BYTES <= _MAX_SMEM
+    return dict(layers=layers, wq=q, sf=sb, rows=rows, yrows=2 * h,
+                onchip=onchip, smem=full if onchip else base,
+                scratch=0 if onchip else sb + 2 * h * TILE)
+
+
 def update_layout(hidden) -> np.ndarray:
     """The host ints of drone_ppo_update: [n_hidden, widths, actor W
     offsets, critic W offsets, P, ls_off]. Raises for a tower the kernel
@@ -362,19 +411,26 @@ def ppo_update_kernel(planes, advret, perm_mb, theta, hidden,
         raise ValueError(f"row blocks of {rbl} lanes: the kernel needs a "
                          f"multiple of {TILE} that divides {n}")
     n_tiles = perm_mb.numel() * (rbl // TILE) * T
-    G = min(n_tiles, MAX_BLOCKS)
-    mm = mma_layout(hidden)
+    G = min(n_tiles, B16_MAX_BLOCKS if bf16 else MAX_BLOCKS)
+    if bf16:
+        mm = b16_layout(hidden)
+        packed, row = 4 * mm["wq"], mm["scratch"]
+        dims = np.array([mm["smem"], int(mm["onchip"]), mm["wq"], row],
+                        np.int32)
+    else:
+        mm = mma_layout(hidden)
+        packed, row = 2 * mm["wf"], 0 if mm["onchip"] else mm["sf"]
+        dims = np.array([mm["smem"], int(mm["onchip"]), mm["wf"], mm["sf"]],
+                        np.int32)
     dev = planes.device
-    wplanes = torch.empty(2 * mm["wf"], device=dev)
-    scratch = torch.empty(1 if mm["onchip"] else G * mm["sf"], device=dev)
+    wplanes = torch.empty(packed, device=dev)
+    scratch = torch.empty(max(1, G * row), device=dev)
     partial = torch.empty(G, P + N_UPSTATS, device=dev)
     grads = torch.empty(P, device=dev)
     stats = torch.empty(N_UPSTATS, device=dev)
     consts = np.array([co.inv_m, 1.0 - co.clip_eps, 1.0 + co.clip_eps,
                        co.clip_eps, co.vf_clip, 0.5 * co.vf_coef, ent_coef],
                       np.float32)
-    dims = np.array([mm["smem"], int(mm["onchip"]), mm["wf"], mm["sf"]],
-                    np.int32)
     fn = cuda_build.load("update").drone_ppo_update
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

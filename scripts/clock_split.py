@@ -9,9 +9,13 @@ second checkout, e.g. a git archive of a parent commit, to split that
 one's kernels) into a temporary directory and inserts a probe after each
 phase of the kernels it splits: thread 0 of block 0 adds the clock64
 cycles since its last probe to that phase's counter. `mlp` (the default)
-splits update.cu's K3 and acting.cu's K5, run once on hover.toml's
-full-width minibatch and once at 65,536 lanes x 1,001 steps (hover,
-[64, 64]); `tower` splits the bf16 arms' patch-CNN tower tiles
+splits update.cu's K3, both arms, each run once on hover.toml's full-width
+minibatch, acting.cu's K5 at 65,536 lanes x 1,001 steps, and
+acting_traj.cu's K2, both arms, at 65,536 lanes x 64 steps (its rollout on
+hover.toml; per step: the observation with its plane stores, each tower,
+the heads' read-back, the noise, the log-prob, the action, log-prob and
+value stores, the env step, the reward and done stores with the
+statistics) (hover, [64, 64]); `tower` splits the bf16 arms' patch-CNN tower tiles
 (cnn_mma.cuh tower_fwd_tile<true> and tower_bwd_tile<true>: the render,
 conv0 (and its re-run), conv1, the trunk, the X2 copy, dX2, gW1, dX1, gW0
 and the barriers) inside K10's bf16 update (update_cnn.cu: cnn_fwd_kernel,
@@ -71,11 +75,42 @@ extern "C" int drone_clk_zero() {
 """
 
 # per source: the phase names, then (anchor, probe put after it) for each
-# tree the script knows (the fp32 kernels, the tensor-core ones); the tree
-# whose every anchor is present once is taken. The tensor-core K3's
+# tree the script knows (the fp32 kernels, the tensor-core ones); the first
+# tree whose every anchor is present once is taken. The tensor-core K3's
 # probes name its layers (at two hidden layers: 0, 1 and the head).
 SPLITS = {
     "update": [
+        # the fp32 arm's phases (as the second tree's) and, after them, the
+        # bf16 arm's own design (update_kernel<ONCHIP, true> on a BLayout)
+        ({0: "load", 1: "fwd 0", 2: "fwd 1", 3: "fwd head", 4: "head grads",
+          5: "stat sums", 6: "dW 0", 7: "dW 1", 8: "dW head", 9: "dX 1",
+          10: "dX head", 11: "load", 12: "fwd 0", 13: "fwd 1", 14: "fwd head",
+          15: "head grads", 16: "stat and db sums", 17: "dW 0", 18: "dW 1",
+          19: "dW head", 20: "dX 1", 21: "dX head"}, [
+            ("  float st_acc = 0.0f;\n  __syncthreads();\n",
+             "  CLK_START\n"),
+            (": 0.0f;\n    __syncthreads();\n", "    CLK(0);\n"),
+            ("      layer_fwd(act, lo, l, A.theta, wb, ws);\n"
+             "      __syncthreads();\n", "      CLK(1 + l);\n"),
+            ("stat_part[w][4 + lane] = sv[4];\n    }\n    __syncthreads();\n",
+             "    CLK(4);\n"),
+            ("      st_acc = st_acc + tile_sum;\n    }\n", "    CLK(5);\n"),
+            ("      layer_dw(act, lo, l, sums);\n      __syncthreads();\n",
+             "      CLK(6 + l);\n"),
+            ("      layer_dx(act, lo, l, wb, ws);\n      __syncthreads();\n",
+             "      CLK(8 + l);\n"),
+            ("  __syncthreads();  // the layout, the zeroed rows and sums\n",
+             "  CLK_START\n"),
+            ("    __syncthreads();  // the tile's obs rows\n", "    CLK(11);\n"),
+            ("      fwd_b16(lo, l, xb, yh, hf, wf, A.theta);\n"
+             "      __syncthreads();\n", "      CLK(12 + l);\n"),
+            ("<@>    if (tid < B16_HEAD_STATS) {\n", ("    CLK(15);\n",)),
+            ("<@>    for (int l = lo.L; l >= 0; --l) {\n      dw_b16(",
+             ("    CLK(16);\n",)),
+            ("      dw_b16(lo, l, xb, sums);\n      __syncthreads();\n",
+             "      CLK(17 + l);\n"),
+            ("      dx_b16(lo, l, xb, yh, wf, sums);\n      __syncthreads();\n",
+             "      CLK(19 + l);\n")]),
         (("load", "actor fwd", "critic fwd", "head grads", "stat sums",
           "actor bwd", "critic bwd"), [
             ("  float st_acc = 0.0f;\n  bool first = true;\n",
@@ -120,6 +155,51 @@ SPLITS = {
              "      CLK(6 + l);\n"),
             ("      layer_dx<BF16>(act, lo, l, wb, ws);\n      __syncthreads();\n",
              "      CLK(8 + l);\n")]),
+    ],
+    "acting_traj": [
+        # both arms' towers apart (the bf16 arm's since its redesign)
+        (("observe", "actor", "critic", "heads out", "noise", "log-prob",
+          "plane stores", "env step", "stats"), [
+            ("  float acc[N_STATS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};\n",
+             "  CLK_START\n"),
+            ("      if (live) out[(size_t)k * n] = o[k];\n    }\n"
+             "    __syncwarp();\n", "    CLK(0);\n"),
+            ("      traj_tower_b16(lo, Wb, ba, actb, hacc);\n",
+             "      CLK(1);\n"),
+            ("      traj_tower_b16(lo, Wb + 2 * lo.f4, ba + lo.nb, actb, hacc);"
+             "\n", "      CLK(2);\n"),
+            ("      traj_tower(lo, W, ba, act, hacc);\n", "      CLK(1);\n"),
+            ("      traj_tower(lo, W + lo.f4, ba + lo.nb, act, hacc);\n",
+             "      CLK(2);\n"),
+            ("                         : act[TRAJ_VALUE_COL * lo.as + lane];\n",
+             "    CLK(3);\n"),
+            ("    if (STOCH) gauss4(c.k0, c.k1, c.rc, c.stp, z);\n",
+             "    CLK(4);\n"),
+            ("    sample_logp(m, z, sm, sm + 4, STOCH, a, logp);\n",
+             "    CLK(5);\n"),
+            ("    out[(size_t)TP_VAL * n] = v;\n", "    CLK(6);\n"),
+            ("                          step2);\n", "    CLK(7);\n"),
+            ("    accumulate(acc, r, done, epret2, step2);\n",
+             "    CLK(8);\n")]),
+        (("observe", "actor", "critic", "heads out", "noise", "log-prob",
+          "plane stores", "env step", "stats"), [
+            ("  float acc[N_STATS] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};\n",
+             "  CLK_START\n"),
+            ("      if (live) out[(size_t)k * n] = o[k];\n    }\n"
+             "    __syncwarp();\n", "    CLK(0);\n"),
+            ("    traj_tower<BF16>(lo, W, ba, act, hacc);\n", "    CLK(1);\n"),
+            ("    traj_tower<BF16>(lo, W + lo.f4, ba + lo.nb, act, hacc);\n",
+             "    CLK(2);\n"),
+            ("    const float v = act[TRAJ_VALUE_COL * lo.as + lane];\n",
+             "    CLK(3);\n"),
+            ("    if (STOCH) gauss4(c.k0, c.k1, c.rc, c.stp, z);\n",
+             "    CLK(4);\n"),
+            ("    sample_logp(m, z, sm, sm + 4, STOCH, a, logp);\n",
+             "    CLK(5);\n"),
+            ("    out[(size_t)TP_VAL * n] = v;\n", "    CLK(6);\n"),
+            ("                          step2);\n", "    CLK(7);\n"),
+            ("    accumulate(acc, r, done, epret2, step2);\n",
+             "    CLK(8);\n")]),
     ],
     "acting": [
         (("observe", "tower", "noise", "env step", "statistics"), [
@@ -378,7 +458,8 @@ for name, trees in splits.items():
 import torch  # noqa: E402
 
 from drone_tpu_torch.env import DroneEnv  # noqa: E402
-from drone_tpu_torch.ops import cuda_acting, cuda_update  # noqa: E402
+from drone_tpu_torch.ops import cuda_acting, cuda_acting_traj  # noqa: E402
+from drone_tpu_torch.ops import cuda_update  # noqa: E402
 from drone_tpu_torch.ops import cuda_update_cnn as K10  # noqa: E402
 from drone_tpu_torch.ops import cuda_update_lstm as K7  # noqa: E402
 from drone_tpu_torch.utils.config import Config  # noqa: E402
@@ -395,9 +476,17 @@ if which == "mlp":
         "update": lambda: cuda_update.ppo_update_kernel(
             planes, advret, perm_mb, model.flat, model.hidden, co, rbl,
             0.001),
+        "update bf16": lambda: cuda_update.ppo_update_kernel(
+            planes, advret, perm_mb, model.flat, model.hidden, co, rbl,
+            0.001, compute_dtype=cs.BF16),
         "acting": lambda: cuda_acting.act_rollout_kernel(
             state, policy, env.params, env.statics,
             int(env.params.horizon) + 1),
+        "acting_traj": lambda: cuda_acting_traj.traj_rollout_kernel(
+            state, model.flat, model.hidden, env.params, env.statics, 64),
+        "acting_traj bf16": lambda: cuda_acting_traj.traj_rollout_kernel(
+            state, model.flat, model.hidden, env.params, env.statics, 64,
+            compute_dtype=cs.BF16),
     }
 elif which == "tower":  # each bf16 update on one full-width minibatch
     cm = cs.cnn_policy(seed=2, log_std=0.0)
@@ -425,7 +514,7 @@ else:  # K7's bf16 arms, each on one full-width minibatch of its path
             compute_dtype=cs.BF16))
 out = {}
 for name, run in runs.items():
-    lib_name = "update_lstm" if which == "walk" else name
+    lib_name = "update_lstm" if which == "walk" else name.split()[0]
     lib = libs[lib_name]
     run()
     torch.cuda.synchronize()
@@ -435,7 +524,9 @@ for name, run in runs.items():
     buf = (ctypes.c_ulonglong * 32)()
     if lib.drone_clk_read(buf) != 0:
         raise SystemExit(f"{name}: reading the counters failed")
-    cycles = {n: int(buf[i]) for i, n in names[lib_name].items()}
+    # a source's tree may probe several kernels: the phases this run read
+    cycles = {n: int(buf[i]) for i, n in names[lib_name].items()
+              if buf[i] or which != "mlp"}
     if which != "tower":
         total = sum(cycles.values())
         out[name] = {"cycles": cycles, "total": total,

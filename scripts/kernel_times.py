@@ -3,7 +3,7 @@ checkout.
 
 Run from the root of a checkout on a machine with an H100:
 
-    python3 scripts/kernel_times.py <label>
+    python3 scripts/kernel_times.py <label> [mlp]
 
 It builds rollout, acting, acting_traj, update, acting_lstm, update_lstm,
 acting_cnn and update_cnn, times K2 (65,536 lanes x 64 steps) on
@@ -16,11 +16,13 @@ K5 (65,536 x 1,001; after the short MLP kernels, which its seconds of
 load would slow), K8 and K6 (dense encoder and CNN arm) and K11
 and K9 at their paths' shapes, and K7 (both arms) and K10 on one
 full-width minibatch, by CUDA events (and, where the checkout has them, the
-bf16 arms on the same inputs: "K7 bf16", "K7 cnn bf16", "K9 bf16", "K10
-bf16"), then one warm
+bf16 arms on the same inputs: "K2 bf16", "K3 bf16", "K7 bf16", "K7 cnn
+bf16", "K9 bf16", "K10 bf16"), then one warm
 MLP update of hover.toml split into its phases (chip_smoke.split_update,
 which also prints its profiler trace), and prints one JSON line with the
-ptxas register count of every kernel. K7
+ptxas register count of every kernel. With `mlp` it times the MLP
+kernels alone (K2, K3, K4 and K5, each arm), then one warm MLP update of
+each arm ("MLP update ..." and "MLP bf16 update ..."). K7
 dense is read first and again last, on the same inputs ("K7" and "K7
 end"), so a drift of the card within one run shows beside the others. To
 compare two commits, copy the script into a second checkout (git archive)
@@ -49,7 +51,9 @@ from drone_tpu_torch.ops import cuda_update_cnn as K10  # noqa: E402
 from drone_tpu_torch.ops import cuda_update_lstm as K7  # noqa: E402
 from drone_tpu_torch.utils.config import Config  # noqa: E402
 
-libs = cuda_build.build(("rollout", "acting", "acting_traj", "update",
+mlp_only = sys.argv[2:] == ["mlp"]
+libs = cuda_build.build(("acting", "acting_traj", "update") if mlp_only else
+                        ("rollout", "acting", "acting_traj", "update",
                          "acting_lstm", "update_lstm", "acting_cnn",
                          "update_cnn"))
 regs = {}
@@ -87,9 +91,20 @@ state = env.init_batch(2, n)
 model = cs.flat_policy()
 t["K2"] = cs.cuda_ms(lambda: K2.traj_rollout_kernel(
     state, model.flat, model.hidden, env.params, env.statics, 64), 5)
+# the bf16 arms of K2 and K3, where this checkout has them
+mlp_bf16 = "compute_dtype" in inspect.signature(
+    K3.ppo_update_kernel).parameters
+if mlp_bf16:
+    t["K2 bf16"] = cs.cuda_ms(lambda: K2.traj_rollout_kernel(
+        state, model.flat, model.hidden, env.params, env.statics, 64,
+        compute_dtype=cs.BF16), 5)
 planes, advret, perm_mb, co, rbl = cs.hover_minibatch(cfg, model, env)
 t["K3"] = cs.cuda_ms(lambda: K3.ppo_update_kernel(
     planes, advret, perm_mb, model.flat, model.hidden, co, rbl, 0.001), 20)
+if mlp_bf16:
+    t["K3 bf16"] = cs.cuda_ms(lambda: K3.ppo_update_kernel(
+        planes, advret, perm_mb, model.flat, model.hidden, co, rbl, 0.001,
+        compute_dtype=cs.BF16), 20)
 del planes, advret
 adam = [model.flat.clone(), 0.05 * torch.ones_like(model.flat),
         torch.zeros_like(model.flat), torch.zeros_like(model.flat),
@@ -99,19 +114,29 @@ adam = [model.flat.clone(), 0.05 * torch.ones_like(model.flat),
 t["K4"] = cs.cuda_ms(lambda: K3.fused_adam_kernel(*adam), 100)
 t["K4 device"] = device_ms(lambda: K3.fused_adam_kernel(*adam), 100,
                            "adam_kernel")
-for k1_n, k1_T, k1_acts in ((65536, 1001, None), (131072, 4096, None),
-                            (65536, 64, torch.from_numpy(
-                                prng.action_stream_np(64, 65536, seed=3))
-                             .cuda())):
+k1_cases = () if mlp_only else (
+    (65536, 1001, None), (131072, 4096, None),
+    (65536, 64, torch.from_numpy(prng.action_stream_np(64, 65536, seed=3))
+     .cuda()))
+for k1_n, k1_T, k1_acts in k1_cases:
     k1_state = env.init_batch(0, k1_n)
     t[f"K1 {k1_n} x {k1_T}{' provided' if k1_acts is not None else ''}"] = \
         cs.cuda_ms(lambda: K1.rollout_kernel(k1_state, env.params, env.statics,
                                              k1_T, k1_acts),
                    10 if k1_T < 4096 else 4)
-del k1_state
+if k1_cases:
+    del k1_state
 mlp = cs.seeded_policy(seed=1).cuda()
 t["K5"] = cs.cuda_ms(lambda: K5.act_rollout_kernel(
     state, mlp, env.params, env.statics, horizon), 5)
+if mlp_only:
+    t.update({f"MLP update {k}": v for k, v in cs.split_update(cfg).items()})
+    if mlp_bf16:
+        t.update({f"MLP bf16 update {k}": v for k, v in cs.split_update(
+            cfg.with_overrides([f"run.compute_dtype={cs.BF16}"])).items()})
+    print(json.dumps({"tree": sys.argv[1], "device": cs.device_line(),
+                      "ms": t, "regs": regs}), flush=True)
+    sys.exit(0)
 lm = cs.lstm_policy()
 planes, advret, snap, perm_mb, co, rbl, bptt = cs.lstm_minibatch(
     cfg.with_overrides(list(cs.LSTM_OVERRIDES)), lm, env)

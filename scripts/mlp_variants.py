@@ -13,7 +13,10 @@ replaces each edit's text (found exactly once) with its new text, builds
 update.cu, acting.cu and acting_traj.cu with the checkout's nvcc flags
 (together), and times K3 on hover.toml's full-width minibatch, K5 at
 65,536 lanes x 1,001 steps and K2 at 65,536 lanes x 64 steps ([64, 64],
-hover) through the checkout's wrappers, by CUDA events. Where the
+hover) through the checkout's wrappers, by CUDA events, each arm (where
+the checkout has the bf16 arms: "K3 bf16", "K2 bf16"). A variant may also
+set an attribute of ops/cuda_update.py for its readings (an edit whose
+source starts with "@": the module, the name, the value). Where the
 checkout's K2 has cuda_acting_traj.layout_at, K2 is also timed at each
 residency of K2_LAYOUTS (its layout rule replaced by layout_at). The
 unedited kernels are read first and again last. Prints each reading and
@@ -21,6 +24,7 @@ one JSON line. A variant named "timing only" computes a wrong result: it
 says what a part of the kernel costs, not what it could be.
 """
 import ctypes
+import inspect
 import json
 import shutil
 import subprocess
@@ -87,6 +91,19 @@ VARIANTS = {
          "acc[i][j][r] = acc[i][j][r] + bias[n];")],
     "timing only: no bias loads in K3's forward": [
         ("update.cu", "acc[i][j][r] + __ldg(bias + n);", "acc[i][j][r];")],
+    # K3's bf16 arm on the fp32 arm's grid: 128 blocks, 4 SMs idle
+    "K3 bf16 on 128 blocks": [
+        ("update.cu", "constexpr int B16_MAX_BLOCKS = 132;",
+         "constexpr int B16_MAX_BLOCKS = 128;"),
+        ("@cuda_update", "B16_MAX_BLOCKS", 128)],
+    "timing only: no tanhf in K2 bf16's towers": [
+        ("tower_mma.cuh", "              bf16_bits(tanhf(acc[i][j][r] + "
+         "bias[n]));", "              bf16_bits(acc[i][j][r] + bias[n]);"),
+        ("tower_mma.cuh", "acc[i][j][r] = tanhf(acc[i][j][r] + bias[n]);",
+         "acc[i][j][r] = acc[i][j][r] + bias[n];")],
+    "timing only: no tanhf in K3 bf16's forward": [
+        ("update.cu", "          v0 = tanhf(v0);\n          v1 = tanhf(v1);\n",
+         "")],
     "timing only: operands not split (TF32 bits of x as both halves)": [
         ("mma.cuh", "  big = tf32_rna(x) & 0xffffe000u;\n"
                     "  small = tf32_rna(x - __uint_as_float(big));",
@@ -119,6 +136,8 @@ def edited(edits):
     tmp = Path(tempfile.mkdtemp())
     shutil.copytree(checkout / "drone_tpu_torch" / "csrc", tmp / "csrc")
     for source, old, new in edits:
+        if source.startswith("@"):
+            continue
         path = tmp / "csrc" / source
         if not path.exists() or path.read_text().count(old) != 1:
             return None
@@ -148,20 +167,38 @@ policy = cs.seeded_policy(seed=1).cuda()
 state = env.init_batch(2, 65536)
 
 
-def k2_ms():
+bf16 = "compute_dtype" in inspect.signature(
+    cuda_update.ppo_update_kernel).parameters
+
+
+def k2_ms(dtype="float32"):
+    kw = {"compute_dtype": dtype} if bf16 else {}
     return cs.cuda_ms(lambda: cuda_acting_traj.traj_rollout_kernel(
-        state, model.flat, model.hidden, env.params, env.statics, 64), 5)
+        state, model.flat, model.hidden, env.params, env.statics, 64, **kw),
+        5)
 
 
-def times(libs):
+def times(libs, attrs=()):
     cuda_build._loaded.update(libs)
-    return {"K2": k2_ms(),
-            "K3": cs.cuda_ms(lambda: cuda_update.ppo_update_kernel(
-                planes, advret, perm_mb, model.flat, model.hidden, co, rbl,
-                0.001), 10),
-            "K5": cs.cuda_ms(lambda: cuda_acting.act_rollout_kernel(
-                state, policy, env.params, env.statics,
-                int(env.params.horizon) + 1), 3)}
+    mods = {"@cuda_update": cuda_update}
+    was = [(mods[m], name, getattr(mods[m], name)) for m, name, _ in attrs]
+    for m, name, value in attrs:
+        setattr(mods[m], name, value)
+    out = {"K2": k2_ms(),
+           "K3": cs.cuda_ms(lambda: cuda_update.ppo_update_kernel(
+               planes, advret, perm_mb, model.flat, model.hidden, co, rbl,
+               0.001), 10),
+           "K5": cs.cuda_ms(lambda: cuda_acting.act_rollout_kernel(
+               state, policy, env.params, env.statics,
+               int(env.params.horizon) + 1), 3)}
+    if bf16:
+        out["K2 bf16"] = k2_ms(cs.BF16)
+        out["K3 bf16"] = cs.cuda_ms(lambda: cuda_update.ppo_update_kernel(
+            planes, advret, perm_mb, model.flat, model.hidden, co, rbl,
+            0.001, compute_dtype=cs.BF16), 10)
+    for mod, name, value in was:
+        setattr(mod, name, value)
+    return out
 
 
 tree = {name: cuda_build.load(name) for name in LIBS}
@@ -171,7 +208,7 @@ for name, edits in VARIANTS.items():
     libs = edited(edits) if only in name else None
     if libs is None:
         continue
-    out[name] = times(libs)
+    out[name] = times(libs, [e for e in edits if e[0].startswith("@")])
     print(f"{label} {name}: {out[name]}", flush=True)
 if hasattr(cuda_acting_traj, "layout_at"):
     cuda_build._loaded.update(tree)

@@ -54,6 +54,16 @@ HOVER = ROOT / "configs" / "hover.toml"
 SMALL = dict(res=8, patch0=2, patch1=2, channels=(8, 8), hidden=16)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _weights(kw=SMALL, seed=0):
     """The same weights in both packages: (flax module, params, port
     module); kw the module's geometry ({} for the defaults)."""

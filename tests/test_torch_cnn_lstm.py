@@ -82,6 +82,16 @@ H, ARCH = 16, CnnArch(8, 2, 2, 8, 8, 16)
 N, T, BPTT = 256, 8, 4
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_model(kw):
     return CNNLSTMActorCritic(kw.get("hidden", 128), kw.get("res", 24),
                               kw.get("patch0", 4), kw.get("patch1", 2),

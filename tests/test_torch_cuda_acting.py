@@ -30,6 +30,16 @@ from drone_tpu_torch.ops import act_rollout_cuda, cuda_acting
 from tests.helpers import pack_fstate_batch
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _policies(hidden, seed=0, log_std=0.0):
     """The same weights in both packages. The mean head is re-drawn at gain
     1.0 so actions are of order 1 and the comparison exercises the tower."""

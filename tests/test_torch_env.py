@@ -25,6 +25,16 @@ PAIRS = [(t, i) for t in ("hover", "waypoint", "racing")
          for i in ("euler", "rk4")]
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def overrides(task):
     """Short horizon (truncations), domain randomization on, and a wide
     reach radius so waypoint/gate progression fires."""

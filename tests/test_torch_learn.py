@@ -6,12 +6,23 @@ exceed that of the first 5 by 0.2, and 0.3 in absolute terms.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from drone_tpu_torch import ppo_cuda
 from drone_tpu_torch import env as tenv
 from drone_tpu_torch.models import ActorCritic
 from drone_tpu_torch.ppo import PPOConfig, init_runner
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_megakernel_trainer_learns_hover():

@@ -52,6 +52,16 @@ HOVER = ROOT / "configs" / "hover.toml"
 H, ENC = 16, (16,)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _weights(hidden=H, encoder=ENC, seed=0):
     """The same weights in both packages: (flax params, port module)."""
     fm = FlaxLSTM(hidden=hidden, encoder=encoder)

@@ -57,6 +57,16 @@ MAX_SMEM = 232448        # bytes a block of an H100 can take
 SM_SMEM = 233472         # bytes an SM has, 1 KB of it reserved per block
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rna_reference(x):
     """cvt.rna.tf32.f32 of each float32 of x, by float64 arithmetic: the
     nearest multiple of 2^(e - 10), ties away from zero."""

@@ -40,6 +40,16 @@ SMALL = dict(horizon=8, num_envs=256, epochs=2, num_minibatches=2,
              anneal_lr=True, total_updates=10)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree_close(a, b, err):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4,
                                atol=1e-6, err_msg=err)

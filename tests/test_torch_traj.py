@@ -35,6 +35,16 @@ from drone_tpu_torch.ops.cuda_acting import MAX_HIDDEN
 from tests.helpers import pack_fstate_batch
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _policies(hidden, seed=0, log_std=-0.5):
     """The same weights in both packages; actions of order 1."""
     params = FlaxActorCritic(hidden=hidden).init(jax.random.PRNGKey(seed),

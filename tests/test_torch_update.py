@@ -46,6 +46,16 @@ from drone_tpu_torch.ppo import PPOConfig
 HIDDEN = (16, 16)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fixture(T=8, rows=8, seed=0):
     """Planes of a real reference rollout, random advantages, and the same
     weights in both packages."""

@@ -71,6 +71,16 @@ GEOM = PAC.CnnGeom(8, 2, 2)
 N, T = 256, 8
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _reference(seed=0):
     """A reference CNN rollout's planes (episodes of 6 steps), GAE

@@ -65,6 +65,16 @@ H, ENC = 16, (16,)
 N, T, BPTT = 256, 8, 4
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on one thread: in the parallel test run the workers share the
+    cores, and torch's intra-op threads spin against each other there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fixture(seed=0):
     """A reference LSTM rollout's planes and anchors (episodes of 6 steps,
     so resets fall inside the segments), GAE advantages, and the same
