@@ -44,6 +44,7 @@ from drone_tpu_torch.dynamics import sqrt_rn
 from drone_tpu_torch.models.mlp import tensor_sizes
 from drone_tpu_torch.parallel.mesh import all_mean, all_sum
 from drone_tpu_torch.types import EnvState
+from drone_tpu_torch.utils.profiling import phases
 
 METRIC_KEYS = ("loss", "reward_mean", "episodes", "ep_return_mean",
                "ep_length_mean", "pg_loss", "v_loss", "entropy", "approx_kl",
@@ -423,7 +424,7 @@ def make_train_step(model, env, cfg: PPOConfig, permutations=None,
     batch = cfg.horizon * cfg.num_envs
     opt = Optimizer(cfg, mesh)
     n_steps = cfg.epochs * cfg.num_minibatches
-    mark = on_phase or (lambda name: None)
+    mark = phases(on_phase)
     cs = mb_size // cfg.grad_accum
 
     def train_step(runner: RunnerState):

@@ -56,6 +56,7 @@ from drone_tpu_torch.ppo_cuda import (
     trainer_metrics,
     update_permutations,
 )
+from drone_tpu_torch.utils.profiling import phases
 
 
 def cnn_geom(model) -> CnnGeom:
@@ -86,7 +87,7 @@ def make_cnn_train_step(env, cfg: PPOConfig, permutations=None,
     sched = make_fused_lr(cfg)
     losses_fn = make_losses(cfg, co)
     n_steps = cfg.epochs * cfg.num_minibatches
-    mark = on_phase or (lambda name: None)
+    mark = phases(on_phase)
 
     def train_step(runner: RunnerState):
         mark("rollout")

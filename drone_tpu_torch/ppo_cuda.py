@@ -69,6 +69,7 @@ from drone_tpu_torch.ppo import (  # noqa: F401 (METRIC_KEYS re-exported)
     make_optimizer,
     normalize_advantages,
 )
+from drone_tpu_torch.utils.profiling import phases
 
 
 def kernel_tensors(model):
@@ -222,6 +223,8 @@ def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None,
     starts to queue each phase ("rollout", "gae", "update", "metrics") and
     once more ("end") before it returns. A caller that records a CUDA event
     in it gets each phase's time on the device (chip_smoke.py does).
+    The same marks record the `drone.train_step` span and one span a
+    phase while `utils.profiling.recording()` is on (`profiling.phases`).
     mesh: None, or the parallel.mesh.Mesh whose ranks each train this step
     on their cfg.num_envs lanes: advantages normalized over every rank's,
     each SGD step's gradient averaged before K4, the metrics reduced
@@ -232,7 +235,7 @@ def make_train_step(env, cfg: PPOConfig, permutations=None, on_phase=None,
     sched = make_fused_lr(cfg)
     losses_fn = make_losses(cfg, co)
     n_steps = cfg.epochs * cfg.num_minibatches
-    mark = on_phase or (lambda name: None)
+    mark = phases(on_phase)
 
     def train_step(runner: RunnerState):
         mark("rollout")

@@ -48,6 +48,7 @@ from drone_tpu_torch.ppo import (
 )
 from drone_tpu_torch.rollout import _stack_outs
 from drone_tpu_torch.types import ACT_DIM, OBS_DIM
+from drone_tpu_torch.utils.profiling import phases
 
 
 @dataclasses.dataclass
@@ -235,7 +236,7 @@ def make_recurrent_train_step(model, env, cfg: PPOConfig,
     mb_lanes = cfg.num_envs // cfg.num_minibatches
     opt = Optimizer(cfg, mesh)
     n_steps = cfg.epochs * cfg.num_minibatches
-    mark = on_phase or (lambda name: None)
+    mark = phases(on_phase)
 
     def collect_kernel(runner):
         from drone_tpu_torch.ops.cuda_acting_lstm import (

@@ -64,6 +64,7 @@ from drone_tpu_torch.ppo_cuda import (
     update_permutations,
 )
 from drone_tpu_torch.ppo_rnn import RecurrentRunnerState, bptt_of
+from drone_tpu_torch.utils.profiling import phases
 
 
 def make_rnn_train_step(env, cfg: PPOConfig, permutations=None,
@@ -82,7 +83,7 @@ def make_rnn_train_step(env, cfg: PPOConfig, permutations=None,
     sched = make_fused_lr(cfg)
     losses_fn = make_losses(cfg, co)
     n_steps = cfg.epochs * cfg.num_minibatches
-    mark = on_phase or (lambda name: None)
+    mark = phases(on_phase)
 
     def train_step(runner: RecurrentRunnerState):
         mark("rollout")

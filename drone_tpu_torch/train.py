@@ -20,9 +20,10 @@ and K7 for both recurrent families, whose rollout K6 and last value stay
 float32) and trains `ActorCritic(dtype=bfloat16)` on the MLP's scan tier,
 as the reference does; the recurrent hybrid and scan tiers train float32,
 as the reference's do. run.profile_dir traces updates start + 2 to
-start + 4. With run.mesh set and a process group of more than one rank up
-(torchrun, `parallel.multihost.initialize_multihost`) whose world size
-divides train.num_envs, `build` shards the run: each rank trains its lanes
+start + 4, with their spans (`utils.profiling.trace`). With run.mesh set
+and a process group of more than one rank up (torchrun,
+`parallel.multihost.initialize_multihost`) whose world size divides
+train.num_envs, `build` shards the run: each rank trains its lanes
 through `parallel.make_sharded_train_step`, the trainer picked for its
 local lane count; only rank 0 logs and writes checkpoints, which hold the
 global runner.
@@ -83,7 +84,7 @@ from drone_tpu_torch.utils.metrics import (
     RichDashboard,
     dashboard_line,
 )
-from drone_tpu_torch.utils.profiling import trace
+from drone_tpu_torch.utils.profiling import span, trace
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _RECURRENT = ("lstm", "cnn_lstm")
@@ -401,8 +402,26 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
     acting kernel K5, a deterministic LSTM or CNN-LSTM policy through K8, a
     deterministic CNN policy through K11 (their plain versions on the CPU),
     each when its kernel's envelope check takes the policy; the rest
-    through the module."""
-    env, model = build_env_and_model(cfg, device)
+    through the module. While `utils.profiling.recording()` is on, the
+    call records a `drone.evaluate` span and, under it, one span a phase:
+    `.build`, `.load`, `.init_batch`, `.act` and `.stats`."""
+    with span("drone.evaluate"):
+        with span("drone.evaluate.build"):
+            env, model = build_env_and_model(cfg, device)
+        with span("drone.evaluate.load"):
+            model = _restored(cfg, runner, env, model)
+        with span("drone.evaluate.init_batch"):
+            state = env.init_batch(cfg.run.seed + 1, episodes)
+        with span("drone.evaluate.act"):
+            read, out = _act(cfg, model, env, state, deterministic)
+        with span("drone.evaluate.stats"):
+            return read(out)
+
+
+def _restored(cfg: Config, runner, env, model):
+    """The policy to evaluate: `runner.params` (a state dict or a module),
+    or the checkpoint of restore_dir(cfg) without a runner, in eval
+    mode."""
     given = None
     if runner is None:
         raw, _ = Checkpointer(restore_dir(cfg)).restore_raw()
@@ -419,11 +438,14 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
     else:
         model.load_state_dict(params)
     model.eval()
+    return model
 
-    n = episodes
-    state = env.init_batch(cfg.run.seed + 1, n)
+
+def _act(cfg: Config, model, env, state, deterministic):
+    """Roll the policy out from `state` through its acting kernel or its
+    module: (the reader of the episode statistics, what it reads)."""
+    n = state.n
     horizon = int(env.params.horizon) + 1
-
     if cfg.run.policy in _RECURRENT:
         carry = model.initial_carry(n, env.device)
         if deterministic and not _outside(check_act_envelope, model.hidden,
@@ -431,35 +453,37 @@ def evaluate(cfg: Config, runner=None, episodes: int = 64, deterministic=True,
             _, _, stats = lstm_act_rollout_cuda(
                 state, model.flat_params(), (model.hidden, model.encoder),
                 carry, env.params, env.statics, horizon)
-            return _episode_stats(stats)
+            return _episode_stats, stats
         _, _, out = rollout_recurrent(
             model, env, state, carry, horizon,
             generator=torch.Generator(device=env.device).manual_seed(0),
             deterministic=deterministic)
-        return _stats_of(out)
+        return _stats_of, out
 
     # the kernels serve in float32: a bf16-trained policy is a slightly
     # different function, so it goes through the module, the MLP's with
     # its dtype (the CNN's module computes in float32, as the reference's)
     if (cfg.run.policy == "cnn_overlap"
             or (cfg.run.policy == "cnn" and cfg.run.compute_dtype != "float32")):
-        return _module_rollout(model, env, state, horizon, deterministic)
+        return _stats_of, _module_rollout(model, env, state, horizon,
+                                          deterministic)
     if cfg.run.policy == "cnn" and deterministic:
         _, stats = cnn_act_rollout_cuda(state, model.flat_params(),
                                         model.arch, env.params, env.statics,
                                         horizon)
-        return _episode_stats(stats)
+        return _episode_stats, stats
 
     if (deterministic and cfg.run.compute_dtype == "float32"
             and not _outside(cuda_acting.check_envelope, model.hidden)):
         _, stats = act_rollout_cuda(state, model, env.params, env.statics,
                                     horizon)
-        return _episode_stats(stats)
-    return _module_rollout(model, env, state, horizon, deterministic)
+        return _episode_stats, stats
+    return _stats_of, _module_rollout(model, env, state, horizon,
+                                      deterministic)
 
 
-def _module_rollout(model, env, state, horizon, deterministic) -> dict:
-    """Episode statistics of a feed-forward policy rolled out through the
+def _module_rollout(model, env, state, horizon, deterministic):
+    """The stacked StepOut of a feed-forward policy rolled out through the
     module."""
     def policy(obs, generator):
         mean, log_std, _ = model(obs)
@@ -472,7 +496,7 @@ def _module_rollout(model, env, state, horizon, deterministic) -> dict:
     generator = torch.Generator(device=env.device).manual_seed(0)
     _, (out, _) = rollout_policy(state, policy, horizon, env.params,
                                  env.statics, generator=generator)
-    return _stats_of(out)
+    return out
 
 
 def _stats_of(out) -> dict:

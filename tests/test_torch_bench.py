@@ -121,10 +121,7 @@ def test_section_timers_summary_matches_reference():
     assert ours.totals["update"] > 3.5
 
 
-def test_timed_and_trace_on_cpu(tmp_path):
-    mean_s, out = profiling.timed(lambda x: x * 2.0, torch.ones(4), iters=3,
-                                  warmup=1)
-    assert mean_s >= 0.0 and torch.equal(out, torch.full((4,), 2.0))
+def test_trace_on_cpu(tmp_path):
     with profiling.trace(str(tmp_path / "trace")):
         torch.ones(8).sum()
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
